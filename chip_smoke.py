@@ -2,24 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the Higgs-like depth-6 booster of the JAX
-package's headline benchmark (``bench.py``: 1,000,000 x 28, binary
-logistic, max_depth 6, eta 0.1, max_bin 64, hist_precision auto = the
-int8 histogram kernel), and holds every kernel against its plain
-PyTorch version.  Phases, in order; any failure exits non-zero:
+Drives the port's paths through the entry points a user calls and holds
+every kernel against its plain PyTorch version.  The paths:
+
+- Higgs: the JAX package's headline benchmark configuration
+  (``bench.py``: 1,000,000 x 28, binary logistic, max_depth 6, eta 0.1,
+  max_bin 64, hist_precision auto = int8), 20 rounds, kernel K1;
+- multiclass: ``bench.py:bench_multiclass`` (200,000 x 28, 6-class
+  softmax, max_depth 6, eta 0.3, max_bin 64), all 60 rounds, kernel K3
+  (one launch per level for the round's 6 trees);
+- otto: ``bench.py:bench_otto`` (200,000 x 93, 9-class softprob), cut
+  to 10 rounds, kernel K3 with feature tiling;
+- depth 0: a max_depth=0 6-class booster, 5 rounds, kernel K2.
+
+Phases, in order; any failure exits non-zero:
 
   1. environment: the card's name and power limit;
-  2. build: nvcc compiles every kernel from xgboost_tpu_torch/csrc/;
-  3. each kernel against its plain version on the card, at the main
-     path's shapes and beyond (int8 bitwise; fp32 / bf16 bitwise on
-     dyadic gradients, within the f32 summation bound on random ones);
-  4. main path: ``train`` 20 rounds with the launch counts reset just
-     before and read just after (6 histogram launches per tree), holdout
-     AUC, the same 20 rounds with the plain histogram forced (identical
-     model bytes), save/load round trip (bitwise predictions), and the
+  2. build: nvcc compiles every kernel from xgboost_tpu_torch/csrc/, one
+     process per source, all at once;
+  3. each kernel against its plain version on the card, at its paths'
+     shapes and beyond (int8 bitwise; fp32 / bf16 bitwise on dyadic
+     gradients, within the f32 summation bound on random ones; K3's tree
+     slices against solo K1 launches, bitwise);
+  4. each path: ``train`` with every launch count reset just before and
+     read just after, its quality metric against a floor, the same
+     rounds with the plain version forced (identical model bytes where
+     the sums are integers), save/load (bitwise predictions), and the
      kernel against the plain version on every level's real inputs;
-  5. times on the card: ms per round, and per level the kernel's ms
-     beside its bound, the plain version's and one ``index_add_``'s.
+  5. times on the card: ms per round, and per kernel call on the paths'
+     real inputs the kernel's ms beside its bound, the plain version's
+     and one PyTorch call's (``index_add_``).
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit
 before the last line, ``{"ok": true, "device": {...}}``.  Scratch files
@@ -44,6 +56,25 @@ PARAMS = {"objective": "binary:logistic", "max_depth": DEPTH, "eta": 0.1,
 # the CUDA cores, which do the kernel's additions (no tensor cores)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+
+# bench.py:bench_multiclass, all 60 rounds
+MC_N, MC_TEST, MC_FEAT, MC_K, MC_ROUNDS = 200_000, 20_000, 28, 6, 60
+MC_PARAMS = {"objective": "multi:softmax", "num_class": MC_K,
+             "max_depth": DEPTH, "eta": 0.3, "max_bin": 64}
+# The JAX package reaches holdout merror 0.1827 on this task and config
+# (BENCH_r04.json, BENCH_r05.json).  The 20,000 holdout rows give that
+# rate a standard error of about 0.0027, so 0.195 lies ~4.5 of them above
+# it: a model of the JAX package's quality passes, one that is a point of
+# accuracy worse fails.
+MERROR_FLOOR = 0.195
+# bench.py:bench_otto, its 60 rounds cut to 10
+OTTO_N, OTTO_FEAT, OTTO_K, OTTO_ROUNDS = 200_000, 93, 9, 10
+OTTO_PARAMS = {"objective": "multi:softprob", "num_class": OTTO_K,
+               "max_depth": DEPTH, "eta": 0.3, "max_bin": 64}
+# max_depth=0 (tests/test_edge_cases.py:54) on the multiclass task: the
+# root's node statistics come from K2, one launch per round for its trees
+D0_ROUNDS = 5
+D0_PARAMS = {**MC_PARAMS, "max_depth": 0}
 
 
 def fail(msg):
@@ -89,6 +120,40 @@ def cuda_ms(torch, fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def make_multiclass(n, f=MC_FEAT, k=MC_K, seed=7):
+    """``bench.py:bench_multiclass``'s data: Gaussian features, labels
+    the argmax of noisy linear class scores."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    centers = rng.randn(k, f).astype(np.float32) * 1.2
+    logits = X @ centers.T + 0.8 * rng.randn(n, k)
+    return X, logits.argmax(axis=1).astype(np.float32)
+
+
+def make_otto(n, f=OTTO_FEAT, k=OTTO_K, seed=21):
+    """``bench.py:bench_otto``'s data: skewed count-like features."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, f).astype(np.float32) ** 2
+    centers = rng.randn(k, f).astype(np.float32)
+    logits = X @ centers.T + 0.5 * rng.randn(n, k)
+    return X, logits.argmax(axis=1).astype(np.float32)
+
+
+def sum_bound_ok(torch, got, want, n, a):
+    """|got - want| <= 2 n 2^-24 sum|x| everywhere: each of two orders
+    of an n-term f32 sum is within n 2^-24 sum|x| of the exact sum."""
+    return not bool(((got - want).abs() > 2.0 * n * 2.0 ** -24 * a).any())
+
+
+def reset_counts(kernels):
+    for mod in kernels.values():
+        mod.reset_launches()
+
+
+def read_counts(kernels):
+    return {name: mod.launches for name, mod in kernels.items()}
 
 
 # ------------------------------------------------------------- phase 3
@@ -155,8 +220,113 @@ def phase_kernels(torch, cuda_hist, dev):
           flush=True)
 
 
+def batched_case(torch, kb, cuda_hist, N, F, B, T, M, mode, dyadic, seed,
+                 dev):
+    """One K3 comparison on the same CUDA tensors; in int mode also each
+    tree's slice against a solo K1 launch.  Returns max |kernel -
+    plain|."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B, (N, F), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    pos = torch.randint(0, M, (T, N), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[torch.rand(T, N, generator=g, device=dev) < 0.2] = -1
+    if dyadic:  # multiples of 1/256: f32 sums exact in any order
+        gh = torch.randint(-512, 512, (T, N, 2), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.float32) / 256.0
+    else:
+        gh = torch.randn(T, N, 2, generator=g, device=dev)
+    if mode == "int":
+        gh, _ = cuda_hist.quantize_gh(gh)
+    got = kb.level_histogram_batched(bins, gh, pos, M, B, mode)
+    want = kb.level_histogram_batched_plain(bins, gh, pos, M, B, mode)
+    torch.cuda.synchronize()
+    tag = (f"K3 {mode} N={N} F={F} B={B} T={T} n_node={M} "
+           f"dyadic={dyadic}")
+    if got.shape != (F, B, 2, T * M) or got.dtype != want.dtype:
+        fail(f"{tag}: shape {tuple(got.shape)} {got.dtype}")
+    if mode == "int":
+        for t in range(T):
+            solo = cuda_hist.level_histogram(bins, gh[t].contiguous(),
+                                             pos[t].contiguous(), M, B,
+                                             "int")
+            if not torch.equal(got[..., t * M:(t + 1) * M], solo):
+                fail(f"{tag}: tree {t} differs from a solo K1 launch")
+    if mode == "int" or dyadic:
+        if not torch.equal(got, want):
+            fail(f"{tag}: not bitwise equal to the plain version")
+        return 0.0
+    src = gh.to(torch.bfloat16).to(torch.float32) if mode == "bf16" else gh
+    n = kb.level_histogram_batched_plain(bins, torch.ones_like(gh), pos, M,
+                                         B, "fp32")
+    a = kb.level_histogram_batched_plain(bins, src.abs(), pos, M, B, "fp32")
+    if not sum_bound_ok(torch, got, want, n, a):
+        fail(f"{tag}: |kernel - plain| beyond 2 n 2^-24 sum|x|")
+    return float((got - want).abs().max())
+
+
+def phase_k3(torch, kb, cuda_hist, dev):
+    """K3 at the multiclass path's level shapes, otto's, a wide forest's
+    and B = 256."""
+    errs = {}
+    cases = [(MC_N, MC_FEAT, 64, MC_K, m) for m in (1, 2, 4, 8, 16, 32)]
+    cases += [(OTTO_N, OTTO_FEAT, 64, OTTO_K, m) for m in (1, 32)]
+    cases += [(MC_N, MC_FEAT, 64, 24, m) for m in (8, 32)]
+    cases += [(MC_N, MC_FEAT, 256, MC_K, m) for m in (8, 64)]
+    cases += [(1000, 3, 7, 3, 3)]
+    for (n, f, b, t, m) in cases:
+        variants = [("int", False), ("fp32", True), ("bf16", True)]
+        if m in (1, 32) or b != 64:
+            variants += [("fp32", False), ("bf16", False)]
+        for mode, dyadic in variants:
+            e = batched_case(torch, kb, cuda_hist, n, f, b, t, m, mode,
+                             dyadic, seed=m * 7 + b + t, dev=dev)
+            key = mode + ("" if dyadic or mode == "int" else "_random_gh")
+            errs[key] = max(errs.get(key, 0.0), e)
+        print(f"[K3] N={n} F={f} B={b} T={t} n_node={m}: int8 bitwise and "
+              "each tree == solo K1, fp32/bf16 bitwise on dyadic gh"
+              + (", within bound on random gh" if len(variants) > 3 else ""),
+              flush=True)
+    print(f"[K3] max |kernel - plain| by mode: {json.dumps(errs)}",
+          flush=True)
+
+
+def phase_k2(torch, kn, dev):
+    """K2 at the depth-0 path's shapes (T = 1 and 6 trees of 200k rows)
+    and with more nodes: dyadic gh bitwise, random gh within the f32
+    summation bound, and the same bits on a second launch."""
+    max_err = 0.0
+    for T, M in ((1, 1), (MC_K, 1), (MC_K, 8), (2, 20)):
+        g = torch.Generator(device=dev).manual_seed(T * 31 + M)
+        pos = torch.randint(0, M, (T, MC_N), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[torch.rand(T, MC_N, generator=g, device=dev) < 0.2] = -1
+        dy = torch.randint(-512, 512, (T, MC_N, 2), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.float32) / 256.0
+        tag = f"K2 N={MC_N} T={T} n_node={M}"
+        got = kn.node_stats(dy, pos, M)
+        if got.shape != (T, M, 2) or not torch.equal(
+                got, kn.node_stats_plain(dy, pos, M)):
+            fail(f"{tag}: not bitwise equal to the plain version on "
+                 "dyadic gh")
+        gh = torch.randn(T, MC_N, 2, generator=g, device=dev)
+        got = kn.node_stats(gh, pos, M)
+        want = kn.node_stats_plain(gh, pos, M)
+        n = kn.node_stats_plain(torch.ones_like(gh), pos, M)
+        a = kn.node_stats_plain(gh.abs(), pos, M)
+        torch.cuda.synchronize()
+        if not sum_bound_ok(torch, got, want, n, a):
+            fail(f"{tag}: |kernel - plain| beyond 2 n 2^-24 sum|x|")
+        if not torch.equal(kn.node_stats(gh, pos, M), got):
+            fail(f"{tag}: two launches gave different bits")
+        max_err = max(max_err, float((got - want).abs().max()))
+        print(f"[K2] N={MC_N} T={T} n_node={M}: bitwise on dyadic gh, "
+              "within bound on random gh, deterministic", flush=True)
+    print(f"[K2] max |kernel - plain| on random gh: {max_err}", flush=True)
+
+
 # ------------------------------------------------------------- phase 4
-def phase_main(torch, xt, cuda_hist, device, card):
+def phase_main(torch, xt, cuda_hist, kernels, device, card):
     from xgboost_tpu_torch.metrics import auc
 
     t0 = time.perf_counter()
@@ -167,16 +337,20 @@ def phase_main(torch, xt, cuda_hist, device, card):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # the counted run: counts to 0 just before, read just after
-    cuda_hist.reset_launches()
+    reset_counts(kernels)
     t0 = time.perf_counter()
     bst = xt.train(PARAMS, dtrain, ROUNDS, device=device)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = cuda_hist.launches
+    counts = read_counts(kernels)
+    launches = counts["hist_level"]
     print(f"[main] train {ROUNDS} rounds (cuts and binning included): "
-          f"{train_s:.2f} s; hist_level launches {launches}", flush=True)
-    if launches != ROUNDS * DEPTH:
-        fail(f"hist_level launched {launches} times, want {ROUNDS * DEPTH}")
+          f"{train_s:.2f} s; hist_level launches {launches}; all counts "
+          f"{json.dumps(counts)}", flush=True)
+    if counts != {"hist_level": ROUNDS * DEPTH, "hist_batched": 0,
+                  "node_stats": 0}:
+        fail(f"launch counts {counts}: want hist_level {ROUNDS * DEPTH}, "
+             "the others 0")
     B = bst.gbtree.cuts.max_bin
     print(f"[main] bins B={B} (hist_bin_align auto -> 32 on the GPU)",
           flush=True)
@@ -247,6 +421,245 @@ def phase_main(torch, xt, cuda_hist, device, card):
     return launches, ms_round, captured, max_err
 
 
+def phase_multiclass(torch, xt, kernels, device, card):
+    """``bench_multiclass`` at full width, all 60 rounds, through K3."""
+    from xgboost_tpu_torch.metrics import merror
+    from xgboost_tpu_torch.ops import cuda_hist
+    kb = kernels["hist_batched"]
+
+    t0 = time.perf_counter()
+    X, y = make_multiclass(MC_N + MC_TEST)
+    dtrain = xt.DMatrix(X[:MC_N], label=y[:MC_N])
+    dtest = xt.DMatrix(X[MC_N:], label=y[MC_N:])
+    print(f"[multiclass] data {MC_N} + {MC_TEST} x {MC_FEAT}, {MC_K} "
+          f"classes: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bst = xt.train(MC_PARAMS, dtrain, MC_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    launches = counts["hist_batched"]
+    want = MC_ROUNDS * DEPTH
+    print(f"[multiclass] train {MC_ROUNDS} rounds (cuts and binning "
+          f"included): {train_s:.2f} s; hist_batched launches {launches}; "
+          f"all counts {json.dumps(counts)}", flush=True)
+    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0}:
+        fail(f"launch counts {counts}: want hist_batched {want} "
+             f"({MC_ROUNDS} rounds x {DEPTH} levels), the others 0")
+    if bst.gbtree.num_trees != MC_ROUNDS * MC_K:
+        fail(f"{bst.gbtree.num_trees} trees, want {MC_ROUNDS * MC_K}")
+
+    pred = bst.predict(dtest)
+    if pred.shape != (MC_TEST,) or not np.isfinite(pred).all():
+        fail(f"holdout class predictions: shape {pred.shape}")
+    margin = bst.predict(dtest, output_margin=True)
+    if margin.shape != (MC_TEST, MC_K) or not np.isfinite(margin).all():
+        fail(f"holdout margins: shape {margin.shape}")
+    onehot = np.eye(MC_K, dtype=np.float32)[pred.astype(np.int64)]
+    err = merror(onehot, y[MC_N:], np.ones(MC_TEST, np.float32))
+    print(f"[multiclass] holdout merror {err:.6f} (floor {MERROR_FLOOR}; "
+          "the JAX package 0.1827)", flush=True)
+    if not err <= MERROR_FLOOR:
+        fail(f"holdout merror {err} > {MERROR_FLOOR}")
+    raw = bst.save_raw()
+
+    # ms per round: a second booster, round 0 (cuts, binning) untimed
+    bst2 = xt.Booster(MC_PARAMS, cache=[dtrain], device=device)
+    bst2.update(dtrain, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst2.update_many(dtrain, 1, MC_ROUNDS - 1)
+    torch.cuda.synchronize()
+    ms_round = (time.perf_counter() - t0) * 1e3 / (MC_ROUNDS - 1)
+    print(f"[multiclass] {ms_round:.3f} ms per round of {MC_K} trees | "
+          f"{card}", flush=True)
+    if bst2.save_raw() != raw:
+        fail("a second int8 multiclass run gave different model bytes")
+
+    kernel_fn = kb.level_histogram_batched
+    kb.level_histogram_batched = kb.level_histogram_batched_plain
+    try:
+        plain = xt.train(MC_PARAMS, dtrain, MC_ROUNDS, device=device)
+    finally:
+        kb.level_histogram_batched = kernel_fn
+    if plain.save_raw() != raw:
+        fail("kernel and plain batched histograms grew different models")
+    print("[multiclass] plain-histogram run: identical model bytes",
+          flush=True)
+
+    path = os.path.join(HERE, ".smoke_out", "smoke_multiclass.bin")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    bst.save_model(path)
+    loaded = xt.Booster(model_file=path, device=device)
+    if not (np.array_equal(loaded.predict(dtest), pred) and np.array_equal(
+            loaded.predict(dtest, output_margin=True), margin)):
+        fail("multiclass predictions changed over save_model / load_model")
+    print("[multiclass] save/load: bitwise-equal predictions and margins",
+          flush=True)
+    loaded.set_param("objective", "multi:softprob")
+    prob = loaded.predict(dtest)
+    if prob.shape != (MC_TEST, MC_K) or not np.allclose(prob.sum(1), 1.0,
+                                                        atol=1e-5) \
+            or not np.array_equal(prob.argmax(1), pred.astype(np.int64)):
+        fail(f"softprob output: shape {prob.shape}")
+    print(f"[multiclass] softprob output shape {prob.shape}, rows sum to "
+          "1, argmax == softmax classes", flush=True)
+
+    # every level's real inputs, captured from one more round
+    captured = []
+
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin, mode))
+        return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+    kb.level_histogram_batched = capture
+    try:
+        xt.train(MC_PARAMS, dtrain, 1, device=device)
+    finally:
+        kb.level_histogram_batched = kernel_fn
+    max_err = 0.0
+    for bins, gh, pos, M, nb, mode in captured:
+        got = kernel_fn(bins, gh, pos, M, nb, mode)
+        want_h = kb.level_histogram_batched_plain(bins, gh, pos, M, nb, mode)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got - want_h).abs().max()))
+        if mode != "int" or not torch.equal(got, want_h):
+            fail(f"multiclass level n_node={M}: mode {mode}, kernel != "
+                 "plain")
+        for t in range(gh.shape[0]):
+            solo = cuda_hist.level_histogram(bins, gh[t].contiguous(),
+                                             pos[t].contiguous(), M, nb,
+                                             mode)
+            if not torch.equal(got[..., t * M:(t + 1) * M], solo):
+                fail(f"multiclass level n_node={M}: tree {t} != solo K1")
+    print(f"[multiclass] K3 == plain and each tree == solo K1, int8 "
+          f"bitwise, at all {len(captured)} levels of a round", flush=True)
+    return launches, ms_round, captured, max_err, err
+
+
+def phase_otto(torch, xt, kernels, device, card):
+    """``bench_otto`` (93 features, 9 classes) cut to 10 rounds."""
+    from xgboost_tpu_torch.metrics import mlogloss
+    X, y = make_otto(OTTO_N + MC_TEST)
+    dtrain = xt.DMatrix(X[:OTTO_N], label=y[:OTTO_N])
+    dtest = xt.DMatrix(X[OTTO_N:], label=y[OTTO_N:])
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bst = xt.train(OTTO_PARAMS, dtrain, OTTO_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    want = OTTO_ROUNDS * DEPTH
+    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0}:
+        fail(f"otto launch counts {counts}: want hist_batched {want}")
+    prob = bst.predict(dtest)
+    if prob.shape != (MC_TEST, OTTO_K) or not np.isfinite(prob).all():
+        fail(f"otto softprob output: shape {prob.shape}")
+    ll = mlogloss(prob, y[OTTO_N:], np.ones(MC_TEST, np.float32))
+    print(f"[otto] {OTTO_N} x {OTTO_FEAT}, {OTTO_K} classes, "
+          f"{OTTO_ROUNDS} rounds: {train_s:.2f} s (cuts and binning "
+          f"included); hist_batched launches {counts['hist_batched']}; "
+          f"holdout mlogloss {ll:.6f} (uniform {np.log(OTTO_K):.6f}) | "
+          f"{card}", flush=True)
+    if not ll < np.log(OTTO_K):
+        fail(f"otto mlogloss {ll} is no better than uniform")
+
+
+def depth0_margin_bound(torch, kn, captured):
+    """The stated bound on depth-0 margins, K2 run against plain run.
+    Per round and tree the two node sums differ by at most
+    eG = 2 n 2^-24 sum|g| (eH likewise, the bound of [K2]); the leaf
+    w = -eta G / (H + lambda) then moves by at most
+    eta (eG (H + lambda) + |G| eH) / ((H + lambda) (H + lambda - eH)).
+    Summed over the rounds and doubled for the first-order effect of a
+    margin difference on the next round's gradients (a Newton step
+    carries an offset d into the next leaf as about -eta d / 2 of its
+    own class, and less of the others')."""
+    eta, lam = D0_PARAMS["eta"], 1.0
+    total = 0.0
+    for gh, pos, M in captured:
+        s = kn.node_stats_plain(gh, pos, M).double()
+        n = kn.node_stats_plain(torch.ones_like(gh), pos, M).double()
+        a = kn.node_stats_plain(gh.abs(), pos, M).double()
+        e = 2.0 * n * 2.0 ** -24 * a
+        G, H = s[..., 0].abs(), s[..., 1] + lam
+        dw = eta * (e[..., 0] * H + G * e[..., 1]) / (H * (H - e[..., 1]))
+        total += float(dw.max())
+    return 2.0 * total
+
+
+def phase_depth0(torch, xt, kernels, device):
+    """A max_depth=0 6-class booster: node statistics through K2."""
+    kn = kernels["node_stats"]
+    X, y = make_multiclass(MC_N)
+    dtrain = xt.DMatrix(X, label=y)
+    reset_counts(kernels)
+    bst = xt.train(D0_PARAMS, dtrain, D0_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    launches = counts["node_stats"]
+    print(f"[depth0] {D0_ROUNDS} rounds of {MC_K} single-leaf trees; "
+          f"node_stats launches {launches}; all counts "
+          f"{json.dumps(counts)}", flush=True)
+    if counts != {"hist_level": 0, "hist_batched": 0,
+                  "node_stats": D0_ROUNDS}:
+        fail(f"depth-0 launch counts {counts}: want node_stats "
+             f"{D0_ROUNDS}, the others 0")
+    margin = bst.predict(dtrain, output_margin=True)
+    kernel_fn = kn.node_stats
+    captured = []
+
+    def plain(gh, pos, n_node):
+        captured.append((gh.clone(), pos.clone(), n_node))
+        return kn.node_stats_plain(gh, pos, n_node)
+    kn.node_stats = plain
+    try:
+        ref = xt.train(D0_PARAMS, dtrain, D0_ROUNDS, device=device)
+    finally:
+        kn.node_stats = kernel_fn
+    diff = float(np.abs(ref.predict(dtrain, output_margin=True)
+                        - margin).max())
+    bound = depth0_margin_bound(torch, kn, captured)
+    print(f"[depth0] margins vs the plain-node-stats run: max |diff| "
+          f"{diff:.3e} (bound {bound:.3e})", flush=True)
+    if not diff <= bound or not np.isfinite(margin).all():
+        fail(f"depth-0 margins differ from the plain run by {diff} > "
+             f"{bound}")
+    again = xt.train(D0_PARAMS, dtrain, D0_ROUNDS, device=device)
+    if again.save_raw() != bst.save_raw():
+        fail("two depth-0 runs gave different model bytes")
+    print("[depth0] a second run: identical model bytes (K2 sums in a "
+          "fixed order)", flush=True)
+    max_err = err_k2 = err_plain = 0.0
+    for gh, pos, M in captured:
+        got = kernel_fn(gh, pos, M)
+        want = kn.node_stats_plain(gh, pos, M)
+        n = kn.node_stats_plain(torch.ones_like(gh), pos, M)
+        a = kn.node_stats_plain(gh.abs(), pos, M)
+        torch.cuda.synchronize()
+        if not sum_bound_ok(torch, got, want, n, a):
+            fail("depth-0 node stats: |K2 - plain| beyond the bound")
+        max_err = max(max_err, float((got - want).abs().max()))
+        # which of the two is nearer the exact sums: float64 index_add_
+        T, N, _ = gh.shape
+        slot = torch.where(pos < 0, M, pos).to(torch.int64)
+        idx = slot + (M + 1) * torch.arange(
+            T, device=gh.device, dtype=torch.int64)[:, None]
+        exact = torch.zeros((T * (M + 1), 2), dtype=torch.float64,
+                            device=gh.device).index_add_(
+            0, idx.reshape(-1), gh.reshape(-1, 2).double()).reshape(
+            T, M + 1, 2)[:, :M]
+        err_k2 = max(err_k2, float((got.double() - exact).abs().max()))
+        err_plain = max(err_plain,
+                        float((want.double() - exact).abs().max()))
+    print(f"[depth0] K2 within 2 n 2^-24 sum|x| of plain at all "
+          f"{len(captured)} rounds' inputs (max |diff| {max_err:.3e}); "
+          f"max |error| against float64 sums: K2 {err_k2:.3e}, plain "
+          f"{err_plain:.3e}", flush=True)
+    return launches, captured[:1], max_err
+
+
 # ------------------------------------------------------------- phase 5
 def phase_times(torch, cuda_hist, captured, card):
     rows = []
@@ -286,6 +699,90 @@ def phase_times(torch, cuda_hist, captured, card):
     return rows
 
 
+def bound_of(nbytes, ops):
+    """(least ms, what bounds it) for moving ``nbytes`` and doing ``ops``
+    f32 operations at the card's peak rates."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_k3(torch, kb, captured, card):
+    rows = []
+    for bins, gh, pos, M, nb, mode in captured:
+        N, F = bins.shape
+        T = gh.shape[0]
+        act = pos >= 0
+        pairs = int(act.sum())
+        any_rows = int(act.any(dim=0).sum())
+        ms = cuda_ms(torch, lambda: kb.level_histogram_batched(
+            bins, gh, pos, M, nb, mode), 20)
+        plain_ms = cuda_ms(torch, lambda: kb.level_histogram_batched_plain(
+            bins, gh, pos, M, nb, mode), 5)
+        # one PyTorch call for the same sums: index_add_ over flat cell
+        # indices of all T trees computed beforehand (inactive to a dump)
+        cells = F * nb * 2 * T * M
+        f_ids = torch.arange(F, device=bins.device, dtype=torch.int64)
+        col = (torch.arange(T, device=bins.device, dtype=torch.int64)[:, None]
+               * M + pos.to(torch.int64))                      # (T, N)
+        base = ((f_ids[None, None, :] * nb + bins.to(torch.int64)[None])
+                * 2) * (T * M) + col[:, :, None]               # (T, N, F)
+        idx = base[..., None] + torch.tensor([0, T * M], device=bins.device)
+        idx = torch.where(act[:, :, None, None], idx, cells).reshape(-1)
+        src = gh[:, :, None, :].expand(T, N, F, 2).reshape(-1)
+        out = torch.zeros(cells + 1, dtype=gh.dtype, device=bins.device)
+        lib_ms = cuda_ms(torch, lambda: out.index_add_(0, idx, src), 5)
+        del idx, src, base
+        # least work: every tree's pos, the bins of rows active in some
+        # tree, the active (tree, row) pairs' gh, the histogram written
+        # once; one addition per (active pair, feature, channel)
+        bound_ms, by = bound_of(4 * T * N + any_rows * F + 8 * pairs
+                                + cells * 4, pairs * F * 2)
+        rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K3 T={T} n_node={M}: {ms:.4f} ms (bound "
+              f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
+              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+    return rows
+
+
+def time_k2(torch, kn, captured, card):
+    rows = []
+    for gh, pos, M in captured:
+        T, N, _ = gh.shape
+        active = int((pos >= 0).sum())
+        ms = cuda_ms(torch, lambda: kn.node_stats(gh, pos, M), 20)
+        plain_ms = cuda_ms(torch, lambda: kn.node_stats_plain(gh, pos, M),
+                           20)
+        slot = torch.where(pos < 0, M, pos).to(torch.int64)
+        idx = (slot + (M + 1) * torch.arange(
+            T, device=gh.device, dtype=torch.int64)[:, None]).reshape(-1)
+        src = gh.reshape(-1, 2)
+        out = torch.zeros((T * (M + 1), 2), dtype=torch.float32,
+                          device=gh.device)
+        lib_ms = cuda_ms(torch, lambda: out.index_add_(0, idx, src), 20)
+        bound_ms, by = bound_of(4 * T * N + 8 * active + T * M * 8,
+                                2 * active)
+        rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K2 T={T} n_node={M}: {ms:.4f} ms (bound "
+              f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
+              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+    return rows
+
+
+def kernel_record(name, source, replaces, launches, max_err, rows):
+    def mean(key):
+        return sum(r[key] for r in rows) / len(rows)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": mean("library_ms")}
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -296,7 +793,10 @@ def main():
         import xgboost_tpu_torch as xt
     except ImportError as e:
         fail(f"xgboost_tpu_torch is not beside this script: {e}")
-    from xgboost_tpu_torch.ops import cuda_hist, nvcc
+    from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
+                                       cuda_node_stats, nvcc)
+    kernels = {"hist_level": cuda_hist, "hist_batched": cuda_hist_batched,
+               "node_stats": cuda_node_stats}
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -305,7 +805,7 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    for b in nvcc.build(["hist_level"]):
+    for b in nvcc.build(list(kernels)):
         print(f"[build] {b.name}: {b.seconds:.2f} s")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -315,30 +815,42 @@ def main():
     t0 = time.perf_counter()
     phase_kernels(torch, cuda_hist, dev)
     print(f"[K1] checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_k3(torch, cuda_hist_batched, cuda_hist, dev)
+    print(f"[K3] checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_k2(torch, cuda_node_stats, dev)
+    print(f"[K2] checks {time.perf_counter() - t0:.1f} s")
 
     launches, ms_round, captured, max_err = phase_main(
-        torch, xt, cuda_hist, "cuda", card)
+        torch, xt, cuda_hist, kernels, "cuda", card)
     rows = phase_times(torch, cuda_hist, captured, card)
+    del captured
+    mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
+        torch, xt, kernels, "cuda", card)
+    k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)
+    del mc_captured
+    phase_otto(torch, xt, kernels, "cuda", card)
+    d0_launches, d0_captured, d0_err = phase_depth0(torch, xt, kernels,
+                                                    "cuda")
+    k2_rows = time_k2(torch, cuda_node_stats, d0_captured, card)
 
-    def mean(key):
-        return sum(r[key] for r in rows) / len(rows)
-    kernels = [{
-        "name": "hist_level",
-        "route": "cuda",
-        "source": "xgboost_tpu_torch/csrc/hist_level.cu",
-        "replaces": "xgboost_tpu/ops/pallas_hist.py:46",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": mean("ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-        else "operations",
-        "library_ms": mean("library_ms"),
-    }]
-    print(f"[time] main path: {ms_round:.3f} ms per round; kernel times are "
-          f"means over the {len(rows)} levels of one tree | {card}")
-    print(json.dumps({"kernels": kernels}))
+    records = [
+        kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
+                      "xgboost_tpu/ops/pallas_hist.py:46", launches,
+                      max_err, rows),
+        kernel_record("hist_batched",
+                      "xgboost_tpu_torch/csrc/hist_batched.cu",
+                      "xgboost_tpu/ops/pallas_hist.py:374", mc_launches,
+                      mc_err, k3_rows),
+        kernel_record("node_stats", "xgboost_tpu_torch/csrc/node_stats.cu",
+                      "xgboost_tpu/ops/pallas_hist.py:609", d0_launches,
+                      d0_err, k2_rows),
+    ]
+    print(f"[time] Higgs path: {ms_round:.3f} ms per round; multiclass "
+          f"path: {mc_ms_round:.3f} ms per round; kernel times are means "
+          f"over the levels of one round (K2: one depth-0 round) | {card}")
+    print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

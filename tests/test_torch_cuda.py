@@ -1,8 +1,9 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a
-GPU.  Marked ``cuda``: without an NVIDIA GPU (and nvcc) they skip.  No
-JAX here, so they also run where only torch is installed:
+"""The port's CUDA kernels (K1, K3, K2) against their plain PyTorch
+versions, on a GPU.  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
+they skip.  No JAX here, so they also run where only torch is installed
+(the repo's conftest imports JAX, hence ``--noconftest``):
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
 import numpy as np
@@ -42,3 +43,83 @@ def test_hist_level_kernel_matches_plain(cuda_device, mode):
     torch.cuda.synchronize()
     assert cuda_hist.launches == before + 1
     assert torch.equal(got, want)
+
+
+def _batched_case(dev, T, N, F, B, M, seed, dyadic=True):
+    rng = np.random.RandomState(seed)
+    bins = torch.from_numpy(rng.randint(0, B, (N, F)).astype(np.uint8))
+    if dyadic:
+        gh = (rng.randint(-512, 512, (T, N, 2)) / 256.0).astype(np.float32)
+    else:
+        gh = rng.randn(T, N, 2).astype(np.float32)
+    pos = rng.randint(0, M, (T, N)).astype(np.int32)
+    pos[rng.rand(T, N) < 0.2] = -1
+    return (bins.to(dev), torch.from_numpy(gh).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int", "fp32", "bf16"])
+@pytest.mark.parametrize("T,N,F,B,M", [
+    (6, 20000, 28, 64, 32),     # multiclass, depth 5
+    (9, 5000, 93, 64, 4),       # otto: many feature tiles
+    (24, 3000, 5, 16, 8),       # wide forest: three tree tiles
+    (3, 4000, 4, 256, 64),      # B = 256: node tiles shrink to fit
+])
+def test_hist_batched_kernel_matches_plain(cuda_device, mode, T, N, F, B,
+                                           M):
+    """K3 against its plain version, bitwise: int sums are exact, fp32
+    and bf16 sums of dyadic gradients are exact in any order."""
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
+    bins, gh, pos = _batched_case(cuda_device, T, N, F, B, M, seed=T + M)
+    if mode == "int":
+        gh = cuda_hist.quantize_gh(gh)[0]
+    before = kb.launches
+    got = kb.level_histogram_batched(bins, gh, pos, M, B, mode)
+    want = kb.level_histogram_batched_plain(bins, gh, pos, M, B, mode)
+    torch.cuda.synchronize()
+    assert kb.launches == before + 1
+    assert got.shape == (F, B, 2, T * M)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_hist_batched_tree_slices_match_solo_k1(cuda_device):
+    """Each tree's slice of one K3 launch is a solo K1 launch on that
+    tree's gh and pos, bitwise (int mode)."""
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
+    T, M, B = 6, 16, 64
+    bins, gh, pos = _batched_case(cuda_device, T, 30000, 28, B, M, seed=5,
+                                  dyadic=False)
+    gh_q = cuda_hist.quantize_gh(gh)[0]
+    got = kb.level_histogram_batched(bins, gh_q, pos, M, B, "int")
+    for t in range(T):
+        solo = cuda_hist.level_histogram(bins, gh_q[t].contiguous(),
+                                         pos[t].contiguous(), M, B, "int")
+        assert torch.equal(got[..., t * M:(t + 1) * M], solo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,M", [(1, 1), (6, 1), (6, 20), (2, 64)])
+def test_node_stats_kernel_matches_plain(cuda_device, T, M):
+    """K2 against its plain version: bitwise on dyadic gradients (exact
+    in any order); on random ones within 2 n 2^-24 sum|x| per node (each
+    order is within n 2^-24 sum|x| of the exact sum); and the same bits
+    on a second launch (fixed summation order)."""
+    from xgboost_tpu_torch.ops import cuda_node_stats as kn
+    N = 50000
+    _, gh, pos = _batched_case(cuda_device, T, N, 1, 2, M, seed=M + T)
+    before = kn.launches
+    got = kn.node_stats(gh, pos, M)
+    torch.cuda.synchronize()
+    assert kn.launches == before + 1
+    assert got.shape == (T, M, 2)
+    assert torch.equal(got, kn.node_stats_plain(gh, pos, M))
+    _, gh, pos = _batched_case(cuda_device, T, N, 1, 2, M, seed=M + T,
+                               dyadic=False)
+    got = kn.node_stats(gh, pos, M)
+    want = kn.node_stats_plain(gh, pos, M)
+    n = kn.node_stats_plain(torch.ones_like(gh), pos, M)
+    a = kn.node_stats_plain(gh.abs(), pos, M)
+    assert bool(((got - want).abs() <= 2.0 * n * 2.0 ** -24 * a).all())
+    assert torch.equal(kn.node_stats(gh, pos, M), got)

@@ -206,3 +206,22 @@ def test_node_totals_from_histogram():
                          "fixed").numpy(),
         np.asarray(jhist.dequantize_hist(jhist.node_stats(
             jnp.asarray(gh), jnp.asarray(pos), M, "fixed"))))
+
+
+def test_int8_dequantization_matches_pallas_over_scales():
+    """The int8 step is ``scale * f32(1/127)``, as XLA compiles the JAX
+    package's ``scale / 127.0``: bitwise over many scales (a true
+    division differs in the last bit for some of them)."""
+    N, F, B, M = 300, 3, 16, 4
+    for seed in range(12):
+        rng = np.random.RandomState(seed)
+        binned = rng.randint(0, B, (N, F)).astype(np.uint8)
+        gh = (rng.randn(N, 2) * rng.rand(2) * 5).astype(np.float32)
+        pos = rng.randint(0, M, N).astype(np.int32)
+        want = np.asarray(ph.build_level_histogram_pallas(
+            jnp.asarray(binned), jnp.asarray(gh), jnp.asarray(pos), M, B,
+            precision="int8", interpret=True))
+        got = thist.build_level_histogram(
+            torch.from_numpy(binned), thist.prepare_hist(
+                torch.from_numpy(gh), "int8"), torch.from_numpy(pos), M, B)
+        np.testing.assert_array_equal(_standard(got.numpy()), want)

@@ -1,0 +1,252 @@
+"""Kernels K3 (tree-batched histogram) and K2 (node statistics) of the
+PyTorch port, held against the JAX package.
+
+The port's plain versions (what a CPU tensor runs) against the JAX
+package's Pallas kernels in interpret mode and its scatter, on the same
+numpy inputs.  Tolerances and why:
+
+- K3 fp32 on dyadic gradients (multiples of 1/256, small): bitwise, f32
+  sums of them are exact in any order; K3 int8 with per-tree scales:
+  bitwise on any gradients (integer sums, the same quantization);
+- K3 against T solo K1 calls, and the split search over a batched
+  level against T solo searches: bitwise, the same additions in the
+  same order;
+- K2 on dyadic gradients: bitwise; on random gradients bitwise against
+  the JAX scatter (both add a node's rows in row order on the CPU) and
+  within 2 n 2^-24 sum|x| per node against the Pallas kernel, which
+  sums each 2048-row tile in a dot of its own order (each order is
+  within n 2^-24 sum|x| of the exact sum).
+
+Interpret-mode cases are few: each costs seconds on the CPU.  The CUDA
+kernels themselves run only on a GPU (``tests/test_torch_cuda.py``;
+``chip_smoke.py`` holds them against the plain versions at full size).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from xgboost_tpu.ops import histogram as jhist  # noqa: E402
+from xgboost_tpu.ops import pallas_hist as ph  # noqa: E402
+from xgboost_tpu.ops.split import find_best_splits  # noqa: E402
+from xgboost_tpu_torch.ops import cuda_hist  # noqa: E402
+from xgboost_tpu_torch.ops import cuda_hist_batched as kb  # noqa: E402
+from xgboost_tpu_torch.ops import cuda_node_stats as kn  # noqa: E402
+from xgboost_tpu_torch.ops import histogram as thist  # noqa: E402
+from xgboost_tpu_torch.ops.split import (SplitConfig,  # noqa: E402
+                                         find_best_splits_native)
+
+
+def _case(T, N, F, B, M, seed=11, dyadic=True):
+    rng = np.random.RandomState(seed)
+    binned = rng.randint(0, B, (N, F)).astype(np.uint8)
+    if dyadic:
+        gh = (rng.randint(-512, 512, (T, N, 2)) / 256.0).astype(np.float32)
+    else:
+        gh = (rng.randn(T, N, 2) * [0.8, 0.3]).astype(np.float32)
+    pos = rng.randint(0, M, (T, N)).astype(np.int32)
+    pos[rng.rand(T, N) < 0.2] = -1
+    return binned, gh, pos
+
+
+def _per_tree(native, T, M):
+    """(F, B, 2, T*M) -> the JAX batched kernel's (T, M, F, B, 2)."""
+    F, B = native.shape[:2]
+    return np.transpose(native.reshape(F, B, 2, T, M), (3, 4, 0, 1, 2))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("T,N,F,B,M", [
+    (3, 500, 5, 16, 8),
+    (6, 257, 4, 67, 64),    # bench-like bins, node-tiled level
+    (2, 64, 3, 8, 1),       # root level
+    (9, 300, 93, 64, 4),    # otto: 9 classes, feature-tiled
+])
+def test_plain_fp32_matches_pallas_batched(T, N, F, B, M):
+    binned, gh, pos = _case(T, N, F, B, M)
+    want = np.asarray(ph.build_level_histogram_pallas_batched(
+        jnp.asarray(binned), jnp.asarray(gh), jnp.asarray(pos), M, B,
+        precision="fp32", interpret=True))
+    got = kb.level_histogram_batched(*_t(binned, gh, pos), M, B, "fp32")
+    assert got.shape == (F, B, 2, T * M)
+    np.testing.assert_array_equal(_per_tree(got.numpy(), T, M), want)
+
+
+@pytest.mark.parametrize("T,N,F,B,M", [(4, 700, 5, 32, 16),
+                                       (9, 300, 93, 64, 2)])
+def test_int8_per_tree_scales_match_pallas_batched(T, N, F, B, M):
+    """Random gradients, int8: quantize per tree -> int32 sums ->
+    dequantize with each tree's scale, bit for bit."""
+    binned, gh, pos = _case(T, N, F, B, M, seed=3, dyadic=False)
+    gh[1] *= 7.0                           # trees of different scales
+    want = np.asarray(ph.build_level_histogram_pallas_batched(
+        jnp.asarray(binned), jnp.asarray(gh), jnp.asarray(pos), M, B,
+        precision="int8", interpret=True))
+    prep = thist.prepare_hist(torch.from_numpy(gh), "int8")
+    assert prep.mode == "int8" and prep.scale.shape == (T, 2)
+    got = thist.build_level_histogram_batched(*_t(binned), prep,
+                                              torch.from_numpy(pos), M, B)
+    np.testing.assert_array_equal(_per_tree(got.numpy(), T, M), want)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "fixed"])
+def test_batched_level_equals_solo_levels(mode):
+    """K3 (plain) through the dispatch == T solo K1 (plain) levels,
+    bitwise, on random gradients, in every precision."""
+    T, N, F, B, M = 5, 900, 6, 24, 8
+    binned, gh, pos = _case(T, N, F, B, M, seed=21, dyadic=False)
+    b_t, gh_t, pos_t = _t(binned, gh, pos)
+    batched = thist.build_level_histogram_batched(
+        b_t, thist.prepare_hist(gh_t, mode), pos_t, M, B)
+    for t in range(T):
+        solo = thist.build_level_histogram(
+            b_t, thist.prepare_hist(gh_t[t], mode), pos_t[t], M, B)
+        assert torch.equal(batched[..., t * M:(t + 1) * M], solo), t
+    raw = kb.level_histogram_batched_plain(
+        b_t, thist.prepare_hist(gh_t, "int8").gh_in, pos_t, M, B, "int")
+    for t in range(T):
+        q = thist.prepare_hist(gh_t[t], "int8").gh_in
+        assert torch.equal(raw[..., t * M:(t + 1) * M],
+                           cuda_hist.level_histogram_plain(
+                               b_t, q, pos_t[t], M, B, "int"))
+
+
+def test_batched_split_search_equals_solo_searches():
+    """The finder over a batched level's T * n_node columns equals T
+    solo searches bitwise: the prefix sum runs along the bins only."""
+    T, N, F, B, M = 4, 1500, 6, 40, 8
+    binned, gh, pos = _case(T, N, F, B, M, seed=23, dyadic=False)
+    gh[..., 1] = np.abs(gh[..., 1]) + 0.05
+    b_t, gh_t, pos_t = _t(binned, gh, pos)
+    n_cuts = torch.from_numpy(
+        np.random.RandomState(1).randint(3, B - 2, F).astype(np.int32))
+    cfg = SplitConfig(min_child_weight=0.5)
+    hist = thist.build_level_histogram_batched(
+        b_t, thist.prepare_hist(gh_t, "fp32"), pos_t, M, B)
+    nst = thist.stats_from_histogram_native(hist)
+    batched = find_best_splits_native(hist, nst, n_cuts, cfg)
+    assert bool(batched.valid.any())
+    for t in range(T):
+        h_t = hist[..., t * M:(t + 1) * M].contiguous()
+        solo = find_best_splits_native(
+            h_t, thist.stats_from_histogram_native(h_t), n_cuts, cfg)
+        for name, a, b in zip(solo._fields, batched, solo):
+            a = a[t * M:(t + 1) * M]
+            assert torch.equal(a, b), (t, name)
+            if a.dtype.is_floating_point:
+                assert torch.equal(torch.signbit(a), torch.signbit(b))
+    # and the JAX finder agrees on the winners, tree by tree
+    from xgboost_tpu.ops.split import SplitConfig as JCfg
+    for t in range(T):
+        h_t = hist[..., t * M:(t + 1) * M]
+        std = jnp.asarray(h_t.permute(3, 0, 1, 2).numpy())
+        j = find_best_splits(std, jnp.asarray(
+            nst[t * M:(t + 1) * M].numpy()), jnp.asarray(n_cuts.numpy()),
+            JCfg(min_child_weight=0.5))
+        np.testing.assert_array_equal(
+            np.asarray(j.feature), batched.feature[t * M:(t + 1) * M])
+        np.testing.assert_array_equal(
+            np.asarray(j.cut_index), batched.cut_index[t * M:(t + 1) * M])
+
+
+def test_plain_batched_equals_plain_k1_per_tree():
+    T, N, F, B, M = 7, 2000, 4, 32, 16
+    binned, gh, pos = _case(T, N, F, B, M, seed=29, dyadic=False)
+    b_t, gh_t, pos_t = _t(binned, gh, pos)
+    got = kb.level_histogram_batched_plain(b_t, gh_t, pos_t, M, B, "fp32")
+    for t in range(T):
+        assert torch.equal(got[..., t * M:(t + 1) * M],
+                           cuda_hist.level_histogram_plain(
+                               b_t, gh_t[t], pos_t[t], M, B, "fp32"))
+
+
+@pytest.mark.parametrize("T,N,F,B,M", [(1, 10**6, 28, 64, 32),
+                                       (6, 200_000, 28, 64, 32),
+                                       (6, 200_000, 28, 64, 1),
+                                       (9, 200_000, 93, 64, 32),
+                                       (24, 200_000, 28, 64, 16),
+                                       (6, 200_000, 28, 256, 64),
+                                       (3, 10, 3, 7, 3)])
+def test_batched_tiling_covers_and_fits_shared_memory(T, N, F, B, M):
+    f_tile, t_tile, m_tile, n_rb, rpb, smem = kb.tiling(N, F, B, T, M, 132)
+    assert n_rb * rpb >= N and (n_rb - 1) * rpb < N
+    assert 1 <= f_tile <= F and 1 <= t_tile <= min(T, kb.T_TILE_MAX)
+    assert 1 <= m_tile <= min(M, kb.M_TILE_MAX)
+    assert smem == f_tile * B * 2 * t_tile * m_tile * 4 <= kb.SMEM_MAX
+    if smem > kb.SMEM_BUDGET:   # one feature alone exceeds the budget
+        assert f_tile == 1
+
+
+def test_batched_wrapper_checks_inputs():
+    binned, gh, pos = _case(2, 10, 2, 8, 2)
+    b_t, gh_t, pos_t = _t(binned, gh, pos)
+    with pytest.raises(TypeError):
+        kb.level_histogram_batched(b_t, gh_t, pos_t, 2, 8, "int")
+    with pytest.raises(ValueError):
+        kb.level_histogram_batched(b_t, gh_t[0], pos_t, 2, 8, "fp32")
+    with pytest.raises(ValueError):
+        kb.level_histogram_batched(b_t, gh_t, pos_t[:, :5], 2, 8, "fp32")
+    with pytest.raises(TypeError):
+        kn.node_stats(gh_t, pos_t.to(torch.int64), 2)
+
+
+# ------------------------------------------------------------------- K2
+
+@pytest.fixture(scope="module")
+def nst_case():
+    """Random and dyadic (T, N, 2) gradients, (T, N) pos, and the JAX
+    package's answers (Pallas interpret and scatter, vmapped)."""
+    T, N, M = 3, 5000, 5
+    out = {}
+    for dyadic in (True, False):
+        _, gh, pos = _case(T, N, 1, 2, M, seed=31, dyadic=dyadic)
+        pallas = np.asarray(jax.vmap(lambda g, p: ph.node_stats_pallas(
+            g, p, M, interpret=True))(jnp.asarray(gh), jnp.asarray(pos)))
+        scatter = np.asarray(jax.vmap(lambda g, p: jhist.node_stats(
+            g, p, M))(jnp.asarray(gh), jnp.asarray(pos)))
+        out[dyadic] = (gh, pos, pallas, scatter)
+    return M, out
+
+
+def test_plain_k2_dyadic_bitwise(nst_case):
+    M, cases = nst_case
+    gh, pos, pallas, scatter = cases[True]
+    got = kn.node_stats(*_t(gh, pos), M).numpy()
+    assert got.shape == (gh.shape[0], M, 2)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, scatter)
+    # without a tree axis, through the dispatch
+    solo = thist.node_stats(*_t(gh[1], pos[1]), M).numpy()
+    np.testing.assert_array_equal(solo, scatter[1])
+
+
+def test_plain_k2_random_within_reassociation_bound(nst_case):
+    M, cases = nst_case
+    gh, pos, pallas, scatter = cases[False]
+    got = kn.node_stats(*_t(gh, pos), M).numpy()
+    np.testing.assert_array_equal(got, scatter)
+    n = kn.node_stats(*_t(np.ones_like(gh), pos), M).numpy()
+    a = kn.node_stats(*_t(np.abs(gh), pos), M).numpy()
+    bound = 2.0 * n * 2.0 ** -24 * a
+    assert (np.abs(got - pallas) <= bound).all()
+    for t in range(gh.shape[0]):
+        solo = thist.node_stats(*_t(gh[t], pos[t]), M).numpy()
+        np.testing.assert_array_equal(solo, got[t])
+
+
+def test_k2_fixed_precision_with_a_tree_axis():
+    T, N, M = 4, 3000, 8
+    _, gh, pos = _case(T, N, 1, 2, M, seed=37, dyadic=False)
+    want = np.asarray(jax.vmap(lambda g, p: jhist.dequantize_hist(
+        jhist.node_stats(g, p, M, "fixed")))(jnp.asarray(gh),
+                                             jnp.asarray(pos)))
+    got = thist.node_stats(*_t(gh, pos), M, "fixed")
+    np.testing.assert_array_equal(got.numpy(), want)
+    pos[:] = -1
+    assert not thist.node_stats(*_t(gh, pos), M).numpy().any()

@@ -94,7 +94,7 @@ def test_label_validation():
 
 
 def test_unported_objectives_raise():
-    for name in ("multi:softmax", "rank:ndcg"):
+    for name in ("rank:pairwise", "rank:ndcg"):
         with pytest.raises(NotImplementedError):
             to.create_objective(name)
 

@@ -1,9 +1,10 @@
 """xgboost_tpu_torch: the PyTorch/CUDA port of xgboost_tpu.
 
 The histogram booster's main path: ``DMatrix`` -> ``train`` / ``Booster``
--> ``predict`` / ``eval_set`` -> ``save_model`` / ``load_model``, with
-the level histogram as a hand-written CUDA kernel
-(``csrc/hist_level.cu``, built by ``nvcc`` at first use).  Entry points
+-> ``predict`` / ``eval_set`` -> ``save_model`` / ``load_model``, one-group
+and multiclass (``num_class``, ``num_parallel_tree``), with the level
+histograms and node statistics as hand-written CUDA kernels
+(``csrc/*.cu``, built by ``nvcc`` at first use).  Entry points
 run on ``device="cuda"`` unless the caller passes ``device="cpu"``.
 Model files load in both packages.  Imports torch, never jax.
 """

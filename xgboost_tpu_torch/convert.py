@@ -1,8 +1,9 @@
 """Carry a JAX-trained ensemble into the port.
 
 ``xgboost_tpu``'s ``GBTree.get_state()`` returns numpy arrays: the tree
-stack (``tree_<field>``), ``tree_group_arr``, ``cut_values`` and
-``cut_n``.  :func:`gbtree_from_jax_state` builds the port's
+stack (``tree_<field>``), ``tree_group_arr`` (each tree's output group,
+multiclass included), ``cut_values`` and ``cut_n``.
+:func:`gbtree_from_jax_state` builds the port's
 :class:`~xgboost_tpu_torch.models.gbtree.GBTree` from them, which then
 predicts what the JAX ensemble predicts.  Model files are the other
 route across (``Booster.load_model`` reads the JAX package's files).

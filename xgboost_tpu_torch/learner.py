@@ -66,7 +66,7 @@ class _CacheEntry:
                  base: torch.Tensor):
         self.dmat = dmat            # strong ref: id(dmat) keys the cache
         self.binned = binned        # (N, F) on the booster's device
-        self.base = base            # (N, 1) f32
+        self.base = base            # (N, K) f32
         self.margin: Optional[torch.Tensor] = None
         self.applied = 0            # trees folded into margin
         self.info_version = dmat.info.version
@@ -109,6 +109,12 @@ class Booster:
         _check_param(self.param)
         self.obj = create_objective(self.param.objective)
         self.obj.set_param("scale_pos_weight", self.param.scale_pos_weight)
+        self.obj.set_param("num_class", self.param.num_class)
+
+    @property
+    def _K(self) -> int:
+        """Output groups: the margin's columns."""
+        return max(1, self.param.num_output_group)
 
     def _bin_align(self) -> int:
         """Bin-count quantum of the cut proposal: 32 where the histogram
@@ -141,9 +147,9 @@ class Booster:
         bm = dmat.info.base_margin
         if bm is not None:
             return torch.as_tensor(np.asarray(bm, np.float32).reshape(
-                n, 1)).to(self.device)
+                n, self._K)).to(self.device)
         base = self.obj.prob_to_margin(self.param.base_score)
-        return torch.full((n, 1), base, dtype=torch.float32,
+        return torch.full((n, self._K), base, dtype=torch.float32,
                           device=self.device)
 
     def _device_bins(self, host: np.ndarray) -> torch.Tensor:
@@ -171,16 +177,19 @@ class Booster:
         return entry
 
     def _sync_margin(self, entry: _CacheEntry) -> None:
-        """Fold not-yet-applied trees into the entry's margin, one round
-        at a time (the order of the JAX package's per-round path)."""
+        """Fold not-yet-applied trees into the entry's margin, one round's
+        trees at a time (the order of the JAX package's per-round path,
+        ``learner.py:790-818``)."""
         if entry.applied > self.gbtree.num_trees:
             entry.margin, entry.applied = None, 0
         if entry.margin is None:
             entry.margin = entry.base.clone()
+        per_round = self.gbtree.trees_per_round
         while entry.applied < self.gbtree.num_trees:
+            n = min(per_round, self.gbtree.num_trees - entry.applied)
             entry.margin = self.gbtree.predict_incremental(
-                entry.binned, entry.margin, entry.applied, 1)
-            entry.applied += 1
+                entry.binned, entry.margin, entry.applied, n)
+            entry.applied += n
 
     # ------------------------------------------------------------- training
     def _round(self, entry: _CacheEntry) -> None:
@@ -255,7 +264,9 @@ class Booster:
         else:
             margin = self.gbtree.predict_margin(binned, base, ntree_limit)
         out = self.obj.pred_transform(margin, output_margin=output_margin)
-        return out.cpu().numpy()[:, 0]
+        out = out.cpu().numpy()
+        # one column -> (N,); softprob and multiclass margins stay (N, K)
+        return out[:, 0] if out.shape[1] == 1 else out
 
     # ----------------------------------------------------------- evaluation
     def _metrics(self, feval=None) -> List:
@@ -272,13 +283,14 @@ class Booster:
             entry = self._entry(dmat)
             self._sync_margin(entry)
             tr = self.obj.eval_transform(entry.margin).cpu().numpy()
+            preds = tr[:, 0] if tr.shape[1] == 1 else tr   # (N,) or (N, K)
             labels = np.asarray(dmat.get_label())
             weights = np.asarray(dmat.get_weight())
             for m in self._metrics(feval):
-                val = m(tr[:, 0], labels, weights, dmat.info.group_ptr)
+                val = m(preds, labels, weights, dmat.info.group_ptr)
                 parts.append(f"{name}-{m.metric_name}:{val:.6f}")
             if feval is not None:
-                mname, val = feval(tr[:, 0], dmat)
+                mname, val = feval(preds, dmat)
                 parts.append(f"{name}-{mname}:{val:.6f}")
         return "\t".join(parts)
 

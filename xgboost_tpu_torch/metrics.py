@@ -1,10 +1,11 @@
 """Evaluation metrics (port of ``xgboost_tpu/metrics.py``: rmse,
-logloss, error, auc).
+logloss, error, merror, mlogloss, auc).
 
 Host-side numpy on float64, the same arithmetic as the JAX package, so
 the eval lines agree.  Predictions arrive already eval-transformed by
-the objective.  The multiclass, ranking, AMS and precision-ratio metrics
-are not ported yet (ROADMAP.md).
+the objective: (N,) for one output group, (N, K) softmax probabilities
+for the multiclass metrics.  The ranking, AMS and precision-ratio
+metrics are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ def logloss(preds, labels, weights, group_ptr=None):
 def error(preds, labels, weights, group_ptr=None):
     wrong = np.where(preds > 0.5, labels != 1.0, labels != 0.0)
     return _wmean(wrong.astype(np.float64), weights)
+
+
+def merror(preds, labels, weights, group_ptr=None):
+    yhat = np.argmax(preds, axis=1)
+    return _wmean((yhat != labels.astype(np.int64)).astype(np.float64),
+                  weights)
+
+
+def mlogloss(preds, labels, weights, group_ptr=None):
+    p = np.clip(preds[np.arange(len(labels)), labels.astype(np.int64)],
+                _EPS, None)
+    return _wmean(-np.log(p), weights)
 
 
 def auc(preds, labels, weights, group_ptr=None):
@@ -84,7 +97,8 @@ def _auc_group(p, y, w):
 
 
 _METRICS: Dict[str, Callable] = {"rmse": rmse, "logloss": logloss,
-                                 "error": error, "auc": auc}
+                                 "error": error, "merror": merror,
+                                 "mlogloss": mlogloss, "auc": auc}
 
 
 def create_metric(name: str) -> Callable:

@@ -1,9 +1,11 @@
 """GBTree: the gradient-boosted tree ensemble (port of
-``xgboost_tpu/models/gbtree.py``, one-group single-device path).
+``xgboost_tpu/models/gbtree.py``, the single-device path).
 
 Trees are fixed-shape tensors on the booster's device.  A boosting round
-grows one tree (:func:`~.tree.grow_tree`) and returns the margin delta
-read off the grow-time leaf positions, the reference's prediction-buffer
+grows ``num_output_group x num_parallel_tree`` trees together
+(:func:`~.tree.grow_trees`; tree j of a round belongs to group
+``j // num_parallel_tree``) and returns the (N, K) margin delta read off
+the grow-time leaf positions, the reference's prediction-buffer
 shortcut.  The JAX package's fused multi-round ``lax.scan`` becomes the
 learner's plain loop over rounds, which reads nothing back to the host.
 """
@@ -17,8 +19,8 @@ import torch
 
 from xgboost_tpu_torch.binning import CutMatrix
 from xgboost_tpu_torch.config import TrainParam
-from xgboost_tpu_torch.models.tree import (GrowConfig, TreeArrays, grow_tree,
-                                           predict_leaf_binned,
+from xgboost_tpu_torch.models.tree import (GrowConfig, TreeArrays,
+                                           grow_trees, predict_leaf_binned,
                                            predict_margin_binned,
                                            table_lookup)
 from xgboost_tpu_torch.models.updaters import parse_updaters, prune_tree
@@ -59,10 +61,6 @@ class GBTree:
 
     def __init__(self, param: TrainParam, cuts: CutMatrix,
                  device: torch.device):
-        if param.num_output_group > 1 or param.num_parallel_tree > 1:
-            raise NotImplementedError(
-                "multiclass / num_parallel_tree > 1: ROADMAP.md section 1 "
-                "item 8")
         self.param = param
         self.cuts = cuts
         self.device = device
@@ -80,26 +78,55 @@ class GBTree:
 
     @property
     def num_boosted_rounds(self) -> int:
-        return self.num_trees
+        return self.num_trees // self.trees_per_round
+
+    @property
+    def n_group(self) -> int:
+        return max(1, self.param.num_output_group)
+
+    @property
+    def trees_per_round(self) -> int:
+        return self.n_group * max(1, self.param.num_parallel_tree)
 
     def do_boost(self, binned: torch.Tensor, gh: torch.Tensor,
                  row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One boosting round: grow a tree on ``gh`` (N, 1, 2), prune it
-        when ``gamma > 0``, append it.  Returns the (N, 1) margin delta."""
-        tree, row_leaf, d = grow_tree(binned, gh[:, 0, :],
-                                      self.cut_values_dev, self.n_cuts_dev,
-                                      self.cfg, row_valid)
+        """One boosting round: grow the round's T = K x num_parallel_tree
+        trees on ``gh`` (N, K, 2) together, prune each when ``gamma > 0``,
+        append them.  Returns the (N, K) margin delta: each group's trees
+        added in tree order (``gbtree.py:681-757``)."""
+        npar = max(1, self.param.num_parallel_tree)
+        T, K = self.trees_per_round, self.n_group
+        group = [j // npar for j in range(T)]
+        # (T, N, 2) from views: no index tensor sent to the device
+        gh_t = torch.stack([gh[:, g, :] for g in group])
+        trees, row_leaf, ds = grow_trees(binned, gh_t, self.cut_values_dev,
+                                         self.n_cuts_dev, self.cfg,
+                                         row_valid)
         if "prune" in parse_updaters(self.param.updater) \
                 and self.param.gamma > 0.0:
-            tree, resolve = prune_tree(tree, self.param.gamma)
-            d = table_lookup(tree.leaf_value[torch.as_tensor(
-                resolve, dtype=torch.int64, device=binned.device)], row_leaf)
+            pruned, ds = [], list(ds)
+            for j in range(T):
+                tree, resolve = prune_tree(TreeArrays(*(x[j] for x in trees)),
+                                           self.param.gamma)
+                ds[j] = table_lookup(tree.leaf_value[torch.as_tensor(
+                    resolve, dtype=torch.int64, device=binned.device)],
+                    row_leaf[j])
+                pruned.append(tree)
+            trees = TreeArrays(*(torch.stack(xs) for xs in zip(*pruned)))
         if row_valid is not None:
-            d = d * row_valid.to(d.dtype)
-        self._parts.append(TreeArrays(*(x[None] for x in tree)))
-        self.tree_group.append(0)
+            ds = [d * row_valid.to(d.dtype) for d in ds]
+        self._parts.append(trees)
+        self.tree_group.extend(group)
         self._stack_cache = None
-        return d[:, None]
+        if T == 1:
+            # the JAX package returns a lone tree's delta as it is; its
+            # batched path adds into zeros, which makes a -0 a +0
+            return ds[0][:, None]
+        delta = torch.zeros((binned.shape[0], K), dtype=torch.float32,
+                            device=binned.device)
+        for j in range(T):
+            delta[:, group[j]] += ds[j]
+        return delta
 
     def _stack(self, ntree_limit: int = 0) -> Tuple[TreeArrays, torch.Tensor]:
         """The first ``ntree_limit`` trees (all when <= 0, clamped to the
@@ -121,7 +148,7 @@ class GBTree:
                        ntree_limit: int = 0) -> torch.Tensor:
         stack, group = self._stack(ntree_limit)
         return predict_margin_binned(stack, group, binned, base,
-                                     self.cfg.max_depth, 1)
+                                     self.cfg.max_depth, self.n_group)
 
     def predict_incremental(self, binned: torch.Tensor, margin: torch.Tensor,
                             first_tree: int, n_trees: int) -> torch.Tensor:
@@ -131,7 +158,8 @@ class GBTree:
         part = TreeArrays(*(x[first_tree:] for x in stack))
         zero = torch.zeros((), dtype=torch.float32, device=binned.device)
         return predict_margin_binned(part, group[first_tree:], binned, zero,
-                                     self.cfg.max_depth, 1) + margin
+                                     self.cfg.max_depth,
+                                     self.n_group) + margin
 
     def predict_leaf(self, binned: torch.Tensor,
                      ntree_limit: int = 0) -> torch.Tensor:
@@ -158,9 +186,6 @@ class GBTree:
             state[f"tree_{f}"], _NUMPY_DTYPES[f])).to(device)
             for f in TreeArrays._fields})
         groups = [int(g) for g in np.asarray(state["tree_group_arr"])]
-        if any(groups):
-            raise NotImplementedError(
-                "multi-group models: ROADMAP.md section 1 item 8")
         if stack.feature.shape[0]:
             gbt._parts = [stack]
         gbt.tree_group = groups

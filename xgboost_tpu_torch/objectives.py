@@ -1,9 +1,10 @@
 """Objective functions (port of ``xgboost_tpu/objectives.py``: the
 one-group regression losses ``reg:linear``, ``reg:logistic``,
-``binary:logistic`` and ``binary:logitraw``).
+``binary:logistic`` and ``binary:logitraw``, and the softmax multiclass
+objectives ``multi:softmax`` and ``multi:softprob``).
 
-Margins are (N, K) tensors with K = 1; gradients come back as (N, K, 2)
-on the margin's device.  Softmax and ranking objectives are not ported
+Margins are (N, K) tensors, K = 1 unless multiclass; gradients come back
+as (N, K, 2) on the margin's device.  Ranking objectives are not ported
 yet (ROADMAP.md).
 """
 
@@ -81,14 +82,76 @@ class RegLossObj:
         return base_score
 
 
-def create_objective(name: str) -> RegLossObj:
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax along axis 1 in f32 with ``jax.nn.softmax``'s expression:
+    ``exp(x - max) / sum(exp(x - max))``."""
+    e = torch.exp(x - x.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def softmax_grad(margin, label, weight) -> torch.Tensor:
+    """(N, K, 2) softmax gradient pairs (``objectives.py:173-181``):
+    ``g = (p - y) w``, ``h = 2 p (1 - p) w`` with y the one-hot label."""
+    p = softmax(margin)
+    classes = torch.arange(margin.shape[1], device=margin.device)
+    y = (label.to(torch.int64)[:, None] == classes).to(p.dtype)
+    w = weight[:, None]
+    return torch.stack([(p - y) * w, 2.0 * p * (1.0 - p) * w], dim=-1)
+
+
+class SoftmaxMultiClassObj:
+    """multi:softmax / multi:softprob (reference SoftmaxMultiClassObj,
+    objective-inl.hpp:177-271)."""
+
+    def __init__(self, output_prob: bool):
+        self.name = "multi:softprob" if output_prob else "multi:softmax"
+        self.output_prob = output_prob
+        self.nclass = 0
+        self.default_metric = "merror"
+
+    @property
+    def output_group_count(self) -> int:
+        return max(1, self.nclass)
+
+    def set_param(self, name, value):
+        if name == "num_class":
+            self.nclass = int(value)
+
+    def validate_labels(self, info) -> None:
+        if self.nclass <= 0:
+            raise ValueError("must set num_class to use softmax")
+        lab = np.asarray(info.label)
+        # negated form so NaN labels fail too
+        if (~((lab >= 0) & (lab < self.nclass))).any():
+            raise ValueError(
+                f"SoftmaxMultiClassObj: label must be in [0, {self.nclass})")
+
+    def get_gradient(self, margin, label, weight) -> torch.Tensor:
+        return softmax_grad(margin, label, weight)
+
+    def pred_transform(self, margin, output_margin=False):
+        if output_margin:
+            return margin
+        if self.output_prob:
+            return softmax(margin)
+        return torch.argmax(margin, dim=1).to(torch.float32)[:, None]
+
+    def eval_transform(self, margin):
+        return softmax(margin)
+
+    def prob_to_margin(self, base_score: float) -> float:
+        return base_score
+
+
+def create_objective(name: str):
     """Objective factory (reference CreateObjFunction)."""
     if name in ("reg:linear", "reg:logistic", "binary:logistic",
                 "binary:logitraw"):
         return RegLossObj(name)
-    if name in ("multi:softmax", "multi:softprob"):
-        raise NotImplementedError(
-            f"objective {name}: multiclass is ROADMAP.md section 1 item 8")
+    if name == "multi:softmax":
+        return SoftmaxMultiClassObj(False)
+    if name == "multi:softprob":
+        return SoftmaxMultiClassObj(True)
     if name in ("rank:pairwise", "rank:ndcg", "rank:map"):
         raise NotImplementedError(
             f"objective {name}: ranking is ROADMAP.md section 1 item 10")

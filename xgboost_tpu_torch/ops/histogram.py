@@ -11,10 +11,13 @@ package asks its default backend at trace time):
   becomes bf16 when N * 127 >= 2^31);
 - ``fixed``: int32 fixed-point sums on either device.
 
-A CUDA tensor runs the kernel, a CPU tensor its plain version
-(:mod:`.cuda_hist`).  Every histogram is in the kernel's node-minor
-layout ``(F, B, 2, n_node)`` (``pallas_hist.py`` "native"), at every
-depth.
+A CUDA tensor runs the kernel, a CPU tensor its plain version: K1
+(:mod:`.cuda_hist`) for one tree, K3 (:mod:`.cuda_hist_batched`) for
+the T trees of a multiclass or forest round, K2
+(:mod:`.cuda_node_stats`) for node statistics.  Every histogram is in
+the kernel's node-minor layout ``(F, B, 2, n_node)`` (``pallas_hist.py``
+"native"), at every depth; a batched level is ``(F, B, 2, T * n_node)``,
+tree outer.
 """
 
 from __future__ import annotations
@@ -23,7 +26,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from xgboost_tpu_torch.ops import cuda_hist
+from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
+                                   cuda_node_stats)
+
+# int8 sums dequantize with scale * (1/127): the JAX package writes
+# scale / 127.0 (pallas_hist.py:268-270, :628-631), which XLA compiles to
+# a multiply by the f32 reciprocal; a true division differs in the last
+# bit for some scales.  A Python float operand is rounded to the f32
+# tensor's type, and needs no host-to-device copy (which would wait for
+# the stream).
+_INV127 = 1.0 / 127.0
 
 # hist_precision="fixed": gradients rounded to multiples of 1/FIXED_SCALE
 # and summed in int32 — exactly associative, so sums are bitwise
@@ -47,15 +59,16 @@ def resolve_mode(precision: str, device: torch.device, n_rows: int) -> str:
 class HistPrep(NamedTuple):
     """Once-per-tree operands of the level loop: the gradients in the
     kernel's input form (f32, or int32 with ``scale`` in int8 mode)."""
-    gh_in: torch.Tensor
-    scale: Optional[torch.Tensor]
+    gh_in: torch.Tensor          # (N, 2), or (T, N, 2) for T trees
+    scale: Optional[torch.Tensor]  # (2,), or per tree (T, 2)
     mode: str                    # fp32 | bf16 | int8 | fixed
 
 
 def prepare_hist(gh: torch.Tensor, precision: str) -> HistPrep:
     """Quantize (int8, fixed) or keep (fp32, bf16) the tree's (N, 2)
-    gradients once, for every level of the tree."""
-    mode = resolve_mode(precision, gh.device, gh.shape[0])
+    gradients, or T trees' (T, N, 2) (int8 scales per tree), once for
+    every level."""
+    mode = resolve_mode(precision, gh.device, gh.shape[-2])
     if mode == "int8":
         gh_q, scale = cuda_hist.quantize_gh(gh)
         return HistPrep(gh_q.contiguous(), scale, mode)
@@ -78,44 +91,80 @@ def build_level_histogram(binned: torch.Tensor, prep: HistPrep,
                                      n_bin, kmode)
     if prep.mode == "int8":
         # the exact int32 sums back to f32 (pallas_hist.py:268-270)
-        return hist.to(torch.float32) * (prep.scale / 127.0)[None, None, :,
-                                                             None]
+        return hist.to(torch.float32) * _int8_step(prep.scale)[None, None, :,
+                                                               None]
     return dequantize_hist(hist)
+
+
+def build_level_histogram_batched(binned: torch.Tensor, prep: HistPrep,
+                                  pos: torch.Tensor, n_node: int,
+                                  n_bin: int) -> torch.Tensor:
+    """The level histograms of T trees on shared bins in one launch of
+    K3: f32 ``(F, n_bin, 2, T * n_node)``, tree outer.  ``prep`` holds
+    (T, N, 2) gradients; ``pos`` (T, N) int32 is each tree's level-local
+    node per row, -1 = inactive.  int8 sums come back dequantized with
+    each tree's scales (``pallas_hist.py:628-631``), fixed sums with
+    FIXED_SCALE."""
+    kmode = {"fp32": "fp32", "bf16": "bf16", "int8": "int",
+             "fixed": "int"}[prep.mode]
+    hist = cuda_hist_batched.level_histogram_batched(binned, prep.gh_in, pos,
+                                                     n_node, n_bin, kmode)
+    if prep.mode == "int8":
+        # per-tree (T, 2) scales onto the (2, T * n_node) channel x column
+        T = prep.scale.shape[0]
+        mult = _int8_step(prep.scale).T[:, :, None].expand(2, T, n_node)
+        return hist.to(torch.float32) * mult.reshape(2, T * n_node)[None,
+                                                                    None]
+    return dequantize_hist(hist)
+
+
+def _int8_step(scale: torch.Tensor) -> torch.Tensor:
+    """The value of one int8 step, ``scale * f32(1/127)``."""
+    return scale * _INV127
 
 
 def dequantize_hist(hist: torch.Tensor) -> torch.Tensor:
     """Undo the "fixed" int32 encoding (identity on float tensors)."""
     if not hist.dtype.is_floating_point:
-        return hist.to(torch.float32) * torch.tensor(
-            1.0 / FIXED_SCALE, dtype=torch.float32, device=hist.device)
+        # 1/FIXED_SCALE is a power of two: exact in f32
+        return hist.to(torch.float32) * (1.0 / FIXED_SCALE)
     return hist
 
 
 def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
                precision: str = "auto") -> torch.Tensor:
-    """Per-node (G, H) sums, (n_node, 2) f32.  Runs only where the split
-    finder left no sums behind: depth-0 trees.  On a GPU that is the
-    node-stat kernel K2 of the JAX package (``pallas_hist.py:631``), not
-    ported yet; "fixed" precision is the JAX package's plain scatter on
-    every device."""
-    if precision != "fixed" and gh.device.type != "cpu":
-        raise NotImplementedError(
-            "node statistics on a GPU need kernel K2 (node_stats_pallas), "
-            "not ported yet: ROADMAP.md section 2")
-    idx = torch.where(pos < 0, n_node, pos).to(torch.int64)
+    """Per-node (G, H) sums: gh (N, 2) and pos (N,) -> (n_node, 2), or
+    with a leading tree axis (T, N, 2) and (T, N) -> (T, n_node, 2), f32.
+    Runs only where the split finder left no sums behind: depth-0 trees.
+    K2 on a GPU, its plain version on the CPU; "fixed" precision is the
+    JAX package's plain int32 scatter on every device
+    (``ops/histogram.py:304-308``)."""
+    if gh.dim() == 2:
+        return node_stats(gh[None], pos[None], n_node, precision)[0]
     if precision == "fixed":
         q = torch.round(gh * FIXED_SCALE).to(torch.int32)
-        out = torch.zeros((n_node + 1, 2), dtype=torch.int32,
+        T = gh.shape[0]
+        slot = torch.where(pos < 0, n_node, pos).to(torch.int64)
+        idx = slot + (n_node + 1) * torch.arange(
+            T, dtype=torch.int64, device=gh.device)[:, None]
+        out = torch.zeros((T * (n_node + 1), 2), dtype=torch.int32,
                           device=gh.device)
-        return dequantize_hist(out.index_add_(0, idx, q)[:n_node])
-    out = torch.zeros((n_node + 1, 2), dtype=torch.float32, device=gh.device)
-    return out.index_add_(0, idx, gh)[:n_node]
+        out.index_add_(0, idx.reshape(-1), q.reshape(-1, 2))
+        return dequantize_hist(out.reshape(T, n_node + 1, 2)[:, :n_node])
+    return cuda_node_stats.node_stats(gh.to(torch.float32).contiguous(),
+                                      pos.to(torch.int32).contiguous(),
+                                      n_node)
 
 
 def stats_from_histogram_native(hist: torch.Tensor) -> torch.Tensor:
     """Per-node (G, H) totals from ``(F, B, 2, n_node)``: the bin sums of
-    feature 0 (every active row lands in one bin of every feature)."""
-    return hist[0].sum(dim=0).T
+    feature 0 (every active row lands in one bin of every feature).
+    Summed along a contiguous bin axis: each node's total is then the
+    same bits whatever the number of nodes beside it, so T trees'
+    batched level equals T solo levels (a sum over the outer axis of
+    ``(B, 2, n_node)`` groups its additions by the node count on the
+    CPU)."""
+    return hist[0].permute(2, 1, 0).contiguous().sum(dim=-1)
 
 
 def stats_from_histogram(hist: torch.Tensor) -> torch.Tensor:
