@@ -13,7 +13,12 @@ every kernel against its plain PyTorch version.  The paths:
   (one launch per level for the round's 6 trees);
 - otto: ``bench.py:bench_otto`` (200,000 x 93, 9-class softprob), cut
   to 10 rounds, kernel K3 with feature tiling;
-- depth 0: a max_depth=0 6-class booster, 5 rounds, kernel K2.
+- depth 0: a max_depth=0 6-class booster, 5 rounds, kernel K2;
+- lanes: ``pipeline.run_tenant_lanes`` over 48 tenant pipelines at the
+  Higgs booster's width (depth 6, eta 0.1, max_bin 64, 28 features),
+  12,288 to 16,283 rows each, 2 cycles of 10 rounds, stacked into one
+  K4 launch per level for all tenants (a stack of 64 lanes of 16,384
+  rows), then the same tenants through the host loop (K1 per tenant).
 
 Phases, in order; any failure exits non-zero:
 
@@ -31,7 +36,16 @@ Phases, in order; any failure exits non-zero:
      kernel against the plain version on every level's real inputs;
   5. times on the card: ms per round, and per kernel call on the paths'
      real inputs the kernel's ms beside its bound, the plain version's
-     and one PyTorch call's (``index_add_``).
+     and one PyTorch call's (``index_add_``); for the lanes, the stacked
+     and the host-loop cycle (gate and publish left out, as
+     ``tools/bench_lanes.py`` times them) and tenants per second.
+
+The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
+event in the stacked run (the solo fallback would hide a K4 that does
+not build or launch), on any K1 or K3 launch there, on a launch count
+other than cycles x rounds x 6 levels for K4, on any difference in a
+tenant's published bytes or gate verdicts between the stacked run and
+the host loop, and on a holdout AUC under ``LANE_AUC_FLOOR``.
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit
 before the last line, ``{"ok": true, "device": {...}}``.  Scratch files
@@ -75,6 +89,20 @@ OTTO_PARAMS = {"objective": "multi:softprob", "num_class": OTTO_K,
 # root's node statistics come from K2, one launch per round for its trees
 D0_ROUNDS = 5
 D0_PARAMS = {**MC_PARAMS, "max_depth": 0}
+# [lanes]: gang-batched tenant training at the Higgs booster's width
+# (binary:logistic, depth 6, eta 0.1, max_bin 64, 28 features) and tenant
+# scale: tenant i trains on 12,288 + 85 i rows from seed 1000 + i and is
+# judged on 2,048 holdout rows from seed 5000 + i; 48 tenants share one
+# bucket of 16,384 rows and pad to a stack of 64 lanes
+LANES_N, LANE_ROWS0, LANE_ROWS_STEP, LANE_HOLD = 48, 12_288, 85, 2048
+LANE_CYCLES, LANE_ROUNDS = 2, 10
+LANE_PARAMS = dict(PARAMS)
+LANE_STACK = 64                  # 48 tenants pad to a power of two
+# The JAX package's own stacked lanes on these 48 tenants' arrays, the
+# same parameters, cycles and rounds, on a CPU (``JAX_PLATFORMS=cpu
+# python tests/test_torch_lanes.py 48``): holdout AUC 0.920299 at the
+# lowest tenant, 0.932 on average.  The floor is that lowest minus 0.005.
+LANE_AUC_FLOOR = 0.915299
 
 
 def fail(msg):
@@ -105,6 +133,13 @@ def make_higgs_like(n, f=28, seed=42):
              + 2.0 * (X[:, 4] > 1.0) + 0.8 * rng.randn(n))
     y = (score > np.median(score)).astype(np.float32)
     return X, y
+
+
+def tenant_arrays(i):
+    """Tenant i's (X, y) train rows and (Xh, yh) holdout rows."""
+    X, y = make_higgs_like(LANE_ROWS0 + LANE_ROWS_STEP * i, seed=1000 + i)
+    Xh, yh = make_higgs_like(LANE_HOLD, seed=5000 + i)
+    return X, y, Xh, yh
 
 
 def cuda_ms(torch, fn, reps):
@@ -325,6 +360,91 @@ def phase_k2(torch, kn, dev):
     print(f"[K2] max |kernel - plain| on random gh: {max_err}", flush=True)
 
 
+def lanes_case(torch, k4, cuda_hist, L, L_real, N, F, B, M, mode, dyadic,
+               seed, dev):
+    """One K4 comparison on the same CUDA tensors: L lanes, the first
+    L_real real with their own row counts (pad rows past them), the rest
+    pad lanes.  In int mode also each lane against a solo K1 launch on
+    its unpadded rows.  Returns max |kernel - plain|."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B, (L, N, F), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    pos = torch.randint(0, M, (L, N), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[torch.rand(L, N, generator=g, device=dev) < 0.2] = -1
+    if dyadic:  # multiples of 1/256: f32 sums exact in any order
+        gh = torch.randint(-512, 512, (L, N, 2), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.float32) / 256.0
+    else:
+        gh = torch.randn(L, N, 2, generator=g, device=dev)
+    n_real = [int(n) for n in np.random.RandomState(seed).randint(
+        N // 2, N + 1, L)]
+    n_real = [N] + n_real[1:L_real] + [0] * (L - L_real)
+    real = (torch.arange(N, device=dev)[None, :]
+            < torch.tensor(n_real, device=dev)[:, None])
+    pos = torch.where(real, pos, -1)
+    gh = torch.where(real[..., None], gh, 0.0)
+    if mode == "int":
+        gh, _ = cuda_hist.quantize_gh(gh)      # per-lane scales
+    got = k4.level_histogram_lanes(bins, gh, pos, M, B, mode)
+    want = k4.level_histogram_lanes_plain(bins, gh, pos, M, B, mode)
+    torch.cuda.synchronize()
+    tag = (f"K4 {mode} L={L} ({L_real} real) N={N} F={F} B={B} "
+           f"n_node={M} dyadic={dyadic}")
+    if got.shape != (F, B, 2, L * M) or got.dtype != want.dtype:
+        fail(f"{tag}: shape {tuple(got.shape)} {got.dtype}")
+    if mode == "int":
+        for lane, n in enumerate(n_real):
+            sl = got[..., lane * M:(lane + 1) * M]
+            if n == 0:
+                if bool(sl.any()):
+                    fail(f"{tag}: pad lane {lane} is not zero")
+                continue
+            solo = cuda_hist.level_histogram(
+                bins[lane, :n].contiguous(), gh[lane, :n].contiguous(),
+                pos[lane, :n].contiguous(), M, B, "int")
+            if not torch.equal(sl, solo):
+                fail(f"{tag}: lane {lane} differs from a solo K1 launch")
+    if mode == "int" or dyadic:
+        if not torch.equal(got, want):
+            fail(f"{tag}: not bitwise equal to the plain version")
+        return 0.0
+    src = gh.to(torch.bfloat16).to(torch.float32) if mode == "bf16" else gh
+    n = k4.level_histogram_lanes_plain(bins, torch.ones_like(gh), pos, M, B,
+                                       "fp32")
+    a = k4.level_histogram_lanes_plain(bins, src.abs(), pos, M, B, "fp32")
+    if not sum_bound_ok(torch, got, want, n, a):
+        fail(f"{tag}: |kernel - plain| beyond 2 n 2^-24 sum|x|")
+    return float((got - want).abs().max())
+
+
+def phase_k4(torch, k4, cuda_hist, dev):
+    """K4 at the lanes path's level shapes (64 lanes, 48 real, of 16,384
+    rows), with F = 93, B = 256, node tiles past 64 nodes, one lane and
+    a tiny odd shape; pad rows in every real lane but the first."""
+    errs = {}
+    cases = [(LANE_STACK, LANES_N, 16384, N_FEAT, 64, m) for m in (1, 8, 32)]
+    cases += [(8, 8, 16384, OTTO_FEAT, 64, 4), (3, 3, 20000, N_FEAT, 256, 64),
+              (1, 1, 50000, N_FEAT, 64, 128),
+              (LANE_STACK, 40, 2048, N_FEAT, 256, 128), (4, 3, 1000, 3, 7, 3)]
+    for (L, Lr, n, f, b, m) in cases:
+        variants = [("int", False), ("fp32", True), ("bf16", True)]
+        if m in (1, 32, 128) or b != 64:
+            variants += [("fp32", False), ("bf16", False)]
+        for mode, dyadic in variants:
+            e = lanes_case(torch, k4, cuda_hist, L, Lr, n, f, b, m, mode,
+                           dyadic, seed=L * 13 + m + b, dev=dev)
+            key = mode + ("" if dyadic or mode == "int" else "_random_gh")
+            errs[key] = max(errs.get(key, 0.0), e)
+        print(f"[K4] L={L} ({Lr} real, pad rows) N={n} F={f} B={b} "
+              f"n_node={m}: int8 bitwise and each lane == solo K1, pad "
+              "lanes zero, fp32/bf16 bitwise on dyadic gh"
+              + (", within bound on random gh" if len(variants) > 3 else ""),
+              flush=True)
+    print(f"[K4] max |kernel - plain| by mode: {json.dumps(errs)}",
+          flush=True)
+
+
 # ------------------------------------------------------------- phase 4
 def phase_main(torch, xt, cuda_hist, kernels, device, card):
     from xgboost_tpu_torch.metrics import auc
@@ -348,7 +468,7 @@ def phase_main(torch, xt, cuda_hist, kernels, device, card):
           f"{train_s:.2f} s; hist_level launches {launches}; all counts "
           f"{json.dumps(counts)}", flush=True)
     if counts != {"hist_level": ROUNDS * DEPTH, "hist_batched": 0,
-                  "node_stats": 0}:
+                  "node_stats": 0, "hist_lanes": 0}:
         fail(f"launch counts {counts}: want hist_level {ROUNDS * DEPTH}, "
              "the others 0")
     B = bst.gbtree.cuts.max_bin
@@ -445,7 +565,8 @@ def phase_multiclass(torch, xt, kernels, device, card):
     print(f"[multiclass] train {MC_ROUNDS} rounds (cuts and binning "
           f"included): {train_s:.2f} s; hist_batched launches {launches}; "
           f"all counts {json.dumps(counts)}", flush=True)
-    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0}:
+    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0,
+                  "hist_lanes": 0}:
         fail(f"launch counts {counts}: want hist_batched {want} "
              f"({MC_ROUNDS} rounds x {DEPTH} levels), the others 0")
     if bst.gbtree.num_trees != MC_ROUNDS * MC_K:
@@ -551,7 +672,8 @@ def phase_otto(torch, xt, kernels, device, card):
     train_s = time.perf_counter() - t0
     counts = read_counts(kernels)
     want = OTTO_ROUNDS * DEPTH
-    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0}:
+    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0,
+                  "hist_lanes": 0}:
         fail(f"otto launch counts {counts}: want hist_batched {want}")
     prob = bst.predict(dtest)
     if prob.shape != (MC_TEST, OTTO_K) or not np.isfinite(prob).all():
@@ -603,7 +725,7 @@ def phase_depth0(torch, xt, kernels, device):
           f"node_stats launches {launches}; all counts "
           f"{json.dumps(counts)}", flush=True)
     if counts != {"hist_level": 0, "hist_batched": 0,
-                  "node_stats": D0_ROUNDS}:
+                  "node_stats": D0_ROUNDS, "hist_lanes": 0}:
         fail(f"depth-0 launch counts {counts}: want node_stats "
              f"{D0_ROUNDS}, the others 0")
     margin = bst.predict(dtrain, output_margin=True)
@@ -658,6 +780,248 @@ def phase_depth0(torch, xt, kernels, device):
           f"max |error| against float64 sums: K2 {err_k2:.3e}, plain "
           f"{err_plain:.3e}", flush=True)
     return launches, captured[:1], max_err
+
+
+def lane_runs(root, data, mode):
+    """``run_tenant_lanes`` kwargs of the 48 tenants under ``root/mode``:
+    a CallableDataSource each (the same pair every cycle), the holdout
+    gate on AUC."""
+    import shutil
+
+    from xgboost_tpu_torch.pipeline import CallableDataSource
+    base = os.path.join(root, mode)
+    shutil.rmtree(base, ignore_errors=True)   # no state from an old run
+    lanes = {}
+    for i, pair in enumerate(data):
+        d = os.path.join(base, f"tenant{i:02d}")
+        lanes[f"tenant{i:02d}"] = {
+            "publish_path": os.path.join(d, "model.bin"),
+            "workdir": os.path.join(d, "work"),
+            "source": CallableDataSource(lambda c, p=pair: p),
+            "rounds_per_cycle": LANE_ROUNDS, "cycles": LANE_CYCLES,
+            "metric": "auc", "params": dict(LANE_PARAMS)}
+    return lanes
+
+
+def read_events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def gate_verdicts(events):
+    """{(lane, cycle): (passed, metric, candidate, incumbent)} of the
+    ``pipeline.gate`` events."""
+    out = {}
+    for e in events:
+        if e["kind"] == "event" and e["name"] == "pipeline.gate":
+            a = e["attrs"]
+            out[(a["lane"], a["cycle"])] = (a["passed"], a["metric"],
+                                            a["candidate"], a["incumbent"])
+    return out
+
+
+def run_lanes(torch, kernels, root, data, mode, device):
+    """One ``run_tenant_lanes`` over the tenants, counts set to 0 just
+    before and read just after, its events logged to a file of its own.
+    Returns (lanes, results, launch counts, lane-metric deltas, events,
+    seconds)."""
+    from xgboost_tpu_torch.obs import configure_log, lane_metrics
+    from xgboost_tpu_torch.pipeline import run_tenant_lanes
+    lanes = lane_runs(root, data, mode)
+    log = os.path.join(root, f"events-{mode}.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    lm = lane_metrics()
+    before = (lm.dispatches.value, lm.stacked.value, lm.padded.value,
+              lm.restacks.value, lm.solo.values())
+    configure_log(log)
+    try:
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        # every tenant must reach the rendezvous before its window
+        # closes: 48 lanes' host phases (cuts, binning) take seconds
+        res = run_tenant_lanes(lanes, quiet=True, window_sec=300.0,
+                               device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(kernels)
+    finally:
+        configure_log(None)
+    solo = {k: v - before[4].get(k, 0.0) for k, v in lm.solo.values().items()}
+    delta = {"dispatches": lm.dispatches.value - before[0],
+             "stacked": lm.stacked.value - before[1],
+             "padded": lm.padded.value - before[2],
+             "restacks": lm.restacks.value - before[3],
+             "solo": {k: v for k, v in solo.items() if v}}
+    return lanes, res, counts, delta, read_events(log), seconds
+
+
+
+def phase_lanes(torch, xt, kernels, device, card):
+    """``run_tenant_lanes`` on 48 tenants, stacked (K4) and as the host
+    loop (K1), with every check of the module docstring."""
+    from xgboost_tpu_torch.metrics import auc
+    root = os.path.join(HERE, ".smoke_out", "lanes")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    arrays = [tenant_arrays(i) for i in range(LANES_N)]
+    data = [(xt.DMatrix(X, label=y), xt.DMatrix(Xh, label=yh))
+            for X, y, Xh, yh in arrays]
+    rows = [a[0].shape[0] for a in arrays]
+    print(f"[lanes] data: {LANES_N} tenants of {min(rows)}-{max(rows)} x "
+          f"{N_FEAT} rows, {LANE_HOLD} holdout rows each: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 1. stacked (the default)
+    os.environ.pop("XGBTPU_LANE_STACK", None)
+    s_lanes, s_res, counts, delta, s_events, s_sec = run_lanes(
+        torch, kernels, root, data, "stacked", device)
+    want = LANE_CYCLES * LANE_ROUNDS * DEPTH
+    print(f"[lanes] stacked run: {s_sec:.2f} s; hist_lanes launches "
+          f"{counts['hist_lanes']}; all counts {json.dumps(counts)}; lane "
+          f"metrics {json.dumps(delta)} | {card}", flush=True)
+    bad = {n: r for n, r in s_res.items() if r["status"] != "ok"}
+    if bad or len(s_res) != LANES_N:
+        fail(f"stacked lanes not ok: {bad}")
+    if counts != {"hist_level": 0, "hist_batched": 0, "node_stats": 0,
+                  "hist_lanes": want}:
+        fail(f"stacked launch counts {counts}: want hist_lanes {want} "
+             f"({LANE_CYCLES} cycles x {LANE_ROUNDS} rounds x {DEPTH} "
+             "levels), the others 0")
+    stack_errors = [e for e in s_events
+                    if e["name"] in ("lanes.stack_error", "lanes.solo")]
+    if delta["solo"] or stack_errors:
+        fail(f"a lane ran solo in the stacked run: {delta['solo']} "
+             f"{stack_errors[:3]}")
+    want_delta = {"dispatches": LANE_CYCLES,
+                  "stacked": LANES_N * LANE_CYCLES,
+                  "padded": (LANE_STACK - LANES_N) * LANE_CYCLES}
+    if any(delta[k] != v for k, v in want_delta.items()):
+        fail(f"lane dispatch accounting {delta}: want {want_delta}")
+    for name, kw in s_lanes.items():
+        with open(os.path.join(kw["workdir"], "gated.log")) as f:
+            cycles = [int(line.split()[0]) for line in f]
+        if not cycles or cycles[0] != 0:
+            fail(f"{name} did not publish its cycle-0 model: {cycles}")
+    spans = {}
+    for e in s_events:
+        if e["kind"] == "span":
+            spans.setdefault(e["name"], []).append(e["dur_ms"])
+    print("[lanes] stacked run spans, ms summed over the lane threads "
+          "(they overlap): " + json.dumps(
+              {k: round(sum(v), 1) for k, v in sorted(spans.items())})
+          + "; lanes.dispatch each: "
+          + json.dumps(spans.get("lanes.dispatch", [])), flush=True)
+    print(f"[lanes] {LANES_N} tenants ok, each published its cycle-0 model; "
+          f"{delta['dispatches']} dispatches carried {delta['stacked']} "
+          f"lane-segments and {delta['padded']} pad lanes; no solo lane, "
+          "no stack error", flush=True)
+
+    # 2. the host loop, same tenants
+    os.environ["XGBTPU_LANE_STACK"] = "0"
+    try:
+        h_lanes, h_res, h_counts, _, h_events, h_sec = run_lanes(
+            torch, kernels, root, data, "host", device)
+    finally:
+        os.environ.pop("XGBTPU_LANE_STACK", None)
+    want_k1 = LANES_N * want
+    print(f"[lanes] host loop: {h_sec:.2f} s; all counts "
+          f"{json.dumps(h_counts)} | {card}", flush=True)
+    if h_counts != {"hist_level": want_k1, "hist_batched": 0,
+                    "node_stats": 0, "hist_lanes": 0}:
+        fail(f"host-loop launch counts {h_counts}: want hist_level "
+             f"{want_k1}, the others 0")
+    if any(r["status"] != "ok" for r in h_res.values()):
+        fail("host-loop lanes not ok")
+    for name in s_lanes:
+        logs = []
+        for lanes in (s_lanes, h_lanes):
+            with open(lanes[name]["publish_path"], "rb") as f:
+                raw = f.read()
+            with open(os.path.join(lanes[name]["workdir"],
+                                   "gated.log")) as f:
+                logs.append((raw, f.read()))
+        if logs[0] != logs[1]:
+            fail(f"{name}: stacked and host-loop published models differ")
+    sv, hv = gate_verdicts(s_events), gate_verdicts(h_events)
+    if sv != hv or len(sv) != LANES_N * LANE_CYCLES:
+        fail(f"gate verdicts differ: {len(sv)} stacked, {len(hv)} host")
+    print(f"[lanes] stacked == host loop: every tenant's published model "
+          f"bytes and ledger (its published bytes in each cycle) "
+          f"identical, all {len(sv)} gate verdicts identical", flush=True)
+
+    # 3. quality on each tenant's holdout
+    aucs = []
+    for i, (name, kw) in enumerate(s_lanes.items()):
+        bst = xt.Booster(model_file=kw["publish_path"], device=device)
+        pred = bst.predict(data[i][1])
+        if pred.shape != (LANE_HOLD,) or not np.isfinite(pred).all():
+            fail(f"{name}: holdout predictions {pred.shape}")
+        aucs.append(auc(pred, arrays[i][3], np.ones(LANE_HOLD, np.float32)))
+    print(f"[lanes] holdout AUC min {min(aucs):.6f} mean "
+          f"{float(np.mean(aucs)):.6f} max {max(aucs):.6f} (floor "
+          f"{LANE_AUC_FLOOR}: the JAX package's lowest 0.920299 - 0.005)",
+          flush=True)
+    if not min(aucs) >= LANE_AUC_FLOOR:
+        fail(f"tenant holdout AUC {min(aucs)} < {LANE_AUC_FLOOR}")
+    return counts["hist_lanes"], data, rows, (s_sec, h_sec), min(aucs)
+
+
+def lanes_round_inputs(torch, xt, k4, data, device):
+    """Every level's K4 inputs of one stacked round of all tenants."""
+    from xgboost_tpu_torch.pipeline.lanes import LaneGang, _Arrival, _bucket_of
+    kernel_fn = k4.level_histogram_lanes
+    captured = []
+
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin, mode))
+        return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+    arrs = []
+    for i, (d, _) in enumerate(data):
+        bst = xt.Booster(LANE_PARAMS, [d], device=device)
+        spec, why = bst.fused_lane_spec(d, 0, 1)
+        if spec is None:
+            fail(f"tenant {i} declined stacking: {why}")
+        arrs.append(_Arrival(f"tenant{i:02d}", spec, lambda it: None))
+    k4.level_histogram_lanes = capture
+    try:
+        LaneGang(expected=0)._dispatch_bucket(_bucket_of(arrs[0].spec), arrs)
+    finally:
+        k4.level_histogram_lanes = kernel_fn
+    if any(a.exc is not None for a in arrs) or len(captured) != DEPTH:
+        fail(f"one stacked round: {len(captured)} K4 levels, errors "
+             f"{[a.exc for a in arrs if a.exc is not None][:2]}")
+    return captured
+
+
+def check_lanes_levels(torch, k4, cuda_hist, captured, rows):
+    """At every level of one stacked round, on its real inputs: K4 ==
+    plain, each tenant's slice == a solo K1 launch on its unpadded rows,
+    the pad lanes' slices zero."""
+    max_err = 0.0
+    for bins, gh, pos, M, nb, mode in captured:
+        got = k4.level_histogram_lanes(bins, gh, pos, M, nb, mode)
+        want = k4.level_histogram_lanes_plain(bins, gh, pos, M, nb, mode)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got - want).abs().max()))
+        if mode != "int" or not torch.equal(got, want):
+            fail(f"lanes level n_node={M}: mode {mode}, K4 != plain")
+        for lane in range(bins.shape[0]):
+            sl = got[..., lane * M:(lane + 1) * M]
+            if lane >= len(rows):
+                if bool(sl.any()):
+                    fail(f"lanes level n_node={M}: pad lane {lane} not 0")
+                continue
+            n = rows[lane]
+            solo = cuda_hist.level_histogram(
+                bins[lane, :n].contiguous(), gh[lane, :n].contiguous(),
+                pos[lane, :n].contiguous(), M, nb, mode)
+            if not torch.equal(sl, solo):
+                fail(f"lanes level n_node={M}: tenant {lane} != solo K1")
+    print(f"[lanes] K4 == plain and each tenant == solo K1 on its "
+          f"unpadded rows, int8 bitwise, pad lanes zero, at all "
+          f"{len(captured)} levels of a stacked round", flush=True)
+    return max_err
 
 
 # ------------------------------------------------------------- phase 5
@@ -771,6 +1135,87 @@ def time_k2(torch, kn, captured, card):
     return rows
 
 
+def time_k4(torch, k4, captured, card):
+    rows = []
+    for bins, gh, pos, M, nb, mode in captured:
+        L, N, F = bins.shape
+        active = int((pos >= 0).sum())
+        ms = cuda_ms(torch, lambda: k4.level_histogram_lanes(
+            bins, gh, pos, M, nb, mode), 20)
+        plain_ms = cuda_ms(torch, lambda: k4.level_histogram_lanes_plain(
+            bins, gh, pos, M, nb, mode), 5)
+        # one PyTorch call for the same sums: index_add_ over all lanes'
+        # flat cell indices computed beforehand (inactive to a dump cell)
+        cells = F * nb * 2 * L * M
+        idx = k4.lane_cell_index(bins, pos, M, nb).reshape(-1)
+        src = gh[:, :, None, :].expand(L, N, F, 2).reshape(-1)
+        out = torch.zeros(cells + 1, dtype=gh.dtype, device=bins.device)
+        lib_ms = cuda_ms(torch, lambda: out.index_add_(0, idx, src), 5)
+        del idx, src
+        # least work: every row's pos, the active rows' bins and gh, the
+        # histogram written once; one addition per (active row, feature,
+        # channel)
+        bound_ms, by = bound_of(4 * L * N + active * (F + 8) + cells * 4,
+                                active * F * 2)
+        rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K4 L={L} n_node={M}: {ms:.4f} ms (bound "
+              f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
+              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+    return rows
+
+
+def time_lane_cycles(torch, xt, data, device, card):
+    """The training step the lane dispatcher changes, as
+    ``tools/bench_lanes.py`` times it (gate, publish and ledger left
+    out): per cycle, the 48 tenants' boosters each advance LANE_ROUNDS
+    rounds, as 48 ``update_many`` calls (the host loop's boost path) or
+    as one ``LaneGang`` bucket dispatch (rendezvous cost aside: the
+    lanes are handed over at once).  Cycle 0 (cuts, binning, first
+    launches) is left out; cycles 1-3 alternate host loop and stacked
+    on one card.  Both end with the same model bytes per tenant."""
+    from xgboost_tpu_torch.pipeline.lanes import LaneGang, _Arrival, _bucket_of
+
+    def boosters():
+        return [(xt.Booster(LANE_PARAMS, [d], device=device), d)
+                for d, _ in data]
+    host, stacked = boosters(), boosters()
+    gang = LaneGang(expected=0)
+    host_ts, stacked_ts = [], []
+    for c in range(4):
+        it0 = c * LANE_ROUNDS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, d in host:
+            b.update_many(d, it0, LANE_ROUNDS)
+        torch.cuda.synchronize()
+        host_ts.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        arrs = [_Arrival(f"tenant{i:02d}",
+                         b.fused_lane_spec(d, it0, LANE_ROUNDS)[0],
+                         lambda it: None)
+                for i, (b, d) in enumerate(stacked)]
+        gang._dispatch_bucket(_bucket_of(arrs[0].spec), arrs)
+        torch.cuda.synchronize()
+        stacked_ts.append(time.perf_counter() - t0)
+        if any(a.exc is not None for a in arrs):
+            fail(f"bench cycle {c}: a lane failed")
+    if any(bs.save_raw() != bh.save_raw()
+           for (bs, _), (bh, _) in zip(stacked, host)):
+        fail("bench: stacked and host-loop boosters differ in bytes")
+    h_ms = [t * 1e3 for t in host_ts[1:]]
+    s_ms = [t * 1e3 for t in stacked_ts[1:]]
+    h, st = float(np.mean(h_ms)), float(np.mean(s_ms))
+    print(f"[time] lanes cycle ({LANES_N} tenants x {LANE_ROUNDS} rounds, "
+          f"gate and publish left out): host loop {h:.3f} ms "
+          f"({[round(x, 3) for x in h_ms]}; {LANES_N / h * 1e3:.4g} "
+          f"tenants/s), stacked {st:.3f} ms ({[round(x, 3) for x in s_ms]}; "
+          f"{LANES_N / st * 1e3:.4g} tenants/s); cycle 0 (setup) host "
+          f"{host_ts[0] * 1e3:.1f} ms, stacked {stacked_ts[0] * 1e3:.1f} "
+          f"ms; identical model bytes | {card}", flush=True)
+    return h, st
+
+
 def kernel_record(name, source, replaces, launches, max_err, rows):
     def mean(key):
         return sum(r[key] for r in rows) / len(rows)
@@ -794,9 +1239,10 @@ def main():
     except ImportError as e:
         fail(f"xgboost_tpu_torch is not beside this script: {e}")
     from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
-                                       cuda_node_stats, nvcc)
+                                       cuda_hist_lanes, cuda_node_stats,
+                                       nvcc)
     kernels = {"hist_level": cuda_hist, "hist_batched": cuda_hist_batched,
-               "node_stats": cuda_node_stats}
+               "node_stats": cuda_node_stats, "hist_lanes": cuda_hist_lanes}
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -821,6 +1267,9 @@ def main():
     t0 = time.perf_counter()
     phase_k2(torch, cuda_node_stats, dev)
     print(f"[K2] checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_k4(torch, cuda_hist_lanes, cuda_hist, dev)
+    print(f"[K4] checks {time.perf_counter() - t0:.1f} s")
 
     launches, ms_round, captured, max_err = phase_main(
         torch, xt, cuda_hist, kernels, "cuda", card)
@@ -834,6 +1283,19 @@ def main():
     d0_launches, d0_captured, d0_err = phase_depth0(torch, xt, kernels,
                                                     "cuda")
     k2_rows = time_k2(torch, cuda_node_stats, d0_captured, card)
+    t0 = time.perf_counter()
+    k4_launches, lane_data, lane_rows, lane_secs, _ = phase_lanes(
+        torch, xt, kernels, "cuda", card)
+    k4_captured = lanes_round_inputs(torch, xt, cuda_hist_lanes, lane_data,
+                                     "cuda")
+    k4_err = check_lanes_levels(torch, cuda_hist_lanes, cuda_hist,
+                                k4_captured, lane_rows)
+    k4_rows = time_k4(torch, cuda_hist_lanes, k4_captured, card)
+    del k4_captured
+    host_ms, stacked_ms = time_lane_cycles(torch, xt, lane_data, "cuda",
+                                           card)
+    print(f"[lanes] phase {time.perf_counter() - t0:.1f} s (pipeline runs "
+          f"{lane_secs[0]:.2f} s stacked, {lane_secs[1]:.2f} s host loop)")
 
     records = [
         kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
@@ -846,10 +1308,15 @@ def main():
         kernel_record("node_stats", "xgboost_tpu_torch/csrc/node_stats.cu",
                       "xgboost_tpu/ops/pallas_hist.py:609", d0_launches,
                       d0_err, k2_rows),
+        kernel_record("hist_lanes", "xgboost_tpu_torch/csrc/hist_lanes.cu",
+                      "xgboost_tpu/ops/pallas_hist.py:283", k4_launches,
+                      k4_err, k4_rows),
     ]
     print(f"[time] Higgs path: {ms_round:.3f} ms per round; multiclass "
-          f"path: {mc_ms_round:.3f} ms per round; kernel times are means "
-          f"over the levels of one round (K2: one depth-0 round) | {card}")
+          f"path: {mc_ms_round:.3f} ms per round; lanes: {host_ms:.3f} ms "
+          f"per host-loop cycle, {stacked_ms:.3f} ms per stacked cycle; "
+          f"kernel times are means over the levels of one round (K2: one "
+          f"depth-0 round) | {card}")
     print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K3, K2) against their plain PyTorch
+"""The port's CUDA kernels (K1, K3, K2, K4) against their plain PyTorch
 versions, on a GPU.  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
 they skip.  No JAX here, so they also run where only torch is installed
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -123,3 +123,64 @@ def test_node_stats_kernel_matches_plain(cuda_device, T, M):
     a = kn.node_stats_plain(gh.abs(), pos, M)
     assert bool(((got - want).abs() <= 2.0 * n * 2.0 ** -24 * a).all())
     assert torch.equal(kn.node_stats(gh, pos, M), got)
+
+
+def _lanes_case(dev, L, N, F, B, M, seed, dyadic=True, n_real=None):
+    """L lanes of N rows each (own bins); lane l keeps ``n_real[l]`` real
+    rows, the rest are pad rows (pos -1, gh 0)."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (L, N, F)).astype(np.uint8)
+    if dyadic:
+        gh = (rng.randint(-512, 512, (L, N, 2)) / 256.0).astype(np.float32)
+    else:
+        gh = rng.randn(L, N, 2).astype(np.float32)
+    pos = rng.randint(0, M, (L, N)).astype(np.int32)
+    pos[rng.rand(L, N) < 0.2] = -1
+    for lane, n in enumerate(n_real or []):
+        pos[lane, n:] = -1
+        gh[lane, n:] = 0.0
+    return (torch.from_numpy(bins).to(dev), torch.from_numpy(gh).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int", "fp32", "bf16"])
+@pytest.mark.parametrize("L,N,F,B,M", [
+    (8, 16384, 28, 64, 32),     # tenant lanes, depth 5
+    (3, 5000, 93, 64, 4),       # many feature tiles
+    (64, 2048, 28, 256, 128),   # B = 256, two node tiles
+    (1, 20000, 5, 16, 1),       # one lane, root level
+])
+def test_hist_lanes_kernel_matches_plain(cuda_device, mode, L, N, F, B, M):
+    """K4 against its plain version, bitwise: int sums are exact, fp32
+    and bf16 sums of dyadic gradients are exact in any order."""
+    from xgboost_tpu_torch.ops import cuda_hist_lanes as k4
+    bins, gh, pos = _lanes_case(cuda_device, L, N, F, B, M, seed=L + M)
+    if mode == "int":
+        gh = cuda_hist.quantize_gh(gh)[0]
+    before = k4.launches
+    got = k4.level_histogram_lanes(bins, gh, pos, M, B, mode)
+    want = k4.level_histogram_lanes_plain(bins, gh, pos, M, B, mode)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    assert got.shape == (F, B, 2, L * M)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_hist_lanes_slices_match_solo_k1_with_padding(cuda_device):
+    """Each lane's slice of one K4 launch is a solo K1 launch on that
+    lane's unpadded rows, bitwise (int mode); a pad lane's is zero."""
+    from xgboost_tpu_torch.ops import cuda_hist_lanes as k4
+    L, N, F, B, M = 4, 16384, 28, 64, 16
+    n_real = [16384, 12288, 9001, 0]
+    bins, gh, pos = _lanes_case(cuda_device, L, N, F, B, M, seed=3,
+                                dyadic=False, n_real=n_real)
+    gh_q = cuda_hist.quantize_gh(gh)[0]
+    got = k4.level_histogram_lanes(bins, gh_q, pos, M, B, "int")
+    for lane, n in enumerate(n_real[:-1]):
+        solo = cuda_hist.level_histogram(
+            bins[lane, :n].contiguous(), gh_q[lane, :n].contiguous(),
+            pos[lane, :n].contiguous(), M, B, "int")
+        assert torch.equal(got[..., lane * M:(lane + 1) * M], solo)
+    assert not bool(got[..., 3 * M:].any())

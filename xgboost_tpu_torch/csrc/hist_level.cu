@@ -13,13 +13,8 @@
 // chunk's rows and add with shared-memory atomics, and the block flushes
 // its non-zero cells into the output with global atomics.
 //
-// Modes (template MODE):
-//   0 fp32  -- f32 gh, f32 atomics.  Exact f32 additions; the order of the
-//              additions changes from run to run.
-//   1 bf16  -- g and h rounded to bf16 (__float2bfloat16_rn), f32 atomics.
-//   2 int   -- pre-quantized int32 gh, int32 atomics.  Integer sums are
-//              exact and order-free, so the result is bitwise
-//              deterministic (the int8 and "fixed" precisions).
+// Modes (template MODE): fp32 (0), bf16 (1) and int (2), as hist_block.cuh
+// states them; the block's work itself is hist_block, shared with K4.
 //
 // Bound on the H100: bytes.  Per level the kernel must read the active
 // rows' u8 bins (N*F bytes), every row's pos (4 N) and the active rows'
@@ -31,16 +26,9 @@
 //
 // C interface for ctypes: hist_level_launch returns a cudaError_t (0 = ok).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hist_block.cuh"
 
 namespace {
-
-template <int MODE>
-struct Acc { typedef float type; };
-template <>
-struct Acc<2> { typedef int type; };
 
 template <int MODE>
 __global__ void hist_level_kernel(const uint8_t* __restrict__ bins,
@@ -50,65 +38,15 @@ __global__ void hist_level_kernel(const uint8_t* __restrict__ bins,
                                   long long n_rows, int n_feat, int n_bin,
                                   int n_node, int f_tile, int m_tile,
                                   long long rows_per_block) {
-  typedef typename Acc<MODE>::type T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* hist = reinterpret_cast<T*>(smem_raw);
-
   const int f0 = blockIdx.y * f_tile;
-  const int nf = min(f_tile, n_feat - f0);
   const int m0 = blockIdx.z * m_tile;
-  const int nm = min(m_tile, n_node - m0);
-  // cell (fl, b, c, j) at ((fl * B + b) * 2 + c) * m_tile + j
-  const int cells = nf * n_bin * 2 * m_tile;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = T(0);
-  __syncthreads();
-
   const long long r_begin = (long long)blockIdx.x * rows_per_block;
   long long r_end = r_begin + rows_per_block;
   if (r_end > n_rows) r_end = n_rows;
-  for (long long r = r_begin + threadIdx.x; r < r_end; r += blockDim.x) {
-    // inactive rows (pos < 0) and rows of other node tiles fall outside
-    const int j = pos[r] - m0;
-    if (j < 0 || j >= nm) continue;
-    T g, h;
-    if constexpr (MODE == 2) {
-      const int2 v = static_cast<const int2*>(gh)[r];
-      g = v.x;
-      h = v.y;
-    } else {
-      float2 v = static_cast<const float2*>(gh)[r];
-      if constexpr (MODE == 1) {
-        v.x = __bfloat162float(__float2bfloat16_rn(v.x));
-        v.y = __bfloat162float(__float2bfloat16_rn(v.y));
-      }
-      g = v.x;
-      h = v.y;
-    }
-    const uint8_t* row = bins + r * n_feat + f0;
-    for (int fl = 0; fl < nf; ++fl) {
-      const int b = row[fl];
-      if (b >= n_bin) continue;  // never produced by binning; keeps smem safe
-      T* cell = hist + ((fl * n_bin + b) * 2) * m_tile + j;
-      atomicAdd(cell, g);
-      atomicAdd(cell + m_tile, h);
-    }
-  }
-  __syncthreads();
-
-  // Flush.  Skipping zero cells is exact: a cell that received additions
-  // is never -0 (the sum starts at +0), so leaving +0 out changes nothing.
-  T* o = reinterpret_cast<T*>(out);
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const T v = hist[i];
-    if (v == T(0)) continue;
-    const int j = i % m_tile;
-    const int fbc = i / m_tile;  // (fl * B + b) * 2 + c
-    const int fl = fbc / (2 * n_bin);
-    const int bc = fbc % (2 * n_bin);
-    const long long dst =
-        ((long long)(f0 + fl) * 2 * n_bin + bc) * n_node + m0 + j;
-    atomicAdd(o + dst, v);
-  }
+  hist_block<MODE>(bins, pos, gh, out, r_begin, r_end, n_feat, n_bin, f0,
+                   min(f_tile, n_feat - f0), m0, min(m_tile, n_node - m0),
+                   m_tile, n_node, m0, smem_raw);
 }
 
 template <int MODE>
@@ -117,12 +55,8 @@ cudaError_t launch(const void* bins, const void* pos, const void* gh,
                    int n_node, int f_tile, int m_tile, int n_row_blocks,
                    long long rows_per_block, int threads, size_t smem,
                    cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_level_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(hist_level_kernel<MODE>, smem);
+  if (e != cudaSuccess) return e;
   const int n_f_tiles = (n_feat + f_tile - 1) / f_tile;
   const int n_m_tiles = (n_node + m_tile - 1) / m_tile;
   dim3 grid(n_row_blocks, n_f_tiles, n_m_tiles);

@@ -16,8 +16,10 @@ from __future__ import annotations
 import base64
 import io
 import json
+import math
+import os
 import zipfile
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +37,13 @@ from xgboost_tpu_torch.reliability.integrity import (ModelIntegrityError,
                                                      verify_model_bytes)
 
 _MAGIC = "xgbtpu001"
+
+# The JAX package's fit of its round time on its own chip
+# (ROUND_MODEL.json: fixed_round_s, per_row_s).  Kept only so that auto-
+# sized round segments, and the checkpoints at their ends, fall on the
+# same rounds as in the JAX package; they are no timing of the port.
+_FIT_FIXED_ROUND_S = 4.465142270643514e-3
+_FIT_PER_ROW_S = 9.974174160066542e-09
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +80,34 @@ class _CacheEntry:
         self.applied = 0            # trees folded into margin
         self.info_version = dmat.info.version
         self.labels_checked = -1    # info version whose labels passed
+
+
+class LaneSpec(NamedTuple):
+    """One tenant's gang-batching contract (:meth:`Booster.fused_lane_spec`,
+    ``learner.py:82``): everything the lane dispatcher
+    (``pipeline/lanes.py``) needs to advance this booster's next rounds
+    together with its shape-bucket peers.  The static fields (shapes,
+    K / npar, cfg, the gradient's identity, round counts) form the
+    bucket key; the tensors are the solo round loop's own operands,
+    with the margin already synced."""
+    booster: "Booster"
+    entry: _CacheEntry
+    n_rows: int              # device row count of the entry
+    n_features: int
+    n_rounds: int
+    first_iteration: int
+    seg_k: int               # resolved rounds-per-segment
+    K: int                   # num_output_group
+    npar: int                # num_parallel_tree
+    cfg: object              # GrowConfig (hashable)
+    grad_fn: object          # Objective.fused_grad (stable identity)
+    subsample: float
+    binned: torch.Tensor     # (N, F) device bins
+    margin: torch.Tensor     # (N, K) synced margins
+    label: torch.Tensor      # (N,) f32
+    weight: torch.Tensor     # (N,) f32
+    cut_values: torch.Tensor  # (F, W) f32
+    n_cuts: torch.Tensor     # (F,) int32
 
 
 class Booster:
@@ -212,17 +249,121 @@ class Booster:
                 "custom objectives: ROADMAP.md section 1 item 6")
         self.update_many(dtrain, iteration, 1)
 
+    def _resolve_rounds_per_dispatch(self, n_rows: int,
+                                     override=None) -> int:
+        """Rounds per segment (``learner.py:935``): env
+        ``XGBTPU_ROUNDS_PER_DISPATCH`` > ``override`` > the
+        ``rounds_per_dispatch`` parameter; ``-1`` (auto) sizes it with
+        the JAX package's formula, ``K >= 9 * fixed / (per_row * rows)``
+        clamped to [1, 64]; ``0`` = one round per segment."""
+        env = os.environ.get("XGBTPU_ROUNDS_PER_DISPATCH")
+        if env not in (None, ""):
+            k = int(env)
+        elif override is not None:
+            k = int(override)
+        else:
+            k = int(self.param.rounds_per_dispatch)
+        if k >= 0:
+            return k
+        per_round = _FIT_PER_ROW_S * max(1, int(n_rows))
+        return max(1, min(64, math.ceil(9.0 * _FIT_FIXED_ROUND_S
+                                        / per_round)))
+
+    def _segment_blockers(self, n_rounds: int) -> List[str]:
+        """The JAX package's reasons for one round per dispatch
+        (``learner.py:1041-1062``) that apply to the port."""
+        from xgboost_tpu_torch.models.updaters import parse_updaters
+        ups = parse_updaters(self.param.updater)
+        checks = (
+            ("single_round", n_rounds <= 1),
+            ("prune", self.param.gamma > 0.0 and "prune" in ups),
+            ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
+        )
+        return [name for name, blocked in checks if blocked]
+
     def update_many(self, dtrain: DMatrix, first_iteration: int,
-                    n_rounds: int) -> None:
+                    n_rounds: int, *, segment_callback=None,
+                    rounds_per_dispatch=None) -> None:
         """``n_rounds`` rounds in a plain loop that reads nothing back to
-        the host (the JAX package's fused round scan, ``gbtree.py:96``).
-        Without sampling the round's index changes nothing, so
-        ``first_iteration`` only keeps the JAX package's signature."""
+        the host inside a segment (the JAX package's fused round scan,
+        ``learner.py:967``).  Segments are ``rounds_per_dispatch`` rounds
+        (:meth:`_resolve_rounds_per_dispatch`), or one round where the
+        JAX package would not fuse; ``segment_callback(last_iteration)``
+        runs at the end of each (the checkpoint hook).  Without sampling
+        the round's index changes nothing, so ``first_iteration`` only
+        numbers the callbacks."""
         self._lazy_init(dtrain)
         entry = self._entry(dtrain)
+        k = 1
+        if not self._segment_blockers(n_rounds):
+            k = max(1, self._resolve_rounds_per_dispatch(
+                dtrain.num_row, rounds_per_dispatch))
         self._sync_margin(entry)
-        for _ in range(n_rounds):
-            self._round(entry)
+        done = 0
+        while done < n_rounds:
+            seg = min(k, n_rounds - done)
+            for _ in range(seg):
+                self._round(entry)
+            done += seg
+            if segment_callback is not None:
+                segment_callback(first_iteration + done - 1)
+
+    # ------------------------------------------------------- tenant lanes
+    def fused_lane_spec(self, dtrain: DMatrix, first_iteration: int,
+                        n_rounds: int, rounds_per_dispatch=None):
+        """Gang-batching eligibility and operands for this booster's next
+        ``n_rounds`` rounds (``learner.py:1193``): ``(LaneSpec, None)``
+        when the lane dispatcher may stack it with its bucket peers, else
+        ``(None, reason)``, the reasons of the JAX package that apply to
+        the port, plus ``ensemble``: a round of more than one tree
+        (``K * num_parallel_tree > 1``) runs solo through K3 here.  On
+        eligibility the labels are checked and the entry's margin is
+        synced, as :meth:`update_many` would."""
+        from xgboost_tpu_torch.models.updaters import parse_updaters
+        if self.param.booster != "gbtree":
+            return None, "booster"
+        self._lazy_init(dtrain)
+        entry = self._entry(dtrain)
+        ups = parse_updaters(self.param.updater)
+        npar = max(1, self.param.num_parallel_tree)
+        checks = (
+            ("no_rounds", n_rounds < 1),
+            ("prune", self.param.gamma > 0.0 and "prune" in ups),
+            ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
+            ("ensemble", self._K * npar > 1),
+        )
+        blockers = [name for name, blocked in checks if blocked]
+        if blockers:
+            return None, blockers[0]
+        k = self._resolve_rounds_per_dispatch(dtrain.num_row,
+                                              rounds_per_dispatch)
+        if k <= 0:
+            return None, "rounds_per_dispatch_0"
+        self.obj.validate_labels(dtrain.info)
+        entry.labels_checked = dtrain.info.version
+        self._sync_margin(entry)
+        N = int(entry.binned.shape[0])
+        return LaneSpec(
+            booster=self, entry=entry, n_rows=N,
+            n_features=int(entry.binned.shape[1]), n_rounds=int(n_rounds),
+            first_iteration=int(first_iteration), seg_k=int(k), K=self._K,
+            npar=npar, cfg=self.gbtree.cfg, grad_fn=self.obj.fused_grad(),
+            subsample=float(self.param.subsample), binned=entry.binned,
+            margin=entry.margin,
+            label=dtrain.info.on_device("label", N, self.device),
+            weight=dtrain.info.on_device("weight", N, self.device),
+            cut_values=self.gbtree.cut_values_dev,
+            n_cuts=self.gbtree.n_cuts_dev), None
+
+    def absorb_lane_segment(self, spec: LaneSpec, stacks, margin,
+                            n_rounds: int) -> None:
+        """Install one gang segment's outputs for this lane
+        (``learner.py:1264``): its flat ``(n_rounds, n_nodes)`` tree
+        stack joins the ensemble and ``margin`` (the lane's rows of the
+        stacked margins) becomes the entry's."""
+        self.gbtree.absorb_round_stacks(stacks, n_rounds)
+        spec.entry.margin = margin
+        spec.entry.applied = self.gbtree.num_trees
 
     # ----------------------------------------------------------- prediction
     def _bins_for(self, data: DMatrix) -> torch.Tensor:
@@ -357,6 +498,18 @@ class Booster:
 
     def save_raw(self) -> bytes:
         return _npz_bytes(self._header(False), self.gbtree.get_state())
+
+
+_MAXIMIZE_METRICS = ("auc", "ams", "ndcg", "map", "pre")
+
+
+def _parse_eval(msg: str) -> Dict[str, float]:
+    """``{"name-metric": value}`` from an eval line."""
+    out = {}
+    for part in msg.split("\t")[1:]:
+        k, _, v = part.rpartition(":")
+        out[k] = float(v)
+    return out
 
 
 def _npz_bytes(header: dict, state: dict) -> bytes:

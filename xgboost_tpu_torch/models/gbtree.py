@@ -8,6 +8,9 @@ grows ``num_output_group x num_parallel_tree`` trees together
 the grow-time leaf positions, the reference's prediction-buffer
 shortcut.  The JAX package's fused multi-round ``lax.scan`` becomes the
 learner's plain loop over rounds, which reads nothing back to the host.
+:func:`scan_rounds_lanes` is the lane-stacked counterpart of the JAX
+package's ``_scan_rounds_lanes_impl``: L tenant boosters' rounds of a
+segment in one loop, one K4 launch per level for all of them.
 """
 
 from __future__ import annotations
@@ -54,6 +57,47 @@ def make_grow_config(p: TrainParam, n_bin: int) -> GrowConfig:
         gamma=p.gamma, eta=p.eta, default_direction=p.default_direction)
     return GrowConfig(split=split, max_depth=p.max_depth, n_bin=n_bin,
                       hist_precision=p.hist_precision)
+
+
+def scan_rounds_lanes(binned: torch.Tensor, margin: torch.Tensor,
+                      label: torch.Tensor, weight: torch.Tensor,
+                      cut_values: torch.Tensor, n_cuts: torch.Tensor,
+                      row_valid: torch.Tensor, *, n_rounds: int,
+                      cfg: GrowConfig, grad_fn
+                      ) -> Tuple[torch.Tensor, List[TreeArrays]]:
+    """``n_rounds`` boosting rounds of L same-shape tenant lanes at once
+    (``gbtree.py:275-318``, ``_scan_rounds_lanes_impl``): (L, N, F)
+    bins, (L, N, 1) margins, (L, N) labels / weights / row_valid (pad
+    rows and pad lanes False), (L, F, W) cut values and (L, F) cut
+    counts.  ``grad_fn(margin (M, 1), label (M,), weight (M,))`` is the
+    lanes' shared objective gradient, run once over all L * N rows.
+    Each round grows one tree per lane through :func:`grow_trees` (one
+    K4 launch per level) and adds its leaf values to the lane's margin,
+    exactly as a solo round of :meth:`GBTree.do_boost` does.  Reads
+    nothing back to the host.
+
+    Returns (final margins (L, N, 1), one (L, n_nodes) tree stack per
+    round)."""
+    L, N, K = margin.shape
+    valid = row_valid.to(torch.float32)
+    stacks = []
+    for _ in range(n_rounds):
+        gh = grad_fn(margin.reshape(L * N, K), label.reshape(-1),
+                     weight.reshape(-1)).reshape(L, N, K, 2)
+        trees, _, row_val = grow_trees(binned, gh[:, :, 0, :], cut_values,
+                                       n_cuts, cfg, row_valid)
+        margin = margin + (row_val * valid)[..., None]
+        stacks.append(trees)
+    return margin, stacks
+
+
+def unstack_lane_flats(stacks: List[TreeArrays],
+                       n_lane: int) -> List[TreeArrays]:
+    """Per-lane flat ``(n_rounds, n_nodes)`` tree stacks from a
+    segment's per-round ``(L, n_nodes)`` stacks (``gbtree.py:85``): the
+    rounds stacked once per field, then each lane a view."""
+    flat = TreeArrays(*(torch.stack(xs, dim=1) for xs in zip(*stacks)))
+    return [TreeArrays(*(x[i] for x in flat)) for i in range(n_lane)]
 
 
 class GBTree:
@@ -127,6 +171,17 @@ class GBTree:
         for j in range(T):
             delta[:, group[j]] += ds[j]
         return delta
+
+    def absorb_round_stacks(self, flat: TreeArrays, n_rounds: int) -> None:
+        """Install one lane's flat ``(n_rounds * T, n_nodes)`` tree stack
+        as this booster's newest trees (``gbtree.py:950``): the lane
+        dispatcher grew every lane's trees together, and each tenant appends
+        its own, as :meth:`do_boost` appends a round's."""
+        npar = max(1, self.param.num_parallel_tree)
+        self._parts.append(flat)
+        self.tree_group.extend(j // npar for _ in range(n_rounds)
+                               for j in range(self.trees_per_round))
+        self._stack_cache = None
 
     def _stack(self, ntree_limit: int = 0) -> Tuple[TreeArrays, torch.Tensor]:
         """The first ``ntree_limit`` trees (all when <= 0, clamped to the

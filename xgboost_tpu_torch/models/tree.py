@@ -8,8 +8,12 @@ then row routing.  :func:`grow_trees` grows the T trees of a multiclass
 or forest round together on shared bins, with one histogram launch per
 level for all of them (kernel K3 on a GPU) and one split search over
 their ``T * n_node`` nodes; :func:`grow_tree` is its T = 1 case, whose
-histogram is kernel K1.  Everything stays on the tensors' device;
-nothing in a level reads a value back to the host.
+histogram is kernel K1.  Given bins with a leading lane axis,
+:func:`grow_trees` grows one tree for each of L tenant lanes (the JAX
+package's ``jax.vmap(grow_tree)`` over lanes), each on its own bins,
+cuts and gradients, with one K4 launch per level.  Everything stays on
+the tensors' device; nothing in a level reads a value back to the
+host.
 
 The JAX package reads per-node values per row with one-hot compare-sums
 (gathers serialize on a TPU) for tables of up to 1024 entries, and
@@ -27,6 +31,7 @@ import torch
 
 from xgboost_tpu_torch.ops.histogram import (build_level_histogram,
                                              build_level_histogram_batched,
+                                             build_level_histogram_lanes,
                                              node_stats, prepare_hist,
                                              stats_from_histogram_native)
 from xgboost_tpu_torch.ops.split import (BestSplit, SplitConfig,
@@ -87,7 +92,11 @@ def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def bin_of_feature(binned: torch.Tensor, f_row: torch.Tensor) -> torch.Tensor:
     """``binned[r, f_row[..., r]]`` as int32, for (N,) or (T, N)
-    ``f_row``."""
+    ``f_row``; with lane bins (L, N, F) and (L, N) ``f_row``,
+    ``binned[l, r, f_row[l, r]]``."""
+    if binned.dim() == 3:
+        return binned.gather(2, f_row.to(torch.int64)[..., None])[
+            ..., 0].to(torch.int32)
     N = binned.shape[0]
     cols = f_row.reshape(-1, N).T.to(torch.int64)          # (N, T)
     return binned.gather(1, cols).T.reshape(f_row.shape).to(torch.int32)
@@ -125,23 +134,36 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
     along the bins only), so each tree's splits are bitwise those of a
     solo search; routing gathers ``binned[r, feature[t, node]]`` per
     tree.  Returns (tree stack (T, n_nodes), row_leaf (T, N) int32,
-    row_val (T, N) f32)."""
-    T = gh.shape[0]
-    N = binned.shape[0]
+    row_val (T, N) f32).
+
+    Lanes: with binned (L, N, F), the T = L trees are L tenants' (the
+    JAX package's ``jax.vmap`` of the round scan over lanes,
+    ``gbtree.py:275-318``), each with its own cut_values (L, F, W),
+    n_cuts (L, F) and row_valid (L, N) (pad rows and pad lanes False).
+    The histogram is K4's ``(F, B, 2, L * n_node)``, the split search
+    reads each column's own cut count, thresholds come from each lane's
+    own cuts and routing gathers ``binned[l, r, feature[l, node]]``."""
+    lanes = binned.dim() == 3
+    T, N = gh.shape[:2]
     D = cfg.max_depth
     dev = binned.device
     gh_used = gh
-    if row_valid is not None:
-        gh_used = gh * row_valid[None, :, None].to(gh.dtype)
-
-    tree = empty_tree(D, T, dev)
     pos = torch.zeros((T, N), dtype=torch.int32, device=dev)
     if row_valid is not None:
-        pos = torch.where(row_valid[None, :], pos, -1)
+        rv = row_valid if lanes else row_valid[None, :]
+        gh_used = gh * rv[..., None].to(gh.dtype)
+        pos = torch.where(rv, pos, -1)
+
+    tree = empty_tree(D, T, dev)
     row_leaf = torch.zeros((T, N), dtype=torch.int32, device=dev)
     row_val = torch.zeros((T, N), dtype=torch.float32, device=dev)
-    prep = prepare_hist(gh_used[0] if T == 1 else gh_used,
+    prep = prepare_hist(gh_used[0] if T == 1 and not lanes else gh_used,
                         cfg.hist_precision)
+    if lanes:
+        F, W = cut_values.shape[1:]
+        flat_cuts = cut_values.reshape(T * F, W)
+        lane_row = (torch.arange(T, dtype=torch.int64, device=dev)
+                    * F)[:, None]                    # lane l's first row
     prev = None  # (best, nst, do_split) of the previous level
 
     for depth in range(D + 1):
@@ -165,16 +187,30 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             make_leaf = torch.ones(T * n_node, dtype=torch.bool, device=dev)
             best = thr = None
         else:
-            if T == 1:
+            if lanes:
+                hist = build_level_histogram_lanes(binned, prep, pos,
+                                                   n_node, cfg.n_bin)
+            elif T == 1:
                 hist = build_level_histogram(binned, prep, pos[0], n_node,
                                              cfg.n_bin)
             else:
                 hist = build_level_histogram_batched(binned, prep, pos,
                                                      n_node, cfg.n_bin)
             nst = stats_from_histogram_native(hist)     # (T * n_node, 2)
-            best = find_best_splits_native(hist, nst, n_cuts, cfg.split)
-            thr = cut_values[best.feature.to(torch.int64),
-                             best.cut_index.to(torch.int64)]
+            if lanes:
+                # each column's own lane's cut counts: (F, L * n_node)
+                col_cuts = n_cuts.T[:, :, None].expand(
+                    -1, T, n_node).reshape(-1, T * n_node)
+                best = find_best_splits_native(hist, nst, col_cuts,
+                                               cfg.split)
+                cut_row = (lane_row + best.feature.reshape(T, n_node)
+                           ).reshape(-1)
+                thr = flat_cuts[cut_row, best.cut_index.to(torch.int64)]
+            else:
+                best = find_best_splits_native(hist, nst, n_cuts,
+                                               cfg.split)
+                thr = cut_values[best.feature.to(torch.int64),
+                                 best.cut_index.to(torch.int64)]
             # cannot_split (param.h:174): too little hessian to split
             can_try = nst[:, 1] >= 2.0 * cfg.split.min_child_weight
             do_split = best.valid & can_try

@@ -10,6 +10,8 @@ yet (ROADMAP.md).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,6 +36,11 @@ def regloss_grad(margin, label, weight, loss: str,
         h = torch.clamp_min(p * (1.0 - p), _EPS)
     w = torch.where(label == 1.0, weight * spw, weight)
     return torch.stack([g * w, h * w], dim=-1)[:, None, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _regloss_fused(loss: str, spw: float):
+    return functools.partial(regloss_grad, loss=loss, spw=spw)
 
 
 class RegLossObj:
@@ -64,6 +71,13 @@ class RegLossObj:
     def get_gradient(self, margin, label, weight) -> torch.Tensor:
         return regloss_grad(margin, label, weight, self.loss,
                             float(self.scale_pos_weight))
+
+    def fused_grad(self):
+        """``get_gradient`` as a function of (margin, label, weight) with
+        a stable identity per (loss, scale_pos_weight): equal objectives
+        of different boosters give the same object, so it can key a
+        lane bucket (the JAX package's ``Objective.fused_grad``)."""
+        return _regloss_fused(self.loss, float(self.scale_pos_weight))
 
     def pred_transform(self, margin, output_margin=False):
         if output_margin or not self.transform_pred:
@@ -128,6 +142,10 @@ class SoftmaxMultiClassObj:
 
     def get_gradient(self, margin, label, weight) -> torch.Tensor:
         return softmax_grad(margin, label, weight)
+
+    def fused_grad(self):
+        """See :meth:`RegLossObj.fused_grad`."""
+        return softmax_grad
 
     def pred_transform(self, margin, output_margin=False):
         if output_margin:

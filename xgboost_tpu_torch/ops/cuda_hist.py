@@ -22,6 +22,7 @@ reads).  Three modes:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -36,11 +37,13 @@ BLOCKS_PER_SM = 4
 
 # launches of the CUDA kernel by level_histogram (never by the plain version)
 launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _COUNT_LOCK:
+        launches = 0
 
 
 def resolve_precision(precision: str, n_rows: int) -> str:
@@ -63,17 +66,19 @@ def quantize_gh(gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def tiling(n_rows: int, n_feat: int, n_bin: int, n_node: int,
-           n_sm: int) -> Tuple[int, int, int, int, int]:
+           n_sm: int, n_lane: int = 1) -> Tuple[int, int, int, int, int]:
     """(f_tile, m_tile, n_row_blocks, rows_per_block, smem_bytes) of one
     launch.  A block's shared histogram holds f_tile features x B bins x
     2 channels x m_tile nodes of 4 bytes; enough row blocks are launched
-    to give every SM several blocks."""
+    to give every SM several blocks.  ``n_lane`` lanes of ``n_rows`` rows
+    each (K4) share the blocks: row blocks are per lane."""
     m_tile = min(n_node, M_TILE_MAX)
     per_feat = n_bin * 2 * m_tile * 4
     f_tile = max(1, min(n_feat, SMEM_BUDGET // per_feat))
     n_f_tiles = -(-n_feat // f_tile)
     n_m_tiles = -(-n_node // m_tile)
-    want = max(1, -(-BLOCKS_PER_SM * n_sm // (n_f_tiles * n_m_tiles)))
+    want = max(1, -(-BLOCKS_PER_SM * n_sm
+                    // (n_lane * n_f_tiles * n_m_tiles)))
     n_row_blocks = max(1, min(want, -(-n_rows // THREADS)))
     rows_per_block = -(-max(n_rows, 1) // n_row_blocks)
     return f_tile, m_tile, n_row_blocks, rows_per_block, f_tile * per_feat
@@ -135,7 +140,8 @@ def _launch(bins, gh, pos, n_node, n_bin, mode):
     if rc != 0:
         raise RuntimeError("hist_level kernel launch failed: "
                            + lib.hist_level_error_string(rc).decode())
-    launches += 1
+    with _COUNT_LOCK:     # lane threads launch at once
+        launches += 1
     return out
 
 

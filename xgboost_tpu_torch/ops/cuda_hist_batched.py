@@ -23,6 +23,7 @@ other device raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -39,11 +40,13 @@ SMEM_MAX = 227 * 1024          # the opt-in limit of one block on Hopper
 # launches of the CUDA kernel by level_histogram_batched (never by the
 # plain version)
 launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _COUNT_LOCK:
+        launches = 0
 
 
 def tiling(n_rows: int, n_feat: int, n_bin: int, n_tree: int, n_node: int,
@@ -135,7 +138,8 @@ def _launch(bins, gh, pos, n_node, n_bin, mode):
     if rc != 0:
         raise RuntimeError("hist_batched kernel launch failed: "
                            + lib.hist_batched_error_string(rc).decode())
-    launches += 1
+    with _COUNT_LOCK:     # lane threads launch at once
+        launches += 1
     return out
 
 

@@ -19,6 +19,7 @@ order by f32 rounding only.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -28,11 +29,13 @@ ROWS_PER_BLOCK = 4096          # rows of one pass-1 block (csrc/node_stats.cu)
 
 # launches of the CUDA kernel by node_stats (never by the plain version)
 launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _COUNT_LOCK:
+        launches = 0
 
 
 def _check(gh, pos, n_node):
@@ -81,7 +84,8 @@ def _launch(gh, pos, n_node):
     if rc != 0:
         raise RuntimeError("node_stats kernel launch failed: "
                            + lib.node_stats_error_string(rc).decode())
-    launches += 1
+    with _COUNT_LOCK:     # lane threads launch at once
+        launches += 1
     return out
 
 

@@ -13,11 +13,13 @@ package asks its default backend at trace time):
 
 A CUDA tensor runs the kernel, a CPU tensor its plain version: K1
 (:mod:`.cuda_hist`) for one tree, K3 (:mod:`.cuda_hist_batched`) for
-the T trees of a multiclass or forest round, K2
-(:mod:`.cuda_node_stats`) for node statistics.  Every histogram is in
-the kernel's node-minor layout ``(F, B, 2, n_node)`` (``pallas_hist.py``
-"native"), at every depth; a batched level is ``(F, B, 2, T * n_node)``,
-tree outer.
+the T trees of a multiclass or forest round, K4
+(:mod:`.cuda_hist_lanes`) for the L tenants of a gang-batched lane
+stack, K2 (:mod:`.cuda_node_stats`) for node statistics.  Every
+histogram is in the kernel's node-minor layout ``(F, B, 2, n_node)``
+(``pallas_hist.py`` "native"), at every depth; a batched level is
+``(F, B, 2, T * n_node)``, tree outer, and a lane level
+``(F, B, 2, L * n_node)``, lane outer.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
-                                   cuda_node_stats)
+                                   cuda_hist_lanes, cuda_node_stats)
 
 # int8 sums dequantize with scale * (1/127): the JAX package writes
 # scale / 127.0 (pallas_hist.py:268-270, :628-631), which XLA compiles to
@@ -59,15 +61,15 @@ def resolve_mode(precision: str, device: torch.device, n_rows: int) -> str:
 class HistPrep(NamedTuple):
     """Once-per-tree operands of the level loop: the gradients in the
     kernel's input form (f32, or int32 with ``scale`` in int8 mode)."""
-    gh_in: torch.Tensor          # (N, 2), or (T, N, 2) for T trees
-    scale: Optional[torch.Tensor]  # (2,), or per tree (T, 2)
+    gh_in: torch.Tensor          # (N, 2), or (T, N, 2) for T trees or lanes
+    scale: Optional[torch.Tensor]  # (2,), or per tree or lane (T, 2)
     mode: str                    # fp32 | bf16 | int8 | fixed
 
 
 def prepare_hist(gh: torch.Tensor, precision: str) -> HistPrep:
     """Quantize (int8, fixed) or keep (fp32, bf16) the tree's (N, 2)
-    gradients, or T trees' (T, N, 2) (int8 scales per tree), once for
-    every level."""
+    gradients, or T trees' or L lanes' (T, N, 2) (int8 scales per tree
+    or lane), once for every level."""
     mode = resolve_mode(precision, gh.device, gh.shape[-2])
     if mode == "int8":
         gh_q, scale = cuda_hist.quantize_gh(gh)
@@ -85,10 +87,8 @@ def build_level_histogram(binned: torch.Tensor, prep: HistPrep,
     f32 ``(F, n_bin, 2, n_node)``.  ``pos`` (N,) int32 is each row's
     level-local node, -1 = inactive.  int8 and fixed sums come back
     dequantized."""
-    kmode = {"fp32": "fp32", "bf16": "bf16", "int8": "int",
-             "fixed": "int"}[prep.mode]
     hist = cuda_hist.level_histogram(binned, prep.gh_in, pos, n_node,
-                                     n_bin, kmode)
+                                     n_bin, _KMODE[prep.mode])
     if prep.mode == "int8":
         # the exact int32 sums back to f32 (pallas_hist.py:268-270)
         return hist.to(torch.float32) * _int8_step(prep.scale)[None, None, :,
@@ -105,10 +105,33 @@ def build_level_histogram_batched(binned: torch.Tensor, prep: HistPrep,
     node per row, -1 = inactive.  int8 sums come back dequantized with
     each tree's scales (``pallas_hist.py:628-631``), fixed sums with
     FIXED_SCALE."""
-    kmode = {"fp32": "fp32", "bf16": "bf16", "int8": "int",
-             "fixed": "int"}[prep.mode]
-    hist = cuda_hist_batched.level_histogram_batched(binned, prep.gh_in, pos,
-                                                     n_node, n_bin, kmode)
+    hist = cuda_hist_batched.level_histogram_batched(
+        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode])
+    return _dequantize_columns(hist, prep, n_node)
+
+
+def build_level_histogram_lanes(binned: torch.Tensor, prep: HistPrep,
+                                pos: torch.Tensor, n_node: int,
+                                n_bin: int) -> torch.Tensor:
+    """The level histograms of L tenant lanes, each on its own bins, in
+    one launch of K4: binned (L, N, F), ``prep`` holding (L, N, 2)
+    gradients, ``pos`` (L, N) int32 (-1 = inactive, pad rows and pad
+    lanes included) -> f32 ``(F, n_bin, 2, L * n_node)``, lane outer.
+    int8 sums come back dequantized with each lane's scales
+    (``pallas_hist.py:337-346``), fixed sums with FIXED_SCALE."""
+    hist = cuda_hist_lanes.level_histogram_lanes(
+        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode])
+    return _dequantize_columns(hist, prep, n_node)
+
+
+_KMODE = {"fp32": "fp32", "bf16": "bf16", "int8": "int", "fixed": "int"}
+
+
+def _dequantize_columns(hist: torch.Tensor, prep: HistPrep,
+                        n_node: int) -> torch.Tensor:
+    """A ``(F, B, 2, T * n_node)`` kernel result back to f32: int8 with
+    each tree's or lane's (T, 2) scales on its columns, fixed with
+    FIXED_SCALE, floats as they are."""
     if prep.mode == "int8":
         # per-tree (T, 2) scales onto the (2, T * n_node) channel x column
         T = prep.scale.shape[0]

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, NamedTuple
@@ -34,6 +35,8 @@ class Built(NamedTuple):
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILT: Dict[str, Built] = {}
+# threads that launch kernels at once (tenant lanes) build each source once
+_LOCK = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -47,13 +50,22 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path, named by a hash of the source, every header
+    of ``csrc/`` it may include, and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build(names: List[str]) -> List[Built]:
     """Compile every source of ``names`` not built yet, all at once."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: List[str]) -> List[Built]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo, out = [], {}
     for name in names:
@@ -91,6 +103,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        built, = build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(built.path))
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                built, = build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(built.path))
     return lib

@@ -101,7 +101,9 @@ def find_best_splits_native(hist: torch.Tensor, nstats: torch.Tensor,
                             ) -> BestSplit:
     """Best split per node from a ``(F, B, 2, n_node)`` histogram (bin 0
     = missing), ``nstats`` (n_node, 2) node totals, ``n_cuts`` (F,)
-    valid cuts per feature (``split.py:147-201``)."""
+    valid cuts per feature (``split.py:147-201``), or (F, n_node): one
+    count per column, for lane-stacked levels whose tenants have cuts
+    of their own.  Only the valid-cut mask reads ``n_cuts``."""
     F, B, _, n_node = hist.shape
     C = B - 2
     cum = prefix_sum(hist, dim=1)                       # (F, B, 2, M)
@@ -121,7 +123,10 @@ def find_best_splits_native(hist: torch.Tensor, nstats: torch.Tensor,
 
     ok = (HL >= cfg.min_child_weight) & (HR >= cfg.min_child_weight)
     cut_ids = torch.arange(C, dtype=torch.int32, device=hist.device)
-    ok &= (cut_ids[None, :] < n_cuts[:, None])[:, :, None, None]
+    if n_cuts.dim() == 1:
+        ok &= (cut_ids[None, :] < n_cuts[:, None])[:, :, None, None]
+    else:   # (F, C, M) per column
+        ok &= (cut_ids[None, :, None] < n_cuts[:, None, :])[:, :, None, :]
     if feature_mask is not None:
         ok &= feature_mask[:, None, None, None]
     if cfg.default_direction in (1, 2):   # forced left / forced right

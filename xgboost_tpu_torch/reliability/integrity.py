@@ -117,3 +117,25 @@ def atomic_write(path: Union[str, os.PathLike], data: bytes,
 def read_file(path: Union[str, os.PathLike]) -> bytes:
     with open(os.fspath(path), "rb") as f:
         return f.read()
+
+
+def quarantine(path: Union[str, os.PathLike]) -> str:
+    """Move a corrupt file aside as ``<path>.corrupt`` (numbered when
+    that exists) and fsync the directory, so retry loops stop re-reading
+    it and a post-mortem can inspect the bytes.  Returns the new path."""
+    path = os.fspath(path)
+    dest = path + ".corrupt"
+    i = 1
+    while os.path.exists(dest):
+        dest = f"{path}.corrupt{i}"
+        i += 1
+    os.replace(path, dest)
+    dfd = os.open(os.path.dirname(os.path.abspath(dest)), os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+    from xgboost_tpu_torch.obs import event, reliability_metrics
+    reliability_metrics().quarantines.inc()
+    event("integrity.quarantine", file=path, quarantined_as=dest)
+    return dest
