@@ -18,7 +18,12 @@ every kernel against its plain PyTorch version.  The paths:
   Higgs booster's width (depth 6, eta 0.1, max_bin 64, 28 features),
   12,288 to 16,283 rows each, 2 cycles of 10 rounds, stacked into one
   K4 launch per level for all tenants (a stack of 64 lanes of 16,384
-  rows), then the same tenants through the host loop (K1 per tenant).
+  rows), then the same tenants through the host loop (K1 per tenant);
+- the histogram microbenchmarks: the four ported Pallas prototypes'
+  ``main``s (``xgboost_tpu_torch.tools``: T5 ``hist_microbench``, T3
+  ``hist_int8_proto``, T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``) at
+  their full shapes (1M x 28), each timing its one-hot tensor-core kernel
+  beside K1.
 
 Phases, in order; any failure exits non-zero:
 
@@ -39,6 +44,16 @@ Phases, in order; any failure exits non-zero:
      and one PyTorch call's (``index_add_``); for the lanes, the stacked
      and the host-loop cycle (gate and publish left out, as
      ``tools/bench_lanes.py`` times them) and tenants per second.
+
+The ``[onehot]`` phase holds each one-hot kernel against its plain
+version (int bitwise, including the int8 wrap, the dropped tail and T7's
+floor-mod pad rows; T5 bitwise on bf16-exact gradients, within the f32
+summation bound on random ones) and each int kernel against a K1 int
+launch on the same inputs, then runs the four mains with every launch
+count set to 0 just before and read just after, and fails on any count
+but the mains' exact ones (a fall to the plain version would leave it
+short), on T2's int32 sums differing from exact ones, and on T3's
+dequantized histogram beyond its rows' half quantization steps.
 
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
@@ -1216,6 +1231,293 @@ def time_lane_cycles(torch, xt, data, device, card):
     return h, st
 
 
+# ------------------------------------------------------------- [onehot]
+# The one-hot tensor-core kernels (T5, T3, T2, T7) and the TPU prototypes
+# they replace (the Pallas kernel body of each)
+ONEHOT_SOURCES = {
+    "onehot_variant": ("xgboost_tpu_torch/csrc/onehot_variant.cu",
+                       "tools/hist_microbench.py:26"),
+    "onehot_i8": ("xgboost_tpu_torch/csrc/onehot_i8.cu",
+                  "tools/hist_int8_proto.py:31"),
+    "onehot_notrans": ("xgboost_tpu_torch/csrc/onehot_notrans.cu",
+                       "tools/hist_notrans_proto.py:28"),
+    "onehot_r5": ("xgboost_tpu_torch/csrc/onehot_r5.cu",
+                  "tools/hist_r5_ab.py:41"),
+}
+# H100 SXM dense tensor-core peaks (NVIDIA data sheet): the one-hot
+# product's floor, printed beside the function's bound
+PEAK_INT8_OPS_S = 1979e12
+PEAK_BF16_OPS_S = 989e12
+# launches of each kernel by the four ported mains at their defaults:
+# a warm-up and the timed calls per level or variant, plus T3's and T2's
+# accuracy launch; K1 timed beside them
+ONEHOT_MAIN_LAUNCHES = {
+    "onehot_variant": 6 * 21, "onehot_i8": 6 * 201 + 1,
+    "onehot_notrans": 6 * 201 + 1, "onehot_r5": 6 * 41 + 21,
+    "hist_level": 21 + 6 * 201 + 6 * 201 + 3 * 41}
+# the mains' row count (bench.py's Higgs size)
+OH_N = 1_000_000
+T5_CHECK_KW = [dict(precision="bf16"),
+               dict(precision="bf16", hot_dtype="bfloat16",
+                    bin_dtype="int16"),
+               dict(precision="fp32"),
+               dict(precision="fp32", bin_dtype="int16", r_tile=2048)]
+
+
+def onehot_int_case(torch, oh, cuda_hist, kernel, n, F, B, M, seed, dev,
+                    n_levels=1, mode="prod"):
+    """One int comparison (T3, T2 or T7) on the same CUDA tensors: the
+    kernel against its plain version, bitwise, on gh beyond the int8 range
+    (wrapped) and a row count past the last whole tile (dropped); T7 with
+    pad rows (pos -1, random gh) past the 97% real ones.  Then, on whole
+    tiles and gh in the int8 range, the kernel (one level) re-laid to
+    (F, B, 2, M) against a K1 int launch, bitwise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fr = kernel != "onehot_notrans"
+    dt = torch.int32 if kernel == "onehot_i8" else torch.uint8
+    bins = torch.randint(0, B, (F, n) if fr else (n, F), generator=g,
+                         device=dev, dtype=torch.int32).to(dt)
+    pos = torch.randint(0, M, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if kernel == "onehot_r5":
+        pos[int(n * 0.97):] = -1
+    else:
+        pos[torch.rand(n, generator=g, device=dev) < 0.2] = -1
+    gh = torch.randint(-300, 300, (n, 2), generator=g, device=dev,
+                       dtype=torch.int32)
+
+    def call(fn, b, p, q):
+        if kernel == "onehot_r5":
+            return fn(b, p[None, :], q.t().contiguous(), B, n_levels, mode)
+        return fn(b, p[:, None], q, M, B)
+    tag = (f"{kernel} N={n} F={F} B={B} M={M} levels={n_levels} "
+           f"mode={mode}")
+    got = call(getattr(oh, kernel), bins, pos, gh)
+    want = call(getattr(oh, kernel + "_plain"), bins, pos, gh)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail(f"{tag}: not bitwise equal to the plain version")
+    if n_levels > 1:
+        return
+    r_tile = oh.R5_R_TILE if kernel == "onehot_r5" else 2048
+    n_used = (n // r_tile) * r_tile
+    bins_w = (bins[:, :n_used] if fr else bins[:n_used]).contiguous()
+    pos_w = pos[:n_used].contiguous()
+    gh8 = gh[:n_used].clamp(-127, 127).contiguous()
+    got = call(getattr(oh, kernel), bins_w, pos_w, gh8)
+    k1 = cuda_hist.level_histogram(
+        (bins_w.t() if fr else bins_w).contiguous().to(torch.uint8), gh8,
+        pos_w, M, B, "int")
+    torch.cuda.synchronize()
+    if not torch.equal(got[0].reshape(F, B, 2, M), k1):
+        fail(f"{tag}: differs from a K1 int launch on the same inputs")
+
+
+def onehot_variant_case(torch, oh, n, F, B, n_node, kw, seed, dev):
+    """One T5 comparison on the same CUDA tensors: bitwise on gh exact in
+    bf16 (multiples of 1/64 below 2: f32 sums exact in any order), within
+    2 n 2^-24 sum|x| on random gh.  Returns max |kernel - plain|."""
+    kw = {k: getattr(torch, v) if k.endswith("dtype") else v
+          for k, v in kw.items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B, (n, F), generator=g, device=dev,
+                         dtype=torch.int32)
+    pos = torch.randint(-1, n_node + 10, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    tag = f"onehot_variant N={n} F={F} B={B} n_node={n_node} {kw}"
+    dy = torch.randint(-128, 128, (n, 2), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.float32) / 64.0
+    got = oh.onehot_variant(bins, dy, pos, n_node, B, **kw)
+    want = oh.onehot_variant_plain(bins, dy, pos, n_node, B, **kw)
+    torch.cuda.synchronize()
+    if got.shape != (n_node, F, B, 2) or not torch.equal(got, want):
+        fail(f"{tag}: not bitwise equal to the plain version on gh exact "
+             "in bf16")
+    gh = torch.randn(n, 2, generator=g, device=dev)
+    got = oh.onehot_variant(bins, gh, pos, n_node, B, **kw)
+    want = oh.onehot_variant_plain(bins, gh, pos, n_node, B, **kw)
+    src = gh.to(torch.bfloat16).float() if oh._variant_rounds(
+        kw.get("precision", "bf16"), kw.get("hot_dtype", torch.float32)) \
+        else gh
+    cnt = oh.onehot_variant_plain(bins, torch.ones_like(gh), pos, n_node, B,
+                                  "fp32")
+    a = oh.onehot_variant_plain(bins, src.abs(), pos, n_node, B, "fp32")
+    if not sum_bound_ok(torch, got, want, cnt, a):
+        fail(f"{tag}: |kernel - plain| beyond 2 n 2^-24 sum|x| on random gh")
+    return float((got - want).abs().max())
+
+
+def phase_onehot_checks(torch, oh, cuda_hist, dev):
+    """Each one-hot kernel against its plain version in every mode, at
+    the mains' shapes and beyond; each int kernel against K1."""
+    n_pad = -(-OH_N // 8192) * 8192     # the T3 and T2 mains' rows
+    n_r5 = -(-OH_N // 2048) * 2048      # the T7 main's rows
+    for kernel in ("onehot_i8", "onehot_notrans"):
+        for n, F, B, M in [(n_pad, 28, 64, 1), (n_pad, 28, 64, 4),
+                           (n_pad, 28, 64, 32), (2048 * 50 + 333, 28, 67, 8),
+                           (5000, 3, 7, 3)]:
+            onehot_int_case(torch, oh, cuda_hist, kernel, n, F, B, M,
+                            seed=n % 97 + M + B, dev=dev)
+            print(f"[onehot] {kernel} N={n} F={F} B={B} M={M}: bitwise == "
+                  "plain (int8 wrap, dropped tail), == K1 int", flush=True)
+    for mode in ("prod", "u8cmp"):
+        for n, B, nl in [(n_r5, 67, 1), (n_r5, 64, 1), (n_r5, 32, 1),
+                         (n_r5, 64, 6), (2048 * 20 + 100, 67, 8)]:
+            onehot_int_case(torch, oh, cuda_hist, "onehot_r5", n, 28, B, 64,
+                            seed=B + nl, dev=dev, n_levels=nl, mode=mode)
+            print(f"[onehot] onehot_r5 {mode} N={n} B={B} levels={nl}: "
+                  "bitwise == plain (pad rows, floor-mod)"
+                  + (", == K1 int" if nl == 1 else ""), flush=True)
+    err = 0.0
+    for n, F, B, n_node in [(OH_N, 28, 67, 5), (OH_N, 28, 67, 64),
+                            (OH_N, 28, 67, 128), (3000, 3, 7, 3)]:
+        for kw in T5_CHECK_KW:
+            err = max(err, onehot_variant_case(torch, oh, n, F, B, n_node,
+                                               kw, seed=n_node, dev=dev))
+        print(f"[onehot] onehot_variant N={n} F={F} B={B} n_node={n_node}: "
+              "bf16 / fp32 (int32 and int16 bins) bitwise on bf16-exact gh, "
+              "within bound on random gh", flush=True)
+    print(f"[onehot] onehot_variant max |kernel - plain| on random gh: "
+          f"{err}", flush=True)
+    return {"onehot_variant": err, "onehot_i8": 0.0, "onehot_notrans": 0.0,
+            "onehot_r5": 0.0}
+
+
+def onehot_work(torch, oh, kernel, args, kw):
+    """(cells, bytes, additions, tensor-core ms) of one call: the flat
+    index and values of one ``index_add_`` computing the same sums
+    (inactive entries at the dump cell), the bytes the function must move
+    (each input read once, the output written once), its additions, and
+    the one-hot product's floor at the dense tensor-core rate."""
+    if kernel == "onehot_variant":
+        binned, gh, pos, n_node, B = args
+        cells_kw = {k: v for k, v in kw.items() if k != "r_tile"}
+        idx, src, n_cells = oh.variant_cells(binned, gh, pos, n_node, B,
+                                             **cells_kw)
+        N, F = binned.shape
+        bin_bytes = 2 if kw.get("bin_dtype") == torch.int16 else 4
+        active = int(((pos >= 0) & (pos < n_node)).sum())
+        nbytes = N * F * bin_bytes + 4 * N + 8 * active + n_cells * 4
+        m_pad = min(n_node, oh.M_TILE)
+        cols = -(-n_node // m_pad) * (-(-2 * m_pad // 8) * 8)
+        split = 3 if kw.get("precision") == "fp32" \
+            and kw.get("hot_dtype", torch.float32) == torch.float32 else 1
+        tc = 2 * N * F * (-(-B // 16) * 16) * cols * split / PEAK_BF16_OPS_S
+        return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
+    if kernel == "onehot_r5":
+        bt, pos, gh, B = args
+        nl = kw["n_levels"]
+        F, n = bt.shape
+        n_used = (n // oh.R5_R_TILE) * oh.R5_R_TILE
+        q = oh._wrap_i8(gh[:, :n_used].t()).to(torch.int32)
+        idxs, srcs, active = [], [], 0
+        for lv in range(nl):
+            node = oh.r5_nodes(pos[0, :n_used], lv, nl)
+            idx, src, n_cells = oh.proto_cells(bt[:, :n_used], node, q, B,
+                                               oh.M_TILE)
+            idxs.append(torch.where(idx == n_cells, nl * n_cells,
+                                    idx + lv * n_cells))
+            srcs.append(src)
+            active += int(((node >= 0) & (node < oh.M_TILE)).sum())
+        n_cells *= nl
+        nbytes = n_used * (F + 4) + 8 * (n_used if nl > 1 else active) \
+            + n_cells * 4
+        tc = 2 * n_used * F * (-(-B // 16) * 16) * 128 * nl / PEAK_INT8_OPS_S
+        return ((torch.cat(idxs), torch.cat(srcs), n_cells), nbytes,
+                active * F * 2, tc * 1e3)
+    binned, pos, gh, M, B = args
+    fr = kernel == "onehot_i8"
+    n = binned.shape[1] if fr else binned.shape[0]
+    F = binned.shape[0] if fr else binned.shape[1]
+    n_used = (n // 2048) * 2048
+    bins_fr = binned[:, :n_used] if fr else binned[:n_used].t()
+    p = pos.reshape(-1)[:n_used]
+    q = oh._wrap_i8(gh[:n_used]).to(torch.int32)
+    idx, src, n_cells = oh.proto_cells(bins_fr, p, q, B, M)
+    active = int(((p >= 0) & (p < M)).sum())
+    nbytes = n_used * F * (4 if fr else 1) + 4 * n_used + 8 * active \
+        + n_cells * 4
+    tc = 2 * n_used * F * (-(-B // 16) * 16) * (-(-2 * M // 8) * 8) \
+        / PEAK_INT8_OPS_S
+    return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
+
+
+def phase_onehot(torch, oh, cuda_hist, kernels, card, device="cuda"):
+    """The four ported microbenchmark mains at their full shapes, every
+    launch count set to 0 just before and read just after; then each
+    main's rows: the kernel against its plain version on the same inputs,
+    and beside its time the bound, the plain version's and one
+    ``index_add_``'s."""
+    from xgboost_tpu_torch.tools import (hist_int8_proto, hist_microbench,
+                                         hist_notrans_proto, hist_r5_ab)
+    everything = {**kernels, **oh.COUNTERS}
+    reset_counts(everything)
+    t0 = time.perf_counter()
+    rows = hist_microbench.main(OH_N, device=device)
+    t3_rows, t3_acc = hist_int8_proto.main(OH_N, device=device)
+    t2_rows, t2_acc = hist_notrans_proto.main(OH_N, device=device)
+    t7_rows = hist_r5_ab.main(OH_N, device=device)
+    torch.cuda.synchronize()
+    counts = read_counts(everything)
+    print(f"[onehot] the four mains: {time.perf_counter() - t0:.1f} s; "
+          f"launch counts {json.dumps(counts)} | {card}", flush=True)
+    want = {**{k: 0 for k in kernels}, **ONEHOT_MAIN_LAUNCHES}
+    if counts != want:
+        fail(f"[onehot] launch counts {counts}: want {want}")
+    if not t2_acc["exact"]:
+        fail("[onehot] T2's int32 sums differ from exact float64 sums")
+    if not t3_acc["within_bound"]:
+        fail("[onehot] T3's dequantized histogram is beyond the rows' "
+             "half quantization steps of the float64 sums")
+
+    out = {k: [] for k in oh.COUNTERS}
+    for row in rows + t3_rows + t2_rows + t7_rows:
+        kernel = row["kernel"]
+        if kernel == "hist_level":
+            continue
+        fn = getattr(oh, kernel)
+        plain = getattr(oh, kernel + "_plain")
+        args, kw = row["args"], row["kw"]
+        got, want_h = fn(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if kernel == "onehot_variant":
+            if not torch.equal(got, want_h):
+                # float sums in another order: the bound of [K1]
+                binned, gh, pos, n_node, B = args
+                src = gh.to(torch.bfloat16).float() if oh._variant_rounds(
+                    kw.get("precision", "bf16"),
+                    kw.get("hot_dtype", torch.float32)) else gh
+                cnt = oh.onehot_variant_plain(binned, torch.ones_like(gh),
+                                              pos, n_node, B, "fp32")
+                a = oh.onehot_variant_plain(binned, src.abs(), pos, n_node,
+                                            B, "fp32")
+                if not sum_bound_ok(torch, got, want_h, cnt, a):
+                    fail(f"[onehot] {row['name']}: beyond the sum bound")
+        elif not torch.equal(got, want_h):
+            fail(f"[onehot] {row['name']}: kernel != plain on the main's "
+                 "inputs")
+        err = float((got.double() - want_h.double()).abs().max())
+        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3)
+        (idx, src, n_cells), nbytes, adds, tc_ms = onehot_work(
+            torch, oh, kernel, args, kw)
+        acc = torch.zeros(n_cells + 1, dtype=src.dtype, device=src.device)
+        lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, idx, src), 3)
+        del idx, src, acc
+        bound_ms, by = bound_of(nbytes, adds)
+        out[kernel].append(dict(name=row["name"], ms=row["ms"],
+                                k1_ms=row.get("k1_ms"), plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bound_ms,
+                                bound_by=by, tc_ms=tc_ms, err=err))
+        k1 = f"K1 {row['k1_ms']:.4f} ms; " if row.get("k1_ms") else ""
+        print(f"[onehot] {row['name']} ({kernel}): {row['ms']:.4f} ms ({k1}"
+              f"bound {bound_ms:.4f} ms, {by}; tensor-core floor of the "
+              f"one-hot product {tc_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+    print(f"[onehot] production bf16 (K1) in the T5 main: {rows[0]['ms']:.4f}"
+          f" ms | {card}", flush=True)
+    return {k: counts[k] for k in oh.COUNTERS}, out
+
+
 def kernel_record(name, source, replaces, launches, max_err, rows):
     def mean(key):
         return sum(r[key] for r in rows) / len(rows)
@@ -1239,8 +1541,8 @@ def main():
     except ImportError as e:
         fail(f"xgboost_tpu_torch is not beside this script: {e}")
     from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
-                                       cuda_hist_lanes, cuda_node_stats,
-                                       nvcc)
+                                       cuda_hist_lanes, cuda_hist_onehot,
+                                       cuda_node_stats, nvcc)
     kernels = {"hist_level": cuda_hist, "hist_batched": cuda_hist_batched,
                "node_stats": cuda_node_stats, "hist_lanes": cuda_hist_lanes}
 
@@ -1251,7 +1553,7 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    for b in nvcc.build(list(kernels)):
+    for b in nvcc.build(list(kernels) + list(cuda_hist_onehot.COUNTERS)):
         print(f"[build] {b.name}: {b.seconds:.2f} s")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1296,6 +1598,13 @@ def main():
                                            card)
     print(f"[lanes] phase {time.perf_counter() - t0:.1f} s (pipeline runs "
           f"{lane_secs[0]:.2f} s stacked, {lane_secs[1]:.2f} s host loop)")
+    t0 = time.perf_counter()
+    oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist, dev)
+    print(f"[onehot] checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oh_launches, oh_rows = phase_onehot(torch, cuda_hist_onehot, cuda_hist,
+                                        kernels, card)
+    print(f"[onehot] phase {time.perf_counter() - t0:.1f} s")
 
     records = [
         kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
@@ -1312,6 +1621,11 @@ def main():
                       "xgboost_tpu/ops/pallas_hist.py:283", k4_launches,
                       k4_err, k4_rows),
     ]
+    for name, (source, replaces) in ONEHOT_SOURCES.items():
+        rows_k = oh_rows[name]
+        records.append(kernel_record(
+            name, source, replaces, oh_launches[name],
+            max([oh_errs[name]] + [r["err"] for r in rows_k]), rows_k))
     print(f"[time] Higgs path: {ms_round:.3f} ms per round; multiclass "
           f"path: {mc_ms_round:.3f} ms per round; lanes: {host_ms:.3f} ms "
           f"per host-loop cycle, {stacked_ms:.3f} ms per stacked cycle; "

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1, K3, K2, K4) against their plain PyTorch
-versions, on a GPU.  Marked ``cuda``: without an NVIDIA GPU (and nvcc)
-they skip.  No JAX here, so they also run where only torch is installed
+"""The port's CUDA kernels (K1, K3, K2, K4; the one-hot kernels T5, T3,
+T2, T7) against their plain PyTorch versions, on a GPU.  Marked
+``cuda``: without an NVIDIA GPU (and nvcc) they skip.  No JAX here, so they also run where only torch is installed
 (the repo's conftest imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
@@ -184,3 +184,118 @@ def test_hist_lanes_slices_match_solo_k1_with_padding(cuda_device):
             pos[lane, :n].contiguous(), M, B, "int")
         assert torch.equal(got[..., lane * M:(lane + 1) * M], solo)
     assert not bool(got[..., 3 * M:].any())
+
+
+# ---------------------------------------------------------------- one-hot
+def _onehot_int_case(dev, n, F, B, M, seed, layout):
+    """Bins, pos (a fifth inactive) and int32 gh beyond the int8 range
+    (the kernels wrap it to int8, as the prototypes do)."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (F, n) if layout == "fr" else (n, F))
+    pos = rng.randint(0, M, n).astype(np.int32)
+    pos[rng.rand(n) < 0.2] = -1
+    gh = rng.randint(-300, 300, (n, 2)).astype(np.int32)
+    return bins, pos, gh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("kernel", ["onehot_i8", "onehot_notrans"])
+def test_onehot_int_kernels_match_plain_and_k1(cuda_device, kernel, M):
+    """T3 and T2 bitwise against their plain versions on a row count that
+    is not a multiple of r_tile (the tail is dropped) and gh beyond int8
+    (wrapped); on whole tiles and int8 gh, re-laid to (F, B, 2, M),
+    bitwise a K1 int launch."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    n, F, B = 2048 * 9 + 333, 28, 64
+    layout = "fr" if kernel == "onehot_i8" else "rf"
+    bins, pos, gh = _onehot_int_case(cuda_device, n, F, B, M, M + 7, layout)
+    bins = torch.from_numpy(bins.astype(
+        np.int32 if layout == "fr" else np.uint8)).to(cuda_device)
+    pos_t = torch.from_numpy(pos[:, None]).to(cuda_device)
+    fn = getattr(oh, kernel)
+    plain = getattr(oh, kernel + "_plain")
+    before = oh.COUNTERS[kernel].launches
+    got = fn(bins, pos_t, torch.from_numpy(gh).to(cuda_device), M, B)
+    want = plain(bins, pos_t, torch.from_numpy(gh).to(cuda_device), M, B)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS[kernel].launches == before + 1
+    assert got.shape == (1, F * B, 2 * M) and torch.equal(got, want)
+    n_whole = 2048 * 9
+    gh8 = torch.from_numpy(np.clip(gh, -127, 127)[:n_whole]).to(cuda_device)
+    rows = bins[:, :n_whole] if layout == "fr" else bins[:n_whole]
+    got = fn(rows.contiguous(), pos_t[:n_whole].contiguous(), gh8, M, B)
+    bins_rm = (rows.t() if layout == "fr" else rows).contiguous().to(
+        torch.uint8)
+    k1 = cuda_hist.level_histogram(bins_rm, gh8, pos_t[:n_whole, 0]
+                                   .contiguous(), M, B, "int")
+    assert torch.equal(got[0].reshape(F, B, 2, M), k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prod", "u8cmp"])
+@pytest.mark.parametrize("B,n_levels", [(67, 1), (32, 1), (64, 6), (67, 8)])
+def test_onehot_r5_kernel_matches_plain(cuda_device, mode, B, n_levels):
+    """T7 bitwise against its plain version, pad rows (pos = -1, random
+    gh) and a dropped tail included: with n_levels > 1 the pad rows count
+    through the floor-mod; with one level, bitwise a K1 int launch."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    rng = np.random.RandomState(B + n_levels)
+    n, n_real, F, M = 2048 * 7 + 100, 2048 * 6 + 77, 28, 64
+    bt = torch.from_numpy(rng.randint(0, B, (F, n)).astype(np.uint8))
+    pos = np.full(n, -1, np.int32)
+    pos[:n_real] = rng.randint(0, M, n_real)
+    pos = torch.from_numpy(pos[None, :])
+    gh = torch.from_numpy(rng.randint(-127, 127, (2, n)).astype(np.int32))
+    bt, pos, gh = (t.to(cuda_device) for t in (bt, pos, gh))
+    before = oh.COUNTERS["onehot_r5"].launches
+    got = oh.onehot_r5(bt, pos, gh, B, n_levels, mode)
+    want = oh.onehot_r5_plain(bt, pos, gh, B, n_levels, mode)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS["onehot_r5"].launches == before + 1
+    assert got.shape == (n_levels, F * B, 2 * M) and torch.equal(got, want)
+    if n_levels == 1:
+        n_used = 2048 * 7
+        k1 = cuda_hist.level_histogram(
+            bt[:, :n_used].t().contiguous(), gh[:, :n_used].t().contiguous(),
+            pos[0, :n_used].contiguous(), M, B, "int")
+        assert torch.equal(got[0].reshape(F, B, 2, M), k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_node", [5, 64, 130])
+@pytest.mark.parametrize("precision,hot,bin_dtype", [
+    ("bf16", "float32", "int32"), ("bf16", "bfloat16", "int16"),
+    ("fp32", "float32", "int32"), ("fp32", "float32", "int16")])
+def test_onehot_variant_kernel_matches_plain(cuda_device, n_node, precision,
+                                             hot, bin_dtype):
+    """T5 against its plain version: bitwise on gh exact in bf16 (sums of
+    multiples of 1/64 below 2 are exact in any order); on random gh within
+    2 n 2^-24 sum|x| per cell (two orders of an n-term f32 sum)."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    rng = np.random.RandomState(n_node)
+    N, F, B = 30000, 28, 67
+    bins = torch.from_numpy(rng.randint(0, B, (N, F)).astype(np.int32))
+    pos = rng.randint(0, n_node + 10, N).astype(np.int32)
+    pos[rng.rand(N) < 0.1] = -1
+    pos = torch.from_numpy(pos).to(cuda_device)
+    bins = bins.to(cuda_device)
+    kw = dict(precision=precision, hot_dtype=getattr(torch, hot),
+              bin_dtype=getattr(torch, bin_dtype))
+    dy = torch.from_numpy((rng.randint(-128, 128, (N, 2)) / 64.0).astype(
+        np.float32)).to(cuda_device)
+    before = oh.COUNTERS["onehot_variant"].launches
+    got = oh.onehot_variant(bins, dy, pos, n_node, B, **kw)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS["onehot_variant"].launches == before + 1
+    assert got.shape == (n_node, F, B, 2)
+    assert torch.equal(got, oh.onehot_variant_plain(bins, dy, pos, n_node,
+                                                    B, **kw))
+    gh = torch.from_numpy(rng.randn(N, 2).astype(np.float32)).to(cuda_device)
+    got = oh.onehot_variant(bins, gh, pos, n_node, B, **kw)
+    want = oh.onehot_variant_plain(bins, gh, pos, n_node, B, **kw)
+    src = gh.to(torch.bfloat16).float() if precision == "bf16" else gh
+    cnt = oh.onehot_variant_plain(bins, torch.ones_like(gh), pos, n_node, B,
+                                  "fp32")
+    a = oh.onehot_variant_plain(bins, src.abs(), pos, n_node, B, "fp32")
+    assert bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())

@@ -1,0 +1,264 @@
+"""Kernels T5, T3, T2 and T7 of the PyTorch port, held against the JAX
+package's Pallas prototypes in ``tools/``.
+
+The port's plain versions (``xgboost_tpu_torch.ops.cuda_hist_onehot``, what
+a CPU tensor runs) against the prototypes run under
+``pltpu.force_tpu_interpret_mode()`` (``pallas_call`` has no other CPU
+mode), on the same numpy inputs made from a seed.  int results are
+bitwise, including the rows the prototypes' grids drop, the int8 wrap of
+gh and T7's floor-mod that counts pad rows.  T5 is bitwise on gradients
+exact in bf16; on random gradients it is held within 2 n 2^-24 sum|x| of
+the JAX function with a bf16 one-hot, the two summing f32 in other
+orders.  The CUDA kernels themselves run only on a GPU
+(``tests/test_torch_cuda.py``; ``chip_smoke.py`` at full size).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from tools import hist_int8_proto as jt3  # noqa: E402
+from tools import hist_microbench as jt5  # noqa: E402
+from tools import hist_notrans_proto as jt2  # noqa: E402
+from tools import hist_r5_ab as jt7  # noqa: E402
+from xgboost_tpu_torch.ops import cuda_hist  # noqa: E402
+from xgboost_tpu_torch.ops import cuda_hist_onehot as oh  # noqa: E402
+
+F, B = 28, 64           # the int prototypes' module constants
+N_ROWS = 4196           # two whole 2,048-row tiles and a dropped tail
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.fixture(scope="module")
+def int_case():
+    """Inputs of T3 / T2: bins both ways, pos (a fifth at -1) for up to 32
+    nodes, int32 gh well beyond the int8 range."""
+    rng = np.random.RandomState(11)
+    bins_fr = rng.randint(0, B, (F, N_ROWS)).astype(np.int32)
+    pos = rng.randint(0, 32, (N_ROWS, 1)).astype(np.int32)
+    pos[rng.rand(N_ROWS) < 0.2] = -1
+    gh = rng.randint(-300, 300, (N_ROWS, 2)).astype(np.int32)
+    return bins_fr, pos, gh
+
+
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_t3_plain_matches_prototype(int_case, m):
+    bins_fr, pos, gh = int_case
+    p = np.where(pos < m, pos, -1)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt3.build_i8(m)(jnp.asarray(bins_fr),
+                                          jnp.asarray(p), jnp.asarray(gh)))
+    got = oh.onehot_i8(_t(bins_fr), _t(p), _t(gh), m).numpy()
+    assert got.shape == want.shape == (1, F * B, 2 * m)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m", [2, 16])
+def test_t2_plain_matches_prototype(int_case, m):
+    bins_fr, pos, gh = int_case
+    bins = bins_fr.T.astype(np.uint8)
+    p = np.where(pos < m, pos, -1)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt2.build(m)(jnp.asarray(bins), jnp.asarray(p),
+                                       jnp.asarray(gh)))
+    got = oh.onehot_notrans(_t(bins), _t(p), _t(gh), m).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int_prototypes_drop_the_partial_tile_and_wrap_gh(int_case):
+    """Rows past the last whole r_tile add nothing; a gh of 200 counts as
+    -56 (int8 wrap)."""
+    bins_fr, pos, gh = int_case
+    whole = 2 * 2048
+    full = oh.onehot_i8(_t(bins_fr), _t(pos), _t(gh), 32)
+    head = oh.onehot_i8(_t(bins_fr[:, :whole]), _t(pos[:whole]),
+                        _t(gh[:whole]), 32)
+    assert torch.equal(full, head)
+    one = np.zeros((whole, 2), np.int32)
+    one[0] = 200
+    got = oh.onehot_notrans(_t(bins_fr[:, :whole].T.astype(np.uint8)),
+                            _t(np.zeros((whole, 1), np.int32)), _t(one), 1)
+    assert int(got[0, bins_fr[0, 0], 0]) == -56
+
+
+@pytest.fixture(scope="module")
+def r5_case():
+    """T7's main on a small scale: 4,196 real rows padded to 6,144 with
+    pos -1 and random gh, so pad rows count under the floor-mod; the
+    last 2,048-row tile holds rows 4,096-6,143."""
+    rng = np.random.RandomState(5)
+    n_pad = 6144 + 100                       # 100 rows past the last tile
+    pos = np.pad(rng.randint(0, 64, N_ROWS).astype(np.int32),
+                 (0, n_pad - N_ROWS), constant_values=-1)[None, :]
+    gh = rng.randint(-127, 127, (2, n_pad)).astype(np.int32)
+    bins = {b: rng.randint(0, b, (F, n_pad)).astype(np.uint8)
+            for b in (67, 64, 32)}
+    return bins, pos, gh
+
+
+@pytest.mark.parametrize("mode,n_bin,n_levels", [
+    ("prod", 67, 1), ("u8cmp", 64, 1), ("prod", 64, 3), ("u8cmp", 32, 2)])
+def test_t7_plain_matches_prototype(r5_case, mode, n_bin, n_levels):
+    bins, pos, gh = r5_case
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt7.build(mode, n_bin, n_levels)(
+            jnp.asarray(bins[n_bin]), jnp.asarray(pos), jnp.asarray(gh)))
+    got = oh.onehot_r5(_t(bins[n_bin]), _t(pos), _t(gh), n_bin, n_levels,
+                       mode).numpy()
+    assert got.shape == (n_levels, F * n_bin, 128)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_t7_pad_rows_count_through_the_floor_mod(r5_case):
+    """With n_levels > 1 a pad row (pos -1) lands in node 63 at level 0
+    and node lv - 1 at level lv; with one level it adds nothing."""
+    bins, pos, gh = r5_case
+    pad = (pos[0] < 0)[None, :]
+    quiet = np.where(np.repeat(pad, 2, 0), 0, gh)
+    b = _t(bins[64])
+    multi = oh.onehot_r5(b, _t(pos), _t(gh), 64, 3)
+    multi_q = oh.onehot_r5(b, _t(pos), _t(quiet), 64, 3)
+    diff = (multi != multi_q).reshape(3, F, 64, 2, 64).any(dim=(1, 2, 3))
+    assert diff[0].nonzero().flatten().tolist() == [63]
+    assert diff[1].nonzero().flatten().tolist() == [0]
+    assert diff[2].nonzero().flatten().tolist() == [1]
+    assert torch.equal(oh.onehot_r5(b, _t(pos), _t(gh), 64, 1),
+                       oh.onehot_r5(b, _t(pos), _t(quiet), 64, 1))
+
+
+@pytest.fixture(scope="module")
+def t5_case():
+    """T5's inputs at 4,196 x 5 rows, B = 67: pos over [-1, 140) so some
+    rows fall past every node count below; gh exact in bf16 (multiples of
+    1/64 below 2) and random."""
+    rng = np.random.RandomState(3)
+    bins = rng.randint(0, 67, (N_ROWS, 5)).astype(np.int32)
+    pos = rng.randint(-1, 140, N_ROWS).astype(np.int32)
+    dyadic = (rng.randint(-128, 128, (N_ROWS, 2)) / 64.0).astype(np.float32)
+    rand = rng.randn(N_ROWS, 2).astype(np.float32)
+    return bins, pos, dyadic, rand
+
+
+def _t5(bins, gh, pos, n_node, precision, hot, bin_dtype="int32"):
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt5.variant(
+            jnp.asarray(bins), jnp.asarray(gh), jnp.asarray(pos), n_node,
+            67, precision=precision, hot_dtype=getattr(jnp, hot),
+            bin_dtype=getattr(jnp, bin_dtype)))
+    got = oh.onehot_variant(_t(bins), _t(gh), _t(pos), n_node, 67,
+                            precision, getattr(torch, hot),
+                            getattr(torch, bin_dtype)).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("n_node,precision,hot,bin_dtype", [
+    (5, "bf16", "bfloat16", "int32"),
+    (64, "bf16", "float32", "int32"),
+    (64, "fp32", "float32", "int16"),
+    (130, "bf16", "bfloat16", "int16"),     # three node tiles of 64
+    (130, "fp32", "float32", "int32"),
+])
+def test_t5_plain_matches_variant_bitwise_on_bf16_exact_gh(
+        t5_case, n_node, precision, hot, bin_dtype):
+    bins, pos, dyadic, _ = t5_case
+    got, want = _t5(bins, dyadic, pos, n_node, precision, hot, bin_dtype)
+    assert got.shape == want.shape == (n_node, 5, 67, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_t5_plain_within_sum_bound_of_variant_on_random_gh(t5_case):
+    """Against the JAX function with a bf16 one-hot (so both sum the same
+    bf16-rounded gh): each cell within 2 n 2^-24 sum|x|, since each order
+    of an n-term f32 sum is within n 2^-24 sum|x| of the exact sum."""
+    bins, pos, _, rand = t5_case
+    got, want = _t5(bins, rand, pos, 64, "bf16", "bfloat16")
+    r = _t(rand).to(torch.bfloat16).float()
+    n = oh.onehot_variant(_t(bins), torch.ones_like(r), _t(pos), 64, 67,
+                          "fp32").numpy()
+    a = oh.onehot_variant(_t(bins), r.abs(), _t(pos), 64, 67,
+                          "fp32").numpy()
+    assert (np.abs(got - want) <= 2.0 * n * 2.0 ** -24 * a).all()
+
+
+def test_t5_rounds_gh_to_bf16_where_the_tpu_does(t5_case):
+    """Deliberate difference from the JAX function on a CPU: with
+    precision bf16 and an f32 one-hot the port rounds gh to bf16, as the
+    TPU's matrix unit does; interpret mode sums unrounded f32.  gh here
+    are multiples of 1/256 below 4 (11 bits: not exact in bf16, sums
+    exact in f32), so every comparison is bitwise."""
+    bins, pos, _, _ = t5_case
+    gh = (np.random.RandomState(9).randint(-1024, 1024, (N_ROWS, 2))
+          / 256.0).astype(np.float32)
+    got, want_f32hot = _t5(bins, gh, pos, 8, "bf16", "float32")
+    rounded, want_bf16hot = _t5(bins, gh, pos, 8, "bf16", "bfloat16")
+    np.testing.assert_array_equal(got, rounded)
+    np.testing.assert_array_equal(rounded, want_bf16hot)
+    assert not np.array_equal(got, want_f32hot)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_int_plain_versions_equal_k1_int(m):
+    """On gh in the int8 range and whole row tiles, T3, T2 and T7 (one
+    level), re-laid to (F, B, 2, M), are K1's int histogram."""
+    rng = np.random.RandomState(m)
+    n = 4096
+    bins = rng.randint(0, B, (n, F)).astype(np.uint8)
+    pos = rng.randint(0, m, n).astype(np.int32)
+    pos[rng.rand(n) < 0.2] = -1
+    gh = rng.randint(-127, 128, (n, 2)).astype(np.int32)
+    k1 = cuda_hist.level_histogram_plain(_t(bins), _t(gh), _t(pos), m, B,
+                                         "int")
+    t3 = oh.onehot_i8(_t(bins.T.astype(np.int32)), _t(pos[:, None]),
+                      _t(gh), m)
+    t2 = oh.onehot_notrans(_t(bins), _t(pos[:, None]), _t(gh), m)
+    assert torch.equal(t3[0].reshape(F, B, 2, m), k1)
+    assert torch.equal(t2[0].reshape(F, B, 2, m), k1)
+    if m == 64:
+        t7 = oh.onehot_r5(_t(bins.T), _t(pos[None, :]), _t(gh.T), B)
+        assert torch.equal(t7[0].reshape(F, B, 2, m), k1)
+
+
+def test_cpu_tensors_never_launch_and_meta_raises(int_case):
+    bins_fr, pos, gh = int_case
+    before = {k: c.launches for k, c in oh.COUNTERS.items()}
+    oh.onehot_i8(_t(bins_fr), _t(pos), _t(gh), 4)
+    oh.onehot_notrans(_t(bins_fr.T.astype(np.uint8)), _t(pos), _t(gh), 4)
+    oh.onehot_r5(_t(bins_fr.astype(np.uint8)), _t(pos.T), _t(gh.T), 64)
+    oh.onehot_variant(_t(bins_fr.T), _t(gh.astype(np.float32)),
+                      _t(pos[:, 0]), 4, 64)
+    assert {k: c.launches for k, c in oh.COUNTERS.items()} == before
+    meta = torch.empty((F, N_ROWS), dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError):
+        oh.onehot_i8(meta, torch.empty((N_ROWS, 1), dtype=torch.int32,
+                                       device="meta"),
+                     torch.empty((N_ROWS, 2), dtype=torch.int32,
+                                 device="meta"), 4)
+
+
+def test_ported_mains_run_on_the_cpu_when_asked():
+    """The four entry points at a tiny size on the CPU: every variant and
+    level runs, T3's dequantized error is small and T2's sums are exact;
+    without device="cpu" they want a GPU."""
+    from xgboost_tpu_torch.tools import (hist_int8_proto, hist_microbench,
+                                         hist_notrans_proto, hist_r5_ab)
+    rows = hist_microbench.main(2000, 4, 67, device="cpu", reps=1)
+    assert [r["name"] for r in rows][1:] == [v for v, _ in
+                                             hist_microbench.VARIANTS]
+    rows, acc = hist_int8_proto.main(3000, levels=2, device="cpu", iters=1)
+    assert len(rows) == 2 and acc["within_bound"]
+    rows, acc = hist_notrans_proto.main(3000, levels=2, device="cpu",
+                                        iters=1)
+    assert acc["exact"]
+    rows = hist_r5_ab.main(3000, bin_counts=(32,), device="cpu", iters=1)
+    assert [r["name"] for r in rows] == ["prod B=32", "u8cmp B=32",
+                                         "shared6 B=64"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            hist_r5_ab.main(3000)
