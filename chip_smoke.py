@@ -19,11 +19,12 @@ every kernel against its plain PyTorch version.  The paths:
   12,288 to 16,283 rows each, 2 cycles of 10 rounds, stacked into one
   K4 launch per level for all tenants (a stack of 64 lanes of 16,384
   rows), then the same tenants through the host loop (K1 per tenant);
-- the histogram microbenchmarks: the four ported Pallas prototypes'
+- the histogram microbenchmarks: the seven ported Pallas prototypes'
   ``main``s (``xgboost_tpu_torch.tools``: T5 ``hist_microbench``, T3
-  ``hist_int8_proto``, T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``) at
-  their full shapes (1M x 28), each timing its one-hot tensor-core kernel
-  beside K1.
+  ``hist_int8_proto``, T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``; the
+  bf16 family T1 ``hist_group_proto``, T4a and T4b ``hist_pack2_proto``
+  ``main`` and ``main_onebig``, T6 ``hist_r4_ab``) at their full shapes
+  (1M x 28), each timing its one-hot tensor-core kernel beside K1.
 
 Phases, in order; any failure exits non-zero:
 
@@ -54,6 +55,17 @@ count set to 0 just before and read just after, and fails on any count
 but the mains' exact ones (a fall to the plain version would leave it
 short), on T2's int32 sums differing from exact ones, and on T3's
 dequantized histogram beyond its rows' half quantization steps.
+
+The ``[onehot-bf16]`` phase does the same for T1, T4a, T4b and T6: each
+kernel bitwise against its plain version on bf16-exact gradients and
+within the f32 summation bound on random ones (dropped tails, bins past
+B, rows outside the node tile, T1's node tiles and every fg and r_tile of
+its main, a planted out-of-range bin that must leave its row in the
+group's other features, T4b == T4a prod, T6's u8bins == i16hot == prod),
+then the three bf16 mains with exact launch counts, T1's accuracy line
+within bf16's rounding of K1 fp32, and T4a's and T4b's match checks.
+Every path counts the launches of all twelve kernels and fails on any
+kernel it should not run.
 
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
@@ -204,6 +216,12 @@ def reset_counts(kernels):
 
 def read_counts(kernels):
     return {name: mod.launches for name, mod in kernels.items()}
+
+
+def only(kernels, **launches):
+    """The launch counts of a run that launched ``launches`` and no
+    other kernel of ``kernels``."""
+    return {**{name: 0 for name in kernels}, **launches}
 
 
 # ------------------------------------------------------------- phase 3
@@ -482,8 +500,7 @@ def phase_main(torch, xt, cuda_hist, kernels, device, card):
     print(f"[main] train {ROUNDS} rounds (cuts and binning included): "
           f"{train_s:.2f} s; hist_level launches {launches}; all counts "
           f"{json.dumps(counts)}", flush=True)
-    if counts != {"hist_level": ROUNDS * DEPTH, "hist_batched": 0,
-                  "node_stats": 0, "hist_lanes": 0}:
+    if counts != only(kernels, hist_level=ROUNDS * DEPTH):
         fail(f"launch counts {counts}: want hist_level {ROUNDS * DEPTH}, "
              "the others 0")
     B = bst.gbtree.cuts.max_bin
@@ -580,8 +597,7 @@ def phase_multiclass(torch, xt, kernels, device, card):
     print(f"[multiclass] train {MC_ROUNDS} rounds (cuts and binning "
           f"included): {train_s:.2f} s; hist_batched launches {launches}; "
           f"all counts {json.dumps(counts)}", flush=True)
-    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0,
-                  "hist_lanes": 0}:
+    if counts != only(kernels, hist_batched=want):
         fail(f"launch counts {counts}: want hist_batched {want} "
              f"({MC_ROUNDS} rounds x {DEPTH} levels), the others 0")
     if bst.gbtree.num_trees != MC_ROUNDS * MC_K:
@@ -687,8 +703,7 @@ def phase_otto(torch, xt, kernels, device, card):
     train_s = time.perf_counter() - t0
     counts = read_counts(kernels)
     want = OTTO_ROUNDS * DEPTH
-    if counts != {"hist_level": 0, "hist_batched": want, "node_stats": 0,
-                  "hist_lanes": 0}:
+    if counts != only(kernels, hist_batched=want):
         fail(f"otto launch counts {counts}: want hist_batched {want}")
     prob = bst.predict(dtest)
     if prob.shape != (MC_TEST, OTTO_K) or not np.isfinite(prob).all():
@@ -739,8 +754,7 @@ def phase_depth0(torch, xt, kernels, device):
     print(f"[depth0] {D0_ROUNDS} rounds of {MC_K} single-leaf trees; "
           f"node_stats launches {launches}; all counts "
           f"{json.dumps(counts)}", flush=True)
-    if counts != {"hist_level": 0, "hist_batched": 0,
-                  "node_stats": D0_ROUNDS, "hist_lanes": 0}:
+    if counts != only(kernels, node_stats=D0_ROUNDS):
         fail(f"depth-0 launch counts {counts}: want node_stats "
              f"{D0_ROUNDS}, the others 0")
     margin = bst.predict(dtrain, output_margin=True)
@@ -898,8 +912,7 @@ def phase_lanes(torch, xt, kernels, device, card):
     bad = {n: r for n, r in s_res.items() if r["status"] != "ok"}
     if bad or len(s_res) != LANES_N:
         fail(f"stacked lanes not ok: {bad}")
-    if counts != {"hist_level": 0, "hist_batched": 0, "node_stats": 0,
-                  "hist_lanes": want}:
+    if counts != only(kernels, hist_lanes=want):
         fail(f"stacked launch counts {counts}: want hist_lanes {want} "
              f"({LANE_CYCLES} cycles x {LANE_ROUNDS} rounds x {DEPTH} "
              "levels), the others 0")
@@ -942,8 +955,7 @@ def phase_lanes(torch, xt, kernels, device, card):
     want_k1 = LANES_N * want
     print(f"[lanes] host loop: {h_sec:.2f} s; all counts "
           f"{json.dumps(h_counts)} | {card}", flush=True)
-    if h_counts != {"hist_level": want_k1, "hist_batched": 0,
-                    "node_stats": 0, "hist_lanes": 0}:
+    if h_counts != only(kernels, hist_level=want_k1):
         fail(f"host-loop launch counts {h_counts}: want hist_level "
              f"{want_k1}, the others 0")
     if any(r["status"] != "ok" for r in h_res.values()):
@@ -1232,8 +1244,9 @@ def time_lane_cycles(torch, xt, data, device, card):
 
 
 # ------------------------------------------------------------- [onehot]
-# The one-hot tensor-core kernels (T5, T3, T2, T7) and the TPU prototypes
-# they replace (the Pallas kernel body of each)
+# The one-hot tensor-core kernels (T5, T3, T2, T7; the bf16 family T1,
+# T4a, T4b, T6) and the TPU prototypes they replace (the Pallas kernel
+# body of each)
 ONEHOT_SOURCES = {
     "onehot_variant": ("xgboost_tpu_torch/csrc/onehot_variant.cu",
                        "tools/hist_microbench.py:26"),
@@ -1243,6 +1256,14 @@ ONEHOT_SOURCES = {
                        "tools/hist_notrans_proto.py:28"),
     "onehot_r5": ("xgboost_tpu_torch/csrc/onehot_r5.cu",
                   "tools/hist_r5_ab.py:41"),
+    "onehot_group": ("xgboost_tpu_torch/csrc/onehot_group.cu",
+                     "tools/hist_group_proto.py:23"),
+    "onehot_pack2": ("xgboost_tpu_torch/csrc/onehot_pack2.cu",
+                     "tools/hist_pack2_proto.py:29"),
+    "onehot_onebig": ("xgboost_tpu_torch/csrc/onehot_pack2.cu",
+                      "tools/hist_pack2_proto.py:143"),
+    "onehot_r4": ("xgboost_tpu_torch/csrc/onehot_r4.cu",
+                  "tools/hist_r4_ab.py:35"),
 }
 # H100 SXM dense tensor-core peaks (NVIDIA data sheet): the one-hot
 # product's floor, printed beside the function's bound
@@ -1255,6 +1276,16 @@ ONEHOT_MAIN_LAUNCHES = {
     "onehot_variant": 6 * 21, "onehot_i8": 6 * 201 + 1,
     "onehot_notrans": 6 * 201 + 1, "onehot_r5": 6 * 41 + 21,
     "hist_level": 21 + 6 * 201 + 6 * 201 + 3 * 41}
+# launches by the bf16 mains at their defaults (T1: 20 calls after a
+# warm-up for each of 4 x 3 (fg, r_tile) and one accuracy launch; T4a:
+# 30 + 1 for prod and pack2 at 6 levels, and one of each for the M = 32
+# match; T4b: 30 + 1 at 6 levels x 2 r_tiles, and its match against one
+# prod; T6: 30 + 1 for 6 variants); K1 timed beside them (T1: and its
+# fp32 accuracy reference)
+ONEHOT_BF16_MAIN_LAUNCHES = {
+    "onehot_group": 12 * 21 + 1, "onehot_pack2": 6 * 2 * 31 + 2 + 1,
+    "onehot_onebig": 6 * 2 * 31 + 1, "onehot_r4": 6 * 31,
+    "hist_level": 1 + 21 + 6 * 31 + 6 * 31 + 31}
 # the mains' row count (bench.py's Higgs size)
 OH_N = 1_000_000
 T5_CHECK_KW = [dict(precision="bf16"),
@@ -1383,6 +1414,140 @@ def phase_onehot_checks(torch, oh, cuda_hist, dev):
             "onehot_r5": 0.0}
 
 
+def bf16_fr_inputs(torch, n, F, B, M, seed, dev):
+    """T4 / T6 inputs on the card: feature-major int32 bins (2% past B),
+    pos over [-1, M + 6), gh exact in bf16 (multiples of 1/64 below 2:
+    f32 sums exact in any order) and random."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.randint(0, B, (F, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    bad = torch.rand(F, n, generator=g, device=dev) < 0.02
+    bins[bad] = torch.randint(B, 255, (int(bad.sum()),), generator=g,
+                              device=dev, dtype=torch.int32)
+    pos = torch.randint(-1, M + 6, (n, 1), generator=g, device=dev,
+                        dtype=torch.int32)
+    dy = torch.randint(-128, 128, (n, 2), generator=g, device=dev,
+                       dtype=torch.int32).float() / 64.0
+    gh = torch.randn(n, 2, generator=g, device=dev)
+    return bins, pos, dy, gh
+
+
+def bf16_case(torch, oh, kernel, args_of, kw, dy, gh, tag):
+    """One bf16 kernel against its plain version on the same CUDA
+    tensors: bitwise on ``dy`` (exact in bf16), within 2 n 2^-24 sum|x|
+    on ``gh``.  ``args_of(g)`` are the call's arguments with gh = g.
+    Returns (max |kernel - plain| on gh, the kernel's result on dy)."""
+    fn, plain = getattr(oh, kernel), getattr(oh, kernel + "_plain")
+    got_dy = fn(*args_of(dy), **kw)
+    want = plain(*args_of(dy), **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got_dy, want):
+        fail(f"{tag}: not bitwise equal to the plain version on gh exact "
+             "in bf16")
+    args = args_of(gh)
+    got, want = fn(*args, **kw), plain(*args, **kw)
+    if not onehot_bound_ok(torch, plain, args, kw, got, want,
+                           GH_ARG[kernel]):
+        fail(f"{tag}: |kernel - plain| beyond 2 n 2^-24 sum|x| on random gh")
+    return float((got - want).abs().max()), got_dy
+
+
+def phase_onehot_bf16_checks(torch, oh, dev):
+    """T1, T4a, T4b and T6 against their plain versions at the mains'
+    shapes and beyond: T4 and T6 with a dropped tail and bins past B, T4b
+    and T6's u8bins and i16hot equal to prod bitwise on bf16-exact gh,
+    T1 at several node counts (70: two node tiles, the second partial),
+    every fg and r_tile of its main, and a planted out-of-range bin that
+    leaves its row in the group's other features."""
+    errs = {k: 0.0 for k in ("onehot_group", "onehot_pack2",
+                             "onehot_onebig", "onehot_r4")}
+    n = -(-OH_N // 8192) * 8192 + 333    # the mains' rows and a tail
+    F, B = 28, 64
+    for M in (1, 4, 32):
+        bins, pos, dy, gh = bf16_fr_inputs(torch, n, F, B, M, M, dev)
+
+        def fr(g):
+            return bins, pos, g, M
+        prod = None
+        for kernel, kw in [("onehot_pack2", dict(mode="prod")),
+                           ("onehot_pack2", dict(mode="pack2")),
+                           ("onehot_onebig", {}),
+                           ("onehot_onebig", dict(r_tile=1024))]:
+            tag = f"[onehot-bf16] {kernel} N={n} M={M} {kw}"
+            err, got = bf16_case(torch, oh, kernel, fr, dict(n_bin=B, **kw),
+                                 dy, gh, tag)
+            errs[kernel] = max(errs[kernel], err)
+            if kw.get("mode") == "prod":
+                prod = got
+            elif kernel == "onehot_onebig" and not kw and \
+                    not torch.equal(got, prod):
+                fail(f"{tag}: onebig != prod on gh exact in bf16")
+        print(f"[onehot-bf16] onehot_pack2 prod / pack2, onehot_onebig "
+              f"N={n} M={M}: bitwise == plain on bf16-exact gh (dropped "
+              "tail, bins past B, pos past M), onebig == prod; within "
+              "bound on random gh", flush=True)
+    bins, pos, dy, gh = bf16_fr_inputs(torch, n, F, B, 64, 64, dev)
+    b8 = bins.to(torch.uint8)
+    prod = {}
+    for mode, r_tile in [("prod", 1024), ("prod", 2048), ("prod", 4096),
+                         ("dotfloor", 2048), ("u8bins", 2048),
+                         ("i16hot", 2048)]:
+        bt = b8 if mode == "u8bins" else bins
+        tag = f"[onehot-bf16] onehot_r4 {mode} r_tile={r_tile} N={n}"
+        err, got = bf16_case(torch, oh, "onehot_r4",
+                             lambda g: (bt, pos, g),
+                             dict(mode=mode, r_tile=r_tile, n_bin=B), dy,
+                             gh, tag)
+        errs["onehot_r4"] = max(errs["onehot_r4"], err)
+        if mode == "prod":
+            prod[r_tile] = got
+        elif mode != "dotfloor" and not torch.equal(got, prod[r_tile]):
+            fail(f"{tag}: != prod on gh exact in bf16")
+    print(f"[onehot-bf16] onehot_r4 N={n}: prod (r_tile 1024, 2048, 4096), "
+          "dotfloor, u8bins, i16hot bitwise == plain on bf16-exact gh, "
+          "u8bins == i16hot == prod; within bound on random gh", flush=True)
+    g = torch.Generator(device=dev).manual_seed(70)
+    F, B = 28, 67
+    bins = torch.randint(0, B, (OH_N, F), generator=g, device=dev,
+                         dtype=torch.int32)
+    dy = torch.randint(-128, 128, (OH_N, 2), generator=g, device=dev,
+                       dtype=torch.int32).float() / 64.0
+    gh = torch.randn(OH_N, 2, generator=g, device=dev)
+    for n_node, fg, r_tile in [(3, 2, 2048), (64, 2, 1024), (64, 4, 2048),
+                               (64, 7, 4096), (64, 14, 2048), (70, 4, 2048),
+                               (70, 14, 1024)]:
+        pos = torch.randint(-1, n_node + 10, (OH_N,), generator=g,
+                            device=dev, dtype=torch.int32)
+        tag = (f"[onehot-bf16] onehot_group N={OH_N} n_node={n_node} "
+               f"fg={fg} r_tile={r_tile}")
+        err, _ = bf16_case(torch, oh, "onehot_group",
+                           lambda x: (bins, x, pos, n_node, B),
+                           dict(fg=fg, r_tile=r_tile), dy, gh, tag)
+        errs["onehot_group"] = max(errs["onehot_group"], err)
+        print(f"{tag}: bitwise == plain on bf16-exact gh, within bound on "
+              "random gh", flush=True)
+    # a bin of -1 or 1000 in one feature drops that (row, feature) alone
+    planted = bins.clone()
+    planted[::7, 1] = -1
+    planted[::5, 2] = 1000
+    pos = torch.randint(0, 64, (OH_N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = oh.onehot_group(planted, dy, pos, 64, B, 4)
+    clean = oh.onehot_group(bins, dy, pos, 64, B, 4)
+    want = oh.onehot_group_plain(planted, dy, pos, 64, B)
+    torch.cuda.synchronize()
+    keep = [f for f in range(F) if f not in (1, 2)]
+    if not torch.equal(got, want) or \
+            not torch.equal(got[:, keep], clean[:, keep]):
+        fail("[onehot-bf16] onehot_group fg=4 with out-of-range bins in "
+             "features 1 and 2: != plain, or their rows lost from the "
+             "group's other features")
+    print("[onehot-bf16] onehot_group fg=4, bins -1 and 1000 planted in "
+          "features 1 and 2: == plain, the other features equal a clean "
+          "run's", flush=True)
+    return errs
+
+
 def onehot_work(torch, oh, kernel, args, kw):
     """(cells, bytes, additions, tensor-core ms) of one call: the flat
     index and values of one ``index_add_`` computing the same sums
@@ -1403,6 +1568,38 @@ def onehot_work(torch, oh, kernel, args, kw):
         split = 3 if kw.get("precision") == "fp32" \
             and kw.get("hot_dtype", torch.float32) == torch.float32 else 1
         tc = 2 * N * F * (-(-B // 16) * 16) * cols * split / PEAK_BF16_OPS_S
+        return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
+    if kernel == "onehot_group":
+        binned, gh, pos, n_node, B = args
+        idx, src, n_cells = oh.variant_cells(binned, gh, pos, n_node, B,
+                                             "bf16")
+        N, F = binned.shape
+        active = int(((pos >= 0) & (pos < n_node)).sum())
+        nbytes = N * F * 4 + 4 * N + 8 * active + n_cells * 4
+        m_pad = min(n_node, oh.M_TILE)
+        cols = -(-n_node // m_pad) * (-(-2 * m_pad // 8) * 8)
+        tc = 2 * N * F * (-(-B // 16) * 16) * cols / PEAK_BF16_OPS_S
+        return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
+    if kernel in ("onehot_pack2", "onehot_onebig", "onehot_r4"):
+        if kernel == "onehot_r4":
+            (bt, pos, gh), M = args, oh.M_TILE
+        else:
+            bt, pos, gh, M = args
+        B, r_tile = kw["n_bin"], kw.get("r_tile", 2048)
+        F, n = bt.shape
+        n_used = (n // r_tile) * r_tile
+        p = pos.reshape(-1)[:n_used]
+        floor = kw.get("mode") == "dotfloor"
+        # dotfloor: every row's gh lands in bin 0 of each feature
+        b = torch.zeros_like(bt[:, :n_used]) if floor else bt[:, :n_used]
+        idx, src, n_cells = oh.proto_cells(
+            b, p, gh[:n_used].to(torch.bfloat16).float(), B, M)
+        active = int(((p >= 0) & (p < M)).sum())
+        bin_bytes = 0 if floor else bt.element_size()
+        nbytes = n_used * F * bin_bytes + 4 * n_used + 8 * active \
+            + n_cells * 4
+        tc = 2 * n_used * F * (-(-B // 16) * 16) * (-(-2 * M // 8) * 8) \
+            / PEAK_BF16_OPS_S
         return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
     if kernel == "onehot_r5":
         bt, pos, gh, B = args
@@ -1443,25 +1640,22 @@ def onehot_work(torch, oh, kernel, args, kw):
 
 
 def phase_onehot(torch, oh, cuda_hist, kernels, card, device="cuda"):
-    """The four ported microbenchmark mains at their full shapes, every
-    launch count set to 0 just before and read just after; then each
-    main's rows: the kernel against its plain version on the same inputs,
-    and beside its time the bound, the plain version's and one
-    ``index_add_``'s."""
+    """The four ported int / T5 microbenchmark mains at their full shapes,
+    every launch count set to 0 just before and read just after; then each
+    main's rows (:func:`time_onehot_rows`)."""
     from xgboost_tpu_torch.tools import (hist_int8_proto, hist_microbench,
                                          hist_notrans_proto, hist_r5_ab)
-    everything = {**kernels, **oh.COUNTERS}
-    reset_counts(everything)
+    reset_counts(kernels)
     t0 = time.perf_counter()
     rows = hist_microbench.main(OH_N, device=device)
     t3_rows, t3_acc = hist_int8_proto.main(OH_N, device=device)
     t2_rows, t2_acc = hist_notrans_proto.main(OH_N, device=device)
     t7_rows = hist_r5_ab.main(OH_N, device=device)
     torch.cuda.synchronize()
-    counts = read_counts(everything)
+    counts = read_counts(kernels)
     print(f"[onehot] the four mains: {time.perf_counter() - t0:.1f} s; "
           f"launch counts {json.dumps(counts)} | {card}", flush=True)
-    want = {**{k: 0 for k in kernels}, **ONEHOT_MAIN_LAUNCHES}
+    want = only(kernels, **ONEHOT_MAIN_LAUNCHES)
     if counts != want:
         fail(f"[onehot] launch counts {counts}: want {want}")
     if not t2_acc["exact"]:
@@ -1469,9 +1663,83 @@ def phase_onehot(torch, oh, cuda_hist, kernels, card, device="cuda"):
     if not t3_acc["within_bound"]:
         fail("[onehot] T3's dequantized histogram is beyond the rows' "
              "half quantization steps of the float64 sums")
+    out = time_onehot_rows(torch, oh, rows + t3_rows + t2_rows + t7_rows,
+                           card, "[onehot]")
+    print(f"[onehot] production bf16 (K1) in the T5 main: {rows[0]['ms']:.4f}"
+          f" ms | {card}", flush=True)
+    return counts, out
 
-    out = {k: [] for k in oh.COUNTERS}
-    for row in rows + t3_rows + t2_rows + t7_rows:
+
+def phase_onehot_bf16(torch, oh, cuda_hist, kernels, card, device="cuda"):
+    """The three bf16 mains (T1; T4a and T4b; T6) at their full shapes,
+    every launch count set to 0 just before and read just after; T1's
+    accuracy line within bf16's rounding of the f32 sums, T4a's and T4b's
+    match checks; then each main's rows (:func:`time_onehot_rows`)."""
+    from xgboost_tpu_torch.tools import (hist_group_proto, hist_pack2_proto,
+                                         hist_r4_ab)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    t1_rows, t1_acc = hist_group_proto.main(OH_N, device=device)
+    t4_rows, t4_chk = hist_pack2_proto.main(OH_N, device=device)
+    t4b_rows, t4b_chk = hist_pack2_proto.main_onebig(OH_N, device=device)
+    t6_rows = hist_r4_ab.main(OH_N, device=device)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    print(f"[onehot-bf16] the three mains: {time.perf_counter() - t0:.1f} s;"
+          f" launch counts {json.dumps(counts)} | {card}", flush=True)
+    want = only(kernels, **ONEHOT_BF16_MAIN_LAUNCHES)
+    if counts != want:
+        fail(f"[onehot-bf16] launch counts {counts}: want {want}")
+    if not (t4_chk["match"] and t4b_chk["match"]):
+        fail(f"[onehot-bf16] match checks at M = 32: pack2 "
+             f"{t4_chk['match']}, onebig {t4b_chk['match']}")
+    # T1's accuracy line: bf16 rounding (8 significant bits) moves each
+    # row's gh by at most 2^-8 of it, and two f32 orders add
+    # 2 n 2^-24 sum|x|
+    binned, gh, pos, n_node, B = t1_acc["args"]
+    a = oh.onehot_variant_plain(binned, gh.abs(), pos, n_node, B, "fp32")
+    cnt = oh.onehot_variant_plain(binned, torch.ones_like(gh), pos, n_node,
+                                  B, "fp32")
+    diff = (t1_acc["got"] - t1_acc["ref"]).abs()
+    if bool((diff > a * (2.0 ** -8 + 2.0 * cnt * 2.0 ** -24)).any()):
+        fail(f"[onehot-bf16] T1's accuracy line {t1_acc['err']}: beyond "
+             "bf16's rounding of the f32 sums")
+    print(f"[onehot-bf16] T1 accuracy line (4,096 rows, fg=4 against K1 "
+          f"fp32): max err {t1_acc['err']}, within 2^-8 sum|g| + 2 n 2^-24 "
+          f"sum|g| of every cell; T4a pack2 and T4b onebig match prod at "
+          f"M = 32", flush=True)
+    out = time_onehot_rows(torch, oh, t1_rows + t4_rows + t4b_rows + t6_rows,
+                           card, "[onehot-bf16]")
+    print(f"[onehot-bf16] production bf16 (K1) in the T1 main: "
+          f"{t1_rows[0]['ms']:.4f} ms | {card}", flush=True)
+    return counts, out
+
+
+def onehot_bound_ok(torch, plain, args, kw, got, want, gh_at):
+    """The kernel's float sums within 2 n 2^-24 sum|x| of the plain
+    version's (``gh_at``: the index of gh in ``args``)."""
+    gh = args[gh_at]
+
+    def with_gh(g):
+        return plain(*args[:gh_at], g, *args[gh_at + 1:], **kw)
+    cnt = with_gh(torch.ones_like(gh))
+    a = with_gh(gh.to(torch.bfloat16).float().abs())
+    return sum_bound_ok(torch, got, want, cnt, a)
+
+
+# where gh sits in each float one-hot kernel's arguments
+GH_ARG = {"onehot_group": 1, "onehot_pack2": 2, "onehot_onebig": 2,
+          "onehot_r4": 2}
+
+
+def time_onehot_rows(torch, oh, rows, card, tag):
+    """Each row of the mains: the kernel against its plain version on the
+    main's inputs (int bitwise; float within the f32 summation bound),
+    and beside its time the bound, the tensor-core floor, the plain
+    version's time and one ``index_add_``'s.  Returns the rows by
+    kernel."""
+    out = {}
+    for row in rows:
         kernel = row["kernel"]
         if kernel == "hist_level":
             continue
@@ -1492,9 +1760,13 @@ def phase_onehot(torch, oh, cuda_hist, kernels, card, device="cuda"):
                 a = oh.onehot_variant_plain(binned, src.abs(), pos, n_node,
                                             B, "fp32")
                 if not sum_bound_ok(torch, got, want_h, cnt, a):
-                    fail(f"[onehot] {row['name']}: beyond the sum bound")
+                    fail(f"{tag} {row['name']}: beyond the sum bound")
+        elif kernel in GH_ARG:
+            if not onehot_bound_ok(torch, plain, args, kw, got, want_h,
+                                   GH_ARG[kernel]):
+                fail(f"{tag} {row['name']}: beyond the sum bound")
         elif not torch.equal(got, want_h):
-            fail(f"[onehot] {row['name']}: kernel != plain on the main's "
+            fail(f"{tag} {row['name']}: kernel != plain on the main's "
                  "inputs")
         err = float((got.double() - want_h.double()).abs().max())
         plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3)
@@ -1504,18 +1776,16 @@ def phase_onehot(torch, oh, cuda_hist, kernels, card, device="cuda"):
         lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, idx, src), 3)
         del idx, src, acc
         bound_ms, by = bound_of(nbytes, adds)
-        out[kernel].append(dict(name=row["name"], ms=row["ms"],
-                                k1_ms=row.get("k1_ms"), plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=bound_ms,
-                                bound_by=by, tc_ms=tc_ms, err=err))
+        out.setdefault(kernel, []).append(dict(
+            name=row["name"], ms=row["ms"], k1_ms=row.get("k1_ms"),
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=by, tc_ms=tc_ms, err=err))
         k1 = f"K1 {row['k1_ms']:.4f} ms; " if row.get("k1_ms") else ""
-        print(f"[onehot] {row['name']} ({kernel}): {row['ms']:.4f} ms ({k1}"
+        print(f"{tag} {row['name']} ({kernel}): {row['ms']:.4f} ms ({k1}"
               f"bound {bound_ms:.4f} ms, {by}; tensor-core floor of the "
               f"one-hot product {tc_ms:.4f} ms; plain {plain_ms:.4f} ms; "
               f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
-    print(f"[onehot] production bf16 (K1) in the T5 main: {rows[0]['ms']:.4f}"
-          f" ms | {card}", flush=True)
-    return {k: counts[k] for k in oh.COUNTERS}, out
+    return out
 
 
 def kernel_record(name, source, replaces, launches, max_err, rows):
@@ -1543,8 +1813,10 @@ def main():
     from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
                                        cuda_hist_lanes, cuda_hist_onehot,
                                        cuda_node_stats, nvcc)
+    # every kernel's launch count: each path checks all of them
     kernels = {"hist_level": cuda_hist, "hist_batched": cuda_hist_batched,
-               "node_stats": cuda_node_stats, "hist_lanes": cuda_hist_lanes}
+               "node_stats": cuda_node_stats, "hist_lanes": cuda_hist_lanes,
+               **cuda_hist_onehot.COUNTERS}
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1553,7 +1825,9 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    for b in nvcc.build(list(kernels) + list(cuda_hist_onehot.COUNTERS)):
+    sources = ["hist_level", "hist_batched", "node_stats", "hist_lanes",
+               *dict.fromkeys(cuda_hist_onehot.SOURCES.values())]
+    for b in nvcc.build(sources):
         print(f"[build] {b.name}: {b.seconds:.2f} s")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1605,6 +1879,13 @@ def main():
     oh_launches, oh_rows = phase_onehot(torch, cuda_hist_onehot, cuda_hist,
                                         kernels, card)
     print(f"[onehot] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oh_errs.update(phase_onehot_bf16_checks(torch, cuda_hist_onehot, dev))
+    print(f"[onehot-bf16] checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf_launches, bf_rows = phase_onehot_bf16(torch, cuda_hist_onehot,
+                                             cuda_hist, kernels, card)
+    print(f"[onehot-bf16] phase {time.perf_counter() - t0:.1f} s")
 
     records = [
         kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
@@ -1622,10 +1903,12 @@ def main():
                       k4_err, k4_rows),
     ]
     for name, (source, replaces) in ONEHOT_SOURCES.items():
-        rows_k = oh_rows[name]
+        bf16 = name in ONEHOT_BF16_MAIN_LAUNCHES
+        rows_k = (bf_rows if bf16 else oh_rows)[name]
         records.append(kernel_record(
-            name, source, replaces, oh_launches[name],
-            max([oh_errs[name]] + [r["err"] for r in rows_k]), rows_k))
+            name, source, replaces, (bf_launches if bf16 else oh_launches)[
+                name], max([oh_errs[name]] + [r["err"] for r in rows_k]),
+            rows_k))
     print(f"[time] Higgs path: {ms_round:.3f} ms per round; multiclass "
           f"path: {mc_ms_round:.3f} ms per round; lanes: {host_ms:.3f} ms "
           f"per host-loop cycle, {stacked_ms:.3f} ms per stacked cycle; "

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, K3, K2, K4; the one-hot kernels T5, T3,
-T2, T7) against their plain PyTorch versions, on a GPU.  Marked
+T2, T7, T1, T4a, T4b, T6) against their plain PyTorch versions, on a GPU.  Marked
 ``cuda``: without an NVIDIA GPU (and nvcc) they skip.  No JAX here, so they also run where only torch is installed
 (the repo's conftest imports JAX, hence ``--noconftest``):
 
@@ -299,3 +299,135 @@ def test_onehot_variant_kernel_matches_plain(cuda_device, n_node, precision,
                                   "fp32")
     a = oh.onehot_variant_plain(bins, src.abs(), pos, n_node, B, "fp32")
     assert bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())
+
+
+def _bf16_bound(got, want, cnt, a):
+    """|got - want| <= 2 n 2^-24 sum|x| per cell (two orders of an
+    n-term f32 sum of the bf16-rounded values)."""
+    return bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())
+
+
+def _bf16_fr_case(dev, n, F, B, M, seed):
+    """Feature-major int32 bins (a few past B), pos over [-1, M + 6) and
+    gh exact in bf16 (multiples of 1/64 below 2) and random."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (F, n)).astype(np.int32)
+    bad = rng.rand(F, n) < 0.02
+    bins[bad] = rng.randint(B, 255, int(bad.sum()))
+    pos = rng.randint(-1, M + 6, (n, 1)).astype(np.int32)
+    dy = (rng.randint(-128, 128, (n, 2)) / 64.0).astype(np.float32)
+    gh = rng.randn(n, 2).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (bins, pos, dy, gh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("mode", ["prod", "pack2", "onebig"])
+def test_onehot_pack2_kernels_match_plain(cuda_device, mode, M):
+    """T4a (prod, pack2) and T4b (onebig) against their plain version,
+    with a dropped tail: bitwise on gh exact in bf16 (and T4b == T4a
+    prod), within the f32 summation bound on random gh."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    n, F, B = 2048 * 9 + 333, 28, 64
+    bins, pos, dy, gh = _bf16_fr_case(cuda_device, n, F, B, M, M + 3)
+    name = "onehot_onebig" if mode == "onebig" else "onehot_pack2"
+
+    def fn(g, plain=False):
+        if mode == "onebig":
+            f = oh.onehot_onebig_plain if plain else oh.onehot_onebig
+            return f(bins, pos, g, M, B)
+        f = oh.onehot_pack2_plain if plain else oh.onehot_pack2
+        return f(bins, pos, g, M, mode, B)
+    before = oh.COUNTERS[name].launches
+    got = fn(dy)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS[name].launches == before + 1
+    assert got.shape == (1, F * B, 2 * M) and torch.equal(got, fn(dy, True))
+    if mode == "onebig":
+        assert torch.equal(got, oh.onehot_pack2(bins, pos, dy, M, "prod", B))
+    got, want = fn(gh), fn(gh, True)
+    assert _bf16_bound(got, want, fn(torch.ones_like(gh), True),
+                       fn(gh.abs(), True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,r_tile", [
+    ("prod", 1024), ("prod", 2048), ("prod", 4096), ("dotfloor", 2048),
+    ("u8bins", 2048), ("i16hot", 2048)])
+def test_onehot_r4_kernel_matches_plain(cuda_device, mode, r_tile):
+    """T6 in each one-hot build against its plain version (dotfloor: node
+    totals in bin 0), with a dropped tail; u8bins and i16hot equal prod
+    bitwise on gh exact in bf16."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    n, F, B = 4096 * 5 + 1000, 28, 64
+    bins, pos, dy, gh = _bf16_fr_case(cuda_device, n, F, B, 64, 11)
+    b = bins.to(torch.uint8) if mode == "u8bins" else bins
+    before = oh.COUNTERS["onehot_r4"].launches
+    got = oh.onehot_r4(b, pos, dy, mode, r_tile, B)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS["onehot_r4"].launches == before + 1
+    assert torch.equal(got, oh.onehot_r4_plain(b, pos, dy, mode, r_tile, B))
+    if mode in ("u8bins", "i16hot"):
+        assert torch.equal(got, oh.onehot_r4(bins, pos, dy, "prod", r_tile,
+                                             B))
+    got = oh.onehot_r4(b, pos, gh, mode, r_tile, B)
+
+    def plain(g):
+        return oh.onehot_r4_plain(b, pos, g, mode, r_tile, B)
+    assert _bf16_bound(got, plain(gh), plain(torch.ones_like(gh)),
+                       plain(gh.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_node,fg", [
+    (3, 2), (64, 4), (64, 14), (70, 7), (70, 1)])
+def test_onehot_group_kernel_matches_plain(cuda_device, n_node, fg):
+    """T1 against its plain version: bitwise on gh exact in bf16, within
+    the f32 summation bound on random gh; n_node 70 takes two node tiles,
+    the second partial."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    rng = np.random.RandomState(n_node + fg)
+    N, F, B = 30000, 28, 67
+    bins = torch.from_numpy(rng.randint(0, B, (N, F)).astype(
+        np.int32)).to(cuda_device)
+    pos = torch.from_numpy(rng.randint(-1, n_node + 10, N).astype(
+        np.int32)).to(cuda_device)
+    dy = torch.from_numpy((rng.randint(-128, 128, (N, 2)) / 64.0).astype(
+        np.float32)).to(cuda_device)
+    before = oh.COUNTERS["onehot_group"].launches
+    got = oh.onehot_group(bins, dy, pos, n_node, B, fg)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS["onehot_group"].launches == before + 1
+    assert got.shape == (n_node, F, B, 2)
+    assert torch.equal(got, oh.onehot_group_plain(bins, dy, pos, n_node, B))
+    gh = torch.from_numpy(rng.randn(N, 2).astype(np.float32)).to(cuda_device)
+
+    def plain(g):
+        return oh.onehot_group_plain(bins, g, pos, n_node, B)
+    got = oh.onehot_group(bins, gh, pos, n_node, B, fg, 1024)
+    assert _bf16_bound(got, plain(gh), plain(torch.ones_like(gh)),
+                       plain(gh.abs()))
+
+
+@pytest.mark.cuda
+def test_onehot_group_out_of_range_bin_leaves_the_row_in_other_features(
+        cuda_device):
+    """fg = 4: a bin of -1 or 1000 in one feature of a row drops that
+    (row, feature) alone; the other features of the group still count the
+    row, as in the plain version."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    rng = np.random.RandomState(5)
+    N, F, B = 20000, 8, 67
+    bins = rng.randint(0, B, (N, F)).astype(np.int32)
+    bins[::7, 1] = -1
+    bins[::5, 2] = 1000
+    pos = rng.randint(0, 64, N).astype(np.int32)
+    dy = (rng.randint(-128, 128, (N, 2)) / 64.0).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (bins, dy, pos)]
+    got = oh.onehot_group(*args, 64, B, 4)
+    want = oh.onehot_group_plain(*args, 64, B)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    clean = torch.from_numpy(np.clip(bins, 0, B - 1)).to(cuda_device)
+    ref = oh.onehot_group_plain(clean, args[1], args[2], 64, B)
+    assert torch.equal(got[:, [0, 3, 4, 5, 6, 7]], ref[:, [0, 3, 4, 5, 6, 7]])

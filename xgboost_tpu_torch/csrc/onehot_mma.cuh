@@ -1,6 +1,8 @@
 // The one-hot histogram as a tensor-core product on Hopper (sm_90a): the
-// device code that the four histogram microbenchmark kernels share
-// (onehot_variant.cu, onehot_i8.cu, onehot_notrans.cu, onehot_r5.cu).
+// device code that the histogram microbenchmark kernels share: the
+// one-feature kernel below (onehot_variant.cu, onehot_i8.cu,
+// onehot_notrans.cu, onehot_r5.cu, onehot_r4.cu) and the feature-grouped
+// kernel at the end (onehot_group.cu, onehot_pack2.cu).
 //
 // The TPU prototypes in tools/ compute a level histogram per feature f as
 // one matrix product
@@ -89,6 +91,8 @@
 #include <type_traits>
 
 enum { OH_INT8 = 0, OH_BF16 = 1, OH_SPLIT3 = 2 };
+// How a bf16 one-hot A fragment is built (template AB; T6's modes)
+enum { OH_A_BITS = 0, OH_A_NUM = 1, OH_A_CONST = 2 };
 
 constexpr int OH_WARPS = 8;
 constexpr int OH_THREADS = OH_WARPS * 32;
@@ -113,6 +117,8 @@ struct OnehotArgs {
   int n_levels;              // > 1 only with LG > 1 (floor-mod levels)
   int n_bg, n_cg, n_lg, n_mt;  // bin, column, level and node tile groups
   int r_tile;                // rows per block step, a multiple of 256
+  int fg;                    // grouped kernel: features per task
+  int rep;                   // grouped kernel: warps per (feature, bin tile)
 };
 
 __device__ __forceinline__ uint16_t oh_bf16_bits(float x) {
@@ -172,11 +178,23 @@ __device__ __forceinline__ uint32_t oh_eq_widened(uint32_t w, int t) {
   return r;
 }
 
-// CT column tiles and LG levels per task; instantiated by the .cu files.
-template <int MODE, typename BinT, bool PACKED, int CT, int LG>
+// bf16 pair (lo, hi) of 1.0 / 0.0 from two flags, by numbers: select a
+// float, then one cvt.rn.bf16x2.f32 for the pair (T6 "prod")
+__device__ __forceinline__ uint32_t oh_num2(bool lo, bool hi) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(lo ? 1.0f : 0.0f, hi ? 1.0f : 0.0f);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// CT column tiles and LG levels per task; AB the bf16 one-hot build;
+// instantiated by the .cu files.
+template <int MODE, typename BinT, bool PACKED, int CT, int LG,
+          int AB = OH_A_BITS>
 __global__ void __launch_bounds__(OH_THREADS, CT * LG == 1 ? 2 : 1)
 onehot_kernel(const OnehotArgs a) {
   static_assert(PACKED || MODE == OH_INT8, "widened compares are int8 only");
+  static_assert(AB == OH_A_BITS || MODE == OH_BF16,
+                "numeric and constant one-hots are bf16 only");
   typedef typename std::conditional<MODE == OH_INT8, int, float>::type Acc;
   constexpr int RB = OH_BT * 16, RC = CT * 8;
   constexpr int NP = MODE == OH_SPLIT3 ? 3 : 1;  // bf16 parts of a value
@@ -248,7 +266,9 @@ onehot_kernel(const OnehotArgs a) {
       const bool ok = i < a.r_tile && r < r_end;
       const int p = ok ? a.pos[r] : -1;
       const int v = ok ? (int)bins[r * a.bin_sr] : 0;
-      const bool keep = ok && v >= 0 && v < 256;
+      // a constant one-hot (T6 "dotfloor") ignores the bins, as its
+      // prototype does
+      const bool keep = ok && (AB == OH_A_CONST || (v >= 0 && v < 256));
       const uint32_t* q = static_cast<const uint32_t*>(a.gh) + r * a.gh_sr;
       st_g[k] = keep ? q[0] : 0u;
       st_h[k] = keep ? q[a.gh_sc] : 0u;
@@ -395,13 +415,36 @@ onehot_kernel(const OnehotArgs a) {
           for (int bt = 0; bt < OH_BT; ++bt) {
             if (bt >= nbt) continue;
             const int tb0 = b_base + bt * 16 + g;
-            const uint32_t e0 = oh_eq_msb(bq, (uint32_t)tb0 * 0x01010101u);
-            const uint32_t e1 =
-                oh_eq_msb(bq, (uint32_t)(tb0 + 8) * 0x01010101u);
-            const uint32_t af[4] = {oh_prmt(e0, 0, 0x9988) & ONE2,
-                                    oh_prmt(e1, 0, 0x9988) & ONE2,
-                                    oh_prmt(e0, 0, 0xBBAA) & ONE2,
-                                    oh_prmt(e1, 0, 0xBBAA) & ONE2};
+            uint32_t af[4];
+            if constexpr (AB == OH_A_BITS) {
+              const uint32_t e0 = oh_eq_msb(bq, (uint32_t)tb0 * 0x01010101u);
+              const uint32_t e1 =
+                  oh_eq_msb(bq, (uint32_t)(tb0 + 8) * 0x01010101u);
+              af[0] = oh_prmt(e0, 0, 0x9988) & ONE2;
+              af[1] = oh_prmt(e1, 0, 0x9988) & ONE2;
+              af[2] = oh_prmt(e0, 0, 0xBBAA) & ONE2;
+              af[3] = oh_prmt(e1, 0, 0xBBAA) & ONE2;
+            } else if constexpr (AB == OH_A_NUM) {
+              // the four bins as ints (rows 2t, 2t+1, 2t+8, 2t+9), each
+              // compared alone
+              int xb[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                xb[k] = (int)((bq >> (8 * k)) & 0xFFu);
+              const int tb1 = tb0 + 8;
+              af[0] = oh_num2(xb[0] == tb0, xb[1] == tb0);
+              af[1] = oh_num2(xb[0] == tb1, xb[1] == tb1);
+              af[2] = oh_num2(xb[2] == tb0, xb[3] == tb0);
+              af[3] = oh_num2(xb[2] == tb1, xb[3] == tb1);
+            } else {
+              // 1.0 in bin row 0 for every row of the step, 0 elsewhere:
+              // node totals in bin 0, no one-hot built
+              const uint32_t one = tb0 == 0 ? ONE2 : 0u;
+              af[0] = one;
+              af[1] = 0u;
+              af[2] = one;
+              af[3] = 0u;
+            }
 #pragma unroll
             for (int l = 0; l < LG; ++l)
 #pragma unroll
@@ -452,12 +495,282 @@ onehot_kernel(const OnehotArgs a) {
   }
 }
 
-template <int MODE, typename BinT, bool PACKED, int CT, int LG>
+template <int MODE, typename BinT, bool PACKED, int CT, int LG,
+          int AB = OH_A_BITS>
 cudaError_t onehot_launch(const OnehotArgs* a, int n_row_blocks,
                           cudaStream_t stream) {
   const dim3 grid(a->n_feat, a->n_bg * a->n_cg * a->n_lg * a->n_mt,
                   n_row_blocks);
-  onehot_kernel<MODE, BinT, PACKED, CT, LG>
+  onehot_kernel<MODE, BinT, PACKED, CT, LG, AB>
       <<<grid, OH_THREADS, 0, stream>>>(*a);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ grouped
+// The feature-grouped bf16 kernel (T1 onehot_group.cu, T4a / T4b
+// onehot_pack2.cu): a task takes FG features (a.fg; blockIdx.x the
+// feature group), one group of up to CT column tiles and one node tile
+// (blockIdx.y), and one chunk of rows (blockIdx.z).
+//
+// Per step of a.r_tile rows (a power of two, at most 2,048) the block
+// stages each row's node byte and bf16 g and h ONCE for its FG features,
+// and each feature's bin bytes; a thread issues a batch of 8 loads before
+// it stores any of them.  A bin outside [0, 256) becomes the byte 255 of that feature
+// alone, which no written bin matches (the wrapper keeps n_bin <= 255):
+// the row still counts in the group's other features.  Then, per
+// sub-step of S rows, the block builds the gh_exp B fragments of those
+// rows for the task's column tiles ONCE into shared memory (S x CT tiles
+// x 16 bytes <= 32 KB; S = 2,048 / CT rounded to powers of two, at most
+// the step), and every warp multiplies them against the one-hot A
+// fragments of its own (feature, bin tile) units over all S rows.  The
+// B fragments of a row are thus built once per FG features and CT
+// column tiles, not once per feature; each A fragment serves CT column
+// tiles.
+//
+// Units.  A task has FG x nbt (feature, bin tile) units (nbt = the bin
+// tiles of 16, up to 16).  Warp w takes units w, w + 8, ... (at most PW
+// of them, each with CT column tiles of accumulators: PW x CT x 4 = 64
+// f32 registers).  A task of fewer than 8 units gives each unit a.rep
+// warps, which split its rows by 16-row halves, so no warp idles when
+// 8 is a multiple of the units.  A warp owns its cells outright, so the
+// flush goes from registers straight to the output with global atomics
+// (no shared histogram).
+//
+// Budget: 256 threads, at most 128 registers (two blocks an SM);
+// dynamic shared memory 32 KB of B fragments + r_tile x (5 + FG) bytes
+// of staged rows: 100 KB at FG = 28 and 2,048 rows, so two blocks an SM
+// fit in its 228 KB.
+constexpr int OH_GB_CELLS = 2048;  // sub-step rows x column tiles staged
+
+template <int CT, int PW>
+__global__ void __launch_bounds__(OH_THREADS, 2)
+onehot_group_kernel(const OnehotArgs a) {
+  extern __shared__ __align__(16) uint8_t oh_smem[];
+  const int R = a.r_tile;
+  uint2* s_b = reinterpret_cast<uint2*>(oh_smem);
+  // bf16 g of the step's rows, then h
+  uint16_t* s_val = reinterpret_cast<uint16_t*>(oh_smem + OH_GB_CELLS * 16);
+  uint8_t* s_node = oh_smem + OH_GB_CELLS * 16 + 4 * R;
+  uint8_t* s_bin = s_node + R;  // [FG][R]
+  const uint32_t* w_val = reinterpret_cast<const uint32_t*>(s_val);
+  const uint32_t* w_node = reinterpret_cast<const uint32_t*>(s_node);
+  const uint32_t* w_bin = reinterpret_cast<const uint32_t*>(s_bin);
+
+  const int f0 = blockIdx.x * a.fg;
+  const int nf = min(a.fg, a.n_feat - f0);
+  const int cg = blockIdx.y % a.n_cg, mi = blockIdx.y / a.n_cg;
+  const int nbt = (a.n_bin + 15) >> 4;
+  const int n_units = nf * nbt;
+  const int n_col = 2 * a.m_pad;
+  const int col_base = cg * CT * 8;
+  const int nct = min(CT, (n_col - col_base + 7) >> 3);
+  const int node_base = mi * a.m_pad;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int pct = 1;
+  while (pct < nct) pct <<= 1;
+  const int S = min(R, OH_GB_CELLS / pct);  // rows of one B sub-step
+  const int NH = S >> 4;                     // 16-row halves in it
+  const int lg_r = 31 - __clz(R);            // R is a power of two
+  constexpr int SR = OH_STEP_MAX / OH_THREADS;  // staged rows a thread
+
+  // this warp's units k < n_mine, one register each: the bin of row g
+  // in the unit's bin tile (low byte) and the word offset of its
+  // feature's staged bins; with a.rep > 1 a warp has one unit and takes
+  // every rep-th half from h0
+  const int n_items = n_units * a.rep;
+  const int n_mine = warp < n_items ? (n_items - warp + OH_WARPS - 1) / OH_WARPS
+                                    : 0;
+  uint32_t u_key[PW];
+#pragma unroll
+  for (int k = 0; k < PW; ++k) {
+    const int u = (warp + k * OH_WARPS) % n_units;
+    u_key[k] = (uint32_t)((u % nbt) * 16 + g) |
+               (uint32_t)((u / nbt) * (R >> 2)) << 8;
+  }
+  const int h0 = a.rep > 1 ? warp / n_units : 0;
+
+  float acc[PW][CT][4];
+#pragma unroll
+  for (int k = 0; k < PW; ++k)
+#pragma unroll
+    for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[k][ct][q] = 0.0f;
+
+  const int32_t* bins = static_cast<const int32_t*>(a.bins);
+  const long long r_begin = (long long)blockIdx.z * a.rows_per_block;
+  const long long r_end = min(a.n_rows, r_begin + a.rows_per_block);
+  constexpr uint32_t ONE2 = 0x3F803F80u;  // bf16 1.0 in both halves
+  const int off = 2 * (t & 1);            // rows 2t, 2t+1 in a word
+  const uint32_t sel = off | (off + 1) << 4 | (off + 4) << 8 | (off + 5) << 12;
+
+  for (long long step = r_begin; step < r_end; step += R) {
+    // ---- stage: node byte and bf16 gh once, bin bytes per feature.  A
+    // thread issues all its loads of a batch before it stores any, so a
+    // batch costs one round trip to memory, not one a row
+    int st_p[SR];
+    float st_g[SR], st_h[SR];
+#pragma unroll
+    for (int k = 0; k < SR; ++k) {
+      const int i = threadIdx.x + k * OH_THREADS;
+      const long long r = step + i;
+      const bool ok = i < R && r < r_end;
+      const float* q = static_cast<const float*>(a.gh) + r * a.gh_sr;
+      st_p[k] = ok ? a.pos[r] : -1;
+      st_g[k] = ok ? q[0] : 0.0f;
+      st_h[k] = ok ? q[a.gh_sc] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < SR; ++k) {
+      const int i = threadIdx.x + k * OH_THREADS;
+      if (i >= R) continue;
+      const unsigned j = (unsigned)(st_p[k] - node_base);
+      s_node[i] = j < (unsigned)a.m_pad ? (uint8_t)j : (uint8_t)255;
+      s_val[i] = oh_bf16_bits(st_g[k]);
+      s_val[R + i] = oh_bf16_bits(st_h[k]);
+    }
+    // bins: element e is row e % R of the group's feature e / R
+    for (int e0 = 0; e0 < nf * R; e0 += SR * OH_THREADS) {
+      int v[SR];
+#pragma unroll
+      for (int k = 0; k < SR; ++k) {
+        const int e = e0 + threadIdx.x + k * OH_THREADS;
+        const long long r = step + (e & (R - 1));
+        v[k] = e < nf * R && r < r_end
+                   ? bins[(long long)(f0 + (e >> lg_r)) * a.bin_sf +
+                          r * a.bin_sr]
+                   : 255;
+      }
+#pragma unroll
+      for (int k = 0; k < SR; ++k) {
+        const int e = e0 + threadIdx.x + k * OH_THREADS;
+        if (e < nf * R)
+          s_bin[e] = (unsigned)v[k] < 256u ? (uint8_t)v[k] : (uint8_t)255;
+      }
+    }
+    __syncthreads();
+    for (int s0 = 0; s0 < R; s0 += S) {
+      // ---- B fragments of rows [s0, s0 + S), built once for the task
+      for (int it = warp; it < NH * nct; it += OH_WARPS) {
+        const int h = it / nct, ct = it - h * nct;
+        const int cc = col_base + ct * 8 + g;
+        const int ch = cc >= a.m_pad;
+        // the column's node as four equal bytes (254: a pad column)
+        const uint32_t j4 =
+            (uint32_t)(cc < n_col ? cc - ch * a.m_pad : 254) * 0x01010101u;
+        const int base = s0 + h * 16;
+        const int wa = (base >> 2) + (t >> 1);
+        const uint32_t m =
+            oh_eq_msb(oh_prmt(w_node[wa], w_node[wa + 2], sel), j4);
+        const uint32_t* wv = w_val + ch * (R >> 1);
+        const int u = (base >> 1) + t;
+        s_b[it * 32 + lane] = make_uint2(oh_prmt(m, 0, 0x9988) & wv[u],
+                                         oh_prmt(m, 0, 0xBBAA) & wv[u + 4]);
+      }
+      __syncthreads();
+      // ---- each unit's one-hot against the shared B fragments
+      for (int h = h0; h < NH; h += a.rep) {
+        const int wa = ((s0 + h * 16) >> 2) + (t >> 1);
+        const uint2* sb = s_b + h * nct * 32 + lane;
+        uint2 bpre[CT <= 8 ? CT : 1];
+        if constexpr (CT <= 8) {
+#pragma unroll
+          for (int ct = 0; ct < CT; ++ct)
+            if (ct < nct) bpre[ct] = sb[ct * 32];
+        }
+#pragma unroll
+        for (int k = 0; k < PW; ++k) {
+          if (k >= n_mine) continue;
+          const int wb = (int)(u_key[k] >> 8) + wa;
+          const uint32_t k0 = (u_key[k] & 0xFFu) * 0x01010101u;
+          const uint32_t bq = oh_prmt(w_bin[wb], w_bin[wb + 2], sel);
+          const uint32_t e0 = oh_eq_msb(bq, k0);
+          const uint32_t e1 = oh_eq_msb(bq, k0 + 0x08080808u);
+          const uint32_t af[4] = {oh_prmt(e0, 0, 0x9988) & ONE2,
+                                  oh_prmt(e1, 0, 0x9988) & ONE2,
+                                  oh_prmt(e0, 0, 0xBBAA) & ONE2,
+                                  oh_prmt(e1, 0, 0xBBAA) & ONE2};
+#pragma unroll
+          for (int ct = 0; ct < CT; ++ct) {
+            if (ct >= nct) continue;
+            uint2 b;
+            if constexpr (CT <= 8) {
+              b = bpre[ct];
+            } else {
+              b = sb[ct * 32];
+            }
+            oh_mma_bf16(acc[k][ct], af, b.x, b.y);
+          }
+        }
+      }
+      __syncthreads();  // B fragments and staged rows read before reuse
+    }
+  }
+
+  // ---- flush: a warp's cells are its own; zero cells are skipped (a
+  // sum that received additions is never -0)
+  float* out = static_cast<float*>(a.out);
+#pragma unroll
+  for (int k = 0; k < PW; ++k) {
+    if (k >= n_mine) continue;
+    const int u = (warp + k * OH_WARPS) % n_units;
+    const int f = f0 + u / nbt, bt = u % nbt;
+#pragma unroll
+    for (int ct = 0; ct < CT; ++ct) {
+      if (ct >= nct) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = acc[k][ct][q];
+        if (v == 0.0f) continue;  // c0, c1: bin g; c2, c3: bin g + 8
+        const int b = bt * 16 + g + 8 * (q >> 1);
+        const int cc = col_base + ct * 8 + 2 * t + (q & 1);
+        if (b >= a.n_bin || cc >= n_col) continue;
+        const int ch = cc >= a.m_pad;
+        const int node = node_base + cc - ch * a.m_pad;
+        if (node >= a.n_node_out) continue;
+        atomicAdd(out + f * a.s_f + b * a.s_b + ch * a.s_c + node * a.s_node,
+                  v);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of one grouped block.
+inline int oh_group_smem(const OnehotArgs* a) {
+  return OH_GB_CELLS * 16 + a->r_tile * (5 + a->fg);
+}
+
+template <int CT, int PW>
+cudaError_t onehot_group_launch_ct(const OnehotArgs* a, int n_row_blocks,
+                                   cudaStream_t stream) {
+  const int smem = oh_group_smem(a);
+  const cudaError_t e = cudaFuncSetAttribute(
+      onehot_group_kernel<CT, PW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a->n_feat + a->fg - 1) / a->fg, a->n_cg * a->n_mt,
+                  n_row_blocks);
+  onehot_group_kernel<CT, PW><<<grid, OH_THREADS, smem, stream>>>(*a);
+  return cudaGetLastError();
+}
+
+// variant v: PW = 2^v units a warp, CT = 16 / PW column tiles a task
+inline cudaError_t onehot_group_dispatch(const OnehotArgs* a, int variant,
+                                         int n_row_blocks,
+                                         cudaStream_t stream) {
+  switch (variant) {
+    case 0:
+      return onehot_group_launch_ct<16, 1>(a, n_row_blocks, stream);
+    case 1:
+      return onehot_group_launch_ct<8, 2>(a, n_row_blocks, stream);
+    case 2:
+      return onehot_group_launch_ct<4, 4>(a, n_row_blocks, stream);
+    case 3:
+      return onehot_group_launch_ct<2, 8>(a, n_row_blocks, stream);
+    case 4:
+      return onehot_group_launch_ct<1, 16>(a, n_row_blocks, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

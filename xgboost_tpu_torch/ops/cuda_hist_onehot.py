@@ -1,5 +1,5 @@
-"""Kernels T5, T3, T2 and T7: the one-hot histogram prototypes of the TPU
-rounds, hand-written CUDA for the tensor cores.
+"""Kernels T5, T3, T2, T7, T1, T4a, T4b and T6: the one-hot histogram
+prototypes of the TPU rounds, hand-written CUDA for the tensor cores.
 
 Each replaces one Pallas prototype in ``tools/`` and keeps its argument
 list and output layout:
@@ -14,9 +14,20 @@ list and output layout:
   same on row-major u8 bins; source ``csrc/onehot_notrans.cu``;
 - :func:`onehot_r5` (T7, ``tools/hist_r5_ab.py:build``): int8 products of
   feature-major u8 bins at M = 64, ``n_levels`` level operands against one
-  one-hot, ``(n_levels, F * B, 128)`` int32; source ``csrc/onehot_r5.cu``.
+  one-hot, ``(n_levels, F * B, 128)`` int32; source ``csrc/onehot_r5.cu``;
+- :func:`onehot_group` (T1, ``tools/hist_group_proto.py:grouped``): bf16
+  products of ``fg`` features per task, node-major ``(n_node, F, B, 2)``
+  f32; source ``csrc/onehot_group.cu``;
+- :func:`onehot_pack2` (T4a, ``tools/hist_pack2_proto.py:build``, modes
+  "prod" and "pack2": one and two features per task) and
+  :func:`onehot_onebig` (T4b, ``build_onebig``: all F features per task),
+  ``(1, F * B, 2 * m_pad)`` f32; source ``csrc/onehot_pack2.cu``;
+- :func:`onehot_r4` (T6, ``tools/hist_r4_ab.py:build``): bf16 products at
+  M = 64 whose one-hot is built four ways ("prod", "dotfloor", "u8bins",
+  "i16hot"), ``(1, F * B, 128)`` f32; source ``csrc/onehot_r4.cu``.
 
-The four share the device code of ``csrc/onehot_mma.cuh``.  Each has a
+All share the device code of ``csrc/onehot_mma.cuh``: T1, T4a and T4b its
+feature-grouped kernel, the others its one-feature kernel.  Each has a
 plain PyTorch version (``*_plain``) with the prototype's exact semantics,
 which the kernel matches:
 
@@ -30,6 +41,13 @@ which the kernel matches:
   ``hot_dtype`` is bf16, as the TPU's matrix unit rounds it.  (The JAX
   function run on a CPU sums unrounded f32 there.)  ``bin_dtype`` changes
   the bytes read, never the result.
+- T1, T4a, T4b, T6 round ``gh`` to bf16 (the prototypes' bf16 ``gh_exp``;
+  T1 with ``hot_dtype=float32`` too, as the TPU's ``Precision.DEFAULT``
+  rounds an f32 operand).  T4a, T4b and T6 count only the first
+  ``(n // r_tile) * r_tile`` rows; T1 pads, so it drops none.  Rows with
+  pos outside the node tile and bins outside ``[0, n_bin)`` add nothing
+  (a bad bin only in its own feature); T6 "dotfloor" ignores the bins
+  and puts every feature's node totals in bin 0.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
 or raises; any other device raises.  Each kernel has a launch counter in
@@ -78,7 +96,11 @@ class Counter:
 COUNTERS: Dict[str, Counter] = {
     name: Counter(name)
     for name in ("onehot_variant", "onehot_i8", "onehot_notrans",
-                 "onehot_r5")}
+                 "onehot_r5", "onehot_group", "onehot_pack2",
+                 "onehot_onebig", "onehot_r4")}
+# the source (``csrc/<name>.cu``) of each kernel: T4b is built from T4a's
+SOURCES: Dict[str, str] = {name: name for name in COUNTERS}
+SOURCES["onehot_onebig"] = "onehot_pack2"
 
 
 class OnehotArgs(ctypes.Structure):
@@ -89,7 +111,8 @@ class OnehotArgs(ctypes.Structure):
                     "s_b", "s_c", "s_node", "n_rows", "rows_per_block")]
                 + [(n, ctypes.c_int) for n in (
                     "n_feat", "n_bin", "m_pad", "n_node_out", "n_levels",
-                    "n_bg", "n_cg", "n_lg", "n_mt", "r_tile")])
+                    "n_bg", "n_cg", "n_lg", "n_mt", "r_tile", "fg",
+                    "rep")])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -157,18 +180,98 @@ def _launch(name: str, variant: int, bins: torch.Tensor, pos: torch.Tensor,
     args = OnehotArgs(
         bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
         bin_sr, bin_sf, gh_sr, gh_sc, *out_strides, n_rows, rpb, n_feat,
-        n_bin, m_pad, n_node_out, n_levels, n_bg, n_cg, n_lg, n_mt, r_tile)
-    lib = _lib(name)
-    with torch.cuda.device(bins.device):   # the launch targets this card
-        stream = torch.cuda.current_stream(bins.device).cuda_stream
-        rc = getattr(lib, f"{name}_launch")(ctypes.byref(args), variant,
-                                            n_rb, stream)
+        n_bin, m_pad, n_node_out, n_levels, n_bg, n_cg, n_lg, n_mt, r_tile,
+        1, 1)
+    return _call(name, args, variant, n_rb, bins.device, out)
+
+
+def _call(name: str, args: OnehotArgs, variant: int, n_rb: int,
+          device: torch.device, out: torch.Tensor) -> torch.Tensor:
+    """Launch kernel ``name`` on the current stream of ``device``; raise
+    on a refused launch, count a launched one."""
+    lib_name = SOURCES[name]
+    lib = _lib(lib_name)
+    with torch.cuda.device(device):   # the launch targets this card
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{lib_name}_launch")(ctypes.byref(args), variant,
+                                                n_rb, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           + getattr(lib, f"{name}_error_string")(rc)
+                           + getattr(lib, f"{lib_name}_error_string")(rc)
                            .decode())
     COUNTERS[name].add()
     return out
+
+
+GROUP_ACC_TILES = 16   # PW units x CT column tiles a warp: 64 accumulators
+GROUP_SMEM_B = 32768   # the B fragments of a sub-step (onehot_mma.cuh)
+SMEM_MAX = 232448      # dynamic shared memory a block may use (H100)
+
+
+def group_plan(fg: int, n_bin: int) -> Tuple[int, int, int]:
+    """(variant, column tiles a task, warps a unit) of the grouped
+    kernel: ``fg`` features x the bin tiles of 16 are the task's units,
+    8 warps take them, each at most PW = 2^variant units of CT = 16 / PW
+    column tiles; fewer than 8 units get several warps each."""
+    units = fg * _cdiv(n_bin, 16)
+    pw = 1
+    while THREADS // 32 * pw < units:
+        pw *= 2
+    if pw > GROUP_ACC_TILES:
+        raise NotImplementedError(
+            f"{fg} features of {n_bin} bins are {units} units: the grouped "
+            f"kernel takes at most {THREADS // 32 * GROUP_ACC_TILES}")
+    return pw.bit_length() - 1, GROUP_ACC_TILES // pw, \
+        max(1, THREADS // 32 // units)
+
+
+def group_step(r_tile: int) -> int:
+    """The grouped kernel's rows per block step for a prototype's
+    ``r_tile``: the largest power of two at most ``min(r_tile, 2048)``
+    (4,096 is staged as two steps of 2,048)."""
+    if r_tile < THREADS:
+        raise NotImplementedError(f"r_tile {r_tile}: at least {THREADS}")
+    return 1 << (min(r_tile, STEP_ROWS).bit_length() - 1)
+
+
+def _launch_group(name: str, bins: torch.Tensor, pos: torch.Tensor,
+                  gh: torch.Tensor, out: torch.Tensor, *, bin_sr: int,
+                  bin_sf: int, out_strides: Tuple[int, int, int, int],
+                  n_rows: int, n_feat: int, n_bin: int, m_pad: int,
+                  n_node_out: int, n_mt: int, r_tile: int,
+                  fg: int) -> torch.Tensor:
+    """One launch of the feature-grouped kernel on int32 bins, f32 gh
+    ``(n, 2)`` and int32 pos; ``out_strides`` are (s_f, s_b, s_c,
+    s_node)."""
+    if not (bins.is_contiguous() and pos.is_contiguous()
+            and gh.is_contiguous() and out.is_contiguous()):
+        raise ValueError("bins, pos, gh and out must be contiguous")
+    if bins.dtype != torch.int32 or n_bin > 255 or not 0 < m_pad <= 128:
+        raise NotImplementedError(
+            f"the grouped kernel takes int32 bins, B <= 255 and up to 128 "
+            f"nodes a tile (got {bins.dtype}, B={n_bin}, m_pad={m_pad})")
+    step = group_step(r_tile)
+    fg = max(1, min(fg, n_feat))
+    variant, ct, rep = group_plan(fg, n_bin)
+    if GROUP_SMEM_B + step * (5 + fg) > SMEM_MAX:
+        raise NotImplementedError(f"{fg} features a task at {step} rows a "
+                                  "step exceed a block's shared memory")
+    if n_rows == 0 or n_feat == 0:
+        return out
+    n_fg = _cdiv(n_feat, fg)
+    n_cg = _cdiv(_cdiv(2 * m_pad, 8), ct)
+    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
+    steps = _cdiv(n_rows, step)
+    want = _cdiv(BLOCKS_PER_SM * n_sm, n_fg * n_cg * n_mt)
+    rpb = _cdiv(steps, max(1, min(steps, want))) * step
+    n_rb = _cdiv(n_rows, rpb)
+    if n_cg * n_mt > 65535 or n_rb > 65535:
+        raise NotImplementedError("too many node tiles for one launch")
+    args = OnehotArgs(
+        bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
+        bin_sr, bin_sf, 2, 1, 0, *out_strides, n_rows, rpb, n_feat, n_bin,
+        m_pad, n_node_out, 1, 1, n_cg, 1, n_mt, step, fg, rep)
+    return _call(name, args, variant, n_rb, bins.device, out)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -427,3 +530,198 @@ def onehot_variant_plain(binned, gh, pos, n_node, n_bin, precision="bf16",
     out = torch.zeros(n_cells + 1, dtype=torch.float32, device=idx.device)
     out.index_add_(0, idx, src)
     return out[:n_cells].reshape(n_node, binned.shape[1], n_bin, 2)
+
+
+# ------------------------------------------------------ bf16 prototypes
+def _round_bf16(gh: torch.Tensor) -> torch.Tensor:
+    """f32 gh rounded to bf16 (nearest even), as the prototypes' bf16
+    ``gh_exp`` and the TPU's ``Precision.DEFAULT`` round it."""
+    return gh.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_proto_level(bins_fr, node, gh, n_bin, m_pad) -> torch.Tensor:
+    """``(F * n_bin, 2 * m_pad)`` f32: one ``index_add_`` of the rounded
+    gh over the cells of :func:`proto_cells`."""
+    idx, src, n_cells = proto_cells(bins_fr, node, _round_bf16(gh), n_bin,
+                                    m_pad)
+    out = torch.zeros(n_cells + 1, dtype=torch.float32, device=idx.device)
+    out.index_add_(0, idx, src)
+    return out[:n_cells].reshape(-1, 2 * m_pad)
+
+
+def _check_bf16_proto(binned_t, pos, gh, name, bin_dtypes):
+    if binned_t.dim() != 2 or binned_t.dtype not in bin_dtypes:
+        raise TypeError(f"{name} takes bins (F, n) of {bin_dtypes}; got "
+                        f"{tuple(binned_t.shape)} {binned_t.dtype}")
+    n = binned_t.shape[1]
+    if pos.numel() != n or gh.shape != (n, 2):
+        raise ValueError(f"{name} takes pos (n, 1) and gh (n, 2) for n={n}; "
+                         f"got {tuple(pos.shape)}, {tuple(gh.shape)}")
+    if pos.dtype != torch.int32 or gh.dtype != torch.float32:
+        raise TypeError(f"pos must be int32 and gh float32 (got {pos.dtype}, "
+                        f"{gh.dtype})")
+
+
+# ------------------------------------------------------------------- T1
+def onehot_group(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
+                 n_node: int, n_bin: int, fg: int = 4, r_tile: int = 2048,
+                 hot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """T1: the node-major level histogram ``(n_node, F, n_bin, 2)`` f32 of
+    int bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos ``(N,)``, ``fg``
+    features a task.  gh is rounded to bf16 whatever ``hot_dtype``."""
+    if hot_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"hot_dtype {hot_dtype}: float32 or bfloat16")
+    if binned.dim() != 2 or gh.shape != (binned.shape[0], 2) \
+            or pos.shape != (binned.shape[0],) or n_node < 1 or fg < 1 \
+            or r_tile < 1:
+        raise ValueError(f"shapes: bins {tuple(binned.shape)}, gh "
+                         f"{tuple(gh.shape)}, pos {tuple(pos.shape)}, "
+                         f"n_node {n_node}, fg {fg}, r_tile {r_tile}")
+    if gh.dtype != torch.float32 or pos.dtype != torch.int32:
+        raise TypeError(f"gh must be float32 (got {gh.dtype}), pos int32 "
+                        f"(got {pos.dtype})")
+    if _device(binned, gh, pos) == "cpu":
+        return onehot_group_plain(binned, gh, pos, n_node, n_bin, fg,
+                                  r_tile, hot_dtype)
+    bins = binned.to(torch.int32)
+    N, F = bins.shape
+    m_pad = min(n_node, M_TILE)
+    out = torch.zeros((n_node, F, n_bin, 2), dtype=torch.float32,
+                      device=bins.device)
+    return _launch_group("onehot_group", bins, pos, gh, out, bin_sr=F,
+                         bin_sf=1, out_strides=(n_bin * 2, 2, 1,
+                                                F * n_bin * 2),
+                         n_rows=N, n_feat=F, n_bin=n_bin, m_pad=m_pad,
+                         n_node_out=n_node, n_mt=_cdiv(n_node, m_pad),
+                         r_tile=r_tile, fg=fg)
+
+
+def onehot_group_plain(binned, gh, pos, n_node, n_bin, fg=4, r_tile=2048,
+                       hot_dtype=torch.bfloat16):
+    """Plain T1: T5's bf16 cells (:func:`onehot_variant_plain`); ``fg``,
+    ``r_tile`` and ``hot_dtype`` change nothing here."""
+    return onehot_variant_plain(binned, gh, pos, n_node, n_bin, "bf16")
+
+
+# ------------------------------------------------------------ T4a / T4b
+PACK2_MODES = ("prod", "pack2")
+
+
+def _check_pack2(binned_t, pos, gh, mode, name):
+    if mode not in PACK2_MODES:
+        raise ValueError(f"mode {mode!r}: expected 'prod' or 'pack2'")
+    _check_bf16_proto(binned_t, pos, gh, name, (torch.int32,))
+    if mode == "pack2" and binned_t.shape[0] % 2:
+        raise ValueError(f"pack2 pairs features: F = {binned_t.shape[0]} "
+                         "is odd (the prototype would drop the last one)")
+
+
+def onehot_pack2(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
+                 m_pad: int, mode: str = "prod", n_bin: int = 64,
+                 r_tile: int = 2048) -> torch.Tensor:
+    """T4a: ``(1, F * n_bin, 2 * m_pad)`` f32 from feature-major int32 bins
+    ``(F, n)``, pos ``(n, 1)`` and f32 gh ``(n, 2)`` rounded to bf16; rows
+    past ``(n // r_tile) * r_tile`` are dropped.  ``mode`` "prod" takes
+    one feature a task, "pack2" two (F must be even)."""
+    _check_pack2(binned_t, pos, gh, mode, "T4a")
+    if _device(binned_t, pos, gh) == "cpu":
+        return onehot_pack2_plain(binned_t, pos, gh, m_pad, mode, n_bin,
+                                  r_tile)
+    return _pack2_launch("onehot_pack2", binned_t, pos, gh, m_pad, n_bin,
+                         r_tile, 1 if mode == "prod" else 2)
+
+
+def _pack2_launch(name, binned_t, pos, gh, m_pad, n_bin, r_tile, fg):
+    F, n = binned_t.shape
+    out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.float32,
+                      device=binned_t.device)
+    return _launch_group(name, binned_t, pos, gh, out, bin_sr=1, bin_sf=n,
+                         out_strides=(n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
+                         n_rows=(n // r_tile) * r_tile, n_feat=F,
+                         n_bin=n_bin, m_pad=m_pad, n_node_out=m_pad, n_mt=1,
+                         r_tile=r_tile, fg=fg)
+
+
+def onehot_pack2_plain(binned_t, pos, gh, m_pad, mode="prod", n_bin=64,
+                       r_tile=2048):
+    """Plain T4a (and T4b): the bf16 cells of the first whole tiles; the
+    mode changes nothing here."""
+    _check_pack2(binned_t, pos, gh, mode, "T4a")
+    n = (binned_t.shape[1] // r_tile) * r_tile
+    return _bf16_proto_level(binned_t[:, :n], pos.reshape(-1)[:n], gh[:n],
+                             n_bin, m_pad)[None]
+
+
+def onehot_onebig(binned_t: torch.Tensor, pos: torch.Tensor,
+                  gh: torch.Tensor, m_pad: int, n_bin: int = 64,
+                  r_tile: int = 2048) -> torch.Tensor:
+    """T4b: T4a's function with all F features in one task (the
+    prototype's one ``(F * B, R)`` product per row tile)."""
+    _check_bf16_proto(binned_t, pos, gh, "T4b", (torch.int32,))
+    if _device(binned_t, pos, gh) == "cpu":
+        return onehot_onebig_plain(binned_t, pos, gh, m_pad, n_bin, r_tile)
+    return _pack2_launch("onehot_onebig", binned_t, pos, gh, m_pad, n_bin,
+                         r_tile, binned_t.shape[0])
+
+
+def onehot_onebig_plain(binned_t, pos, gh, m_pad, n_bin=64, r_tile=2048):
+    return onehot_pack2_plain(binned_t, pos, gh, m_pad, "prod", n_bin,
+                              r_tile)
+
+
+# ------------------------------------------------------------------- T6
+R4_MODES = ("prod", "dotfloor", "u8bins", "i16hot")
+
+
+def _check_r4(binned_t, pos, gh, mode):
+    if mode not in R4_MODES:
+        raise ValueError(f"mode {mode!r}: one of {R4_MODES}")
+    _check_bf16_proto(binned_t, pos, gh, f"T6 {mode}",
+                      (torch.uint8,) if mode == "u8bins" else (torch.int32,))
+
+
+def onehot_r4(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
+              mode: str = "prod", r_tile: int = 2048,
+              n_bin: int = 64) -> torch.Tensor:
+    """T6: ``(1, F * n_bin, 128)`` f32 from feature-major bins ``(F, n)``
+    (uint8 for "u8bins", else int32), pos ``(n, 1)`` and f32 gh ``(n, 2)``
+    rounded to bf16, M = 64; rows past ``(n // r_tile) * r_tile`` are
+    dropped.  "dotfloor" puts the node totals in every feature's bin 0."""
+    _check_r4(binned_t, pos, gh, mode)
+    if _device(binned_t, pos, gh) == "cpu":
+        return onehot_r4_plain(binned_t, pos, gh, mode, r_tile, n_bin)
+    if r_tile < THREADS or min(r_tile, STEP_ROWS) % THREADS:
+        raise NotImplementedError(f"r_tile {r_tile}: a multiple of "
+                                  f"{THREADS}, or above {STEP_ROWS}")
+    F, n = binned_t.shape
+    M = M_TILE
+    out = torch.zeros((1, F * n_bin, 2 * M), dtype=torch.float32,
+                      device=binned_t.device)
+    return _launch("onehot_r4", R4_MODES.index(mode), binned_t, pos, gh, out,
+                   bin_sr=1, bin_sf=n, gh_sr=2, gh_sc=1,
+                   out_strides=(0, n_bin * 2 * M, 2 * M, M, 1),
+                   n_rows=(n // r_tile) * r_tile, n_feat=F, n_bin=n_bin,
+                   m_pad=M, n_node_out=M, n_levels=1, mod_levels=False,
+                   n_mt=1, r_tile=min(r_tile, STEP_ROWS),
+                   col_tiles=COL_TILES, levels_per_task=1)
+
+
+def onehot_r4_plain(binned_t, pos, gh, mode="prod", r_tile=2048, n_bin=64):
+    """Plain T6: T4a's bf16 cells at M = 64, or for "dotfloor" one
+    ``index_add_`` of the node totals copied into every feature's bin 0."""
+    _check_r4(binned_t, pos, gh, mode)
+    F, n = binned_t.shape
+    n = (n // r_tile) * r_tile
+    M = M_TILE
+    if mode != "dotfloor":
+        return _bf16_proto_level(binned_t[:, :n], pos.reshape(-1)[:n],
+                                 gh[:n], n_bin, M)[None]
+    p = pos.reshape(-1)[:n].to(torch.int64)
+    col = torch.where((p >= 0) & (p < M), p, 2 * M)
+    idx = torch.stack([col, torch.where(col < M, col + M, col)], dim=-1)
+    tot = torch.zeros(2 * M + 1, dtype=torch.float32, device=gh.device)
+    tot.index_add_(0, idx.reshape(-1), _round_bf16(gh[:n]).reshape(-1))
+    out = torch.zeros((F, n_bin, 2 * M), dtype=torch.float32,
+                      device=gh.device)
+    out[:, 0, :] = tot[:2 * M]
+    return out.reshape(1, F * n_bin, 2 * M)
