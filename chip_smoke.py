@@ -49,23 +49,28 @@ Phases, in order; any failure exits non-zero:
 The ``[onehot]`` phase holds each one-hot kernel against its plain
 version (int bitwise, including the int8 wrap, the dropped tail and T7's
 floor-mod pad rows; T5 bitwise on bf16-exact gradients, within the f32
-summation bound on random ones) and each int kernel against a K1 int
-launch on the same inputs, then runs the four mains with every launch
-count set to 0 just before and read just after, and fails on any count
-but the mains' exact ones (a fall to the plain version would leave it
-short), on T2's int32 sums differing from exact ones, and on T3's
-dequantized histogram beyond its rows' half quantization steps.
+summation bound on random ones, also at F Bp not a multiple of 64, rows
+not a multiple of the row step and one node) and each int kernel against
+a K1 int launch on the same inputs, fails unless T5's built library
+holds wgmma (HGMMA) instructions and no mma.sync (HMMA) ones
+(``cuobjdump -sass``), then runs the four mains with every launch count
+set to 0 just before and read just after, and fails on any count but the
+mains' exact ones (a fall to the plain version would leave it short), on
+T2's int32 sums differing from exact ones, and on T3's dequantized
+histogram beyond its rows' half quantization steps.
 
 The ``[onehot-bf16]`` phase does the same for T1, T4a, T4b and T6: each
 kernel bitwise against its plain version on bf16-exact gradients and
 within the f32 summation bound on random ones (dropped tails, bins past
-B, rows outside the node tile, T1's node tiles and every fg and r_tile of
-its main, a planted out-of-range bin that must leave its row in the
-group's other features, T4b == T4a prod, T6's u8bins == i16hot == prod),
-then the three bf16 mains with exact launch counts, T1's accuracy line
-within bf16's rounding of K1 fp32, and T4a's and T4b's match checks.
-Every path counts the launches of all twelve kernels and fails on any
-kernel it should not run.
+B, rows outside the node tile, T1's node tiles and every fg and r_tile
+of its main, F Bp not a multiple of 64 on rows that are not a multiple
+of the row step, one node, a planted out-of-range bin that must leave
+its row in the group's other features, T4b == T4a prod, T6's u8bins ==
+i16hot == prod), the same SASS check of T1's library, then the three
+bf16 mains with exact launch counts, T1's accuracy line within bf16's
+rounding of K1 fp32, and T4a's and T4b's match checks. Every path counts
+the launches of all twelve kernels and fails on any kernel it should not
+run.
 
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
@@ -1378,9 +1383,28 @@ def onehot_variant_case(torch, oh, n, F, B, n_node, kw, seed, dev):
     return float((got - want).abs().max())
 
 
-def phase_onehot_checks(torch, oh, cuda_hist, dev):
+def sass_check(nvcc, name, tag):
+    """The built library of ``csrc/<name>.cu`` runs wgmma: its SASS
+    holds HGMMA instructions and no mma.sync (HMMA) ones."""
+    built, = nvcc.build([name])
+    cuobjdump = os.path.join(os.path.dirname(nvcc.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(built.path)],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        fail(f"{tag} cuobjdump -sass {built.path.name}: {sass.stderr[-500:]}")
+    n_hgmma = sass.stdout.count("HGMMA")
+    n_hmma = sass.stdout.count("HMMA")
+    if n_hgmma == 0 or n_hmma:
+        fail(f"{tag} {name}: {n_hgmma} HGMMA and {n_hmma} HMMA instructions "
+             "in its SASS; the wgmma kernel has HGMMA only")
+    print(f"{tag} {name}: SASS holds {n_hgmma} HGMMA instructions, no HMMA",
+          flush=True)
+
+
+def phase_onehot_checks(torch, oh, cuda_hist, nvcc, dev):
     """Each one-hot kernel against its plain version in every mode, at
-    the mains' shapes and beyond; each int kernel against K1."""
+    the mains' shapes and beyond; each int kernel against K1; T5's
+    library holds wgmma (HGMMA) and no mma.sync."""
     n_pad = -(-OH_N // 8192) * 8192     # the T3 and T2 mains' rows
     n_r5 = -(-OH_N // 2048) * 2048      # the T7 main's rows
     for kernel in ("onehot_i8", "onehot_notrans"):
@@ -1399,9 +1423,13 @@ def phase_onehot_checks(torch, oh, cuda_hist, dev):
             print(f"[onehot] onehot_r5 {mode} N={n} B={B} levels={nl}: "
                   "bitwise == plain (pad rows, floor-mod)"
                   + (", == K1 int" if nl == 1 else ""), flush=True)
+    sass_check(nvcc, "onehot_variant", "[onehot]")
     err = 0.0
+    # then F Bp not a multiple of 64, rows not a multiple of the row step,
+    # one node
     for n, F, B, n_node in [(OH_N, 28, 67, 5), (OH_N, 28, 67, 64),
-                            (OH_N, 28, 67, 128), (3000, 3, 7, 3)]:
+                            (OH_N, 28, 67, 128), (3000, 3, 7, 3),
+                            (OH_N + 37, 5, 67, 1), (OH_N + 37, 5, 67, 70)]:
         for kw in T5_CHECK_KW:
             err = max(err, onehot_variant_case(torch, oh, n, F, B, n_node,
                                                kw, seed=n_node, dev=dev))
@@ -1452,13 +1480,15 @@ def bf16_case(torch, oh, kernel, args_of, kw, dy, gh, tag):
     return float((got - want).abs().max()), got_dy
 
 
-def phase_onehot_bf16_checks(torch, oh, dev):
+def phase_onehot_bf16_checks(torch, oh, nvcc, dev):
     """T1, T4a, T4b and T6 against their plain versions at the mains'
     shapes and beyond: T4 and T6 with a dropped tail and bins past B, T4b
     and T6's u8bins and i16hot equal to prod bitwise on bf16-exact gh,
     T1 at several node counts (70: two node tiles, the second partial),
-    every fg and r_tile of its main, and a planted out-of-range bin that
-    leaves its row in the group's other features."""
+    every fg and r_tile of its main, F Bp not a multiple of 64, rows not a
+    multiple of the row step, one node, and a planted out-of-range bin
+    that leaves its row in the group's other features; T1's library holds
+    wgmma (HGMMA) and no mma.sync."""
     errs = {k: 0.0 for k in ("onehot_group", "onehot_pack2",
                              "onehot_onebig", "onehot_r4")}
     n = -(-OH_N // 8192) * 8192 + 333    # the mains' rows and a tail
@@ -1506,26 +1536,32 @@ def phase_onehot_bf16_checks(torch, oh, dev):
     print(f"[onehot-bf16] onehot_r4 N={n}: prod (r_tile 1024, 2048, 4096), "
           "dotfloor, u8bins, i16hot bitwise == plain on bf16-exact gh, "
           "u8bins == i16hot == prod; within bound on random gh", flush=True)
+    sass_check(nvcc, "onehot_group", "[onehot-bf16]")
     g = torch.Generator(device=dev).manual_seed(70)
-    F, B = 28, 67
-    bins = torch.randint(0, B, (OH_N, F), generator=g, device=dev,
-                         dtype=torch.int32)
-    dy = torch.randint(-128, 128, (OH_N, 2), generator=g, device=dev,
-                       dtype=torch.int32).float() / 64.0
-    gh = torch.randn(OH_N, 2, generator=g, device=dev)
-    for n_node, fg, r_tile in [(3, 2, 2048), (64, 2, 1024), (64, 4, 2048),
-                               (64, 7, 4096), (64, 14, 2048), (70, 4, 2048),
-                               (70, 14, 1024)]:
-        pos = torch.randint(-1, n_node + 10, (OH_N,), generator=g,
-                            device=dev, dtype=torch.int32)
-        tag = (f"[onehot-bf16] onehot_group N={OH_N} n_node={n_node} "
-               f"fg={fg} r_tile={r_tile}")
-        err, _ = bf16_case(torch, oh, "onehot_group",
-                           lambda x: (bins, x, pos, n_node, B),
-                           dict(fg=fg, r_tile=r_tile), dy, gh, tag)
-        errs["onehot_group"] = max(errs["onehot_group"], err)
-        print(f"{tag}: bitwise == plain on bf16-exact gh, within bound on "
-              "random gh", flush=True)
+    B = 67
+    # 5 features (F Bp not a multiple of 64) on rows that are not a
+    # multiple of the row step, then the main's 28 features and rows
+    for n, F, cases in [(OH_N + 37, 5, [(1, 4, 2048), (70, 2, 1024)]),
+                        (OH_N, 28, [(3, 2, 2048), (64, 2, 1024),
+                                    (64, 4, 2048), (64, 7, 4096),
+                                    (64, 14, 2048), (70, 4, 2048),
+                                    (70, 14, 1024)])]:
+        bins = torch.randint(0, B, (n, F), generator=g, device=dev,
+                             dtype=torch.int32)
+        dy = torch.randint(-128, 128, (n, 2), generator=g, device=dev,
+                           dtype=torch.int32).float() / 64.0
+        gh = torch.randn(n, 2, generator=g, device=dev)
+        for n_node, fg, r_tile in cases:
+            pos = torch.randint(-1, n_node + 10, (n,), generator=g,
+                                device=dev, dtype=torch.int32)
+            tag = (f"[onehot-bf16] onehot_group N={n} F={F} n_node={n_node}"
+                   f" fg={fg} r_tile={r_tile}")
+            err, _ = bf16_case(torch, oh, "onehot_group",
+                               lambda x: (bins, x, pos, n_node, B),
+                               dict(fg=fg, r_tile=r_tile), dy, gh, tag)
+            errs["onehot_group"] = max(errs["onehot_group"], err)
+            print(f"{tag}: bitwise == plain on bf16-exact gh, within bound "
+                  "on random gh", flush=True)
     # a bin of -1 or 1000 in one feature drops that (row, feature) alone
     planted = bins.clone()
     planted[::7, 1] = -1
@@ -1548,6 +1584,14 @@ def phase_onehot_bf16_checks(torch, oh, dev):
     return errs
 
 
+def wgmma_cols(B, n_node):
+    """Bp x N of T5's and T1's wgmma product a row and feature: B rounded
+    up to 8 (the M rows of a feature), times 2 m_pad rounded up to 8 in
+    each node tile (the N it needs)."""
+    m_pad = min(n_node, 64)
+    return -(-B // 8) * 8 * -(-n_node // m_pad) * (-(-2 * m_pad // 8) * 8)
+
+
 def onehot_work(torch, oh, kernel, args, kw):
     """(cells, bytes, additions, tensor-core ms) of one call: the flat
     index and values of one ``index_add_`` computing the same sums
@@ -1563,11 +1607,9 @@ def onehot_work(torch, oh, kernel, args, kw):
         bin_bytes = 2 if kw.get("bin_dtype") == torch.int16 else 4
         active = int(((pos >= 0) & (pos < n_node)).sum())
         nbytes = N * F * bin_bytes + 4 * N + 8 * active + n_cells * 4
-        m_pad = min(n_node, oh.M_TILE)
-        cols = -(-n_node // m_pad) * (-(-2 * m_pad // 8) * 8)
         split = 3 if kw.get("precision") == "fp32" \
             and kw.get("hot_dtype", torch.float32) == torch.float32 else 1
-        tc = 2 * N * F * (-(-B // 16) * 16) * cols * split / PEAK_BF16_OPS_S
+        tc = 2 * N * F * wgmma_cols(B, n_node) * split / PEAK_BF16_OPS_S
         return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
     if kernel == "onehot_group":
         binned, gh, pos, n_node, B = args
@@ -1576,9 +1618,7 @@ def onehot_work(torch, oh, kernel, args, kw):
         N, F = binned.shape
         active = int(((pos >= 0) & (pos < n_node)).sum())
         nbytes = N * F * 4 + 4 * N + 8 * active + n_cells * 4
-        m_pad = min(n_node, oh.M_TILE)
-        cols = -(-n_node // m_pad) * (-(-2 * m_pad // 8) * 8)
-        tc = 2 * N * F * (-(-B // 16) * 16) * cols / PEAK_BF16_OPS_S
+        tc = 2 * N * F * wgmma_cols(B, n_node) / PEAK_BF16_OPS_S
         return (idx, src, n_cells), nbytes, active * F * 2, tc * 1e3
     if kernel in ("onehot_pack2", "onehot_onebig", "onehot_r4"):
         if kernel == "onehot_r4":
@@ -1830,7 +1870,8 @@ def main():
     for b in nvcc.build(sources):
         print(f"[build] {b.name}: {b.seconds:.2f} s")
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Performance" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] total {time.perf_counter() - t0:.2f} s")
 
@@ -1873,14 +1914,16 @@ def main():
     print(f"[lanes] phase {time.perf_counter() - t0:.1f} s (pipeline runs "
           f"{lane_secs[0]:.2f} s stacked, {lane_secs[1]:.2f} s host loop)")
     t0 = time.perf_counter()
-    oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist, dev)
+    oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist, nvcc,
+                                  dev)
     print(f"[onehot] checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     oh_launches, oh_rows = phase_onehot(torch, cuda_hist_onehot, cuda_hist,
                                         kernels, card)
     print(f"[onehot] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    oh_errs.update(phase_onehot_bf16_checks(torch, cuda_hist_onehot, dev))
+    oh_errs.update(phase_onehot_bf16_checks(torch, cuda_hist_onehot, nvcc,
+                                            dev))
     print(f"[onehot-bf16] checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     bf_launches, bf_rows = phase_onehot_bf16(torch, cuda_hist_onehot,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1, K3, K2, K4; the one-hot kernels T5, T3,
-T2, T7, T1, T4a, T4b, T6) against their plain PyTorch versions, on a GPU.  Marked
+T2, T7, T1, T4a, T4b, T6) against their plain PyTorch versions, on a GPU,
+and T5's and T1's libraries holding wgmma instructions.  Marked
 ``cuda``: without an NVIDIA GPU (and nvcc) they skip.  No JAX here, so they also run where only torch is installed
 (the repo's conftest imports JAX, hence ``--noconftest``):
 
@@ -299,6 +300,66 @@ def test_onehot_variant_kernel_matches_plain(cuda_device, n_node, precision,
                                   "fp32")
     a = oh.onehot_variant_plain(bins, src.abs(), pos, n_node, B, "fp32")
     assert bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,n_node", [(30001, 5, 1), (30001, 5, 70),
+                                        (4099, 3, 3)])
+@pytest.mark.parametrize("kernel,kw", [
+    ("onehot_variant", dict(precision="bf16")),
+    ("onehot_variant", dict(precision="fp32", bin_dtype="int16")),
+    ("onehot_group", dict(fg=4))])
+def test_onehot_wgmma_kernels_on_odd_shapes(cuda_device, kernel, kw, N, F,
+                                            n_node):
+    """T5 and T1 share the wgmma kernel: F Bp (5 x 72 = 360) not a
+    multiple of its 64-row M tiles, a row count that is not a multiple of
+    its row step (256, 64 exact), one node (N = 8) and two node tiles;
+    bitwise on gh exact in bf16 and within the f32 summation bound on
+    random gh, with a bad bin planted in some (row, feature)s."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    kw = {k: getattr(torch, v) if k.endswith("dtype") else v
+          for k, v in kw.items()}
+    rng = np.random.RandomState(N + F + n_node)
+    B = 67
+    bins = rng.randint(0, B, (N, F)).astype(np.int32)
+    bins[rng.rand(N, F) < 0.01] = 300
+    pos = rng.randint(-1, n_node + 10, N).astype(np.int32)
+    dy = (rng.randint(-128, 128, (N, 2)) / 64.0).astype(np.float32)
+    gh = rng.randn(N, 2).astype(np.float32)
+    bins, pos, dy, gh = (torch.from_numpy(a).to(cuda_device)
+                         for a in (bins, pos, dy, gh))
+    fn, plain = getattr(oh, kernel), getattr(oh, kernel + "_plain")
+    before = oh.COUNTERS[kernel].launches
+    got = fn(bins, dy, pos, n_node, B, **kw)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS[kernel].launches == before + 1
+    assert got.shape == (n_node, F, B, 2)
+    assert torch.equal(got, plain(bins, dy, pos, n_node, B, **kw))
+    exact = kw.get("precision") == "fp32"
+    src = gh if exact else gh.to(torch.bfloat16).float()
+    got, want = fn(bins, gh, pos, n_node, B, **kw), plain(bins, gh, pos,
+                                                          n_node, B, **kw)
+    cnt = oh.onehot_variant_plain(bins, torch.ones_like(gh), pos, n_node, B,
+                                  "fp32")
+    a = oh.onehot_variant_plain(bins, src.abs(), pos, n_node, B, "fp32")
+    assert bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["onehot_variant", "onehot_group"])
+def test_onehot_wgmma_libraries_hold_hgmma(cuda_device, name):
+    """T5's and T1's libraries run wgmma: their SASS (``cuobjdump -sass``)
+    holds HGMMA instructions and no mma.sync (HMMA) ones."""
+    import os
+    import subprocess
+    from xgboost_tpu_torch.ops import nvcc
+    built, = nvcc.build([name])
+    cuobjdump = os.path.join(os.path.dirname(nvcc.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(built.path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    assert sass.count("HGMMA") > 0
+    assert sass.count("HMMA") == 0
 
 
 def _bf16_bound(got, want, cnt, a):

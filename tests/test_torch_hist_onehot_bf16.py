@@ -312,6 +312,89 @@ def test_grouped_kernel_plan_fits_its_registers():
         [256, 1024, 2048, 2048, 2048]
 
 
+WGMMA_PLANS = [  # (F, B, n_node, bin_dtype, exact)
+    (28, 67, 64, "int32", False),    # the T5 and T1 mains
+    (28, 67, 64, "int16", False),    # T5 i16cmp
+    (28, 67, 64, "int32", True),     # T5 exact
+    (28, 255, 64, "int32", False),   # the largest B
+    (28, 255, 70, "int32", True),
+    (5, 67, 1, "int32", False),      # F Bp not a multiple of 64
+    (28, 67, 3, "int16", True),
+    (28, 67, 70, "int32", False),    # two node tiles
+    (93, 8, 5, "int32", False),      # narrow features, many a block
+    (1, 1, 1, "int32", False),
+]
+
+
+def _tile_cells(plan, F, B):
+    """The (feature, bin) cells each M tile of the plan holds: M row m is
+    bin m % Bp of feature m // Bp, pad bins and rows past F Bp hold none."""
+    return [{(m // plan.b_pad, m % plan.b_pad)
+             for m in range(64 * k, 64 * (k + 1))
+             if m < F * plan.b_pad and m % plan.b_pad < B}
+            for k in range(plan.n_tiles)]
+
+
+@pytest.mark.parametrize("F,B,n_node,bin_dtype,exact", WGMMA_PLANS)
+def test_wgmma_plan_tiles_cover_every_cell_once(F, B, n_node, bin_dtype,
+                                                exact):
+    """T5's and T1's wgmma kernel: its M tiles hold every (feature, bin)
+    cell exactly once, and each block stages every feature of its tiles,
+    a feature split across two tiles in both."""
+    plan = oh.wgmma_plan(F, B, n_node, getattr(torch, bin_dtype), exact)
+    cells = _tile_cells(plan, F, B)
+    assert sum(len(c) for c in cells) == F * B
+    assert set().union(*cells) == {(f, b) for f in range(F)
+                                   for b in range(B)}
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    assert len(feats) == plan.n_mblk
+    split = 0
+    for k, c in enumerate(cells):
+        staged = feats[k // plan.tiles_per_block]
+        assert {f for f, _ in c} <= set(staged)
+        if k and {f for f, _ in c} & {f for f, _ in cells[k - 1]}:
+            split += 1
+    assert split > 0 or plan.n_tiles == 1 or 64 % plan.b_pad == 0
+    assert 2 * plan.m_pad <= plan.n_col in oh.WGMMA_COLS
+    assert plan.m_pad * plan.n_mt >= n_node > plan.m_pad * (plan.n_mt - 1)
+
+
+@pytest.mark.parametrize("F,B,n_node,bin_dtype,exact", WGMMA_PLANS)
+def test_wgmma_plan_fits_the_card(F, B, n_node, bin_dtype, exact):
+    """The block's shared memory and accumulators fit an H100 SM: at most
+    232,448 bytes, and accumulators at most half the 65,536 registers of
+    the block's 512 threads; a step's staged bins fit the stage."""
+    plan = oh.wgmma_plan(F, B, n_node, getattr(torch, bin_dtype), exact)
+    assert plan.smem <= oh.SMEM_MAX
+    assert plan.acc_regs * 128 * oh.WGMMA_WARPGROUPS <= 65536 // 2
+    assert plan.step >= 16 and plan.step % 16 == 0
+    assert plan.step <= (64 if exact else 256)
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    assert plan.step * max(len(r) for r in feats) <= oh.WGMMA_STAGE_BINS
+    assert plan.n_parts == (3 if exact else 1)
+    assert plan.bin_bytes == (2 if bin_dtype == "int16" else 4)
+
+
+def test_wgmma_plan_at_the_mains_shape():
+    """F = 28, B = 67, n_node = 64: Bp = 72, 2,016 (feature, bin) rows in
+    32 tiles of 64, 4 a block, N = 128, 256 rows a step (64 exact)."""
+    plan = oh.wgmma_plan(28, 67, 64)
+    assert (plan.b_pad, plan.n_tiles, plan.tiles_per_block, plan.n_mblk,
+            plan.n_col, plan.step, plan.acc_regs) == (72, 32, 4, 8, 128,
+                                                      256, 64)
+    assert oh.wgmma_plan(28, 67, 64, exact=True).step == 64
+    assert oh.wgmma_plan(5, 67, 1).n_col == 8
+
+
+@pytest.mark.parametrize("F,B,n_node,bin_dtype", [
+    (28, 256, 64, torch.int32), (28, 0, 64, torch.int32),
+    (28, 67, 64, torch.int64), (28, 67, 64, torch.uint8)])
+def test_wgmma_plan_refuses_what_the_kernel_does_not_take(F, B, n_node,
+                                                          bin_dtype):
+    with pytest.raises(NotImplementedError):
+        oh.wgmma_plan(F, B, n_node, bin_dtype)
+
+
 def test_new_cpu_tensors_never_launch_and_meta_raises(fr_case, t1_case):
     bins, pos, dyadic, _ = fr_case
     before = {k: c.launches for k, c in oh.COUNTERS.items()}

@@ -1,8 +1,10 @@
 // The one-hot histogram as a tensor-core product on Hopper (sm_90a): the
-// device code that the histogram microbenchmark kernels share: the
-// one-feature kernel below (onehot_variant.cu, onehot_i8.cu,
-// onehot_notrans.cu, onehot_r5.cu, onehot_r4.cu) and the feature-grouped
-// kernel at the end (onehot_group.cu, onehot_pack2.cu).
+// mma.sync device code that the histogram microbenchmark kernels share:
+// the one-feature kernel below (onehot_i8.cu, onehot_notrans.cu,
+// onehot_r5.cu, onehot_r4.cu) and the feature-grouped kernel at the end
+// (onehot_pack2.cu).  T5 and T1 (onehot_variant.cu, onehot_group.cu) run
+// the wgmma kernel of onehot_wgmma.cuh instead; OH_SPLIT3, their exact
+// mode, has no instantiation here now.
 //
 // The TPU prototypes in tools/ compute a level histogram per feature f as
 // one matrix product
@@ -507,10 +509,10 @@ cudaError_t onehot_launch(const OnehotArgs* a, int n_row_blocks,
 }
 
 // ------------------------------------------------------------ grouped
-// The feature-grouped bf16 kernel (T1 onehot_group.cu, T4a / T4b
-// onehot_pack2.cu): a task takes FG features (a.fg; blockIdx.x the
-// feature group), one group of up to CT column tiles and one node tile
-// (blockIdx.y), and one chunk of rows (blockIdx.z).
+// The feature-grouped bf16 kernel (T4a / T4b onehot_pack2.cu): a task
+// takes FG features (a.fg; blockIdx.x the feature group), one group of up
+// to CT column tiles and one node tile (blockIdx.y), and one chunk of rows
+// (blockIdx.z).
 //
 // Per step of a.r_tile rows (a power of two, at most 2,048) the block
 // stages each row's node byte and bf16 g and h ONCE for its FG features,

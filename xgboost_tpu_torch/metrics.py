@@ -102,14 +102,40 @@ _METRICS: Dict[str, Callable] = {"rmse": rmse, "logloss": logloss,
 
 
 def create_metric(name: str) -> Callable:
-    """Metric by name (reference CreateEvaluator)."""
-    fn = _METRICS.get(name)
-    if fn is None:
-        raise NotImplementedError(
-            f"metric {name!r} is not ported yet (ported: "
-            f"{sorted(_METRICS)}; ROADMAP.md section 1)")
+    """Metric by name (reference CreateEvaluator).
 
-    def metric(preds, labels, weights, group_ptr=None):
-        return fn(preds, labels, weights, group_ptr)
-    metric.metric_name = name
-    return metric
+    Parses the name as the JAX package's factory does (``ct-`` prefix,
+    ``@suffix``, trailing ``-``), so a name that factory does not know
+    raises its ``ValueError``; a name it knows that is not ported here
+    (``ct-``, ``ams``, ``pratio``, ``apratio``, ``ndcg``, ``map``,
+    ``pre``) raises ``NotImplementedError``.
+    """
+    if name.startswith("ct-"):
+        create_metric(name[3:])
+        raise _unported(name)
+    base, at, suffix = name.partition("@")
+    if suffix.endswith("-"):
+        suffix = suffix[:-1]
+    fn = _METRICS.get(base)
+    if fn is not None and not at:
+        def metric(preds, labels, weights, group_ptr=None):
+            return fn(preds, labels, weights, group_ptr)
+        metric.metric_name = name
+        return metric
+    # the reference parses a ratio (ams, pratio, apratio) or a top-n (the
+    # rankers, and any other suffixed name) before it looks the name up
+    if base in ("ams", "pratio", "apratio"):
+        if suffix:
+            float(suffix)
+        raise _unported(name)
+    if suffix:
+        int(float(suffix))
+    if base in ("ndcg", "map", "pre"):
+        raise _unported(name)
+    raise ValueError(f"unknown evaluation metric type: {name}")
+
+
+def _unported(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"metric {name!r} is not ported yet (ported: {sorted(_METRICS)}; "
+        f"ROADMAP.md section 1)")

@@ -26,10 +26,12 @@ list and output layout:
   M = 64 whose one-hot is built four ways ("prod", "dotfloor", "u8bins",
   "i16hot"), ``(1, F * B, 128)`` f32; source ``csrc/onehot_r4.cu``.
 
-All share the device code of ``csrc/onehot_mma.cuh``: T1, T4a and T4b its
-feature-grouped kernel, the others its one-feature kernel.  Each has a
-plain PyTorch version (``*_plain``) with the prototype's exact semantics,
-which the kernel matches:
+T5 and T1 compute the same function and share one kernel, the ``wgmma``
+product of ``csrc/onehot_wgmma.cuh`` (tiled by :func:`wgmma_plan`); the
+others share the ``mma.sync`` device code of ``csrc/onehot_mma.cuh``: T4a
+and T4b its feature-grouped kernel, T3, T2, T7 and T6 its one-feature
+kernel.  Each has a plain PyTorch version (``*_plain``) with the
+prototype's exact semantics, which the kernel matches:
 
 - T3, T2, T7 count only the first ``(n // r_tile) * r_tile`` rows (their
   grids drop the rest) and wrap ``gh`` to int8 (``astype(int8)``); sums
@@ -40,7 +42,8 @@ which the kernel matches:
   rounded to bf16 (nearest even) when ``precision == "bf16"`` or
   ``hot_dtype`` is bf16, as the TPU's matrix unit rounds it.  (The JAX
   function run on a CPU sums unrounded f32 there.)  ``bin_dtype`` changes
-  the bytes read, never the result.
+  the bytes read, never the result; ``r_tile`` (and T1's ``fg``) change
+  nothing.
 - T1, T4a, T4b, T6 round ``gh`` to bf16 (the prototypes' bf16 ``gh_exp``;
   T1 with ``hot_dtype=float32`` too, as the TPU's ``Precision.DEFAULT``
   rounds an f32 operand).  T4a, T4b and T6 count only the first
@@ -59,7 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -185,12 +188,12 @@ def _launch(name: str, variant: int, bins: torch.Tensor, pos: torch.Tensor,
     return _call(name, args, variant, n_rb, bins.device, out)
 
 
-def _call(name: str, args: OnehotArgs, variant: int, n_rb: int,
+def _call(name: str, args: ctypes.Structure, variant: int, n_rb: int,
           device: torch.device, out: torch.Tensor) -> torch.Tensor:
     """Launch kernel ``name`` on the current stream of ``device``; raise
     on a refused launch, count a launched one."""
     lib_name = SOURCES[name]
-    lib = _lib(lib_name)
+    lib = _lib(lib_name, type(args))
     with torch.cuda.device(device):   # the launch targets this card
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{lib_name}_launch")(ctypes.byref(args), variant,
@@ -274,17 +277,127 @@ def _launch_group(name: str, bins: torch.Tensor, pos: torch.Tensor,
     return _call(name, args, variant, n_rb, bins.device, out)
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def _lib(name: str, arg_type: type) -> ctypes.CDLL:
     lib = nvcc.load(name)
     launch = getattr(lib, f"{name}_launch")
     if launch.argtypes is None:
-        launch.argtypes = [ctypes.POINTER(OnehotArgs), ctypes.c_int,
+        launch.argtypes = [ctypes.POINTER(arg_type), ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
         launch.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return lib
+
+
+# ------------------------------------------------------- wgmma (T5, T1)
+WGMMA_COLS = (8, 16, 32, 64, 128)  # the N the kernel is instantiated at
+WGMMA_WARPGROUPS = 4               # warpgroups a block
+WGMMA_STAGE_BINS = 2048            # staged bins a block step
+
+
+class WgmmaArgs(ctypes.Structure):
+    """``struct WgmmaArgs`` of ``csrc/onehot_wgmma.cuh``, field by field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("bins", "pos", "gh", "out")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_f", "s_b",
+                    "s_c", "s_node", "n_rows", "rows_per_block")]
+                + [(n, ctypes.c_int) for n in (
+                    "n_feat", "n_bin", "b_pad", "m_pad", "n_node_out",
+                    "n_col", "n_mblk", "n_mt", "step", "bin_bytes")])
+
+
+class WgmmaPlan(NamedTuple):
+    """The tiling of one launch of the ``wgmma`` kernel."""
+    n_col: int            # N: 2 m_pad rounded up to one of WGMMA_COLS
+    b_pad: int            # Bp: B rounded up to 8 (M rows a feature)
+    m_pad: int            # nodes a node tile
+    n_mt: int             # node tiles (a grid dimension)
+    tiles_per_block: int  # M tiles of 64 a block: four warpgroups' worth
+    n_tiles: int          # M tiles of the F * Bp (feature, bin) rows
+    n_mblk: int           # M blocks
+    step: int             # rows a block step
+    bin_bytes: int        # 4: int32 bins, 2: int16
+    n_parts: int          # bf16 parts of gh: 1, or 3 in the exact mode
+    smem: int             # dynamic shared memory of a block, bytes
+    acc_regs: int         # f32 accumulators a thread
+
+
+def wgmma_block_features(n_feat: int, b_pad: int,
+                         tiles_per_block: int) -> list:
+    """The features each M block stages: block k holds M rows [k R, (k +
+    1) R) of the ``n_feat * b_pad`` (feature, bin) rows (R = 64 x its
+    tiles), so the features of its first to its last row."""
+    m_rows, rows = n_feat * b_pad, 64 * tiles_per_block
+    return [range(m0 // b_pad, (min(m_rows, m0 + rows) - 1) // b_pad + 1)
+            for m0 in range(0, m_rows, rows)]
+
+
+def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
+               bin_dtype: torch.dtype = torch.int32,
+               exact: bool = False) -> WgmmaPlan:
+    """The ``wgmma`` kernel's tiling of a ``(n_node, F, n_bin, 2)``
+    histogram (``csrc/onehot_wgmma.cuh``): M tiles of 64 over the F * Bp
+    (feature, bin) rows, four warpgroups a block of one tile each at N =
+    128 (two below), the row step as large as a stage's 2,048 staged bins
+    allow (at most 256 rows, 64 in the exact mode, whose three B tiles
+    fill more shared memory).  Raises ``NotImplementedError`` on what the
+    kernel does not take."""
+    if bin_dtype not in (torch.int32, torch.int16):
+        raise NotImplementedError(f"the wgmma kernel reads int32 or int16 "
+                                  f"bins (got {bin_dtype})")
+    if not 1 <= n_bin <= 255 or n_feat < 1 or n_node < 1:
+        raise NotImplementedError(
+            f"the wgmma kernel takes 1 <= B <= 255 (byte 255 marks a bad "
+            f"bin), F >= 1 and n_node >= 1 (got B={n_bin}, F={n_feat}, "
+            f"n_node={n_node})")
+    b_pad = _cdiv(n_bin, 8) * 8
+    m_pad = min(n_node, M_TILE)
+    n_col = next(n for n in WGMMA_COLS if n >= 2 * m_pad)
+    tw = 1 if n_col >= 128 else 2      # M tiles a warpgroup
+    tpb = WGMMA_WARPGROUPS * tw
+    feats = wgmma_block_features(n_feat, b_pad, tpb)
+    n_parts = 3 if exact else 1
+    step = min(64 if exact else 256,
+               WGMMA_STAGE_BINS // max(len(r) for r in feats) // 16 * 16)
+    return WgmmaPlan(
+        n_col=n_col, b_pad=b_pad, m_pad=m_pad, n_mt=_cdiv(n_node, m_pad),
+        tiles_per_block=tpb, n_tiles=_cdiv(n_feat * b_pad, 64),
+        n_mblk=len(feats), step=step,
+        bin_bytes=torch.empty((), dtype=bin_dtype).element_size(),
+        n_parts=n_parts,
+        smem=2 * n_parts * step * n_col * 2 + 2 * WGMMA_STAGE_BINS,
+        acc_regs=tw * n_col // 2)
+
+
+def _launch_wgmma(name: str, bins: torch.Tensor, pos: torch.Tensor,
+                  gh: torch.Tensor, n_node: int, n_bin: int,
+                  exact: bool) -> torch.Tensor:
+    """One launch of the ``wgmma`` kernel (variant 1: the exact mode) on
+    row-major bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos: the
+    node-major ``(n_node, F, n_bin, 2)`` histogram."""
+    if not (bins.is_contiguous() and pos.is_contiguous()
+            and gh.is_contiguous()):
+        raise ValueError("bins, pos and gh must be contiguous")
+    N, F = bins.shape
+    plan = wgmma_plan(F, n_bin, n_node, bins.dtype, exact)
+    out = torch.zeros((n_node, F, n_bin, 2), dtype=torch.float32,
+                      device=bins.device)
+    if N == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
+    steps = _cdiv(N, plan.step)
+    want = max(1, n_sm // (plan.n_mblk * plan.n_mt))
+    rpb = _cdiv(steps, min(steps, want)) * plan.step
+    n_rb = _cdiv(N, rpb)
+    if plan.n_mt > 65535 or n_rb > 65535:
+        raise NotImplementedError("too many node tiles for one launch")
+    args = WgmmaArgs(
+        bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
+        F, 1, 2, 1, n_bin * 2, 2, 1, F * n_bin * 2, N, rpb, F, n_bin,
+        plan.b_pad, plan.m_pad, n_node, plan.n_col, plan.n_mblk, plan.n_mt,
+        plan.step, plan.bin_bytes)
+    return _call(name, args, int(exact), n_rb, bins.device, out)
 
 
 # ------------------------------------------------------------ plain parts
@@ -490,7 +603,9 @@ def onehot_variant(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
                    bin_dtype: torch.dtype = torch.int32,
                    r_tile: int = 1024) -> torch.Tensor:
     """T5: the node-major level histogram ``(n_node, F, n_bin, 2)`` f32 of
-    bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos ``(N,)``."""
+    bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos ``(N,)``.  On the card
+    the ``wgmma`` kernel reads the bins as ``bin_dtype``; ``r_tile``
+    changes nothing (the kernel's row step is its own)."""
     rounded = _variant_rounds(precision, hot_dtype)
     if bin_dtype not in (torch.int32, torch.int16):
         raise ValueError(f"bin_dtype {bin_dtype}: int32 or int16")
@@ -506,18 +621,8 @@ def onehot_variant(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
         return onehot_variant_plain(binned, gh, pos, n_node, n_bin,
                                     precision, hot_dtype, bin_dtype, r_tile)
     bins = binned if binned.dtype == bin_dtype else binned.to(bin_dtype)
-    N, F = bins.shape
-    m_pad = min(n_node, M_TILE)
-    out = torch.zeros((n_node, F, n_bin, 2), dtype=torch.float32,
-                      device=bins.device)
-    variant = (0 if rounded else 2) + int(bin_dtype == torch.int16)
-    return _launch("onehot_variant", variant, bins, pos, gh, out, bin_sr=F,
-                   bin_sf=1, gh_sr=2, gh_sc=1,
-                   out_strides=(0, n_bin * 2, 2, 1, F * n_bin * 2),
-                   n_rows=N, n_feat=F, n_bin=n_bin, m_pad=m_pad,
-                   n_node_out=n_node, n_levels=1, mod_levels=False,
-                   n_mt=_cdiv(n_node, m_pad), r_tile=r_tile,
-                   col_tiles=COL_TILES, levels_per_task=1)
+    return _launch_wgmma("onehot_variant", bins, pos, gh, n_node, n_bin,
+                         exact=not rounded)
 
 
 def onehot_variant_plain(binned, gh, pos, n_node, n_bin, precision="bf16",
@@ -567,8 +672,10 @@ def onehot_group(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
                  n_node: int, n_bin: int, fg: int = 4, r_tile: int = 2048,
                  hot_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """T1: the node-major level histogram ``(n_node, F, n_bin, 2)`` f32 of
-    int bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos ``(N,)``, ``fg``
-    features a task.  gh is rounded to bf16 whatever ``hot_dtype``."""
+    int bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos ``(N,)``: T5's
+    bf16 function through the same ``wgmma`` kernel.  gh is rounded to bf16
+    whatever ``hot_dtype``; ``fg`` and ``r_tile`` change nothing (a block
+    stages its rows once for all the features of its M tiles)."""
     if hot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"hot_dtype {hot_dtype}: float32 or bfloat16")
     if binned.dim() != 2 or gh.shape != (binned.shape[0], 2) \
@@ -583,17 +690,8 @@ def onehot_group(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
     if _device(binned, gh, pos) == "cpu":
         return onehot_group_plain(binned, gh, pos, n_node, n_bin, fg,
                                   r_tile, hot_dtype)
-    bins = binned.to(torch.int32)
-    N, F = bins.shape
-    m_pad = min(n_node, M_TILE)
-    out = torch.zeros((n_node, F, n_bin, 2), dtype=torch.float32,
-                      device=bins.device)
-    return _launch_group("onehot_group", bins, pos, gh, out, bin_sr=F,
-                         bin_sf=1, out_strides=(n_bin * 2, 2, 1,
-                                                F * n_bin * 2),
-                         n_rows=N, n_feat=F, n_bin=n_bin, m_pad=m_pad,
-                         n_node_out=n_node, n_mt=_cdiv(n_node, m_pad),
-                         r_tile=r_tile, fg=fg)
+    return _launch_wgmma("onehot_group", binned.to(torch.int32), pos, gh,
+                         n_node, n_bin, exact=False)
 
 
 def onehot_group_plain(binned, gh, pos, n_node, n_bin, fg=4, r_tile=2048,

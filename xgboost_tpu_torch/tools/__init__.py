@@ -3,7 +3,9 @@ prototypes of ``tools/`` (T5 ``hist_microbench``, T3 ``hist_int8_proto``,
 T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``, T1 ``hist_group_proto``,
 T4a and T4b ``hist_pack2_proto``, T6 ``hist_r4_ab``) on the card, each
 through its hand-written CUDA one-hot kernel (``ops/cuda_hist_onehot.py``)
-and timed beside K1, the production scatter.  Run one with
+and timed beside K1, the production scatter; and ``hist_wgmma_split``,
+which times T5's and T1's ``wgmma`` kernel with one part taken out.  Run
+one with
 
     python -m xgboost_tpu_torch.tools.hist_microbench
 

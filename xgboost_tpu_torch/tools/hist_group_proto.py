@@ -1,16 +1,17 @@
 """Feature-grouped bf16 one-hot histogram (T1) on the card.
 
 Port of ``tools/hist_group_proto.py``: the node-major level histogram of
-1M x 28 int32 bins, B = 67, n_node = 64 through the feature-grouped
-tensor-core kernel (``ops/cuda_hist_onehot.onehot_group``,
-``csrc/onehot_group.cu``), ``fg`` features a task for fg in (2, 4, 7,
-14) and r_tile in (1024, 2048, 4096), timed beside K1, the production
-scatter, in bf16 on the same rows.  A 4,096-row accuracy line holds the
-kernel at fg = 4 against K1 fp32.
+1M x 28 int32 bins, B = 67, n_node = 64 through T1's tensor-core kernel
+(``ops/cuda_hist_onehot.onehot_group``, ``csrc/onehot_group.cu``) for fg
+in (2, 4, 7, 14) and r_tile in (1024, 2048, 4096), timed beside K1, the
+production scatter, in bf16 on the same rows.  A 4,096-row accuracy line
+holds the kernel at fg = 4 against K1 fp32.
 
-On the TPU a group filled more of the MXU's rows; here a group shares
-the staged rows and the gh_exp operand, built once for fg features
-(``csrc/onehot_group.cu``).  The JAX script also builds an fp32 K1
+On the TPU a group of fg features filled more of the MXU's rows.  Here
+the ``wgmma`` kernel (``csrc/onehot_wgmma.cuh``, T5's too) concatenates
+every feature's one-hot along M and stages a block's rows once for all
+the features of its M tiles, so fg and r_tile change nothing and the
+rows time the same kernel.  The JAX script also builds an fp32 K1
 histogram of all rows that it never reads; this port leaves it out.
 
 Usage: python -m xgboost_tpu_torch.tools.hist_group_proto

@@ -2,13 +2,15 @@
 
 Port of ``tools/hist_microbench.py``: times K1, the production scatter
 (``ops/cuda_hist.level_histogram`` in bf16 on u8 bins), then the six
-variants of the one-hot tensor-core kernel at the bench shape (1M x 28,
-B = 67, depth-6 level n_node = 64).  Variants:
+variants of the one-hot tensor-core kernel (the ``wgmma`` kernel of
+``csrc/onehot_wgmma.cuh``) at the bench shape (1M x 28, B = 67, depth-6
+level n_node = 64).  Variants:
 
   base      bf16 products, f32 one-hot
   bf16hot   one-hot in bf16 (the same kernel here: the one-hot is 0/1)
   i16cmp    int16 bins read by the kernel (half the bin bytes)
-  r2048     2,048 rows per block step instead of 1,024
+  r2048     the prototype's 2,048-row tile (the same kernel here: its
+            row step is its own)
   f32 HIGHEST  exact f32 sums from three bf16 products per row
 
 Usage: python -m xgboost_tpu_torch.tools.hist_microbench [n_rows] [n_feat]
