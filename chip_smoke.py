@@ -48,12 +48,14 @@ Phases, in order; any failure exits non-zero:
 
 The ``[onehot]`` phase holds each one-hot kernel against its plain
 version (int bitwise, including the int8 wrap, the dropped tail and T7's
-floor-mod pad rows; T5 bitwise on bf16-exact gradients, within the f32
+floor-mod pad rows, T7 also at B = 1, 8 and 255 on five features and at
+2, 6 and 8 levels; T5 bitwise on bf16-exact gradients, within the f32
 summation bound on random ones, also at F Bp not a multiple of 64, rows
 not a multiple of the row step and one node) and each int kernel against
 a K1 int launch on the same inputs, fails unless T5's built library
-holds wgmma (HGMMA) instructions and no mma.sync (HMMA) ones
-(``cuobjdump -sass``), then runs the four mains with every launch count
+holds wgmma (HGMMA) instructions and no mma.sync (HMMA) ones and T7's
+integer wgmma (IGMMA) and no integer mma.sync (IMMA) ones (``cuobjdump
+-sass``), then runs the four mains with every launch count
 set to 0 just before and read just after, and fails on any count but the
 mains' exact ones (a fall to the plain version would leave it short), on
 T2's int32 sums differing from exact ones, and on T3's dequantized
@@ -66,7 +68,9 @@ B, rows outside the node tile, T1's node tiles and every fg and r_tile
 of its main, F Bp not a multiple of 64 on rows that are not a multiple
 of the row step, one node, a planted out-of-range bin that must leave
 its row in the group's other features, T4b == T4a prod, T6's u8bins ==
-i16hot == prod), the same SASS check of T1's library, then the three
+i16hot == prod, every T6 mode on rows that are not a multiple of its
+row step and at F Bp not a multiple of 64), the same SASS check of T1's
+and T6's libraries, then the three
 bf16 mains with exact launch counts, T1's accuracy line within bf16's
 rounding of K1 fp32, and T4a's and T4b's match checks. Every path counts
 the launches of all twelve kernels and fails on any kernel it should not
@@ -1383,28 +1387,31 @@ def onehot_variant_case(torch, oh, n, F, B, n_node, kw, seed, dev):
     return float((got - want).abs().max())
 
 
-def sass_check(nvcc, name, tag):
+def sass_check(nvcc, name, tag, gmma="HGMMA", mma="HMMA"):
     """The built library of ``csrc/<name>.cu`` runs wgmma: its SASS
-    holds HGMMA instructions and no mma.sync (HMMA) ones."""
+    holds ``gmma`` instructions (HGMMA for bf16, IGMMA for s8) and no
+    mma.sync ones (``mma``: HMMA, IMMA)."""
     built, = nvcc.build([name])
     cuobjdump = os.path.join(os.path.dirname(nvcc.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(built.path)],
                           capture_output=True, text=True, timeout=120)
     if sass.returncode != 0:
         fail(f"{tag} cuobjdump -sass {built.path.name}: {sass.stderr[-500:]}")
-    n_hgmma = sass.stdout.count("HGMMA")
-    n_hmma = sass.stdout.count("HMMA")
-    if n_hgmma == 0 or n_hmma:
-        fail(f"{tag} {name}: {n_hgmma} HGMMA and {n_hmma} HMMA instructions "
-             "in its SASS; the wgmma kernel has HGMMA only")
-    print(f"{tag} {name}: SASS holds {n_hgmma} HGMMA instructions, no HMMA",
-          flush=True)
+    n_gmma = sass.stdout.count(gmma)
+    n_mma = sass.stdout.count(mma)
+    if n_gmma == 0 or n_mma:
+        fail(f"{tag} {name}: {n_gmma} {gmma} and {n_mma} {mma} instructions "
+             f"in its SASS; the wgmma kernel has {gmma} only")
+    print(f"{tag} {name}: SASS holds {n_gmma} {gmma} instructions, no "
+          f"{mma}", flush=True)
 
 
 def phase_onehot_checks(torch, oh, cuda_hist, nvcc, dev):
     """Each one-hot kernel against its plain version in every mode, at
-    the mains' shapes and beyond; each int kernel against K1; T5's
-    library holds wgmma (HGMMA) and no mma.sync."""
+    the mains' shapes and beyond (T7 also at B = 1, 8, 255, five features
+    and 2, 6 and 8 levels); each int kernel against K1; T5's library
+    holds bf16 wgmma (HGMMA) and no mma.sync, T7's integer wgmma (IGMMA)
+    and no integer mma.sync (IMMA)."""
     n_pad = -(-OH_N // 8192) * 8192     # the T3 and T2 mains' rows
     n_r5 = -(-OH_N // 2048) * 2048      # the T7 main's rows
     for kernel in ("onehot_i8", "onehot_notrans"):
@@ -1416,14 +1423,23 @@ def phase_onehot_checks(torch, oh, cuda_hist, nvcc, dev):
             print(f"[onehot] {kernel} N={n} F={F} B={B} M={M}: bitwise == "
                   "plain (int8 wrap, dropped tail), == K1 int", flush=True)
     for mode in ("prod", "u8cmp"):
-        for n, B, nl in [(n_r5, 67, 1), (n_r5, 64, 1), (n_r5, 32, 1),
-                         (n_r5, 64, 6), (2048 * 20 + 100, 67, 8)]:
-            onehot_int_case(torch, oh, cuda_hist, "onehot_r5", n, 28, B, 64,
-                            seed=B + nl, dev=dev, n_levels=nl, mode=mode)
-            print(f"[onehot] onehot_r5 {mode} N={n} B={B} levels={nl}: "
-                  "bitwise == plain (pad rows, floor-mod)"
+        # then the odd shapes: B = 1, 8, 255 on five features, and level
+        # groups of 2 and 4 (2 and 8 levels)
+        for n, F, B, nl in [(n_r5, 28, 67, 1), (n_r5, 28, 64, 1),
+                            (n_r5, 28, 32, 1), (n_r5, 28, 64, 6),
+                            (2048 * 20 + 100, 28, 67, 8),
+                            (2048 * 50 + 333, 5, 1, 1),
+                            (2048 * 50 + 333, 5, 8, 1),
+                            (2048 * 50 + 333, 5, 255, 1),
+                            (2048 * 20 + 100, 28, 64, 2),
+                            (2048 * 20 + 100, 5, 255, 8)]:
+            onehot_int_case(torch, oh, cuda_hist, "onehot_r5", n, F, B, 64,
+                            seed=B + nl + F, dev=dev, n_levels=nl, mode=mode)
+            print(f"[onehot] onehot_r5 {mode} N={n} F={F} B={B} levels={nl}:"
+                  " bitwise == plain (pad rows, floor-mod)"
                   + (", == K1 int" if nl == 1 else ""), flush=True)
     sass_check(nvcc, "onehot_variant", "[onehot]")
+    sass_check(nvcc, "onehot_r5", "[onehot]", "IGMMA", "IMMA")
     err = 0.0
     # then F Bp not a multiple of 64, rows not a multiple of the row step,
     # one node
@@ -1487,8 +1503,10 @@ def phase_onehot_bf16_checks(torch, oh, nvcc, dev):
     T1 at several node counts (70: two node tiles, the second partial),
     every fg and r_tile of its main, F Bp not a multiple of 64, rows not a
     multiple of the row step, one node, and a planted out-of-range bin
-    that leaves its row in the group's other features; T1's library holds
-    wgmma (HGMMA) and no mma.sync."""
+    that leaves its row in the group's other features; T6 in every mode
+    on rows that are not a multiple of its row step (r_tile = 1000) and
+    F Bp not a multiple of 64; T1's and T6's libraries hold wgmma (HGMMA)
+    and no mma.sync."""
     errs = {k: 0.0 for k in ("onehot_group", "onehot_pack2",
                              "onehot_onebig", "onehot_r4")}
     n = -(-OH_N // 8192) * 8192 + 333    # the mains' rows and a tail
@@ -1536,7 +1554,28 @@ def phase_onehot_bf16_checks(torch, oh, nvcc, dev):
     print(f"[onehot-bf16] onehot_r4 N={n}: prod (r_tile 1024, 2048, 4096), "
           "dotfloor, u8bins, i16hot bitwise == plain on bf16-exact gh, "
           "u8bins == i16hot == prod; within bound on random gh", flush=True)
+    # T6 where the wgmma kernel's tiling is odd: rows not a multiple of
+    # its 256-row step (r_tile = 1000), F Bp not a multiple of 64
+    for n, F, B, r_tile in [(OH_N + 37, 28, 64, 1000),
+                            (OH_N + 37, 5, 67, 1000),
+                            (OH_N + 37, 5, 67, 2048)]:
+        bins, pos, dy, gh = bf16_fr_inputs(torch, n, F, B, 64, F + r_tile,
+                                           dev)
+        b8 = bins.to(torch.uint8)
+        for mode in oh.R4_MODES:
+            bt = b8 if mode == "u8bins" else bins
+            tag = (f"[onehot-bf16] onehot_r4 {mode} r_tile={r_tile} N={n} "
+                   f"F={F} B={B}")
+            err, _ = bf16_case(torch, oh, "onehot_r4",
+                               lambda g: (bt, pos, g),
+                               dict(mode=mode, r_tile=r_tile, n_bin=B), dy,
+                               gh, tag)
+            errs["onehot_r4"] = max(errs["onehot_r4"], err)
+        print(f"[onehot-bf16] onehot_r4 N={n} F={F} B={B} r_tile={r_tile}: "
+              "every mode bitwise == plain on bf16-exact gh, within bound "
+              "on random gh", flush=True)
     sass_check(nvcc, "onehot_group", "[onehot-bf16]")
+    sass_check(nvcc, "onehot_r4", "[onehot-bf16]")
     g = torch.Generator(device=dev).manual_seed(70)
     B = 67
     # 5 features (F Bp not a multiple of 64) on rows that are not a

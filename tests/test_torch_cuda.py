@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K3, K2, K4; the one-hot kernels T5, T3,
 T2, T7, T1, T4a, T4b, T6) against their plain PyTorch versions, on a GPU,
-and T5's and T1's libraries holding wgmma instructions.  Marked
+and T5's, T1's, T6's and T7's libraries holding wgmma instructions.  Marked
 ``cuda``: without an NVIDIA GPU (and nvcc) they skip.  No JAX here, so they also run where only torch is installed
 (the repo's conftest imports JAX, hence ``--noconftest``):
 
@@ -345,21 +345,36 @@ def test_onehot_wgmma_kernels_on_odd_shapes(cuda_device, kernel, kw, N, F,
     assert bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["onehot_variant", "onehot_group"])
-def test_onehot_wgmma_libraries_hold_hgmma(cuda_device, name):
-    """T5's and T1's libraries run wgmma: their SASS (``cuobjdump -sass``)
-    holds HGMMA instructions and no mma.sync (HMMA) ones."""
+def _sass(name):
+    """The SASS of the built library of ``csrc/<name>.cu``."""
     import os
     import subprocess
     from xgboost_tpu_torch.ops import nvcc
     built, = nvcc.build([name])
     cuobjdump = os.path.join(os.path.dirname(nvcc.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(built.path)],
+    return subprocess.run([cuobjdump, "-sass", str(built.path)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["onehot_variant", "onehot_group",
+                                  "onehot_r4"])
+def test_onehot_wgmma_libraries_hold_hgmma(cuda_device, name):
+    """T5's, T1's and T6's libraries run wgmma: their SASS (``cuobjdump
+    -sass``) holds HGMMA instructions and no mma.sync (HMMA) ones."""
+    sass = _sass(name)
     assert sass.count("HGMMA") > 0
     assert sass.count("HMMA") == 0
+
+
+@pytest.mark.cuda
+def test_onehot_r5_library_holds_integer_gmma(cuda_device):
+    """T7's library runs the s8 wgmma: its SASS holds integer GMMA
+    (IGMMA) instructions and no integer mma.sync (IMMA) ones."""
+    sass = _sass("onehot_r5")
+    assert sass.count("IGMMA") > 0
+    assert sass.count("IMMA") == 0
 
 
 def _bf16_bound(got, want, cnt, a):
@@ -437,6 +452,63 @@ def test_onehot_r4_kernel_matches_plain(cuda_device, mode, r_tile):
         return oh.onehot_r4_plain(b, pos, g, mode, r_tile, B)
     assert _bf16_bound(got, plain(gh), plain(torch.ones_like(gh)),
                        plain(gh.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prod", "dotfloor", "u8bins", "i16hot"])
+@pytest.mark.parametrize("n,F,B,r_tile", [
+    (4096 * 5 + 1001, 28, 64, 1000), (4096 * 5, 28, 64, 1000),
+    (4096 * 5 + 1001, 5, 67, 2048), (20001, 1, 8, 1000)])
+def test_onehot_r4_kernel_on_odd_shapes(cuda_device, mode, n, F, B,
+                                        r_tile):
+    """T6 on the wgmma kernel where its tiling is odd: rows that are not
+    a multiple of its 256-row step (r_tile = 1000 drops the tail at a
+    multiple of 1,000; n = 20,480 takes u8 bins 16 rows a load up to a
+    partial group), F Bp not a multiple of 64 and one feature of 8 bins;
+    bitwise on bf16-exact gh, within the f32 summation bound on random
+    gh."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    bins, pos, dy, gh = _bf16_fr_case(cuda_device, n, F, B, 64, n + F + B)
+    b = bins.to(torch.uint8) if mode == "u8bins" else bins
+    before = oh.COUNTERS["onehot_r4"].launches
+    got = oh.onehot_r4(b, pos, dy, mode, r_tile, B)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS["onehot_r4"].launches == before + 1
+    assert got.shape == (1, F * B, 128)
+    assert torch.equal(got, oh.onehot_r4_plain(b, pos, dy, mode, r_tile, B))
+
+    def plain(g):
+        return oh.onehot_r4_plain(b, pos, g, mode, r_tile, B)
+    assert _bf16_bound(oh.onehot_r4(b, pos, gh, mode, r_tile, B), plain(gh),
+                       plain(torch.ones_like(gh)), plain(gh.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prod", "u8cmp"])
+@pytest.mark.parametrize("n,F,B,n_levels", [
+    (2048 * 9 + 333, 5, 1, 1), (2048 * 9 + 333, 5, 8, 1),
+    (2048 * 9 + 333, 5, 255, 1), (2048 * 9 + 5, 28, 8, 2),
+    (2048 * 9 + 5, 5, 67, 2), (2048 * 9 + 5, 5, 255, 8),
+    (2048 * 5, 1, 8, 3)])
+def test_onehot_r5_kernel_on_odd_shapes(cuda_device, mode, n, F, B,
+                                        n_levels):
+    """T7 on the wgmma kernel where its tiling is odd: B = 1, 8 and 255,
+    five features (F Bp not a multiple of 64), and the levels form at 2,
+    3 (one level a block) and 8 levels, with pad rows (pos = -1, random
+    gh) that count through the floor-mod and a dropped tail; bitwise."""
+    from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
+    rng = np.random.RandomState(n + F + B + n_levels)
+    bt = rng.randint(0, B, (F, n)).astype(np.uint8)
+    pos = rng.randint(0, 64, (1, n)).astype(np.int32)
+    pos[0, n - n // 10:] = -1
+    gh = rng.randint(-300, 300, (2, n)).astype(np.int32)
+    bt, pos, gh = (torch.from_numpy(a).to(cuda_device) for a in (bt, pos, gh))
+    before = oh.COUNTERS["onehot_r5"].launches
+    got = oh.onehot_r5(bt, pos, gh, B, n_levels, mode)
+    want = oh.onehot_r5_plain(bt, pos, gh, B, n_levels, mode)
+    torch.cuda.synchronize()
+    assert oh.COUNTERS["onehot_r5"].launches == before + 1
+    assert got.shape == (n_levels, F * B, 128) and torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -225,6 +225,98 @@ def test_int_plain_versions_equal_k1_int(m):
         assert torch.equal(t7[0].reshape(F, B, 2, m), k1)
 
 
+R5_PLANS = [  # (F, B, n_levels): T7's s8 plans, the main's and odd ones
+    (28, 67, 1), (28, 64, 1), (28, 32, 1),    # the main's bin counts
+    (28, 64, 6),                              # shared6
+    (28, 67, 8), (28, 64, 2), (1, 8, 3),      # level groups of 4, 2, 1
+    (5, 1, 1), (5, 8, 1), (5, 255, 1), (5, 8, 2), (28, 255, 8),
+]
+
+
+def _r5_plan(F, B, n_levels):
+    return oh.wgmma_plan(F, B, oh.M_TILE, torch.uint8, feature_major=True,
+                         elem="s8", n_levels=n_levels)
+
+
+@pytest.mark.parametrize("F,B,n_levels", R5_PLANS)
+def test_r5_plan_covers_every_cell_and_level_once(F, B, n_levels):
+    """T7 on the wgmma kernel: the warpgroups' (M tile, level) pairs over
+    every block of every level group hold each (feature, bin, level) cell
+    exactly once, and each block stages every feature of its tiles."""
+    plan = _r5_plan(F, B, n_levels)
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    blocks = oh.wgmma_block_pairs(plan)
+    assert len(blocks) == plan.n_mblk * plan.n_lg
+    cells = {}
+    for k, pairs in enumerate(blocks):
+        for wg in pairs:
+            for t, lv in wg:
+                for m in range(64 * t, min(64 * (t + 1), F * plan.b_pad)):
+                    f, b = divmod(m, plan.b_pad)
+                    if b < B:
+                        assert f in feats[k % plan.n_mblk]
+                        cells[f, b, lv] = cells.get((f, b, lv), 0) + 1
+    assert set(cells) == {(f, b, lv) for f in range(F) for b in range(B)
+                          for lv in range(n_levels)}
+    assert set(cells.values()) == {1}
+
+
+@pytest.mark.parametrize("F,B,n_levels", R5_PLANS)
+def test_r5_plan_fits_the_card(F, B, n_levels):
+    """N = 128, 64 s32 accumulators a thread (half the registers of 512
+    threads), a row step that is a multiple of the s8 instruction's 32
+    rows with its staged bins within a stage, and two stages of B tiles
+    (one a level), of the levels form's A tiles and of the bins within
+    the block's 232,448 bytes of shared memory."""
+    plan = _r5_plan(F, B, n_levels)
+    assert (plan.elem, plan.n_col, plan.m_pad, plan.bin_bytes) == ("s8", 128,
+                                                                   64, 1)
+    assert plan.acc_regs == 64
+    assert plan.acc_regs * 128 * oh.WGMMA_WARPGROUPS <= 65536 // 2
+    assert 32 <= plan.step <= 256 and plan.step % 32 == 0
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    assert plan.step * max(len(r) for r in feats) <= oh.WGMMA_STAGE_BINS
+    if n_levels > 1:
+        assert plan.lv_block * plan.tiles_per_block == oh.WGMMA_WARPGROUPS
+        assert plan.n_lg == -(-n_levels // plan.lv_block)
+        assert plan.a_smem == 2 * plan.tiles_per_block * 64 * plan.step
+    else:
+        assert (plan.lv_block, plan.n_lg, plan.a_smem) == (1, 1, 0)
+    assert plan.smem == (2 * plan.lv_block * plan.step * 128 + plan.a_smem
+                         + 2 * oh.WGMMA_STAGE_BINS) <= oh.SMEM_MAX
+
+
+def test_r5_plan_at_the_mains_shapes():
+    """B = 67: Bp = 72, 32 tiles in 8 blocks of 4, 256 rows a step;
+    shared6: 2 tiles x 2 levels a block, 3 level groups; 8 levels: 1 tile
+    x 4 levels, 2 groups, 192 rows a step (four levels' B tiles)."""
+    p = _r5_plan(28, 67, 1)
+    assert (p.b_pad, p.n_tiles, p.tiles_per_block, p.n_mblk,
+            p.step) == (72, 32, 4, 8, 256)
+    p = _r5_plan(28, 64, 6)
+    assert (p.lv_block, p.tiles_per_block, p.n_lg, p.n_mblk,
+            p.step) == (2, 2, 3, 14, 256)
+    p = _r5_plan(28, 67, 8)
+    assert (p.lv_block, p.tiles_per_block, p.n_lg, p.step) == (4, 1, 2, 192)
+    assert [oh.wgmma_level_block(n) for n in (2, 3, 4, 6, 8)] == \
+        [2, 1, 4, 2, 4]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(exact=True), dict(elem="bf16", n_levels=2),
+    dict(n_levels=2, n_node=32), dict(n_levels=0), dict(n_bin=256),
+    dict(bin_dtype=torch.int16), dict(feature_major=False),
+    dict(elem="int8")])
+def test_r5_plan_refuses_what_the_kernel_does_not_take(kw):
+    """No exact mode in s8; levels only in s8 at 64 nodes; B up to 255;
+    row-major bins are not uint8 here."""
+    args = dict(n_feat=28, n_bin=64, n_node=64, bin_dtype=torch.uint8,
+                feature_major=True, elem="s8")
+    args.update(kw)
+    with pytest.raises(NotImplementedError):
+        oh.wgmma_plan(**args)
+
+
 def test_cpu_tensors_never_launch_and_meta_raises(int_case):
     bins_fr, pos, gh = int_case
     before = {k: c.launches for k, c in oh.COUNTERS.items()}

@@ -395,6 +395,99 @@ def test_wgmma_plan_refuses_what_the_kernel_does_not_take(F, B, n_node,
         oh.wgmma_plan(F, B, n_node, bin_dtype)
 
 
+R4_PLANS = [  # (F, B, bin_dtype): T6's feature-major bf16 plans
+    (28, 64, "int32"),     # the T6 main: prod, dotfloor, i16hot
+    (28, 64, "uint8"),     # u8bins
+    (5, 67, "int32"),      # F Bp not a multiple of 64
+    (5, 67, "uint8"),
+    (28, 255, "uint8"),    # the largest B
+    (93, 8, "int32"),      # narrow features, many a block
+    (1, 1, "int32"),
+]
+
+
+def _r4_plan(F, B, bin_dtype):
+    return oh.wgmma_plan(F, B, oh.M_TILE, getattr(torch, bin_dtype),
+                         feature_major=True)
+
+
+@pytest.mark.parametrize("F,B,bin_dtype", R4_PLANS)
+def test_r4_plan_tiles_cover_every_cell_once(F, B, bin_dtype):
+    """T6 on the wgmma kernel: its M tiles hold every (feature, bin) cell
+    exactly once, each tile belongs to one warpgroup of one block, and
+    each block stages every feature of its tiles."""
+    plan = _r4_plan(F, B, bin_dtype)
+    cells = _tile_cells(plan, F, B)
+    assert sum(len(c) for c in cells) == F * B
+    assert set().union(*cells) == {(f, b) for f in range(F)
+                                   for b in range(B)}
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    blocks = oh.wgmma_block_pairs(plan)
+    assert len(blocks) == plan.n_mblk == len(feats)
+    owned = [t for k, pairs in enumerate(blocks) for wg in pairs
+             for t, lv in wg if lv == 0
+             and {f for f, _ in cells[t]} <= set(feats[k])]
+    assert sorted(owned) == list(range(plan.n_tiles))
+
+
+@pytest.mark.parametrize("F,B,bin_dtype", R4_PLANS)
+def test_r4_plan_fits_the_card(F, B, bin_dtype):
+    """One node tile of 64 nodes at N = 128, one M tile a warpgroup (64
+    accumulators a thread, half the registers of 512 threads), a row step
+    that is a multiple of the bf16 instruction's 16 rows, its staged bins
+    within a stage, and two stages of one B tile and of the bins within
+    the block's 232,448 bytes of shared memory."""
+    plan = _r4_plan(F, B, bin_dtype)
+    assert (plan.n_col, plan.m_pad, plan.n_mt, plan.elem) == (128, 64, 1,
+                                                              "bf16")
+    assert plan.feature_major and plan.n_parts == 1 and plan.n_levels == 1
+    assert plan.acc_regs * 128 * oh.WGMMA_WARPGROUPS <= 65536 // 2
+    assert 16 <= plan.step <= 256 and plan.step % 16 == 0
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    assert plan.step * max(len(r) for r in feats) <= oh.WGMMA_STAGE_BINS
+    assert plan.smem == 2 * plan.step * 128 * 2 + 2 * oh.WGMMA_STAGE_BINS
+    assert plan.smem <= oh.SMEM_MAX and plan.a_smem == 0
+    assert plan.bin_bytes == (1 if bin_dtype == "uint8" else 4)
+
+
+def test_r4_plan_at_the_mains_shape():
+    """F = 28, B = 64: Bp = 64, one feature a tile, 28 tiles in 7 blocks
+    of 4, 256 rows a step (T5 has 32 tiles at B = 67)."""
+    plan = _r4_plan(28, 64, "int32")
+    assert (plan.b_pad, plan.n_tiles, plan.tiles_per_block, plan.n_mblk,
+            plan.step, plan.smem) == (64, 28, 4, 7, 256, 135168)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bin_dtype=torch.int16), dict(bin_dtype=torch.int64),
+    dict(n_bin=256), dict(n_bin=0), dict(n_feat=0), dict(exact=True,
+                                                        elem="s8"),
+    dict(n_levels=2), dict(elem="fp8")])
+def test_r4_plan_refuses_what_the_kernel_does_not_take(kw):
+    """Feature-major bins are int32 or uint8; B up to 255; levels and an
+    exact mode exist only where the kernel has them."""
+    args = dict(n_feat=28, n_bin=64, n_node=64, bin_dtype=torch.int32,
+                feature_major=True)
+    args.update(kw)
+    with pytest.raises(NotImplementedError):
+        oh.wgmma_plan(**args)
+
+
+@pytest.mark.parametrize("target", ["t1", "t7"])
+def test_wgmma_split_passages_are_in_the_header(target):
+    """``tools/hist_wgmma_split`` builds T1 (or T7's levels form) with
+    passages of ``csrc/onehot_wgmma.cuh`` replaced, on the card only: each
+    variant's passages are found exactly once in the header as it stands,
+    every variant but ``full`` changes it, and its braces still pair."""
+    from xgboost_tpu_torch.ops import nvcc
+    from xgboost_tpu_torch.tools import hist_wgmma_split as split
+    src = (nvcc.CSRC / split.HEADER).read_text()
+    for name, subs in split.TARGETS[target][1].items():
+        out = split.variant_source(src, subs)
+        assert (out == src) == (name == "full")
+        assert out.count("{") - out.count("}") == 0
+
+
 def test_new_cpu_tensors_never_launch_and_meta_raises(fr_case, t1_case):
     bins, pos, dyadic, _ = fr_case
     before = {k: c.launches for k, c in oh.COUNTERS.items()}

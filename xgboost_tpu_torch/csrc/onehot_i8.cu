@@ -24,10 +24,10 @@ extern "C" int onehot_i8_launch(const OnehotArgs* a, int variant,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {  // column tiles per task: 1 (M <= 4) or 4
     case 0:
-      return (int)onehot_launch<OH_INT8, int32_t, true, 1, 1>(
+      return (int)onehot_launch<int32_t, 1>(
           a, n_row_blocks, s);
     case 1:
-      return (int)onehot_launch<OH_INT8, int32_t, true, 4, 1>(
+      return (int)onehot_launch<int32_t, 4>(
           a, n_row_blocks, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -9,40 +9,49 @@
 // M) == j, so pad rows (pos = -1) count in node M - 1 at level 0 and in
 // node lv - 1 after, as in the prototype.
 //
-// The prototype's knobs, on Hopper:
-//   mode "prod"   widens each staged u8 bin to int and compares it alone;
-//   mode "u8cmp"  compares the four bins packed in one 32-bit word at once
-//                 (SWAR bit logic) -- the packed compare that failed to
-//                 compile on the TPU, and the one T5, T3 and T2 use here;
-//   n_levels > 1  builds each one-hot fragment once per 32 rows and
-//                 multiplies it against all the levels' gh_exp fragments
-//                 (up to 6 levels per task, one column tile each); a
-//                 level's node bytes are the staged pos mod 64 plus lv,
-//                 masked.
+// The kernel is the wgmma one-hot product of onehot_wgmma.cuh (shared
+// with T5, T1 and T6) in s8: wgmma.mma_async.m64n128k32.s32.s8.s8, gh_exp
+// the low bytes of gh, s32 sums without .satfinite (they wrap, as the
+// prototype's int32 sums do), flushed with red.global.add.s32: bitwise
+// the same from run to run.  The prototype's knobs, on Hopper:
+//   mode "prod"   each staged u8 bin widened to int and compared alone,
+//                 the four 0 / 1 results packed into a register of the A
+//                 fragment (OHW_A_NUM);
+//   mode "u8cmp"  the four bins of a register compared at once (SWAR),
+//                 the flags shifted to 0x01 bytes, which is the register
+//                 (OHW_A_BITS) -- the packed compare that failed to
+//                 compile on the TPU;
+//   n_levels > 1  the levels form: the block builds each M tile's s8
+//                 one-hot once a row step into shared memory, and each
+//                 warpgroup multiplies its tile against one level's
+//                 gh_exp tile (the prototype's shared6 restructure: one
+//                 one-hot for all the levels a block covers).
 //
 // Bound on the H100: bytes, 1,001,472 x 28 u8 bins + pos + gh, ~40 MB,
-// ~0.012 ms at 3.35 TB/s; with 6 levels 5.5 MB more of output.
+// ~0.012 ms at 3.35 TB/s (with 6 levels 5.5 MB more of output); the
+// product's int8 tensor-core floor, 2 n F Bp 128 a level at 1,979
+// TOP/s, ~0.23-0.27 ms a level at B = 64-67, bounds the kernel.
 //
 // C interface for ctypes: onehot_r5_launch returns a cudaError_t (0 = ok);
 // variant = 2 * (mode == "u8cmp") + (n_levels > 1).
 
-#include "onehot_mma.cuh"
+#include "onehot_wgmma.cuh"
 
-extern "C" int onehot_r5_launch(const OnehotArgs* a, int variant,
+extern "C" int onehot_r5_launch(const WgmmaArgs* a, int variant,
                                 int n_row_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case 0:
-      return (int)onehot_launch<OH_INT8, uint8_t, false, 4, 1>(
+      return (int)onehot_wgmma_launch_fm<OHW_S8, OHW_A_NUM, false>(
           a, n_row_blocks, s);
     case 1:
-      return (int)onehot_launch<OH_INT8, uint8_t, false, 1, 6>(
+      return (int)onehot_wgmma_launch_fm<OHW_S8, OHW_A_NUM, true>(
           a, n_row_blocks, s);
     case 2:
-      return (int)onehot_launch<OH_INT8, uint8_t, true, 4, 1>(
+      return (int)onehot_wgmma_launch_fm<OHW_S8, OHW_A_BITS, false>(
           a, n_row_blocks, s);
     case 3:
-      return (int)onehot_launch<OH_INT8, uint8_t, true, 1, 6>(
+      return (int)onehot_wgmma_launch_fm<OHW_S8, OHW_A_BITS, true>(
           a, n_row_blocks, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,14 +1,18 @@
-// The node-major one-hot histogram as a wgmma product on Hopper (sm_90a):
-// the kernel of T5 (onehot_variant.cu) and T1 (onehot_group.cu).
+// The one-hot histogram as a wgmma product on Hopper (sm_90a): the
+// kernel of T5 (onehot_variant.cu), T1 (onehot_group.cu), T6
+// (onehot_r4.cu) and T7 (onehot_r5.cu).
 //
 // Replaces the TPU kernels of tools/hist_microbench.py:59 variant (body
-// :26) and tools/hist_group_proto.py:59 grouped (body :23).  Both compute
-// the same function: bins (N, F) int32 or int16 at the strides given, gh
-// (N, 2) f32, pos (N,) int32, any n_node in node tiles of m_pad =
-// min(n_node, 64); out node-major (n_node, F, B, 2) f32, zeroed by the
-// wrapper and written by the flush.  Rows with pos outside the node tile
-// add nothing; a (row, feature) whose bin lies outside [0, B) adds nothing
-// to that feature and still counts in the others.
+// :26), tools/hist_group_proto.py:59 grouped (body :23),
+// tools/hist_r4_ab.py:78 build (body make_kernel :35) and
+// tools/hist_r5_ab.py:80 build (body make_kernel :40).  All four compute
+// one function: a level histogram of bins at the strides given (row-major
+// (N, F) int32 / int16 for T5 and T1, feature-major (F, n) int32 / uint8
+// for T6 and T7), gh (g, h) at the strides given and pos, into an output
+// zeroed by the wrapper and written by the flush at the cell strides
+// given.  Rows with pos outside the node tile add nothing; a (row,
+// feature) whose bin lies outside [0, B) adds nothing to that feature and
+// still counts in the others.
 //
 // The product, transposed onto the shapes wgmma has:
 //
@@ -19,89 +23,116 @@
 //                   node j of the node tile, else 0
 //
 // M runs over the (feature, bin) pairs concatenated across features (28
-// features x 72 = 2,016 rows, 32 tiles of 64 at the mains' B = 67); N =
-// 2 m_pad rounded up to one of 8, 16, 32, 64, 128 (n_node = 1-4: N = 8;
-// the mains' 64 nodes: 128); K is rows, 16 an instruction:
-// wgmma.mma_async.m64nNk16.f32.bf16.bf16 with A from registers and B
-// from shared memory.
+// features x 72 = 2,016 rows, 32 tiles of 64 at the T5 main's B = 67); N
+// = 2 m_pad rounded up to one of 8, 16, 32, 64, 128 (n_node = 1-4: N = 8;
+// 64 nodes: 128); K is rows.  Two element types (template ET):
+//   bf16  wgmma.mma_async.m64nNk16.f32.bf16.bf16, gh rounded to bf16 (or,
+//         T5's exact mode, split into three bf16 parts), f32 sums;
+//   s8    wgmma.mma_async.m64n128k32.s32.s8.s8 (T7), gh the low byte of
+//         an int32 (a wrap), s32 sums that wrap (no .satfinite) and are
+//         bitwise the same from run to run.
 //
-// A, the one-hot, is built in registers and never exists in memory.  A
-// thread's fragment of an m64k16 tile holds M rows g and g + 8 of its
-// warp's 16 and K columns 2t, 2t+1, 2t+8, 2t+9 (the mma.sync m16n8k16 A
-// layout, one warp per 16 rows).  The block stages its features' bins of
-// a row step as bytes (a bin outside [0, 256) becomes 255, which no
-// bin < B <= 255 matches), so a thread reads its four rows' bins of one
-// feature as two words, gathers them with one byte permute and compares
-// all four with one SWAR compare against the row's bin; two more permutes
-// widen the flags to bf16 1.0 / 0.0 pairs.  An M row whose bin is a pad
-// bin (b >= B) or lies past F Bp is ANDed to zero once, outside the loop,
-// so pad bins and bad bins need no branch.
+// A, the one-hot, is built in registers and never exists in device
+// memory.  A thread's fragment of an m64k16 bf16 tile holds M rows g and
+// g + 8 of its warp's 16 and K columns 2t, 2t+1, 2t+8, 2t+9; of an
+// m64k32 s8 tile rows g and g + 8 and K 4t..4t+3 and 4t+16..4t+19, four
+// K of one row a register.  The block stages its features' bins of a row
+// step as bytes, [feature][row] (a bin outside [0, 256) becomes 255,
+// which no bin < B <= 255 matches), so a bf16 fragment takes its four
+// rows' bins of one feature from two words and one byte permute, and an
+// s8 register is one aligned word.  How A is built (template AB; T6's and
+// T7's modes compare these builds):
+//   BITS   four bytes compared at once (SWAR, ohw_eq_msb); bf16: the flags
+//          widened by byte permutes and ANDed with 0x3F803F80 (T5, T1, T6
+//          i16hot); s8: the flags shifted to 0x01 bytes (T7 u8cmp);
+//   NUM    each byte compared alone as an int; bf16: 1.0f / 0.0f selected
+//          and pairs converted by cvt.rn.bf16x2.f32 (T6 prod, u8bins);
+//          s8: the four 0 / 1 bytes packed (T7 prod);
+//   CONST  1.0 in the bin-0 row of every feature, no bins staged (T6
+//          dotfloor: every feature's bin 0 holds the node totals).
+// An M row whose bin is a pad bin (b >= B) or lies past F Bp is ANDed to
+// zero once, outside the loop, so pad bins and bad bins need no branch.
 //
 // B, gh_exp, is built once per row step for the whole block, in shared
-// memory, in the canonical K-major layout without swizzle: 8 x 16-byte
-// core matrices (8 columns x 8 rows of K), the two K halves of a k16
-// step 128 bytes apart (the descriptor's leading byte offset, LBO) and
-// neighbouring 8-column groups 256 bytes apart (stride byte offset, SBO);
-// a k16 step takes 32 N bytes.  Each row has at most two non-zero
-// entries (g at its node's column, h at m_pad + node), so the tile is
-// zeroed once and each step a thread writes its row's two entries and
-// clears the two it wrote the last time this stage held a row.  Every M
-// tile of the block, in both consumer warpgroups, reads the same B: each
-// A fragment meets the whole N = 128 in one instruction.  The exact mode
-// (T5 "fp32") splits gh into hi + mid + lo bf16 parts (the f32's rounding
-// residuals fit three bf16), keeps three B tiles and issues three wgmma
-// per A fragment into one f32 sum; the one-hot is exact in bf16, so every
-// product is exact.
+// memory, in the canonical K-major layout without swizzle: core matrices
+// of 8 N rows x 16 bytes (8 bf16 or 16 s8 K), the two K halves of an
+// instruction's 32 bytes of K 128 bytes apart (the descriptor's leading
+// byte offset, LBO) and neighbouring 8-column groups 256 bytes apart
+// (stride byte offset, SBO); an instruction's K takes 32 N bytes.  The
+// same bytes in both types, so the same descriptor.  Each row has at most
+// two non-zero entries (g at its node's column, h at m_pad + node), so
+// the tile is zeroed once and each step a thread writes its row's two
+// entries and clears the two it wrote the last time this stage held a
+// row.  Every M tile of the block reads the same B: each A fragment meets
+// the whole N in one instruction.  T5's exact mode keeps three B tiles
+// (hi + mid + lo bf16 parts of gh) and issues three wgmma per A fragment
+// into one f32 sum; the one-hot is exact in bf16, so every product is
+// exact.
 //
 // Rows arrive through a two-stage ring in shared memory: each thread
-// issues its loads of step s + 2 (its row's pos and gh, and up to 2,048 /
-// 512 = 4 of the block's (row, feature) bins) right after it stages step
-// s + 1, and stores them into the free stage at the end of step s + 1,
-// converting on the way (bins to bytes, gh to bf16 entries of B).  The
-// loads are plain ld.global into registers, not cp.async or TMA: the
-// data is converted before it is stored, and int16 bins are below
-// cp.async's 4-byte grain.  A warpgroup stages as soon as its own
-// products of a step are done, while the others' still run; one barrier
-// a step hands the stage over.  A producer warp with TMA boxes and
-// setmaxnreg is the next step.
+// issues its loads of step s + 2 (its row's pos and gh, and up to 4 of
+// the block's (row, feature) bins) right after it stages step s + 1, and
+// stores them into the free stage at the end of step s + 1, converting on
+// the way (bins to bytes, gh to B entries).  Row-major bins are read with
+// features inner, so a warp reads whole runs of a row's features;
+// feature-major bins with rows inner, so a warp reads a run of one
+// feature's rows, and uint8 ones (T6 u8bins, T7) 16 rows a 16-byte load
+// where the rows of a feature are 16-byte aligned: the stage is already
+// [feature][row] bytes, so that is a straight copy.  A warpgroup stages as
+// soon as its own products of a step are done, while the others' still
+// run; one barrier a step hands the stage over.  A producer warp with TMA
+// boxes and setmaxnreg is the next step.
 //
 // Tiles and registers.  Four warpgroups a block, one M tile each at N =
-// 128 (two below): 64 f32 accumulators a thread, within the 128
-// registers a thread that 512 threads leave.  Each warpgroup builds its
-// A fragment, issues its wgmma and waits for it (a wgmma reads its A
-// registers until it completes, and the compiler may give them to the
-// next fragment), so the warpgroups take turns at the tensor cores: four
-// keep them busier than two of two tiles (0.88 against 1.10 ms at the
-// mains' shape on the H100).  A block owns 4 (8) tiles = 256 (512)
-// (feature, bin) rows; the grid is M blocks x node tiles x row chunks,
-// the row chunks chosen to fill the SMs (8 x 16 = 128 blocks at the
-// mains' shape).  Accumulators stay in registers for the block's whole
-// row chunk; the flush adds them once, with red.global.add.f32, into the
-// zeroed output at the strides given (zero cells skipped: a sum that
-// received additions is never -0).  Float sums change order from run to
-// run.
+// 128 (two below): 64 accumulators a thread, within the 128 registers a
+// thread that 512 threads leave.  Each warpgroup builds its A fragment,
+// issues its wgmma and waits for it (a wgmma reads its A registers until
+// it completes, and the compiler may give them to the next fragment), so
+// the warpgroups take turns at the tensor cores.  A block owns 4 (8)
+// tiles = 256 (512) (feature, bin) rows; the grid is M blocks x node
+// tiles x row chunks, the row chunks chosen to fill the SMs.
+// Accumulators stay in registers for the block's whole row chunk; the
+// flush adds them once, with red.global.add (f32 or s32), into the zeroed
+// output at the strides given (zero cells skipped: a float sum that
+// received additions is never -0, and an int zero adds nothing).
 //
-// The prototypes' knobs: r_tile (T5, T1) and fg (T1) change no result
-// and are moot here: the row step is the kernel's own (256 rows, 64 in
-// the exact mode, fewer when a block covers many narrow features), and
-// every block stages its rows once for all the features its M tiles
-// cover, whatever fg.  T5's bin_dtype is the width the kernel reads
-// (bin_bytes 4 or 2); its hot_dtype only says whether gh is rounded.
+// Levels (T7, n_levels > 1; template LVL): row r is in node floor_mod(pos
+// + lv, 64) of level lv, pad rows (pos = -1) included.  Each level has its
+// own B tile a stage (the same entries, columns turned by lv), and one
+// one-hot must meet several levels' B, which 64 accumulators a (tile,
+// level) pair do not leave registers for.  So in this form A comes from
+// shared memory: each step the whole block writes the s8 one-hot of its
+// M tiles once, in the same K-major layout (64 rows x 32 K = 2,048 bytes
+// an instruction), double buffered, and each warpgroup owns one (M tile,
+// level) pair and reads its tile's A through a descriptor.  A block
+// covers 4 / lv_block tiles x lv_block levels; further levels are level
+// groups on the grid's y.  A warpgroup no longer waits after each
+// product: it issues a step's products, the block stages the next step
+// and builds its A into the other buffer, then waits before the barrier
+// that frees the stage.
+//
+// The prototypes' knobs: r_tile (T5, T1, T6) and fg (T1) change no
+// result and are moot here, but for where T6 drops its tail: the row step
+// is the kernel's own (at most 256 rows, 64 in the exact mode, fewer
+// when a block covers many narrow features), and every block stages its
+// rows once for all the features its M tiles cover.  T5's bin_dtype is
+// the width the kernel reads (bin_bytes 4 or 2); its hot_dtype only says
+// whether gh is rounded.
 //
 // What bounds it on the H100.  The function is bytes-bound: 1M x 28
 // int32 bins (112 MB) + pos + gh + the 0.96 MB output, ~0.037 ms at 3.35
-// TB/s (int16 bins ~0.021 ms).  The one-hot product does 2 N_rows F Bp
-// N operations, most of them on zeros: at n_node = 64 (N = 128) and
-// Bp = 72, 5.2e11, ~0.52 ms at 989 TFLOP/s in bf16, three times that in
-// the exact mode.  What the design does about the costs of the mma.sync
-// kernels it replaces: the rows are staged once per block for all its
-// features, not once per feature (T5) or per column group (T1); gh_exp
-// is built once per row step for all M tiles, not per warp and feature;
-// the one-hot fragment is built once per (tile, k16 step) and meets all
-// N columns in one instruction, so T1's accumulator budget no longer
-// forces it to be rebuilt per column group; and the products are
-// wgmma, the tensor cores' full-rate path, running asynchronously beside
-// the staging.
+// TB/s (uint8 bins ~0.012 ms).  The one-hot product does 2 N_rows F Bp N
+// operations, most of them on zeros: at n_node = 64 (N = 128) and Bp =
+// 72, 5.2e11, ~0.52 ms at 989 TFLOP/s in bf16, three times that in the
+// exact mode, half of it at 1,979 TOP/s in s8, once per level.  What the
+// design does about the costs of the mma.sync kernels it replaces: the
+// rows are staged once per block for all its features, not once per
+// feature; gh_exp is built once per row step for all M tiles, not per
+// warp and feature; the one-hot fragment is built once per (tile, K step)
+// and meets all N columns in one instruction (with levels, once per
+// (tile, step) for all the block's levels); and the products are wgmma,
+// the tensor cores' full-rate path, running asynchronously beside the
+// staging.
 
 #pragma once
 
@@ -109,11 +140,22 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 constexpr int OHW_WARPGROUPS = 4;  // warpgroups a block
 constexpr int OHW_THREADS = 128 * OHW_WARPGROUPS;
 constexpr int OHW_STAGE_BINS = 2048;  // staged bins (bytes) a step
 constexpr int OHW_SLOTS =             // staged bins a thread per step
     (OHW_STAGE_BINS + OHW_THREADS - 1) / OHW_THREADS;
+constexpr int OHW_SMEM_MAX = 232448;  // dynamic shared memory of a block
+
+// The product's element type (template ET), the one-hot A build
+// (template AB) and the staging of the bins (template ST: row-major
+// int32 / int16, feature-major int32 / uint8 one element a load, or
+// feature-major uint8 16 rows a load)
+enum { OHW_BF16 = 0, OHW_S8 = 1 };
+enum { OHW_A_BITS = 0, OHW_A_NUM = 1, OHW_A_CONST = 2 };
+enum { OHW_ST_ROWS = 0, OHW_ST_FEAT = 1, OHW_ST_VEC = 2 };
 
 // One launch.  Mirrored field by field by ctypes in
 // xgboost_tpu_torch/ops/cuda_hist_onehot.py (WgmmaArgs), which computes
@@ -121,20 +163,29 @@ constexpr int OHW_SLOTS =             // staged bins a thread per step
 struct WgmmaArgs {
   const void* bins;          // element (r, f) at r * bin_sr + f * bin_sf
   const int32_t* pos;        // (n_rows,)
-  const float* gh;           // g at r * gh_sr, h at r * gh_sr + gh_sc
-  float* out;                // zeroed; cell strides below
+  const void* gh;            // g at r * gh_sr, h at r * gh_sr + gh_sc: f32
+                             // (bf16 products) or int32 (s8: its low byte)
+  void* out;                 // zeroed, f32 or int32; cell strides below
   long long bin_sr, bin_sf, gh_sr, gh_sc;
-  long long s_f, s_b, s_c, s_node;
+  long long s_lv, s_f, s_b, s_c, s_node;
   long long n_rows;
   long long rows_per_block;  // a multiple of step
   int n_feat, n_bin;         // n_bin <= 255
   int b_pad;                 // n_bin rounded up to 8
-  int m_pad;                 // nodes per node tile, <= 64
+  int m_pad;                 // nodes per node tile, <= 64 (64 with levels)
   int n_node_out;            // nodes past this are not written
-  int n_col;                 // N: 8, 16, 32, 64 or 128, >= 2 m_pad
-  int n_mblk, n_mt;          // M blocks, node tiles
-  int step;                  // rows a block step: a multiple of 16, <= 256
-  int bin_bytes;             // 4: int32 bins, 2: int16
+  int n_col;                 // N: 8, 16, 32, 64 or 128, >= 2 m_pad (s8:
+                             // 128)
+  int n_mblk;                // M blocks
+  int n_mt;                  // grid y: node tiles, or level groups
+  int step;                  // rows a block step: a multiple of 16 (s8:
+                             // 32), <= 256
+  int bin_bytes;             // 4: int32 bins, 2: int16, 1: uint8
+  int fm;                    // 1: feature-major bins (OHW_ST_FEAT, _VEC)
+  int vec;                   // 1: uint8 feature-major bins whose rows are
+                             // 16-byte aligned (OHW_ST_VEC)
+  int n_levels;              // levels form: > 1
+  int lv_block;              // levels form: levels a block, 1, 2 or 4
 };
 
 // M tiles a warpgroup: 64 f32 accumulators a thread at N = 128 and 64
@@ -142,10 +193,14 @@ struct WgmmaArgs {
 // a block's features (at Bp = 8) within 65, so its row step >= 16
 __host__ __device__ constexpr int ohw_tiles(int n) { return n >= 128 ? 1 : 2; }
 
-// Dynamic shared memory of one block: two stages of NP B tiles, then two
-// stages of staged bin bytes.
-__host__ __device__ constexpr int ohw_smem(int n, int np, int step) {
-  return 2 * np * step * n * 2 + 2 * OHW_STAGE_BINS;
+// Dynamic shared memory of one block: two stages of B tiles (NP parts,
+// or lv_block levels), with levels two stages of the block's A tiles,
+// then two stages of staged bin bytes.
+inline int ohw_smem(const WgmmaArgs* a, bool s8, bool lvl, int np) {
+  const int nb = lvl ? a->lv_block : np;
+  const int tpb = lvl ? OHW_WARPGROUPS / a->lv_block : 0;
+  return 2 * nb * a->step * a->n_col * (s8 ? 1 : 2) +
+         2 * tpb * 64 * a->step + 2 * OHW_STAGE_BINS;
 }
 
 __device__ __forceinline__ uint32_t ohw_prmt(uint32_t a, uint32_t b,
@@ -163,13 +218,72 @@ __device__ __forceinline__ uint32_t ohw_eq_msb(uint32_t w, uint32_t t4) {
   return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
 }
 
+// 0x01 in each byte of w equal to b, each byte widened to int and
+// compared alone (the prototypes' int32 iota compare)
+__device__ __forceinline__ uint32_t ohw_eq_widened(uint32_t w, int b) {
+  uint32_t r = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    r |= (uint32_t)((int)((w >> (8 * k)) & 0xFFu) == b) << (8 * k);
+  return r;
+}
+
 __device__ __forceinline__ uint16_t ohw_bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-// The matrix descriptor of a K-major B tile without swizzle at shared
+// bf16 pair (lo, hi) of 1.0 / 0.0 from two flags, by numbers: a float
+// selected each, one cvt.rn.bf16x2.f32 for the pair
+__device__ __forceinline__ uint32_t ohw_num2(bool lo, bool hi) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(lo ? 1.0f : 0.0f, hi ? 1.0f : 0.0f);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A bf16 A fragment from q0 / q1, the bins of rows 2t, 2t+1, 2t+8, 2t+9
+// for M rows g / g + 8, whose bins are key (four equal bytes) and whose
+// masks are one (0x3F803F80, or 0 for a pad row)
+template <int AB>
+__device__ __forceinline__ void ohw_hot_bf16(uint32_t (&af)[4], uint32_t q0,
+                                             uint32_t q1,
+                                             const uint32_t (&key)[2],
+                                             const uint32_t (&one)[2]) {
+  if constexpr (AB == OHW_A_BITS) {
+    const uint32_t e0 = ohw_eq_msb(q0, key[0]);
+    const uint32_t e1 = ohw_eq_msb(q1, key[1]);
+    af[0] = ohw_prmt(e0, 0, 0x9988) & one[0];  // row g, k 2t, 2t+1
+    af[1] = ohw_prmt(e1, 0, 0x9988) & one[1];  // row g + 8
+    af[2] = ohw_prmt(e0, 0, 0xBBAA) & one[0];  // k 2t+8, 2t+9
+    af[3] = ohw_prmt(e1, 0, 0xBBAA) & one[1];
+  } else {
+    const int k0 = (int)(key[0] & 0xFFu), k1 = (int)(key[1] & 0xFFu);
+    int x0[4], x1[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x0[k] = (int)((q0 >> (8 * k)) & 0xFFu);
+      x1[k] = (int)((q1 >> (8 * k)) & 0xFFu);
+    }
+    af[0] = ohw_num2(x0[0] == k0, x0[1] == k0) & one[0];
+    af[1] = ohw_num2(x1[0] == k1, x1[1] == k1) & one[1];
+    af[2] = ohw_num2(x0[2] == k0, x0[3] == k0) & one[0];
+    af[3] = ohw_num2(x1[2] == k1, x1[3] == k1) & one[1];
+  }
+}
+
+// One register of an s8 A fragment: 0x01 in each byte of w (four rows'
+// bins) equal to the M row's bin (key, four equal bytes)
+template <int AB>
+__device__ __forceinline__ uint32_t ohw_hot_s8(uint32_t w, uint32_t key) {
+  if constexpr (AB == OHW_A_BITS)
+    return ohw_eq_msb(w, key) >> 7;
+  else
+    return ohw_eq_widened(w, (int)(key & 0xFFu));
+}
+
+// The matrix descriptor of a K-major tile without swizzle at shared
 // address addr: start >> 4, LBO 128 bytes (the K halves of a core-matrix
-// pair), SBO 256 bytes (neighbouring 8-column groups), layout type 0.
+// pair), SBO 256 bytes (neighbouring 8-row groups of N, or of M for an A
+// tile), layout type 0.
 __device__ __forceinline__ uint64_t ohw_desc(uint32_t addr) {
   return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)(128 >> 4) << 16 |
          (uint64_t)(256 >> 4) << 32;
@@ -192,6 +306,9 @@ __device__ __forceinline__ void ohw_fence_proxy() {
 // keeps the compiler from moving reads of an accumulator across a wait
 __device__ __forceinline__ void ohw_fence_acc(float& x) {
   asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void ohw_fence_acc(int& x) {
+  asm volatile("" : "+r"(x)::"memory");
 }
 
 // d (64 x N f32, N / 2 a thread) += A (64 x 16 bf16, registers) @ B (16 x
@@ -283,19 +400,78 @@ __device__ __forceinline__ void ohw_mma(float (&d)[N / 2],
   }
 }
 
-// NP bf16 parts of gh: 1 (rounded) or 3 (exact); instantiated by the .cu
-// files for N in 8, 16, 32, 64, 128.
-template <int N, int NP>
+// the 64 s32 accumulators of an m64n128 tile as asm operands
+#define OHW_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define OHW_R64(d)                                                          \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),   \
+      "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),          \
+      "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),      \
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),      \
+      "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),      \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),      \
+      "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),      \
+      "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),      \
+      "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),      \
+      "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),      \
+      "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),      \
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),      \
+      "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
+// d (64 x 128 s32, 64 a thread) += A (64 x 32 s8, registers) @ B (32 x
+// 128 s8, shared memory at desc); the sums wrap (no .satfinite)
+__device__ __forceinline__ void ohw_mma_s8(int (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " OHW_D64
+      ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : OHW_R64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// the same with A (64 x 32 s8) from shared memory at desc_a
+__device__ __forceinline__ void ohw_mma_s8_ss(int (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " OHW_D64
+      ", %64, %65, p;\n}\n"
+      : OHW_R64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ET the element type, NP its gh parts (bf16: 1 rounded, or 3 exact), AB
+// the one-hot build, LVL the levels form (s8, A from shared memory), ST
+// the staging; instantiated by the .cu files.
+template <int N, int NP, int ET, int AB, bool LVL, int ST>
 __global__ void __launch_bounds__(OHW_THREADS, 1)
 onehot_wgmma_kernel(const WgmmaArgs a) {
-  constexpr int TW = ohw_tiles(N);
-  constexpr int TPB = OHW_WARPGROUPS * TW;  // M tiles a block
+  constexpr bool S8 = ET == OHW_S8;
+  static_assert(!S8 || (N == 128 && NP == 1 && AB != OHW_A_CONST),
+                "s8: N = 128, one part, a built one-hot");
+  static_assert(!LVL || S8, "levels: s8 only");
+  typedef typename std::conditional<S8, int, float>::type Acc;
+  constexpr int ES = S8 ? 1 : 2;     // bytes of a B entry
+  constexpr int TW = LVL ? 1 : ohw_tiles(N);
+  constexpr int NBM = LVL ? OHW_WARPGROUPS : NP;  // most B tiles a stage
   constexpr uint32_t ONE2 = 0x3F803F80u;  // bf16 1.0 in both halves
   extern __shared__ __align__(1024) uint8_t ohw_sm[];
   const int KS = a.step;
-  const int b_bytes = KS * N * 2;      // one B tile of one stage
-  uint8_t* s_b = ohw_sm;               // [stage][part] B tiles
-  uint8_t* s_bin = ohw_sm + 2 * NP * b_bytes;  // [stage][feature][KS]
+  const int nb = LVL ? a.lv_block : NP;  // B tiles a stage: parts or levels
+  const int TPB = LVL ? OHW_WARPGROUPS / nb : OHW_WARPGROUPS * TW;
+  const int b_bytes = KS * N * ES;       // one B tile of one stage
+  const int a_bytes = 64 * KS;           // one s8 A tile (levels)
+  uint8_t* s_b = ohw_sm;                 // [stage][part | level] B tiles
+  uint8_t* s_a = ohw_sm + 2 * nb * b_bytes;  // levels: [stage][tile] A
+  uint8_t* s_bin = s_a + (LVL ? 2 * TPB * a_bytes : 0);  // [stage][f][KS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wq = warp & 3;
@@ -304,103 +480,204 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   const int mt0 = blockIdx.x * TPB;
   const int f_lo = mt0 * 64 / a.b_pad;
   const int nf = (min(m_rows, (mt0 + TPB) * 64) - 1) / a.b_pad - f_lo + 1;
-  const int node_base = blockIdx.y * a.m_pad;
+  const int node_base = LVL ? 0 : blockIdx.y * a.m_pad;
+  const int lv0 = LVL ? blockIdx.y * nb : 0;  // the block's first level
+  // this warpgroup's first M tile in the block, and its level
+  const int wt0 = LVL ? wg % TPB : wg * TW;
+  const int lv = LVL ? lv0 + wg / TPB : 0;
+  const bool busy =
+      !LVL || (lv < a.n_levels && (mt0 + wt0) * 64 < m_rows);
 
   // this thread's two M rows in each of its tiles: the word offset of the
-  // row's feature in a stage's bin bytes, its bin in four bytes, and 1.0
-  // pairs, or 0 for a pad bin or a row past F Bp
+  // row's feature in a stage's bin bytes, its bin in four bytes, and its
+  // mask (bf16 1.0 pairs, s8 all ones; dotfloor: 1.0 pairs in bin 0), or
+  // 0 for a pad bin or a row past F Bp
   int a_word[TW][2];
   uint32_t a_key[TW][2], a_one[TW][2];
 #pragma unroll
   for (int T = 0; T < TW; ++T)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = (mt0 + wg * TW + T) * 64 + wq * 16 + g + 8 * h;
+      const int m = (mt0 + wt0 + T) * 64 + wq * 16 + g + 8 * h;
       const int f = m / a.b_pad, b = m - f * a.b_pad;
       const bool ok = m < m_rows && b < a.n_bin;
       a_word[T][h] = ok ? (f - f_lo) * (KS >> 2) : 0;
       a_key[T][h] = (uint32_t)b * 0x01010101u;
-      a_one[T][h] = ok ? ONE2 : 0u;
+      a_one[T][h] = !ok                     ? 0u
+                    : S8                    ? ~0u
+                    : AB != OHW_A_CONST || b == 0 ? ONE2
+                                                   : 0u;
     }
+  // levels: the s8 A this thread builds, 16 bytes at a time.  Group u =
+  // tid + 512 i of a tile is 4 K words (16 rows) of one M row, at byte
+  // 16 u of the K-major layout: M row ((u >> 4) & 7) 8 + (u & 7), K words
+  // 8 (u >> 7) + 4 ((u >> 3) & 1) + 0..3, so a warp writes 512
+  // contiguous bytes.  A thread's M row is the same in every group: the
+  // byte offset of its feature's rows (K half included) in a stage, its
+  // key and its mask, in each of the block's tiles
+  int c_off[OHW_WARPGROUPS];
+  uint32_t c_key[OHW_WARPGROUPS], c_one[OHW_WARPGROUPS];
+  if constexpr (LVL) {
+    const int am = ((tid >> 4) & 7) * 8 + (tid & 7);
+#pragma unroll
+    for (int T = 0; T < OHW_WARPGROUPS; ++T) {
+      const int m = (mt0 + T) * 64 + am;
+      const int f = m / a.b_pad, b = m - f * a.b_pad;
+      const bool ok = T < TPB && m < m_rows && b < a.n_bin;
+      c_off[T] = (ok ? (f - f_lo) * KS : 0) + ((tid >> 3) & 1) * 16;
+      c_key[T] = (uint32_t)b * 0x01010101u;
+      c_one[T] = ok ? ~0u : 0u;
+    }
+  }
 
   // staging: this thread's (row, feature) bins of a step (row | feature
-  // << 8, ~0: none), rows in the inner order so that a warp reads whole
-  // runs of a row's features
+  // << 8, ~0: none).  Row-major bins: rows in the inner order so that a
+  // warp reads whole runs of a row's features; feature-major: features in
+  // the inner order so that it reads a run of one feature's rows; with
+  // vec, slot 0 is 16 rows of one feature
   uint32_t slot[OHW_SLOTS];
 #pragma unroll
   for (int i = 0; i < OHW_SLOTS; ++i) {
     const int e = tid + i * OHW_THREADS;
-    const int r = e / nf;
-    slot[i] = e < KS * nf ? (uint32_t)r | (uint32_t)(e - r * nf) << 8 : ~0u;
+    uint32_t sl = ~0u;
+    if constexpr (ST == OHW_ST_VEC) {
+      const int n16 = KS >> 4;
+      if (i == 0 && e < n16 * nf)
+        sl = (uint32_t)(e % n16 * 16) | (uint32_t)(e / n16) << 8;
+    } else if constexpr (ST == OHW_ST_FEAT) {
+      if (e < KS * nf) sl = (uint32_t)(e % KS) | (uint32_t)(e / KS) << 8;
+    } else if (e < KS * nf) {
+      const int r = e / nf;
+      sl = (uint32_t)r | (uint32_t)(e - r * nf) << 8;
+    }
+    slot[i] = sl;
   }
   const long long r_begin = (long long)blockIdx.z * a.rows_per_block;
   const long long r_end = min(a.n_rows, r_begin + a.rows_per_block);
   const int n_steps =
       r_begin < r_end ? (int)((r_end - r_begin + KS - 1) / KS) : 0;
-  const int k_ofs = (tid >> 4) * (32 * N) + ((tid >> 3) & 1) * 128 +
-                    (tid & 7) * 2;   // this thread's row slot in a B tile
+  // this thread's row slot in a B tile
+  const int k_ofs = S8 ? (tid >> 5) * (32 * N) + ((tid >> 4) & 1) * 128 +
+                             (tid & 15)
+                       : (tid >> 4) * (32 * N) + ((tid >> 3) & 1) * 128 +
+                             (tid & 7) * 2;
 
-  int pf_bin[OHW_SLOTS];
-  int pf_pos = 0;
-  float pf_g = 0.0f, pf_h = 0.0f;
-  auto load_step = [&](long long r0) {
+  // Loads only: nothing here reads a loaded value, so no thread waits
+  // for its loads before the next step's products (its row's node is
+  // found when the step is stored)
+  uint32_t pf_bin[OHW_SLOTS];  // the bins, or with vec slot 0's 16 bytes
 #pragma unroll
-    for (int i = 0; i < OHW_SLOTS; ++i) {
-      int v = -1;
-      const long long r = r0 + (slot[i] & 0xFF);
-      if (slot[i] != ~0u && r < r_end) {
-        const long long e = r * a.bin_sr + (f_lo + (int)(slot[i] >> 8)) *
-                                               a.bin_sf;
-        v = a.bin_bytes == 4 ? __ldg(static_cast<const int32_t*>(a.bins) + e)
-                             : (int)__ldg(static_cast<const int16_t*>(a.bins) +
-                                          e);
+  for (int i = 0; i < OHW_SLOTS; ++i) pf_bin[i] = ~0u;
+  int pf_pos = 0;
+  bool pf_ok = false;          // the row slot holds a row of the chunk
+  uint32_t pf_g = 0u, pf_h = 0u;  // raw f32 or int32 bits
+  auto load_step = [&](long long r0) {
+    if constexpr (AB == OHW_A_CONST) {
+      // no bins: the one-hot is a constant
+    } else if constexpr (ST == OHW_ST_VEC) {
+      const long long r = r0 + (slot[0] & 0xFF);
+      if (slot[0] != ~0u && r < r_end) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<const uint8_t*>(a.bins) +
+            (f_lo + (int)(slot[0] >> 8)) * a.bin_sf + r));
+        pf_bin[0] = v.x;
+        pf_bin[1] = v.y;
+        pf_bin[2] = v.z;
+        pf_bin[3] = v.w;
       }
-      pf_bin[i] = v;
+    } else {
+#pragma unroll
+      for (int i = 0; i < OHW_SLOTS; ++i) {
+        int v = -1;
+        const long long r = r0 + (slot[i] & 0xFF);
+        if (slot[i] != ~0u && r < r_end) {
+          const long long e = r * a.bin_sr + (f_lo + (int)(slot[i] >> 8)) *
+                                                 a.bin_sf;
+          // 4-byte bins, else 2-byte (row-major) or 1-byte (feature-major)
+          if constexpr (ST == OHW_ST_ROWS)
+            v = a.bin_bytes == 4
+                    ? __ldg(static_cast<const int32_t*>(a.bins) + e)
+                    : (int)__ldg(static_cast<const int16_t*>(a.bins) + e);
+          else
+            v = a.bin_bytes == 4
+                    ? __ldg(static_cast<const int32_t*>(a.bins) + e)
+                    : (int)__ldg(static_cast<const uint8_t*>(a.bins) + e);
+        }
+        pf_bin[i] = (uint32_t)v;
+      }
     }
     const long long r = r0 + tid;
-    pf_pos = -1;
-    if (tid < KS && r < r_end) {
+    pf_ok = tid < KS && r < r_end;
+    if (pf_ok) {
       pf_pos = __ldg(a.pos + r);
-      pf_g = __ldg(a.gh + r * a.gh_sr);
-      pf_h = __ldg(a.gh + r * a.gh_sr + a.gh_sc);
+      const uint32_t* q = static_cast<const uint32_t*>(a.gh) + r * a.gh_sr;
+      pf_g = __ldg(q);
+      pf_h = __ldg(q + a.gh_sc);
     }
   };
-  // the node column this thread's row slot last wrote in each stage (-1:
-  // none)
+  // the node this thread's row slot last wrote in each stage (-1: none)
   int old0 = -1, old1 = -1;
   auto store_step = [&](int stage) {
-    uint8_t* sb = s_bin + stage * OHW_STAGE_BINS;
+    if constexpr (AB != OHW_A_CONST) {
+      uint8_t* sb = s_bin + stage * OHW_STAGE_BINS;
+      if constexpr (ST == OHW_ST_VEC) {
+        if (slot[0] != ~0u)
+          *reinterpret_cast<uint4*>(sb + (int)(slot[0] >> 8) * KS +
+                                    (int)(slot[0] & 0xFF)) =
+              make_uint4(pf_bin[0], pf_bin[1], pf_bin[2], pf_bin[3]);
+      } else {
 #pragma unroll
-    for (int i = 0; i < OHW_SLOTS; ++i)
-      if (slot[i] != ~0u)
-        sb[(int)(slot[i] >> 8) * KS + (int)(slot[i] & 0xFF)] =
-            (uint8_t)min((unsigned)pf_bin[i], 255u);
+        for (int i = 0; i < OHW_SLOTS; ++i)
+          if (slot[i] != ~0u)
+            sb[(int)(slot[i] >> 8) * KS + (int)(slot[i] & 0xFF)] =
+                (uint8_t)min(pf_bin[i], 255u);
+      }
+    }
     if (tid >= KS) return;
-    uint8_t* bt = s_b + stage * NP * b_bytes + k_ofs;
+    uint8_t* bt = s_b + stage * nb * b_bytes + k_ofs;
+    // node j's column of channel c in B tile p (a level's columns are
+    // turned by its level)
+    auto col = [&](int j, int c, int p) {
+      return (LVL ? (j + lv0 + p) & 63 : j) + c * a.m_pad;
+    };
+    auto put = [&](int n, int p, uint32_t v) {
+      uint8_t* e = bt + p * b_bytes + (n >> 3) * 256 + (n & 7) * 16;
+      if constexpr (S8)
+        *e = (uint8_t)v;
+      else
+        *reinterpret_cast<uint16_t*>(e) = (uint16_t)v;
+    };
     const int old = stage ? old1 : old0;
     if (old >= 0) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = old + c * a.m_pad;
+      for (int c = 0; c < 2; ++c)
 #pragma unroll
-        for (int p = 0; p < NP; ++p)
-          *reinterpret_cast<uint16_t*>(bt + p * b_bytes + (n >> 3) * 256 +
-                                       (n & 7) * 16) = 0;
-      }
+        for (int p = 0; p < NBM; ++p)
+          if (p < nb) put(col(old, c, p), p, 0u);
     }
+    // the row's node: floor_mod(pos, 64) with levels (pad rows count),
+    // else pos in the node tile
     const unsigned j = (unsigned)pf_pos - (unsigned)node_base;
-    const int nw = j < (unsigned)a.m_pad ? (int)j : -1;
+    const int nw = !pf_ok ? -1
+                   : LVL  ? pf_pos & 63
+                   : j < (unsigned)a.m_pad ? (int)j
+                                           : -1;
     if (nw >= 0) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int n = nw + c * a.m_pad;
-        float x = c ? pf_h : pf_g;
+        if constexpr (S8) {
+          // the low byte: int8(gh), a wrap
 #pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const uint16_t bits = ohw_bf16_bits(x);
-          *reinterpret_cast<uint16_t*>(bt + p * b_bytes + (n >> 3) * 256 +
-                                       (n & 7) * 16) = bits;
-          x -= __bfloat162float(__ushort_as_bfloat16(bits));
+          for (int p = 0; p < NBM; ++p)
+            if (p < nb) put(col(nw, c, p), p, c ? pf_h : pf_g);
+        } else {
+          float x = __uint_as_float(c ? pf_h : pf_g);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const uint16_t bits = ohw_bf16_bits(x);
+            put(col(nw, c, p), p, bits);
+            x -= __bfloat162float(__ushort_as_bfloat16(bits));
+          }
         }
       }
     }
@@ -409,14 +686,38 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
     else
       old0 = nw;
   };
+  // levels: the s8 one-hot of the block's M tiles for the step staged in
+  // stage, into that stage's A tiles
+  auto build_a = [&](int stage) {
+    if constexpr (LVL) {
+      const uint8_t* sb = s_bin + stage * OHW_STAGE_BINS;
+      uint8_t* at = s_a + stage * TPB * a_bytes + tid * 16;
+#pragma unroll
+      for (int T = 0; T < OHW_WARPGROUPS; ++T) {
+        if (T >= TPB) break;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // groups of a tile: 4 KS <= 1,024
+          const int jb = (tid >> 7) + 4 * i;  // the group's k32 step
+          if (jb >= (KS >> 5)) break;
+          const uint4 w =
+              *reinterpret_cast<const uint4*>(sb + c_off[T] + jb * 32);
+          *reinterpret_cast<uint4*>(at + T * a_bytes + i * 16 * OHW_THREADS) =
+              make_uint4(ohw_hot_s8<AB>(w.x, c_key[T]) & c_one[T],
+                         ohw_hot_s8<AB>(w.y, c_key[T]) & c_one[T],
+                         ohw_hot_s8<AB>(w.z, c_key[T]) & c_one[T],
+                         ohw_hot_s8<AB>(w.w, c_key[T]) & c_one[T]);
+        }
+      }
+    }
+  };
 
-  float acc[TW][N / 2];
+  Acc acc[TW][N / 2];
 #pragma unroll
   for (int T = 0; T < TW; ++T)
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[T][i] = 0.0f;
+    for (int i = 0; i < N / 2; ++i) acc[T][i] = Acc(0);
 
-  for (int i = tid * 16; i < 2 * NP * b_bytes; i += OHW_THREADS * 16)
+  for (int i = tid * 16; i < 2 * nb * b_bytes; i += OHW_THREADS * 16)
     *reinterpret_cast<uint4*>(s_b + i) = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   if (n_steps > 0) {
@@ -424,80 +725,140 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
     store_step(0);
   }
   if (n_steps > 1) load_step(r_begin + KS);
+  if constexpr (LVL) {
+    __syncthreads();  // step 0's bins staged
+    if (n_steps > 0) build_a(0);
+  }
   ohw_fence_proxy();
   __syncthreads();
 
-  const int off = 2 * (t & 1);  // rows 2t, 2t+1 in a word of four
-  const uint32_t sel = off | (off + 1) << 4 | (off + 4) << 8 | (off + 5) << 12;
   const uint32_t b_base = (uint32_t)__cvta_generic_to_shared(s_b);
 #pragma unroll
   for (int T = 0; T < TW; ++T)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) ohw_fence_acc(acc[T][i]);
-  for (int s = 0; s < n_steps; ++s) {
-    const int cur = s & 1;
-    const uint32_t* wb =
-        reinterpret_cast<const uint32_t*>(s_bin + cur * OHW_STAGE_BINS);
-    const uint64_t desc0 = ohw_desc(b_base + cur * NP * b_bytes);
-    for (int kb = 0; kb < (KS >> 4); ++kb) {
-      const int w = kb * 4 + (t >> 1);
-      uint32_t af[TW][4];
+  if constexpr (!LVL) {
+    const int off = 2 * (t & 1);  // rows 2t, 2t+1 in a word of four
+    const uint32_t sel =
+        off | (off + 1) << 4 | (off + 4) << 8 | (off + 5) << 12;
+    for (int s = 0; s < n_steps; ++s) {
+      const int cur = s & 1;
+      const uint32_t* wb =
+          reinterpret_cast<const uint32_t*>(s_bin + cur * OHW_STAGE_BINS);
+      const uint64_t desc0 = ohw_desc(b_base + cur * nb * b_bytes);
+      for (int kb = 0; kb < (KS >> (S8 ? 5 : 4)); ++kb) {
+        uint32_t af[TW][4];
+        if constexpr (S8) {
+          const int w = kb * 8 + t;  // rows 32 kb + 4t..; w + 4: 16 rows on
 #pragma unroll
-      for (int T = 0; T < TW; ++T) {
-        const uint32_t q0 = ohw_prmt(wb[a_word[T][0] + w],
-                                     wb[a_word[T][0] + w + 2], sel);
-        const uint32_t q1 = ohw_prmt(wb[a_word[T][1] + w],
-                                     wb[a_word[T][1] + w + 2], sel);
-        const uint32_t e0 = ohw_eq_msb(q0, a_key[T][0]);
-        const uint32_t e1 = ohw_eq_msb(q1, a_key[T][1]);
-        af[T][0] = ohw_prmt(e0, 0, 0x9988) & a_one[T][0];  // row g, k 2t..
-        af[T][1] = ohw_prmt(e1, 0, 0x9988) & a_one[T][1];  // row g + 8
-        af[T][2] = ohw_prmt(e0, 0, 0xBBAA) & a_one[T][0];  // k 2t+8..
-        af[T][3] = ohw_prmt(e1, 0, 0xBBAA) & a_one[T][1];
+          for (int T = 0; T < TW; ++T) {
+            af[T][0] = ohw_hot_s8<AB>(wb[a_word[T][0] + w], a_key[T][0]) &
+                       a_one[T][0];
+            af[T][1] = ohw_hot_s8<AB>(wb[a_word[T][1] + w], a_key[T][1]) &
+                       a_one[T][1];
+            af[T][2] = ohw_hot_s8<AB>(wb[a_word[T][0] + w + 4], a_key[T][0]) &
+                       a_one[T][0];
+            af[T][3] = ohw_hot_s8<AB>(wb[a_word[T][1] + w + 4], a_key[T][1]) &
+                       a_one[T][1];
+          }
+        } else if constexpr (AB == OHW_A_CONST) {
+#pragma unroll
+          for (int T = 0; T < TW; ++T) {
+            af[T][0] = af[T][2] = a_one[T][0];
+            af[T][1] = af[T][3] = a_one[T][1];
+          }
+        } else {
+          const int w = kb * 4 + (t >> 1);
+#pragma unroll
+          for (int T = 0; T < TW; ++T) {
+            const uint32_t q0 = ohw_prmt(wb[a_word[T][0] + w],
+                                         wb[a_word[T][0] + w + 2], sel);
+            const uint32_t q1 = ohw_prmt(wb[a_word[T][1] + w],
+                                         wb[a_word[T][1] + w + 2], sel);
+            ohw_hot_bf16<AB>(af[T], q0, q1, a_key[T], a_one[T]);
+          }
+        }
+        ohw_fence();
+#pragma unroll
+        for (int T = 0; T < TW; ++T) {
+          if constexpr (S8) {
+            ohw_mma_s8(acc[T], af[T], desc0 + (uint64_t)((kb * 32 * N) >> 4));
+          } else {
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+              ohw_mma<N>(acc[T], af[T],
+                         desc0 + (uint64_t)((p * b_bytes + kb * 32 * N) >> 4));
+          }
+        }
+        ohw_commit();
+        // A wgmma reads its A registers until its group completes, and the
+        // compiler, which sees the asm read them at issue, may give them to
+        // the next step's fragments: so wait for the group here.  The other
+        // warpgroups' products fill the tensor cores meanwhile.
+        ohw_wait();
       }
-      ohw_fence();
-#pragma unroll
-      for (int T = 0; T < TW; ++T)
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-          ohw_mma<N>(acc[T], af[T],
-                     desc0 + (uint64_t)((p * b_bytes + kb * 32 * N) >> 4));
-      ohw_commit();
-      // A wgmma reads its A registers until its group completes, and the
-      // compiler, which sees the asm read them at issue, may give them to
-      // the next step's fragments: so wait for the group here.  The other
-      // warpgroup's products fill the tensor cores meanwhile.
-      ohw_wait();
+      // every group that read the other stage completed before the last
+      // barrier, so it is free
+      if (s + 1 < n_steps) store_step(cur ^ 1);
+      if (s + 2 < n_steps) load_step(r_begin + (long long)(s + 2) * KS);
+      ohw_fence_proxy();
+      __syncthreads();
     }
-    // every group that read the other stage completed before the last
-    // barrier, so it is free
-    if (s + 1 < n_steps) store_step(cur ^ 1);
-    if (s + 2 < n_steps) load_step(r_begin + (long long)(s + 2) * KS);
-    ohw_fence_proxy();
-    __syncthreads();
+  } else {
+    // levels: a step's products are issued at once from the stage's A and
+    // B tiles; the block stages step s + 1 and builds its A meanwhile
+    const uint32_t a_base = (uint32_t)__cvta_generic_to_shared(s_a);
+    // every warpgroup issues its products, an idle one (past the last
+    // tile or level) on tiles that exist and add nothing it flushes, so
+    // the wgmma stay outside any branch
+    for (int s = 0; s < n_steps; ++s) {
+      const int cur = s & 1;
+      const uint64_t da = ohw_desc(a_base + (cur * TPB + wt0) * a_bytes);
+      const uint64_t db = ohw_desc(b_base + (cur * nb + wg / TPB) * b_bytes);
+      ohw_fence();
+      // not unrolled: ptxas crashes (segmentation fault) on this loop
+      // unrolled, whose accumulators move between the unrolled body and
+      // its remainder while the products run
+#pragma unroll 1
+      for (int kb = 0; kb < (KS >> 5); ++kb)
+        ohw_mma_s8_ss(acc[0], da + (uint64_t)((kb * 2048) >> 4),
+                      db + (uint64_t)((kb * 32 * N) >> 4));
+      ohw_commit();
+      // the other stage's A and B tiles were last read by step s - 1's
+      // products, complete before the last barrier
+      if (s + 1 < n_steps) store_step(cur ^ 1);
+      if (s + 2 < n_steps) load_step(r_begin + (long long)(s + 2) * KS);
+      __syncthreads();  // step s + 1's bins staged
+      if (s + 1 < n_steps) build_a(cur ^ 1);
+      ohw_fence_proxy();
+      ohw_wait();  // step s's products done: its stage is free
+      __syncthreads();
+    }
   }
   ohw_wait();
 #pragma unroll
   for (int T = 0; T < TW; ++T)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) ohw_fence_acc(acc[T][i]);
+  if (!busy) return;
 
   // ---- flush: accumulator 4j + 2h + q is M row g + 8h, column 8j + 2t + q
 #pragma unroll
   for (int T = 0; T < TW; ++T)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = (mt0 + wg * TW + T) * 64 + wq * 16 + g + 8 * h;
+      const int m = (mt0 + wt0 + T) * 64 + wq * 16 + g + 8 * h;
       const int f = m / a.b_pad, b = m - f * a.b_pad;
       if (m >= m_rows || b >= a.n_bin) continue;
-      float* cell = a.out + f * a.s_f + b * a.s_b;
+      Acc* cell = static_cast<Acc*>(a.out) + lv * a.s_lv + f * a.s_f +
+                  b * a.s_b;
 #pragma unroll
       for (int j = 0; j < N / 8; ++j)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float v = acc[T][4 * j + 2 * h + q];
+          const Acc v = acc[T][4 * j + 2 * h + q];
           const int n = 8 * j + 2 * t + q;
-          if (v == 0.0f || n >= 2 * a.m_pad) continue;
+          if (v == Acc(0) || n >= 2 * a.m_pad) continue;
           const int ch = n >= a.m_pad;
           const int node = node_base + n - ch * a.m_pad;
           if (node < a.n_node_out)
@@ -506,28 +867,31 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
     }
 }
 
-template <int N, int NP>
-cudaError_t onehot_wgmma_launch_n(const WgmmaArgs* a, int n_row_blocks,
-                                  cudaStream_t stream) {
-  const int smem = ohw_smem(N, NP, a->step);
-  const cudaError_t e = cudaFuncSetAttribute(
-      onehot_wgmma_kernel<N, NP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(a->n_mblk, a->n_mt, n_row_blocks);
-  onehot_wgmma_kernel<N, NP><<<grid, OHW_THREADS, smem, stream>>>(*a);
-  return cudaGetLastError();
-}
-
 // The launch's tiling as the kernel needs it: the wrapper's plan
 // (wgmma_plan) gives it, and a launch that breaks it is refused.
-inline bool ohw_tiling_ok(const WgmmaArgs* a) {
+inline bool ohw_tiling_ok(const WgmmaArgs* a, bool s8, bool lvl, int np,
+                          int st) {
+  const int ki = s8 ? 32 : 16;
+  if (st != (a->vec ? OHW_ST_VEC : a->fm ? OHW_ST_FEAT : OHW_ST_ROWS))
+    return false;
   if (a->n_bin < 1 || a->n_bin > 255 || a->b_pad != (a->n_bin + 7) / 8 * 8 ||
       a->m_pad < 1 || a->m_pad > 64 || 2 * a->m_pad > a->n_col ||
-      a->step < 16 || a->step > 256 || a->step % 16 ||
-      a->rows_per_block % a->step || a->n_feat < 1)
+      a->step < ki || a->step > 256 || a->step % ki ||
+      a->rows_per_block % a->step || a->n_feat < 1 ||
+      (a->bin_bytes != 4 && a->bin_bytes != 2 && a->bin_bytes != 1) ||
+      (s8 && a->n_col != 128))
     return false;
-  const int tpb = OHW_WARPGROUPS * ohw_tiles(a->n_col);
+  if ((a->fm ? a->bin_bytes == 2 : a->bin_bytes == 1) ||
+      (a->vec && (a->bin_bytes != 1 || !a->fm || a->bin_sr != 1 ||
+                  a->bin_sf % 16 ||
+                  (reinterpret_cast<uintptr_t>(a->bins) & 15))))
+    return false;
+  if (lvl && (a->m_pad != 64 || a->n_levels < 2 ||
+              (a->lv_block != 1 && a->lv_block != 2 && a->lv_block != 4) ||
+              a->n_mt != (a->n_levels + a->lv_block - 1) / a->lv_block))
+    return false;
+  const int tpb = lvl ? OHW_WARPGROUPS / a->lv_block
+                      : OHW_WARPGROUPS * ohw_tiles(a->n_col);
   const int m_rows = a->n_feat * a->b_pad;
   if (a->n_mblk != (m_rows + 64 * tpb - 1) / (64 * tpb)) return false;
   for (int blk = 0; blk < a->n_mblk; ++blk) {  // staged bins fit a stage
@@ -536,25 +900,57 @@ inline bool ohw_tiling_ok(const WgmmaArgs* a) {
     if (a->step * ((m1 - 1) / a->b_pad - m0 / a->b_pad + 1) > OHW_STAGE_BINS)
       return false;
   }
-  return true;
+  return ohw_smem(a, s8, lvl, np) <= OHW_SMEM_MAX;
 }
 
-// One launch with NP parts at a->n_col columns.
+template <int N, int NP, int ET, int AB, bool LVL, int ST>
+cudaError_t onehot_wgmma_launch_n(const WgmmaArgs* a, int n_row_blocks,
+                                  cudaStream_t stream) {
+  if (a->n_col != N || !ohw_tiling_ok(a, ET == OHW_S8, LVL, NP, ST))
+    return cudaErrorInvalidValue;
+  const int smem = ohw_smem(a, ET == OHW_S8, LVL, NP);
+  const cudaError_t e = cudaFuncSetAttribute(
+      onehot_wgmma_kernel<N, NP, ET, AB, LVL, ST>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a->n_mblk, a->n_mt, n_row_blocks);
+  onehot_wgmma_kernel<N, NP, ET, AB, LVL, ST>
+      <<<grid, OHW_THREADS, smem, stream>>>(*a);
+  return cudaGetLastError();
+}
+
+// One launch of feature-major bins (T6, T7) at N = 128: 16 rows a load
+// where the wrapper found them aligned, else one element a load.
+template <int ET, int AB, bool LVL>
+cudaError_t onehot_wgmma_launch_fm(const WgmmaArgs* a, int n_row_blocks,
+                                   cudaStream_t stream) {
+  return a->vec ? onehot_wgmma_launch_n<128, 1, ET, AB, LVL, OHW_ST_VEC>(
+                      a, n_row_blocks, stream)
+                : onehot_wgmma_launch_n<128, 1, ET, AB, LVL, OHW_ST_FEAT>(
+                      a, n_row_blocks, stream);
+}
+
+// One bf16 launch of the bit-pattern one-hot (T5, T1) with NP parts at
+// a->n_col columns.
 template <int NP>
 cudaError_t onehot_wgmma_launch(const WgmmaArgs* a, int n_row_blocks,
                                 cudaStream_t stream) {
-  if (!ohw_tiling_ok(a)) return cudaErrorInvalidValue;
   switch (a->n_col) {
     case 8:
-      return onehot_wgmma_launch_n<8, NP>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<8, NP, OHW_BF16, OHW_A_BITS, false,
+                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
     case 16:
-      return onehot_wgmma_launch_n<16, NP>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<16, NP, OHW_BF16, OHW_A_BITS, false,
+                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
     case 32:
-      return onehot_wgmma_launch_n<32, NP>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<32, NP, OHW_BF16, OHW_A_BITS, false,
+                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
     case 64:
-      return onehot_wgmma_launch_n<64, NP>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<64, NP, OHW_BF16, OHW_A_BITS, false,
+                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
     case 128:
-      return onehot_wgmma_launch_n<128, NP>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<128, NP, OHW_BF16, OHW_A_BITS, false,
+                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
     default:
       return cudaErrorInvalidValue;
   }

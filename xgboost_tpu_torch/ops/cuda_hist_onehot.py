@@ -12,9 +12,10 @@ list and output layout:
   source ``csrc/onehot_i8.cu``;
 - :func:`onehot_notrans` (T2, ``tools/hist_notrans_proto.py:build``): the
   same on row-major u8 bins; source ``csrc/onehot_notrans.cu``;
-- :func:`onehot_r5` (T7, ``tools/hist_r5_ab.py:build``): int8 products of
-  feature-major u8 bins at M = 64, ``n_levels`` level operands against one
-  one-hot, ``(n_levels, F * B, 128)`` int32; source ``csrc/onehot_r5.cu``;
+- :func:`onehot_r5` (T7, ``tools/hist_r5_ab.py:build``): int8 (``s8``)
+  products of feature-major u8 bins at M = 64, ``n_levels`` level operands
+  against one one-hot, ``(n_levels, F * B, 128)`` int32; source
+  ``csrc/onehot_r5.cu``;
 - :func:`onehot_group` (T1, ``tools/hist_group_proto.py:grouped``): bf16
   products of ``fg`` features per task, node-major ``(n_node, F, B, 2)``
   f32; source ``csrc/onehot_group.cu``;
@@ -26,12 +27,15 @@ list and output layout:
   M = 64 whose one-hot is built four ways ("prod", "dotfloor", "u8bins",
   "i16hot"), ``(1, F * B, 128)`` f32; source ``csrc/onehot_r4.cu``.
 
-T5 and T1 compute the same function and share one kernel, the ``wgmma``
-product of ``csrc/onehot_wgmma.cuh`` (tiled by :func:`wgmma_plan`); the
-others share the ``mma.sync`` device code of ``csrc/onehot_mma.cuh``: T4a
-and T4b its feature-grouped kernel, T3, T2, T7 and T6 its one-feature
-kernel.  Each has a plain PyTorch version (``*_plain``) with the
-prototype's exact semantics, which the kernel matches:
+T5, T1, T6 and T7 share one kernel, the ``wgmma`` product of
+``csrc/onehot_wgmma.cuh`` (tiled by :func:`wgmma_plan`): bf16 on row-major
+bins for T5 and T1, bf16 on feature-major bins with four one-hot builds for
+T6, ``s8`` on feature-major u8 bins (with levels, A from shared memory) for
+T7.  The others share the ``mma.sync`` device code of
+``csrc/onehot_mma.cuh``: T4a and T4b its feature-grouped kernel, T3 and T2
+its one-feature int8 kernel.  Each has a plain PyTorch version
+(``*_plain``) with the prototype's exact semantics, which the kernel
+matches:
 
 - T3, T2, T7 count only the first ``(n // r_tile) * r_tile`` rows (their
   grids drop the rest) and wrap ``gh`` to int8 (``astype(int8)``); sums
@@ -70,9 +74,8 @@ from xgboost_tpu_torch.ops import nvcc
 
 THREADS = 256                  # 8 warps a block (onehot_mma.cuh)
 BIN_TILES = 5                  # bin tiles of 16 per task
-COL_TILES = 4                  # column tiles of 8 per task (1 with levels)
-LEVELS_PER_TASK = 6            # level operands per task when n_levels > 1
-STEP_ROWS = 2048               # rows a block stages per step (T3, T2, T7)
+COL_TILES = 4                  # column tiles of 8 per task
+STEP_ROWS = 2048               # rows a block stages per step (T3, T2)
 BLOCKS_PER_SM = 4
 M_TILE = 64                    # T5's node tile; T7's M
 R5_R_TILE = 2048               # tools/hist_r5_ab.py:R_TILE
@@ -110,32 +113,29 @@ class OnehotArgs(ctypes.Structure):
     """``struct OnehotArgs`` of ``csrc/onehot_mma.cuh``, field by field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("bins", "pos", "gh", "out")]
                 + [(n, ctypes.c_longlong) for n in (
-                    "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_lv", "s_f",
-                    "s_b", "s_c", "s_node", "n_rows", "rows_per_block")]
+                    "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_f", "s_b",
+                    "s_c", "s_node", "n_rows", "rows_per_block")]
                 + [(n, ctypes.c_int) for n in (
-                    "n_feat", "n_bin", "m_pad", "n_node_out", "n_levels",
-                    "n_bg", "n_cg", "n_lg", "n_mt", "r_tile", "fg",
-                    "rep")])
+                    "n_feat", "n_bin", "m_pad", "n_node_out", "n_bg",
+                    "n_cg", "n_mt", "r_tile", "fg", "rep")])
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def tiling(n_rows: int, n_feat: int, n_bin: int, m_pad: int, n_levels: int,
-           n_mt: int, r_tile: int, col_tiles: int, levels_per_task: int,
-           n_sm: int) -> Tuple[int, int, int, int, int]:
-    """(n_bg, n_cg, n_lg, n_row_blocks, rows_per_block) of one launch:
-    the task groups of one block (bin tiles, column tiles, levels) and
-    enough row chunks, each a whole number of ``r_tile`` steps, to give
-    every SM a few blocks."""
+def tiling(n_rows: int, n_feat: int, n_bin: int, m_pad: int, r_tile: int,
+           col_tiles: int, n_sm: int) -> Tuple[int, int, int, int]:
+    """(n_bg, n_cg, n_row_blocks, rows_per_block) of one launch of the
+    one-feature kernel: the task groups of one block (bin tiles, column
+    tiles) and enough row chunks, each a whole number of ``r_tile`` steps,
+    to give every SM a few blocks."""
     n_bg = _cdiv(_cdiv(n_bin, 16), BIN_TILES)
     n_cg = _cdiv(_cdiv(2 * m_pad, 8), col_tiles)
-    n_lg = _cdiv(n_levels, levels_per_task)
     steps = max(1, _cdiv(n_rows, r_tile))
-    want = _cdiv(BLOCKS_PER_SM * n_sm, n_feat * n_bg * n_cg * n_lg * n_mt)
+    want = _cdiv(BLOCKS_PER_SM * n_sm, n_feat * n_bg * n_cg)
     rows_per_block = _cdiv(steps, max(1, min(steps, want))) * r_tile
-    return n_bg, n_cg, n_lg, _cdiv(max(n_rows, 1), rows_per_block), \
+    return n_bg, n_cg, _cdiv(max(n_rows, 1), rows_per_block), \
         rows_per_block
 
 
@@ -155,37 +155,34 @@ def _device(*ts: torch.Tensor) -> str:
     return dev.type
 
 
-def _launch(name: str, variant: int, bins: torch.Tensor, pos: torch.Tensor,
+def _launch(name: str, bins: torch.Tensor, pos: torch.Tensor,
             gh: torch.Tensor, out: torch.Tensor, *, bin_sr: int,
-            bin_sf: int, gh_sr: int, gh_sc: int,
-            out_strides: Tuple[int, int, int, int, int], n_rows: int,
-            n_feat: int, n_bin: int, m_pad: int, n_node_out: int,
-            n_levels: int, mod_levels: bool, n_mt: int, r_tile: int,
-            col_tiles: int, levels_per_task: int) -> torch.Tensor:
+            bin_sf: int, out_strides: Tuple[int, int, int, int],
+            n_rows: int, n_feat: int, n_bin: int,
+            m_pad: int) -> torch.Tensor:
+    """One launch of the one-feature int8 kernel (T3, T2) on int32 gh
+    ``(n, 2)`` and int32 pos, one node tile of ``m_pad`` nodes;
+    ``out_strides`` are (s_f, s_b, s_c, s_node)."""
     if not (bins.is_contiguous() and pos.is_contiguous()
             and gh.is_contiguous() and out.is_contiguous()):
         raise ValueError("bins, pos, gh and out must be contiguous")
-    if n_bin > 256 or r_tile % THREADS or not 0 < r_tile <= STEP_ROWS \
-            or not 0 < m_pad <= 128 or (mod_levels and m_pad & (m_pad - 1)):
+    if n_bin > 256 or not 0 < m_pad <= 128:
         raise NotImplementedError(
-            f"the one-hot kernels take B <= 256, up to 128 nodes a tile (a "
-            f"power of two with levels) and a row step that is a multiple "
-            f"of {THREADS} up to {STEP_ROWS} (got B={n_bin}, m_pad={m_pad}, "
-            f"r_tile={r_tile})")
+            f"the one-feature kernel takes B <= 256 and up to 128 nodes a "
+            f"tile (got B={n_bin}, m_pad={m_pad})")
     if n_rows == 0 or n_feat == 0:
         return out
+    col_tiles = _col_tiles(m_pad)
     n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    n_bg, n_cg, n_lg, n_rb, rpb = tiling(
-        n_rows, n_feat, n_bin, m_pad, n_levels, n_mt, r_tile, col_tiles,
-        levels_per_task, n_sm)
-    if n_bg * n_cg * n_lg * n_mt > 65535 or n_rb > 65535:
+    n_bg, n_cg, n_rb, rpb = tiling(n_rows, n_feat, n_bin, m_pad, STEP_ROWS,
+                                   col_tiles, n_sm)
+    if n_bg * n_cg > 65535 or n_rb > 65535:
         raise NotImplementedError("too many node tiles for one launch")
     args = OnehotArgs(
         bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
-        bin_sr, bin_sf, gh_sr, gh_sc, *out_strides, n_rows, rpb, n_feat,
-        n_bin, m_pad, n_node_out, n_levels, n_bg, n_cg, n_lg, n_mt, r_tile,
-        1, 1)
-    return _call(name, args, variant, n_rb, bins.device, out)
+        bin_sr, bin_sf, 2, 1, *out_strides, n_rows, rpb, n_feat, n_bin,
+        m_pad, m_pad, n_bg, n_cg, 1, STEP_ROWS, 1, 1)
+    return _call(name, args, int(col_tiles > 1), n_rb, bins.device, out)
 
 
 def _call(name: str, args: ctypes.Structure, variant: int, n_rb: int,
@@ -272,8 +269,8 @@ def _launch_group(name: str, bins: torch.Tensor, pos: torch.Tensor,
         raise NotImplementedError("too many node tiles for one launch")
     args = OnehotArgs(
         bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
-        bin_sr, bin_sf, 2, 1, 0, *out_strides, n_rows, rpb, n_feat, n_bin,
-        m_pad, n_node_out, 1, 1, n_cg, 1, n_mt, step, fg, rep)
+        bin_sr, bin_sf, 2, 1, *out_strides, n_rows, rpb, n_feat, n_bin,
+        m_pad, n_node_out, 1, n_cg, n_mt, step, fg, rep)
     return _call(name, args, variant, n_rb, bins.device, out)
 
 
@@ -290,21 +287,23 @@ def _lib(name: str, arg_type: type) -> ctypes.CDLL:
     return lib
 
 
-# ------------------------------------------------------- wgmma (T5, T1)
+# --------------------------------------------------- wgmma (T5, T1, T6, T7)
 WGMMA_COLS = (8, 16, 32, 64, 128)  # the N the kernel is instantiated at
 WGMMA_WARPGROUPS = 4               # warpgroups a block
 WGMMA_STAGE_BINS = 2048            # staged bins a block step
+WGMMA_LEVEL_BLOCKS = (4, 2, 1)     # levels a block in the levels form
 
 
 class WgmmaArgs(ctypes.Structure):
     """``struct WgmmaArgs`` of ``csrc/onehot_wgmma.cuh``, field by field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("bins", "pos", "gh", "out")]
                 + [(n, ctypes.c_longlong) for n in (
-                    "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_f", "s_b",
-                    "s_c", "s_node", "n_rows", "rows_per_block")]
+                    "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_lv", "s_f",
+                    "s_b", "s_c", "s_node", "n_rows", "rows_per_block")]
                 + [(n, ctypes.c_int) for n in (
                     "n_feat", "n_bin", "b_pad", "m_pad", "n_node_out",
-                    "n_col", "n_mblk", "n_mt", "step", "bin_bytes")])
+                    "n_col", "n_mblk", "n_mt", "step", "bin_bytes", "fm",
+                    "vec", "n_levels", "lv_block")])
 
 
 class WgmmaPlan(NamedTuple):
@@ -313,14 +312,20 @@ class WgmmaPlan(NamedTuple):
     b_pad: int            # Bp: B rounded up to 8 (M rows a feature)
     m_pad: int            # nodes a node tile
     n_mt: int             # node tiles (a grid dimension)
-    tiles_per_block: int  # M tiles of 64 a block: four warpgroups' worth
+    tiles_per_block: int  # M tiles of 64 a block
     n_tiles: int          # M tiles of the F * Bp (feature, bin) rows
     n_mblk: int           # M blocks
     step: int             # rows a block step
-    bin_bytes: int        # 4: int32 bins, 2: int16
+    bin_bytes: int        # 4: int32 bins, 2: int16, 1: uint8
     n_parts: int          # bf16 parts of gh: 1, or 3 in the exact mode
     smem: int             # dynamic shared memory of a block, bytes
-    acc_regs: int         # f32 accumulators a thread
+    acc_regs: int         # accumulators a thread
+    elem: str             # "bf16" or "s8" products
+    feature_major: bool   # bins (F, n), staged with rows inner
+    n_levels: int         # > 1: the levels form (s8, A from shared memory)
+    lv_block: int         # levels a block (1 outside the levels form)
+    n_lg: int             # level groups (the grid's y in the levels form)
+    a_smem: int           # the block's A tiles (levels form), bytes
 
 
 def wgmma_block_features(n_feat: int, b_pad: int,
@@ -333,71 +338,165 @@ def wgmma_block_features(n_feat: int, b_pad: int,
             for m0 in range(0, m_rows, rows)]
 
 
+def wgmma_level_block(n_levels: int) -> int:
+    """Levels a block of the levels form (its four warpgroups own 4 /
+    lv_block M tiles x lv_block levels): of 4, 2 and 1 the one that
+    leaves the fewest warpgroups without a level, the largest of those
+    (fewest level groups, so fewest builds of each one-hot)."""
+    return min(WGMMA_LEVEL_BLOCKS, key=lambda lb: lb * _cdiv(n_levels, lb))
+
+
+def wgmma_block_pairs(plan: WgmmaPlan) -> list:
+    """The (M tile, level) pairs of each warpgroup of each block, blocks
+    in grid order (level group, then M block): in the levels form one
+    pair, or none for a warpgroup past the last tile or level; outside it
+    the warpgroup's ``tiles_per_block / 4`` tiles at level 0."""
+    out = []
+    for lg in range(plan.n_lg):
+        for blk in range(plan.n_mblk):
+            t0 = blk * plan.tiles_per_block
+            pairs = []
+            for wg in range(WGMMA_WARPGROUPS):
+                if plan.n_levels > 1:
+                    t = t0 + wg % plan.tiles_per_block
+                    lv = lg * plan.lv_block + wg // plan.tiles_per_block
+                    ok = t < plan.n_tiles and lv < plan.n_levels
+                    pairs.append([(t, lv)] if ok else [])
+                else:
+                    tw = plan.tiles_per_block // WGMMA_WARPGROUPS
+                    pairs.append([(t, 0) for t in range(t0 + wg * tw,
+                                                         t0 + (wg + 1) * tw)
+                                  if t < plan.n_tiles])
+            out.append(pairs)
+    return out
+
+
 def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
                bin_dtype: torch.dtype = torch.int32,
-               exact: bool = False) -> WgmmaPlan:
-    """The ``wgmma`` kernel's tiling of a ``(n_node, F, n_bin, 2)``
-    histogram (``csrc/onehot_wgmma.cuh``): M tiles of 64 over the F * Bp
-    (feature, bin) rows, four warpgroups a block of one tile each at N =
-    128 (two below), the row step as large as a stage's 2,048 staged bins
-    allow (at most 256 rows, 64 in the exact mode, whose three B tiles
-    fill more shared memory).  Raises ``NotImplementedError`` on what the
-    kernel does not take."""
-    if bin_dtype not in (torch.int32, torch.int16):
-        raise NotImplementedError(f"the wgmma kernel reads int32 or int16 "
-                                  f"bins (got {bin_dtype})")
-    if not 1 <= n_bin <= 255 or n_feat < 1 or n_node < 1:
+               exact: bool = False, *, feature_major: bool = False,
+               elem: str = "bf16", n_levels: int = 1) -> WgmmaPlan:
+    """The ``wgmma`` kernel's tiling of a level histogram of ``n_feat``
+    features of ``n_bin`` bins at ``n_node`` nodes
+    (``csrc/onehot_wgmma.cuh``): M tiles of 64 over the F * Bp (feature,
+    bin) rows, four warpgroups a block of one tile each at N = 128 (two
+    below), the row step as large as a stage's 2,048 staged bins and the
+    block's shared memory allow (at most 256 rows, 64 in the exact mode; a
+    multiple of the instruction's K: 16 rows in bf16, 32 in ``s8``).
+
+    Row-major bins (T5, T1) are int32 or int16, feature-major ones (T6,
+    T7) int32 or uint8.  ``elem="s8"`` (T7) is the int8 product at N =
+    128; with ``n_levels > 1`` (at 64 nodes) it is the levels form, whose
+    block of ``4 / lv_block`` tiles x ``lv_block`` levels keeps two stages
+    of its tiles' one-hot in shared memory.  Raises
+    ``NotImplementedError`` on what the kernel does not take."""
+    if elem not in ("bf16", "s8"):
+        raise NotImplementedError(f"elem {elem!r}: 'bf16' or 's8'")
+    dtypes = ((torch.int32, torch.uint8) if feature_major
+              else (torch.int32, torch.int16))
+    if bin_dtype not in dtypes:
+        raise NotImplementedError(
+            f"the wgmma kernel reads {'feature' if feature_major else 'row'}"
+            f"-major bins of {dtypes} (got {bin_dtype})")
+    if not 1 <= n_bin <= 255 or n_feat < 1 or n_node < 1 or n_levels < 1:
         raise NotImplementedError(
             f"the wgmma kernel takes 1 <= B <= 255 (byte 255 marks a bad "
-            f"bin), F >= 1 and n_node >= 1 (got B={n_bin}, F={n_feat}, "
+            f"bin), F >= 1, n_node >= 1 and n_levels >= 1 (got B={n_bin}, "
+            f"F={n_feat}, n_node={n_node}, n_levels={n_levels})")
+    s8 = elem == "s8"
+    levels = n_levels > 1
+    if s8 and exact:
+        raise NotImplementedError("the s8 product has no exact mode")
+    if levels and (not s8 or n_node != M_TILE):
+        raise NotImplementedError(
+            f"levels are s8 products at {M_TILE} nodes (got {elem}, "
             f"n_node={n_node})")
     b_pad = _cdiv(n_bin, 8) * 8
     m_pad = min(n_node, M_TILE)
-    n_col = next(n for n in WGMMA_COLS if n >= 2 * m_pad)
-    tw = 1 if n_col >= 128 else 2      # M tiles a warpgroup
-    tpb = WGMMA_WARPGROUPS * tw
+    n_col = 128 if s8 else next(n for n in WGMMA_COLS if n >= 2 * m_pad)
+    tw = 1 if n_col >= 128 or levels else 2      # M tiles a warpgroup
+    lv_block = wgmma_level_block(n_levels) if levels else 1
+    tpb = WGMMA_WARPGROUPS // lv_block if levels else WGMMA_WARPGROUPS * tw
     feats = wgmma_block_features(n_feat, b_pad, tpb)
     n_parts = 3 if exact else 1
+    k_rows = 32 if s8 else 16                    # K of one instruction
+    n_b = lv_block if levels else n_parts        # B tiles a stage
+
+    def smem(step):
+        return (2 * n_b * step * n_col * (1 if s8 else 2)
+                + 2 * WGMMA_STAGE_BINS + a_smem(step))
+
+    def a_smem(step):
+        return 2 * tpb * 64 * step if levels else 0
+
     step = min(64 if exact else 256,
-               WGMMA_STAGE_BINS // max(len(r) for r in feats) // 16 * 16)
+               WGMMA_STAGE_BINS // max(len(r) for r in feats)
+               // k_rows * k_rows)
+    while step >= k_rows and smem(step) > SMEM_MAX:
+        step -= k_rows
+    if step < k_rows:
+        raise NotImplementedError(
+            f"{max(len(r) for r in feats)} features a block leave a row "
+            f"step below the instruction's {k_rows} rows")
     return WgmmaPlan(
         n_col=n_col, b_pad=b_pad, m_pad=m_pad, n_mt=_cdiv(n_node, m_pad),
         tiles_per_block=tpb, n_tiles=_cdiv(n_feat * b_pad, 64),
         n_mblk=len(feats), step=step,
         bin_bytes=torch.empty((), dtype=bin_dtype).element_size(),
-        n_parts=n_parts,
-        smem=2 * n_parts * step * n_col * 2 + 2 * WGMMA_STAGE_BINS,
-        acc_regs=tw * n_col // 2)
+        n_parts=n_parts, smem=smem(step), acc_regs=tw * n_col // 2,
+        elem=elem, feature_major=feature_major, n_levels=n_levels,
+        lv_block=lv_block, n_lg=_cdiv(n_levels, lv_block),
+        a_smem=a_smem(step))
 
 
-def _launch_wgmma(name: str, bins: torch.Tensor, pos: torch.Tensor,
-                  gh: torch.Tensor, n_node: int, n_bin: int,
-                  exact: bool) -> torch.Tensor:
-    """One launch of the ``wgmma`` kernel (variant 1: the exact mode) on
-    row-major bins ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos: the
-    node-major ``(n_node, F, n_bin, 2)`` histogram."""
+def _launch_wgmma(name: str, variant: int, plan: WgmmaPlan,
+                  bins: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
+                  out: torch.Tensor, *, bin_sr: int, bin_sf: int,
+                  gh_sr: int, gh_sc: int,
+                  out_strides: Tuple[int, int, int, int, int], n_rows: int,
+                  n_bin: int, n_node_out: int) -> torch.Tensor:
+    """One launch of the ``wgmma`` kernel at ``plan`` over the first
+    ``n_rows`` rows into the zeroed ``out``, cell (level, feature, bin,
+    channel, node) at ``out_strides`` (s_lv, s_f, s_b, s_c, s_node)."""
     if not (bins.is_contiguous() and pos.is_contiguous()
-            and gh.is_contiguous()):
-        raise ValueError("bins, pos and gh must be contiguous")
+            and gh.is_contiguous() and out.is_contiguous()):
+        raise ValueError("bins, pos, gh and out must be contiguous")
+    if n_rows == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
+    n_y = plan.n_lg if plan.n_levels > 1 else plan.n_mt
+    steps = _cdiv(n_rows, plan.step)
+    want = max(1, n_sm // (plan.n_mblk * n_y))
+    rpb = _cdiv(steps, min(steps, want)) * plan.step
+    n_rb = _cdiv(n_rows, rpb)
+    if n_y > 65535 or n_rb > 65535:
+        raise NotImplementedError("too many node tiles for one launch")
+    # uint8 feature-major rows 16 a load where every feature's rows are
+    # 16-byte aligned
+    vec = int(plan.feature_major and plan.bin_bytes == 1
+              and bin_sf % 16 == 0 and bins.data_ptr() % 16 == 0)
+    n_feat = bins.shape[0] if plan.feature_major else bins.shape[1]
+    args = WgmmaArgs(
+        bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
+        bin_sr, bin_sf, gh_sr, gh_sc, *out_strides, n_rows, rpb, n_feat,
+        n_bin, plan.b_pad, plan.m_pad, n_node_out, plan.n_col, plan.n_mblk, n_y, plan.step, plan.bin_bytes,
+        int(plan.feature_major), vec, plan.n_levels, plan.lv_block)
+    return _call(name, args, variant, n_rb, bins.device, out)
+
+
+def _launch_rows(name: str, bins: torch.Tensor, pos: torch.Tensor,
+                 gh: torch.Tensor, n_node: int, n_bin: int,
+                 exact: bool) -> torch.Tensor:
+    """T5's and T1's launch (variant 1: the exact mode) on row-major bins
+    ``(N, F)``, f32 gh ``(N, 2)`` and int32 pos: the node-major ``(n_node,
+    F, n_bin, 2)`` histogram."""
     N, F = bins.shape
     plan = wgmma_plan(F, n_bin, n_node, bins.dtype, exact)
     out = torch.zeros((n_node, F, n_bin, 2), dtype=torch.float32,
                       device=bins.device)
-    if N == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    steps = _cdiv(N, plan.step)
-    want = max(1, n_sm // (plan.n_mblk * plan.n_mt))
-    rpb = _cdiv(steps, min(steps, want)) * plan.step
-    n_rb = _cdiv(N, rpb)
-    if plan.n_mt > 65535 or n_rb > 65535:
-        raise NotImplementedError("too many node tiles for one launch")
-    args = WgmmaArgs(
-        bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
-        F, 1, 2, 1, n_bin * 2, 2, 1, F * n_bin * 2, N, rpb, F, n_bin,
-        plan.b_pad, plan.m_pad, n_node, plan.n_col, plan.n_mblk, plan.n_mt,
-        plan.step, plan.bin_bytes)
-    return _call(name, args, int(exact), n_rb, bins.device, out)
+    return _launch_wgmma(name, int(exact), plan, bins, pos, gh, out,
+                         bin_sr=F, bin_sf=1, gh_sr=2, gh_sc=1,
+                         out_strides=(0, n_bin * 2, 2, 1, F * n_bin * 2),
+                         n_rows=N, n_bin=n_bin, n_node_out=n_node)
 
 
 # ------------------------------------------------------------ plain parts
@@ -469,14 +568,11 @@ def onehot_i8(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
         return onehot_i8_plain(binned_t, pos, gh, m_pad, n_bin, r_tile)
     out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.int32,
                       device=binned_t.device)
-    ct = _col_tiles(m_pad)
-    return _launch("onehot_i8", int(ct > 1), binned_t, pos, gh, out, bin_sr=1,
-                   bin_sf=n, gh_sr=2, gh_sc=1,
-                   out_strides=(0, n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
+    return _launch("onehot_i8", binned_t, pos, gh, out, bin_sr=1,
+                   bin_sf=n,
+                   out_strides=(n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
                    n_rows=(n // r_tile) * r_tile, n_feat=F, n_bin=n_bin,
-                   m_pad=m_pad, n_node_out=m_pad, n_levels=1,
-                   mod_levels=False, n_mt=1, r_tile=STEP_ROWS,
-                   col_tiles=ct, levels_per_task=1)
+                   m_pad=m_pad)
 
 
 def onehot_i8_plain(binned_t, pos, gh, m_pad, n_bin=64, r_tile=2048):
@@ -499,15 +595,11 @@ def onehot_notrans(binned: torch.Tensor, pos: torch.Tensor,
         return onehot_notrans_plain(binned, pos, gh, m_pad, n_bin, r_tile)
     out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.int32,
                       device=binned.device)
-    ct = _col_tiles(m_pad)
-    return _launch("onehot_notrans", int(ct > 1), binned, pos, gh, out,
-                   bin_sr=F,
-                   bin_sf=1, gh_sr=2, gh_sc=1,
-                   out_strides=(0, n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
+    return _launch("onehot_notrans", binned, pos, gh, out, bin_sr=F,
+                   bin_sf=1,
+                   out_strides=(n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
                    n_rows=(n // r_tile) * r_tile, n_feat=F, n_bin=n_bin,
-                   m_pad=m_pad, n_node_out=m_pad, n_levels=1,
-                   mod_levels=False, n_mt=1, r_tile=STEP_ROWS,
-                   col_tiles=ct, levels_per_task=1)
+                   m_pad=m_pad)
 
 
 def onehot_notrans_plain(binned, pos, gh, m_pad, n_bin=64, r_tile=2048):
@@ -545,19 +637,18 @@ def onehot_r5(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
     if _device(binned_t, pos, gh) == "cpu":
         return onehot_r5_plain(binned_t, pos, gh, n_bin, n_levels, mode)
     M = M_TILE
+    plan = wgmma_plan(F, n_bin, M, torch.uint8, feature_major=True,
+                      elem="s8", n_levels=n_levels)
     out = torch.zeros((n_levels, F * n_bin, 2 * M), dtype=torch.int32,
                       device=binned_t.device)
-    shared = n_levels > 1
-    return _launch("onehot_r5", 2 * (mode == "u8cmp") + int(shared),
-                   binned_t, pos, gh, out, bin_sr=1, bin_sf=n, gh_sr=1,
-                   gh_sc=n,
-                   out_strides=(F * n_bin * 2 * M, n_bin * 2 * M, 2 * M, M,
-                                1),
-                   n_rows=(n // R5_R_TILE) * R5_R_TILE, n_feat=F,
-                   n_bin=n_bin, m_pad=M, n_node_out=M, n_levels=n_levels,
-                   mod_levels=shared, n_mt=1, r_tile=STEP_ROWS,
-                   col_tiles=1 if shared else COL_TILES,
-                   levels_per_task=LEVELS_PER_TASK if shared else 1)
+    return _launch_wgmma("onehot_r5",
+                         2 * (mode == "u8cmp") + int(n_levels > 1), plan,
+                         binned_t, pos, gh, out, bin_sr=1, bin_sf=n,
+                         gh_sr=1, gh_sc=n,
+                         out_strides=(F * n_bin * 2 * M, n_bin * 2 * M,
+                                      2 * M, M, 1),
+                         n_rows=(n // R5_R_TILE) * R5_R_TILE, n_bin=n_bin,
+                         n_node_out=M)
 
 
 def onehot_r5_plain(binned_t, pos, gh, n_bin, n_levels=1, mode="prod"):
@@ -621,8 +712,8 @@ def onehot_variant(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
         return onehot_variant_plain(binned, gh, pos, n_node, n_bin,
                                     precision, hot_dtype, bin_dtype, r_tile)
     bins = binned if binned.dtype == bin_dtype else binned.to(bin_dtype)
-    return _launch_wgmma("onehot_variant", bins, pos, gh, n_node, n_bin,
-                         exact=not rounded)
+    return _launch_rows("onehot_variant", bins, pos, gh, n_node, n_bin,
+                        exact=not rounded)
 
 
 def onehot_variant_plain(binned, gh, pos, n_node, n_bin, precision="bf16",
@@ -690,8 +781,8 @@ def onehot_group(binned: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
     if _device(binned, gh, pos) == "cpu":
         return onehot_group_plain(binned, gh, pos, n_node, n_bin, fg,
                                   r_tile, hot_dtype)
-    return _launch_wgmma("onehot_group", binned.to(torch.int32), pos, gh,
-                         n_node, n_bin, exact=False)
+    return _launch_rows("onehot_group", binned.to(torch.int32), pos, gh,
+                        n_node, n_bin, exact=False)
 
 
 def onehot_group_plain(binned, gh, pos, n_node, n_bin, fg=4, r_tile=2048,
@@ -788,20 +879,16 @@ def onehot_r4(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
     _check_r4(binned_t, pos, gh, mode)
     if _device(binned_t, pos, gh) == "cpu":
         return onehot_r4_plain(binned_t, pos, gh, mode, r_tile, n_bin)
-    if r_tile < THREADS or min(r_tile, STEP_ROWS) % THREADS:
-        raise NotImplementedError(f"r_tile {r_tile}: a multiple of "
-                                  f"{THREADS}, or above {STEP_ROWS}")
     F, n = binned_t.shape
     M = M_TILE
+    plan = wgmma_plan(F, n_bin, M, binned_t.dtype, feature_major=True)
     out = torch.zeros((1, F * n_bin, 2 * M), dtype=torch.float32,
                       device=binned_t.device)
-    return _launch("onehot_r4", R4_MODES.index(mode), binned_t, pos, gh, out,
-                   bin_sr=1, bin_sf=n, gh_sr=2, gh_sc=1,
-                   out_strides=(0, n_bin * 2 * M, 2 * M, M, 1),
-                   n_rows=(n // r_tile) * r_tile, n_feat=F, n_bin=n_bin,
-                   m_pad=M, n_node_out=M, n_levels=1, mod_levels=False,
-                   n_mt=1, r_tile=min(r_tile, STEP_ROWS),
-                   col_tiles=COL_TILES, levels_per_task=1)
+    return _launch_wgmma("onehot_r4", R4_MODES.index(mode), plan, binned_t,
+                         pos, gh, out, bin_sr=1, bin_sf=n, gh_sr=2, gh_sc=1,
+                         out_strides=(0, n_bin * 2 * M, 2 * M, M, 1),
+                         n_rows=(n // r_tile) * r_tile, n_bin=n_bin,
+                         n_node_out=M)
 
 
 def onehot_r4_plain(binned_t, pos, gh, mode="prod", r_tile=2048, n_bin=64):

@@ -14,8 +14,8 @@ operand is built:
   i16hot    the bit pattern: four bins compared at once, the flags
             widened and ANDed with bf16 1.0 (the prototype's int16 select
             of 0x3F80 and bitcast)
-  rtile=K   prod at r_tile 1024, 2048 and 4096 (4096 staged as two steps
-            of 2048)
+  rtile=K   prod at r_tile 1024, 2048 and 4096 (where the tail is
+            dropped: the wgmma kernel's row step is its own)
 
 K1, the production scatter, is timed in bf16 on the same rows.  The JAX
 script's bench ceiling (from its TPU round time) is left out.

@@ -5,13 +5,13 @@ M = 64 (``ops/cuda_hist_onehot.onehot_r5``, ``csrc/onehot_r5.cu``).
 Variants:
 
   prod      bins widened to int32, one compare each
-  u8cmp     four packed u8 bins compared at once (__vcmpeq4); on the TPU
-            this variant did not compile
+  u8cmp     four packed u8 bins compared at once (SWAR); on the TPU this
+            variant did not compile
   B = 67, 64, 32   the bin count
-  shared6   ONE one-hot per (feature, 32 rows) multiplied against 6
-            levels' gh_exp operands (level lv takes node
-            floor_mod(pos + lv, 64), so pad rows count, as in the
-            prototype)
+  shared6   ONE one-hot per (M tile, row step), built into shared memory
+            and multiplied against 6 levels' gh_exp operands (level lv
+            takes node floor_mod(pos + lv, 64), so pad rows count, as in
+            the prototype)
 
 K1's int mode is timed beside each bin count on the same rows.
 

@@ -1,8 +1,10 @@
-"""Where the wgmma one-hot kernel of T5 and T1 spends its time, on the card.
+"""Where the wgmma one-hot kernel spends its time, on the card.
 
-Times ``csrc/onehot_wgmma.cuh`` through T1's ``onehot_group`` at the
-mains' shape (1M x 28 int32 bins, B = 67, n_node = 64) beside builds of
-the same source with one passage replaced:
+Times ``csrc/onehot_wgmma.cuh`` beside builds of the same source with one
+passage replaced, for one of two targets.
+
+``t1`` (the default): T1's ``onehot_group`` at the mains' shape (1M x 28
+int32 bins, B = 67, n_node = 64), A from registers:
 
   full      the kernel as committed
   2x2       two warpgroups of two M tiles a block (the same four tiles)
@@ -13,13 +15,24 @@ the same source with one passage replaced:
   no-stage  no staging after a block's first row step
   no-mma    no products: staging and the one-hot build
 
-``full`` and ``2x2`` compute the histogram and are held bitwise against
-the plain version on bf16-exact gradients; the others do not.  A variant
-whose passage is no longer in the source raises.  Each round times every
-variant once, the second round in reverse order.  Needs the card and
-``nvcc``; the variants build into ``xgboost_tpu_torch/_build/split/``.
+``t7``: T7's ``onehot_r5`` in the levels form (A from shared memory) at
+the shared6 shape of its main (1,001,472 x 28 u8 bins, B = 64, 6 levels),
+``u8cmp`` and ``prod``:
 
-Usage: python -m xgboost_tpu_torch.tools.hist_wgmma_split [reps]
+  full      the kernel as committed
+  no-A      the A tiles written with a constant, no stage read or compare
+  no-B      no gh_exp entries written
+  no-load   no loads of the next step's rows (the stage keeps old bytes)
+  no-mma    no products
+
+``full`` (and ``2x2``) compute the histogram and are held bitwise against
+the plain version (T1 on bf16-exact gradients); the others do not.  A
+variant whose passage is no longer in the source raises; one that nvcc
+does not build is reported and left out.  Each round times every variant
+once, the second round in reverse order.  Needs the card and ``nvcc``; the
+variants build into ``xgboost_tpu_torch/_build/split/``.
+
+Usage: python -m xgboost_tpu_torch.tools.hist_wgmma_split [reps] [t1|t7]
 """
 
 from __future__ import annotations
@@ -38,7 +51,12 @@ from xgboost_tpu_torch.tools import device_ms, device_name
 
 N, F, B, N_NODE = 1_000_000, 28, 67, 64
 HEADER = "onehot_wgmma.cuh"
-_A_BUILD = ("        const uint32_t q0 = ohw_prmt(", "      ohw_fence();")
+_A_BUILD = ("          const uint32_t q0 = ohw_prmt(", "        ohw_fence();")
+_STAGE = ("      if (s + 1 < n_steps) store_step(cur ^ 1);\n"
+          "      if (s + 2 < n_steps) load_step(r_begin + (long long)(s + 2) "
+          "* KS);\n"
+          "      ohw_fence_proxy();")
+_COMMIT = "        ohw_commit();\n        // A wgmma reads its A registers"
 # each variant: (passage, replacement) pairs, or a (start, end) marker
 # pair whose span is replaced (an A fragment that changes every step, so
 # the products are not hoisted)
@@ -48,23 +66,42 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
              "constexpr int OHW_WARPGROUPS = 2;"),
             ("return n >= 128 ? 1 : 2;", "return 2;")],
     "no-B": [("    if (nw >= 0) {", "    if (nw >= 0 && false) {")],
-    "no-A": [(_A_BUILD, "        af[T][0] = a_one[T][0] ^ w;\n"
-                        "        af[T][1] = a_one[T][1];\n"
-                        "        af[T][2] = a_one[T][0];\n"
-                        "        af[T][3] = a_one[T][1] ^ kb;\n      }\n")],
-    "no-stage": [("    if (s + 1 < n_steps) store_step(",
-                  "    if (s + 1 < n_steps && false) store_step("),
-                 ("    if (s + 2 < n_steps) load_step(",
-                  "    if (s + 2 < n_steps && false) load_step(")],
-    "no-mma": [("          ohw_mma<N>(acc[T], af[T],",
-                "          if (p < 0) ohw_mma<N>(acc[T], af[T],"),
-               ("      ohw_commit();\n",
-                "      ohw_commit();\n#pragma unroll\n"
-                "      for (int T = 0; T < TW; ++T)\n"
-                "        asm volatile(\"\" ::\"r\"(af[T][0]), "
-                "\"r\"(af[T][1]), \"r\"(af[T][2]), \"r\"(af[T][3]));\n")],
+    "no-A": [(_A_BUILD, "          af[T][0] = a_one[T][0] ^ w;\n"
+                        "          af[T][1] = a_one[T][1];\n"
+                        "          af[T][2] = a_one[T][0];\n"
+                        "          af[T][3] = a_one[T][1] ^ kb;\n"
+                        "        }\n      }\n")],
+    "no-stage": [(_STAGE, _STAGE.replace("n_steps)", "n_steps && false)"))],
+    "no-mma": [("            ohw_mma<N>(acc[T], af[T],",
+                "            if (p < 0) ohw_mma<N>(acc[T], af[T],"),
+               (_COMMIT,
+                "        ohw_commit();\n#pragma unroll\n"
+                "        for (int T = 0; T < TW; ++T)\n"
+                "          asm volatile(\"\" ::\"r\"(af[T][0]), "
+                "\"r\"(af[T][1]), \"r\"(af[T][2]), \"r\"(af[T][3]));\n"
+                "        // A wgmma reads its A registers")],
 }
-COMPUTES = ("full", "2x2")   # variants that still compute the histogram
+_R5_BUILD = ("          const uint4 w =\n", "        }\n      }\n    }\n  };")
+_R5_LOAD = ("      if (s + 2 < n_steps) load_step(r_begin + (long long)"
+            "(s + 2) * KS);\n      __syncthreads();")
+R5_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    "full": [],
+    "no-A": [(_R5_BUILD,
+              "          *reinterpret_cast<uint4*>(\n"
+              "              at + T * a_bytes + i * 16 * OHW_THREADS) =\n"
+              "              make_uint4(c_key[T] ^ (uint32_t)jb, c_one[T], "
+              "c_key[T],\n"
+              "                         c_one[T] ^ (uint32_t)i);\n")],
+    "no-B": [("    if (nw >= 0) {", "    if (nw >= 0 && false) {")],
+    "no-load": [(_R5_LOAD, _R5_LOAD.replace("n_steps)", "n_steps && false)"))],
+    "no-mma": [("        ohw_mma_s8_ss(acc[0],",
+                "        if (kb < 0) ohw_mma_s8_ss(acc[0],")],
+}
+# per target: the source built, its variants, those that compute the
+# histogram
+TARGETS = {"t1": ("onehot_group", VARIANTS, ("full", "2x2")),
+           "t7": ("onehot_r5", R5_VARIANTS, ("full",))}
+T7_N, T7_B, T7_LEVELS = 1_001_472, 64, 6
 
 
 def variant_source(src: str, subs) -> str:
@@ -81,40 +118,43 @@ def variant_source(src: str, subs) -> str:
     return src
 
 
-def build_variants() -> Dict[str, ctypes.CDLL]:
-    """Each variant's ``onehot_group`` library, built in parallel."""
-    root = nvcc.BUILD_DIR / "split"
+def build_variants(target: str = "t1") -> Dict[str, ctypes.CDLL]:
+    """Each variant's library of the target's source, built in parallel;
+    a variant other than ``full`` that nvcc does not build is left out."""
+    source, variants, _ = TARGETS[target]
+    root = nvcc.BUILD_DIR / "split" / target
     shutil.rmtree(root, ignore_errors=True)
     src = (nvcc.CSRC / HEADER).read_text()
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         d = root / name
         shutil.copytree(nvcc.CSRC, d)
         (d / HEADER).write_text(variant_source(src, subs))
-        so = d / "libonehot_group.so"
+        so = d / f"lib{source}.so"
         procs[name] = (so, subprocess.Popen(
             [nvcc.find_nvcc(), *nvcc.NVCC_FLAGS, "-o", str(so),
-             str(d / "onehot_group.cu")], stdout=subprocess.PIPE,
+             str(d / f"{source}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+            if name == "full":
+                raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+            print(f"[build] {name}: nvcc failed ({log.strip()[-200:]}); "
+                  "left out", flush=True)
+            continue
         regs = [ln.split("Used")[1].strip() for ln in log.splitlines()
                 if "Used" in ln]
-        print(f"[build] {name}: N = 128 kernel {regs[0] if regs else '?'}",
+        print(f"[build] {name}: kernels {', '.join(regs) or '?'}",
               flush=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
-def main(reps: int = 20) -> Dict[str, List[float]]:
-    """Times every variant in two rounds; returns its ms by name."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("hist_wgmma_split times CUDA kernels: no GPU")
-    dev = torch.device("cuda", 0)
-    libs = build_variants()
+def _t1_calls(dev):
+    """(check, timed calls) of T1: bf16-exact gradients against the plain
+    version, random ones timed."""
     rng = np.random.RandomState(0)
     bins = torch.from_numpy(rng.randint(0, B, (N, F)).astype(np.int32)).to(
         dev)
@@ -126,29 +166,68 @@ def main(reps: int = 20) -> Dict[str, List[float]]:
     want = cuda_hist_onehot.onehot_group_plain(bins, dy, pos, N_NODE, B)
     print(f"wgmma one-hot kernel split (T1 at {N} x {F}, B={B}, "
           f"n_node={N_NODE}) | {device_name(dev)}", flush=True)
-    committed = nvcc.load("onehot_group")
+    return ((lambda: cuda_hist_onehot.onehot_group(bins, dy, pos, N_NODE, B),
+             want),
+            {"": lambda: cuda_hist_onehot.onehot_group(bins, gh, pos,
+                                                       N_NODE, B)})
+
+
+def _t7_calls(dev):
+    """(check, timed calls) of T7's levels form, as in its main: u8 bins,
+    pad rows past 1,000,000, int8 gradients."""
+    rng = np.random.RandomState(0)
+    n_real = 1_000_000
+    pos = np.pad(rng.randint(0, 64, n_real).astype(np.int32),
+                 (0, T7_N - n_real), constant_values=-1)[None, :]
+    pos = torch.from_numpy(pos).to(dev)
+    gh = torch.from_numpy(rng.randint(-127, 127, (2, T7_N)).astype(
+        np.int32)).to(dev)
+    bt = torch.from_numpy(rng.randint(0, T7_B, (F, T7_N)).astype(
+        np.uint8)).to(dev)
+    want = cuda_hist_onehot.onehot_r5_plain(bt, pos, gh, T7_B, T7_LEVELS,
+                                            "u8cmp")
+    print(f"wgmma one-hot kernel split (T7 at {T7_N} x {F} u8, B={T7_B}, "
+          f"{T7_LEVELS} levels) | {device_name(dev)}", flush=True)
+
+    def call(mode):
+        return lambda: cuda_hist_onehot.onehot_r5(bt, pos, gh, T7_B,
+                                                  T7_LEVELS, mode)
+    return (call("u8cmp"), want), {m: call(m) for m in ("u8cmp", "prod")}
+
+
+def main(reps: int = 20, target: str = "t1") -> Dict[str, List[float]]:
+    """Times every variant in two rounds; returns its ms by name (and,
+    for t7, mode)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("hist_wgmma_split times CUDA kernels: no GPU")
+    if target not in TARGETS:
+        raise ValueError(f"target {target!r}: one of {sorted(TARGETS)}")
+    source, _, computes = TARGETS[target]
+    dev = torch.device("cuda", 0)
+    libs = build_variants(target)
+    (check, want), timed = (_t1_calls if target == "t1" else _t7_calls)(dev)
+    committed = nvcc.load(source)
     out: Dict[str, List[float]] = {}
     try:
         for rnd, names in enumerate((list(libs), list(libs)[::-1])):
             for name in names:
-                nvcc._LIBS["onehot_group"] = libs[name]
-                if rnd == 0 and name in COMPUTES:
-                    got = cuda_hist_onehot.onehot_group(bins, dy, pos,
-                                                        N_NODE, B)
+                nvcc._LIBS[source] = libs[name]
+                if rnd == 0 and name in computes:
+                    got = check()
                     torch.cuda.synchronize(dev)
                     if not torch.equal(got, want):
                         raise RuntimeError(f"variant {name} != plain")
-                out.setdefault(name, []).append(device_ms(
-                    lambda: cuda_hist_onehot.onehot_group(bins, gh, pos,
-                                                          N_NODE, B),
-                    reps, dev))
+                for mode, fn in timed.items():
+                    key = f"{name} {mode}".strip()
+                    out.setdefault(key, []).append(device_ms(fn, reps, dev))
     finally:
-        nvcc._LIBS["onehot_group"] = committed
-    for name, ms in out.items():
-        print(f"{name:9s}: {' / '.join(f'{m:.4f}' for m in ms)} ms"
-              + (" (== plain)" if name in COMPUTES else ""), flush=True)
+        nvcc._LIBS[source] = committed
+    for key, ms in out.items():
+        print(f"{key:15s}: {' / '.join(f'{m:.4f}' for m in ms)} ms"
+              + (" (== plain)" if key.split()[0] in computes else ""),
+              flush=True)
     return out
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:2]))
+    main(*(int(a) for a in sys.argv[1:2]), *sys.argv[2:3])
