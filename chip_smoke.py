@@ -48,14 +48,16 @@ Phases, in order; any failure exits non-zero:
 
 The ``[onehot]`` phase holds each one-hot kernel against its plain
 version (int bitwise, including the int8 wrap, the dropped tail and T7's
-floor-mod pad rows, T7 also at B = 1, 8 and 255 on five features and at
-2, 6 and 8 levels; T5 bitwise on bf16-exact gradients, within the f32
-summation bound on random ones, also at F Bp not a multiple of 64, rows
-not a multiple of the row step and one node) and each int kernel against
-a K1 int launch on the same inputs, fails unless T5's built library
-holds wgmma (HGMMA) instructions and no mma.sync (HMMA) ones and T7's
-integer wgmma (IGMMA) and no integer mma.sync (IMMA) ones (``cuobjdump
--sass``), then runs the four mains with every launch count
+floor-mod pad rows; T3 and T2 at M = 1-5, 8, 16, 32, 33 and 100, B = 1,
+8 and 255 on five features, F = 3, r_tile = 1000 and with bins out of
+range; T7 also at B = 1, 8 and 255 on five features and at 2, 6 and 8
+levels; T5 bitwise on bf16-exact gradients, within the f32 summation
+bound on random ones, also at F Bp not a multiple of 64, rows not a
+multiple of the row step and one node) and each int kernel against a K1
+int launch on the same inputs, fails unless T5's built library holds
+wgmma (HGMMA) instructions and no mma.sync (HMMA) ones and T7's, T3's
+and T2's integer wgmma (IGMMA) and no integer mma.sync (IMMA) ones
+(``cuobjdump -sass``), then runs the four mains with every launch count
 set to 0 just before and read just after, and fails on any count but the
 mains' exact ones (a fall to the plain version would leave it short), on
 T2's int32 sums differing from exact ones, and on T3's dequantized
@@ -1305,18 +1307,29 @@ T5_CHECK_KW = [dict(precision="bf16"),
 
 
 def onehot_int_case(torch, oh, cuda_hist, kernel, n, F, B, M, seed, dev,
-                    n_levels=1, mode="prod"):
+                    n_levels=1, mode="prod", r_tile=2048):
     """One int comparison (T3, T2 or T7) on the same CUDA tensors: the
     kernel against its plain version, bitwise, on gh beyond the int8 range
     (wrapped) and a row count past the last whole tile (dropped); T7 with
-    pad rows (pos -1, random gh) past the 97% real ones.  Then, on whole
-    tiles and gh in the int8 range, the kernel (one level) re-laid to
-    (F, B, 2, M) against a K1 int launch, bitwise."""
+    pad rows (pos -1, random gh) past the 97% real ones; T3 and T2 at
+    ``r_tile`` with 2% of the bins out of range (T3: -1, 256, 1000, B,
+    255; T2: B, 255), which add nothing to their feature.  Then, on whole
+    tiles, in-range bins and gh in the int8 range, the kernel (one level)
+    re-laid to (F, B, 2, M) against a K1 int launch, bitwise."""
     g = torch.Generator(device=dev).manual_seed(seed)
     fr = kernel != "onehot_notrans"
     dt = torch.int32 if kernel == "onehot_i8" else torch.uint8
     bins = torch.randint(0, B, (F, n) if fr else (n, F), generator=g,
                          device=dev, dtype=torch.int32).to(dt)
+    planted = bins
+    if kernel != "onehot_r5":
+        bad = torch.tensor([-1, 256, 1000, B, 255] if fr else [B, 255],
+                           device=dev)
+        hit = torch.rand(bins.shape, generator=g, device=dev) < 0.02
+        pick = torch.randint(0, len(bad), bins.shape, generator=g,
+                             device=dev)
+        planted = torch.where(hit, bad[pick].to(torch.int32),
+                              bins.to(torch.int32)).to(dt)
     pos = torch.randint(0, M, (n,), generator=g, device=dev,
                         dtype=torch.int32)
     if kernel == "onehot_r5":
@@ -1329,17 +1342,18 @@ def onehot_int_case(torch, oh, cuda_hist, kernel, n, F, B, M, seed, dev,
     def call(fn, b, p, q):
         if kernel == "onehot_r5":
             return fn(b, p[None, :], q.t().contiguous(), B, n_levels, mode)
-        return fn(b, p[:, None], q, M, B)
+        return fn(b, p[:, None], q, M, B, r_tile)
     tag = (f"{kernel} N={n} F={F} B={B} M={M} levels={n_levels} "
-           f"mode={mode}")
-    got = call(getattr(oh, kernel), bins, pos, gh)
-    want = call(getattr(oh, kernel + "_plain"), bins, pos, gh)
+           f"mode={mode} r_tile={r_tile}")
+    got = call(getattr(oh, kernel), planted, pos, gh)
+    want = call(getattr(oh, kernel + "_plain"), planted, pos, gh)
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.equal(got, want):
         fail(f"{tag}: not bitwise equal to the plain version")
     if n_levels > 1:
         return
-    r_tile = oh.R5_R_TILE if kernel == "onehot_r5" else 2048
+    if kernel == "onehot_r5":
+        r_tile = oh.R5_R_TILE
     n_used = (n // r_tile) * r_tile
     bins_w = (bins[:, :n_used] if fr else bins[:n_used]).contiguous()
     pos_w = pos[:n_used].contiguous()
@@ -1408,20 +1422,32 @@ def sass_check(nvcc, name, tag, gmma="HGMMA", mma="HMMA"):
 
 def phase_onehot_checks(torch, oh, cuda_hist, nvcc, dev):
     """Each one-hot kernel against its plain version in every mode, at
-    the mains' shapes and beyond (T7 also at B = 1, 8, 255, five features
+    the mains' shapes and beyond (T3 and T2 at every N of their small-N
+    form, above 32 nodes, in two node tiles, at B = 1, 8, 255 on five
+    features, F = 3 and r_tile = 1000; T7 at B = 1, 8, 255, five features
     and 2, 6 and 8 levels); each int kernel against K1; T5's library
-    holds bf16 wgmma (HGMMA) and no mma.sync, T7's integer wgmma (IGMMA)
-    and no integer mma.sync (IMMA)."""
+    holds bf16 wgmma (HGMMA) and no mma.sync, T7's, T3's and T2's integer
+    wgmma (IGMMA) and no integer mma.sync (IMMA)."""
     n_pad = -(-OH_N // 8192) * 8192     # the T3 and T2 mains' rows
     n_r5 = -(-OH_N // 2048) * 2048      # the T7 main's rows
+    n_odd = 2048 * 50 + 333             # a dropped tail
+    # (n, F, B, M, r_tile): the mains' M = 1, 4, 32, then M = 2, 3, 5, 8,
+    # 16 (N = 8-64), 33 (N = 128), 100 (two node tiles), B = 1, 8, 255 on
+    # five features, F = 3 (T2 a byte a load) and r_tile = 1000
+    int_cases = ([(n_pad, 28, 64, m, 2048) for m in (1, 4, 32)]
+                 + [(n_odd, 28, 64, m, 2048) for m in (2, 3, 5, 8, 16, 33)]
+                 + [(2048 * 20 + 100, 28, 64, 100, 2048),
+                    (n_odd, 28, 67, 8, 2048), (n_odd, 5, 1, 4, 2048),
+                    (n_odd, 5, 8, 16, 2048), (n_odd, 5, 255, 4, 2048),
+                    (5000, 3, 7, 3, 2048), (20001, 3, 64, 32, 2048),
+                    (n_odd, 28, 64, 8, 1000)])
     for kernel in ("onehot_i8", "onehot_notrans"):
-        for n, F, B, M in [(n_pad, 28, 64, 1), (n_pad, 28, 64, 4),
-                           (n_pad, 28, 64, 32), (2048 * 50 + 333, 28, 67, 8),
-                           (5000, 3, 7, 3)]:
+        for n, F, B, M, r_tile in int_cases:
             onehot_int_case(torch, oh, cuda_hist, kernel, n, F, B, M,
-                            seed=n % 97 + M + B, dev=dev)
-            print(f"[onehot] {kernel} N={n} F={F} B={B} M={M}: bitwise == "
-                  "plain (int8 wrap, dropped tail), == K1 int", flush=True)
+                            seed=n % 97 + M + B, dev=dev, r_tile=r_tile)
+            print(f"[onehot] {kernel} N={n} F={F} B={B} M={M} r_tile="
+                  f"{r_tile}: bitwise == plain (int8 wrap, dropped tail, "
+                  "bins out of range), == K1 int", flush=True)
     for mode in ("prod", "u8cmp"):
         # then the odd shapes: B = 1, 8, 255 on five features, and level
         # groups of 2 and 4 (2 and 8 levels)
@@ -1440,6 +1466,8 @@ def phase_onehot_checks(torch, oh, cuda_hist, nvcc, dev):
                   + (", == K1 int" if nl == 1 else ""), flush=True)
     sass_check(nvcc, "onehot_variant", "[onehot]")
     sass_check(nvcc, "onehot_r5", "[onehot]", "IGMMA", "IMMA")
+    sass_check(nvcc, "onehot_i8", "[onehot]", "IGMMA", "IMMA")
+    sass_check(nvcc, "onehot_notrans", "[onehot]", "IGMMA", "IMMA")
     err = 0.0
     # then F Bp not a multiple of 64, rows not a multiple of the row step,
     # one node

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1, K3, K2, K4; the one-hot kernels T5, T3,
 T2, T7, T1, T4a, T4b, T6) against their plain PyTorch versions, on a GPU,
-and T5's, T1's, T6's and T7's libraries holding wgmma instructions.  Marked
-``cuda``: without an NVIDIA GPU (and nvcc) they skip.  No JAX here, so they also run where only torch is installed
-(the repo's conftest imports JAX, hence ``--noconftest``):
+and T5's, T1's, T6's, T7's, T3's and T2's libraries holding wgmma
+instructions.  Marked ``cuda``: without an NVIDIA GPU (and nvcc) they
+skip.  No JAX here, so they also run where only torch is installed (the
+repo's conftest imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
@@ -199,33 +200,60 @@ def _onehot_int_case(dev, n, F, B, M, seed, layout):
     return bins, pos, gh
 
 
+# (n, F, B, M, r_tile) of T3 and T2: the mains' M = 1, 4, 32 (N = 8, 8,
+# 64), every N of the small-N form and M = 33 (N = 128, T7's instance),
+# two node tiles (M = 100), B = 1, 8, 255 on five features, F = 3 (T2 a
+# byte a load), r_tile = 1000; every row count past the last whole tile
+INT_CASES = [
+    (2048 * 9 + 333, 28, 64, 1, 2048), (2048 * 9 + 333, 28, 64, 4, 2048),
+    (2048 * 9 + 333, 28, 64, 32, 2048), (2048 * 9 + 333, 28, 64, 2, 2048),
+    (2048 * 9 + 333, 28, 64, 3, 2048), (2048 * 9 + 333, 28, 64, 5, 2048),
+    (2048 * 9 + 333, 28, 64, 8, 2048), (2048 * 9 + 333, 28, 64, 16, 2048),
+    (2048 * 9 + 333, 28, 64, 33, 2048), (2048 * 5 + 7, 28, 64, 100, 2048),
+    (2048 * 9 + 333, 5, 1, 4, 2048), (2048 * 9 + 333, 5, 8, 16, 2048),
+    (2048 * 9 + 333, 5, 255, 4, 2048), (5000, 3, 7, 3, 2048),
+    (20001, 3, 64, 32, 2048), (20001, 28, 67, 8, 1000),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("n,F,B,M,r_tile", INT_CASES)
 @pytest.mark.parametrize("kernel", ["onehot_i8", "onehot_notrans"])
-def test_onehot_int_kernels_match_plain_and_k1(cuda_device, kernel, M):
-    """T3 and T2 bitwise against their plain versions on a row count that
-    is not a multiple of r_tile (the tail is dropped) and gh beyond int8
-    (wrapped); on whole tiles and int8 gh, re-laid to (F, B, 2, M),
+def test_onehot_int_kernels_match_plain_and_k1(cuda_device, kernel, n, F, B,
+                                               M, r_tile):
+    """T3 and T2 (the wgmma kernel's s8 product) bitwise against their
+    plain versions on a row count that is not a multiple of r_tile (the
+    tail is dropped), gh beyond int8 (wrapped) and 2% of the bins out of
+    range (T3: -1, 256 and 1000 too; they add nothing to their feature);
+    on whole tiles, in-range bins and int8 gh, re-laid to (F, B, 2, M),
     bitwise a K1 int launch."""
     from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
-    n, F, B = 2048 * 9 + 333, 28, 64
     layout = "fr" if kernel == "onehot_i8" else "rf"
-    bins, pos, gh = _onehot_int_case(cuda_device, n, F, B, M, M + 7, layout)
-    bins = torch.from_numpy(bins.astype(
-        np.int32 if layout == "fr" else np.uint8)).to(cuda_device)
+    bins, pos, gh = _onehot_int_case(cuda_device, n, F, B, M, n + M + B,
+                                     layout)
+    rng = np.random.RandomState(n + F)
+    bad = rng.rand(*bins.shape) < 0.02
+    planted = bins.copy()
+    planted[bad] = rng.choice([-1, 256, 1000, B, 255] if layout == "fr"
+                              else [B, 255], int(bad.sum()))
+    dt = np.int32 if layout == "fr" else np.uint8
+    bins, planted = (torch.from_numpy(b.astype(dt)).to(cuda_device)
+                     for b in (bins, planted))
     pos_t = torch.from_numpy(pos[:, None]).to(cuda_device)
+    gh_t = torch.from_numpy(gh).to(cuda_device)
     fn = getattr(oh, kernel)
     plain = getattr(oh, kernel + "_plain")
     before = oh.COUNTERS[kernel].launches
-    got = fn(bins, pos_t, torch.from_numpy(gh).to(cuda_device), M, B)
-    want = plain(bins, pos_t, torch.from_numpy(gh).to(cuda_device), M, B)
+    got = fn(planted, pos_t, gh_t, M, B, r_tile)
+    want = plain(planted, pos_t, gh_t, M, B, r_tile)
     torch.cuda.synchronize()
     assert oh.COUNTERS[kernel].launches == before + 1
     assert got.shape == (1, F * B, 2 * M) and torch.equal(got, want)
-    n_whole = 2048 * 9
+    n_whole = (n // r_tile) * r_tile
     gh8 = torch.from_numpy(np.clip(gh, -127, 127)[:n_whole]).to(cuda_device)
     rows = bins[:, :n_whole] if layout == "fr" else bins[:n_whole]
-    got = fn(rows.contiguous(), pos_t[:n_whole].contiguous(), gh8, M, B)
+    got = fn(rows.contiguous(), pos_t[:n_whole].contiguous(), gh8, M, B,
+             r_tile)
     bins_rm = (rows.t() if layout == "fr" else rows).contiguous().to(
         torch.uint8)
     k1 = cuda_hist.level_histogram(bins_rm, gh8, pos_t[:n_whole, 0]
@@ -373,6 +401,17 @@ def test_onehot_r5_library_holds_integer_gmma(cuda_device):
     """T7's library runs the s8 wgmma: its SASS holds integer GMMA
     (IGMMA) instructions and no integer mma.sync (IMMA) ones."""
     sass = _sass("onehot_r5")
+    assert sass.count("IGMMA") > 0
+    assert sass.count("IMMA") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["onehot_i8", "onehot_notrans"])
+def test_onehot_int_libraries_hold_integer_gmma(cuda_device, name):
+    """T3's and T2's libraries run the s8 wgmma at every N: their SASS
+    holds integer GMMA (IGMMA) instructions and no integer mma.sync (IMMA)
+    ones."""
+    sass = _sass(name)
     assert sass.count("IGMMA") > 0
     assert sass.count("IMMA") == 0
 

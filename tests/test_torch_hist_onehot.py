@@ -305,16 +305,153 @@ def test_r5_plan_at_the_mains_shapes():
 @pytest.mark.parametrize("kw", [
     dict(exact=True), dict(elem="bf16", n_levels=2),
     dict(n_levels=2, n_node=32), dict(n_levels=0), dict(n_bin=256),
-    dict(bin_dtype=torch.int16), dict(feature_major=False),
+    dict(bin_dtype=torch.int16),
+    dict(feature_major=False, bin_dtype=torch.int32),
     dict(elem="int8")])
 def test_r5_plan_refuses_what_the_kernel_does_not_take(kw):
     """No exact mode in s8; levels only in s8 at 64 nodes; B up to 255;
-    row-major bins are not uint8 here."""
+    row-major s8 bins are uint8 (T2's), not int32."""
     args = dict(n_feat=28, n_bin=64, n_node=64, bin_dtype=torch.uint8,
                 feature_major=True, elem="s8")
     args.update(kw)
     with pytest.raises(NotImplementedError):
         oh.wgmma_plan(**args)
+
+
+# T3's and T2's s8 plans: (M, N) of the small-N form at both layouts,
+# then odd shapes (B = 1, 8, 255 on five features, F = 3, B = 67, and
+# above 32 nodes T7's instance at N = 128, 100 nodes in two node tiles)
+INT_N = [(1, 8), (8, 16), (16, 32), (32, 64)]
+INT_ODD = [(5, 1, 4), (5, 8, 16), (5, 255, 4), (3, 7, 3), (3, 64, 32),
+           (28, 67, 8), (28, 64, 2), (28, 64, 5), (28, 64, 33),
+           (28, 64, 100), (93, 8, 1)]
+INT_PLANS = ([(28, 64, m, fm) for m, _ in INT_N for fm in (True, False)]
+             + [(f, b, m, fm) for f, b, m in INT_ODD for fm in (True, False)])
+
+
+def _int_plan(F, B, M, fm):
+    return oh.wgmma_plan(F, B, M, torch.int32 if fm else torch.uint8,
+                         feature_major=fm, elem="s8")
+
+
+@pytest.mark.parametrize("F,B,M,fm", INT_PLANS)
+def test_int_plan_covers_every_cell_once(F, B, M, fm):
+    """T3 and T2 on the wgmma kernel: over every node tile, M block and
+    warpgroup, the tiles' (feature, bin) rows and the instruction's N
+    columns hold each (feature, bin, channel, node) cell exactly once;
+    every M tile belongs to one warpgroup, which holds at most
+    ``tiles_per_wg``, and each block stages every feature of its
+    tiles."""
+    plan = _int_plan(F, B, M, fm)
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    blocks = oh.wgmma_block_pairs(plan)
+    assert len(blocks) == plan.n_mblk == len(feats)
+    tiles = [t for pairs in blocks for wg in pairs for t, _ in wg]
+    assert sorted(tiles) == list(range(plan.n_tiles))
+    cells = {}
+    for nt in range(plan.n_mt):
+        for k, pairs in enumerate(blocks):
+            for wg in pairs:
+                assert len(wg) <= plan.tiles_per_wg
+                for t, _ in wg:
+                    for m in range(64 * t, min(64 * (t + 1), F * plan.b_pad)):
+                        f, b = divmod(m, plan.b_pad)
+                        if b >= B:
+                            continue
+                        assert f in feats[k]
+                        for c in range(min(plan.n_col, 2 * plan.m_pad)):
+                            ch, j = divmod(c, plan.m_pad)
+                            node = nt * plan.m_pad + j
+                            if node < M:
+                                key = (f, b, ch, node)
+                                cells[key] = cells.get(key, 0) + 1
+    assert set(cells) == {(f, b, c, j) for f in range(F) for b in range(B)
+                          for c in range(2) for j in range(M)}
+    assert set(cells.values()) == {1}
+
+
+@pytest.mark.parametrize("F,B,M,fm", INT_PLANS)
+def test_int_plan_fits_the_card(F, B, M, fm):
+    """At most 64 s32 accumulators a thread (half the registers of 512
+    threads), with the live A fragments at most 72; the row step a
+    multiple of the s8 instruction's 32 rows, its staged bins (and T2's
+    words, at most ``stage / 4 + 384``) within a stage of 4,096 bins below
+    N = 128 (2,048 at 128); shared memory within 232,448 bytes; Bp a
+    multiple of 16 below N = 128 (one word serves M rows g and g + 8)."""
+    plan = _int_plan(F, B, M, fm)
+    small = plan.n_col < 128
+    assert oh.wgmma_small(plan) == small
+    assert (plan.elem, plan.bin_bytes, plan.n_levels) == (
+        "s8", 4 if fm else 1, 1)
+    assert 2 * plan.m_pad <= plan.n_col in oh.WGMMA_COLS
+    assert plan.m_pad * plan.n_mt >= M > plan.m_pad * (plan.n_mt - 1)
+    assert plan.acc_regs == plan.tiles_per_wg * plan.n_col // 2 <= 64
+    assert plan.acc_regs * 128 * oh.WGMMA_WARPGROUPS <= 65536 // 2
+    assert plan.acc_regs + 4 * plan.tiles_per_wg <= 72
+    assert plan.b_pad % (16 if small else 8) == 0
+    assert plan.b_pad - (16 if small else 8) < B <= plan.b_pad
+    assert plan.stage_bins == (4096 if small else oh.WGMMA_STAGE_BINS)
+    assert 32 <= plan.step <= 256 and plan.step % 32 == 0
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    assert plan.step * max(len(r) for r in feats) <= plan.stage_bins
+    slots = (plan.stage_bins // 4 + 384 + 511) // 512
+    for r in feats:
+        words = (r.stop - 1) // 4 - r.start // 4 + 1
+        assert plan.step * words <= slots * 512
+    assert plan.smem == 2 * plan.step * plan.n_col + 2 * plan.stage_bins
+    assert plan.smem <= oh.SMEM_MAX
+
+
+@pytest.mark.parametrize("fm", [True, False])
+def test_int_plan_at_the_mains_shapes(fm):
+    """F = 28, B = 64 (28 tiles of one feature each): N = 8 at M = 1-4, 7
+    tiles a warpgroup, all 28 in one block, 128 rows a step; N = 16 (M =
+    8) 5 a warpgroup, two blocks of 14, 256 rows; N = 32 (M = 16) 3, three
+    blocks of 10, 10 and 8; N = 64 (M = 32) 2, four blocks of 7, spread 2,
+    2, 2, 1 over the warpgroups; M = 33: T7's instance, N = 128."""
+    want = {1: (8, 7, 28, 1, 128), 2: (8, 7, 28, 1, 128),
+            4: (8, 7, 28, 1, 128), 8: (16, 5, 14, 2, 256),
+            16: (32, 3, 10, 3, 256), 32: (64, 2, 7, 4, 256),
+            33: (128, 1, 4, 7, 256)}
+    for m, w in want.items():
+        p = _int_plan(28, 64, m, fm)
+        assert (p.n_col, p.tiles_per_wg, p.tiles_per_block, p.n_mblk,
+                p.step) == w, m
+        assert p.b_pad == 64 and p.n_tiles == 28
+    p = _int_plan(28, 64, 32, fm)
+    assert [[len(wg) for wg in pairs] for pairs in oh.wgmma_block_pairs(p)] \
+        == [[2, 2, 2, 1]] * 4
+    assert [len(wg) for wg in oh.wgmma_block_pairs(_int_plan(
+        28, 64, 8, fm))[1]] == [4, 4, 3, 3]
+
+
+@pytest.mark.parametrize("fm", [True, False])
+@pytest.mark.parametrize("kw", [dict(n_bin=256), dict(n_bin=0),
+                                dict(n_node=0)])
+def test_int_plan_refuses_what_the_kernel_does_not_take(fm, kw):
+    """B = 256 (the mma.sync port took it; byte 255 marks a bad bin), B =
+    0 and no nodes raise ``NotImplementedError``."""
+    args = dict(n_feat=28, n_bin=64, n_node=4,
+                bin_dtype=torch.int32 if fm else torch.uint8,
+                feature_major=fm, elem="s8")
+    args.update(kw)
+    with pytest.raises(NotImplementedError):
+        oh.wgmma_plan(**args)
+
+
+def test_int_wrappers_take_any_r_tile_and_check_it(int_case):
+    """r_tile only says where the tail is dropped: any r_tile >= 1 runs
+    (here the plain version, as on the CPU), 0 raises."""
+    bins_fr, pos, gh = int_case
+    got = oh.onehot_i8(_t(bins_fr), _t(pos), _t(gh), 4, r_tile=1000)
+    head = oh.onehot_i8(_t(bins_fr[:, :4000]), _t(pos[:4000]),
+                        _t(gh[:4000]), 4, r_tile=4000)
+    assert torch.equal(got, head)
+    got2 = oh.onehot_notrans(_t(bins_fr.T.astype(np.uint8)), _t(pos),
+                             _t(gh), 4, r_tile=1000)
+    assert torch.equal(got, got2)
+    with pytest.raises(ValueError):
+        oh.onehot_i8(_t(bins_fr), _t(pos), _t(gh), 4, r_tile=0)
 
 
 def test_cpu_tensors_never_launch_and_meta_raises(int_case):

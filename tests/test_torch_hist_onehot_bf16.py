@@ -473,12 +473,13 @@ def test_r4_plan_refuses_what_the_kernel_does_not_take(kw):
         oh.wgmma_plan(**args)
 
 
-@pytest.mark.parametrize("target", ["t1", "t7"])
+@pytest.mark.parametrize("target", ["t1", "t7", "t3", "t2"])
 def test_wgmma_split_passages_are_in_the_header(target):
-    """``tools/hist_wgmma_split`` builds T1 (or T7's levels form) with
-    passages of ``csrc/onehot_wgmma.cuh`` replaced, on the card only: each
-    variant's passages are found exactly once in the header as it stands,
-    every variant but ``full`` changes it, and its braces still pair."""
+    """``tools/hist_wgmma_split`` builds T1 (T7's levels form, T3's or
+    T2's small-N form) with passages of ``csrc/onehot_wgmma.cuh``
+    replaced, on the card only: each variant's passages are found exactly
+    once in the header as it stands, every variant but ``full`` changes
+    it, and its braces still pair."""
     from xgboost_tpu_torch.ops import nvcc
     from xgboost_tpu_torch.tools import hist_wgmma_split as split
     src = (nvcc.CSRC / split.HEADER).read_text()

@@ -1,8 +1,6 @@
-// The one-hot histogram as a tensor-core product on Hopper (sm_90a): the
-// mma.sync device code of the int8 one-feature kernel below (T3
-// onehot_i8.cu, T2 onehot_notrans.cu) and the bf16 feature-grouped kernel
-// at the end (T4a / T4b onehot_pack2.cu).  T5, T1, T6 and T7 run the
-// wgmma kernel of onehot_wgmma.cuh instead.
+// The feature-grouped bf16 one-hot histogram as an mma.sync product on
+// Hopper (sm_90a): the kernel of T4a and T4b (onehot_pack2.cu).  T5, T1,
+// T6, T7, T3 and T2 run the wgmma kernel of onehot_wgmma.cuh instead.
 //
 // The TPU prototypes in tools/ compute a level histogram per feature f as
 // one matrix product
@@ -11,53 +9,13 @@
 //   gh_exp[r, j] = g[r] if row r is active in node j      (j < M)
 //                = h[r] if row r is active in node j - M  (j >= M)
 //
-// which here runs on the tensor cores through mma.sync: m16n8k32 s8 x s8 ->
-// s32 for int (gh wrapped to int8, as the prototypes' astype(int8) wraps),
-// m16n8k16 bf16 x bf16 -> f32 for floats.  A is the one-hot (16 bins x K
-// rows), B the gh_exp (K rows x 8 columns).  In both shapes a thread's A
-// and B fragments cover the SAME rows of a 32-row step (int8: rows
-// 4t..4t+3 and 16+4t..16+4t+3; bf16: 2t, 2t+1, 2t+8, 2t+9 and 16 + those,
-// t = lane % 4), so each thread builds both operands in registers from
-// its own rows: the one-hot never exists in memory.
-//
-// Staging.  A block of the one-feature kernel takes one feature
-// (blockIdx.x), one task (blockIdx.y: a group of up to 5 bin tiles of 16,
-// a group of up to CT column tiles of 8, one node tile) and one chunk of
-// rows (blockIdx.z), in steps of r_tile rows (at most 2,048).  Per step
-// the block reads each row once (neighbouring threads on neighbouring
-// rows) and stages it in shared memory as bytes: the bin (int bins outside
-// [0, 256) zero the row's gh), the row's node in the task's node tile
-// (255: none), and gh as int8 bytes.  The next step's loads are issued
-// before this step's products, so their latency hides behind them.  In
-// each step warp w takes its own r_tile / 8 consecutive rows, 32 per mma
-// step.  CT = 1 (one column tile, M <= 4) keeps the accumulators in 20
-// registers and runs two blocks an SM.
-//
-// Operands from packed bytes.  A thread reads its rows' bins and nodes as
-// 32-bit words of four bytes and compares all four at once (oh_eq_msb):
-// the one-hot A of a bin tile is one compare and one AND per register, the
-// gh_exp B of a column tile a compare of the node bytes against the
-// column's node and an AND with the gh bytes.  Pad bins (B rounded up to
-// 16) and pad columns (2M rounded up to 8: M = 1, 2 pad to one tile; a
-// task's column tiles past 2M) take part in the products, without a
-// branch, and are never written; rows past the end stage zero gh and add
-// nothing.
-//
-// Flush: each warp adds its accumulators into a block histogram in shared
-// memory, then the block adds the non-zero cells into the zeroed output
-// with global atomics at strides the wrapper gives.  int sums are exact
-// and order-free: int results are bitwise deterministic.
-//
-// What bounds it on the H100.  The function itself is bytes-bound: it
-// must read each row's bins, pos and gh once and write the histogram
-// (1M x 28: 40 MB with u8 bins, ~0.012 ms at 3.35 TB/s; 125 MB with int32
-// bins, ~0.037 ms).  The one-hot product does 2 N F B_pad 2M_pad
-// operations, most of them on zeros: at M = 32 and B = 64 about 2.3e11
-// int8 operations, ~0.12 ms at 1,979 TOP/s.  So the formulation is
-// operation-bound at deep levels, and nearest its byte bound at M = 1-4.
-// mma.sync reaches only part of the dense rate (wgmma is the full-rate
-// path), and building the operands costs integer instructions of the same
-// order as the products.
+// which here runs on the tensor cores through mma.sync m16n8k16 bf16 x
+// bf16 -> f32.  A is the one-hot (16 bins x K rows), B the gh_exp (K rows
+// x 8 columns).  A thread's A fragment covers rows 2t, 2t+1, 2t+8, 2t+9
+// of a 16-row half (t = lane % 4), built in registers from staged bin
+// bytes by SWAR compares (oh_eq_msb): the one-hot never exists in memory.
+// Pad bins (B rounded up to 16) and pad columns take part in the products
+// without a branch and are never written.
 
 #pragma once
 
@@ -67,7 +25,6 @@
 
 constexpr int OH_WARPS = 8;
 constexpr int OH_THREADS = OH_WARPS * 32;
-constexpr int OH_BT = 5;  // bin tiles of 16 per task: B <= 80 in one task
 constexpr int OH_STEP_MAX = 2048;  // rows staged per block step
 
 // One launch.  Mirrored field by field by ctypes in
@@ -81,26 +38,17 @@ struct OnehotArgs {
   long long s_f, s_b, s_c, s_node;
   long long n_rows;          // rows that count; later rows are dropped
   long long rows_per_block;  // a multiple of r_tile
-  int n_feat, n_bin;         // n_bin <= 256
+  int n_feat, n_bin;         // n_bin <= 255
   int m_pad;                 // nodes per node tile, <= 128
   int n_node_out;            // nodes past this are not written
-  int n_bg, n_cg, n_mt;      // bin, column and node tile groups
-  int r_tile;                // rows per block step, a multiple of 256
-  int fg;                    // grouped kernel: features per task
-  int rep;                   // grouped kernel: warps per (feature, bin tile)
+  int n_cg, n_mt;            // column and node tile groups
+  int r_tile;                // rows per block step, a power of two >= 256
+  int fg;                    // features per task
+  int rep;                   // warps per (feature, bin tile)
 };
 
 __device__ __forceinline__ uint16_t oh_bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void oh_mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void oh_mma_bf16(float (&c)[4],
@@ -131,168 +79,6 @@ __device__ __forceinline__ uint32_t oh_prmt(uint32_t a, uint32_t b,
   uint32_t d;
   asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
   return d;
-}
-
-// The int8 one-feature kernel: CT column tiles per task; instantiated by
-// the .cu files.
-template <typename BinT, int CT>
-__global__ void __launch_bounds__(OH_THREADS, CT == 1 ? 2 : 1)
-onehot_kernel(const OnehotArgs a) {
-  constexpr int RB = OH_BT * 16, RC = CT * 8;
-  constexpr int SR = OH_STEP_MAX / OH_THREADS;   // staged rows a thread
-  __shared__ int red[RB][RC];
-  __shared__ __align__(16) uint8_t s_bin[OH_STEP_MAX], s_node[OH_STEP_MAX];
-  __shared__ __align__(16) uint8_t s_val[2 * OH_STEP_MAX];  // g, then h
-
-  const int f = blockIdx.x;
-  int task = blockIdx.y;
-  const int bg = task % a.n_bg;
-  task /= a.n_bg;
-  const int cg = task % a.n_cg;
-  const int mi = task / a.n_cg;
-  const int b_base = bg * RB;
-  const int nbt = min(OH_BT, (a.n_bin - b_base + 15) / 16);
-  const int n_col = 2 * a.m_pad;
-  const int col_base = cg * RC;
-  const int nct = min(CT, (n_col - col_base + 7) / 8);
-  const int node_base = mi * a.m_pad;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-
-  for (int i = threadIdx.x; i < RB * RC; i += OH_THREADS)
-    (&red[0][0])[i] = 0;
-
-  // this thread's B column in each column tile: its channel, and its node
-  // as four equal bytes (254 for a pad column: no row's node byte)
-  uint32_t col_j4[CT];
-  bool col_h[CT];
-#pragma unroll
-  for (int ct = 0; ct < CT; ++ct) {
-    const int cc = col_base + ct * 8 + g;
-    col_h[ct] = cc >= a.m_pad;
-    const int j = cc - (col_h[ct] ? a.m_pad : 0);
-    col_j4[ct] = (uint32_t)(ct < nct && cc < n_col ? j : 254) * 0x01010101u;
-  }
-
-  int acc[OH_BT][CT][4];
-#pragma unroll
-  for (int bt = 0; bt < OH_BT; ++bt)
-#pragma unroll
-    for (int ct = 0; ct < CT; ++ct)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[bt][ct][k] = 0;
-
-  const BinT* bins = static_cast<const BinT*>(a.bins) + f * a.bin_sf;
-  const long long r_begin = (long long)blockIdx.z * a.rows_per_block;
-  const long long r_end = min(a.n_rows, r_begin + a.rows_per_block);
-  const int per_warp = a.r_tile / OH_WARPS;
-
-  int st_bin[SR], st_node[SR];
-  uint32_t st_g[SR], st_h[SR];  // raw int32
-  auto stage_load = [&](long long step) {
-#pragma unroll
-    for (int k = 0; k < SR; ++k) {
-      const int i = threadIdx.x + k * OH_THREADS;
-      const long long r = step + i;
-      const bool ok = i < a.r_tile && r < r_end;
-      const int p = ok ? a.pos[r] : -1;
-      const int v = ok ? (int)bins[r * a.bin_sr] : 0;
-      const bool keep = ok && v >= 0 && v < 256;
-      const uint32_t* q = static_cast<const uint32_t*>(a.gh) + r * a.gh_sr;
-      st_g[k] = keep ? q[0] : 0u;
-      st_h[k] = keep ? q[a.gh_sc] : 0u;
-      st_bin[k] = keep ? v : 0;
-      const unsigned j = (unsigned)(p - node_base);
-      st_node[k] = j < (unsigned)a.m_pad ? (int)j : 255;
-    }
-  };
-  auto stage_store = [&]() {
-#pragma unroll
-    for (int k = 0; k < SR; ++k) {
-      const int i = threadIdx.x + k * OH_THREADS;
-      s_bin[i] = (uint8_t)st_bin[k];
-      s_node[i] = (uint8_t)st_node[k];
-      s_val[i] = (uint8_t)st_g[k];
-      s_val[OH_STEP_MAX + i] = (uint8_t)st_h[k];
-    }
-  };
-
-  const uint32_t* w_bin = reinterpret_cast<const uint32_t*>(s_bin);
-  const uint32_t* w_node = reinterpret_cast<const uint32_t*>(s_node);
-  const uint32_t* w_val = reinterpret_cast<const uint32_t*>(s_val);
-
-  if (r_begin < r_end) stage_load(r_begin);
-  for (long long step = r_begin; step < r_end; step += a.r_tile) {
-    stage_store();
-    __syncthreads();
-    if (step + a.r_tile < r_end) stage_load(step + a.r_tile);
-#pragma unroll 2
-    for (int r0 = warp * per_warp; r0 < (warp + 1) * per_warp; r0 += 32) {
-      // rows 4t..4t+3 (word 0) and 16+4t..16+4t+3 (word 1)
-      const int w0 = (r0 >> 2) + t, w1 = w0 + 4;
-      const uint32_t wb[2] = {w_bin[w0], w_bin[w1]};
-      const uint32_t wn[2] = {w_node[w0], w_node[w1]};
-      const uint32_t wg[2] = {w_val[w0], w_val[w1]};
-      const uint32_t wh[2] = {w_val[OH_STEP_MAX / 4 + w0],
-                              w_val[OH_STEP_MAX / 4 + w1]};
-      uint32_t bf[CT][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int ct = 0; ct < CT; ++ct)
-          bf[ct][h] = oh_prmt(oh_eq_msb(wn[h], col_j4[ct]), 0, 0xBA98) &
-                      (col_h[ct] ? wh[h] : wg[h]);
-#pragma unroll
-      for (int bt = 0; bt < OH_BT; ++bt) {
-        if (bt >= nbt) continue;
-        const int tb0 = b_base + bt * 16 + g;
-        const uint32_t k0 = (uint32_t)tb0 * 0x01010101u;
-        const uint32_t k1 = (uint32_t)(tb0 + 8) * 0x01010101u;
-        const uint32_t af[4] = {oh_eq_msb(wb[0], k0) >> 7,
-                                oh_eq_msb(wb[0], k1) >> 7,
-                                oh_eq_msb(wb[1], k0) >> 7,
-                                oh_eq_msb(wb[1], k1) >> 7};
-#pragma unroll
-        for (int ct = 0; ct < CT; ++ct)
-          oh_mma_s8(acc[bt][ct], af, bf[ct][0], bf[ct][1]);
-      }
-    }
-    __syncthreads();  // the step's rows are read before the next store
-  }
-
-  // ---- reduce the warps' tiles in shared memory, then flush
-#pragma unroll
-  for (int bt = 0; bt < OH_BT; ++bt)
-#pragma unroll
-    for (int ct = 0; ct < CT; ++ct)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int v = acc[bt][ct][k];
-        if (v != 0)  // c0, c1: bin g; c2, c3: bin g + 8
-          atomicAdd(
-              &red[bt * 16 + g + 8 * (k >> 1)][ct * 8 + 2 * t + (k & 1)], v);
-      }
-  __syncthreads();
-  int* out = static_cast<int*>(a.out);
-  for (int i = threadIdx.x; i < RB * RC; i += OH_THREADS) {
-    const int v = (&red[0][0])[i];
-    if (v == 0) continue;
-    const int b = b_base + i / RC;
-    const int cc = col_base + i % RC;
-    if (b >= a.n_bin || cc >= n_col) continue;
-    const int ch = cc >= a.m_pad;
-    const int node = node_base + cc - ch * a.m_pad;
-    if (node >= a.n_node_out) continue;
-    atomicAdd(out + f * a.s_f + b * a.s_b + ch * a.s_c + node * a.s_node, v);
-  }
-}
-
-template <typename BinT, int CT>
-cudaError_t onehot_launch(const OnehotArgs* a, int n_row_blocks,
-                          cudaStream_t stream) {
-  const dim3 grid(a->n_feat, a->n_bg * a->n_cg * a->n_mt, n_row_blocks);
-  onehot_kernel<BinT, CT><<<grid, OH_THREADS, 0, stream>>>(*a);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ grouped

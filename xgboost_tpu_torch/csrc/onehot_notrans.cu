@@ -4,34 +4,38 @@
 // pl.pallas_call of make_kernel.  Same function as T3 (onehot_i8.cu) on
 // the original row-major (n, F) u8 bins: pos (n, 1) int32, gh (n, 2)
 // int32 wrapped to int8, the first (n // r_tile) * r_tile rows, out
-// (1, F * B, 2 * m_pad) int32.  The block stages its rows' bytes of one
-// feature, read at a row stride of F, and compares them four at a time;
-// no transpose, no copy.
+// (1, F * B, 2 * m_pad) int32.  No transpose, no copy.
 //
-// Bound on the H100: bytes, 1M x 28 u8 bins + pos + gh, about 40 MB:
-// ~0.012 ms at 3.35 TB/s.  The strided byte reads of one feature per block
-// take whole 32-byte sectors; the 28 feature blocks of one row chunk run
-// side by side (blockIdx.x is the feature), so the other features' bytes
-// of a sector are L2 hits.
+// The kernel is T3's: the wgmma s8 product of onehot_wgmma.cuh in its
+// small-N form (N = 8-64; N = 128, T7's instance, above 32 nodes).  What
+// differs is the staging into the block's [feature][row] byte stage.
+// Where a row's F bytes are whole words (F % 4 == 0 and the bins 4-byte
+// aligned: the main's F = 28), a thread loads one word, four features of
+// one row, and stores its bytes into their features' rows; neighbouring
+// threads take neighbouring rows of the same word, so a warp's loads
+// fall on one run of rows and each of its byte stores on 32 consecutive
+// bytes of one feature (no bank conflict).  Otherwise (F = 3, 5) each
+// (row, feature) byte is a load of its own, with rows inner.  r_tile only
+// says where the tail is dropped.
+//
+// Bound on the H100: bytes, 1,007,616 x 28 u8 bins + pos + gh, about 40
+// MB: ~0.012 ms at 3.35 TB/s; the product's int8 tensor-core floor 0.015
+// ms at N = 8 to 0.117 ms at N = 64; at small N the A build (onehot_i8.cu)
+// bounds the kernel.
 //
 // C interface for ctypes: onehot_notrans_launch returns a cudaError_t;
-// variant 0 takes one column tile per task (M <= 4), 1 four.
+// variant 0 (the wrapper sets vec where the rows are whole words).
 
-#include "onehot_mma.cuh"
+#include "onehot_wgmma.cuh"
 
-extern "C" int onehot_notrans_launch(const OnehotArgs* a, int variant,
+extern "C" int onehot_notrans_launch(const WgmmaArgs* a, int variant,
                                      int n_row_blocks, void* stream) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {  // column tiles per task: 1 (M <= 4) or 4
-    case 0:
-      return (int)onehot_launch<uint8_t, 1>(
-          a, n_row_blocks, s);
-    case 1:
-      return (int)onehot_launch<uint8_t, 4>(
-          a, n_row_blocks, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)(a->vec ? onehot_wgmma_launch_s8<OHW_ST_RWORD>(a, n_row_blocks,
+                                                             s)
+                      : onehot_wgmma_launch_s8<OHW_ST_FEAT>(a, n_row_blocks,
+                                                            s));
 }
 
 extern "C" const char* onehot_notrans_error_string(int code) {

@@ -1,14 +1,18 @@
 // The one-hot histogram as a wgmma product on Hopper (sm_90a): the
 // kernel of T5 (onehot_variant.cu), T1 (onehot_group.cu), T6
-// (onehot_r4.cu) and T7 (onehot_r5.cu).
+// (onehot_r4.cu), T7 (onehot_r5.cu), T3 (onehot_i8.cu) and T2
+// (onehot_notrans.cu).
 //
 // Replaces the TPU kernels of tools/hist_microbench.py:59 variant (body
 // :26), tools/hist_group_proto.py:59 grouped (body :23),
-// tools/hist_r4_ab.py:78 build (body make_kernel :35) and
-// tools/hist_r5_ab.py:80 build (body make_kernel :40).  All four compute
-// one function: a level histogram of bins at the strides given (row-major
-// (N, F) int32 / int16 for T5 and T1, feature-major (F, n) int32 / uint8
-// for T6 and T7), gh (g, h) at the strides given and pos, into an output
+// tools/hist_r4_ab.py:78 build (body make_kernel :35),
+// tools/hist_r5_ab.py:80 build (body make_kernel :40),
+// tools/hist_int8_proto.py:61 build_i8 (body :31) and
+// tools/hist_notrans_proto.py:56 build (body :28).  All six compute one
+// function: a level histogram of bins at the strides given (row-major
+// (N, F) int32 / int16 for T5 and T1, uint8 for T2; feature-major (F, n)
+// int32 / uint8 for T6, T7 and T3), gh (g, h) at the strides given and
+// pos, into an output
 // zeroed by the wrapper and written by the flush at the cell strides
 // given.  Rows with pos outside the node tile add nothing; a (row,
 // feature) whose bin lies outside [0, B) adds nothing to that feature and
@@ -28,8 +32,9 @@
 // 64 nodes: 128); K is rows.  Two element types (template ET):
 //   bf16  wgmma.mma_async.m64nNk16.f32.bf16.bf16, gh rounded to bf16 (or,
 //         T5's exact mode, split into three bf16 parts), f32 sums;
-//   s8    wgmma.mma_async.m64n128k32.s32.s8.s8 (T7), gh the low byte of
-//         an int32 (a wrap), s32 sums that wrap (no .satfinite) and are
+//   s8    wgmma.mma_async.m64nNk32.s32.s8.s8 (T7 at N = 128; T3 and T2
+//         at N = 8-64, or 128 above 32 nodes), gh the low byte of an
+//         int32 (a wrap), s32 sums that wrap (no .satfinite) and are
 //         bitwise the same from run to run.
 //
 // A, the one-hot, is built in registers and never exists in device
@@ -111,8 +116,28 @@
 // and builds its A into the other buffer, then waits before the barrier
 // that frees the stage.
 //
-// The prototypes' knobs: r_tile (T5, T1, T6) and fg (T1) change no
-// result and are moot here, but for where T6 drops its tail: the row step
+// The small-N form (T3, T2: s8 below N = 128, template SMALL).  At N = 8
+// a product is a few cycles of the tensor cores, and the cost moves to the
+// A build, the staging and the wait for the products.  So a warpgroup
+// holds up to 7, 5, 3 or 2 M tiles (N = 8, 16, 32, 64: their N / 2
+// accumulators and four live A registers each within the 128 registers a
+// thread), builds all their fragments of a k32 step, issues their
+// products as one group and waits once; a block holds up to 4 x that
+// (28 tiles at N = 8: the 28 features of B = 64 in one block, which stages
+// each row's pos and gh and builds its gh_exp entries once), the tiles
+// spread evenly over as few blocks as hold them and over a block's
+// warpgroups.  Bp is rounded up to 16, so a thread's M rows g and g + 8
+// of a tile are bins b and b + 8 of one feature: one word of staged bytes
+// serves both, two words a tile and k32 step, and no mask (a pad bin's
+// row is built like any other and never flushed).  A stage holds 4,096
+// bins (128 rows at 28 features).  T2's row-major uint8 bins are read a
+// word (four features of a row) a load where the rows are 4-byte aligned
+// (template ST RWORD), else a byte a load (ST FEAT with row-major
+// strides).
+//
+// The prototypes' knobs: r_tile (T5, T1, T6, T3, T2) and fg (T1) change no
+// result and are moot here, but for where T6, T3 and T2 drop their tail:
+// the row step
 // is the kernel's own (at most 256 rows, 64 in the exact mode, fewer
 // when a block covers many narrow features), and every block stages its
 // rows once for all the features its M tiles cover.  T5's bin_dtype is
@@ -132,7 +157,11 @@
 // and meets all N columns in one instruction (with levels, once per
 // (tile, step) for all the block's levels); and the products are wgmma,
 // the tensor cores' full-rate path, running asynchronously beside the
-// staging.
+// staging.  T3 and T2 (B = 64, M = 1-32 nodes, N = 8-64): T3's bytes
+// take ~0.037 ms (int32 bins), T2's ~0.012 (uint8), the int8 floor 0.015
+// (N = 8) to 0.117 ms (N = 64); below N = 64 the A build, two loads and
+// about 22 integer instructions a thread, tile and k32 step, takes longer
+// than either.
 
 #pragma once
 
@@ -145,17 +174,16 @@
 constexpr int OHW_WARPGROUPS = 4;  // warpgroups a block
 constexpr int OHW_THREADS = 128 * OHW_WARPGROUPS;
 constexpr int OHW_STAGE_BINS = 2048;  // staged bins (bytes) a step
-constexpr int OHW_SLOTS =             // staged bins a thread per step
-    (OHW_STAGE_BINS + OHW_THREADS - 1) / OHW_THREADS;
 constexpr int OHW_SMEM_MAX = 232448;  // dynamic shared memory of a block
 
 // The product's element type (template ET), the one-hot A build
 // (template AB) and the staging of the bins (template ST: row-major
-// int32 / int16, feature-major int32 / uint8 one element a load, or
-// feature-major uint8 16 rows a load)
+// int32 / int16; one element a load with rows inner, of feature-major
+// int32 / uint8 or row-major uint8 bins; feature-major uint8 16 rows a
+// load; or row-major uint8 a word of four features a load)
 enum { OHW_BF16 = 0, OHW_S8 = 1 };
 enum { OHW_A_BITS = 0, OHW_A_NUM = 1, OHW_A_CONST = 2 };
-enum { OHW_ST_ROWS = 0, OHW_ST_FEAT = 1, OHW_ST_VEC = 2 };
+enum { OHW_ST_ROWS = 0, OHW_ST_FEAT = 1, OHW_ST_VEC = 2, OHW_ST_RWORD = 3 };
 
 // One launch.  Mirrored field by field by ctypes in
 // xgboost_tpu_torch/ops/cuda_hist_onehot.py (WgmmaArgs), which computes
@@ -174,16 +202,16 @@ struct WgmmaArgs {
   int b_pad;                 // n_bin rounded up to 8
   int m_pad;                 // nodes per node tile, <= 64 (64 with levels)
   int n_node_out;            // nodes past this are not written
-  int n_col;                 // N: 8, 16, 32, 64 or 128, >= 2 m_pad (s8:
-                             // 128)
+  int n_col;                 // N: 8, 16, 32, 64 or 128, >= 2 m_pad
   int n_mblk;                // M blocks
   int n_mt;                  // grid y: node tiles, or level groups
   int step;                  // rows a block step: a multiple of 16 (s8:
                              // 32), <= 256
   int bin_bytes;             // 4: int32 bins, 2: int16, 1: uint8
   int fm;                    // 1: feature-major bins (OHW_ST_FEAT, _VEC)
-  int vec;                   // 1: uint8 feature-major bins whose rows are
-                             // 16-byte aligned (OHW_ST_VEC)
+  int vec;                   // 1: uint8 bins read 16 feature-major rows a
+                             // load (OHW_ST_VEC), or a row-major row's
+                             // four features a word (OHW_ST_RWORD)
   int n_levels;              // levels form: > 1
   int lv_block;              // levels form: levels a block, 1, 2 or 4
 };
@@ -193,6 +221,32 @@ struct WgmmaArgs {
 // a block's features (at Bp = 8) within 65, so its row step >= 16
 __host__ __device__ constexpr int ohw_tiles(int n) { return n >= 128 ? 1 : 2; }
 
+// s8 products below N = 128 without levels (T3, T2): the small-N form
+__host__ __device__ constexpr bool ohw_small(int n, bool s8, bool lvl) {
+  return s8 && !lvl && n < 128;
+}
+// M tiles a warpgroup may hold in the small-N form: each holds N / 2
+// accumulators and its four A registers, which stay live until the
+// step's products complete, so 7 x (4 + 4) at N = 8, 5 x (8 + 4), 3 x
+// (16 + 4), 2 x (32 + 4): 56-72 registers of the 128 a thread
+__host__ __device__ constexpr int ohw_s8_tiles(int n) {
+  return n <= 8 ? 7 : n <= 16 ? 5 : n <= 32 ? 3 : 2;
+}
+__host__ __device__ constexpr int ohw_tw(int n, bool s8, bool lvl) {
+  return lvl ? 1 : ohw_small(n, s8, lvl) ? ohw_s8_tiles(n) : ohw_tiles(n);
+}
+// staged bins (bytes) a stage: twice the default in the small-N form,
+// whose products are short, so that a step is 128 rows at 28 features
+__host__ __device__ constexpr int ohw_stage_bins(int n, bool s8, bool lvl) {
+  return ohw_small(n, s8, lvl) ? 2 * OHW_STAGE_BINS : OHW_STAGE_BINS;
+}
+// staged elements a thread per step: bins, or with OHW_ST_RWORD words
+// (a step's words are at most step x (nf + 6) / 4 <= stage / 4 + 384)
+__host__ __device__ constexpr int ohw_slots(int sb, int st) {
+  return st == OHW_ST_RWORD ? (sb / 4 + 384 + OHW_THREADS - 1) / OHW_THREADS
+                            : (sb + OHW_THREADS - 1) / OHW_THREADS;
+}
+
 // Dynamic shared memory of one block: two stages of B tiles (NP parts,
 // or lv_block levels), with levels two stages of the block's A tiles,
 // then two stages of staged bin bytes.
@@ -200,7 +254,7 @@ inline int ohw_smem(const WgmmaArgs* a, bool s8, bool lvl, int np) {
   const int nb = lvl ? a->lv_block : np;
   const int tpb = lvl ? OHW_WARPGROUPS / a->lv_block : 0;
   return 2 * nb * a->step * a->n_col * (s8 ? 1 : 2) +
-         2 * tpb * 64 * a->step + 2 * OHW_STAGE_BINS;
+         2 * tpb * 64 * a->step + 2 * ohw_stage_bins(a->n_col, s8, lvl);
 }
 
 __device__ __forceinline__ uint32_t ohw_prmt(uint32_t a, uint32_t b,
@@ -448,6 +502,70 @@ __device__ __forceinline__ void ohw_mma_s8_ss(int (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d (64 x N s32, N / 2 a thread) += A (64 x 32 s8, registers) @ B (32 x N
+// s8, shared memory at desc) at N = 8, 16, 32, 64 (128: ohw_mma_s8); the
+// sums wrap
+template <int N>
+__device__ __forceinline__ void ohw_mma_s8n(int (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128,
+                "N: 8, 16, 32, 64 or 128");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  } else {
+    ohw_mma_s8(d, a, desc);
+  }
+}
+
 // ET the element type, NP its gh parts (bf16: 1 rounded, or 3 exact), AB
 // the one-hot build, LVL the levels form (s8, A from shared memory), ST
 // the staging; instantiated by the .cu files.
@@ -455,18 +573,28 @@ template <int N, int NP, int ET, int AB, bool LVL, int ST>
 __global__ void __launch_bounds__(OHW_THREADS, 1)
 onehot_wgmma_kernel(const WgmmaArgs a) {
   constexpr bool S8 = ET == OHW_S8;
-  static_assert(!S8 || (N == 128 && NP == 1 && AB != OHW_A_CONST),
-                "s8: N = 128, one part, a built one-hot");
-  static_assert(!LVL || S8, "levels: s8 only");
+  static_assert(!S8 || (NP == 1 && AB != OHW_A_CONST),
+                "s8: one part, a built one-hot");
+  static_assert(!LVL || (S8 && N == 128), "levels: s8 at N = 128 only");
+  static_assert(ST != OHW_ST_RWORD || S8, "row-major uint8 words: s8 only");
   typedef typename std::conditional<S8, int, float>::type Acc;
+  constexpr bool SMALL = ohw_small(N, S8, LVL);  // T3, T2 below N = 128
   constexpr int ES = S8 ? 1 : 2;     // bytes of a B entry
-  constexpr int TW = LVL ? 1 : ohw_tiles(N);
+  constexpr int TW = ohw_tw(N, S8, LVL);
   constexpr int NBM = LVL ? OHW_WARPGROUPS : NP;  // most B tiles a stage
+  constexpr int SB = ohw_stage_bins(N, S8, LVL);  // bytes of a bin stage
+  constexpr int SLOTS = ohw_slots(SB, ST);
   constexpr uint32_t ONE2 = 0x3F803F80u;  // bf16 1.0 in both halves
   extern __shared__ __align__(1024) uint8_t ohw_sm[];
   const int KS = a.step;
   const int nb = LVL ? a.lv_block : NP;  // B tiles a stage: parts or levels
-  const int TPB = LVL ? OHW_WARPGROUPS / nb : OHW_WARPGROUPS * TW;
+  const int m_rows = a.n_feat * a.b_pad;
+  const int n_tiles = (m_rows + 63) >> 6;
+  // M tiles a block: the small-N form spreads the tiles evenly over its
+  // M blocks
+  const int TPB = LVL     ? OHW_WARPGROUPS / nb
+                  : SMALL ? (n_tiles + a.n_mblk - 1) / a.n_mblk
+                          : OHW_WARPGROUPS * TW;
   const int b_bytes = KS * N * ES;       // one B tile of one stage
   const int a_bytes = 64 * KS;           // one s8 A tile (levels)
   uint8_t* s_b = ohw_sm;                 // [stage][part | level] B tiles
@@ -476,14 +604,23 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wq = warp & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int m_rows = a.n_feat * a.b_pad;
   const int mt0 = blockIdx.x * TPB;
   const int f_lo = mt0 * 64 / a.b_pad;
   const int nf = (min(m_rows, (mt0 + TPB) * 64) - 1) / a.b_pad - f_lo + 1;
+  // row-major uint8 words: the first word of the block's features in a
+  // row, and the words they span
+  const int w_lo = f_lo >> 2;
+  const int n_wd = ((f_lo + nf - 1) >> 2) - w_lo + 1;
   const int node_base = LVL ? 0 : blockIdx.y * a.m_pad;
   const int lv0 = LVL ? blockIdx.y * nb : 0;  // the block's first level
+  // the small-N form: the block's tiles over its warpgroups, as evenly as
+  // they go (ntw <= TW each)
+  const int bt = SMALL ? min(TPB, n_tiles - mt0) : 0;
+  const int ntw = SMALL ? (bt >> 2) + (wg < (bt & 3)) : TW;
   // this warpgroup's first M tile in the block, and its level
-  const int wt0 = LVL ? wg % TPB : wg * TW;
+  const int wt0 = LVL     ? wg % TPB
+                  : SMALL ? wg * (bt >> 2) + min(wg, bt & 3)
+                          : wg * TW;
   const int lv = LVL ? lv0 + wg / TPB : 0;
   const bool busy =
       !LVL || (lv < a.n_levels && (mt0 + wt0) * 64 < m_rows);
@@ -494,20 +631,38 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   // 0 for a pad bin or a row past F Bp
   int a_word[TW][2];
   uint32_t a_key[TW][2], a_one[TW][2];
+  if constexpr (!SMALL) {
 #pragma unroll
-  for (int T = 0; T < TW; ++T)
+    for (int T = 0; T < TW; ++T)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = (mt0 + wt0 + T) * 64 + wq * 16 + g + 8 * h;
+      for (int h = 0; h < 2; ++h) {
+        const int m = (mt0 + wt0 + T) * 64 + wq * 16 + g + 8 * h;
+        const int f = m / a.b_pad, b = m - f * a.b_pad;
+        const bool ok = m < m_rows && b < a.n_bin;
+        a_word[T][h] = ok ? (f - f_lo) * (KS >> 2) : 0;
+        a_key[T][h] = (uint32_t)b * 0x01010101u;
+        a_one[T][h] = !ok                           ? 0u
+                      : S8                          ? ~0u
+                      : AB != OHW_A_CONST || b == 0 ? ONE2
+                                                    : 0u;
+      }
+  }
+  // the small-N form: Bp is a multiple of 16, so M rows g and g + 8 of a
+  // tile are bins b and b + 8 of one feature, and one word of staged
+  // bytes serves both: the word offset of the feature and b in four
+  // bytes.  A pad bin or a row past F Bp is built like any other and
+  // never flushed
+  int s_word[SMALL ? TW : 1];
+  uint32_t s_key[SMALL ? TW : 1];
+  if constexpr (SMALL) {
+#pragma unroll
+    for (int T = 0; T < TW; ++T) {
+      const int m = (mt0 + wt0 + T) * 64 + wq * 16 + g;
       const int f = m / a.b_pad, b = m - f * a.b_pad;
-      const bool ok = m < m_rows && b < a.n_bin;
-      a_word[T][h] = ok ? (f - f_lo) * (KS >> 2) : 0;
-      a_key[T][h] = (uint32_t)b * 0x01010101u;
-      a_one[T][h] = !ok                     ? 0u
-                    : S8                    ? ~0u
-                    : AB != OHW_A_CONST || b == 0 ? ONE2
-                                                   : 0u;
+      s_word[T] = T < ntw && m < m_rows ? (f - f_lo) * (KS >> 2) : 0;
+      s_key[T] = (uint32_t)b * 0x01010101u;
     }
+  }
   // levels: the s8 A this thread builds, 16 bytes at a time.  Group u =
   // tid + 512 i of a tile is 4 K words (16 rows) of one M row, at byte
   // 16 u of the K-major layout: M row ((u >> 4) & 7) 8 + (u & 7), K words
@@ -532,12 +687,17 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
 
   // staging: this thread's (row, feature) bins of a step (row | feature
   // << 8, ~0: none).  Row-major bins: rows in the inner order so that a
-  // warp reads whole runs of a row's features; feature-major: features in
-  // the inner order so that it reads a run of one feature's rows; with
-  // vec, slot 0 is 16 rows of one feature
-  uint32_t slot[OHW_SLOTS];
+  // warp reads whole runs of a row's features; one element a load (ST
+  // FEAT): neighbouring threads on neighbouring rows of one feature, so
+  // that a warp reads a run of a feature-major feature's rows and stores
+  // a run of one feature's bytes; with vec, slot 0 is 16 rows of one
+  // feature; row-major uint8 words (ST RWORD): (row, word) pairs,
+  // neighbouring threads on neighbouring rows of one word, so that a
+  // warp's byte stores fall on one feature's run of rows (no bank
+  // conflict)
+  uint32_t slot[SLOTS];
 #pragma unroll
-  for (int i = 0; i < OHW_SLOTS; ++i) {
+  for (int i = 0; i < SLOTS; ++i) {
     const int e = tid + i * OHW_THREADS;
     uint32_t sl = ~0u;
     if constexpr (ST == OHW_ST_VEC) {
@@ -546,6 +706,8 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
         sl = (uint32_t)(e % n16 * 16) | (uint32_t)(e / n16) << 8;
     } else if constexpr (ST == OHW_ST_FEAT) {
       if (e < KS * nf) sl = (uint32_t)(e % KS) | (uint32_t)(e / KS) << 8;
+    } else if constexpr (ST == OHW_ST_RWORD) {
+      if (e < KS * n_wd) sl = (uint32_t)(e % KS) | (uint32_t)(e / KS) << 8;
     } else if (e < KS * nf) {
       const int r = e / nf;
       sl = (uint32_t)r | (uint32_t)(e - r * nf) << 8;
@@ -565,9 +727,10 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   // Loads only: nothing here reads a loaded value, so no thread waits
   // for its loads before the next step's products (its row's node is
   // found when the step is stored)
-  uint32_t pf_bin[OHW_SLOTS];  // the bins, or with vec slot 0's 16 bytes
+  // the bins, with vec slot 0's 16 bytes, with RWORD four features' bins
+  uint32_t pf_bin[SLOTS];
 #pragma unroll
-  for (int i = 0; i < OHW_SLOTS; ++i) pf_bin[i] = ~0u;
+  for (int i = 0; i < SLOTS; ++i) pf_bin[i] = ~0u;
   int pf_pos = 0;
   bool pf_ok = false;          // the row slot holds a row of the chunk
   uint32_t pf_g = 0u, pf_h = 0u;  // raw f32 or int32 bits
@@ -585,9 +748,20 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
         pf_bin[2] = v.z;
         pf_bin[3] = v.w;
       }
+    } else if constexpr (ST == OHW_ST_RWORD) {
+#pragma unroll
+      for (int i = 0; i < SLOTS; ++i) {
+        uint32_t v = 0u;
+        const long long r = r0 + (slot[i] & 0xFF);
+        if (slot[i] != ~0u && r < r_end)
+          v = __ldg(reinterpret_cast<const uint32_t*>(
+                        static_cast<const uint8_t*>(a.bins) + r * a.bin_sr) +
+                    w_lo + (int)(slot[i] >> 8));
+        pf_bin[i] = v;
+      }
     } else {
 #pragma unroll
-      for (int i = 0; i < OHW_SLOTS; ++i) {
+      for (int i = 0; i < SLOTS; ++i) {
         int v = -1;
         const long long r = r0 + (slot[i] & 0xFF);
         if (slot[i] != ~0u && r < r_end) {
@@ -619,15 +793,28 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   int old0 = -1, old1 = -1;
   auto store_step = [&](int stage) {
     if constexpr (AB != OHW_A_CONST) {
-      uint8_t* sb = s_bin + stage * OHW_STAGE_BINS;
+      uint8_t* sb = s_bin + stage * SB;
       if constexpr (ST == OHW_ST_VEC) {
         if (slot[0] != ~0u)
           *reinterpret_cast<uint4*>(sb + (int)(slot[0] >> 8) * KS +
                                     (int)(slot[0] & 0xFF)) =
               make_uint4(pf_bin[0], pf_bin[1], pf_bin[2], pf_bin[3]);
+      } else if constexpr (ST == OHW_ST_RWORD) {
+        // a word's four bytes into their features' rows, those of the
+        // block's features only
+#pragma unroll
+        for (int i = 0; i < SLOTS; ++i)
+          if (slot[i] != ~0u) {
+            const int r = (int)(slot[i] & 0xFF);
+            const int f0 = 4 * (w_lo + (int)(slot[i] >> 8)) - f_lo;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if ((unsigned)(f0 + k) < (unsigned)nf)
+                sb[(f0 + k) * KS + r] = (uint8_t)(pf_bin[i] >> (8 * k));
+          }
       } else {
 #pragma unroll
-        for (int i = 0; i < OHW_SLOTS; ++i)
+        for (int i = 0; i < SLOTS; ++i)
           if (slot[i] != ~0u)
             sb[(int)(slot[i] >> 8) * KS + (int)(slot[i] & 0xFF)] =
                 (uint8_t)min(pf_bin[i], 255u);
@@ -690,7 +877,7 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   // stage, into that stage's A tiles
   auto build_a = [&](int stage) {
     if constexpr (LVL) {
-      const uint8_t* sb = s_bin + stage * OHW_STAGE_BINS;
+      const uint8_t* sb = s_bin + stage * SB;
       uint8_t* at = s_a + stage * TPB * a_bytes + tid * 16;
 #pragma unroll
       for (int T = 0; T < OHW_WARPGROUPS; ++T) {
@@ -737,14 +924,14 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   for (int T = 0; T < TW; ++T)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) ohw_fence_acc(acc[T][i]);
-  if constexpr (!LVL) {
+  if constexpr (!LVL && !SMALL) {
     const int off = 2 * (t & 1);  // rows 2t, 2t+1 in a word of four
     const uint32_t sel =
         off | (off + 1) << 4 | (off + 4) << 8 | (off + 5) << 12;
     for (int s = 0; s < n_steps; ++s) {
       const int cur = s & 1;
       const uint32_t* wb =
-          reinterpret_cast<const uint32_t*>(s_bin + cur * OHW_STAGE_BINS);
+          reinterpret_cast<const uint32_t*>(s_bin + cur * SB);
       const uint64_t desc0 = ohw_desc(b_base + cur * nb * b_bytes);
       for (int kb = 0; kb < (KS >> (S8 ? 5 : 4)); ++kb) {
         uint32_t af[TW][4];
@@ -804,6 +991,53 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
       ohw_fence_proxy();
       __syncthreads();
     }
+  } else if constexpr (SMALL) {
+    // The small-N form (T3, T2): a product is a few cycles of the tensor
+    // cores, so a warpgroup builds the fragments of all its tiles for a k32
+    // step into registers of their own, issues their products as one
+    // group and waits once (the fragments stay untouched until then); a
+    // tile past the block's share issues its product on a fragment of
+    // zeros (initialised below), so every wgmma stays outside any branch
+    uint32_t af[TW][4];
+#pragma unroll
+    for (int T = 0; T < TW; ++T)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) af[T][i] = 0u;
+    for (int s = 0; s < n_steps; ++s) {
+      const int cur = s & 1;
+      const uint32_t* wb = reinterpret_cast<const uint32_t*>(s_bin + cur * SB);
+      const uint64_t desc0 = ohw_desc(b_base + cur * nb * b_bytes);
+      for (int kb = 0; kb < (KS >> 5); ++kb) {
+        const int w = kb * 8 + t;  // rows 32 kb + 4t..; w + 4: 16 rows on
+#pragma unroll
+        for (int T = 0; T < TW; ++T) {
+          if (T < ntw) {
+            // the 16 A bytes of M rows g, g + 8 from two words
+            const uint32_t lo = wb[s_word[T] + w], hi = wb[s_word[T] + w + 4];
+            const uint32_t k8 = s_key[T] + 0x08080808u;
+            af[T][0] = ohw_hot_s8<AB>(lo, s_key[T]);
+            af[T][1] = ohw_hot_s8<AB>(lo, k8);
+            af[T][2] = ohw_hot_s8<AB>(hi, s_key[T]);
+            af[T][3] = ohw_hot_s8<AB>(hi, k8);
+          }
+        }
+        ohw_fence();
+#pragma unroll
+        for (int T = 0; T < TW; ++T)
+          ohw_mma_s8n<N>(acc[T], af[T],
+                         desc0 + (uint64_t)((kb * 32 * N) >> 4));
+        ohw_commit();
+        // one wait a k32 step for all the warpgroup's tiles
+        ohw_wait();
+      }
+      // hand the stages over: step s + 1 into the other stage (its last
+      // reader completed before the last barrier), step s + 2's loads
+      if (s + 1 < n_steps) store_step(cur ^ 1);
+      if (s + 2 < n_steps)
+        load_step(r_begin + (long long)(s + 2) * KS);
+      ohw_fence_proxy();
+      __syncthreads();
+    }
   } else {
     // levels: a step's products are issued at once from the stage's A and
     // B tiles; the block stages step s + 1 and builds its A meanwhile
@@ -849,7 +1083,7 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
     for (int h = 0; h < 2; ++h) {
       const int m = (mt0 + wt0 + T) * 64 + wq * 16 + g + 8 * h;
       const int f = m / a.b_pad, b = m - f * a.b_pad;
-      if (m >= m_rows || b >= a.n_bin) continue;
+      if (m >= m_rows || b >= a.n_bin || (SMALL && T >= ntw)) continue;
       Acc* cell = static_cast<Acc*>(a.out) + lv * a.s_lv + f * a.s_f +
                   b * a.s_b;
 #pragma unroll
@@ -872,32 +1106,50 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
 inline bool ohw_tiling_ok(const WgmmaArgs* a, bool s8, bool lvl, int np,
                           int st) {
   const int ki = s8 ? 32 : 16;
-  if (st != (a->vec ? OHW_ST_VEC : a->fm ? OHW_ST_FEAT : OHW_ST_ROWS))
+  const bool small = ohw_small(a->n_col, s8, lvl);
+  const int bq = small ? 16 : 8;  // Bp: B rounded up to this
+  // row-major uint8 bins (s8 only) take RWORD or FEAT
+  if (st != (a->vec              ? (a->fm ? OHW_ST_VEC : OHW_ST_RWORD)
+             : a->fm || a->bin_bytes == 1 ? OHW_ST_FEAT
+                                          : OHW_ST_ROWS))
     return false;
-  if (a->n_bin < 1 || a->n_bin > 255 || a->b_pad != (a->n_bin + 7) / 8 * 8 ||
-      a->m_pad < 1 || a->m_pad > 64 || 2 * a->m_pad > a->n_col ||
+  if (a->n_bin < 1 || a->n_bin > 255 ||
+      a->b_pad != (a->n_bin + bq - 1) / bq * bq || a->m_pad < 1 ||
+      a->m_pad > 64 || 2 * a->m_pad > a->n_col ||
+      (a->n_col != 8 && a->n_col != 16 && a->n_col != 32 && a->n_col != 64 &&
+       a->n_col != 128) ||
       a->step < ki || a->step > 256 || a->step % ki ||
       a->rows_per_block % a->step || a->n_feat < 1 ||
-      (a->bin_bytes != 4 && a->bin_bytes != 2 && a->bin_bytes != 1) ||
-      (s8 && a->n_col != 128))
+      (a->bin_bytes != 4 && a->bin_bytes != 2 && a->bin_bytes != 1))
     return false;
-  if ((a->fm ? a->bin_bytes == 2 : a->bin_bytes == 1) ||
-      (a->vec && (a->bin_bytes != 1 || !a->fm || a->bin_sr != 1 ||
-                  a->bin_sf % 16 ||
-                  (reinterpret_cast<uintptr_t>(a->bins) & 15))))
+  if ((a->fm ? a->bin_bytes == 2 : a->bin_bytes == 1 && !s8) ||
+      (a->vec && a->fm &&
+       (a->bin_bytes != 1 || a->bin_sr != 1 || a->bin_sf % 16 ||
+        (reinterpret_cast<uintptr_t>(a->bins) & 15))) ||
+      (a->vec && !a->fm &&
+       (a->bin_bytes != 1 || a->bin_sf != 1 || a->bin_sr % 4 ||
+        (reinterpret_cast<uintptr_t>(a->bins) & 3))))
     return false;
   if (lvl && (a->m_pad != 64 || a->n_levels < 2 ||
               (a->lv_block != 1 && a->lv_block != 2 && a->lv_block != 4) ||
               a->n_mt != (a->n_levels + a->lv_block - 1) / a->lv_block))
     return false;
-  const int tpb = lvl ? OHW_WARPGROUPS / a->lv_block
-                      : OHW_WARPGROUPS * ohw_tiles(a->n_col);
+  // M tiles a block: at most cap, and in the small-N form spread evenly
+  const int cap = lvl ? OHW_WARPGROUPS / a->lv_block
+                      : OHW_WARPGROUPS * ohw_tw(a->n_col, s8, lvl);
   const int m_rows = a->n_feat * a->b_pad;
-  if (a->n_mblk != (m_rows + 64 * tpb - 1) / (64 * tpb)) return false;
+  const int n_tiles = (m_rows + 63) / 64;
+  if (a->n_mblk != (n_tiles + cap - 1) / cap) return false;
+  const int tpb = small ? (n_tiles + a->n_mblk - 1) / a->n_mblk : cap;
+  const int sb = ohw_stage_bins(a->n_col, s8, lvl);
   for (int blk = 0; blk < a->n_mblk; ++blk) {  // staged bins fit a stage
     const int m0 = blk * tpb * 64;
     const int m1 = m0 + tpb * 64 < m_rows ? m0 + tpb * 64 : m_rows;
-    if (a->step * ((m1 - 1) / a->b_pad - m0 / a->b_pad + 1) > OHW_STAGE_BINS)
+    const int f0 = m0 / a->b_pad, nf = (m1 - 1) / a->b_pad - f0 + 1;
+    const int n_el = st == OHW_ST_RWORD
+                         ? (((f0 + nf - 1) >> 2) - (f0 >> 2) + 1) * a->step
+                         : a->step * nf;
+    if (a->step * nf > sb || n_el > ohw_slots(sb, st) * OHW_THREADS)
       return false;
   }
   return ohw_smem(a, s8, lvl, np) <= OHW_SMEM_MAX;
@@ -928,6 +1180,33 @@ cudaError_t onehot_wgmma_launch_fm(const WgmmaArgs* a, int n_row_blocks,
                       a, n_row_blocks, stream)
                 : onehot_wgmma_launch_n<128, 1, ET, AB, LVL, OHW_ST_FEAT>(
                       a, n_row_blocks, stream);
+}
+
+// One s8 launch of the bit-pattern one-hot without levels (T3, T2) at
+// a->n_col columns, its bins staged as ST: the small-N form below N = 128,
+// T7's instance at 128.
+template <int ST>
+cudaError_t onehot_wgmma_launch_s8(const WgmmaArgs* a, int n_row_blocks,
+                                   cudaStream_t stream) {
+  switch (a->n_col) {
+    case 8:
+      return onehot_wgmma_launch_n<8, 1, OHW_S8, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
+    case 16:
+      return onehot_wgmma_launch_n<16, 1, OHW_S8, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
+    case 32:
+      return onehot_wgmma_launch_n<32, 1, OHW_S8, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
+    case 64:
+      return onehot_wgmma_launch_n<64, 1, OHW_S8, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
+    case 128:
+      return onehot_wgmma_launch_n<128, 1, OHW_S8, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // One bf16 launch of the bit-pattern one-hot (T5, T1) with NP parts at

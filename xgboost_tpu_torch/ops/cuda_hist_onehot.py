@@ -8,8 +8,8 @@ list and output layout:
   ``(n_node, F, B, 2)`` f32, any ``n_node`` in node tiles of 64, bf16 or
   exact f32 products; source ``csrc/onehot_variant.cu``;
 - :func:`onehot_i8` (T3, ``tools/hist_int8_proto.py:build_i8``): int8
-  products of feature-major int32 bins, ``(1, F * B, 2 * m_pad)`` int32;
-  source ``csrc/onehot_i8.cu``;
+  (``s8``) products of feature-major int32 bins, ``(1, F * B, 2 * m_pad)``
+  int32; source ``csrc/onehot_i8.cu``;
 - :func:`onehot_notrans` (T2, ``tools/hist_notrans_proto.py:build``): the
   same on row-major u8 bins; source ``csrc/onehot_notrans.cu``;
 - :func:`onehot_r5` (T7, ``tools/hist_r5_ab.py:build``): int8 (``s8``)
@@ -27,19 +27,20 @@ list and output layout:
   M = 64 whose one-hot is built four ways ("prod", "dotfloor", "u8bins",
   "i16hot"), ``(1, F * B, 128)`` f32; source ``csrc/onehot_r4.cu``.
 
-T5, T1, T6 and T7 share one kernel, the ``wgmma`` product of
+T5, T1, T6, T7, T3 and T2 share one kernel, the ``wgmma`` product of
 ``csrc/onehot_wgmma.cuh`` (tiled by :func:`wgmma_plan`): bf16 on row-major
 bins for T5 and T1, bf16 on feature-major bins with four one-hot builds for
 T6, ``s8`` on feature-major u8 bins (with levels, A from shared memory) for
-T7.  The others share the ``mma.sync`` device code of
-``csrc/onehot_mma.cuh``: T4a and T4b its feature-grouped kernel, T3 and T2
-its one-feature int8 kernel.  Each has a plain PyTorch version
-(``*_plain``) with the prototype's exact semantics, which the kernel
-matches:
+T7, ``s8`` at N = 8-64 (its small-N form) on feature-major int32 bins for
+T3 and on row-major u8 bins for T2.  T4a and T4b run the ``mma.sync``
+feature-grouped kernel of ``csrc/onehot_mma.cuh``.  Each has a plain
+PyTorch version (``*_plain``) with the prototype's exact semantics, which
+the kernel matches:
 
 - T3, T2, T7 count only the first ``(n // r_tile) * r_tile`` rows (their
   grids drop the rest) and wrap ``gh`` to int8 (``astype(int8)``); sums
-  are int32 and wrap.
+  are int32 and wrap.  Pos outside ``[0, m_pad)`` is inactive, and a bin
+  outside ``[0, n_bin)`` adds nothing to its feature.
 - T7 with ``n_levels > 1``: row r is active in node j at level lv iff
   ``floor_mod(pos[r] + lv, M) == j``, so pad rows (pos = -1) count.
 - T5: rows with ``pos < 0`` or ``pos >= n_node`` add nothing; ``gh`` is
@@ -73,9 +74,7 @@ import torch
 from xgboost_tpu_torch.ops import nvcc
 
 THREADS = 256                  # 8 warps a block (onehot_mma.cuh)
-BIN_TILES = 5                  # bin tiles of 16 per task
-COL_TILES = 4                  # column tiles of 8 per task
-STEP_ROWS = 2048               # rows a block stages per step (T3, T2)
+STEP_ROWS = 2048               # rows a grouped block stages per step
 BLOCKS_PER_SM = 4
 M_TILE = 64                    # T5's node tile; T7's M
 R5_R_TILE = 2048               # tools/hist_r5_ab.py:R_TILE
@@ -116,34 +115,12 @@ class OnehotArgs(ctypes.Structure):
                     "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_f", "s_b",
                     "s_c", "s_node", "n_rows", "rows_per_block")]
                 + [(n, ctypes.c_int) for n in (
-                    "n_feat", "n_bin", "m_pad", "n_node_out", "n_bg",
-                    "n_cg", "n_mt", "r_tile", "fg", "rep")])
+                    "n_feat", "n_bin", "m_pad", "n_node_out", "n_cg",
+                    "n_mt", "r_tile", "fg", "rep")])
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def tiling(n_rows: int, n_feat: int, n_bin: int, m_pad: int, r_tile: int,
-           col_tiles: int, n_sm: int) -> Tuple[int, int, int, int]:
-    """(n_bg, n_cg, n_row_blocks, rows_per_block) of one launch of the
-    one-feature kernel: the task groups of one block (bin tiles, column
-    tiles) and enough row chunks, each a whole number of ``r_tile`` steps,
-    to give every SM a few blocks."""
-    n_bg = _cdiv(_cdiv(n_bin, 16), BIN_TILES)
-    n_cg = _cdiv(_cdiv(2 * m_pad, 8), col_tiles)
-    steps = max(1, _cdiv(n_rows, r_tile))
-    want = _cdiv(BLOCKS_PER_SM * n_sm, n_feat * n_bg * n_cg)
-    rows_per_block = _cdiv(steps, max(1, min(steps, want))) * r_tile
-    return n_bg, n_cg, _cdiv(max(n_rows, 1), rows_per_block), \
-        rows_per_block
-
-
-def _col_tiles(m_pad: int) -> int:
-    """Column tiles of 8 per task: one where all 2 * m_pad columns fit
-    (M <= 4: the kernel instance with 20 accumulator registers, two
-    blocks an SM), else four."""
-    return 1 if 2 * m_pad <= 8 else COL_TILES
 
 
 def _device(*ts: torch.Tensor) -> str:
@@ -153,36 +130,6 @@ def _device(*ts: torch.Tensor) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no one-hot histogram kernel for {dev}")
     return dev.type
-
-
-def _launch(name: str, bins: torch.Tensor, pos: torch.Tensor,
-            gh: torch.Tensor, out: torch.Tensor, *, bin_sr: int,
-            bin_sf: int, out_strides: Tuple[int, int, int, int],
-            n_rows: int, n_feat: int, n_bin: int,
-            m_pad: int) -> torch.Tensor:
-    """One launch of the one-feature int8 kernel (T3, T2) on int32 gh
-    ``(n, 2)`` and int32 pos, one node tile of ``m_pad`` nodes;
-    ``out_strides`` are (s_f, s_b, s_c, s_node)."""
-    if not (bins.is_contiguous() and pos.is_contiguous()
-            and gh.is_contiguous() and out.is_contiguous()):
-        raise ValueError("bins, pos, gh and out must be contiguous")
-    if n_bin > 256 or not 0 < m_pad <= 128:
-        raise NotImplementedError(
-            f"the one-feature kernel takes B <= 256 and up to 128 nodes a "
-            f"tile (got B={n_bin}, m_pad={m_pad})")
-    if n_rows == 0 or n_feat == 0:
-        return out
-    col_tiles = _col_tiles(m_pad)
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    n_bg, n_cg, n_rb, rpb = tiling(n_rows, n_feat, n_bin, m_pad, STEP_ROWS,
-                                   col_tiles, n_sm)
-    if n_bg * n_cg > 65535 or n_rb > 65535:
-        raise NotImplementedError("too many node tiles for one launch")
-    args = OnehotArgs(
-        bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
-        bin_sr, bin_sf, 2, 1, *out_strides, n_rows, rpb, n_feat, n_bin,
-        m_pad, m_pad, n_bg, n_cg, 1, STEP_ROWS, 1, 1)
-    return _call(name, args, int(col_tiles > 1), n_rb, bins.device, out)
 
 
 def _call(name: str, args: ctypes.Structure, variant: int, n_rb: int,
@@ -270,7 +217,7 @@ def _launch_group(name: str, bins: torch.Tensor, pos: torch.Tensor,
     args = OnehotArgs(
         bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
         bin_sr, bin_sf, 2, 1, *out_strides, n_rows, rpb, n_feat, n_bin,
-        m_pad, n_node_out, 1, n_cg, n_mt, step, fg, rep)
+        m_pad, n_node_out, n_cg, n_mt, step, fg, rep)
     return _call(name, args, variant, n_rb, bins.device, out)
 
 
@@ -287,11 +234,14 @@ def _lib(name: str, arg_type: type) -> ctypes.CDLL:
     return lib
 
 
-# --------------------------------------------------- wgmma (T5, T1, T6, T7)
+# ------------------------------------------- wgmma (T5, T1, T6, T7, T3, T2)
 WGMMA_COLS = (8, 16, 32, 64, 128)  # the N the kernel is instantiated at
 WGMMA_WARPGROUPS = 4               # warpgroups a block
 WGMMA_STAGE_BINS = 2048            # staged bins a block step
 WGMMA_LEVEL_BLOCKS = (4, 2, 1)     # levels a block in the levels form
+# the small-N s8 form (T3, T2): M tiles a warpgroup at each N, as many as
+# their accumulators and live A fragments leave registers for
+WGMMA_S8_TILES = {8: 7, 16: 5, 32: 3, 64: 2}
 
 
 class WgmmaArgs(ctypes.Structure):
@@ -309,10 +259,10 @@ class WgmmaArgs(ctypes.Structure):
 class WgmmaPlan(NamedTuple):
     """The tiling of one launch of the ``wgmma`` kernel."""
     n_col: int            # N: 2 m_pad rounded up to one of WGMMA_COLS
-    b_pad: int            # Bp: B rounded up to 8 (M rows a feature)
+    b_pad: int            # Bp: B rounded up to 8 (16 in the small-N form)
     m_pad: int            # nodes a node tile
     n_mt: int             # node tiles (a grid dimension)
-    tiles_per_block: int  # M tiles of 64 a block
+    tiles_per_block: int  # M tiles of 64 a block (the last may hold fewer)
     n_tiles: int          # M tiles of the F * Bp (feature, bin) rows
     n_mblk: int           # M blocks
     step: int             # rows a block step
@@ -326,6 +276,14 @@ class WgmmaPlan(NamedTuple):
     lv_block: int         # levels a block (1 outside the levels form)
     n_lg: int             # level groups (the grid's y in the levels form)
     a_smem: int           # the block's A tiles (levels form), bytes
+    tiles_per_wg: int     # M tiles a warpgroup holds at most
+    stage_bins: int       # staged bin bytes a stage
+
+
+def wgmma_small(plan: WgmmaPlan) -> bool:
+    """The small-N form: ``s8`` products below N = 128 without levels (T3,
+    T2), whose block spreads its tiles evenly over its warpgroups."""
+    return plan.elem == "s8" and plan.n_levels == 1 and plan.n_col < 128
 
 
 def wgmma_block_features(n_feat: int, b_pad: int,
@@ -350,7 +308,9 @@ def wgmma_block_pairs(plan: WgmmaPlan) -> list:
     """The (M tile, level) pairs of each warpgroup of each block, blocks
     in grid order (level group, then M block): in the levels form one
     pair, or none for a warpgroup past the last tile or level; outside it
-    the warpgroup's ``tiles_per_block / 4`` tiles at level 0."""
+    the warpgroup's ``tiles_per_block / 4`` tiles at level 0, or in the
+    small-N form its share of the block's tiles (a quarter, the first
+    warpgroups one more)."""
     out = []
     for lg in range(plan.n_lg):
         for blk in range(plan.n_mblk):
@@ -362,6 +322,12 @@ def wgmma_block_pairs(plan: WgmmaPlan) -> list:
                     lv = lg * plan.lv_block + wg // plan.tiles_per_block
                     ok = t < plan.n_tiles and lv < plan.n_levels
                     pairs.append([(t, lv)] if ok else [])
+                elif wgmma_small(plan):
+                    q, r = divmod(min(plan.tiles_per_block,
+                                      plan.n_tiles - t0), WGMMA_WARPGROUPS)
+                    lo = t0 + wg * q + min(wg, r)
+                    pairs.append([(t, 0)
+                                  for t in range(lo, lo + q + (wg < r))])
                 else:
                     tw = plan.tiles_per_block // WGMMA_WARPGROUPS
                     pairs.append([(t, 0) for t in range(t0 + wg * tw,
@@ -384,25 +350,29 @@ def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
     multiple of the instruction's K: 16 rows in bf16, 32 in ``s8``).
 
     Row-major bins (T5, T1) are int32 or int16, feature-major ones (T6,
-    T7) int32 or uint8.  ``elem="s8"`` (T7) is the int8 product at N =
-    128; with ``n_levels > 1`` (at 64 nodes) it is the levels form, whose
-    block of ``4 / lv_block`` tiles x ``lv_block`` levels keeps two stages
-    of its tiles' one-hot in shared memory.  Raises
-    ``NotImplementedError`` on what the kernel does not take."""
+    T7) int32 or uint8.  ``elem="s8"`` is the int8 product: at 64 nodes
+    (N = 128) T7's; with ``n_levels > 1`` (at 64 nodes) the levels form,
+    whose block of ``4 / lv_block`` tiles x ``lv_block`` levels keeps two
+    stages of its tiles' one-hot in shared memory; below N = 128 the
+    small-N form (T3 on feature-major int32 bins, T2 on row-major uint8
+    ones): Bp = B rounded up to 16, up to ``WGMMA_S8_TILES[N]`` tiles a
+    warpgroup, the tiles spread evenly over as few blocks as hold them,
+    and a stage of 4,096 bins.  Raises ``NotImplementedError`` on what
+    the kernel does not take."""
     if elem not in ("bf16", "s8"):
         raise NotImplementedError(f"elem {elem!r}: 'bf16' or 's8'")
+    s8 = elem == "s8"
     dtypes = ((torch.int32, torch.uint8) if feature_major
-              else (torch.int32, torch.int16))
+              else (torch.uint8,) if s8 else (torch.int32, torch.int16))
     if bin_dtype not in dtypes:
         raise NotImplementedError(
             f"the wgmma kernel reads {'feature' if feature_major else 'row'}"
-            f"-major bins of {dtypes} (got {bin_dtype})")
+            f"-major {elem} bins of {dtypes} (got {bin_dtype})")
     if not 1 <= n_bin <= 255 or n_feat < 1 or n_node < 1 or n_levels < 1:
         raise NotImplementedError(
             f"the wgmma kernel takes 1 <= B <= 255 (byte 255 marks a bad "
             f"bin), F >= 1, n_node >= 1 and n_levels >= 1 (got B={n_bin}, "
             f"F={n_feat}, n_node={n_node}, n_levels={n_levels})")
-    s8 = elem == "s8"
     levels = n_levels > 1
     if s8 and exact:
         raise NotImplementedError("the s8 product has no exact mode")
@@ -410,27 +380,36 @@ def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
         raise NotImplementedError(
             f"levels are s8 products at {M_TILE} nodes (got {elem}, "
             f"n_node={n_node})")
-    b_pad = _cdiv(n_bin, 8) * 8
     m_pad = min(n_node, M_TILE)
-    n_col = 128 if s8 else next(n for n in WGMMA_COLS if n >= 2 * m_pad)
-    tw = 1 if n_col >= 128 or levels else 2      # M tiles a warpgroup
+    n_col = next(n for n in WGMMA_COLS if n >= 2 * m_pad)
+    small = s8 and not levels and n_col < 128
+    b_q = 16 if small else 8
+    b_pad = _cdiv(n_bin, b_q) * b_q
+    n_tiles = _cdiv(n_feat * b_pad, 64)
+    tw = (WGMMA_S8_TILES[n_col] if small       # M tiles a warpgroup
+          else 1 if n_col >= 128 or levels else 2)
     lv_block = wgmma_level_block(n_levels) if levels else 1
-    tpb = WGMMA_WARPGROUPS // lv_block if levels else WGMMA_WARPGROUPS * tw
+    if levels:
+        tpb = WGMMA_WARPGROUPS // lv_block
+    elif small:   # as few blocks as hold the tiles, evenly filled
+        tpb = _cdiv(n_tiles, _cdiv(n_tiles, WGMMA_WARPGROUPS * tw))
+    else:
+        tpb = WGMMA_WARPGROUPS * tw
     feats = wgmma_block_features(n_feat, b_pad, tpb)
     n_parts = 3 if exact else 1
     k_rows = 32 if s8 else 16                    # K of one instruction
     n_b = lv_block if levels else n_parts        # B tiles a stage
+    stage_bins = 2 * WGMMA_STAGE_BINS if small else WGMMA_STAGE_BINS
 
     def smem(step):
         return (2 * n_b * step * n_col * (1 if s8 else 2)
-                + 2 * WGMMA_STAGE_BINS + a_smem(step))
+                + 2 * stage_bins + a_smem(step))
 
     def a_smem(step):
         return 2 * tpb * 64 * step if levels else 0
 
     step = min(64 if exact else 256,
-               WGMMA_STAGE_BINS // max(len(r) for r in feats)
-               // k_rows * k_rows)
+               stage_bins // max(len(r) for r in feats) // k_rows * k_rows)
     while step >= k_rows and smem(step) > SMEM_MAX:
         step -= k_rows
     if step < k_rows:
@@ -439,13 +418,12 @@ def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
             f"step below the instruction's {k_rows} rows")
     return WgmmaPlan(
         n_col=n_col, b_pad=b_pad, m_pad=m_pad, n_mt=_cdiv(n_node, m_pad),
-        tiles_per_block=tpb, n_tiles=_cdiv(n_feat * b_pad, 64),
-        n_mblk=len(feats), step=step,
+        tiles_per_block=tpb, n_tiles=n_tiles, n_mblk=len(feats), step=step,
         bin_bytes=torch.empty((), dtype=bin_dtype).element_size(),
         n_parts=n_parts, smem=smem(step), acc_regs=tw * n_col // 2,
         elem=elem, feature_major=feature_major, n_levels=n_levels,
         lv_block=lv_block, n_lg=_cdiv(n_levels, lv_block),
-        a_smem=a_smem(step))
+        a_smem=a_smem(step), tiles_per_wg=tw, stage_bins=stage_bins)
 
 
 def _launch_wgmma(name: str, variant: int, plan: WgmmaPlan,
@@ -470,16 +448,19 @@ def _launch_wgmma(name: str, variant: int, plan: WgmmaPlan,
     n_rb = _cdiv(n_rows, rpb)
     if n_y > 65535 or n_rb > 65535:
         raise NotImplementedError("too many node tiles for one launch")
-    # uint8 feature-major rows 16 a load where every feature's rows are
-    # 16-byte aligned
-    vec = int(plan.feature_major and plan.bin_bytes == 1
-              and bin_sf % 16 == 0 and bins.data_ptr() % 16 == 0)
+    # uint8 bins: feature-major rows 16 a load where every feature's rows
+    # are 16-byte aligned, row-major rows a word (four features) a load
+    # where every row is 4-byte aligned
+    align = (bin_sf, 16) if plan.feature_major else (bin_sr, 4)
+    vec = int(plan.bin_bytes == 1 and align[0] % align[1] == 0
+              and bins.data_ptr() % align[1] == 0)
     n_feat = bins.shape[0] if plan.feature_major else bins.shape[1]
     args = WgmmaArgs(
         bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
         bin_sr, bin_sf, gh_sr, gh_sc, *out_strides, n_rows, rpb, n_feat,
-        n_bin, plan.b_pad, plan.m_pad, n_node_out, plan.n_col, plan.n_mblk, n_y, plan.step, plan.bin_bytes,
-        int(plan.feature_major), vec, plan.n_levels, plan.lv_block)
+        n_bin, plan.b_pad, plan.m_pad, n_node_out, plan.n_col, plan.n_mblk,
+        n_y, plan.step, plan.bin_bytes, int(plan.feature_major), vec,
+        plan.n_levels, plan.lv_block)
     return _call(name, args, variant, n_rb, bins.device, out)
 
 
@@ -550,29 +531,49 @@ def _check_int_proto(bins, pos, gh, layout):
 
 
 # -------------------------------------------------------------- T3 / T2
+def _launch_int(name: str, bins: torch.Tensor, pos: torch.Tensor,
+                gh: torch.Tensor, m_pad: int, n_bin: int, r_tile: int,
+                feature_major: bool) -> torch.Tensor:
+    """T3's and T2's launch of the ``s8`` product on int32 gh ``(n, 2)``
+    and int32 pos over the first ``(n // r_tile) * r_tile`` rows:
+    ``(1, F * n_bin, 2 * m_pad)`` int32, nodes past 64 in node tiles."""
+    F, n = bins.shape if feature_major else bins.shape[::-1]
+    out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.int32,
+                      device=bins.device)
+    # no features: nothing to launch, though B and m_pad are still checked
+    plan = wgmma_plan(max(F, 1), n_bin, m_pad, bins.dtype,
+                      feature_major=feature_major, elem="s8")
+    if F == 0:
+        return out
+    return _launch_wgmma(name, 0, plan, bins, pos, gh, out,
+                         bin_sr=1 if feature_major else F,
+                         bin_sf=n if feature_major else 1, gh_sr=2, gh_sc=1,
+                         out_strides=(0, n_bin * 2 * m_pad, 2 * m_pad, m_pad,
+                                      1),
+                         n_rows=(n // r_tile) * r_tile, n_bin=n_bin,
+                         n_node_out=m_pad)
+
+
 def onehot_i8(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
               m_pad: int, n_bin: int = 64,
               r_tile: int = 2048) -> torch.Tensor:
     """T3: ``(1, F * n_bin, 2 * m_pad)`` int32 from feature-major int32
     bins ``(F, n)``, pos ``(n, 1)`` and int32 gh ``(n, 2)`` (wrapped to
-    int8); rows past ``(n // r_tile) * r_tile`` are dropped."""
+    int8); rows past ``(n // r_tile) * r_tile`` are dropped.  On the card
+    the ``wgmma`` kernel's ``s8`` product (B <= 255); ``r_tile`` only says
+    where the tail is dropped."""
     _check_int_proto(binned_t, pos, gh, "(F, n) int32")
     F, n = binned_t.shape
     if binned_t.dtype != torch.int32 or pos.numel() != n \
-            or gh.shape != (n, 2):
+            or gh.shape != (n, 2) or r_tile < 1:
         raise ValueError(f"T3 takes bins (F, n) int32, pos (n, 1), gh "
-                         f"(n, 2); got {tuple(binned_t.shape)} "
+                         f"(n, 2), r_tile >= 1; got {tuple(binned_t.shape)} "
                          f"{binned_t.dtype}, {tuple(pos.shape)}, "
-                         f"{tuple(gh.shape)}")
+                         f"{tuple(gh.shape)}, {r_tile}")
     if _device(binned_t, pos, gh) == "cpu":
         return onehot_i8_plain(binned_t, pos, gh, m_pad, n_bin, r_tile)
-    out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.int32,
-                      device=binned_t.device)
-    return _launch("onehot_i8", binned_t, pos, gh, out, bin_sr=1,
-                   bin_sf=n,
-                   out_strides=(n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
-                   n_rows=(n // r_tile) * r_tile, n_feat=F, n_bin=n_bin,
-                   m_pad=m_pad)
+    return _launch_int("onehot_i8", binned_t, pos, gh, m_pad, n_bin, r_tile,
+                       feature_major=True)
 
 
 def onehot_i8_plain(binned_t, pos, gh, m_pad, n_bin=64, r_tile=2048):
@@ -587,19 +588,16 @@ def onehot_notrans(binned: torch.Tensor, pos: torch.Tensor,
     """T2: T3's function on row-major u8 bins ``(n, F)``, no transpose."""
     _check_int_proto(binned, pos, gh, "(n, F) u8")
     n, F = binned.shape
-    if binned.dtype != torch.uint8 or pos.numel() != n or gh.shape != (n, 2):
-        raise ValueError(f"T2 takes bins (n, F) u8, pos (n, 1), gh (n, 2); "
-                         f"got {tuple(binned.shape)} {binned.dtype}, "
-                         f"{tuple(pos.shape)}, {tuple(gh.shape)}")
+    if binned.dtype != torch.uint8 or pos.numel() != n or gh.shape != (n, 2) \
+            or r_tile < 1:
+        raise ValueError(f"T2 takes bins (n, F) u8, pos (n, 1), gh (n, 2), "
+                         f"r_tile >= 1; got {tuple(binned.shape)} "
+                         f"{binned.dtype}, {tuple(pos.shape)}, "
+                         f"{tuple(gh.shape)}, {r_tile}")
     if _device(binned, pos, gh) == "cpu":
         return onehot_notrans_plain(binned, pos, gh, m_pad, n_bin, r_tile)
-    out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.int32,
-                      device=binned.device)
-    return _launch("onehot_notrans", binned, pos, gh, out, bin_sr=F,
-                   bin_sf=1,
-                   out_strides=(n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
-                   n_rows=(n // r_tile) * r_tile, n_feat=F, n_bin=n_bin,
-                   m_pad=m_pad)
+    return _launch_int("onehot_notrans", binned, pos, gh, m_pad, n_bin,
+                       r_tile, feature_major=False)
 
 
 def onehot_notrans_plain(binned, pos, gh, m_pad, n_bin=64, r_tile=2048):

@@ -4,8 +4,8 @@ T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``, T1 ``hist_group_proto``,
 T4a and T4b ``hist_pack2_proto``, T6 ``hist_r4_ab``) on the card, each
 through its hand-written CUDA one-hot kernel (``ops/cuda_hist_onehot.py``)
 and timed beside K1, the production scatter; and ``hist_wgmma_split``,
-which times the ``wgmma`` kernel (through T1, or T7's levels form) with
-one part taken out.  Run one with
+which times the ``wgmma`` kernel (through T1, T7's levels form, or T3's
+and T2's small-N form) with one part taken out.  Run one with
 
     python -m xgboost_tpu_torch.tools.hist_microbench
 

@@ -25,14 +25,32 @@ the shared6 shape of its main (1,001,472 x 28 u8 bins, B = 64, 6 levels),
   no-load   no loads of the next step's rows (the stage keeps old bytes)
   no-mma    no products
 
-``full`` (and ``2x2``) compute the histogram and are held bitwise against
-the plain version (T1 on bf16-exact gradients); the others do not.  A
+``t3`` and ``t2``: T3's ``onehot_i8`` (feature-major int32 bins) and T2's
+``onehot_notrans`` (row-major u8 bins, a word of four features a load) in
+the small-N ``s8`` form at their mains' shape (1,007,616 x 28, B = 64),
+M = 1, 4 and 32 (N = 8, 8, 64):
+
+  full      the kernel as committed
+  no-A      a constant A fragment in place of the stage reads and compares
+  no-B      no gh_exp entries written
+  no-load   no loads of the next step's rows (the stage keeps old bytes)
+  no-mma    no products: staging and the one-hot build
+  overlap   each tile's product issued as soon as its fragment is built
+            (one fence a tile), one wait a k32 step
+  groups    one commit group a tile, ``wait_group TW - 1`` before its next
+            fragment, so products never drain within a row step (drained
+            before the stage hand-over)
+
+``full`` (and ``2x2``; ``overlap`` and ``groups``) compute the histogram
+and are held bitwise against the plain version (T1 on bf16-exact
+gradients; T3 and T2 at all three M); the others do not.  A
 variant whose passage is no longer in the source raises; one that nvcc
 does not build is reported and left out.  Each round times every variant
 once, the second round in reverse order.  Needs the card and ``nvcc``; the
 variants build into ``xgboost_tpu_torch/_build/split/``.
 
-Usage: python -m xgboost_tpu_torch.tools.hist_wgmma_split [reps] [t1|t7]
+Usage: python -m xgboost_tpu_torch.tools.hist_wgmma_split [reps]
+           [t1|t7|t3|t2]
 """
 
 from __future__ import annotations
@@ -97,11 +115,77 @@ R5_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "no-mma": [("        ohw_mma_s8_ss(acc[0],",
                 "        if (kb < 0) ohw_mma_s8_ss(acc[0],")],
 }
+# the fragments of a k32 step and their products, as committed
+_INT_HEAD = ("#pragma unroll\n        for (int T = 0; T < TW; ++T) {\n"
+             "          if (T < ntw) {\n"
+             "            // the 16 A bytes of M rows g, g + 8 from two words\n")
+_INT_TAIL = ("          }\n        }\n        ohw_fence();\n#pragma unroll\n"
+             "        for (int T = 0; T < TW; ++T)\n"
+             "          ohw_mma_s8n<N>(acc[T], af[T],\n"
+             "                         desc0 + (uint64_t)((kb * 32 * N) >> 4));\n"
+             "        ohw_commit();\n"
+             "        // one wait a k32 step for all the warpgroup's tiles\n"
+             "        ohw_wait();\n")
+# the fragments stay live until their products' wait (a wgmma reads its A
+# registers until then)
+_INT_PIN = ("          asm volatile(\"\" ::\"r\"(af[T][0]), \"r\"(af[T][1]), "
+            "\"r\"(af[T][2]), \"r\"(af[T][3]));\n")
+_INT_ISSUE = ("          ohw_fence();\n"
+              "          ohw_mma_s8n<N>(acc[T], af[T],\n"
+              "                         desc0 + (uint64_t)((kb * 32 * N) >> 4));\n")
+_WAIT = ("__device__ __forceinline__ void ohw_wait() {\n"
+         "  asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n}\n")
+_WAIT_N = ("template <int K>\n__device__ __forceinline__ void ohw_wait_n() {\n"
+           "  asm volatile(\"wgmma.wait_group.sync.aligned %0;\\n\" ::\"n\"(K) "
+           ": \"memory\");\n}\n")
+_HANDOVER = ("      // hand the stages over: step s + 1 into the other stage (its "
+             "last\n")
+_INT_BUILD = ("            // the 16 A bytes of M rows g, g + 8 from two words\n",
+              "          }\n        }\n        ohw_fence();\n#pragma unroll\n"
+              "        for (int T = 0; T < TW; ++T)\n          ohw_mma_s8n<N>")
+_INT_LOAD = ("      if (s + 2 < n_steps)\n"
+             "        load_step(r_begin + (long long)(s + 2) * KS);")
+_INT_COMMIT = ("        ohw_commit();\n"
+               "        // one wait a k32 step for all the warpgroup's tiles")
+INT_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    "full": [],
+    "no-A": [(_INT_BUILD, "            af[T][0] = s_key[T] ^ (uint32_t)w;\n"
+                          "            af[T][1] = s_key[T];\n"
+                          "            af[T][2] = (uint32_t)s_word[T];\n"
+                          "            af[T][3] = s_key[T] ^ (uint32_t)kb;\n")],
+    "no-B": [("    if (nw >= 0) {", "    if (nw >= 0 && false) {")],
+    "no-load": [(_INT_LOAD, _INT_LOAD.replace("n_steps)", "n_steps && false)"))],
+    "no-mma": [("          ohw_mma_s8n<N>(acc[T], af[T],",
+                "          if (kb < 0) ohw_mma_s8n<N>(acc[T], af[T],"),
+               (_INT_COMMIT,
+                "        ohw_commit();\n#pragma unroll\n"
+                "        for (int T = 0; T < TW; ++T)\n"
+                "          asm volatile(\"\" ::\"r\"(af[T][0]), "
+                "\"r\"(af[T][1]), \"r\"(af[T][2]), \"r\"(af[T][3]));\n"
+                "        // one wait a k32 step")],
+    "overlap": [(_INT_TAIL, "          }\n" + _INT_ISSUE + "        }\n"
+                 "        ohw_commit();\n        ohw_wait();\n#pragma unroll\n"
+                 "        for (int T = 0; T < TW; ++T)\n" + _INT_PIN)],
+    "groups": [(_WAIT, _WAIT + _WAIT_N),
+               (_INT_HEAD, _INT_HEAD.replace(
+                   "          if (T < ntw) {\n",
+                   "          ohw_wait_n<TW - 1>();\n" + _INT_PIN
+                   + "          if (T < ntw) {\n")),
+               (_INT_TAIL, "          }\n" + _INT_ISSUE
+                + "          ohw_commit();\n        }\n"),
+               # another warpgroup's last step may still read the stage
+               # store_step overwrites
+               (_HANDOVER, "      ohw_wait();\n" + _HANDOVER)],
+}
 # per target: the source built, its variants, those that compute the
 # histogram
 TARGETS = {"t1": ("onehot_group", VARIANTS, ("full", "2x2")),
-           "t7": ("onehot_r5", R5_VARIANTS, ("full",))}
+           "t7": ("onehot_r5", R5_VARIANTS, ("full",)),
+           "t3": ("onehot_i8", INT_VARIANTS, ("full", "overlap", "groups")),
+           "t2": ("onehot_notrans", INT_VARIANTS,
+                  ("full", "overlap", "groups"))}
 T7_N, T7_B, T7_LEVELS = 1_001_472, 64, 6
+INT_N, INT_B, INT_MS = 1_007_616, 64, (1, 4, 32)   # the T3 / T2 mains' shape
 
 
 def variant_source(src: str, subs) -> str:
@@ -195,9 +279,45 @@ def _t7_calls(dev):
     return (call("u8cmp"), want), {m: call(m) for m in ("u8cmp", "prod")}
 
 
+def _int_calls(target):
+    """(check, timed calls) of T3 or T2 at the mains' shape and quantized
+    gradients, M = 1, 4 and 32; the check holds all three against the
+    plain version."""
+    def calls(dev):
+        rng = np.random.RandomState(0)
+        bt = rng.randint(0, INT_B, (F, INT_N)).astype(np.int32)
+        gh = torch.from_numpy(rng.randint(-127, 128, (INT_N, 2)).astype(
+            np.int32)).to(dev)
+        pos = {m: torch.from_numpy(rng.randint(0, m, (INT_N, 1)).astype(
+            np.int32)).to(dev) for m in INT_MS}
+        if target == "t3":
+            bins = torch.from_numpy(bt).to(dev)
+            fn, plain = (cuda_hist_onehot.onehot_i8,
+                         cuda_hist_onehot.onehot_i8_plain)
+        else:
+            bins = torch.from_numpy(np.ascontiguousarray(
+                bt.T.astype(np.uint8))).to(dev)
+            fn, plain = (cuda_hist_onehot.onehot_notrans,
+                         cuda_hist_onehot.onehot_notrans_plain)
+        want = torch.cat([plain(bins, pos[m], gh, m, INT_B).flatten()
+                          for m in INT_MS])
+        print(f"wgmma one-hot kernel split ({target.upper()} at {INT_N} x "
+              f"{F}, B={INT_B}, M={INT_MS}) | {device_name(dev)}",
+              flush=True)
+        return ((lambda: torch.cat([fn(bins, pos[m], gh, m, INT_B).flatten()
+                                    for m in INT_MS]), want),
+                {f"M={m}": (lambda m=m: fn(bins, pos[m], gh, m, INT_B))
+                 for m in INT_MS})
+    return calls
+
+
+CALLS = {"t1": _t1_calls, "t7": _t7_calls, "t3": _int_calls("t3"),
+         "t2": _int_calls("t2")}
+
+
 def main(reps: int = 20, target: str = "t1") -> Dict[str, List[float]]:
     """Times every variant in two rounds; returns its ms by name (and,
-    for t7, mode)."""
+    for t7, mode; for t3 and t2, M)."""
     if not torch.cuda.is_available():
         raise RuntimeError("hist_wgmma_split times CUDA kernels: no GPU")
     if target not in TARGETS:
@@ -205,7 +325,7 @@ def main(reps: int = 20, target: str = "t1") -> Dict[str, List[float]]:
     source, _, computes = TARGETS[target]
     dev = torch.device("cuda", 0)
     libs = build_variants(target)
-    (check, want), timed = (_t1_calls if target == "t1" else _t7_calls)(dev)
+    (check, want), timed = CALLS[target](dev)
     committed = nvcc.load(source)
     out: Dict[str, List[float]] = {}
     try:
