@@ -69,10 +69,11 @@ within the f32 summation bound on random ones (dropped tails, bins past
 B, rows outside the node tile, T1's node tiles and every fg and r_tile
 of its main, F Bp not a multiple of 64 on rows that are not a multiple
 of the row step, one node, a planted out-of-range bin that must leave
-its row in the group's other features, T4b == T4a prod, T6's u8bins ==
-i16hot == prod, every T6 mode on rows that are not a multiple of its
-row step and at F Bp not a multiple of 64), the same SASS check of T1's
-and T6's libraries, then the three
+its row in the group's other features, T4b == T4a prod, T4 at F = 5 and
+6, B = 1, 8, 255, M = 3, 5, 33, 100 and r_tile = 1000 and 300, T6's
+u8bins == i16hot == prod, every T6 mode on rows that are not a multiple
+of its row step and at F Bp not a multiple of 64), the same SASS check
+of T1's, T6's and T4's libraries, then the three
 bf16 mains with exact launch counts, T1's accuracy line within bf16's
 rounding of K1 fp32, and T4a's and T4b's match checks. Every path counts
 the launches of all twelve kernels and fails on any kernel it should not
@@ -1486,16 +1487,22 @@ def phase_onehot_checks(torch, oh, cuda_hist, nvcc, dev):
             "onehot_r5": 0.0}
 
 
-def bf16_fr_inputs(torch, n, F, B, M, seed, dev):
-    """T4 / T6 inputs on the card: feature-major int32 bins (2% past B),
-    pos over [-1, M + 6), gh exact in bf16 (multiples of 1/64 below 2:
-    f32 sums exact in any order) and random."""
+def bf16_fr_inputs(torch, n, F, B, M, seed, dev, planted=None):
+    """T4 / T6 inputs on the card: feature-major int32 bins (2% past B: in
+    [B, 255), or drawn from ``planted``), pos over [-1, M + 6), gh exact
+    in bf16 (multiples of 1/64 below 2: f32 sums exact in any order) and
+    random."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, B, (F, n), generator=g, device=dev,
                          dtype=torch.int32)
     bad = torch.rand(F, n, generator=g, device=dev) < 0.02
-    bins[bad] = torch.randint(B, 255, (int(bad.sum()),), generator=g,
-                              device=dev, dtype=torch.int32)
+    if planted is None:
+        bins[bad] = torch.randint(B, 255, (int(bad.sum()),), generator=g,
+                                  device=dev, dtype=torch.int32)
+    else:
+        vals = torch.tensor(planted, device=dev, dtype=torch.int32)
+        bins[bad] = vals[torch.randint(0, len(planted), (int(bad.sum()),),
+                                       generator=g, device=dev)]
     pos = torch.randint(-1, M + 6, (n, 1), generator=g, device=dev,
                         dtype=torch.int32)
     dy = torch.randint(-128, 128, (n, 2), generator=g, device=dev,
@@ -1527,14 +1534,16 @@ def bf16_case(torch, oh, kernel, args_of, kw, dy, gh, tag):
 def phase_onehot_bf16_checks(torch, oh, nvcc, dev):
     """T1, T4a, T4b and T6 against their plain versions at the mains'
     shapes and beyond: T4 and T6 with a dropped tail and bins past B, T4b
-    and T6's u8bins and i16hot equal to prod bitwise on bf16-exact gh,
+    and T6's u8bins and i16hot equal to prod bitwise on bf16-exact gh, T4
+    at F = 5 and 6, B = 1, 8, 255, M = 3, 5, 33, 100 and r_tile = 1000 and
+    300,
     T1 at several node counts (70: two node tiles, the second partial),
     every fg and r_tile of its main, F Bp not a multiple of 64, rows not a
     multiple of the row step, one node, and a planted out-of-range bin
     that leaves its row in the group's other features; T6 in every mode
     on rows that are not a multiple of its row step (r_tile = 1000) and
-    F Bp not a multiple of 64; T1's and T6's libraries hold wgmma (HGMMA)
-    and no mma.sync."""
+    F Bp not a multiple of 64; T1's, T6's and T4's libraries hold wgmma
+    (HGMMA) and no mma.sync."""
     errs = {k: 0.0 for k in ("onehot_group", "onehot_pack2",
                              "onehot_onebig", "onehot_r4")}
     n = -(-OH_N // 8192) * 8192 + 333    # the mains' rows and a tail
@@ -1602,8 +1611,40 @@ def phase_onehot_bf16_checks(torch, oh, nvcc, dev):
         print(f"[onehot-bf16] onehot_r4 N={n} F={F} B={B} r_tile={r_tile}: "
               "every mode bitwise == plain on bf16-exact gh, within bound "
               "on random gh", flush=True)
+    # T4 where the small-N form's tiling is odd: F = 5 (prod, onebig) and
+    # 6 (pack2), B = 1, 8, 255 (Bp 16, 16, 256), M = 3, 5 (N = 8, 16), 33
+    # (N = 128) and 100 (two node tiles), r_tile 1000 and 300 on rows that
+    # are not a multiple of the row step, bins -1, 256, 1000, B, 255
+    n = OH_N + 37
+    for k, (B, M) in enumerate((B, M) for B in (1, 8, 255)
+                               for M in (3, 5, 33, 100)):
+        r_tile = (1000, 300)[k % 2]
+        prod = None
+        for kernel, F, kw in [("onehot_pack2", 5, dict(mode="prod")),
+                              ("onehot_onebig", 5, {}),
+                              ("onehot_pack2", 6, dict(mode="pack2"))]:
+            if kernel != "onehot_onebig":
+                bins, pos, dy, gh = bf16_fr_inputs(
+                    torch, n, F, B, M, 100 * B + M + F, dev,
+                    planted=[-1, 256, 1000, B, 255])
+            tag = (f"[onehot-bf16] {kernel} N={n} F={F} B={B} M={M} "
+                   f"r_tile={r_tile} {kw}")
+            err, got = bf16_case(torch, oh, kernel,
+                                 lambda g: (bins, pos, g, M),
+                                 dict(n_bin=B, r_tile=r_tile, **kw), dy, gh,
+                                 tag)
+            errs[kernel] = max(errs[kernel], err)
+            if kernel == "onehot_onebig" and not torch.equal(got, prod):
+                fail(f"{tag}: onebig != prod on gh exact in bf16")
+            prod = got
+        print(f"[onehot-bf16] onehot_pack2 prod (F=5), onehot_onebig (F=5), "
+              f"pack2 (F=6) N={n} B={B} M={M} r_tile={r_tile}: bitwise == "
+              "plain on bf16-exact gh (bins -1, 256, 1000, B, 255 planted, "
+              "pos past M), onebig == prod; within bound on random gh",
+              flush=True)
     sass_check(nvcc, "onehot_group", "[onehot-bf16]")
     sass_check(nvcc, "onehot_r4", "[onehot-bf16]")
+    sass_check(nvcc, "onehot_pack2", "[onehot-bf16]")
     g = torch.Generator(device=dev).manual_seed(70)
     B = 67
     # 5 features (F Bp not a multiple of 64) on rows that are not a

@@ -1,9 +1,9 @@
 """The port's CUDA kernels (K1, K3, K2, K4; the one-hot kernels T5, T3,
 T2, T7, T1, T4a, T4b, T6) against their plain PyTorch versions, on a GPU,
-and T5's, T1's, T6's, T7's, T3's and T2's libraries holding wgmma
-instructions.  Marked ``cuda``: without an NVIDIA GPU (and nvcc) they
-skip.  No JAX here, so they also run where only torch is installed (the
-repo's conftest imports JAX, hence ``--noconftest``):
+and every one-hot library holding wgmma instructions.  Marked ``cuda``:
+without an NVIDIA GPU (and nvcc) they skip.  No JAX here, so they also
+run where only torch is installed (the repo's conftest imports JAX,
+hence ``--noconftest``):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
@@ -387,10 +387,11 @@ def _sass(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["onehot_variant", "onehot_group",
-                                  "onehot_r4"])
+                                  "onehot_r4", "onehot_pack2"])
 def test_onehot_wgmma_libraries_hold_hgmma(cuda_device, name):
-    """T5's, T1's and T6's libraries run wgmma: their SASS (``cuobjdump
-    -sass``) holds HGMMA instructions and no mma.sync (HMMA) ones."""
+    """T5's, T1's, T6's and T4a's (T4b's) libraries run wgmma: their SASS
+    (``cuobjdump -sass``) holds HGMMA instructions and no mma.sync (HMMA)
+    ones."""
     sass = _sass(name)
     assert sass.count("HGMMA") > 0
     assert sass.count("HMMA") == 0
@@ -422,44 +423,62 @@ def _bf16_bound(got, want, cnt, a):
     return bool(((got - want).abs() <= 2.0 * cnt * 2.0 ** -24 * a).all())
 
 
-def _bf16_fr_case(dev, n, F, B, M, seed):
-    """Feature-major int32 bins (a few past B), pos over [-1, M + 6) and
-    gh exact in bf16 (multiples of 1/64 below 2) and random."""
+def _bf16_fr_case(dev, n, F, B, M, seed, planted=None):
+    """Feature-major int32 bins (2% past B: in [B, 255), or drawn from
+    ``planted``), pos over [-1, M + 6) and gh exact in bf16 (multiples of
+    1/64 below 2) and random."""
     rng = np.random.RandomState(seed)
     bins = rng.randint(0, B, (F, n)).astype(np.int32)
     bad = rng.rand(F, n) < 0.02
-    bins[bad] = rng.randint(B, 255, int(bad.sum()))
+    bins[bad] = (rng.randint(B, 255, int(bad.sum())) if planted is None
+                 else rng.choice(planted, int(bad.sum())))
     pos = rng.randint(-1, M + 6, (n, 1)).astype(np.int32)
     dy = (rng.randint(-128, 128, (n, 2)) / 64.0).astype(np.float32)
     gh = rng.randn(n, 2).astype(np.float32)
     return tuple(torch.from_numpy(a).to(dev) for a in (bins, pos, dy, gh))
 
 
+# (mode, n, F, B, M, r_tile): the mains' F, B and M = 1, 4, 32 with a
+# dropped tail, then odd shapes: F = 5 (prod, onebig) and 6 (pack2), B =
+# 1, 8, 255, M = 3, 5 (N = 8, 16), 33 (N = 128), 100 (two node tiles),
+# r_tile = 1000 and 300
+T4_CUDA_CASES = (
+    [(mode, 2048 * 9 + 333, 28, 64, M, 2048) for M in (1, 4, 32)
+     for mode in ("prod", "pack2", "onebig")]
+    + [(mode, 100_037, 6 if mode == "pack2" else 5, B, M, r_tile)
+       for B, M, r_tile in [(1, 3, 1000), (8, 5, 300), (255, 33, 1000),
+                            (8, 100, 300), (255, 5, 300), (1, 100, 1000)]
+       for mode in ("prod", "pack2", "onebig")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 32])
-@pytest.mark.parametrize("mode", ["prod", "pack2", "onebig"])
-def test_onehot_pack2_kernels_match_plain(cuda_device, mode, M):
+@pytest.mark.parametrize("mode,n,F,B,M,r_tile", T4_CUDA_CASES)
+def test_onehot_pack2_kernels_match_plain(cuda_device, mode, n, F, B, M,
+                                          r_tile):
     """T4a (prod, pack2) and T4b (onebig) against their plain version,
-    with a dropped tail: bitwise on gh exact in bf16 (and T4b == T4a
-    prod), within the f32 summation bound on random gh."""
+    with a dropped tail, bins past B (odd shapes: -1, 256, 1000, B, 255)
+    and pos past M: bitwise on gh exact in bf16 (and T4b == T4a prod),
+    within the f32 summation bound on random gh."""
     from xgboost_tpu_torch.ops import cuda_hist_onehot as oh
-    n, F, B = 2048 * 9 + 333, 28, 64
-    bins, pos, dy, gh = _bf16_fr_case(cuda_device, n, F, B, M, M + 3)
+    planted = None if F == 28 else [-1, 256, 1000, B, 255]
+    bins, pos, dy, gh = _bf16_fr_case(cuda_device, n, F, B, M, M + 3 + B,
+                                      planted)
     name = "onehot_onebig" if mode == "onebig" else "onehot_pack2"
 
     def fn(g, plain=False):
         if mode == "onebig":
             f = oh.onehot_onebig_plain if plain else oh.onehot_onebig
-            return f(bins, pos, g, M, B)
+            return f(bins, pos, g, M, B, r_tile)
         f = oh.onehot_pack2_plain if plain else oh.onehot_pack2
-        return f(bins, pos, g, M, mode, B)
+        return f(bins, pos, g, M, mode, B, r_tile)
     before = oh.COUNTERS[name].launches
     got = fn(dy)
     torch.cuda.synchronize()
     assert oh.COUNTERS[name].launches == before + 1
     assert got.shape == (1, F * B, 2 * M) and torch.equal(got, fn(dy, True))
     if mode == "onebig":
-        assert torch.equal(got, oh.onehot_pack2(bins, pos, dy, M, "prod", B))
+        assert torch.equal(got, oh.onehot_pack2(bins, pos, dy, M, "prod", B,
+                                                r_tile))
     got, want = fn(gh), fn(gh, True)
     assert _bf16_bound(got, want, fn(torch.ones_like(gh), True),
                        fn(gh.abs(), True))

@@ -297,19 +297,147 @@ def test_t6_bin_dtype_follows_the_mode(fr_case):
         oh.onehot_r4(_t(bins), _t(pos), _t(dyadic), "bf16hot")
 
 
-def test_grouped_kernel_plan_fits_its_registers():
-    """The grouped kernel's tiling: units of (feature, bin tile) over 8
-    warps, at most 16 a warp with one column tile; fewer than 8 units get
-    several warps each."""
-    assert oh.group_plan(1, 64) == (0, 16, 2)      # T4a prod
-    assert oh.group_plan(2, 64) == (0, 16, 1)      # T4a pack2
-    assert oh.group_plan(4, 67) == (2, 4, 1)       # T1 fg=4
-    assert oh.group_plan(14, 67) == (4, 1, 1)      # T1 fg=14
-    assert oh.group_plan(28, 64) == (4, 1, 1)      # T4b onebig
+# T4a's and T4b's plans (F, B, m_pad): the bf16 small-N form at the mains'
+# shape and M = 1-32, odd B and F, and above 32 nodes T6's instance (N =
+# 128), 100 nodes in two node tiles
+T4_PLANS = [(28, 64, 1), (28, 64, 3), (28, 64, 5), (28, 64, 16),
+            (28, 64, 32), (28, 64, 33), (28, 64, 100), (5, 1, 3),
+            (5, 255, 5), (5, 67, 16), (28, 67, 32), (28, 255, 1),
+            (5, 64, 100)]
+
+
+def _t4_plan(F, B, M):
+    return oh.wgmma_plan(F, B, M, torch.int32, feature_major=True)
+
+
+@pytest.mark.parametrize("F,B,M", T4_PLANS)
+def test_t4_plan_covers_every_cell_once_and_fits_the_card(F, B, M):
+    """T4a and T4b on the wgmma kernel: over every node tile, M block and
+    warpgroup, the tiles' (feature, bin) rows and the instruction's N
+    columns hold each (feature, bin, channel, node) cell exactly once, and
+    each block stages every feature of its tiles.  Below 33 nodes the
+    bf16 small-N form (Bp = B rounded up to 16, ``WGMMA_SMALL_TILES[N]``
+    tiles a warpgroup, a stage of 4,096 bins), above it N = 128 (Bp
+    rounded up to 8, one tile a warpgroup); accumulators and live A
+    fragments within 72 of a thread's 128 registers, a row step that is a
+    multiple of the bf16 instruction's 16 rows, shared memory within
+    232,448 bytes."""
+    plan = _t4_plan(F, B, M)
+    small = M <= 32
+    assert oh.wgmma_small(plan) == small
+    assert (plan.elem, plan.bin_bytes, plan.n_levels, plan.n_parts,
+            plan.feature_major) == ("bf16", 4, 1, 1, True)
+    assert plan.n_col == next(n for n in oh.WGMMA_COLS if n >= 2 * min(M, 64))
+    assert plan.m_pad * plan.n_mt >= M > plan.m_pad * (plan.n_mt - 1)
+    b_q = 16 if small else 8
+    assert plan.b_pad == -(-B // b_q) * b_q
+    assert plan.tiles_per_wg == (oh.WGMMA_SMALL_TILES[plan.n_col] if small
+                                 else 1)
+    assert plan.acc_regs == plan.tiles_per_wg * plan.n_col // 2 <= 64
+    assert plan.acc_regs + 4 * plan.tiles_per_wg <= 72
+    assert plan.stage_bins == (4096 if small else oh.WGMMA_STAGE_BINS)
+    assert 16 <= plan.step <= 256 and plan.step % 16 == 0
+    feats = oh.wgmma_block_features(F, plan.b_pad, plan.tiles_per_block)
+    assert plan.step * max(len(r) for r in feats) <= plan.stage_bins
+    assert plan.smem == 2 * plan.step * plan.n_col * 2 + 2 * plan.stage_bins
+    assert plan.smem <= oh.SMEM_MAX
+    blocks = oh.wgmma_block_pairs(plan)
+    assert len(blocks) == plan.n_mblk == len(feats)
+    tiles = [t for pairs in blocks for wg in pairs for t, _ in wg]
+    assert sorted(tiles) == list(range(plan.n_tiles))
+    cells = {}
+    for nt in range(plan.n_mt):
+        for k, pairs in enumerate(blocks):
+            for wg in pairs:
+                assert len(wg) <= plan.tiles_per_wg
+                for t, _ in wg:
+                    for m in range(64 * t, min(64 * (t + 1), F * plan.b_pad)):
+                        f, b = divmod(m, plan.b_pad)
+                        if b >= B:
+                            continue
+                        assert f in feats[k]
+                        for c in range(min(plan.n_col, 2 * plan.m_pad)):
+                            ch, j = divmod(c, plan.m_pad)
+                            node = nt * plan.m_pad + j
+                            if node < M:
+                                key = (f, b, ch, node)
+                                cells[key] = cells.get(key, 0) + 1
+    assert set(cells) == {(f, b, c, j) for f in range(F) for b in range(B)
+                          for c in range(2) for j in range(M)}
+    assert set(cells.values()) == {1}
+
+
+def test_t4_plan_at_the_mains_shape():
+    """F = 28, B = 64 (28 tiles of one feature each): N = 8 at M = 1-4, 7
+    tiles a warpgroup, all 28 in one block, 144 rows a step (4,032 of the
+    stage's 4,096 bins); N = 16 (M = 8) 5 a warpgroup, two blocks of 14;
+    N = 32 (M = 16) 3, blocks of 10, 10, 8; N = 64 (M = 32) 2, four blocks
+    of 7, 256 rows; M = 33: T6's instance, N = 128, 4 tiles a block."""
+    want = {1: (8, 7, 28, 1, 144), 2: (8, 7, 28, 1, 144),
+            4: (8, 7, 28, 1, 144), 8: (16, 5, 14, 2, 256),
+            16: (32, 3, 10, 3, 256), 32: (64, 2, 7, 4, 256),
+            33: (128, 1, 4, 7, 256)}
+    for m, w in want.items():
+        p = _t4_plan(28, 64, m)
+        assert (p.n_col, p.tiles_per_wg, p.tiles_per_block, p.n_mblk,
+                p.step) == w, m
+        assert p.b_pad == 64 and p.n_tiles == 28
+    assert [[len(wg) for wg in pairs] for pairs in oh.wgmma_block_pairs(
+        _t4_plan(28, 64, 1))] == [[7, 7, 7, 7]]
+    assert [[len(wg) for wg in pairs] for pairs in oh.wgmma_block_pairs(
+        _t4_plan(28, 64, 32))] == [[2, 2, 2, 1]] * 4
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_bin=256), dict(n_bin=300), dict(n_bin=0), dict(n_node=0),
+    dict(n_feat=0), dict(bin_dtype=torch.uint8),
+    dict(bin_dtype=torch.int16)])
+def test_t4_plan_refuses_what_the_kernel_does_not_take(kw):
+    """B above 255 (byte 255 marks a bad bin) or 0, no nodes, no features;
+    the bf16 small-N form reads feature-major int32 bins only (T6's uint8
+    bins run at N = 128)."""
+    args = dict(n_feat=28, n_bin=64, n_node=4, bin_dtype=torch.int32,
+                feature_major=True)
+    args.update(kw)
     with pytest.raises(NotImplementedError):
-        oh.group_plan(28, 67)                      # 140 units
-    assert [oh.group_step(r) for r in (256, 1024, 2048, 3000, 4096)] == \
-        [256, 1024, 2048, 2048, 2048]
+        oh.wgmma_plan(**args)
+
+
+@pytest.mark.parametrize("mode", ["prod", "pack2", "onebig"])
+def test_t4_r_tile_drops_the_tail_at_its_own_granularity(fr_case, mode):
+    """r_tile only says where the tail is dropped: at r_tile = 100 the
+    first 4,100 of 4,196 rows count, as in the prototype run at that
+    r_tile, and no fewer or more."""
+    bins, pos, dyadic, _ = fr_case
+    got, want = _t4(mode, 4, bins, pos, dyadic, r_tile=100)
+    np.testing.assert_array_equal(got, want)
+    whole = N_ROWS // 100 * 100
+    head, _ = _t4(mode, 4, bins[:, :whole], pos[:whole], dyadic[:whole],
+                  r_tile=whole)
+    np.testing.assert_array_equal(got, head)
+    every, _ = _t4(mode, 4, bins, pos, dyadic, r_tile=N_ROWS)
+    assert not np.array_equal(got, every)
+
+
+def test_t4_r_tile_0_raises(fr_case):
+    bins, pos, dyadic, _ = fr_case
+    args = (_t(bins), _t(pos), _t(dyadic), 4)
+    with pytest.raises(ValueError):
+        oh.onehot_pack2(*args, "prod", B, 0)
+    with pytest.raises(ValueError):
+        oh.onehot_pack2(*args, "pack2", B, 0)
+    with pytest.raises(ValueError):
+        oh.onehot_onebig(*args, B, 0)
+
+
+@pytest.mark.parametrize("mode", ["prod", "onebig"])
+def test_t4_m_pad_100_runs_the_plain_version(fr_case, mode):
+    """Any m_pad runs (on the card above 64 in node tiles): 100 nodes
+    against the prototype, bitwise on gh exact in bf16."""
+    bins, pos, dyadic, _ = fr_case
+    got, want = _t4(mode, 100, bins, pos, dyadic)
+    assert got.shape == want.shape == (1, F * B, 200)
+    np.testing.assert_array_equal(got, want)
 
 
 WGMMA_PLANS = [  # (F, B, n_node, bin_dtype, exact)
@@ -473,10 +601,10 @@ def test_r4_plan_refuses_what_the_kernel_does_not_take(kw):
         oh.wgmma_plan(**args)
 
 
-@pytest.mark.parametrize("target", ["t1", "t7", "t3", "t2"])
+@pytest.mark.parametrize("target", ["t1", "t7", "t3", "t2", "t4"])
 def test_wgmma_split_passages_are_in_the_header(target):
-    """``tools/hist_wgmma_split`` builds T1 (T7's levels form, T3's or
-    T2's small-N form) with passages of ``csrc/onehot_wgmma.cuh``
+    """``tools/hist_wgmma_split`` builds T1 (T7's levels form, T3's, T2's
+    or T4a's small-N form) with passages of ``csrc/onehot_wgmma.cuh``
     replaced, on the card only: each variant's passages are found exactly
     once in the header as it stands, every variant but ``full`` changes
     it, and its braces still pair."""

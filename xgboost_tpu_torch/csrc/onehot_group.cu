@@ -34,8 +34,8 @@
 extern "C" int onehot_group_launch(const WgmmaArgs* a, int variant,
                                    int n_row_blocks, void* stream) {
   if (variant != 0) return (int)cudaErrorInvalidValue;
-  return (int)onehot_wgmma_launch<1>(a, n_row_blocks,
-                                     static_cast<cudaStream_t>(stream));
+  return (int)onehot_wgmma_launch<1, OHW_BF16, OHW_ST_ROWS>(
+      a, n_row_blocks, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* onehot_group_error_string(int code) {

@@ -39,7 +39,7 @@
 extern "C" int onehot_i8_launch(const WgmmaArgs* a, int variant,
                                 int n_row_blocks, void* stream) {
   if (variant != 0) return (int)cudaErrorInvalidValue;
-  return (int)onehot_wgmma_launch_s8<OHW_ST_FEAT>(
+  return (int)onehot_wgmma_launch<1, OHW_S8, OHW_ST_FEAT>(
       a, n_row_blocks, static_cast<cudaStream_t>(stream));
 }
 

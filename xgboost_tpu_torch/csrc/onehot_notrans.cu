@@ -32,10 +32,11 @@ extern "C" int onehot_notrans_launch(const WgmmaArgs* a, int variant,
                                      int n_row_blocks, void* stream) {
   if (variant != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->vec ? onehot_wgmma_launch_s8<OHW_ST_RWORD>(a, n_row_blocks,
-                                                             s)
-                      : onehot_wgmma_launch_s8<OHW_ST_FEAT>(a, n_row_blocks,
-                                                            s));
+  return (int)(a->vec
+                   ? onehot_wgmma_launch<1, OHW_S8, OHW_ST_RWORD>(
+                         a, n_row_blocks, s)
+                   : onehot_wgmma_launch<1, OHW_S8, OHW_ST_FEAT>(
+                         a, n_row_blocks, s));
 }
 
 extern "C" const char* onehot_notrans_error_string(int code) {

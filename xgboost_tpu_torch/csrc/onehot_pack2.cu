@@ -14,34 +14,39 @@
 //
 // The prototypes put 1 ("prod"), 2 ("pack2") or all F ("onebig")
 // features' one-hots into the rows of one MXU operand, so that one
-// product fills more of the 128 x 128 unit.  On Hopper the product runs
-// on 16-bin tiles whatever the grouping; what a group shares here is the
-// staged rows and the gh_exp B fragments, built once per group into
-// shared memory by the grouped kernel of onehot_mma.cuh:
-//   prod    FG = 1: 4 (feature, bin tile) units of B = 64, two warps on
-//           each (they split the rows);
-//   pack2   FG = 2: 8 units, a warp each;
-//   onebig  FG = F (112 units at F = 28, B = 64: 16 a warp), the whole
-//           (F * B, R) operand in one task; the budget of 64 accumulator
-//           registers leaves such a task one column tile, so at M > 4 the
-//           one-hot is rebuilt once per column tile of 8.
-// r_tile is the row step (1,024 or 2,048) and the granularity at which
-// the tail is dropped.
+// product fills more of the 128 x 128 unit.  Here all three are one
+// launch of the wgmma one-hot product of onehot_wgmma.cuh in its bf16
+// small-N form (shared with T3 and T2, which run it in s8):
+// wgmma.mma_async.m64nNk16.f32.bf16.bf16 with N = 2 m_pad rounded up to
+// 8, 16, 32 or 64 (M = 1-4: 8; M = 32: 64), M over the F Bp (feature,
+// bin) rows, Bp = B rounded up to 16.  A warpgroup holds 7, 5, 3 or 2 M
+// tiles, builds all their A fragments of a k16 step in registers (one
+// byte permute of two words of staged bins, two SWAR compares with bins
+// b and b + 8, four permutes and four ANDs with bf16 1.0), issues their
+// products as one group and waits once; a block takes up to 28, 20, 12
+// or 8 tiles, so at F = 28, B = 64 one block (N = 8) to four (N = 64)
+// stage each row's pos and gh once for all their features: what the
+// prototypes' grouping shares, a block shares whatever the mode.  f32
+// sums, flushed with red.global.add.f32 (zero cells skipped).  Above 32
+// nodes T6's i16hot instance (N = 128), in node tiles of 64 above 64.
+// r_tile only says where the tail is dropped.
 //
 // Bound on the H100: bytes, 1,007,616 x 28 int32 bins (113 MB) + pos
 // and gh: ~0.037 ms at 3.35 TB/s; the product's tensor-core floor
-// (2 n F 64 2M_pad at 989 TFLOP/s) ~0.029 ms at M = 1-4, ~0.23 ms at
-// M = 32.
+// (2 n F Bp N at 989 TFLOP/s) ~0.029 ms at M = 1-4, ~0.23 ms at M = 32.
+// At small N the products' instruction count bounds the form (28 tiles
+// x n / 16 k16 steps, twice T3's k32 count), then the A build.
 //
-// C interface for ctypes: onehot_pack2_launch returns a cudaError_t;
-// variant v takes 2^v units a warp (onehot_mma.cuh).
+// C interface for ctypes: onehot_pack2_launch returns a cudaError_t
+// (0 = ok); variant 0 (every mode and T4b launch the same instance).
 
-#include "onehot_mma.cuh"
+#include "onehot_wgmma.cuh"
 
-extern "C" int onehot_pack2_launch(const OnehotArgs* a, int variant,
+extern "C" int onehot_pack2_launch(const WgmmaArgs* a, int variant,
                                    int n_row_blocks, void* stream) {
-  return (int)onehot_group_dispatch(a, variant, n_row_blocks,
-                                    static_cast<cudaStream_t>(stream));
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return (int)onehot_wgmma_launch<1, OHW_BF16, OHW_ST_FEAT>(
+      a, n_row_blocks, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* onehot_pack2_error_string(int code) {

@@ -32,9 +32,11 @@ extern "C" int onehot_variant_launch(const WgmmaArgs* a, int variant,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case 0:
-      return (int)onehot_wgmma_launch<1>(a, n_row_blocks, s);
+      return (int)onehot_wgmma_launch<1, OHW_BF16, OHW_ST_ROWS>(
+          a, n_row_blocks, s);
     case 1:
-      return (int)onehot_wgmma_launch<3>(a, n_row_blocks, s);
+      return (int)onehot_wgmma_launch<3, OHW_BF16, OHW_ST_ROWS>(
+          a, n_row_blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

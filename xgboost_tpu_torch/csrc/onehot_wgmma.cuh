@@ -1,18 +1,19 @@
 // The one-hot histogram as a wgmma product on Hopper (sm_90a): the
 // kernel of T5 (onehot_variant.cu), T1 (onehot_group.cu), T6
-// (onehot_r4.cu), T7 (onehot_r5.cu), T3 (onehot_i8.cu) and T2
-// (onehot_notrans.cu).
+// (onehot_r4.cu), T7 (onehot_r5.cu), T3 (onehot_i8.cu), T2
+// (onehot_notrans.cu), T4a and T4b (onehot_pack2.cu).
 //
 // Replaces the TPU kernels of tools/hist_microbench.py:59 variant (body
 // :26), tools/hist_group_proto.py:59 grouped (body :23),
 // tools/hist_r4_ab.py:78 build (body make_kernel :35),
 // tools/hist_r5_ab.py:80 build (body make_kernel :40),
-// tools/hist_int8_proto.py:61 build_i8 (body :31) and
-// tools/hist_notrans_proto.py:56 build (body :28).  All six compute one
-// function: a level histogram of bins at the strides given (row-major
-// (N, F) int32 / int16 for T5 and T1, uint8 for T2; feature-major (F, n)
-// int32 / uint8 for T6, T7 and T3), gh (g, h) at the strides given and
-// pos, into an output
+// tools/hist_int8_proto.py:61 build_i8 (body :31),
+// tools/hist_notrans_proto.py:56 build (body :28) and
+// tools/hist_pack2_proto.py:76 build (body :29) and :174 build_onebig
+// (body :143).  All eight compute one function: a level histogram of
+// bins at the strides given (row-major (N, F) int32 / int16 for T5 and
+// T1, uint8 for T2; feature-major (F, n) int32 / uint8 for T6, T7, T3,
+// T4a and T4b), gh (g, h) at the strides given and pos, into an output
 // zeroed by the wrapper and written by the flush at the cell strides
 // given.  Rows with pos outside the node tile add nothing; a (row,
 // feature) whose bin lies outside [0, B) adds nothing to that feature and
@@ -32,6 +33,7 @@
 // 64 nodes: 128); K is rows.  Two element types (template ET):
 //   bf16  wgmma.mma_async.m64nNk16.f32.bf16.bf16, gh rounded to bf16 (or,
 //         T5's exact mode, split into three bf16 parts), f32 sums;
+//         (T4a and T4b at N = 8-64, or 128 above 32 nodes);
 //   s8    wgmma.mma_async.m64nNk32.s32.s8.s8 (T7 at N = 128; T3 and T2
 //         at N = 8-64, or 128 above 32 nodes), gh the low byte of an
 //         int32 (a wrap), s32 sums that wrap (no .satfinite) and are
@@ -116,27 +118,34 @@
 // and builds its A into the other buffer, then waits before the barrier
 // that frees the stage.
 //
-// The small-N form (T3, T2: s8 below N = 128, template SMALL).  At N = 8
-// a product is a few cycles of the tensor cores, and the cost moves to the
-// A build, the staging and the wait for the products.  So a warpgroup
-// holds up to 7, 5, 3 or 2 M tiles (N = 8, 16, 32, 64: their N / 2
-// accumulators and four live A registers each within the 128 registers a
-// thread), builds all their fragments of a k32 step, issues their
-// products as one group and waits once; a block holds up to 4 x that
-// (28 tiles at N = 8: the 28 features of B = 64 in one block, which stages
-// each row's pos and gh and builds its gh_exp entries once), the tiles
-// spread evenly over as few blocks as hold them and over a block's
-// warpgroups.  Bp is rounded up to 16, so a thread's M rows g and g + 8
-// of a tile are bins b and b + 8 of one feature: one word of staged bytes
-// serves both, two words a tile and k32 step, and no mask (a pad bin's
-// row is built like any other and never flushed).  A stage holds 4,096
-// bins (128 rows at 28 features).  T2's row-major uint8 bins are read a
+// The small-N form (template SMALL: below N = 128 without levels, s8
+// for T3 and T2, bf16 on feature-major bins staged a bin a load (ST
+// FEAT) for T4a and T4b; T5's and T1's row-major bf16 instances below N
+// = 128 keep the form above).  At N = 8 a product is a few cycles of
+// the tensor cores, and the cost moves to the A build, the staging and
+// the wait for the products.  So a warpgroup holds up to 7, 5, 3 or 2 M
+// tiles (N = 8, 16, 32, 64: their N / 2 accumulators and four live A
+// registers each within the 128 registers a thread), builds all their
+// fragments of a K step (k32 in s8, k16 in bf16: 32 bytes of K either
+// way), issues their products as one group and waits once; a block
+// holds up to 4 x that (28 tiles at N = 8: the 28 features of B = 64 in
+// one block, which stages each row's pos and gh and builds its gh_exp
+// entries once), the tiles spread evenly over as few blocks as hold
+// them and over a block's warpgroups.  Bp is rounded up to 16, so a
+// thread's M rows g and g + 8 of a tile are bins b and b + 8 of one
+// feature, and no mask (a pad bin's row is built like any other and
+// never flushed): in s8 one word of staged bytes serves both rows, two
+// words a tile and k32 step; in bf16 one byte permute of two words
+// gives the four K rows 2t, 2t+1, 2t+8, 2t+9, compared with b and b + 8
+// (the BITS build).  A stage holds 4,096 bins (128 rows at 28
+// features in s8, 144 in bf16).  T2's row-major uint8 bins are read a
 // word (four features of a row) a load where the rows are 4-byte aligned
 // (template ST RWORD), else a byte a load (ST FEAT with row-major
 // strides).
 //
-// The prototypes' knobs: r_tile (T5, T1, T6, T3, T2) and fg (T1) change no
-// result and are moot here, but for where T6, T3 and T2 drop their tail:
+// The prototypes' knobs: r_tile (T5, T1, T6, T3, T2, T4a, T4b), fg (T1)
+// and T4a's and T4b's modes change no result and are moot here, but for
+// where T6, T3, T2, T4a and T4b drop their tail:
 // the row step
 // is the kernel's own (at most 256 rows, 64 in the exact mode, fewer
 // when a block covers many narrow features), and every block stages its
@@ -144,24 +153,26 @@
 // the width the kernel reads (bin_bytes 4 or 2); its hot_dtype only says
 // whether gh is rounded.
 //
-// What bounds it on the H100.  The function is bytes-bound: 1M x 28
-// int32 bins (112 MB) + pos + gh + the 0.96 MB output, ~0.037 ms at 3.35
-// TB/s (uint8 bins ~0.012 ms).  The one-hot product does 2 N_rows F Bp N
-// operations, most of them on zeros: at n_node = 64 (N = 128) and Bp =
-// 72, 5.2e11, ~0.52 ms at 989 TFLOP/s in bf16, three times that in the
-// exact mode, half of it at 1,979 TOP/s in s8, once per level.  What the
-// design does about the costs of the mma.sync kernels it replaces: the
-// rows are staged once per block for all its features, not once per
-// feature; gh_exp is built once per row step for all M tiles, not per
-// warp and feature; the one-hot fragment is built once per (tile, K step)
-// and meets all N columns in one instruction (with levels, once per
-// (tile, step) for all the block's levels); and the products are wgmma,
-// the tensor cores' full-rate path, running asynchronously beside the
-// staging.  T3 and T2 (B = 64, M = 1-32 nodes, N = 8-64): T3's bytes
-// take ~0.037 ms (int32 bins), T2's ~0.012 (uint8), the int8 floor 0.015
-// (N = 8) to 0.117 ms (N = 64); below N = 64 the A build, two loads and
-// about 22 integer instructions a thread, tile and k32 step, takes longer
-// than either.
+// What bounds it on the H100.  The function is bytes-bound: 1M x 28 int32
+// bins (112 MB) + pos + gh + the 0.96 MB output, ~0.037 ms at 3.35 TB/s
+// (uint8 bins ~0.012 ms).  The one-hot product does 2 N_rows F Bp N
+// operations, most of them on zeros: at n_node = 64 (N = 128) and Bp = 72,
+// 5.2e11, ~0.52 ms at 989 TFLOP/s in bf16, three times that in the exact
+// mode, half of it at 1,979 TOP/s in s8, once per level.  What the design
+// does about the costs of the warp-level (m16n8k16) kernels it replaces:
+// the rows are staged once per block for all its features, not once per
+// feature; gh_exp is built once per row step for all M tiles, not per warp
+// and feature; the one-hot fragment is built once per (tile, K step) and
+// meets all N columns in one instruction (with levels, once per (tile,
+// step) for all the block's levels); and the products are wgmma, the
+// tensor cores' full-rate path, running asynchronously beside the staging.
+// T3 and T2 (B = 64, M = 1-32 nodes, N = 8-64): T3's bytes take ~0.037 ms
+// (int32 bins), T2's ~0.012 (uint8), the int8 floor 0.015 (N = 8) to 0.117
+// ms (N = 64); below N = 64 the A build, two loads and about 22 integer
+// instructions a thread, tile and k32 step, takes longer than either.  T4a
+// and T4b (bf16, the same shapes): ~0.037 ms of bytes, the bf16 floor
+// 0.029 (N = 8) to 0.234 ms (N = 64); twice T3's instructions (k16 against
+// k32).
 
 #pragma once
 
@@ -221,24 +232,30 @@ struct WgmmaArgs {
 // a block's features (at Bp = 8) within 65, so its row step >= 16
 __host__ __device__ constexpr int ohw_tiles(int n) { return n >= 128 ? 1 : 2; }
 
-// s8 products below N = 128 without levels (T3, T2): the small-N form
-__host__ __device__ constexpr bool ohw_small(int n, bool s8, bool lvl) {
-  return s8 && !lvl && n < 128;
+// products below N = 128 without levels, s8 (T3, T2) or bf16 on bins
+// staged a bin a load (ST FEAT: T4a, T4b): the small-N form
+__host__ __device__ constexpr bool ohw_small(int n, bool s8, bool lvl,
+                                             int st) {
+  return !lvl && n < 128 && (s8 || st == OHW_ST_FEAT);
 }
 // M tiles a warpgroup may hold in the small-N form: each holds N / 2
-// accumulators and its four A registers, which stay live until the
-// step's products complete, so 7 x (4 + 4) at N = 8, 5 x (8 + 4), 3 x
-// (16 + 4), 2 x (32 + 4): 56-72 registers of the 128 a thread
-__host__ __device__ constexpr int ohw_s8_tiles(int n) {
+// accumulators (s32 or f32) and its four A registers, which stay live
+// until the step's products complete, so 7 x (4 + 4) at N = 8, 5 x (8 +
+// 4), 3 x (16 + 4), 2 x (32 + 4): 56-72 registers of the 128 a thread
+__host__ __device__ constexpr int ohw_small_tiles(int n) {
   return n <= 8 ? 7 : n <= 16 ? 5 : n <= 32 ? 3 : 2;
 }
-__host__ __device__ constexpr int ohw_tw(int n, bool s8, bool lvl) {
-  return lvl ? 1 : ohw_small(n, s8, lvl) ? ohw_s8_tiles(n) : ohw_tiles(n);
+__host__ __device__ constexpr int ohw_tw(int n, bool s8, bool lvl, int st) {
+  return lvl                        ? 1
+         : ohw_small(n, s8, lvl, st) ? ohw_small_tiles(n)
+                                     : ohw_tiles(n);
 }
 // staged bins (bytes) a stage: twice the default in the small-N form,
 // whose products are short, so that a step is 128 rows at 28 features
-__host__ __device__ constexpr int ohw_stage_bins(int n, bool s8, bool lvl) {
-  return ohw_small(n, s8, lvl) ? 2 * OHW_STAGE_BINS : OHW_STAGE_BINS;
+// (144 in bf16)
+__host__ __device__ constexpr int ohw_stage_bins(int n, bool s8, bool lvl,
+                                                 int st) {
+  return ohw_small(n, s8, lvl, st) ? 2 * OHW_STAGE_BINS : OHW_STAGE_BINS;
 }
 // staged elements a thread per step: bins, or with OHW_ST_RWORD words
 // (a step's words are at most step x (nf + 6) / 4 <= stage / 4 + 384)
@@ -250,11 +267,11 @@ __host__ __device__ constexpr int ohw_slots(int sb, int st) {
 // Dynamic shared memory of one block: two stages of B tiles (NP parts,
 // or lv_block levels), with levels two stages of the block's A tiles,
 // then two stages of staged bin bytes.
-inline int ohw_smem(const WgmmaArgs* a, bool s8, bool lvl, int np) {
+inline int ohw_smem(const WgmmaArgs* a, bool s8, bool lvl, int np, int st) {
   const int nb = lvl ? a->lv_block : np;
   const int tpb = lvl ? OHW_WARPGROUPS / a->lv_block : 0;
   return 2 * nb * a->step * a->n_col * (s8 ? 1 : 2) +
-         2 * tpb * 64 * a->step + 2 * ohw_stage_bins(a->n_col, s8, lvl);
+         2 * tpb * 64 * a->step + 2 * ohw_stage_bins(a->n_col, s8, lvl, st);
 }
 
 __device__ __forceinline__ uint32_t ohw_prmt(uint32_t a, uint32_t b,
@@ -504,11 +521,12 @@ __device__ __forceinline__ void ohw_mma_s8_ss(int (&d)[64], uint64_t desc_a,
 
 // d (64 x N s32, N / 2 a thread) += A (64 x 32 s8, registers) @ B (32 x N
 // s8, shared memory at desc) at N = 8, 16, 32, 64 (128: ohw_mma_s8); the
-// sums wrap
+// sums wrap.  The s32 overload of the bf16 product above: the small-N
+// form issues either
 template <int N>
-__device__ __forceinline__ void ohw_mma_s8n(int (&d)[N / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc) {
+__device__ __forceinline__ void ohw_mma(int (&d)[N / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc) {
   static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128,
                 "N: 8, 16, 32, 64 or 128");
   if constexpr (N == 8) {
@@ -578,11 +596,14 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   static_assert(!LVL || (S8 && N == 128), "levels: s8 at N = 128 only");
   static_assert(ST != OHW_ST_RWORD || S8, "row-major uint8 words: s8 only");
   typedef typename std::conditional<S8, int, float>::type Acc;
-  constexpr bool SMALL = ohw_small(N, S8, LVL);  // T3, T2 below N = 128
+  // T3, T2, T4a, T4b below N = 128
+  constexpr bool SMALL = ohw_small(N, S8, LVL, ST);
+  static_assert(!SMALL || (NP == 1 && AB != OHW_A_CONST),
+                "the small-N form: one part, a built one-hot");
   constexpr int ES = S8 ? 1 : 2;     // bytes of a B entry
-  constexpr int TW = ohw_tw(N, S8, LVL);
+  constexpr int TW = ohw_tw(N, S8, LVL, ST);
   constexpr int NBM = LVL ? OHW_WARPGROUPS : NP;  // most B tiles a stage
-  constexpr int SB = ohw_stage_bins(N, S8, LVL);  // bytes of a bin stage
+  constexpr int SB = ohw_stage_bins(N, S8, LVL, ST);  // bytes of a stage
   constexpr int SLOTS = ohw_slots(SB, ST);
   constexpr uint32_t ONE2 = 0x3F803F80u;  // bf16 1.0 in both halves
   extern __shared__ __align__(1024) uint8_t ohw_sm[];
@@ -924,10 +945,12 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
   for (int T = 0; T < TW; ++T)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) ohw_fence_acc(acc[T][i]);
+  // bf16: the bytes of K rows 2t, 2t+1 (word w) and 2t+8, 2t+9 (word w +
+  // 2) of a k16 step in one word
+  const int off = 2 * (t & 1);  // rows 2t, 2t+1 in a word of four
+  [[maybe_unused]] const uint32_t sel =
+      off | (off + 1) << 4 | (off + 4) << 8 | (off + 5) << 12;
   if constexpr (!LVL && !SMALL) {
-    const int off = 2 * (t & 1);  // rows 2t, 2t+1 in a word of four
-    const uint32_t sel =
-        off | (off + 1) << 4 | (off + 4) << 8 | (off + 5) << 12;
     for (int s = 0; s < n_steps; ++s) {
       const int cur = s & 1;
       const uint32_t* wb =
@@ -992,12 +1015,13 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
       __syncthreads();
     }
   } else if constexpr (SMALL) {
-    // The small-N form (T3, T2): a product is a few cycles of the tensor
-    // cores, so a warpgroup builds the fragments of all its tiles for a k32
-    // step into registers of their own, issues their products as one
-    // group and waits once (the fragments stay untouched until then); a
-    // tile past the block's share issues its product on a fragment of
-    // zeros (initialised below), so every wgmma stays outside any branch
+    // The small-N form (T3, T2 in s8; T4a, T4b in bf16): a product is a
+    // few cycles of the tensor cores, so a warpgroup builds the fragments
+    // of all its tiles for a K step into registers of their own, issues
+    // their products as one group and waits once (the fragments stay
+    // untouched until then); a tile past the block's share issues its
+    // product on a fragment of zeros (initialised below), so every wgmma
+    // stays outside any branch
     uint32_t af[TW][4];
 #pragma unroll
     for (int T = 0; T < TW; ++T)
@@ -1007,27 +1031,39 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
       const int cur = s & 1;
       const uint32_t* wb = reinterpret_cast<const uint32_t*>(s_bin + cur * SB);
       const uint64_t desc0 = ohw_desc(b_base + cur * nb * b_bytes);
-      for (int kb = 0; kb < (KS >> 5); ++kb) {
-        const int w = kb * 8 + t;  // rows 32 kb + 4t..; w + 4: 16 rows on
+      // a K step (k32 s8, k16 bf16) is 32 bytes of K: 32 N bytes of B
+      for (int kb = 0; kb < (KS >> (S8 ? 5 : 4)); ++kb) {
 #pragma unroll
         for (int T = 0; T < TW; ++T) {
           if (T < ntw) {
-            // the 16 A bytes of M rows g, g + 8 from two words
-            const uint32_t lo = wb[s_word[T] + w], hi = wb[s_word[T] + w + 4];
-            const uint32_t k8 = s_key[T] + 0x08080808u;
-            af[T][0] = ohw_hot_s8<AB>(lo, s_key[T]);
-            af[T][1] = ohw_hot_s8<AB>(lo, k8);
-            af[T][2] = ohw_hot_s8<AB>(hi, s_key[T]);
-            af[T][3] = ohw_hot_s8<AB>(hi, k8);
+            if constexpr (S8) {
+              const int w = kb * 8 + t;  // rows 32 kb + 4t..; w + 4: 16 on
+              // the 16 A bytes of M rows g, g + 8 from two words
+              const uint32_t lo = wb[s_word[T] + w];
+              const uint32_t hi = wb[s_word[T] + w + 4];
+              const uint32_t k8 = s_key[T] + 0x08080808u;
+              af[T][0] = ohw_hot_s8<AB>(lo, s_key[T]);
+              af[T][1] = ohw_hot_s8<AB>(lo, k8);
+              af[T][2] = ohw_hot_s8<AB>(hi, s_key[T]);
+              af[T][3] = ohw_hot_s8<AB>(hi, k8);
+            } else {
+              // the bf16 A of M rows g, g + 8 (bins b, b + 8): the bytes
+              // of K rows 2t, 2t+1, 2t+8, 2t+9 from two words, one permute
+              const int w = kb * 4 + (t >> 1);  // rows 16 kb + 4 (t >> 1)..
+              const uint32_t q =
+                  ohw_prmt(wb[s_word[T] + w], wb[s_word[T] + w + 2], sel);
+              const uint32_t key[2] = {s_key[T], s_key[T] + 0x08080808u};
+              const uint32_t one[2] = {ONE2, ONE2};
+              ohw_hot_bf16<AB>(af[T], q, q, key, one);
+            }
           }
         }
         ohw_fence();
 #pragma unroll
         for (int T = 0; T < TW; ++T)
-          ohw_mma_s8n<N>(acc[T], af[T],
-                         desc0 + (uint64_t)((kb * 32 * N) >> 4));
+          ohw_mma<N>(acc[T], af[T], desc0 + (uint64_t)((kb * 32 * N) >> 4));
         ohw_commit();
-        // one wait a k32 step for all the warpgroup's tiles
+        // one wait a K step for all the warpgroup's tiles
         ohw_wait();
       }
       // hand the stages over: step s + 1 into the other stage (its last
@@ -1106,7 +1142,7 @@ onehot_wgmma_kernel(const WgmmaArgs a) {
 inline bool ohw_tiling_ok(const WgmmaArgs* a, bool s8, bool lvl, int np,
                           int st) {
   const int ki = s8 ? 32 : 16;
-  const bool small = ohw_small(a->n_col, s8, lvl);
+  const bool small = ohw_small(a->n_col, s8, lvl, st);
   const int bq = small ? 16 : 8;  // Bp: B rounded up to this
   // row-major uint8 bins (s8 only) take RWORD or FEAT
   if (st != (a->vec              ? (a->fm ? OHW_ST_VEC : OHW_ST_RWORD)
@@ -1136,12 +1172,12 @@ inline bool ohw_tiling_ok(const WgmmaArgs* a, bool s8, bool lvl, int np,
     return false;
   // M tiles a block: at most cap, and in the small-N form spread evenly
   const int cap = lvl ? OHW_WARPGROUPS / a->lv_block
-                      : OHW_WARPGROUPS * ohw_tw(a->n_col, s8, lvl);
+                      : OHW_WARPGROUPS * ohw_tw(a->n_col, s8, lvl, st);
   const int m_rows = a->n_feat * a->b_pad;
   const int n_tiles = (m_rows + 63) / 64;
   if (a->n_mblk != (n_tiles + cap - 1) / cap) return false;
   const int tpb = small ? (n_tiles + a->n_mblk - 1) / a->n_mblk : cap;
-  const int sb = ohw_stage_bins(a->n_col, s8, lvl);
+  const int sb = ohw_stage_bins(a->n_col, s8, lvl, st);
   for (int blk = 0; blk < a->n_mblk; ++blk) {  // staged bins fit a stage
     const int m0 = blk * tpb * 64;
     const int m1 = m0 + tpb * 64 < m_rows ? m0 + tpb * 64 : m_rows;
@@ -1152,7 +1188,7 @@ inline bool ohw_tiling_ok(const WgmmaArgs* a, bool s8, bool lvl, int np,
     if (a->step * nf > sb || n_el > ohw_slots(sb, st) * OHW_THREADS)
       return false;
   }
-  return ohw_smem(a, s8, lvl, np) <= OHW_SMEM_MAX;
+  return ohw_smem(a, s8, lvl, np, st) <= OHW_SMEM_MAX;
 }
 
 template <int N, int NP, int ET, int AB, bool LVL, int ST>
@@ -1160,7 +1196,7 @@ cudaError_t onehot_wgmma_launch_n(const WgmmaArgs* a, int n_row_blocks,
                                   cudaStream_t stream) {
   if (a->n_col != N || !ohw_tiling_ok(a, ET == OHW_S8, LVL, NP, ST))
     return cudaErrorInvalidValue;
-  const int smem = ohw_smem(a, ET == OHW_S8, LVL, NP);
+  const int smem = ohw_smem(a, ET == OHW_S8, LVL, NP, ST);
   const cudaError_t e = cudaFuncSetAttribute(
       onehot_wgmma_kernel<N, NP, ET, AB, LVL, ST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1182,54 +1218,31 @@ cudaError_t onehot_wgmma_launch_fm(const WgmmaArgs* a, int n_row_blocks,
                       a, n_row_blocks, stream);
 }
 
-// One s8 launch of the bit-pattern one-hot without levels (T3, T2) at
-// a->n_col columns, its bins staged as ST: the small-N form below N = 128,
-// T7's instance at 128.
-template <int ST>
-cudaError_t onehot_wgmma_launch_s8(const WgmmaArgs* a, int n_row_blocks,
-                                   cudaStream_t stream) {
-  switch (a->n_col) {
-    case 8:
-      return onehot_wgmma_launch_n<8, 1, OHW_S8, OHW_A_BITS, false, ST>(
-          a, n_row_blocks, stream);
-    case 16:
-      return onehot_wgmma_launch_n<16, 1, OHW_S8, OHW_A_BITS, false, ST>(
-          a, n_row_blocks, stream);
-    case 32:
-      return onehot_wgmma_launch_n<32, 1, OHW_S8, OHW_A_BITS, false, ST>(
-          a, n_row_blocks, stream);
-    case 64:
-      return onehot_wgmma_launch_n<64, 1, OHW_S8, OHW_A_BITS, false, ST>(
-          a, n_row_blocks, stream);
-    case 128:
-      return onehot_wgmma_launch_n<128, 1, OHW_S8, OHW_A_BITS, false, ST>(
-          a, n_row_blocks, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// One bf16 launch of the bit-pattern one-hot (T5, T1) with NP parts at
-// a->n_col columns.
-template <int NP>
+// One launch of the bit-pattern one-hot without levels at a->n_col
+// columns, NP parts of gh, its bins staged as ST: T5 and T1 (bf16 on
+// row-major bins, NP 1 or 3), T3 and T2 (s8), T4a and T4b (bf16 on
+// feature-major int32 bins); the small-N form below N = 128 where it
+// holds (s8, or bf16 staged a bin a load), the N = 128 instance above
+// (T7's for s8, T6's i16hot for T4).
+template <int NP, int ET, int ST>
 cudaError_t onehot_wgmma_launch(const WgmmaArgs* a, int n_row_blocks,
                                 cudaStream_t stream) {
   switch (a->n_col) {
     case 8:
-      return onehot_wgmma_launch_n<8, NP, OHW_BF16, OHW_A_BITS, false,
-                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<8, NP, ET, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
     case 16:
-      return onehot_wgmma_launch_n<16, NP, OHW_BF16, OHW_A_BITS, false,
-                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<16, NP, ET, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
     case 32:
-      return onehot_wgmma_launch_n<32, NP, OHW_BF16, OHW_A_BITS, false,
-                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<32, NP, ET, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
     case 64:
-      return onehot_wgmma_launch_n<64, NP, OHW_BF16, OHW_A_BITS, false,
-                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<64, NP, ET, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
     case 128:
-      return onehot_wgmma_launch_n<128, NP, OHW_BF16, OHW_A_BITS, false,
-                                   OHW_ST_ROWS>(a, n_row_blocks, stream);
+      return onehot_wgmma_launch_n<128, NP, ET, OHW_A_BITS, false, ST>(
+          a, n_row_blocks, stream);
     default:
       return cudaErrorInvalidValue;
   }

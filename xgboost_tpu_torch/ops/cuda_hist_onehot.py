@@ -27,13 +27,13 @@ list and output layout:
   M = 64 whose one-hot is built four ways ("prod", "dotfloor", "u8bins",
   "i16hot"), ``(1, F * B, 128)`` f32; source ``csrc/onehot_r4.cu``.
 
-T5, T1, T6, T7, T3 and T2 share one kernel, the ``wgmma`` product of
+All eight share one kernel, the ``wgmma`` product of
 ``csrc/onehot_wgmma.cuh`` (tiled by :func:`wgmma_plan`): bf16 on row-major
 bins for T5 and T1, bf16 on feature-major bins with four one-hot builds for
 T6, ``s8`` on feature-major u8 bins (with levels, A from shared memory) for
-T7, ``s8`` at N = 8-64 (its small-N form) on feature-major int32 bins for
-T3 and on row-major u8 bins for T2.  T4a and T4b run the ``mma.sync``
-feature-grouped kernel of ``csrc/onehot_mma.cuh``.  Each has a plain
+T7; its small-N form (N = 8-64) in ``s8`` on feature-major int32 bins for
+T3 and on row-major u8 bins for T2, and in bf16 on feature-major int32
+bins for T4a and T4b (T6's instance at N = 128).  Each has a plain
 PyTorch version (``*_plain``) with the prototype's exact semantics, which
 the kernel matches:
 
@@ -73,9 +73,6 @@ import torch
 
 from xgboost_tpu_torch.ops import nvcc
 
-THREADS = 256                  # 8 warps a block (onehot_mma.cuh)
-STEP_ROWS = 2048               # rows a grouped block stages per step
-BLOCKS_PER_SM = 4
 M_TILE = 64                    # T5's node tile; T7's M
 R5_R_TILE = 2048               # tools/hist_r5_ab.py:R_TILE
 
@@ -108,17 +105,6 @@ SOURCES: Dict[str, str] = {name: name for name in COUNTERS}
 SOURCES["onehot_onebig"] = "onehot_pack2"
 
 
-class OnehotArgs(ctypes.Structure):
-    """``struct OnehotArgs`` of ``csrc/onehot_mma.cuh``, field by field."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("bins", "pos", "gh", "out")]
-                + [(n, ctypes.c_longlong) for n in (
-                    "bin_sr", "bin_sf", "gh_sr", "gh_sc", "s_f", "s_b",
-                    "s_c", "s_node", "n_rows", "rows_per_block")]
-                + [(n, ctypes.c_int) for n in (
-                    "n_feat", "n_bin", "m_pad", "n_node_out", "n_cg",
-                    "n_mt", "r_tile", "fg", "rep")])
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -132,12 +118,12 @@ def _device(*ts: torch.Tensor) -> str:
     return dev.type
 
 
-def _call(name: str, args: ctypes.Structure, variant: int, n_rb: int,
+def _call(name: str, args: WgmmaArgs, variant: int, n_rb: int,
           device: torch.device, out: torch.Tensor) -> torch.Tensor:
     """Launch kernel ``name`` on the current stream of ``device``; raise
     on a refused launch, count a launched one."""
     lib_name = SOURCES[name]
-    lib = _lib(lib_name, type(args))
+    lib = _lib(lib_name)
     with torch.cuda.device(device):   # the launch targets this card
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{lib_name}_launch")(ctypes.byref(args), variant,
@@ -150,82 +136,11 @@ def _call(name: str, args: ctypes.Structure, variant: int, n_rb: int,
     return out
 
 
-GROUP_ACC_TILES = 16   # PW units x CT column tiles a warp: 64 accumulators
-GROUP_SMEM_B = 32768   # the B fragments of a sub-step (onehot_mma.cuh)
-SMEM_MAX = 232448      # dynamic shared memory a block may use (H100)
-
-
-def group_plan(fg: int, n_bin: int) -> Tuple[int, int, int]:
-    """(variant, column tiles a task, warps a unit) of the grouped
-    kernel: ``fg`` features x the bin tiles of 16 are the task's units,
-    8 warps take them, each at most PW = 2^variant units of CT = 16 / PW
-    column tiles; fewer than 8 units get several warps each."""
-    units = fg * _cdiv(n_bin, 16)
-    pw = 1
-    while THREADS // 32 * pw < units:
-        pw *= 2
-    if pw > GROUP_ACC_TILES:
-        raise NotImplementedError(
-            f"{fg} features of {n_bin} bins are {units} units: the grouped "
-            f"kernel takes at most {THREADS // 32 * GROUP_ACC_TILES}")
-    return pw.bit_length() - 1, GROUP_ACC_TILES // pw, \
-        max(1, THREADS // 32 // units)
-
-
-def group_step(r_tile: int) -> int:
-    """The grouped kernel's rows per block step for a prototype's
-    ``r_tile``: the largest power of two at most ``min(r_tile, 2048)``
-    (4,096 is staged as two steps of 2,048)."""
-    if r_tile < THREADS:
-        raise NotImplementedError(f"r_tile {r_tile}: at least {THREADS}")
-    return 1 << (min(r_tile, STEP_ROWS).bit_length() - 1)
-
-
-def _launch_group(name: str, bins: torch.Tensor, pos: torch.Tensor,
-                  gh: torch.Tensor, out: torch.Tensor, *, bin_sr: int,
-                  bin_sf: int, out_strides: Tuple[int, int, int, int],
-                  n_rows: int, n_feat: int, n_bin: int, m_pad: int,
-                  n_node_out: int, n_mt: int, r_tile: int,
-                  fg: int) -> torch.Tensor:
-    """One launch of the feature-grouped kernel on int32 bins, f32 gh
-    ``(n, 2)`` and int32 pos; ``out_strides`` are (s_f, s_b, s_c,
-    s_node)."""
-    if not (bins.is_contiguous() and pos.is_contiguous()
-            and gh.is_contiguous() and out.is_contiguous()):
-        raise ValueError("bins, pos, gh and out must be contiguous")
-    if bins.dtype != torch.int32 or n_bin > 255 or not 0 < m_pad <= 128:
-        raise NotImplementedError(
-            f"the grouped kernel takes int32 bins, B <= 255 and up to 128 "
-            f"nodes a tile (got {bins.dtype}, B={n_bin}, m_pad={m_pad})")
-    step = group_step(r_tile)
-    fg = max(1, min(fg, n_feat))
-    variant, ct, rep = group_plan(fg, n_bin)
-    if GROUP_SMEM_B + step * (5 + fg) > SMEM_MAX:
-        raise NotImplementedError(f"{fg} features a task at {step} rows a "
-                                  "step exceed a block's shared memory")
-    if n_rows == 0 or n_feat == 0:
-        return out
-    n_fg = _cdiv(n_feat, fg)
-    n_cg = _cdiv(_cdiv(2 * m_pad, 8), ct)
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    steps = _cdiv(n_rows, step)
-    want = _cdiv(BLOCKS_PER_SM * n_sm, n_fg * n_cg * n_mt)
-    rpb = _cdiv(steps, max(1, min(steps, want))) * step
-    n_rb = _cdiv(n_rows, rpb)
-    if n_cg * n_mt > 65535 or n_rb > 65535:
-        raise NotImplementedError("too many node tiles for one launch")
-    args = OnehotArgs(
-        bins.data_ptr(), pos.data_ptr(), gh.data_ptr(), out.data_ptr(),
-        bin_sr, bin_sf, 2, 1, *out_strides, n_rows, rpb, n_feat, n_bin,
-        m_pad, n_node_out, n_cg, n_mt, step, fg, rep)
-    return _call(name, args, variant, n_rb, bins.device, out)
-
-
-def _lib(name: str, arg_type: type) -> ctypes.CDLL:
+def _lib(name: str) -> ctypes.CDLL:
     lib = nvcc.load(name)
     launch = getattr(lib, f"{name}_launch")
     if launch.argtypes is None:
-        launch.argtypes = [ctypes.POINTER(arg_type), ctypes.c_int,
+        launch.argtypes = [ctypes.POINTER(WgmmaArgs), ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
         launch.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
@@ -234,14 +149,16 @@ def _lib(name: str, arg_type: type) -> ctypes.CDLL:
     return lib
 
 
-# ------------------------------------------- wgmma (T5, T1, T6, T7, T3, T2)
+# --------------------------------------------------- wgmma (T1 - T7)
 WGMMA_COLS = (8, 16, 32, 64, 128)  # the N the kernel is instantiated at
 WGMMA_WARPGROUPS = 4               # warpgroups a block
 WGMMA_STAGE_BINS = 2048            # staged bins a block step
 WGMMA_LEVEL_BLOCKS = (4, 2, 1)     # levels a block in the levels form
-# the small-N s8 form (T3, T2): M tiles a warpgroup at each N, as many as
-# their accumulators and live A fragments leave registers for
-WGMMA_S8_TILES = {8: 7, 16: 5, 32: 3, 64: 2}
+# the small-N form (T3, T2 in s8; T4a, T4b in bf16): M tiles a warpgroup
+# at each N, as many as their accumulators and live A fragments leave
+# registers for
+WGMMA_SMALL_TILES = {8: 7, 16: 5, 32: 3, 64: 2}
+SMEM_MAX = 232448      # dynamic shared memory a block may use (H100)
 
 
 class WgmmaArgs(ctypes.Structure):
@@ -281,9 +198,11 @@ class WgmmaPlan(NamedTuple):
 
 
 def wgmma_small(plan: WgmmaPlan) -> bool:
-    """The small-N form: ``s8`` products below N = 128 without levels (T3,
-    T2), whose block spreads its tiles evenly over its warpgroups."""
-    return plan.elem == "s8" and plan.n_levels == 1 and plan.n_col < 128
+    """The small-N form: products below N = 128 without levels, ``s8``
+    (T3, T2) or bf16 on feature-major bins (T4a, T4b), whose block spreads
+    its tiles evenly over its warpgroups."""
+    return (plan.n_levels == 1 and plan.n_col < 128
+            and (plan.elem == "s8" or plan.feature_major))
 
 
 def wgmma_block_features(n_feat: int, b_pad: int,
@@ -350,12 +269,13 @@ def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
     multiple of the instruction's K: 16 rows in bf16, 32 in ``s8``).
 
     Row-major bins (T5, T1) are int32 or int16, feature-major ones (T6,
-    T7) int32 or uint8.  ``elem="s8"`` is the int8 product: at 64 nodes
-    (N = 128) T7's; with ``n_levels > 1`` (at 64 nodes) the levels form,
-    whose block of ``4 / lv_block`` tiles x ``lv_block`` levels keeps two
-    stages of its tiles' one-hot in shared memory; below N = 128 the
-    small-N form (T3 on feature-major int32 bins, T2 on row-major uint8
-    ones): Bp = B rounded up to 16, up to ``WGMMA_S8_TILES[N]`` tiles a
+    T7, T3, T4) int32 or uint8.  ``elem="s8"`` is the int8 product: at 64
+    nodes (N = 128) T7's; with ``n_levels > 1`` (at 64 nodes) the levels
+    form, whose block of ``4 / lv_block`` tiles x ``lv_block`` levels
+    keeps two stages of its tiles' one-hot in shared memory.  Below N =
+    128 the small-N form, in ``s8`` (T3 on feature-major int32 bins, T2 on
+    row-major uint8 ones) and in bf16 on feature-major int32 bins (T4a,
+    T4b): Bp = B rounded up to 16, up to ``WGMMA_SMALL_TILES[N]`` tiles a
     warpgroup, the tiles spread evenly over as few blocks as hold them,
     and a stage of 4,096 bins.  Raises ``NotImplementedError`` on what
     the kernel does not take."""
@@ -382,11 +302,15 @@ def wgmma_plan(n_feat: int, n_bin: int, n_node: int,
             f"n_node={n_node})")
     m_pad = min(n_node, M_TILE)
     n_col = next(n for n in WGMMA_COLS if n >= 2 * m_pad)
-    small = s8 and not levels and n_col < 128
+    small = (s8 or feature_major) and not levels and n_col < 128
+    if small and not s8 and bin_dtype != torch.int32:
+        raise NotImplementedError(
+            f"the bf16 small-N form (below {M_TILE // 2 + 1} nodes) reads "
+            f"feature-major int32 bins (got {bin_dtype})")
     b_q = 16 if small else 8
     b_pad = _cdiv(n_bin, b_q) * b_q
     n_tiles = _cdiv(n_feat * b_pad, 64)
-    tw = (WGMMA_S8_TILES[n_col] if small       # M tiles a warpgroup
+    tw = (WGMMA_SMALL_TILES[n_col] if small    # M tiles a warpgroup
           else 1 if n_col >= 128 or levels else 2)
     lv_block = wgmma_level_block(n_levels) if levels else 1
     if levels:
@@ -530,19 +454,21 @@ def _check_int_proto(bins, pos, gh, layout):
                         f"{gh.dtype})")
 
 
-# -------------------------------------------------------------- T3 / T2
-def _launch_int(name: str, bins: torch.Tensor, pos: torch.Tensor,
-                gh: torch.Tensor, m_pad: int, n_bin: int, r_tile: int,
-                feature_major: bool) -> torch.Tensor:
+# ------------------------------------------------------ T3 / T2 / T4
+def _launch_proto(name: str, bins: torch.Tensor, pos: torch.Tensor,
+                  gh: torch.Tensor, m_pad: int, n_bin: int, r_tile: int,
+                  feature_major: bool, elem: str) -> torch.Tensor:
     """T3's and T2's launch of the ``s8`` product on int32 gh ``(n, 2)``
-    and int32 pos over the first ``(n // r_tile) * r_tile`` rows:
-    ``(1, F * n_bin, 2 * m_pad)`` int32, nodes past 64 in node tiles."""
+    (int32 out), or T4a's and T4b's of the bf16 one on f32 gh (f32 out),
+    with int32 pos over the first ``(n // r_tile) * r_tile`` rows:
+    ``(1, F * n_bin, 2 * m_pad)``, nodes past 64 in node tiles."""
     F, n = bins.shape if feature_major else bins.shape[::-1]
-    out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.int32,
+    out = torch.zeros((1, F * n_bin, 2 * m_pad),
+                      dtype=torch.int32 if elem == "s8" else torch.float32,
                       device=bins.device)
     # no features: nothing to launch, though B and m_pad are still checked
     plan = wgmma_plan(max(F, 1), n_bin, m_pad, bins.dtype,
-                      feature_major=feature_major, elem="s8")
+                      feature_major=feature_major, elem=elem)
     if F == 0:
         return out
     return _launch_wgmma(name, 0, plan, bins, pos, gh, out,
@@ -572,8 +498,8 @@ def onehot_i8(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
                          f"{tuple(gh.shape)}, {r_tile}")
     if _device(binned_t, pos, gh) == "cpu":
         return onehot_i8_plain(binned_t, pos, gh, m_pad, n_bin, r_tile)
-    return _launch_int("onehot_i8", binned_t, pos, gh, m_pad, n_bin, r_tile,
-                       feature_major=True)
+    return _launch_proto("onehot_i8", binned_t, pos, gh, m_pad, n_bin,
+                         r_tile, feature_major=True, elem="s8")
 
 
 def onehot_i8_plain(binned_t, pos, gh, m_pad, n_bin=64, r_tile=2048):
@@ -596,8 +522,8 @@ def onehot_notrans(binned: torch.Tensor, pos: torch.Tensor,
                          f"{tuple(gh.shape)}, {r_tile}")
     if _device(binned, pos, gh) == "cpu":
         return onehot_notrans_plain(binned, pos, gh, m_pad, n_bin, r_tile)
-    return _launch_int("onehot_notrans", binned, pos, gh, m_pad, n_bin,
-                       r_tile, feature_major=False)
+    return _launch_proto("onehot_notrans", binned, pos, gh, m_pad, n_bin,
+                         r_tile, feature_major=False, elem="s8")
 
 
 def onehot_notrans_plain(binned, pos, gh, m_pad, n_bin=64, r_tile=2048):
@@ -794,10 +720,16 @@ def onehot_group_plain(binned, gh, pos, n_node, n_bin, fg=4, r_tile=2048,
 PACK2_MODES = ("prod", "pack2")
 
 
-def _check_pack2(binned_t, pos, gh, mode, name):
+def _check_t4(binned_t, pos, gh, r_tile, name):
+    _check_bf16_proto(binned_t, pos, gh, name, (torch.int32,))
+    if r_tile < 1:
+        raise ValueError(f"{name} takes r_tile >= 1, got {r_tile}")
+
+
+def _check_pack2(binned_t, pos, gh, mode, r_tile, name):
     if mode not in PACK2_MODES:
         raise ValueError(f"mode {mode!r}: expected 'prod' or 'pack2'")
-    _check_bf16_proto(binned_t, pos, gh, name, (torch.int32,))
+    _check_t4(binned_t, pos, gh, r_tile, name)
     if mode == "pack2" and binned_t.shape[0] % 2:
         raise ValueError(f"pack2 pairs features: F = {binned_t.shape[0]} "
                          "is odd (the prototype would drop the last one)")
@@ -809,31 +741,23 @@ def onehot_pack2(binned_t: torch.Tensor, pos: torch.Tensor, gh: torch.Tensor,
     """T4a: ``(1, F * n_bin, 2 * m_pad)`` f32 from feature-major int32 bins
     ``(F, n)``, pos ``(n, 1)`` and f32 gh ``(n, 2)`` rounded to bf16; rows
     past ``(n // r_tile) * r_tile`` are dropped.  ``mode`` "prod" takes
-    one feature a task, "pack2" two (F must be even)."""
-    _check_pack2(binned_t, pos, gh, mode, "T4a")
+    one feature a task, "pack2" two (F must be even).  On the card the
+    ``wgmma`` kernel's bf16 small-N form (N = 8-64; T6's instance above 32
+    nodes, node tiles of 64 above 64; B <= 255), the same launch in both
+    modes; ``r_tile`` only says where the tail is dropped."""
+    _check_pack2(binned_t, pos, gh, mode, r_tile, "T4a")
     if _device(binned_t, pos, gh) == "cpu":
         return onehot_pack2_plain(binned_t, pos, gh, m_pad, mode, n_bin,
                                   r_tile)
-    return _pack2_launch("onehot_pack2", binned_t, pos, gh, m_pad, n_bin,
-                         r_tile, 1 if mode == "prod" else 2)
-
-
-def _pack2_launch(name, binned_t, pos, gh, m_pad, n_bin, r_tile, fg):
-    F, n = binned_t.shape
-    out = torch.zeros((1, F * n_bin, 2 * m_pad), dtype=torch.float32,
-                      device=binned_t.device)
-    return _launch_group(name, binned_t, pos, gh, out, bin_sr=1, bin_sf=n,
-                         out_strides=(n_bin * 2 * m_pad, 2 * m_pad, m_pad, 1),
-                         n_rows=(n // r_tile) * r_tile, n_feat=F,
-                         n_bin=n_bin, m_pad=m_pad, n_node_out=m_pad, n_mt=1,
-                         r_tile=r_tile, fg=fg)
+    return _launch_proto("onehot_pack2", binned_t, pos, gh, m_pad, n_bin,
+                         r_tile, feature_major=True, elem="bf16")
 
 
 def onehot_pack2_plain(binned_t, pos, gh, m_pad, mode="prod", n_bin=64,
                        r_tile=2048):
     """Plain T4a (and T4b): the bf16 cells of the first whole tiles; the
     mode changes nothing here."""
-    _check_pack2(binned_t, pos, gh, mode, "T4a")
+    _check_pack2(binned_t, pos, gh, mode, r_tile, "T4a")
     n = (binned_t.shape[1] // r_tile) * r_tile
     return _bf16_proto_level(binned_t[:, :n], pos.reshape(-1)[:n], gh[:n],
                              n_bin, m_pad)[None]
@@ -843,12 +767,13 @@ def onehot_onebig(binned_t: torch.Tensor, pos: torch.Tensor,
                   gh: torch.Tensor, m_pad: int, n_bin: int = 64,
                   r_tile: int = 2048) -> torch.Tensor:
     """T4b: T4a's function with all F features in one task (the
-    prototype's one ``(F * B, R)`` product per row tile)."""
-    _check_bf16_proto(binned_t, pos, gh, "T4b", (torch.int32,))
+    prototype's one ``(F * B, R)`` product per row tile); on the card T4a's
+    launch (a block stages every feature of its M tiles anyway)."""
+    _check_t4(binned_t, pos, gh, r_tile, "T4b")
     if _device(binned_t, pos, gh) == "cpu":
         return onehot_onebig_plain(binned_t, pos, gh, m_pad, n_bin, r_tile)
-    return _pack2_launch("onehot_onebig", binned_t, pos, gh, m_pad, n_bin,
-                         r_tile, binned_t.shape[0])
+    return _launch_proto("onehot_onebig", binned_t, pos, gh, m_pad, n_bin,
+                         r_tile, feature_major=True, elem="bf16")
 
 
 def onehot_onebig_plain(binned_t, pos, gh, m_pad, n_bin=64, r_tile=2048):

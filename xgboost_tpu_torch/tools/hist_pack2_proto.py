@@ -5,14 +5,15 @@ Port of ``tools/hist_pack2_proto.py`` at its bench shape (1,007,616 x
 28 int32 bins, B = 64) and every real level size M = 1..32:
 
   prod    one feature a task (``cuda_hist_onehot.onehot_pack2``)
-  pack2   two features a task: the staged rows and the gh_exp operand
-          shared by the pair (on the TPU: a full 128-row MXU operand)
+  pack2   two features a task (on the TPU: a full 128-row MXU operand)
   onebig  all 28 features a task (``onehot_onebig``; the TPU's one
           (F * B, R) product per row tile), at r_tile 1024 and 2048
 
 each timed beside K1, the production scatter, in bf16 on the same rows,
-with a match check at M = 32 (pack2 and onebig against prod).  Sources
-``csrc/onehot_pack2.cu`` on the grouped kernel of ``onehot_mma.cuh``.
+with a match check at M = 32 (pack2 and onebig against prod).  On the
+card all three are one launch of ``csrc/onehot_pack2.cu``, the bf16
+small-N form of the ``wgmma`` kernel of ``onehot_wgmma.cuh`` (a block
+stages every feature of its M tiles whatever the mode).
 
 Usage: python -m xgboost_tpu_torch.tools.hist_pack2_proto [onebig]
 (with "onebig", ``main_onebig`` runs after ``main``, as in the JAX

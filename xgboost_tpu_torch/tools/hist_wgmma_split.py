@@ -1,7 +1,7 @@
 """Where the wgmma one-hot kernel spends its time, on the card.
 
 Times ``csrc/onehot_wgmma.cuh`` beside builds of the same source with one
-passage replaced, for one of two targets.
+passage replaced, for one of five targets.
 
 ``t1`` (the default): T1's ``onehot_group`` at the mains' shape (1M x 28
 int32 bins, B = 67, n_node = 64), A from registers:
@@ -41,16 +41,21 @@ M = 1, 4 and 32 (N = 8, 8, 64):
             fragment, so products never drain within a row step (drained
             before the stage hand-over)
 
+``t4``: T4a's ``onehot_pack2`` (T4b launches the same instance) in the
+small-N bf16 form at the same shape and M, the same seven variants, its
+``no-A`` a constant fragment in place of the byte permute, the compares
+and the widening.
+
 ``full`` (and ``2x2``; ``overlap`` and ``groups``) compute the histogram
-and are held bitwise against the plain version (T1 on bf16-exact
-gradients; T3 and T2 at all three M); the others do not.  A
+and are held bitwise against the plain version (T1 and T4 on bf16-exact
+gradients; T3, T2 and T4 at all three M); the others do not.  A
 variant whose passage is no longer in the source raises; one that nvcc
 does not build is reported and left out.  Each round times every variant
 once, the second round in reverse order.  Needs the card and ``nvcc``; the
 variants build into ``xgboost_tpu_torch/_build/split/``.
 
 Usage: python -m xgboost_tpu_torch.tools.hist_wgmma_split [reps]
-           [t1|t7|t3|t2]
+           [t1|t7|t3|t2|t4]
 """
 
 from __future__ import annotations
@@ -115,24 +120,23 @@ R5_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "no-mma": [("        ohw_mma_s8_ss(acc[0],",
                 "        if (kb < 0) ohw_mma_s8_ss(acc[0],")],
 }
-# the fragments of a k32 step and their products, as committed
+# the small-N form's fragments of a K step and their products, as
+# committed (shared by s8 and bf16)
+_MMA = "ohw_mma<N>(acc[T], af[T], desc0 + (uint64_t)((kb * 32 * N) >> 4));\n"
 _INT_HEAD = ("#pragma unroll\n        for (int T = 0; T < TW; ++T) {\n"
              "          if (T < ntw) {\n"
-             "            // the 16 A bytes of M rows g, g + 8 from two words\n")
+             "            if constexpr (S8) {\n")
 _INT_TAIL = ("          }\n        }\n        ohw_fence();\n#pragma unroll\n"
              "        for (int T = 0; T < TW; ++T)\n"
-             "          ohw_mma_s8n<N>(acc[T], af[T],\n"
-             "                         desc0 + (uint64_t)((kb * 32 * N) >> 4));\n"
+             "          " + _MMA +
              "        ohw_commit();\n"
-             "        // one wait a k32 step for all the warpgroup's tiles\n"
+             "        // one wait a K step for all the warpgroup's tiles\n"
              "        ohw_wait();\n")
 # the fragments stay live until their products' wait (a wgmma reads its A
 # registers until then)
 _INT_PIN = ("          asm volatile(\"\" ::\"r\"(af[T][0]), \"r\"(af[T][1]), "
             "\"r\"(af[T][2]), \"r\"(af[T][3]));\n")
-_INT_ISSUE = ("          ohw_fence();\n"
-              "          ohw_mma_s8n<N>(acc[T], af[T],\n"
-              "                         desc0 + (uint64_t)((kb * 32 * N) >> 4));\n")
+_INT_ISSUE = "          ohw_fence();\n          " + _MMA
 _WAIT = ("__device__ __forceinline__ void ohw_wait() {\n"
          "  asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: \"memory\");\n}\n")
 _WAIT_N = ("template <int K>\n__device__ __forceinline__ void ohw_wait_n() {\n"
@@ -140,29 +144,31 @@ _WAIT_N = ("template <int K>\n__device__ __forceinline__ void ohw_wait_n() {\n"
            ": \"memory\");\n}\n")
 _HANDOVER = ("      // hand the stages over: step s + 1 into the other stage (its "
              "last\n")
-_INT_BUILD = ("            // the 16 A bytes of M rows g, g + 8 from two words\n",
-              "          }\n        }\n        ohw_fence();\n#pragma unroll\n"
-              "        for (int T = 0; T < TW; ++T)\n          ohw_mma_s8n<N>")
+# the s8 and the bf16 A build (a passage from its first line up to the
+# end marker)
+_INT_BUILD = ("              // the 16 A bytes of M rows g, g + 8 from two words\n",
+              "            } else {\n")
+_T4_BUILD = ("              // the bf16 A of M rows g, g + 8",
+             "            }\n          }\n        }\n        ohw_fence();")
 _INT_LOAD = ("      if (s + 2 < n_steps)\n"
              "        load_step(r_begin + (long long)(s + 2) * KS);")
 _INT_COMMIT = ("        ohw_commit();\n"
-               "        // one wait a k32 step for all the warpgroup's tiles")
+               "        // one wait a K step for all the warpgroup's tiles")
 INT_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "full": [],
-    "no-A": [(_INT_BUILD, "            af[T][0] = s_key[T] ^ (uint32_t)w;\n"
-                          "            af[T][1] = s_key[T];\n"
-                          "            af[T][2] = (uint32_t)s_word[T];\n"
-                          "            af[T][3] = s_key[T] ^ (uint32_t)kb;\n")],
+    "no-A": [(_INT_BUILD, "              af[T][0] = s_key[T] ^ (uint32_t)w;\n"
+                          "              af[T][1] = s_key[T];\n"
+                          "              af[T][2] = (uint32_t)s_word[T];\n"
+                          "              af[T][3] = s_key[T] ^ (uint32_t)kb;\n")],
     "no-B": [("    if (nw >= 0) {", "    if (nw >= 0 && false) {")],
     "no-load": [(_INT_LOAD, _INT_LOAD.replace("n_steps)", "n_steps && false)"))],
-    "no-mma": [("          ohw_mma_s8n<N>(acc[T], af[T],",
-                "          if (kb < 0) ohw_mma_s8n<N>(acc[T], af[T],"),
+    "no-mma": [("          " + _MMA, "          if (kb < 0) " + _MMA),
                (_INT_COMMIT,
                 "        ohw_commit();\n#pragma unroll\n"
                 "        for (int T = 0; T < TW; ++T)\n"
                 "          asm volatile(\"\" ::\"r\"(af[T][0]), "
                 "\"r\"(af[T][1]), \"r\"(af[T][2]), \"r\"(af[T][3]));\n"
-                "        // one wait a k32 step")],
+                "        // one wait a K step")],
     "overlap": [(_INT_TAIL, "          }\n" + _INT_ISSUE + "        }\n"
                  "        ohw_commit();\n        ohw_wait();\n#pragma unroll\n"
                  "        for (int T = 0; T < TW; ++T)\n" + _INT_PIN)],
@@ -177,12 +183,22 @@ INT_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
                # store_step overwrites
                (_HANDOVER, "      ohw_wait();\n" + _HANDOVER)],
 }
+# T4a's bf16 small-N form: the same passages but its own A build
+T4_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    **INT_VARIANTS,
+    "no-A": [(_T4_BUILD, "              af[T][0] = s_key[T] ^ (uint32_t)kb;\n"
+                         "              af[T][1] = s_key[T];\n"
+                         "              af[T][2] = (uint32_t)s_word[T];\n"
+                         "              af[T][3] = ONE2 ^ (uint32_t)kb;\n")],
+}
 # per target: the source built, its variants, those that compute the
 # histogram
 TARGETS = {"t1": ("onehot_group", VARIANTS, ("full", "2x2")),
            "t7": ("onehot_r5", R5_VARIANTS, ("full",)),
            "t3": ("onehot_i8", INT_VARIANTS, ("full", "overlap", "groups")),
            "t2": ("onehot_notrans", INT_VARIANTS,
+                  ("full", "overlap", "groups")),
+           "t4": ("onehot_pack2", T4_VARIANTS,
                   ("full", "overlap", "groups"))}
 T7_N, T7_B, T7_LEVELS = 1_001_472, 64, 6
 INT_N, INT_B, INT_MS = 1_007_616, 64, (1, 4, 32)   # the T3 / T2 mains' shape
@@ -191,7 +207,8 @@ INT_N, INT_B, INT_MS = 1_007_616, 64, (1, 4, 32)   # the T3 / T2 mains' shape
 def variant_source(src: str, subs) -> str:
     for old, new in subs:
         if isinstance(old, tuple):
-            i, j = src.find(old[0]), src.find(old[1])
+            i = src.find(old[0])
+            j = src.find(old[1], max(i, 0))
             if i < 0 or j < i:
                 raise ValueError(f"passage {old} not in {HEADER}")
             src = src[:i] + new + src[j:]
@@ -311,13 +328,36 @@ def _int_calls(target):
     return calls
 
 
+def _t4_calls(dev):
+    """(check, timed calls) of T4a prod at the mains' shape, M = 1, 4 and
+    32: bf16-exact gradients held against the plain version, random ones
+    timed."""
+    rng = np.random.RandomState(0)
+    bins = torch.from_numpy(rng.randint(0, INT_B, (F, INT_N)).astype(
+        np.int32)).to(dev)
+    gh = torch.from_numpy(rng.randn(INT_N, 2).astype(np.float32)).to(dev)
+    dy = torch.from_numpy((rng.randint(-128, 128, (INT_N, 2)) / 64.0).astype(
+        np.float32)).to(dev)
+    pos = {m: torch.from_numpy(rng.randint(0, m, (INT_N, 1)).astype(
+        np.int32)).to(dev) for m in INT_MS}
+    fn = cuda_hist_onehot.onehot_pack2
+    want = torch.cat([cuda_hist_onehot.onehot_pack2_plain(
+        bins, pos[m], dy, m, n_bin=INT_B).flatten() for m in INT_MS])
+    print(f"wgmma one-hot kernel split (T4 at {INT_N} x {F}, B={INT_B}, "
+          f"M={INT_MS}, bf16) | {device_name(dev)}", flush=True)
+    return ((lambda: torch.cat([fn(bins, pos[m], dy, m, n_bin=INT_B).flatten()
+                                for m in INT_MS]), want),
+            {f"M={m}": (lambda m=m: fn(bins, pos[m], gh, m, n_bin=INT_B))
+             for m in INT_MS})
+
+
 CALLS = {"t1": _t1_calls, "t7": _t7_calls, "t3": _int_calls("t3"),
-         "t2": _int_calls("t2")}
+         "t2": _int_calls("t2"), "t4": _t4_calls}
 
 
 def main(reps: int = 20, target: str = "t1") -> Dict[str, List[float]]:
     """Times every variant in two rounds; returns its ms by name (and,
-    for t7, mode; for t3 and t2, M)."""
+    for t7, mode; for t3, t2 and t4, M)."""
     if not torch.cuda.is_available():
         raise RuntimeError("hist_wgmma_split times CUDA kernels: no GPU")
     if target not in TARGETS:
