@@ -34,7 +34,9 @@ Phases, in order; any failure exits non-zero:
   3. each kernel against its plain version on the card, at its paths'
      shapes and beyond (int8 bitwise; fp32 / bf16 bitwise on dyadic
      gradients, within the f32 summation bound on random ones; K3's tree
-     slices against solo K1 launches, bitwise);
+     slices against solo K1 launches, bitwise; K1 and K3 also at 1, 3
+     and 12,373 rows, 93 features, 24 trees, B = 1 and 256, 64 and 128
+     nodes, every row inactive, and 2% of the bins at B or above);
   4. each path: ``train`` with every launch count reset just before and
      read just after, its quality metric against a floor, the same
      rounds with the plain version forced (identical model bytes where
@@ -42,7 +44,8 @@ Phases, in order; any failure exits non-zero:
      kernel against the plain version on every level's real inputs;
   5. times on the card: ms per round, and per kernel call on the paths'
      real inputs the kernel's ms beside its bound, the plain version's
-     and one PyTorch call's (``index_add_``); for the lanes, the stacked
+     and one PyTorch call's (``index_add_``), with K1's and K3's launch
+     plan at each level (tiles, units, blocks); for the lanes, the stacked
      and the host-loop cycle (gate and publish left out, as
      ``tools/bench_lanes.py`` times them) and tenants per second.
 
@@ -237,15 +240,29 @@ def only(kernels, **launches):
 
 
 # ------------------------------------------------------------- phase 3
-def hist_case(torch, cuda_hist, N, F, B, M, mode, dyadic, seed, dev):
-    """One K1 comparison on the same CUDA tensors.  Returns
+def plant_bins(torch, bins, B, share, g, dev):
+    """Set ``share`` of the bins to values in [B, 256): binning never makes
+    them, and the kernels and their plain versions skip them."""
+    if share and B < 256:
+        hit = torch.rand(bins.shape, generator=g, device=dev) < share
+        bins[hit] = torch.randint(B, 256, (int(hit.sum()),), generator=g,
+                                  device=dev, dtype=torch.int32).to(
+                                      torch.uint8)
+    return bins
+
+
+def hist_case(torch, cuda_hist, N, F, B, M, mode, dyadic, seed, dev,
+              inactive=0.2, oob=0.0):
+    """One K1 comparison on the same CUDA tensors: ``inactive`` of the
+    rows at pos -1, ``oob`` of the bins planted at B or above.  Returns
     max |kernel - plain|."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, B, (N, F), generator=g, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     pos = torch.randint(0, M, (N,), generator=g, device=dev,
                         dtype=torch.int32)
-    pos[torch.rand(N, generator=g, device=dev) < 0.2] = -1
+    pos[torch.rand(N, generator=g, device=dev) < inactive] = -1
+    bins = plant_bins(torch, bins, B, oob, g, dev)
     if dyadic:  # multiples of 1/256: f32 sums exact in any order
         gh = torch.randint(-512, 512, (N, 2), generator=g, device=dev,
                            dtype=torch.int32).to(torch.float32) / 256.0
@@ -256,7 +273,8 @@ def hist_case(torch, cuda_hist, N, F, B, M, mode, dyadic, seed, dev):
     got = cuda_hist.level_histogram(bins, gh, pos, M, B, mode)
     want = cuda_hist.level_histogram_plain(bins, gh, pos, M, B, mode)
     torch.cuda.synchronize()
-    tag = f"K1 {mode} N={N} F={F} B={B} n_node={M} dyadic={dyadic}"
+    tag = (f"K1 {mode} N={N} F={F} B={B} n_node={M} dyadic={dyadic} "
+           f"inactive={inactive} oob={oob}")
     if got.shape != (F, B, 2, M) or got.dtype != want.dtype:
         fail(f"{tag}: shape {tuple(got.shape)} {got.dtype}")
     if mode == "int" or dyadic:
@@ -279,21 +297,32 @@ def hist_case(torch, cuda_hist, N, F, B, M, mode, dyadic, seed, dev):
 
 
 def phase_kernels(torch, cuda_hist, dev):
+    """K1 at the Higgs path's level shapes and beyond: (N, F, B, n_node,
+    share of rows inactive, share of bins planted at B or above)."""
     errs = {}
-    cases = [(N_TRAIN, N_FEAT, 64, m) for m in (1, 2, 4, 8, 16, 32, 128)]
-    cases += [(N_TRAIN, N_FEAT, 256, 64), (N_TRAIN, N_FEAT, 200, 8),
-              (1000, 3, 7, 3)]
-    for (n, f, b, m) in cases:
+    cases = [(N_TRAIN, N_FEAT, 64, m, 0.2, 0.0)
+             for m in (1, 2, 4, 8, 16, 32, 128)]
+    cases += [(N_TRAIN, N_FEAT, 256, 64, 0.2, 0.0),
+              (N_TRAIN, N_FEAT, 200, 8, 0.2, 0.0), (1000, 3, 7, 3, 0.2, 0.0),
+              (1, N_FEAT, 64, 1, 0.0, 0.0), (3, N_FEAT, 64, 2, 0.2, 0.0),
+              (12_373, N_FEAT, 64, 32, 0.2, 0.02),
+              (OTTO_N, OTTO_FEAT, 64, 32, 0.2, 0.0),
+              (100_000, N_FEAT, 1, 4, 0.2, 0.02),
+              (100_000, N_FEAT, 64, 64, 0.2, 0.0),
+              (100_000, N_FEAT, 64, 8, 1.0, 0.0),
+              (N_TRAIN, N_FEAT, 64, 16, 0.2, 0.02)]
+    for (n, f, b, m, inactive, oob) in cases:
         variants = [("int", False), ("fp32", True), ("bf16", True)]
-        if m in (1, 32, 128) or b != 64:
+        if m in (1, 32, 128) or b != 64 or oob:
             variants += [("fp32", False), ("bf16", False)]
         for mode, dyadic in variants:
             e = hist_case(torch, cuda_hist, n, f, b, m, mode, dyadic,
-                          seed=m * 7 + b, dev=dev)
+                          seed=m * 7 + b, dev=dev, inactive=inactive,
+                          oob=oob)
             key = mode + ("" if dyadic or mode == "int" else "_random_gh")
             errs[key] = max(errs.get(key, 0.0), e)
-        print(f"[K1] N={n} F={f} B={b} n_node={m}: int8 bitwise, fp32/bf16 "
-              "bitwise on dyadic gh"
+        print(f"[K1] N={n} F={f} B={b} n_node={m} inactive={inactive} "
+              f"bins>=B {oob}: int8 bitwise, fp32/bf16 bitwise on dyadic gh"
               + (", within bound on random gh" if len(variants) > 3 else ""),
               flush=True)
     print(f"[K1] max |kernel - plain| by mode: {json.dumps(errs)}",
@@ -301,16 +330,17 @@ def phase_kernels(torch, cuda_hist, dev):
 
 
 def batched_case(torch, kb, cuda_hist, N, F, B, T, M, mode, dyadic, seed,
-                 dev):
-    """One K3 comparison on the same CUDA tensors; in int mode also each
-    tree's slice against a solo K1 launch.  Returns max |kernel -
-    plain|."""
+                 dev, inactive=0.2, oob=0.0):
+    """One K3 comparison on the same CUDA tensors (rows and bins as
+    :func:`hist_case`); in int mode also each tree's slice against a
+    solo K1 launch.  Returns max |kernel - plain|."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, B, (N, F), generator=g, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     pos = torch.randint(0, M, (T, N), generator=g, device=dev,
                         dtype=torch.int32)
-    pos[torch.rand(T, N, generator=g, device=dev) < 0.2] = -1
+    pos[torch.rand(T, N, generator=g, device=dev) < inactive] = -1
+    bins = plant_bins(torch, bins, B, oob, g, dev)
     if dyadic:  # multiples of 1/256: f32 sums exact in any order
         gh = torch.randint(-512, 512, (T, N, 2), generator=g, device=dev,
                            dtype=torch.int32).to(torch.float32) / 256.0
@@ -322,7 +352,7 @@ def batched_case(torch, kb, cuda_hist, N, F, B, T, M, mode, dyadic, seed,
     want = kb.level_histogram_batched_plain(bins, gh, pos, M, B, mode)
     torch.cuda.synchronize()
     tag = (f"K3 {mode} N={N} F={F} B={B} T={T} n_node={M} "
-           f"dyadic={dyadic}")
+           f"dyadic={dyadic} inactive={inactive} oob={oob}")
     if got.shape != (F, B, 2, T * M) or got.dtype != want.dtype:
         fail(f"{tag}: shape {tuple(got.shape)} {got.dtype}")
     if mode == "int":
@@ -346,25 +376,36 @@ def batched_case(torch, kb, cuda_hist, N, F, B, T, M, mode, dyadic, seed,
 
 
 def phase_k3(torch, kb, cuda_hist, dev):
-    """K3 at the multiclass path's level shapes, otto's, a wide forest's
-    and B = 256."""
+    """K3 at the multiclass path's level shapes, otto's, a wide forest's,
+    B = 256 and beyond: (N, F, B, T, n_node, share of rows inactive,
+    share of bins planted at B or above)."""
     errs = {}
-    cases = [(MC_N, MC_FEAT, 64, MC_K, m) for m in (1, 2, 4, 8, 16, 32)]
-    cases += [(OTTO_N, OTTO_FEAT, 64, OTTO_K, m) for m in (1, 32)]
-    cases += [(MC_N, MC_FEAT, 64, 24, m) for m in (8, 32)]
-    cases += [(MC_N, MC_FEAT, 256, MC_K, m) for m in (8, 64)]
-    cases += [(1000, 3, 7, 3, 3)]
-    for (n, f, b, t, m) in cases:
+    cases = [(MC_N, MC_FEAT, 64, MC_K, m, 0.2, 0.0)
+             for m in (1, 2, 4, 8, 16, 32)]
+    cases += [(OTTO_N, OTTO_FEAT, 64, OTTO_K, m, 0.2, 0.0)
+              for m in (1, 8, 32)]
+    cases += [(MC_N, MC_FEAT, 64, 24, m, 0.2, 0.0) for m in (8, 32, 64)]
+    cases += [(MC_N, MC_FEAT, 256, MC_K, m, 0.2, 0.0) for m in (8, 64)]
+    cases += [(1000, 3, 7, 3, 3, 0.2, 0.0), (1, MC_FEAT, 64, MC_K, 1, 0.0, 0.0),
+              (3, MC_FEAT, 64, MC_K, 2, 0.2, 0.0),
+              (12_373, MC_FEAT, 64, MC_K, 32, 0.2, 0.02),
+              (MC_N, MC_FEAT, 1, MC_K, 4, 0.2, 0.02),
+              (MC_N, MC_FEAT, 64, MC_K, 128, 0.2, 0.0),
+              (MC_N, MC_FEAT, 64, MC_K, 8, 1.0, 0.0),
+              (MC_N, MC_FEAT, 64, MC_K, 16, 0.2, 0.02)]
+    for (n, f, b, t, m, inactive, oob) in cases:
         variants = [("int", False), ("fp32", True), ("bf16", True)]
-        if m in (1, 32) or b != 64:
+        if m in (1, 32) or b != 64 or oob:
             variants += [("fp32", False), ("bf16", False)]
         for mode, dyadic in variants:
             e = batched_case(torch, kb, cuda_hist, n, f, b, t, m, mode,
-                             dyadic, seed=m * 7 + b + t, dev=dev)
+                             dyadic, seed=m * 7 + b + t, dev=dev,
+                             inactive=inactive, oob=oob)
             key = mode + ("" if dyadic or mode == "int" else "_random_gh")
             errs[key] = max(errs.get(key, 0.0), e)
-        print(f"[K3] N={n} F={f} B={b} T={t} n_node={m}: int8 bitwise and "
-              "each tree == solo K1, fp32/bf16 bitwise on dyadic gh"
+        print(f"[K3] N={n} F={f} B={b} T={t} n_node={m} inactive={inactive} "
+              f"bins>=B {oob}: int8 bitwise and each tree == solo K1, "
+              "fp32/bf16 bitwise on dyadic gh"
               + (", within bound on random gh" if len(variants) > 3 else ""),
               flush=True)
     print(f"[K3] max |kernel - plain| by mode: {json.dumps(errs)}",
@@ -1064,7 +1105,15 @@ def check_lanes_levels(torch, k4, cuda_hist, captured, rows):
 
 
 # ------------------------------------------------------------- phase 5
+def plan_text(kb, name, N, F, nb, T, M, mode, dev):
+    """The scatter launch plan K1 or K3 takes at this level."""
+    p = kb.launch_plan(name, N, F, nb, T, M, mode, dev)
+    return (f"plan f_tile {p.f_tile} t_tile {p.t_tile} m_tile {p.m_tile} "
+            f"units {p.n_units} blocks {p.grid}")
+
+
 def phase_times(torch, cuda_hist, captured, card):
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
     rows = []
     for bins, gh, pos, M, nb, mode in captured:
         N, F = bins.shape
@@ -1093,12 +1142,13 @@ def phase_times(torch, cuda_hist, captured, card):
         bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S) * 1e3
         by = "bytes" if nbytes / PEAK_BYTES_S >= ops / PEAK_OPS_S \
             else "operations"
+        plan = plan_text(kb, "hist_level", N, F, nb, 1, M, mode, bins.device)
         rows.append(dict(n_node=M, active_rows=active, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=by))
         print(f"[time] K1 n_node={M}: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
-              f"{by}; plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms) "
-              f"| {card}", flush=True)
+              f"{by}; plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms; "
+              f"{plan}) | {card}", flush=True)
     return rows
 
 
@@ -1141,11 +1191,13 @@ def time_k3(torch, kb, captured, card):
         # once; one addition per (active pair, feature, channel)
         bound_ms, by = bound_of(4 * T * N + any_rows * F + 8 * pairs
                                 + cells * 4, pairs * F * 2)
+        plan = plan_text(kb, "hist_batched", N, F, nb, T, M, mode,
+                         bins.device)
         rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
         print(f"[time] K3 T={T} n_node={M}: {ms:.4f} ms (bound "
               f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
-              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+              f"index_add_ {lib_ms:.4f} ms; {plan}) | {card}", flush=True)
     return rows
 
 

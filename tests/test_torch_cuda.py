@@ -23,17 +23,37 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _plant(rng, bins, B, share):
+    """Set ``share`` of the bins to values in [B, 256): binning never
+    makes them, the kernels and their plain versions skip them."""
+    if share and B < 256:
+        hit = rng.rand(*bins.shape) < share
+        bins[hit] = rng.randint(B, 256, int(hit.sum()))
+    return bins
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int", "fp32", "bf16"])
-def test_hist_level_kernel_matches_plain(cuda_device, mode):
+@pytest.mark.parametrize("N,F,B,M,inactive,oob", [
+    (20000, 6, 64, 16, 0.2, 0.0),
+    (1, 28, 64, 1, 0.0, 0.0),         # one row
+    (3, 28, 64, 2, 0.2, 0.0),
+    (12373, 28, 64, 32, 0.2, 0.02),   # odd rows, 2% of bins >= B
+    (5000, 93, 64, 8, 0.2, 0.0),      # otto's width
+    (3000, 5, 1, 4, 0.2, 0.02),       # B = 1
+    (4000, 4, 256, 64, 0.2, 0.0),     # B = 256
+    (3000, 6, 64, 128, 0.2, 0.0),     # 128 nodes: node tiles
+    (2000, 6, 64, 8, 1.0, 0.0),       # every row inactive
+])
+def test_hist_level_kernel_matches_plain(cuda_device, mode, N, F, B, M,
+                                         inactive, oob):
     """Bitwise: int sums are exact, and fp32 / bf16 sums of dyadic
     gradients (multiples of 1/256) are exact in any order."""
     rng = np.random.RandomState(2)
-    N, F, B, M = 20000, 6, 64, 16
-    bins = rng.randint(0, B, (N, F)).astype(np.uint8)
+    bins = _plant(rng, rng.randint(0, B, (N, F)).astype(np.uint8), B, oob)
     gh = (rng.randint(-512, 512, (N, 2)) / 256.0).astype(np.float32)
     pos = rng.randint(0, M, N).astype(np.int32)
-    pos[rng.rand(N) < 0.2] = -1
+    pos[rng.rand(N) < inactive] = -1
     gh_t = torch.from_numpy(gh)
     if mode == "int":
         gh_t = cuda_hist.quantize_gh(gh_t)[0]
@@ -47,33 +67,44 @@ def test_hist_level_kernel_matches_plain(cuda_device, mode):
     assert torch.equal(got, want)
 
 
-def _batched_case(dev, T, N, F, B, M, seed, dyadic=True):
+def _batched_case(dev, T, N, F, B, M, seed, dyadic=True, inactive=0.2,
+                  oob=0.0):
     rng = np.random.RandomState(seed)
-    bins = torch.from_numpy(rng.randint(0, B, (N, F)).astype(np.uint8))
+    bins = torch.from_numpy(_plant(rng, rng.randint(0, B, (N, F)).astype(
+        np.uint8), B, oob))
     if dyadic:
         gh = (rng.randint(-512, 512, (T, N, 2)) / 256.0).astype(np.float32)
     else:
         gh = rng.randn(T, N, 2).astype(np.float32)
     pos = rng.randint(0, M, (T, N)).astype(np.int32)
-    pos[rng.rand(T, N) < 0.2] = -1
+    pos[rng.rand(T, N) < inactive] = -1
     return (bins.to(dev), torch.from_numpy(gh).to(dev),
             torch.from_numpy(pos).to(dev))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int", "fp32", "bf16"])
-@pytest.mark.parametrize("T,N,F,B,M", [
-    (6, 20000, 28, 64, 32),     # multiclass, depth 5
-    (9, 5000, 93, 64, 4),       # otto: many feature tiles
-    (24, 3000, 5, 16, 8),       # wide forest: three tree tiles
-    (3, 4000, 4, 256, 64),      # B = 256: node tiles shrink to fit
+@pytest.mark.parametrize("T,N,F,B,M,inactive,oob", [
+    (6, 20000, 28, 64, 32, 0.2, 0.0),     # multiclass, depth 5
+    (9, 5000, 93, 64, 4, 0.2, 0.0),       # otto: many feature tiles
+    (24, 3000, 5, 16, 8, 0.2, 0.0),       # wide forest: tree tiles
+    (3, 4000, 4, 256, 64, 0.2, 0.0),      # B = 256: node tiles
+    (6, 1, 28, 64, 1, 0.0, 0.0),          # one row
+    (6, 3, 28, 64, 2, 0.2, 0.0),
+    (6, 12373, 28, 64, 32, 0.2, 0.02),    # odd rows, 2% of bins >= B
+    (9, 3000, 93, 64, 32, 0.2, 0.0),      # otto at 32 nodes
+    (24, 2000, 28, 64, 16, 0.2, 0.0),
+    (3, 2000, 5, 1, 4, 0.2, 0.02),        # B = 1
+    (2, 2000, 6, 64, 128, 0.2, 0.0),      # 128 nodes
+    (6, 2000, 6, 64, 8, 1.0, 0.0),        # every row inactive
 ])
 def test_hist_batched_kernel_matches_plain(cuda_device, mode, T, N, F, B,
-                                           M):
+                                           M, inactive, oob):
     """K3 against its plain version, bitwise: int sums are exact, fp32
     and bf16 sums of dyadic gradients are exact in any order."""
     from xgboost_tpu_torch.ops import cuda_hist_batched as kb
-    bins, gh, pos = _batched_case(cuda_device, T, N, F, B, M, seed=T + M)
+    bins, gh, pos = _batched_case(cuda_device, T, N, F, B, M, seed=T + M,
+                                  inactive=inactive, oob=oob)
     if mode == "int":
         gh = cuda_hist.quantize_gh(gh)[0]
     before = kb.launches
@@ -83,6 +114,49 @@ def test_hist_batched_kernel_matches_plain(cuda_device, mode, T, N, F, B,
     assert kb.launches == before + 1
     assert got.shape == (F, B, 2, T * M)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_hist_level_from_threads_at_mixed_levels(cuda_device):
+    """K1 launched from four threads at once, each at its own level and
+    so with its own shared memory, as the lanes' host loop launches it:
+    every launch succeeds and equals the plain version (int mode)."""
+    import threading
+    N, F, B = 12288, 28, 64
+    cases = []
+    for i, M in enumerate((1, 8, 32, 128)):
+        rng = np.random.RandomState(40 + i)
+        bins = rng.randint(0, B, (N, F)).astype(np.uint8)
+        gh = (rng.randint(-512, 512, (N, 2)) / 256.0).astype(np.float32)
+        pos = rng.randint(0, M, N).astype(np.int32)
+        args = [t.to(cuda_device) for t in (
+            torch.from_numpy(bins),
+            cuda_hist.quantize_gh(torch.from_numpy(gh))[0],
+            torch.from_numpy(pos))]
+        cases.append((args, M,
+                      cuda_hist.level_histogram_plain(*args, M, B, "int")))
+    torch.cuda.synchronize()
+    errors = []
+    start = threading.Barrier(len(cases))
+
+    def run(args, M, want):
+        try:
+            start.wait()
+            for _ in range(50):
+                got = cuda_hist.level_histogram(*args, M, B, "int")
+                torch.cuda.current_stream().synchronize()
+                if not torch.equal(got, want):
+                    errors.append(f"n_node={M}: != plain")
+                    return
+        except Exception as e:   # a failed launch raises RuntimeError
+            errors.append(f"n_node={M}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=c) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
 
 
 @pytest.mark.cuda

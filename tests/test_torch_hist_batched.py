@@ -166,21 +166,83 @@ def test_plain_batched_equals_plain_k1_per_tree():
                                b_t, gh_t[t], pos_t[t], M, B, "fp32"))
 
 
-@pytest.mark.parametrize("T,N,F,B,M", [(1, 10**6, 28, 64, 32),
-                                       (6, 200_000, 28, 64, 32),
-                                       (6, 200_000, 28, 64, 1),
-                                       (9, 200_000, 93, 64, 32),
-                                       (24, 200_000, 28, 64, 16),
-                                       (6, 200_000, 28, 256, 64),
-                                       (3, 10, 3, 7, 3)])
-def test_batched_tiling_covers_and_fits_shared_memory(T, N, F, B, M):
-    f_tile, t_tile, m_tile, n_rb, rpb, smem = kb.tiling(N, F, B, T, M, 132)
-    assert n_rb * rpb >= N and (n_rb - 1) * rpb < N
-    assert 1 <= f_tile <= F and 1 <= t_tile <= min(T, kb.T_TILE_MAX)
-    assert 1 <= m_tile <= min(M, kb.M_TILE_MAX)
-    assert smem == f_tile * B * 2 * t_tile * m_tile * 4 <= kb.SMEM_MAX
-    if smem > kb.SMEM_BUDGET:   # one feature alone exceeds the budget
-        assert f_tile == 1
+@pytest.mark.parametrize("N,F,B,T,M,max_blocks", [
+    (10**6, 28, 64, 1, 1, None),        # Higgs (K1), root
+    (10**6, 28, 64, 1, 32, None),       # Higgs, depth 5
+    (200_000, 28, 64, 6, 1, None),      # multiclass (K3), root
+    (200_000, 28, 64, 6, 32, None),     # multiclass, depth 5
+    (200_000, 28, 64, 6, 32, 64),       # fewer blocks resident
+    (200_000, 93, 64, 9, 32, None),     # otto
+    (12_288, 28, 64, 1, 8, None),       # a lanes tenant (K1)
+    (200_000, 28, 64, 24, 16, None),    # a wide forest
+    (200_000, 28, 256, 6, 64, None),    # B = 256
+    (10**6, 28, 64, 1, 128, None),      # 128 nodes
+    (10, 3, 7, 3, 3, None),             # N = 10
+])
+@pytest.mark.parametrize("n_sm", [132, 114])     # H100 SXM, H100 PCIe
+def test_scatter_plan_covers_and_fits_shared_memory(N, F, B, T, M,
+                                                    max_blocks, n_sm):
+    """K1's and K3's launch plan: every (feature, tree, node) cell in one
+    unit, every unit walked by one group of blocks, every row in one step
+    of one copy, histogram and staging within a block's shared memory,
+    and one wave of blocks on a card of ``n_sm`` SMs."""
+    p = kb.scatter_plan(N, F, B, T, M, n_sm, kb.SMEM_SM, max_blocks)
+    n_t, n_m = -(-T // p.t_tile), -(-M // p.m_tile)
+    assert p.n_units == -(-F // p.f_tile) * n_t * n_m
+    owner = np.zeros((F, T, M), dtype=np.int64)
+    for u in range(p.n_units):              # the kernel's unit order
+        mi, ti, fi = u % n_m, (u // n_m) % n_t, u // (n_m * n_t)
+        owner[fi * p.f_tile:(fi + 1) * p.f_tile,
+              ti * p.t_tile:(ti + 1) * p.t_tile,
+              mi * p.m_tile:(mi + 1) * p.m_tile] += 1
+    assert (owner == 1).all()
+    walked = sorted(u for g in range(p.n_groups)
+                    for u in range(g, p.n_units, p.n_groups))
+    assert walked == list(range(p.n_units))
+    rows = np.zeros(N, dtype=np.int64)
+    for c in range(p.copies):
+        rb, re = c * p.rows_per_copy, min(N, (c + 1) * p.rows_per_copy)
+        for r0 in range(rb, re, p.rows_per_step):
+            rows[r0:min(re, r0 + p.rows_per_step)] += 1
+    assert (rows == 1).all()
+    assert p.rows_per_copy % 16 == 0 and p.rows_per_step % 16 == 0
+    assert p.rows_per_step <= 65_536          # a list entry holds the row
+    assert p.bin_pitch % 2 == 1 and p.bin_pitch >= B
+    assert p.hist_bytes >= 8 * p.f_tile * p.t_tile * p.m_tile * p.bin_pitch
+    assert p.smem == kb.smem_bytes(p.hist_bytes, p.t_tile,
+                                   p.rows_per_step) <= 232_448
+    assert p.grid == p.n_groups * p.copies
+    assert p == kb.tile_plan(N, F, B, T, M, p.f_tile, p.t_tile, p.m_tile,
+                             n_sm, kb.SMEM_SM, max_blocks)
+    resident = min(kb.SMEM_SM // (p.smem + kb.SMEM_RESERVED),
+                   2048 // kb.THREADS) * n_sm
+    assert p.grid <= min(resident, max_blocks or resident)
+    if (N, T, M) == (200_000, 6, 32):
+        assert p.f_tile > 1      # pos and gh not re-read for every feature
+
+
+def test_scatter_split_passages_are_in_the_header():
+    """``tools/hist_scatter_split`` builds the scatter kernel with
+    passages of ``csrc/hist_scatter.cuh`` replaced, on the card only:
+    each variant's passages are found exactly once in the header as it
+    stands, every variant but ``full`` changes it, and its braces still
+    pair; the cluster variants launch clusters and cut the plan's copies
+    to a multiple of their cluster size."""
+    from xgboost_tpu_torch.ops import nvcc
+    from xgboost_tpu_torch.tools import hist_scatter_split as split
+    src = (nvcc.CSRC / split.SCATTER_HEADER).read_text()
+    for name, files in split.SCATTER_VARIANTS.items():
+        assert set(files) <= {split.SCATTER_HEADER}
+        out = split.variant_text(src, files.get(split.SCATTER_HEADER, []),
+                                 split.SCATTER_HEADER)
+        assert (out == src) == (name == "full"), name
+        assert out.count("{") - out.count("}") == 0
+        assert ("map_shared_rank" in out) == (name in split.CLUSTERS)
+    p = kb.scatter_plan(200_000, 28, 64, 6, 1)
+    for name, c in split.CLUSTERS.items():
+        q = split._cluster_plan(c)(p, 200_000)
+        assert q.copies % c == 0 and q.grid == q.n_groups * q.copies
+        assert q.copies * q.rows_per_copy >= 200_000
 
 
 def test_batched_wrapper_checks_inputs():

@@ -1,13 +1,12 @@
-// One block's share of a level histogram: the device code that K1
-// (hist_level.cu) and K4 (hist_lanes.cu) launch.
+// One block's share of a level histogram: the device code of K4
+// (hist_lanes.cu) only.  K1 and K3 run the scatter of hist_scatter.cuh.
 //
 // The block keeps a private (nf, B, 2, m_tile) histogram in shared memory,
 // its threads stride rows [r_begin, r_end) and add with shared-memory
 // atomics, and the block flushes its non-zero cells into a zeroed
 // (F, B, 2, n_col) output with global atomics, node j of its tile landing
-// in column col0 + j.  K1 writes one tree's n_node columns (col0 = m0);
-// K4 writes lane l's columns of an L * n_node wide output
-// (col0 = l * n_node + m0).
+// in column col0 + j: K4 writes lane l's columns of an L * n_node wide
+// output (col0 = l * n_node + m0).
 //
 // Modes (template MODE):
 //   0 fp32  -- f32 gh, f32 atomics.  Exact f32 additions; the order of the

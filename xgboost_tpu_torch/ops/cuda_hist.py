@@ -2,8 +2,11 @@
 
 Replaces the TPU kernel ``xgboost_tpu/ops/pallas_hist.py:_hist_kernel``
 (launched through ``_hist_pallas_pre``).  The CUDA source is
-``csrc/hist_level.cu``; this module holds its wrapper, its plain PyTorch
-version and its launch count.
+``csrc/hist_level.cu``: the scatter kernel of ``csrc/hist_scatter.cuh``
+at T = 1, planned and launched as K3's (:mod:`.cuda_hist_batched`).
+This module holds K1's wrapper, its plain PyTorch version, its launch
+count, and :func:`tiling`, the row-block plan of K4 (``hist_lanes.cu``
+on ``hist_block.cuh``).
 
 The function: for every row ``r`` with ``pos[r] >= 0`` and every feature
 ``f``, add ``gh[r]`` into the cell ``[f, bins[r, f], :, pos[r]]`` of a
@@ -21,13 +24,11 @@ reads).  Three modes:
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import Tuple
 
 import torch
 
-from xgboost_tpu_torch.ops import nvcc
 
 MODES = {"fp32": 0, "bf16": 1, "int": 2}
 THREADS = 256
@@ -114,47 +115,18 @@ def level_histogram(bins: torch.Tensor, gh: torch.Tensor, pos: torch.Tensor,
 
 def _launch(bins, gh, pos, n_node, n_bin, mode):
     global launches
-    if not (gh.device == pos.device == bins.device):
-        raise ValueError("bins, gh and pos must be on one device")
-    if bins.dtype != torch.uint8 or n_bin > 256:
-        raise NotImplementedError(
-            f"the CUDA histogram takes u8 bins with B <= 256 (got "
-            f"{bins.dtype}, B={n_bin})")
-    if not (bins.is_contiguous() and gh.is_contiguous()
-            and pos.is_contiguous()) or gh.data_ptr() % 8:
-        raise ValueError("bins, gh and pos must be contiguous, gh 8-aligned")
-    N, F = bins.shape
-    acc = torch.int32 if mode == "int" else torch.float32
-    out = torch.zeros((F, n_bin, 2, n_node), dtype=acc, device=bins.device)
-    if N == 0 or F == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    f_tile, m_tile, n_rb, rpb, smem = tiling(N, F, n_bin, n_node, n_sm)
-    lib = _lib()
-    with torch.cuda.device(bins.device):   # the launch targets this card
-        stream = torch.cuda.current_stream(bins.device).cuda_stream
-        rc = lib.hist_level_launch(
-            MODES[mode], bins.data_ptr(), pos.data_ptr(), gh.data_ptr(),
-            out.data_ptr(), N, F, n_bin, n_node, f_tile, m_tile, n_rb, rpb,
-            THREADS, smem, stream)
-    if rc != 0:
-        raise RuntimeError("hist_level kernel launch failed: "
-                           + lib.hist_level_error_string(rc).decode())
+    # K1 is K3's scatter kernel at T = 1 (csrc/hist_scatter.cuh); the plan
+    # and the launch live beside K3's wrapper, which imports this module
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
+    out = kb.scatter_launch("hist_level", bins, gh, pos, 1, n_node, n_bin,
+                            mode)
+    if out is None:
+        acc = torch.int32 if mode == "int" else torch.float32
+        return torch.zeros((bins.shape[1], n_bin, 2, n_node), dtype=acc,
+                           device=bins.device)
     with _COUNT_LOCK:     # lane threads launch at once
         launches += 1
     return out
-
-
-def _lib() -> ctypes.CDLL:
-    lib = nvcc.load("hist_level")
-    if lib.hist_level_launch.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hist_level_launch.argtypes = [I, P, P, P, P, L, I, I, I, I, I,
-                                          I, L, I, L, P]
-        lib.hist_level_launch.restype = I
-        lib.hist_level_error_string.argtypes = [I]
-        lib.hist_level_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def level_histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
@@ -163,7 +135,8 @@ def level_histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     """Plain PyTorch K1 on any device: flat cell index
     ``((f * B + bin) * 2 + c) * n_node + pos`` and one ``index_add_``;
     inactive rows add into a dump cell that is cut off (the "drop" of
-    the JAX scatter, ``ops/histogram.py:284-294``).  On the CPU the adds
+    the JAX scatter, ``ops/histogram.py:284-294``), and so do bins >= B,
+    which binning never makes and the kernel skips.  On the CPU the adds
     run in row order, the order of the JAX scatter."""
     _check(bins, gh, pos, n_node, n_bin, mode)
     N, F = bins.shape
@@ -172,11 +145,13 @@ def level_histogram_plain(bins: torch.Tensor, gh: torch.Tensor,
     if mode == "bf16":
         gh = gh.to(torch.bfloat16).to(torch.float32)
     f_ids = torch.arange(F, dtype=torch.int64, device=dev)
-    base = ((f_ids[None, :] * n_bin + bins.to(torch.int64)) * 2) * n_node \
+    b64 = bins.to(torch.int64)
+    base = ((f_ids[None, :] * n_bin + b64) * 2) * n_node \
         + pos.to(torch.int64)[:, None]                       # (N, F)
     chan = torch.tensor([0, n_node], dtype=torch.int64, device=dev)
     idx = base[:, :, None] + chan                            # (N, F, 2)
-    idx = torch.where((pos >= 0)[:, None, None], idx, n_cells)
+    keep = (pos >= 0)[:, None] & (b64 < n_bin)               # (N, F)
+    idx = torch.where(keep[:, :, None], idx, n_cells)
     src = gh[:, None, :].expand(N, F, 2)
     out = torch.zeros(n_cells + 1, dtype=gh.dtype, device=dev)
     out.index_add_(0, idx.reshape(-1), src.reshape(-1))

@@ -3,8 +3,10 @@ hand-written CUDA.
 
 Replaces the TPU kernel ``xgboost_tpu/ops/pallas_hist.py:
 _batched_hist_kernel`` (launched through ``_hist_pallas_batched_pre``).
-The CUDA source is ``csrc/hist_batched.cu``; this module holds its
-wrapper, its plain PyTorch version and its launch count.
+The CUDA source is ``csrc/hist_batched.cu``, which binds the scatter
+kernel of ``csrc/hist_scatter.cuh`` for any T (K1 binds it at T = 1);
+this module holds the launch plan of both (:func:`scatter_plan`), their
+launch, K3's wrapper, its plain PyTorch version and its launch count.
 
 The function: for every tree ``t``, every row ``r`` with
 ``pos[t, r] >= 0`` and every feature ``f``, add ``gh[t, r]`` into the
@@ -24,18 +26,26 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from xgboost_tpu_torch.ops import nvcc
-from xgboost_tpu_torch.ops.cuda_hist import (BLOCKS_PER_SM, MODES, THREADS,
-                                             level_histogram_plain)
+from xgboost_tpu_torch.ops.cuda_hist import MODES, level_histogram_plain
 
-T_TILE_MAX = 8                 # trees per block (csrc/hist_batched.cu)
-M_TILE_MAX = 64                # nodes per block
-SMEM_BUDGET = 96 * 1024        # per block: two blocks fit on an SM
-SMEM_MAX = 227 * 1024          # the opt-in limit of one block on Hopper
+THREADS = 1024                 # a block (csrc/hist_scatter.cuh)
+SMEM_MAX = 232_448             # the opt-in limit of one block on Hopper
+SMEM_SM = 233_472              # an SM's shared memory (228 KB)
+SMEM_RESERVED = 1024           # the runtime's share of each resident block
+PAIRS_PER_STEP = 2048          # (row, tree) pairs a step lists
+# weights of the plan's cost, in bytes, set by hand (PERF.md says how the
+# tilings they choose compare with their neighbours on the card): a global
+# atomic at the flush; a shared-memory addition where fewer blocks than SMs
+# run; and a block's step (its three barriers and a round trip to L2 for
+# its rows' pos, ~0.3 us of a card that streams ~5 TB/s from L2)
+ATOMIC_BYTES = 16
+ADD_BYTES = 4
+STEP_BYTES = 1.5e6
 
 # launches of the CUDA kernel by level_histogram_batched (never by the
 # plain version)
@@ -49,31 +59,156 @@ def reset_launches() -> None:
         launches = 0
 
 
-def tiling(n_rows: int, n_feat: int, n_bin: int, n_tree: int, n_node: int,
-           n_sm: int) -> Tuple[int, int, int, int, int, int]:
-    """(f_tile, t_tile, m_tile, n_row_blocks, rows_per_block, smem_bytes)
-    of one launch.  A block's shared histogram holds f_tile features x B
-    bins x 2 channels x t_tile trees x m_tile nodes of 4 bytes; node
-    tiles, then tree tiles, halve until one feature fits in a block's
-    shared memory; features fill the budget; enough row blocks give
-    every SM several blocks."""
-    t_tile = min(n_tree, T_TILE_MAX)
-    m_tile = min(n_node, M_TILE_MAX)
+class ScatterPlan(NamedTuple):
+    """One launch of the scatter kernel (``csrc/hist_scatter.cuh``)."""
+    f_tile: int
+    t_tile: int
+    m_tile: int
+    n_units: int          # feature tiles x tree tiles x node tiles
+    copies: int           # blocks a unit
+    n_groups: int         # groups of ``copies`` blocks; each walks units
+    rows_per_copy: int    # a multiple of 16
+    rows_per_step: int    # R, a multiple of 16
+    bin_pitch: int        # B | 1
+    hist_bytes: int       # two planes of f_tile x t_tile x m_tile x bin_pitch
+    smem: int             # smem_bytes(): histogram and pair list
+    grid: int             # n_groups x copies: one wave
+    cost: float           # the bytes-like cost the plan minimised
 
-    def per_feat():
-        return n_bin * 2 * t_tile * m_tile * 4
-    while per_feat() > SMEM_MAX and m_tile > 1:
-        m_tile = -(-m_tile // 2)
-    while per_feat() > SMEM_MAX and t_tile > 1:
-        t_tile = -(-t_tile // 2)
-    f_tile = max(1, min(n_feat, SMEM_BUDGET // per_feat()))
-    n_tiles = (-(-n_feat // f_tile)) * (-(-n_tree // t_tile)) \
-        * (-(-n_node // m_tile))
-    want = max(1, -(-BLOCKS_PER_SM * n_sm // n_tiles))
-    n_row_blocks = max(1, min(want, -(-n_rows // THREADS)))
-    rows_per_block = -(-max(n_rows, 1) // n_row_blocks)
-    return (f_tile, t_tile, m_tile, n_row_blocks, rows_per_block,
-            f_tile * per_feat())
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _tile_sizes(n: int):
+    """The distinct tile sizes that cut ``n`` into equal-count tiles."""
+    return sorted({-(-n // k) for k in range(1, n + 1)})
+
+
+def smem_bytes(hist: int, t_tile: int, rows: int) -> int:
+    """A block's shared memory: the histogram and the step's list of
+    (row, tree) pairs (a 16-byte header, 4 bytes a pair)."""
+    return hist + 16 + 4 * t_tile * rows
+
+
+def scatter_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
+                 n_node: int, n_sm: int = 132, smem_per_sm: int = SMEM_SM,
+                 max_blocks: Optional[int] = None) -> ScatterPlan:
+    """The (f_tile, t_tile, m_tile) units and the copies of one launch of
+    the scatter kernel, pure Python: of the tilings that fit
+    (:func:`tile_plan`), the one of least cost in bytes
+    (:func:`plan_cost`), then the fewest units, then the widest node
+    tile."""
+    best = None
+    for f_tile in _tile_sizes(n_feat):
+        for t_tile in _tile_sizes(n_tree):
+            for m_tile in _tile_sizes(n_node):
+                plan = tile_plan(n_rows, n_feat, n_bin, n_tree, n_node,
+                                 f_tile, t_tile, m_tile, n_sm, smem_per_sm,
+                                 max_blocks)
+                if plan is None:
+                    continue
+                key = (plan.cost, plan.n_units, -m_tile)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    if best is None:
+        raise NotImplementedError(
+            f"no scatter plan fits {SMEM_MAX} bytes of shared memory at "
+            f"F={n_feat}, B={n_bin}, T={n_tree}, n_node={n_node}")
+    return best[1]
+
+
+def tile_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
+              n_node: int, f_tile: int, t_tile: int, m_tile: int,
+              n_sm: int = 132, smem_per_sm: int = SMEM_SM,
+              max_blocks: Optional[int] = None) -> Optional[ScatterPlan]:
+    """The launch at one tiling, or None where it does not fit.
+
+    A unit's private histogram (two planes of f_tile x t_tile x m_tile x
+    ``B | 1`` cells of 4 bytes) plus a list of R x t_tile pairs fits one
+    block (:func:`smem_bytes`).  The grid is one wave: at most the
+    blocks resident at once (from the shared memory a block takes, or
+    ``max_blocks`` where the card's occupancy query says fewer).  Copies
+    fill the blocks resident at once, no more than the rows are worth (a
+    block adds at least as many values as its histogram has cells)."""
+    hist = _round16(8 * f_tile * t_tile * m_tile * (n_bin | 1))
+    rows = _round16(max(16, min(4096, PAIRS_PER_STEP // t_tile)))
+    while rows > 16 and smem_bytes(hist, t_tile, rows) > SMEM_MAX:
+        rows -= 16
+    smem = smem_bytes(hist, t_tile, rows)
+    if smem > SMEM_MAX:
+        return None
+    res = min(smem_per_sm // (smem + SMEM_RESERVED), 2048 // THREADS) * n_sm
+    if max_blocks is not None:
+        res = min(res, max_blocks)
+    if res < 1:
+        return None
+    units = -(-n_feat // f_tile) * -(-n_tree // t_tile) * -(-n_node // m_tile)
+    cells = f_tile * n_bin * 2 * t_tile * m_tile
+    rows_min = max(16, -(-cells // (2 * f_tile * t_tile)))
+    copies = max(1, min(res // units if units <= res else 1,
+                        -(-n_rows // rows_min)))
+    n_groups = min(units, res // copies)
+    plan = ScatterPlan(
+        f_tile, t_tile, m_tile, units, copies, n_groups,
+        _round16(-(-max(n_rows, 1) // copies)), rows, n_bin | 1, hist, smem,
+        n_groups * copies, 0.0)
+    return plan._replace(cost=plan_cost(plan, n_rows, n_feat, n_tree, n_sm))
+
+
+def plan_cost(p: ScatterPlan, n_rows: int, n_feat: int, n_tree: int,
+              n_sm: int) -> float:
+    """A plan's cost in bytes: every unit reads its rows' bins of its
+    features (a row's slice costs the 32-byte sectors it spans), pos and
+    gh once; every copy of a unit zeroes its histogram, reads it once and
+    adds it to global memory once (ATOMIC_BYTES a cell); where the grid
+    leaves SMs idle, the additions cost ADD_BYTES each in proportion; and
+    each group's steps, one after another, cost STEP_BYTES each."""
+    reads = p.n_units * n_rows * (min(n_feat, p.f_tile + 32)
+                                  + 12 * p.t_tile)
+    flush = p.n_units * p.copies * p.hist_bytes * (1 + ATOMIC_BYTES / 4)
+    adds = n_tree * n_rows * n_feat * 2
+    idle = ADD_BYTES * adds * max(0.0, n_sm / min(p.grid, n_sm) - 1)
+    steps = -(-p.n_units // p.n_groups) * -(-min(n_rows, p.rows_per_copy)
+                                            // p.rows_per_step)
+    return reads + flush + idle + STEP_BYTES * steps
+
+
+_PLANS = {}       # every launch's plan, by library, card, mode and shapes
+
+
+def launch_plan(name: str, n_rows: int, n_feat: int, n_bin: int,
+                n_tree: int, n_node: int, mode: str,
+                device: torch.device) -> ScatterPlan:
+    """The plan a launch of K1 (``name`` ``hist_level``, T = 1) or K3
+    (``hist_batched``) takes on this card: :func:`scatter_plan` at its SM
+    count, planned again below the blocks its occupancy query (the
+    library's ``resident(mode, smem, &blocks)``) lets run at once where
+    that is fewer than the shared memory allows.  Cached, so that a
+    level's launch after the first costs one dictionary lookup on the
+    host."""
+    lib = _lib(name)
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (id(lib), idx, MODES[mode], n_rows, n_feat, n_bin, n_tree, n_node)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    n_sm = torch.cuda.get_device_properties(idx).multi_processor_count
+    cap = None
+    while True:
+        plan = scatter_plan(n_rows, n_feat, n_bin, n_tree, n_node, n_sm,
+                            SMEM_SM, cap)
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            rc = getattr(lib, f"{name}_resident")(MODES[mode], plan.smem,
+                                                  ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{name} occupancy query failed (error {rc})")
+        if plan.grid <= blocks.value:
+            _PLANS[key] = plan
+            return plan
+        cap = blocks.value  # fewer than the formula: plan again below it
 
 
 def _check(bins, gh, pos, n_node, n_bin, mode):
@@ -109,6 +244,26 @@ def level_histogram_batched(bins: torch.Tensor, gh: torch.Tensor,
 
 def _launch(bins, gh, pos, n_node, n_bin, mode):
     global launches
+    T, N, _ = gh.shape
+    out = scatter_launch("hist_batched", bins, gh, pos, T, n_node, n_bin,
+                         mode)
+    if out is None:
+        return torch.zeros((bins.shape[1], n_bin, 2, T * n_node),
+                           dtype=_acc(mode), device=bins.device)
+    with _COUNT_LOCK:     # lane threads launch at once
+        launches += 1
+    return out
+
+
+def _acc(mode):
+    return torch.int32 if mode == "int" else torch.float32
+
+
+def scatter_launch(name, bins, gh, pos, n_tree, n_node, n_bin, mode):
+    """Launch the scatter kernel of library ``name`` (``hist_batched``
+    for any T, ``hist_level`` at T = 1) on CUDA tensors; returns the
+    histogram, or None where there is nothing to launch (no rows,
+    features or trees: the caller returns zeros and counts nothing)."""
     if not (gh.device == pos.device == bins.device):
         raise ValueError("bins, gh and pos must be on one device")
     if bins.dtype != torch.uint8 or n_bin > 256:
@@ -116,42 +271,54 @@ def _launch(bins, gh, pos, n_node, n_bin, mode):
             f"the CUDA histogram takes u8 bins with B <= 256 (got "
             f"{bins.dtype}, B={n_bin})")
     if not (bins.is_contiguous() and gh.is_contiguous()
-            and pos.is_contiguous()) or gh.data_ptr() % 8:
+            and pos.is_contiguous()) or gh.data_ptr() % 8 \
+            or pos.data_ptr() % 4:
         raise ValueError("bins, gh and pos must be contiguous, gh 8-aligned")
-    T, N, _ = gh.shape
-    F = bins.shape[1]
-    acc = torch.int32 if mode == "int" else torch.float32
-    out = torch.zeros((F, n_bin, 2, T * n_node), dtype=acc,
-                      device=bins.device)
-    if N == 0 or F == 0 or T == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    f_tile, t_tile, m_tile, n_rb, rpb, smem = tiling(N, F, n_bin, T, n_node,
-                                                     n_sm)
-    lib = _lib()
-    with torch.cuda.device(bins.device):   # the launch targets this card
-        stream = torch.cuda.current_stream(bins.device).cuda_stream
-        rc = lib.hist_batched_launch(
+    N, F = bins.shape
+    if N == 0 or F == 0 or n_tree == 0:
+        return None
+    dev = bins.device
+    lib = _lib(name)
+    p = launch_plan(name, N, F, n_bin, n_tree, n_node, mode, dev)
+    out = torch.zeros((F, n_bin, 2, n_tree * n_node), dtype=_acc(mode),
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = (p.f_tile, p.t_tile, p.m_tile) if name == "hist_batched" \
+        else (p.f_tile, p.m_tile)
+    trees = (n_tree,) if name == "hist_batched" else ()
+    with torch.cuda.device(dev):   # the launch targets this card
+        rc = getattr(lib, f"{name}_launch")(
             MODES[mode], bins.data_ptr(), pos.data_ptr(), gh.data_ptr(),
-            out.data_ptr(), N, F, n_bin, T, n_node, f_tile, t_tile, m_tile,
-            n_rb, rpb, THREADS, smem, stream)
+            out.data_ptr(), N, F, n_bin, *trees, n_node, *tiles, p.copies,
+            p.n_groups, p.rows_per_copy, p.rows_per_step, p.hist_bytes,
+            stream)
     if rc != 0:
-        raise RuntimeError("hist_batched kernel launch failed: "
-                           + lib.hist_batched_error_string(rc).decode())
-    with _COUNT_LOCK:     # lane threads launch at once
-        launches += 1
+        step = ("", "arguments", "shared-memory opt-in",
+                "launch")[min(rc >> 16, 3)]
+        raise RuntimeError(f"{name} kernel launch failed at {step}: "
+                           + getattr(lib, f"{name}_error_string")(
+                               rc).decode() + f" (N={N}, F={F}, B={n_bin}, "
+                           f"T={n_tree}, n_node={n_node}, {p})")
     return out
 
 
-def _lib() -> ctypes.CDLL:
-    lib = nvcc.load("hist_batched")
-    if lib.hist_batched_launch.argtypes is None:
+def _lib(name: str = "hist_batched") -> ctypes.CDLL:
+    """The scatter library ``name`` (``hist_batched``, K3, or
+    ``hist_level``, K1), built at first use, its entry points typed."""
+    lib = nvcc.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hist_batched_launch.argtypes = [I, P, P, P, P, L, I, I, I, I, I,
-                                            I, I, I, L, I, L, P]
-        lib.hist_batched_launch.restype = I
-        lib.hist_batched_error_string.argtypes = [I]
-        lib.hist_batched_error_string.restype = ctypes.c_char_p
+        shapes = [I, I, I, I, I, I, I] if name == "hist_batched" \
+            else [I, I, I, I, I]   # (F, B, [T,] n_node, f, [t,] m tiles)
+        fn.argtypes = [I, P, P, P, P, L, *shapes, I, I, L, I, I, P]
+        fn.restype = I
+        res = getattr(lib, f"{name}_resident")
+        res.argtypes = [I, L, ctypes.POINTER(ctypes.c_int)]
+        res.restype = I
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [I]
+        err.restype = ctypes.c_char_p
     return lib
 
 

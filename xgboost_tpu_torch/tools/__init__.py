@@ -5,7 +5,11 @@ T4a and T4b ``hist_pack2_proto``, T6 ``hist_r4_ab``) on the card, each
 through its hand-written CUDA one-hot kernel (``ops/cuda_hist_onehot.py``)
 and timed beside K1, the production scatter; and ``hist_wgmma_split``,
 which times the ``wgmma`` kernel (through T1, T7's levels form, or T3's
-and T2's small-N form) with one part taken out.  Run one with
+and T2's small-N form) with one part taken out; and
+``hist_scatter_split``, which does the same for K1's and K3's scatter
+kernel (``csrc/hist_scatter.cuh``), times it beside its parent's
+kernels and its launch plan beside the neighbouring tilings.  Run one
+with
 
     python -m xgboost_tpu_torch.tools.hist_microbench
 
