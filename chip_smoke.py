@@ -13,12 +13,14 @@ every kernel against its plain PyTorch version.  The paths:
   (one launch per level for the round's 6 trees);
 - otto: ``bench.py:bench_otto`` (200,000 x 93, 9-class softprob), cut
   to 10 rounds, kernel K3 with feature tiling;
-- depth 0: a max_depth=0 6-class booster, 5 rounds, kernel K2;
+- depth 0: a max_depth=0 6-class booster, 5 rounds, kernel K2 (one
+  launch a round, one kernel a launch);
 - lanes: ``pipeline.run_tenant_lanes`` over 48 tenant pipelines at the
   Higgs booster's width (depth 6, eta 0.1, max_bin 64, 28 features),
   12,288 to 16,283 rows each, 2 cycles of 10 rounds, stacked into one
   K4 launch per level for all tenants (a stack of 64 lanes of 16,384
-  rows), then the same tenants through the host loop (K1 per tenant);
+  rows; K4 is K1's and K3's scatter kernel with the lanes as its trees),
+  then the same tenants through the host loop (K1 per tenant);
 - the histogram microbenchmarks: the seven ported Pallas prototypes'
   ``main``s (``xgboost_tpu_torch.tools``: T5 ``hist_microbench``, T3
   ``hist_int8_proto``, T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``; the
@@ -34,20 +36,27 @@ Phases, in order; any failure exits non-zero:
   3. each kernel against its plain version on the card, at its paths'
      shapes and beyond (int8 bitwise; fp32 / bf16 bitwise on dyadic
      gradients, within the f32 summation bound on random ones; K3's tree
-     slices against solo K1 launches, bitwise; K1 and K3 also at 1, 3
-     and 12,373 rows, 93 features, 24 trees, B = 1 and 256, 64 and 128
-     nodes, every row inactive, and 2% of the bins at B or above);
+     slices and K4's lanes against solo K1 launches, bitwise; K1 and K3
+     also at 1, 3 and 12,373 rows, 93 features, 24 trees, B = 1 and 256,
+     64 and 128 nodes, every row inactive, and 2% of the bins at B or
+     above; K4 under both of its flushes, at 1, 3 and 64 lanes, B = 7
+     and 256, 128 nodes and 2% of the bins at B or above);
   4. each path: ``train`` with every launch count reset just before and
      read just after, its quality metric against a floor, the same
      rounds with the plain version forced (identical model bytes where
      the sums are integers), save/load (bitwise predictions), and the
      kernel against the plain version on every level's real inputs;
   5. times on the card: ms per round, and per kernel call on the paths'
-     real inputs the kernel's ms beside its bound, the plain version's
-     and one PyTorch call's (``index_add_``), with K1's and K3's launch
-     plan at each level (tiles, units, blocks); for the lanes, the stacked
-     and the host-loop cycle (gate and publish left out, as
-     ``tools/bench_lanes.py`` times them) and tenants per second.
+     real inputs the kernel's ms (CUDA events around back-to-back
+     calls) and, for K1-K4, its device ms (``torch.profiler``'s CUDA
+     activities of 20 calls: the kernel and any memset, without the
+     host's issue time) beside its bound, the plain version's and one
+     PyTorch call's (``index_add_``), with K1's, K3's and K4's launch
+     plan at each level (tiles, units, copies, blocks, rows a step, the
+     store or the atomic flush) and K2's one kernel a call; for the
+     lanes, the stacked and the host-loop cycle (gate and publish left
+     out, as ``tools/bench_lanes.py`` times them) and tenants per
+     second.
 
 The ``[onehot]`` phase holds each one-hot kernel against its plain
 version (int bitwise, including the int8 wrap, the dropped tail and T7's
@@ -197,6 +206,48 @@ def cuda_ms(torch, fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def profiled_ms(torch, fn, reps=20):
+    """Device time of ``fn()``: the per-call mean of the GPU activities it
+    issues (kernels, memsets, copies), summed from ``torch.profiler``'s
+    CUDA activities over ``reps`` calls, and those activities by name,
+    per call.  The profiler can drop or add activities at a trace's
+    edges, so a trace holds ``reps`` warm-up calls, a marker kernel
+    (``torch.cuda._sleep``), the ``reps`` timed calls and four markers,
+    and only the activities between the markers count; a trace that does
+    not see the call's own kernel exactly ``reps`` times there is taken
+    again, up to three times.  Back-to-back CUDA-event timing
+    (:func:`cuda_ms`) also counts the host's issue time between calls;
+    this counts only the card's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(100)
+            for _ in range(reps):
+                fn()
+            for _ in range(4):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        acts = sorted((e for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA),
+                      key=lambda e: e.start_ns())
+        marks = [i for i, e in enumerate(acts) if "spin_kernel" in e.name()]
+        acts = acts[marks[0] + 1:marks[1]] if len(marks) >= 2 else []
+        names = {}
+        for e in acts:
+            names[e.name()] = names.get(e.name(), 0) + 1
+        if names and max(names.values()) == reps:
+            break
+    else:
+        fail(f"torch.profiler saw no clean trace of {reps} calls: {names}")
+    return (sum(e.duration_ns() for e in acts) / 1e6 / reps,
+            {k: v / reps for k, v in names.items()})
 
 
 def make_multiclass(n, f=MC_FEAT, k=MC_K, seed=7):
@@ -447,17 +498,19 @@ def phase_k2(torch, kn, dev):
 
 
 def lanes_case(torch, k4, cuda_hist, L, L_real, N, F, B, M, mode, dyadic,
-               seed, dev):
+               seed, dev, oob=0.0):
     """One K4 comparison on the same CUDA tensors: L lanes, the first
     L_real real with their own row counts (pad rows past them), the rest
-    pad lanes.  In int mode also each lane against a solo K1 launch on
-    its unpadded rows.  Returns max |kernel - plain|."""
+    pad lanes, ``oob`` of the bins planted at B or above.  In int mode
+    also each lane against a solo K1 launch on its unpadded rows.
+    Returns max |kernel - plain|."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, B, (L, N, F), generator=g, device=dev,
                          dtype=torch.int32).to(torch.uint8)
     pos = torch.randint(0, M, (L, N), generator=g, device=dev,
                         dtype=torch.int32)
     pos[torch.rand(L, N, generator=g, device=dev) < 0.2] = -1
+    bins = plant_bins(torch, bins, B, oob, g, dev)
     if dyadic:  # multiples of 1/256: f32 sums exact in any order
         gh = torch.randint(-512, 512, (L, N, 2), generator=g, device=dev,
                            dtype=torch.int32).to(torch.float32) / 256.0
@@ -476,7 +529,7 @@ def lanes_case(torch, k4, cuda_hist, L, L_real, N, F, B, M, mode, dyadic,
     want = k4.level_histogram_lanes_plain(bins, gh, pos, M, B, mode)
     torch.cuda.synchronize()
     tag = (f"K4 {mode} L={L} ({L_real} real) N={N} F={F} B={B} "
-           f"n_node={M} dyadic={dyadic}")
+           f"n_node={M} dyadic={dyadic} oob={oob}")
     if got.shape != (F, B, 2, L * M) or got.dtype != want.dtype:
         fail(f"{tag}: shape {tuple(got.shape)} {got.dtype}")
     if mode == "int":
@@ -506,25 +559,37 @@ def lanes_case(torch, k4, cuda_hist, L, L_real, N, F, B, M, mode, dyadic,
 
 def phase_k4(torch, k4, cuda_hist, dev):
     """K4 at the lanes path's level shapes (64 lanes, 48 real, of 16,384
-    rows), with F = 93, B = 256, node tiles past 64 nodes, one lane and
-    a tiny odd shape; pad rows in every real lane but the first."""
+    rows; the atomic flush at the shallow levels, the store flush at the
+    deep ones), with F = 93, B = 7 and 256, node tiles past 64 nodes,
+    one lane and three, a tiny odd shape, and 2% of the bins planted at
+    B or above; pad rows in every real lane but the first."""
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
     errs = {}
-    cases = [(LANE_STACK, LANES_N, 16384, N_FEAT, 64, m) for m in (1, 8, 32)]
-    cases += [(8, 8, 16384, OTTO_FEAT, 64, 4), (3, 3, 20000, N_FEAT, 256, 64),
-              (1, 1, 50000, N_FEAT, 64, 128),
-              (LANE_STACK, 40, 2048, N_FEAT, 256, 128), (4, 3, 1000, 3, 7, 3)]
-    for (L, Lr, n, f, b, m) in cases:
+    cases = [(LANE_STACK, LANES_N, 16384, N_FEAT, 64, m, 0.0)
+             for m in (1, 8, 16, 32)]
+    cases += [(LANE_STACK, LANES_N, 16384, N_FEAT, 64, 32, 0.02),
+              (LANE_STACK, LANES_N, 16384, N_FEAT, 64, 2, 0.02),
+              (8, 8, 16384, OTTO_FEAT, 64, 4, 0.0),
+              (3, 3, 20000, N_FEAT, 256, 64, 0.0),
+              (3, 2, 3001, 6, 7, 128, 0.02),
+              (1, 1, 50000, N_FEAT, 64, 128, 0.02),
+              (LANE_STACK, 40, 2048, N_FEAT, 256, 128, 0.0),
+              (4, 3, 1000, 3, 7, 3, 0.02)]
+    for (L, Lr, n, f, b, m, oob) in cases:
         variants = [("int", False), ("fp32", True), ("bf16", True)]
-        if m in (1, 32, 128) or b != 64:
+        if m in (1, 32, 128) or b != 64 or oob:
             variants += [("fp32", False), ("bf16", False)]
         for mode, dyadic in variants:
             e = lanes_case(torch, k4, cuda_hist, L, Lr, n, f, b, m, mode,
-                           dyadic, seed=L * 13 + m + b, dev=dev)
+                           dyadic, seed=L * 13 + m + b, dev=dev, oob=oob)
             key = mode + ("" if dyadic or mode == "int" else "_random_gh")
             errs[key] = max(errs.get(key, 0.0), e)
+        flush = "store" if kb.launch_plan("hist_lanes", n, f, b, L, m, "int",
+                                          dev).store else "atomic"
         print(f"[K4] L={L} ({Lr} real, pad rows) N={n} F={f} B={b} "
-              f"n_node={m}: int8 bitwise and each lane == solo K1, pad "
-              "lanes zero, fp32/bf16 bitwise on dyadic gh"
+              f"n_node={m} bins>=B {oob} ({flush} flush): int8 bitwise and "
+              "each lane == solo K1, pad lanes zero, fp32/bf16 bitwise on "
+              "dyadic gh"
               + (", within bound on random gh" if len(variants) > 3 else ""),
               flush=True)
     print(f"[K4] max |kernel - plain| by mode: {json.dumps(errs)}",
@@ -1106,10 +1171,12 @@ def check_lanes_levels(torch, k4, cuda_hist, captured, rows):
 
 # ------------------------------------------------------------- phase 5
 def plan_text(kb, name, N, F, nb, T, M, mode, dev):
-    """The scatter launch plan K1 or K3 takes at this level."""
+    """The scatter launch plan K1, K3 or K4 takes at this level."""
     p = kb.launch_plan(name, N, F, nb, T, M, mode, dev)
     return (f"plan f_tile {p.f_tile} t_tile {p.t_tile} m_tile {p.m_tile} "
-            f"units {p.n_units} blocks {p.grid}")
+            f"units {p.n_units} copies {p.copies} blocks {p.grid} rows a "
+            f"step {p.rows_per_step} {'store' if p.store else 'atomic'} "
+            "flush")
 
 
 def phase_times(torch, cuda_hist, captured, card):
@@ -1120,6 +1187,8 @@ def phase_times(torch, cuda_hist, captured, card):
         active = int((pos >= 0).sum())
         ms = cuda_ms(torch, lambda: cuda_hist.level_histogram(
             bins, gh, pos, M, nb, mode), 20)
+        dev_ms, _ = profiled_ms(torch, lambda: cuda_hist.level_histogram(
+            bins, gh, pos, M, nb, mode))
         plain_ms = cuda_ms(torch, lambda: cuda_hist.level_histogram_plain(
             bins, gh, pos, M, nb, mode), 5)
         # one PyTorch call for the same sums: index_add_ on flat cell
@@ -1144,11 +1213,11 @@ def phase_times(torch, cuda_hist, captured, card):
             else "operations"
         plan = plan_text(kb, "hist_level", N, F, nb, 1, M, mode, bins.device)
         rows.append(dict(n_node=M, active_rows=active, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=by))
-        print(f"[time] K1 n_node={M}: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
-              f"{by}; plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms; "
-              f"{plan}) | {card}", flush=True)
+                         device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K1 n_node={M}: {ms:.4f} ms, device {dev_ms:.4f} ms "
+              f"(bound {bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
+              f"index_add_ {lib_ms:.4f} ms; {plan}) | {card}", flush=True)
     return rows
 
 
@@ -1170,6 +1239,8 @@ def time_k3(torch, kb, captured, card):
         any_rows = int(act.any(dim=0).sum())
         ms = cuda_ms(torch, lambda: kb.level_histogram_batched(
             bins, gh, pos, M, nb, mode), 20)
+        dev_ms, _ = profiled_ms(torch, lambda: kb.level_histogram_batched(
+            bins, gh, pos, M, nb, mode))
         plain_ms = cuda_ms(torch, lambda: kb.level_histogram_batched_plain(
             bins, gh, pos, M, nb, mode), 5)
         # one PyTorch call for the same sums: index_add_ over flat cell
@@ -1193,11 +1264,13 @@ def time_k3(torch, kb, captured, card):
                                 + cells * 4, pairs * F * 2)
         plan = plan_text(kb, "hist_batched", N, F, nb, T, M, mode,
                          bins.device)
-        rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
-        print(f"[time] K3 T={T} n_node={M}: {ms:.4f} ms (bound "
-              f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
-              f"index_add_ {lib_ms:.4f} ms; {plan}) | {card}", flush=True)
+        rows.append(dict(n_node=M, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K3 T={T} n_node={M}: {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms (bound {bound_ms:.4f} ms, {by}; plain "
+              f"{plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms; {plan}) | "
+              f"{card}", flush=True)
     return rows
 
 
@@ -1207,6 +1280,11 @@ def time_k2(torch, kn, captured, card):
         T, N, _ = gh.shape
         active = int((pos >= 0).sum())
         ms = cuda_ms(torch, lambda: kn.node_stats(gh, pos, M), 20)
+        dev_ms, acts = profiled_ms(torch, lambda: kn.node_stats(gh, pos, M))
+        if len(acts) != 1 or list(acts.values()) != [1.0] \
+                or "node_stats" not in next(iter(acts)):
+            fail(f"K2 T={T} n_node={M}: a call issued {acts}, not one "
+                 "kernel")
         plain_ms = cuda_ms(torch, lambda: kn.node_stats_plain(gh, pos, M),
                            20)
         slot = torch.where(pos < 0, M, pos).to(torch.int64)
@@ -1218,21 +1296,26 @@ def time_k2(torch, kn, captured, card):
         lib_ms = cuda_ms(torch, lambda: out.index_add_(0, idx, src), 20)
         bound_ms, by = bound_of(4 * T * N + 8 * active + T * M * 8,
                                 2 * active)
-        rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
-        print(f"[time] K2 T={T} n_node={M}: {ms:.4f} ms (bound "
-              f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
-              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+        rows.append(dict(n_node=M, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K2 T={T} n_node={M}: {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms, one kernel a call (bound {bound_ms:.4f} "
+              f"ms, {by}; plain {plain_ms:.4f} ms; index_add_ "
+              f"{lib_ms:.4f} ms) | {card}", flush=True)
     return rows
 
 
 def time_k4(torch, k4, captured, card):
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
     rows = []
     for bins, gh, pos, M, nb, mode in captured:
         L, N, F = bins.shape
         active = int((pos >= 0).sum())
         ms = cuda_ms(torch, lambda: k4.level_histogram_lanes(
             bins, gh, pos, M, nb, mode), 20)
+        dev_ms, _ = profiled_ms(torch, lambda: k4.level_histogram_lanes(
+            bins, gh, pos, M, nb, mode))
         plain_ms = cuda_ms(torch, lambda: k4.level_histogram_lanes_plain(
             bins, gh, pos, M, nb, mode), 5)
         # one PyTorch call for the same sums: index_add_ over all lanes'
@@ -1248,11 +1331,15 @@ def time_k4(torch, k4, captured, card):
         # channel)
         bound_ms, by = bound_of(4 * L * N + active * (F + 8) + cells * 4,
                                 active * F * 2)
-        rows.append(dict(n_node=M, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
-        print(f"[time] K4 L={L} n_node={M}: {ms:.4f} ms (bound "
-              f"{bound_ms:.4f} ms, {by}; plain {plain_ms:.4f} ms; "
-              f"index_add_ {lib_ms:.4f} ms) | {card}", flush=True)
+        plan = plan_text(kb, "hist_lanes", N, F, nb, L, M, mode,
+                         bins.device)
+        rows.append(dict(n_node=M, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=by))
+        print(f"[time] K4 L={L} n_node={M}: {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms (bound {bound_ms:.4f} ms, {by}; plain "
+              f"{plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms; {plan}) | "
+              f"{card}", flush=True)
     return rows
 
 
@@ -1991,13 +2078,16 @@ def time_onehot_rows(torch, oh, rows, card, tag):
 def kernel_record(name, source, replaces, launches, max_err, rows):
     def mean(key):
         return sum(r[key] for r in rows) / len(rows)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max_err, "ms": mean("ms"),
-            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                       for r in rows) else "operations",
-            "library_ms": mean("library_ms")}
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max_err, "ms": mean("ms"),
+           "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+           "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                      for r in rows) else "operations",
+           "library_ms": mean("library_ms")}
+    if all("device_ms" in r for r in rows):
+        rec["device_ms"] = mean("device_ms")
+    return rec
 
 
 def main():

@@ -176,7 +176,8 @@ def test_hist_batched_tree_slices_match_solo_k1(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,M", [(1, 1), (6, 1), (6, 20), (2, 64)])
+@pytest.mark.parametrize("T,M", [(1, 1), (6, 1), (1, 8), (6, 8), (1, 20),
+                                 (6, 20), (2, 64)])
 def test_node_stats_kernel_matches_plain(cuda_device, T, M):
     """K2 against its plain version: bitwise on dyadic gradients (exact
     in any order); on random ones within 2 n 2^-24 sum|x| per node (each
@@ -201,11 +202,47 @@ def test_node_stats_kernel_matches_plain(cuda_device, T, M):
     assert torch.equal(kn.node_stats(gh, pos, M), got)
 
 
-def _lanes_case(dev, L, N, F, B, M, seed, dyadic=True, n_real=None):
-    """L lanes of N rows each (own bins); lane l keeps ``n_real[l]`` real
-    rows, the rest are pad rows (pos -1, gh 0)."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,M", [(1, 1), (6, 1), (6, 8), (6, 20)])
+def test_node_stats_is_one_kernel_a_call(cuda_device, T, M):
+    """One K2 call issues one GPU activity, its kernel: no memset, no
+    second pass (``torch.profiler``'s CUDA activities of 5 calls between
+    two marker kernels, after 5 calls while the trace starts: the
+    profiler can drop activities at a trace's edges)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from xgboost_tpu_torch.ops import cuda_node_stats as kn
+    _, gh, pos = _batched_case(cuda_device, T, 200_000, 1, 2, M, seed=7)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kn.node_stats(gh, pos, M)
+            torch.cuda._sleep(100)
+            for _ in range(5):
+                kn.node_stats(gh, pos, M)
+            for _ in range(4):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        acts = sorted((e for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA),
+                      key=lambda e: e.start_ns())
+        marks = [i for i, e in enumerate(acts) if "spin_kernel" in e.name()]
+        names = [e.name() for e in acts[marks[0] + 1:marks[1]]] \
+            if len(marks) >= 2 else []
+        if sum("node_stats" in n for n in names) == 5:
+            break
+    assert len(names) == 5 and all("node_stats" in n for n in names), names
+
+
+def _lanes_case(dev, L, N, F, B, M, seed, dyadic=True, n_real=None,
+                oob=0.0):
+    """L lanes of N rows each (own bins, ``oob`` of them planted at B or
+    above); lane l keeps ``n_real[l]`` real rows, the rest are pad rows
+    (pos -1, gh 0)."""
     rng = np.random.RandomState(seed)
-    bins = rng.randint(0, B, (L, N, F)).astype(np.uint8)
+    bins = _plant(rng, rng.randint(0, B, (L, N, F)).astype(np.uint8), B, oob)
     if dyadic:
         gh = (rng.randint(-512, 512, (L, N, 2)) / 256.0).astype(np.float32)
     else:
@@ -219,19 +256,33 @@ def _lanes_case(dev, L, N, F, B, M, seed, dyadic=True, n_real=None):
             torch.from_numpy(pos).to(dev))
 
 
+# (L, N, F, B, M, share of bins planted at B or above) of K4: the lanes'
+# stack at the root (the atomic flush) and at 16 and 32 nodes (the store
+# flush), one lane, three, B = 7 and 256, 128 nodes, odd row counts
+LANES_CASES = [
+    (64, 16384, 28, 64, 32, 0.0),    # tenant lanes, depth 5: store flush
+    (64, 16384, 28, 64, 1, 0.02),    # the root: atomic flush
+    (64, 16384, 28, 64, 16, 0.0),
+    (8, 16384, 28, 64, 32, 0.0),
+    (3, 5000, 93, 64, 4, 0.0),       # many feature tiles
+    (3, 3001, 6, 7, 128, 0.02),      # B = 7, 128 nodes
+    (64, 2048, 28, 256, 128, 0.0),   # B = 256, node tiles
+    (1, 20000, 5, 16, 1, 0.02),      # one lane, root level
+    (1, 12373, 28, 64, 128, 0.0),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int", "fp32", "bf16"])
-@pytest.mark.parametrize("L,N,F,B,M", [
-    (8, 16384, 28, 64, 32),     # tenant lanes, depth 5
-    (3, 5000, 93, 64, 4),       # many feature tiles
-    (64, 2048, 28, 256, 128),   # B = 256, two node tiles
-    (1, 20000, 5, 16, 1),       # one lane, root level
-])
-def test_hist_lanes_kernel_matches_plain(cuda_device, mode, L, N, F, B, M):
+@pytest.mark.parametrize("L,N,F,B,M,oob", LANES_CASES)
+def test_hist_lanes_kernel_matches_plain(cuda_device, mode, L, N, F, B, M,
+                                         oob):
     """K4 against its plain version, bitwise: int sums are exact, fp32
-    and bf16 sums of dyadic gradients are exact in any order."""
+    and bf16 sums of dyadic gradients are exact in any order; in int
+    mode each lane's slice is also a solo K1 launch on its rows."""
     from xgboost_tpu_torch.ops import cuda_hist_lanes as k4
-    bins, gh, pos = _lanes_case(cuda_device, L, N, F, B, M, seed=L + M)
+    bins, gh, pos = _lanes_case(cuda_device, L, N, F, B, M, seed=L + M,
+                                oob=oob)
     if mode == "int":
         gh = cuda_hist.quantize_gh(gh)[0]
     before = k4.launches
@@ -241,25 +292,39 @@ def test_hist_lanes_kernel_matches_plain(cuda_device, mode, L, N, F, B, M):
     assert k4.launches == before + 1
     assert got.shape == (F, B, 2, L * M)
     assert torch.equal(got, want)
+    for lane in range(L if mode == "int" else 0):
+        solo = cuda_hist.level_histogram(bins[lane], gh[lane], pos[lane],
+                                         M, B, "int")
+        assert torch.equal(got[..., lane * M:(lane + 1) * M], solo), lane
 
 
 @pytest.mark.cuda
-def test_hist_lanes_slices_match_solo_k1_with_padding(cuda_device):
+@pytest.mark.parametrize("L,M,store", [(4, 16, False), (64, 1, False),
+                                       (64, 32, True), (64, 128, True)])
+def test_hist_lanes_slices_match_solo_k1_with_padding(cuda_device, L, M,
+                                                      store):
     """Each lane's slice of one K4 launch is a solo K1 launch on that
-    lane's unpadded rows, bitwise (int mode); a pad lane's is zero."""
+    lane's unpadded rows, bitwise (int mode); a pad lane's is zero; under
+    the flush the plan names (the store flush at the lanes' deep levels,
+    atomics where units have several copies)."""
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
     from xgboost_tpu_torch.ops import cuda_hist_lanes as k4
-    L, N, F, B, M = 4, 16384, 28, 64, 16
-    n_real = [16384, 12288, 9001, 0]
+    N, F, B = 16384, 28, 64
+    n_real = [16384, 12288, 9001] + [
+        int(n) for n in np.random.RandomState(L).randint(12288, 16384,
+                                                         L - 4)] + [0]
     bins, gh, pos = _lanes_case(cuda_device, L, N, F, B, M, seed=3,
-                                dyadic=False, n_real=n_real)
+                                dyadic=False, n_real=n_real, oob=0.02)
+    assert kb.launch_plan("hist_lanes", N, F, B, L, M, "int",
+                          cuda_device).store == store
     gh_q = cuda_hist.quantize_gh(gh)[0]
     got = k4.level_histogram_lanes(bins, gh_q, pos, M, B, "int")
     for lane, n in enumerate(n_real[:-1]):
         solo = cuda_hist.level_histogram(
             bins[lane, :n].contiguous(), gh_q[lane, :n].contiguous(),
             pos[lane, :n].contiguous(), M, B, "int")
-        assert torch.equal(got[..., lane * M:(lane + 1) * M], solo)
-    assert not bool(got[..., 3 * M:].any())
+        assert torch.equal(got[..., lane * M:(lane + 1) * M], solo), lane
+    assert not bool(got[..., (L - 1) * M:].any())
 
 
 # ---------------------------------------------------------------- one-hot

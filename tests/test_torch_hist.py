@@ -178,12 +178,26 @@ def test_wrapper_checks_inputs():
                                      (1_000_000, 28, 256, 64),
                                      (1_000_000, 28, 64, 128),
                                      (10, 3, 7, 3)])
-def test_tiling_covers_rows_and_fits_shared_memory(N, F, B, M):
-    f_tile, m_tile, n_rb, rpb, smem = cuda_hist.tiling(N, F, B, M, 132)
-    assert n_rb * rpb >= N and (n_rb - 1) * rpb < N
-    assert 1 <= f_tile <= F and m_tile == min(M, 64)
-    assert smem == f_tile * B * 2 * m_tile * 4
-    assert smem <= max(cuda_hist.SMEM_BUDGET, B * 2 * m_tile * 4) <= 232448
+@pytest.mark.parametrize("n_sm", [132, 114])     # H100 SXM, H100 PCIe
+def test_tiling_covers_rows_and_fits_shared_memory(N, F, B, M, n_sm):
+    """K4's plan (bins of each lane's own) for one lane at K1's shapes:
+    every row in one step of one copy, histogram and pair list within a
+    block's shared memory, one wave of blocks, and the store flush
+    exactly where each unit has one copy."""
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
+    p = kb.scatter_plan(N, F, B, 1, M, n_sm, shared_bins=False)
+    rows = np.zeros(N, dtype=np.int64)
+    for c in range(p.copies):
+        rb, re = c * p.rows_per_copy, min(N, (c + 1) * p.rows_per_copy)
+        for r0 in range(rb, re, p.rows_per_step):
+            rows[r0:min(re, r0 + p.rows_per_step)] += 1
+    assert (rows == 1).all()
+    assert p.smem <= kb.SMEM_MAX and p.grid == p.n_groups * p.copies
+    assert p.grid <= min(kb.SMEM_SM // (p.smem + kb.SMEM_RESERVED),
+                         2048 // kb.THREADS) * n_sm
+    assert p.store == (p.copies == 1)
+    if p.store:                  # each unit flushed by one block only
+        assert p.n_groups <= p.n_units
 
 
 def test_node_totals_from_histogram():

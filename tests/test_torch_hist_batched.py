@@ -227,7 +227,9 @@ def test_scatter_split_passages_are_in_the_header():
     each variant's passages are found exactly once in the header as it
     stands, every variant but ``full`` changes it, and its braces still
     pair; the cluster variants launch clusters and cut the plan's copies
-    to a multiple of their cluster size."""
+    to a multiple of their cluster size; ``store-off`` is ``full``'s
+    build with the atomic flush in the plan; every path names a
+    library and its wrapper."""
     from xgboost_tpu_torch.ops import nvcc
     from xgboost_tpu_torch.tools import hist_scatter_split as split
     src = (nvcc.CSRC / split.SCATTER_HEADER).read_text()
@@ -243,6 +245,86 @@ def test_scatter_split_passages_are_in_the_header():
         q = split._cluster_plan(c)(p, 200_000)
         assert q.copies % c == 0 and q.grid == q.n_groups * q.copies
         assert q.copies * q.rows_per_copy >= 200_000
+    deep = kb.scatter_plan(16384, 28, 64, 64, 32, shared_bins=False)
+    assert deep.store and not split._store_off(deep, 16384).store
+    assert set(split.PLAN_VARIANTS.values()) <= set(split.SCATTER_VARIANTS)
+    for target, paths in split.PATHS.items():
+        for path in paths:
+            src = split.SOURCE[path]
+            assert src in split.PARENT_FILES and src in split.PLAIN
+            mod, entry = split.ENTRY[src]
+            assert (nvcc.CSRC / f"{src}.cu").exists()
+            assert callable(getattr(getattr(split.ops_pkg, mod), entry))
+
+
+@pytest.mark.parametrize("every", [False, True])
+def test_scatter_split_tilings_enumerate_launchable_plans(every,
+                                                          monkeypatch):
+    """``hist_scatter_split tilings`` / ``plans`` at K4's 32-node level,
+    with the card's occupancy query replaced by the formula the plan
+    uses: the plan first, no plan twice, every one within a block's
+    shared memory and one wave, ``plans`` over t_tile <= 4 and steps of
+    2,048-16,384 pairs, each at its own cost."""
+    from xgboost_tpu_torch.tools import hist_scatter_split as split
+
+    class Card:
+        multi_processor_count = 132
+
+    def resident(name, mode, smem, dev):
+        return min(kb.SMEM_SM // (smem + kb.SMEM_RESERVED), 2) * 132
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a, **k: Card())
+    monkeypatch.setattr(split, "_resident", resident)
+    monkeypatch.setattr(kb, "launch_plan", lambda name, N, F, nb, T, m,
+                        mode, dev: kb.scatter_plan(N, F, nb, T, m,
+                                                   shared_bins=False))
+    N, F, B, L, M = 16384, 28, 64, 64, 32
+    level = (torch.zeros((L, N, F), dtype=torch.uint8),
+             torch.zeros((L, N, 2), dtype=torch.int32),
+             torch.zeros((L, N), dtype=torch.int32), M, B, "int")
+    plans = split.neighbour_tilings("hist_lanes", level, None, every)
+    assert plans[0] == kb.scatter_plan(N, F, B, L, M, shared_bins=False)
+    assert len(set(plans)) == len(plans) > (100 if every else 2)
+    for p in plans:
+        assert p.smem == kb.smem_bytes(p.hist_bytes, p.t_tile,
+                                       p.rows_per_step) <= kb.SMEM_MAX
+        assert p.grid <= resident("", "", p.smem, None)
+        assert p.cost == kb.plan_cost(p, N, F, L, 132, shared_bins=False)
+    if every:
+        assert max(p.t_tile for p in plans) <= 4
+        assert {p.rows_per_step for p in plans if p.t_tile == 1} \
+            >= {2048, 4096, 8192, 16384}
+
+
+@pytest.mark.parametrize("N,T,M", [(200_000, 6, 1), (200_000, 1, 1),
+                                   (50_000, 6, 8), (50_000, 2, 20),
+                                   (1_000_003, 3, 64), (7, 6, 1), (0, 2, 3)])
+def test_k2_row_split_depends_on_the_shapes_only(N, T, M, monkeypatch):
+    """K2's launch (``node_stats_plan``): every row of every tree summed
+    by exactly one block of its tree's cluster, the blocks in rank order
+    over the rows, every node in one tile; the same split on a card of
+    132 SMs and of 114 (it reads nothing of the card, so two cards add in
+    the same order)."""
+    class Card:
+        multi_processor_count = 132
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a, **k: Card())
+    p = kn.node_stats_plan(N, T, M)
+    Card.multi_processor_count = 114
+    assert kn.node_stats_plan(N, T, M) == p
+    assert p.cluster == kn.CLUSTER and p.grid == (p.cluster, T,
+                                                  -(-M // p.node_tile))
+    assert (p.node_tile, p.threads) in ((1, 1024), (32, 512))
+    assert p.node_tile >= min(M, 32) and (p.node_tile == 1) == (M == 1)
+    rows = np.zeros(N, dtype=np.int64)
+    for rank in range(p.cluster):
+        lo = rank * p.rows_per_block
+        rows[lo:min(N, lo + p.rows_per_block)] += 1
+    assert (rows == 1).all()
+    nodes = np.zeros(M, dtype=np.int64)
+    for tile in range(p.grid[2]):
+        nodes[tile * p.node_tile:(tile + 1) * p.node_tile] += 1
+    assert (nodes == 1).all()
 
 
 def test_batched_wrapper_checks_inputs():

@@ -32,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from xgboost_tpu.ops import pallas_hist as ph  # noqa: E402
 from xgboost_tpu_torch.ops import cuda_hist  # noqa: E402
+from xgboost_tpu_torch.ops import cuda_hist_batched as kb  # noqa: E402
 from xgboost_tpu_torch.ops import cuda_hist_lanes as k4  # noqa: E402
 from xgboost_tpu_torch.ops import histogram as thist  # noqa: E402
 from xgboost_tpu_torch.ops.split import (SplitConfig,  # noqa: E402
@@ -152,6 +153,50 @@ def test_lane_level_equals_solo_levels_through_the_dispatch(precision):
         assert torch.equal(torch.signbit(got), torch.signbit(solo)), lane
 
 
+def _plant(rng, binned, B, share):
+    """``share`` of the bins at values in [B, 256), and the last
+    feature of each lane's first rows at 255: binning never makes them,
+    the kernel and every plain version skip them."""
+    hit = rng.rand(*binned.shape) < share
+    binned[hit] = rng.randint(B, 256, int(hit.sum()))
+    binned[:, :7, -1] = 255
+    return binned
+
+
+@pytest.mark.parametrize("mode", ["int", "fp32"])
+def test_bins_past_b_are_skipped_as_by_solo_k1(mode):
+    """Bins >= B (planted, one in the last feature of every lane) add
+    nothing: each lane's slice is K1's plain version on the lane's
+    unpadded rows, bitwise, and no index leaves the histogram."""
+    L, N, F, B, M = 3, 300, 5, 8, 4
+    n_real = [300, 251, 120]
+    binned, gh, pos = _case(L, N, F, B, M, seed=13, dyadic=False,
+                            n_real=n_real)
+    binned = _plant(np.random.RandomState(14), binned, B, 0.05)
+    b_t, gh_t, pos_t = _t(binned, gh, pos)
+    if mode == "int":
+        gh_t = cuda_hist.quantize_gh(gh_t)[0]
+    got = k4.level_histogram_lanes(b_t, gh_t, pos_t, M, B, mode)
+    for lane, n in enumerate(n_real):
+        solo = cuda_hist.level_histogram_plain(
+            b_t[lane, :n].contiguous(), gh_t[lane, :n].contiguous(),
+            pos_t[lane, :n].contiguous(), M, B, mode)
+        assert torch.equal(got[..., lane * M:(lane + 1) * M], solo), lane
+
+
+def test_bins_past_b_int8_match_pallas_lanes():
+    """The same planted bins through the int8 dispatch equal the JAX
+    package's lane kernel, which matches them to no one-hot column."""
+    L, N, F, B, M = 3, 200, 5, 8, 4
+    binned, gh, pos = _case(L, N, F, B, M, seed=15, dyadic=False)
+    binned = _plant(np.random.RandomState(16), binned, B, 0.05)
+    want = _pallas_lanes(binned, gh, pos, M, B, "int8")
+    b_t, gh_t, pos_t = _t(binned, gh, pos)
+    got = thist.build_level_histogram_lanes(
+        b_t, thist.prepare_hist(gh_t, "int8"), pos_t, M, B)
+    np.testing.assert_array_equal(_per_lane(got.numpy(), L, M), want)
+
+
 def test_pad_rows_and_pad_lanes_add_nothing():
     """Appending pad rows (pos -1, zero gh, any bins) and pad lanes
     (every row inactive) leaves the real lanes' columns bitwise as they
@@ -222,13 +267,45 @@ def test_per_lane_n_cuts_equal_solo_searches():
                                        (1, 10**6, 28, 64, 128),
                                        (8, 4096, 93, 256, 64),
                                        (3, 10, 3, 7, 3)])
-def test_lane_tiling_covers_rows_and_fits_shared_memory(L, N, F, B, M):
-    f_tile, m_tile, n_rb, rpb, smem = cuda_hist.tiling(N, F, B, M, 132,
-                                                       n_lane=L)
-    assert n_rb * rpb >= N and (n_rb - 1) * rpb < N
-    assert 1 <= f_tile <= F and 1 <= m_tile <= min(M, cuda_hist.M_TILE_MAX)
-    assert smem == f_tile * B * 2 * m_tile * 4
-    assert smem <= cuda_hist.SMEM_BUDGET or f_tile == 1
+@pytest.mark.parametrize("n_sm", [132, 114])     # H100 SXM, H100 PCIe
+def test_lane_tiling_covers_rows_and_fits_shared_memory(L, N, F, B, M,
+                                                        n_sm):
+    """K4's launch plan (the scatter plan with bins of each lane's own):
+    every (feature, lane, node) cell owned by one unit, every unit walked
+    by one group of blocks, every row in one step of one copy, histogram
+    and pair list within a block's shared memory, one wave of blocks;
+    and the store flush exactly where each unit has one copy, so that
+    every output cell is written by one block."""
+    p = kb.scatter_plan(N, F, B, L, M, n_sm, shared_bins=False)
+    n_t, n_m = -(-L // p.t_tile), -(-M // p.m_tile)
+    assert p.n_units == -(-F // p.f_tile) * n_t * n_m
+    owner = np.zeros((F, L, M), dtype=np.int64)
+    for u in range(p.n_units):              # the kernel's unit order
+        mi, ti, fi = u % n_m, (u // n_m) % n_t, u // (n_m * n_t)
+        owner[fi * p.f_tile:(fi + 1) * p.f_tile,
+              ti * p.t_tile:(ti + 1) * p.t_tile,
+              mi * p.m_tile:(mi + 1) * p.m_tile] += 1
+    assert (owner == 1).all()
+    flushes = np.zeros(p.n_units, dtype=np.int64)   # blocks flushing a unit
+    for block in range(p.grid):
+        flushes[block // p.copies::p.n_groups] += 1
+    assert (flushes == p.copies).all()
+    rows = np.zeros(N, dtype=np.int64)
+    for c in range(p.copies):
+        rb, re = c * p.rows_per_copy, min(N, (c + 1) * p.rows_per_copy)
+        for r0 in range(rb, re, p.rows_per_step):
+            rows[r0:min(re, r0 + p.rows_per_step)] += 1
+    assert (rows == 1).all()
+    assert p.rows_per_step <= 65_536 and p.t_tile <= 64  # (k << 16) | r
+    assert p.smem == kb.smem_bytes(p.hist_bytes, p.t_tile,
+                                   p.rows_per_step) <= kb.SMEM_MAX
+    assert p.grid <= min(kb.SMEM_SM // (p.smem + kb.SMEM_RESERVED),
+                         2048 // kb.THREADS) * n_sm
+    assert p.store == (p.copies == 1)
+    assert p == kb.tile_plan(N, F, B, L, M, p.f_tile, p.t_tile, p.m_tile,
+                             n_sm, shared_bins=False)
+    if (L, M) == (64, 32):       # the lanes' deepest level: the store flush
+        assert p.store and p.n_units > p.grid
 
 
 def test_lane_wrapper_checks_inputs():

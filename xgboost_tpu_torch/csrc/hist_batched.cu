@@ -35,12 +35,12 @@ extern "C" int hist_batched_launch(
     int mode, const void* bins, const void* pos, const void* gh, void* out,
     long long n_rows, int n_feat, int n_bin, int n_tree, int n_node,
     int f_tile, int t_tile, int m_tile, int copies, int n_groups,
-    long long rows_per_copy, int rows_per_step, int hist_bytes,
+    long long rows_per_copy, int rows_per_step, int hist_bytes, int store,
     void* stream) {
   const hist_scatter::Args a = hist_scatter::make_args(
-      bins, pos, gh, out, n_rows, n_feat, n_bin, n_tree, n_node, f_tile,
+      bins, pos, gh, out, n_rows, 0, n_feat, n_bin, n_tree, n_node, f_tile,
       t_tile, m_tile, copies, n_groups, rows_per_copy, rows_per_step,
-      hist_bytes);
+      hist_bytes, store);
   return hist_scatter::launch_mode(mode, a, n_groups * copies,
                                    hist_scatter::smem_bytes(a), stream);
 }

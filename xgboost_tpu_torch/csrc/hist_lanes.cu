@@ -1,4 +1,4 @@
-// L tenants' level histograms in ONE launch, on Hopper (sm_90a).
+// K4: L tenants' level histograms in ONE launch, on Hopper (sm_90a).
 //
 // Replaces the TPU kernel xgboost_tpu/ops/pallas_hist.py:_hist_pallas_lanes_pre
 // (the lane-stacked launch of _hist_kernel; raw-operand entry
@@ -11,106 +11,57 @@
 //
 // Unlike the trees of K3, lanes share no rows: each tenant has its own
 // (N, F) u8 bins (0 = missing), (N, 2) gh and (N,) pos, N the bucket's
-// padded row count (pad rows carry pos = -1).  So K4 is K1's privatized
-// shared-memory scatter with a lane index in the grid: one block per
-// (lane, row chunk, feature tile, node tile) runs hist_block (shared with
-// K1, hist_block.cuh) over that lane's rows and flushes into the lane's
-// columns with global atomics.  The TPU kernel's row-tile packing of the
-// lanes is TPU layout and is not carried over.
+// padded row count (pad rows and pad lanes carry pos = -1).  So K4 is the
+// scatter kernel of hist_scatter.cuh (K1's and K3's) with the lanes as its
+// trees and a bins stride of N rows between them: units of f_tile features
+// x t_tile lanes x m_tile nodes, planned by ops/cuda_hist_batched.py:
+// scatter_plan (shared_bins=False), one wave of resident blocks, each
+// step listing only the in-tile (row, lane) pairs, so pad rows and pad
+// lanes cost one read of their pos and no addition.  The TPU kernel's
+// row-tile packing of the lanes is TPU layout and is not carried over.
 //
-// Modes as K1 (hist_block.cuh).  In mode int each lane's slice is bitwise
+// Modes as K1 (hist_scatter.cuh).  In mode int each lane's slice is bitwise
 // a solo K1 launch on that lane's rows: integer sums are exact and
-// order-free, and pad rows and pad lanes (every row at pos = -1) add
-// nothing.
+// order-free.
 //
 // Bound on the H100: bytes.  Per level the kernel must read every row's
 // pos (4 L N), the active rows' bins and gh (F + 8 bytes each) and write
 // the histogram (F * B * 2 * L * n_node * 4): 48 tenants of ~14k rows in
 // a stack of 64 x 16,384 rows, 28 features, B = 64, at depth 5 that is
 // about 58 MB (29 MB of it the output), ~0.017 ms at 3.35 TB/s, against 2
-// additions per active (row, feature), under 1 us at the f32 rate.
+// shared-memory additions per active (row, feature), 38 M at that level
+// (~5 us at one warp-wide atomic a clock on 132 SMs).  The output is most
+// of the bytes at the deep levels, where the plan has more units than
+// resident blocks and so one copy a unit: there the flush stores it once
+// (hist_scatter.cuh) instead of a memset and up to 7 M global atomics.
+// The earlier kernel here (a block per lane, row chunk and feature tile,
+// a 48 KB histogram each) re-read pos and gh for each of 10 feature tiles
+// at 32 nodes and flushed every row chunk's histogram with atomics.
 //
-// C interface for ctypes: hist_lanes_launch returns a cudaError_t (0 = ok).
+// C interface for ctypes: hist_lanes_launch and hist_lanes_resident return
+// a cudaError_t (0 = ok).
 
-#include "hist_block.cuh"
+#include "hist_scatter.cuh"
 
-namespace {
-
-template <int MODE>
-__global__ void hist_lanes_kernel(const uint8_t* __restrict__ bins,
-                                  const int32_t* __restrict__ pos,
-                                  const void* __restrict__ gh,
-                                  void* __restrict__ out, int n_lane,
-                                  long long n_rows, int n_feat, int n_bin,
-                                  int n_node, int f_tile, int m_tile,
-                                  int n_row_blocks,
-                                  long long rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // grid x enumerates (lane, row block), row block minor
-  const int lane = blockIdx.x / n_row_blocks;
-  const int rb = blockIdx.x % n_row_blocks;
-  const int f0 = blockIdx.y * f_tile;
-  const int m0 = blockIdx.z * m_tile;
-  const long long r_begin = (long long)rb * rows_per_block;
-  long long r_end = r_begin + rows_per_block;
-  if (r_end > n_rows) r_end = n_rows;
-  const long long row0 = (long long)lane * n_rows;
-  // gh rows are 8 bytes (float2 or int2) in every mode
-  const void* lane_gh = static_cast<const char*>(gh) + row0 * 8;
-  hist_block<MODE>(bins + row0 * n_feat, pos + row0, lane_gh, out, r_begin,
-                   r_end, n_feat, n_bin, f0, min(f_tile, n_feat - f0), m0,
-                   min(m_tile, n_node - m0), m_tile,
-                   (long long)n_lane * n_node, (long long)lane * n_node + m0,
-                   smem_raw);
+extern "C" int hist_lanes_launch(
+    int mode, const void* bins, const void* pos, const void* gh, void* out,
+    long long n_rows, int n_feat, int n_bin, int n_lane, int n_node,
+    int f_tile, int t_tile, int m_tile, int copies, int n_groups,
+    long long rows_per_copy, int rows_per_step, int hist_bytes, int store,
+    void* stream) {
+  const hist_scatter::Args a = hist_scatter::make_args(
+      bins, pos, gh, out, n_rows, n_rows, n_feat, n_bin, n_lane, n_node,
+      f_tile, t_tile, m_tile, copies, n_groups, rows_per_copy, rows_per_step,
+      hist_bytes, store);
+  return hist_scatter::launch_mode(mode, a, n_groups * copies,
+                                   hist_scatter::smem_bytes(a), stream);
 }
 
-template <int MODE>
-cudaError_t launch(const void* bins, const void* pos, const void* gh,
-                   void* out, int n_lane, long long n_rows, int n_feat,
-                   int n_bin, int n_node, int f_tile, int m_tile,
-                   int n_row_blocks, long long rows_per_block, int threads,
-                   size_t smem, cudaStream_t stream) {
-  cudaError_t e = allow_smem(hist_lanes_kernel<MODE>, smem);
-  if (e != cudaSuccess) return e;
-  const int n_f_tiles = (n_feat + f_tile - 1) / f_tile;
-  const int n_m_tiles = (n_node + m_tile - 1) / m_tile;
-  dim3 grid((unsigned)n_lane * n_row_blocks, n_f_tiles, n_m_tiles);
-  hist_lanes_kernel<MODE><<<grid, threads, smem, stream>>>(
-      static_cast<const uint8_t*>(bins), static_cast<const int32_t*>(pos),
-      gh, out, n_lane, n_rows, n_feat, n_bin, n_node, f_tile, m_tile,
-      n_row_blocks, rows_per_block);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int hist_lanes_launch(int mode, const void* bins, const void* pos,
-                                 const void* gh, void* out, int n_lane,
-                                 long long n_rows, int n_feat, int n_bin,
-                                 int n_node, int f_tile, int m_tile,
-                                 int n_row_blocks, long long rows_per_block,
-                                 int threads, long long smem_bytes,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)smem_bytes;
-  switch (mode) {
-    case 0:
-      return (int)launch<0>(bins, pos, gh, out, n_lane, n_rows, n_feat,
-                            n_bin, n_node, f_tile, m_tile, n_row_blocks,
-                            rows_per_block, threads, smem, s);
-    case 1:
-      return (int)launch<1>(bins, pos, gh, out, n_lane, n_rows, n_feat,
-                            n_bin, n_node, f_tile, m_tile, n_row_blocks,
-                            rows_per_block, threads, smem, s);
-    case 2:
-      return (int)launch<2>(bins, pos, gh, out, n_lane, n_rows, n_feat,
-                            n_bin, n_node, f_tile, m_tile, n_row_blocks,
-                            rows_per_block, threads, smem, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+extern "C" int hist_lanes_resident(int mode, long long smem_bytes,
+                                   int* blocks) {
+  return hist_scatter::resident_mode(mode, smem_bytes, blocks);
 }
 
 extern "C" const char* hist_lanes_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return cudaGetErrorString(static_cast<cudaError_t>(code & 0xffff));
 }

@@ -1,13 +1,17 @@
-// The scatter level histogram of K1 (hist_level.cu, one tree) and K3
-// (hist_batched.cu, T trees over one bins matrix), on Hopper (sm_90a).
+// The scatter level histogram of K1 (hist_level.cu, one tree), K3
+// (hist_batched.cu, T trees over one bins matrix) and K4 (hist_lanes.cu,
+// T tenant lanes, each on its own bins), on Hopper (sm_90a).
 //
 // Replaces the TPU kernels xgboost_tpu/ops/pallas_hist.py:_hist_kernel
-// (K1, through _hist_pallas_pre) and _batched_hist_kernel (K3, through
-// _hist_pallas_batched_pre).  One function: for every tree t, every row r
-// with pos[t, r] >= 0 and every feature f, add (g[t, r], h[t, r]) into the
-// cell [f, bins[r, f], channel, t * n_node + pos[t, r]] of a
+// (K1, through _hist_pallas_pre; K4, through _hist_pallas_lanes_pre) and
+// _batched_hist_kernel (K3, through _hist_pallas_batched_pre).  One
+// function: for every tree t, every row r with pos[t, r] >= 0 and every
+// feature f, add (g[t, r], h[t, r]) into the cell
+// [f, bins[t, r, f], channel, t * n_node + pos[t, r]] of a
 // (F, B, 2, T * n_node) histogram (node minor, trees outer in the last
-// axis; K1 is T = 1).
+// axis; K1 is T = 1).  The trees of K1 and K3 share one (N, F) bins matrix
+// (a bins stride of 0 rows between trees); K4's lanes are its trees, each
+// with its own (N, F) matrix (a stride of N rows).
 //
 // What bounds it on the H100.  The function's bytes are small (23 MB at
 // 200k x 28, six trees, 32 nodes: ~7 us at 3.35 TB/s) and its additions
@@ -42,8 +46,15 @@
 //  - The private histogram is two planes (g, h) of bin-minor cells with
 //    an odd bin pitch, so the flush reads consecutive nodes at a stride
 //    that no bank repeats.
-//  - The flush.  After its rows a block adds each non-zero cell of its
-//    histogram to global memory with one atomic.  Summing the private
+//  - The flush.  Where the plan gives every unit one copy (K4's deep
+//    levels; some K1 and K3 levels), each output cell belongs to one
+//    block: the block stores every cell of its unit, zeros included, in
+//    output order, into an output the wrapper leaves uninitialised, so the
+//    output is written once and never zeroed.  Otherwise a block adds each
+//    non-zero cell of its histogram to a zeroed output with one global
+//    atomic.  The values are the same either way: an int sum is exact,
+//    and a float cell owned by one block is that block's sum from +0,
+//    stored or added onto +0.  Summing the private
 //    histograms of a thread block cluster through distributed shared
 //    memory first measured slower at every cluster size on the H100: the
 //    remote reads are serial loads where the atomics they save are
@@ -60,7 +71,10 @@
 //
 // Bins >= B are skipped (binning never makes them; it keeps shared memory
 // safe).  Every (feature, tree, node) cell is owned by one unit, and each
-// unit's copies split the rows, so every addition happens once.
+// unit's copies split the rows, so every addition happens once.  A K4
+// launch on lanes of N rows is a K3 launch whose trees read their own
+// rows: in mode int each lane's slice is bitwise a solo K1 launch on the
+// lane's rows, and pad rows and pad lanes (pos = -1) add nothing.
 
 #pragma once
 
@@ -82,11 +96,12 @@ struct Acc<2> { typedef int type; typedef int2 pair; };
 
 // One launch's shapes and plan (ops/cuda_hist_batched.py:scatter_plan).
 struct Args {
-  const uint8_t* bins;   // (N, F) u8
+  const uint8_t* bins;   // (N, F) u8 shared by the trees, or (T, N, F)
   const int32_t* pos;    // (T, N) int32, < 0 = inactive
   const void* gh;        // (T, N, 2): int2 in mode 2, else float2
-  void* out;             // (F, B, 2, T * n_node), zeroed
+  void* out;             // (F, B, 2, T * n_node): zeroed unless `store`
   long long n_rows;
+  long long bins_stride;  // rows between two trees' bins: 0 or n_rows
   int n_feat, n_bin, n_tree, n_node;
   int f_tile, t_tile, m_tile;
   int n_t_tiles, n_m_tiles, n_units;
@@ -96,6 +111,7 @@ struct Args {
   int rows_per_step;        // R, a multiple of 16, at most 65,536
   int bin_pitch;            // Bp = B | 1
   int hist_bytes;           // two planes of f_tile * t_tile * m_tile * Bp
+  int store;                // 1: the store flush (copies == 1), 0: atomics
 };
 
 // The 4 bytes of bins at [p, p + 4), those outside [lo, hi) zero: a row's
@@ -130,7 +146,9 @@ __global__ void __launch_bounds__(THREADS)
   const int Bp = a.bin_pitch, tm = a.t_tile * a.m_tile;
   const int P = a.f_tile * tm * Bp;  // cells of one plane
   const GH* gh = static_cast<const GH*>(a.gh);
-  const uint8_t* const bins_hi = a.bins + N * F;
+  // the whole bins matrix: a row's last word may read into the next one
+  const uint8_t* const bins_hi =
+      a.bins + (a.bins_stride ? a.n_tree * a.bins_stride : N) * F;
   const int group = blockIdx.x / a.copies;
   const int copy = blockIdx.x % a.copies;
   const long long rb = (long long)copy * a.rows_per_copy;
@@ -192,7 +210,8 @@ __global__ void __launch_bounds__(THREADS)
           h = __bfloat162float(__float2bfloat16_rn(h));
         }
         // the aligned words from the one holding the row's first feature
-        const uint8_t* rp = a.bins + (r0 + r) * F + f0;
+        const uint8_t* rp =
+            a.bins + ((t0 + k) * a.bins_stride + r0 + r) * F + f0;
         const uint8_t* rw = reinterpret_cast<const uint8_t*>(
             reinterpret_cast<uintptr_t>(rp) & ~static_cast<uintptr_t>(3));
         const int sh = 8 * (int)(rp - rw);
@@ -216,26 +235,63 @@ __global__ void __launch_bounds__(THREADS)
       __syncthreads();  // the list is rewritten by the next step
     }
 
-    // Flush: the unit's cells in output order (node fastest).  Skipping
-    // zero sums is exact: a float sum from +0 is never -0.
+    // Flush: the unit's cells in output order (node fastest), stored where
+    // the unit has one copy, else added.
     __syncthreads();  // every add done (a copy with no rows: the zeroing)
     T* o = reinterpret_cast<T*>(a.out);
     const long long cols = (long long)a.n_tree * a.n_node;
-    const int cells = nf * B * 2 * nt * nm;
-    for (int e = threadIdx.x; e < cells; e += blockDim.x) {
-      const int j = e % nm;
-      const int e1 = e / nm;
-      const int k = e1 % nt;
-      const int e2 = e1 / nt;
-      const int c = e2 & 1;
-      const int b = (e2 >> 1) % B;
-      const int f = (e2 >> 1) / B;
-      const int cell = (f * tm + k * a.m_tile + j) * Bp + b;
-      const T v = hist[c * P + cell];
-      if (v == T(0)) continue;
-      atomicAdd(o + (((long long)(f0 + f) * B + b) * 2 + c) * cols
-                    + (long long)(t0 + k) * a.n_node + m0 + j,
-                v);
+    if (a.store) {
+      // Every cell, zeros included.  A thread's cells e, e + blockDim.x,
+      // ... carry their digits (node j, tree k, channel c, bin b, feature
+      // f) from one to the next instead of dividing them out of e: the
+      // divisions made the flush of a deep level instruction-bound.
+      int q = threadIdx.x, j = q % nm;
+      q /= nm;
+      int k = q % nt;
+      q /= nt;
+      int c = q & 1, b = (q >> 1) % B, f = (q >> 1) / B;
+      q = blockDim.x;
+      const int sj = q % nm;
+      q /= nm;
+      const int sk = q % nt;
+      q /= nt;
+      const int sc = q & 1, sb = (q >> 1) % B, sf = (q >> 1) / B;
+      while (f < nf) {
+        const int cell = (f * tm + k * a.m_tile + j) * Bp + b;
+        o[(((long long)(f0 + f) * B + b) * 2 + c) * cols
+          + (long long)(t0 + k) * a.n_node + m0 + j] = hist[c * P + cell];
+        j += sj;
+        int carry = j >= nm;
+        j -= carry ? nm : 0;
+        k += sk + carry;
+        carry = k >= nt;
+        k -= carry ? nt : 0;
+        c += sc + carry;
+        carry = c >= 2;
+        c -= carry ? 2 : 0;
+        b += sb + carry;
+        carry = b >= B;
+        b -= carry ? B : 0;
+        f += sf + carry;
+      }
+    } else {
+      // Skipping zero sums is exact: a float sum from +0 is never -0.
+      const int cells = nf * B * 2 * nt * nm;
+      for (int e = threadIdx.x; e < cells; e += blockDim.x) {
+        const int j = e % nm;
+        const int e1 = e / nm;
+        const int k = e1 % nt;
+        const int e2 = e1 / nt;
+        const int c = e2 & 1;
+        const int b = (e2 >> 1) % B;
+        const int f = (e2 >> 1) / B;
+        const int cell = (f * tm + k * a.m_tile + j) * Bp + b;
+        const T v = hist[c * P + cell];
+        if (v == T(0)) continue;
+        atomicAdd(o + (((long long)(f0 + f) * B + b) * 2 + c) * cols
+                      + (long long)(t0 + k) * a.n_node + m0 + j,
+                  v);
+      }
     }
     __syncthreads();  // the histogram is zeroed for the next unit
   }
@@ -243,17 +299,18 @@ __global__ void __launch_bounds__(THREADS)
 
 // The Args of one launch, from the C entry points' scalars.
 inline Args make_args(const void* bins, const void* pos, const void* gh,
-                      void* out, long long n_rows, int n_feat, int n_bin,
-                      int n_tree, int n_node, int f_tile, int t_tile,
-                      int m_tile, int copies, int n_groups,
-                      long long rows_per_copy, int rows_per_step,
-                      int hist_bytes) {
+                      void* out, long long n_rows, long long bins_stride,
+                      int n_feat, int n_bin, int n_tree, int n_node,
+                      int f_tile, int t_tile, int m_tile, int copies,
+                      int n_groups, long long rows_per_copy,
+                      int rows_per_step, int hist_bytes, int store) {
   Args a;
   a.bins = static_cast<const uint8_t*>(bins);
   a.pos = static_cast<const int32_t*>(pos);
   a.gh = gh;
   a.out = out;
   a.n_rows = n_rows;
+  a.bins_stride = bins_stride;
   a.n_feat = n_feat;
   a.n_bin = n_bin;
   a.n_tree = n_tree;
@@ -270,6 +327,7 @@ inline Args make_args(const void* bins, const void* pos, const void* gh,
   a.rows_per_step = rows_per_step;
   a.bin_pitch = n_bin | 1;
   a.hist_bytes = hist_bytes;
+  a.store = store;
   return a;
 }
 
@@ -319,7 +377,8 @@ int launch(const Args& a, int grid, size_t smem, cudaStream_t stream) {
   cudaError_t e = opt_in<MODE>(&limit);
   if (e != cudaSuccess) return (int)e | (2 << 16);
   if (grid < 1 || smem > (size_t)limit || a.rows_per_step % 16
-      || a.rows_per_step > 65536
+      || a.rows_per_step > 65536 || (a.store && a.copies != 1)
+      || (a.bins_stride != 0 && a.bins_stride != a.n_rows)
       || a.hist_bytes < 8LL * a.f_tile * a.t_tile * a.m_tile * a.bin_pitch)
     return (int)cudaErrorInvalidValue | (1 << 16);
   kernel<MODE><<<grid, THREADS, smem, stream>>>(a);

@@ -4,9 +4,8 @@ Replaces the TPU kernel ``xgboost_tpu/ops/pallas_hist.py:_hist_kernel``
 (launched through ``_hist_pallas_pre``).  The CUDA source is
 ``csrc/hist_level.cu``: the scatter kernel of ``csrc/hist_scatter.cuh``
 at T = 1, planned and launched as K3's (:mod:`.cuda_hist_batched`).
-This module holds K1's wrapper, its plain PyTorch version, its launch
-count, and :func:`tiling`, the row-block plan of K4 (``hist_lanes.cu``
-on ``hist_block.cuh``).
+This module holds K1's wrapper, its plain PyTorch version and its
+launch count.
 
 The function: for every row ``r`` with ``pos[r] >= 0`` and every feature
 ``f``, add ``gh[r]`` into the cell ``[f, bins[r, f], :, pos[r]]`` of a
@@ -31,10 +30,6 @@ import torch
 
 
 MODES = {"fp32": 0, "bf16": 1, "int": 2}
-THREADS = 256
-M_TILE_MAX = 64                 # nodes per block (the TPU kernel's tile)
-SMEM_BUDGET = 48 * 1024         # per block, unless one feature needs more
-BLOCKS_PER_SM = 4
 
 # launches of the CUDA kernel by level_histogram (never by the plain version)
 launches = 0
@@ -64,25 +59,6 @@ def quantize_gh(gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     gh_q = torch.clamp(torch.round(gh / scale[..., None, :] * 127.0),
                        -127, 127).to(torch.int32)
     return gh_q, scale
-
-
-def tiling(n_rows: int, n_feat: int, n_bin: int, n_node: int,
-           n_sm: int, n_lane: int = 1) -> Tuple[int, int, int, int, int]:
-    """(f_tile, m_tile, n_row_blocks, rows_per_block, smem_bytes) of one
-    launch.  A block's shared histogram holds f_tile features x B bins x
-    2 channels x m_tile nodes of 4 bytes; enough row blocks are launched
-    to give every SM several blocks.  ``n_lane`` lanes of ``n_rows`` rows
-    each (K4) share the blocks: row blocks are per lane."""
-    m_tile = min(n_node, M_TILE_MAX)
-    per_feat = n_bin * 2 * m_tile * 4
-    f_tile = max(1, min(n_feat, SMEM_BUDGET // per_feat))
-    n_f_tiles = -(-n_feat // f_tile)
-    n_m_tiles = -(-n_node // m_tile)
-    want = max(1, -(-BLOCKS_PER_SM * n_sm
-                    // (n_lane * n_f_tiles * n_m_tiles)))
-    n_row_blocks = max(1, min(want, -(-n_rows // THREADS)))
-    rows_per_block = -(-max(n_rows, 1) // n_row_blocks)
-    return f_tile, m_tile, n_row_blocks, rows_per_block, f_tile * per_feat
 
 
 def _check(bins, gh, pos, n_node, n_bin, mode):

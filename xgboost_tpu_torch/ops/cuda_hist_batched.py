@@ -4,9 +4,10 @@ hand-written CUDA.
 Replaces the TPU kernel ``xgboost_tpu/ops/pallas_hist.py:
 _batched_hist_kernel`` (launched through ``_hist_pallas_batched_pre``).
 The CUDA source is ``csrc/hist_batched.cu``, which binds the scatter
-kernel of ``csrc/hist_scatter.cuh`` for any T (K1 binds it at T = 1);
-this module holds the launch plan of both (:func:`scatter_plan`), their
-launch, K3's wrapper, its plain PyTorch version and its launch count.
+kernel of ``csrc/hist_scatter.cuh`` for any T (K1 binds it at T = 1, K4
+for lanes with bins of their own); this module holds the launch plan of
+all three (:func:`scatter_plan`), their launch, K3's wrapper, its plain
+PyTorch version and its launch count.
 
 The function: for every tree ``t``, every row ``r`` with
 ``pos[t, r] >= 0`` and every feature ``f``, add ``gh[t, r]`` into the
@@ -38,6 +39,10 @@ SMEM_MAX = 232_448             # the opt-in limit of one block on Hopper
 SMEM_SM = 233_472              # an SM's shared memory (228 KB)
 SMEM_RESERVED = 1024           # the runtime's share of each resident block
 PAIRS_PER_STEP = 2048          # (row, tree) pairs a step lists
+# K4 (bins of each lane's own): as many pairs a step as keep the blocks an
+# SM holds, up to this (fewer steps, each with more pairs in the unit's
+# tile; PERF.md)
+LANE_PAIRS_PER_STEP = 16384
 # weights of the plan's cost, in bytes, set by hand (PERF.md says how the
 # tilings they choose compare with their neighbours on the card): a global
 # atomic at the flush; a shared-memory addition where fewer blocks than SMs
@@ -73,6 +78,9 @@ class ScatterPlan(NamedTuple):
     hist_bytes: int       # two planes of f_tile x t_tile x m_tile x bin_pitch
     smem: int             # smem_bytes(): histogram and pair list
     grid: int             # n_groups x copies: one wave
+    store: bool           # copies == 1: each block stores its units' cells
+                          # into an uninitialised output (else atomics on
+                          # a zeroed one)
     cost: float           # the bytes-like cost the plan minimised
 
 
@@ -93,19 +101,21 @@ def smem_bytes(hist: int, t_tile: int, rows: int) -> int:
 
 def scatter_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
                  n_node: int, n_sm: int = 132, smem_per_sm: int = SMEM_SM,
-                 max_blocks: Optional[int] = None) -> ScatterPlan:
+                 max_blocks: Optional[int] = None,
+                 shared_bins: bool = True) -> ScatterPlan:
     """The (f_tile, t_tile, m_tile) units and the copies of one launch of
     the scatter kernel, pure Python: of the tilings that fit
     (:func:`tile_plan`), the one of least cost in bytes
     (:func:`plan_cost`), then the fewest units, then the widest node
-    tile."""
+    tile.  ``shared_bins``: the trees read one (N, F) bins matrix (K1,
+    K3), or each its own (K4's lanes)."""
     best = None
     for f_tile in _tile_sizes(n_feat):
         for t_tile in _tile_sizes(n_tree):
             for m_tile in _tile_sizes(n_node):
                 plan = tile_plan(n_rows, n_feat, n_bin, n_tree, n_node,
                                  f_tile, t_tile, m_tile, n_sm, smem_per_sm,
-                                 max_blocks)
+                                 max_blocks, shared_bins)
                 if plan is None:
                     continue
                 key = (plan.cost, plan.n_units, -m_tile)
@@ -121,7 +131,8 @@ def scatter_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
 def tile_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
               n_node: int, f_tile: int, t_tile: int, m_tile: int,
               n_sm: int = 132, smem_per_sm: int = SMEM_SM,
-              max_blocks: Optional[int] = None) -> Optional[ScatterPlan]:
+              max_blocks: Optional[int] = None,
+              shared_bins: bool = True) -> Optional[ScatterPlan]:
     """The launch at one tiling, or None where it does not fit.
 
     A unit's private histogram (two planes of f_tile x t_tile x m_tile x
@@ -130,15 +141,31 @@ def tile_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
     blocks resident at once (from the shared memory a block takes, or
     ``max_blocks`` where the card's occupancy query says fewer).  Copies
     fill the blocks resident at once, no more than the rows are worth (a
-    block adds at least as many values as its histogram has cells)."""
+    block adds at least as many values as its histogram has cells).
+    Where every unit has one copy, every output cell is owned by one
+    block, which stores it (``store``).  Without shared bins (K4) a step
+    lists up to LANE_PAIRS_PER_STEP pairs where that keeps the blocks an
+    SM holds."""
     hist = _round16(8 * f_tile * t_tile * m_tile * (n_bin | 1))
     rows = _round16(max(16, min(4096, PAIRS_PER_STEP // t_tile)))
     while rows > 16 and smem_bytes(hist, t_tile, rows) > SMEM_MAX:
         rows -= 16
+
+    def per_sm(r):
+        return min(smem_per_sm // (smem_bytes(hist, t_tile, r)
+                                   + SMEM_RESERVED), 2048 // THREADS)
+    if not shared_bins:
+        for pairs in (LANE_PAIRS_PER_STEP, LANE_PAIRS_PER_STEP // 2,
+                      LANE_PAIRS_PER_STEP // 4):
+            more = _round16(max(16, pairs // t_tile))
+            if more > rows and smem_bytes(hist, t_tile, more) <= SMEM_MAX \
+                    and per_sm(more) == per_sm(rows):
+                rows = more
+                break
     smem = smem_bytes(hist, t_tile, rows)
     if smem > SMEM_MAX:
         return None
-    res = min(smem_per_sm // (smem + SMEM_RESERVED), 2048 // THREADS) * n_sm
+    res = per_sm(rows) * n_sm
     if max_blocks is not None:
         res = min(res, max_blocks)
     if res < 1:
@@ -152,25 +179,35 @@ def tile_plan(n_rows: int, n_feat: int, n_bin: int, n_tree: int,
     plan = ScatterPlan(
         f_tile, t_tile, m_tile, units, copies, n_groups,
         _round16(-(-max(n_rows, 1) // copies)), rows, n_bin | 1, hist, smem,
-        n_groups * copies, 0.0)
-    return plan._replace(cost=plan_cost(plan, n_rows, n_feat, n_tree, n_sm))
+        n_groups * copies, copies == 1, 0.0)
+    return plan._replace(cost=plan_cost(plan, n_rows, n_feat, n_tree, n_sm,
+                                        shared_bins))
 
 
 def plan_cost(p: ScatterPlan, n_rows: int, n_feat: int, n_tree: int,
-              n_sm: int) -> float:
+              n_sm: int, shared_bins: bool = True) -> float:
     """A plan's cost in bytes: every unit reads its rows' bins of its
-    features (a row's slice costs the 32-byte sectors it spans), pos and
-    gh once; every copy of a unit zeroes its histogram, reads it once and
-    adds it to global memory once (ATOMIC_BYTES a cell); where the grid
-    leaves SMs idle, the additions cost ADD_BYTES each in proportion; and
-    each group's steps, one after another, cost STEP_BYTES each."""
-    reads = p.n_units * n_rows * (min(n_feat, p.f_tile + 32)
-                                  + 12 * p.t_tile)
-    flush = p.n_units * p.copies * p.hist_bytes * (1 + ATOMIC_BYTES / 4)
+    features (a row's slice costs the 32-byte sectors it spans; a unit of
+    t_tile trees with bins of their own reads t_tile rows' slices), pos
+    and gh once; every copy of a unit zeroes its histogram, reads it once
+    and adds it to global memory once (ATOMIC_BYTES a cell), or, under
+    the store flush, stores it once (4 bytes a cell); where the grid
+    leaves SMs idle, or where the groups walk unequal numbers of units,
+    the additions cost ADD_BYTES each in proportion; and each group's
+    steps, one after another, cost STEP_BYTES each."""
+    if shared_bins:
+        reads = p.n_units * n_rows * (min(n_feat, p.f_tile + 32)
+                                      + 12 * p.t_tile)
+    else:
+        reads = p.n_units * n_rows * p.t_tile * (
+            min(n_feat, p.f_tile + 32) + 12)
+    flush = p.n_units * p.copies * p.hist_bytes * (
+        2 if p.store else 1 + ATOMIC_BYTES / 4)
     adds = n_tree * n_rows * n_feat * 2
-    idle = ADD_BYTES * adds * max(0.0, n_sm / min(p.grid, n_sm) - 1)
-    steps = -(-p.n_units // p.n_groups) * -(-min(n_rows, p.rows_per_copy)
-                                            // p.rows_per_step)
+    rounds = -(-p.n_units // p.n_groups)      # units the busiest group walks
+    idle = ADD_BYTES * adds * (max(0.0, n_sm / min(p.grid, n_sm) - 1)
+                               + rounds * p.n_groups / p.n_units - 1)
+    steps = rounds * -(-min(n_rows, p.rows_per_copy) // p.rows_per_step)
     return reads + flush + idle + STEP_BYTES * steps
 
 
@@ -180,13 +217,13 @@ _PLANS = {}       # every launch's plan, by library, card, mode and shapes
 def launch_plan(name: str, n_rows: int, n_feat: int, n_bin: int,
                 n_tree: int, n_node: int, mode: str,
                 device: torch.device) -> ScatterPlan:
-    """The plan a launch of K1 (``name`` ``hist_level``, T = 1) or K3
-    (``hist_batched``) takes on this card: :func:`scatter_plan` at its SM
-    count, planned again below the blocks its occupancy query (the
-    library's ``resident(mode, smem, &blocks)``) lets run at once where
-    that is fewer than the shared memory allows.  Cached, so that a
-    level's launch after the first costs one dictionary lookup on the
-    host."""
+    """The plan a launch of K1 (``name`` ``hist_level``, T = 1), K3
+    (``hist_batched``) or K4 (``hist_lanes``, T lanes with bins of their
+    own) takes on this card: :func:`scatter_plan` at its SM count,
+    planned again below the blocks its occupancy query (the library's
+    ``resident(mode, smem, &blocks)``) lets run at once where that is
+    fewer than the shared memory allows.  Cached, so that a level's
+    launch after the first costs one dictionary lookup on the host."""
     lib = _lib(name)
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -198,7 +235,7 @@ def launch_plan(name: str, n_rows: int, n_feat: int, n_bin: int,
     cap = None
     while True:
         plan = scatter_plan(n_rows, n_feat, n_bin, n_tree, n_node, n_sm,
-                            SMEM_SM, cap)
+                            SMEM_SM, cap, shared_bins=name != "hist_lanes")
         blocks = ctypes.c_int(0)
         with torch.cuda.device(idx):
             rc = getattr(lib, f"{name}_resident")(MODES[mode], plan.smem,
@@ -261,7 +298,8 @@ def _acc(mode):
 
 def scatter_launch(name, bins, gh, pos, n_tree, n_node, n_bin, mode):
     """Launch the scatter kernel of library ``name`` (``hist_batched``
-    for any T, ``hist_level`` at T = 1) on CUDA tensors; returns the
+    for any T, ``hist_level`` at T = 1, both on (N, F) bins;
+    ``hist_lanes`` on (T, N, F) bins) on CUDA tensors; returns the
     histogram, or None where there is nothing to launch (no rows,
     features or trees: the caller returns zeros and counts nothing)."""
     if not (gh.device == pos.device == bins.device):
@@ -274,24 +312,25 @@ def scatter_launch(name, bins, gh, pos, n_tree, n_node, n_bin, mode):
             and pos.is_contiguous()) or gh.data_ptr() % 8 \
             or pos.data_ptr() % 4:
         raise ValueError("bins, gh and pos must be contiguous, gh 8-aligned")
-    N, F = bins.shape
+    N, F = bins.shape[-2:]
     if N == 0 or F == 0 or n_tree == 0:
         return None
     dev = bins.device
     lib = _lib(name)
     p = launch_plan(name, N, F, n_bin, n_tree, n_node, mode, dev)
-    out = torch.zeros((F, n_bin, 2, n_tree * n_node), dtype=_acc(mode),
-                      device=dev)
+    # the store flush writes every cell: nothing to zero
+    out = (torch.empty if p.store else torch.zeros)(
+        (F, n_bin, 2, n_tree * n_node), dtype=_acc(mode), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tiles = (p.f_tile, p.t_tile, p.m_tile) if name == "hist_batched" \
-        else (p.f_tile, p.m_tile)
-    trees = (n_tree,) if name == "hist_batched" else ()
+    tiles = (p.f_tile, p.m_tile) if name == "hist_level" \
+        else (p.f_tile, p.t_tile, p.m_tile)
+    trees = () if name == "hist_level" else (n_tree,)
     with torch.cuda.device(dev):   # the launch targets this card
         rc = getattr(lib, f"{name}_launch")(
             MODES[mode], bins.data_ptr(), pos.data_ptr(), gh.data_ptr(),
             out.data_ptr(), N, F, n_bin, *trees, n_node, *tiles, p.copies,
             p.n_groups, p.rows_per_copy, p.rows_per_step, p.hist_bytes,
-            stream)
+            int(p.store), stream)
     if rc != 0:
         step = ("", "arguments", "shared-memory opt-in",
                 "launch")[min(rc >> 16, 3)]
@@ -303,15 +342,16 @@ def scatter_launch(name, bins, gh, pos, n_tree, n_node, n_bin, mode):
 
 
 def _lib(name: str = "hist_batched") -> ctypes.CDLL:
-    """The scatter library ``name`` (``hist_batched``, K3, or
-    ``hist_level``, K1), built at first use, its entry points typed."""
+    """The scatter library ``name`` (``hist_batched``, K3;
+    ``hist_level``, K1; ``hist_lanes``, K4), built at first use, its
+    entry points typed."""
     lib = nvcc.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        shapes = [I, I, I, I, I, I, I] if name == "hist_batched" \
-            else [I, I, I, I, I]   # (F, B, [T,] n_node, f, [t,] m tiles)
-        fn.argtypes = [I, P, P, P, P, L, *shapes, I, I, L, I, I, P]
+        shapes = [I, I, I, I, I] if name == "hist_level" \
+            else [I, I, I, I, I, I, I]  # (F, B, [T,] n_node, f, [t,] m)
+        fn.argtypes = [I, P, P, P, P, L, *shapes, I, I, L, I, I, I, P]
         fn.restype = I
         res = getattr(lib, f"{name}_resident")
         res.argtypes = [I, L, ctypes.POINTER(ctypes.c_int)]

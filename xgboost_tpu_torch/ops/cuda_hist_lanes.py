@@ -3,9 +3,11 @@
 Replaces the TPU kernel ``xgboost_tpu/ops/pallas_hist.py:
 _hist_pallas_lanes_pre`` (the lane-stacked launch of ``_hist_kernel``;
 raw-operand entry ``build_level_histogram_pallas_lanes``).  The CUDA
-source is ``csrc/hist_lanes.cu``, which shares K1's block code
-(``csrc/hist_block.cuh``); this module holds its wrapper, its plain
-PyTorch version and its launch count.
+source is ``csrc/hist_lanes.cu``, which binds the scatter kernel of K1
+and K3 (``csrc/hist_scatter.cuh``) with the lanes as its trees, each on
+bins of its own, planned and launched as K3's
+(:mod:`.cuda_hist_batched`, ``shared_bins=False``); this module holds
+its wrapper, its plain PyTorch version and its launch count.
 
 The function: for every lane ``l``, every row ``r`` with
 ``pos[l, r] >= 0`` and every feature ``f``, add ``gh[l, r]`` into the
@@ -24,13 +26,12 @@ device raises.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
 
-from xgboost_tpu_torch.ops import nvcc
-from xgboost_tpu_torch.ops.cuda_hist import MODES, THREADS, tiling
+from xgboost_tpu_torch.ops import cuda_hist_batched
+from xgboost_tpu_torch.ops.cuda_hist import MODES
 
 # launches of the CUDA kernel by level_histogram_lanes (never by the
 # plain version)
@@ -78,68 +79,36 @@ def level_histogram_lanes(bins: torch.Tensor, gh: torch.Tensor,
 
 def _launch(bins, gh, pos, n_node, n_bin, mode):
     global launches
-    if not (gh.device == pos.device == bins.device):
-        raise ValueError("bins, gh and pos must be on one device")
-    if bins.dtype != torch.uint8 or n_bin > 256:
-        raise NotImplementedError(
-            f"the CUDA histogram takes u8 bins with B <= 256 (got "
-            f"{bins.dtype}, B={n_bin})")
-    if not (bins.is_contiguous() and gh.is_contiguous()
-            and pos.is_contiguous()) or gh.data_ptr() % 8:
-        raise ValueError("bins, gh and pos must be contiguous, gh 8-aligned")
     L, N, F = bins.shape
-    acc = torch.int32 if mode == "int" else torch.float32
-    out = torch.zeros((F, n_bin, 2, L * n_node), dtype=acc,
-                      device=bins.device)
-    if N == 0 or F == 0 or L == 0:
-        return out
-    n_sm = torch.cuda.get_device_properties(bins.device).multi_processor_count
-    f_tile, m_tile, n_rb, rpb, smem = tiling(N, F, n_bin, n_node, n_sm,
-                                             n_lane=L)
-    lib = _lib()
-    with torch.cuda.device(bins.device):   # the launch targets this card
-        stream = torch.cuda.current_stream(bins.device).cuda_stream
-        rc = lib.hist_lanes_launch(
-            MODES[mode], bins.data_ptr(), pos.data_ptr(), gh.data_ptr(),
-            out.data_ptr(), L, N, F, n_bin, n_node, f_tile, m_tile, n_rb,
-            rpb, THREADS, smem, stream)
-    if rc != 0:
-        raise RuntimeError("hist_lanes kernel launch failed: "
-                           + lib.hist_lanes_error_string(rc).decode())
+    out = cuda_hist_batched.scatter_launch("hist_lanes", bins, gh, pos, L,
+                                           n_node, n_bin, mode)
+    if out is None:
+        acc = torch.int32 if mode == "int" else torch.float32
+        return torch.zeros((F, n_bin, 2, L * n_node), dtype=acc,
+                           device=bins.device)
     with _COUNT_LOCK:     # lane threads launch at once
         launches += 1
     return out
-
-
-def _lib() -> ctypes.CDLL:
-    lib = nvcc.load("hist_lanes")
-    if lib.hist_lanes_launch.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hist_lanes_launch.argtypes = [I, P, P, P, P, I, L, I, I, I, I,
-                                          I, I, L, I, L, P]
-        lib.hist_lanes_launch.restype = I
-        lib.hist_lanes_error_string.argtypes = [I]
-        lib.hist_lanes_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def lane_cell_index(bins: torch.Tensor, pos: torch.Tensor, n_node: int,
                     n_bin: int) -> torch.Tensor:
     """(L, N, F, 2) int64 flat cell of each (lane, row, feature,
     channel) in the ``(F, n_bin, 2, L * n_node)`` histogram; inactive
-    rows point at the dump cell ``F * n_bin * 2 * L * n_node``."""
+    rows, and bins >= B (binning never makes them; the kernel skips
+    them), point at the dump cell ``F * n_bin * 2 * L * n_node``."""
     L, N, F = bins.shape
     dev = bins.device
     n_col = L * n_node
     col = (torch.arange(L, dtype=torch.int64, device=dev)[:, None] * n_node
            + pos.to(torch.int64))                                  # (L, N)
     f_ids = torch.arange(F, dtype=torch.int64, device=dev)
-    base = ((f_ids * n_bin + bins.to(torch.int64)) * 2) * n_col \
-        + col[:, :, None]                                          # (L,N,F)
+    b64 = bins.to(torch.int64)
+    base = ((f_ids * n_bin + b64) * 2) * n_col + col[:, :, None]  # (L,N,F)
     idx = base[..., None] + torch.tensor([0, n_col], dtype=torch.int64,
                                          device=dev)
-    return torch.where((pos >= 0)[:, :, None, None], idx,
-                       F * n_bin * 2 * n_col)
+    keep = (pos >= 0)[:, :, None] & (b64 < n_bin)                  # (L,N,F)
+    return torch.where(keep[..., None], idx, F * n_bin * 2 * n_col)
 
 
 def level_histogram_lanes_plain(bins: torch.Tensor, gh: torch.Tensor,

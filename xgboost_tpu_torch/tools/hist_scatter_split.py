@@ -1,23 +1,32 @@
-"""Where the scatter histogram kernels K1 and K3 spend their time, on the
-card.
+"""Where the scatter histogram kernels K1, K3 and K4 spend their time, on
+the card.
 
 Times a kernel source beside builds of the same source with one passage
-replaced, on every level of one round of three paths, captured the way
-``chip_smoke.py`` captures them (``train`` with the wrapper wrapped):
+replaced, on every level of one round of these paths, captured the way
+``chip_smoke.py`` captures them (``train`` with the wrapper wrapped, or
+one stacked dispatch of the lanes):
 
   k3       the multiclass path, K3: 200,000 x 28 u8 bins, B = 64, six
            trees, int mode (``auto`` is int8 on the card)
   k1       the Higgs path, K1: 1,000,000 x 28, B = 64, int mode
   k1small  one tenant of the lanes host loop, K1: 12,288 x 28
+  otto     200,000 x 93, nine trees, K3 (``compare`` only, by default)
+  k4       one stacked round of the 48 lanes tenants, K4: 64 lanes of
+           16,384 rows x 28, B = 64, int mode
 
-Two targets:
+Each target takes the paths to run after its arguments (by default
+``k3 k1 k1small`` for ``parent``, those and ``k4`` for ``scatter``, all
+five for ``compare``, ``k3 k1 k4`` for ``tilings``, ``k4`` for
+``plans``).
 
-``parent DIR``: the kernels before the scatter redesign,
-``DIR/xgboost_tpu_torch/csrc/hist_batched.cu`` (K3) and
-``hist_block.cuh`` (K1's block), driven through ``DIR``'s own wrappers
-(``ops/cuda_hist.py``, ``ops/cuda_hist_batched.py``).  ``DIR`` is a
-``git archive`` of the commit that holds them (``1ad0bdb``), so this
-still runs after the change.
+``parent DIR``: a parent's kernels with passages of their block code
+replaced, driven through ``DIR``'s own wrappers (``ops/cuda_hist.py``,
+``ops/cuda_hist_batched.py``, ``ops/cuda_hist_lanes.py``).  ``DIR`` is a
+``git archive`` of the commit that holds them, so this still runs after
+the change: ``1ad0bdb`` for K3 (``hist_batched.cu``) and K1 before the
+scatter redesign, ``233769c`` (or ``1ad0bdb``) for K4 before its
+redesign (``hist_lanes.cu`` on ``hist_block.cuh``, the block K1 had
+before).
 
   full      the kernels as they stand in DIR
   no-flush  no global atomics at the flush
@@ -29,44 +38,58 @@ still runs after the change.
 ``scatter``: ``csrc/hist_scatter.cuh`` as committed, through this
 package's wrappers.
 
-  full      the kernel as committed: each block flushes its histogram
-            with global atomics
+  full      the kernel as committed: each block flushes its histogram,
+            stored where every unit has one copy (the plan's ``store``),
+            else with global atomics onto a zeroed output
+  store-off the same build with the atomic flush forced on a zeroed
+            output where the plan would store
   c2, c4,   a cluster-reduced flush: blocks of a unit launched as thread
   c8        block clusters of 2, 4 or 8 (where the plan's copies allow;
             the copies cut to a multiple of the cluster) sum their
             private histograms through distributed shared memory, each
             its slice, before the global atomics
   pack64    int mode adds (h << 32) + g as one 64-bit shared-memory add
-            in place of two 32-bit ones and splits the sum at the flush
-            (exact while every cell's |sum g| < 2^31, which int8 keeps
-            and "fixed" does not: measured only, shipped nowhere); the
-            ``ATOMS`` instructions of its SASS are printed
+            in place of two 32-bit ones and splits the sum at the
+            atomic flush, which its plans keep (exact while every cell's
+            |sum g| < 2^31, which int8 keeps and "fixed" does not:
+            measured only, shipped nowhere); the ``ATOMS`` instructions
+            of its SASS are printed
   no-adds   no row is added
-  no-flush  no global atomics at the flush
+  no-flush  no writes at the flush (the store flush's loop left empty)
+  spread    each lane's bin replaced by one that puts the 32 lanes of a
+            warp on 32 banks: the adds without bank conflicts or equal
+            addresses (B >= 32)
 
-``compare DIR``: the parent's ``full`` and this package's kernels on the
-three paths' levels and on otto's (200,000 x 93, nine trees), in turns
+``compare DIR``: the parent's ``full`` (DIR's kernels and wrappers, as
+``parent``) and this package's kernels on the paths' levels, in turns
 parent, change, change, parent.
 
-``tilings``: at every level of ``k3`` and ``k1``, the plan's tiling
+``tilings``: at every level of the paths, the plan's tiling
 (``scatter_plan``) beside its neighbours, each of f_tile, t_tile and
 m_tile set to the next smaller and the next larger size (under the
 card's occupancy, as ``launch_plan`` plans), with each tiling's cost:
 whether the hand-set weights of ``plan_cost`` choose the fastest.
 
-``full`` (both targets), ``c2``, ``c4``, ``c8``, ``pack64`` and every
-tiling compute the histogram and are held bitwise against the plain
-version on every level; the others do not.  A variant whose passage is
-no longer in its source raises.  Each round times every variant once,
-the second round in reverse order.  Needs the card and ``nvcc``; the
-variants build into ``xgboost_tpu_torch/_build/split/``.
+``plans``: the same at every level of ``k4``, over every tiling of
+t_tile <= 4, each at 2,048 to 16,384 (row, tree) pairs a step where the
+card's occupancy keeps its grid: the plan's rank and the five fastest.
+
+``full`` (both targets), ``store-off``, ``c2``, ``c4``, ``c8``,
+``pack64`` and every tiling compute the histogram and are held bitwise
+against the plain version on every level; the others do not.  A
+variant whose passage is no longer in its source raises.  Each round
+times every variant once, the second round in reverse order: the mean
+ms of back-to-back calls between CUDA events.  Needs the card and
+``nvcc``; the variants build into ``xgboost_tpu_torch/_build/split/``.
 
 Usage: python -m xgboost_tpu_torch.tools.hist_scatter_split
-           parent DIR | scatter | compare DIR | tilings  [reps]
+           parent DIR | scatter | compare DIR | tilings | plans
+           [paths] [reps]
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib.util
 import shutil
@@ -78,8 +101,25 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from xgboost_tpu_torch.ops import cuda_hist, cuda_hist_batched, nvcc
+import xgboost_tpu_torch.ops as ops_pkg
+from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
+                                   cuda_hist_lanes, nvcc)
 from xgboost_tpu_torch.tools import device_ms, device_name
+
+# each path's library, wrapper module and entry point
+SOURCE = {"k3": "hist_batched", "otto": "hist_batched", "k1": "hist_level",
+          "k1small": "hist_level", "k4": "hist_lanes"}
+ENTRY = {"hist_batched": ("cuda_hist_batched", "level_histogram_batched"),
+         "hist_level": ("cuda_hist", "level_histogram"),
+         "hist_lanes": ("cuda_hist_lanes", "level_histogram_lanes")}
+PLAIN = {"hist_batched": "level_histogram_batched_plain",
+         "hist_level": "level_histogram_plain",
+         "hist_lanes": "level_histogram_lanes_plain"}
+PATHS = {"parent": ("k3", "k1", "k1small"),
+         "scatter": ("k3", "k1", "k1small", "k4"),
+         "compare": ("k3", "k1", "k1small", "otto", "k4"),
+         "tilings": ("k3", "k1", "k4"),
+         "plans": ("k4",)}
 
 # ---------------------------------------------------------------- parent
 _P_ZERO = "for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = T(0);"
@@ -105,7 +145,10 @@ def _parent_subs(file: str, idx: str, pos_line: str, node_of: str):
 
 
 # each variant: file -> (passage, replacement) pairs; K3's passages in
-# hist_batched.cu, K1's in hist_block.cuh
+# hist_batched.cu, K1's (before 233769c) and K4's in hist_block.cuh
+PARENT_FILES = {"hist_batched": ("hist_batched.cu",),
+                "hist_level": ("hist_block.cuh",),
+                "hist_lanes": ("hist_block.cuh",)}
 PARENT_VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
     name: {**_parent_subs("hist_batched.cu", "tr",
                           "const int j = pos[tr] - m0;",
@@ -130,16 +173,16 @@ _S_ADD64 = ("              if constexpr (MODE == 2) {\n"
             "              } else {\n"
             "  " + _S_ADD.replace("\n              ", "\n                ")
             + "              }\n")
-_S_SUM = "      const T v = hist[c * P + cell];\n"
-_S_SUM64 = ("      T v;\n"
-            "      if constexpr (MODE == 2) {\n"
-            "        const long long sum = "
+_S_SUM = "        const T v = hist[c * P + cell];\n"
+_S_SUM64 = ("        T v;\n"
+            "        if constexpr (MODE == 2) {\n"
+            "          const long long sum = "
             "reinterpret_cast<const long long*>(hist)[cell];\n"
-            "        const int g = (int)(unsigned)(sum & 0xffffffffLL);\n"
-            "        v = c ? (T)((sum - g) >> 32) : (T)g;\n"
-            "      } else {\n"
-            "        v = hist[c * P + cell];\n"
-            "      }\n")
+            "          const int g = (int)(unsigned)(sum & 0xffffffffLL);\n"
+            "          v = c ? (T)((sum - g) >> 32) : (T)g;\n"
+            "        } else {\n"
+            "          v = hist[c * P + cell];\n"
+            "        }\n")
 # the cluster-reduced flush: block `rank` of a cluster of C sums slice
 # `rank` of the unit's cells over the C private histograms; the cluster
 # size is the launch's, the largest of 2, 4, 8 up to the variant's that
@@ -152,14 +195,15 @@ _S_FLUSH_C = ("    cooperative_groups::cluster_group cluster =\n"
               "    const int C = (int)cluster.num_blocks();\n"
               "    const int rank = (int)cluster.block_rank();\n"
               "    cluster.sync();\n")
-_S_CELLS = "    for (int e = threadIdx.x; e < cells; e += blockDim.x) {\n"
-_S_CELLS_C = ("    const int c_lo = (int)((long long)cells * rank / C);\n"
-              "    const int c_hi = (int)((long long)cells * (rank + 1) / C);\n"
-              "    for (int e = c_lo + threadIdx.x; e < c_hi; "
+_S_CELLS = "      for (int e = threadIdx.x; e < cells; e += blockDim.x) {\n"
+_S_CELLS_C = ("      const int c_lo = (int)((long long)cells * rank / C);\n"
+              "      const int c_hi = (int)((long long)cells * (rank + 1) "
+              "/ C);\n"
+              "      for (int e = c_lo + threadIdx.x; e < c_hi; "
               "e += blockDim.x) {\n")
-_S_SUM_C = ("      T v = hist[c * P + cell];\n"
-            "      for (int p = 1; p < C; ++p)\n"
-            "        v += *cluster.map_shared_rank(hist + c * P + cell, "
+_S_SUM_C = ("        T v = hist[c * P + cell];\n"
+            "        for (int p = 1; p < C; ++p)\n"
+            "          v += *cluster.map_shared_rank(hist + c * P + cell, "
             "(rank + p) % C);\n")
 _S_END = ("    __syncthreads();  // the histogram is zeroed for the next "
           "unit\n")
@@ -192,6 +236,11 @@ def _cluster_subs(c: int) -> List[Tuple[str, str]]:
             (_S_LAUNCH, _cluster_launch(c))]
 
 
+# the two flushes' writes: the store (every unit one copy) and the atomic
+_S_STORE = ("        o[(((long long)(f0 + f) * B + b) * 2 + c) * cols\n"
+            "          + (long long)(t0 + k) * a.n_node + m0 + j] = "
+            "hist[c * P + cell];\n")
+_S_SKIP = "        if (v == T(0)) continue;\n"
 SCATTER_VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
     "full": {},
     "c2": {SCATTER_HEADER: _cluster_subs(2)},
@@ -202,11 +251,22 @@ SCATTER_VARIANTS: Dict[str, Dict[str, List[Tuple[str, str]]]] = {
         ("      for (int p = threadIdx.x; p < n; p += blockDim.x) {",
          "      for (int p = threadIdx.x; p < n && false; p += blockDim.x) {")]},
     "no-flush": {SCATTER_HEADER: [
-        ("      if (v == T(0)) continue;",
-         "      if (v == T(0) || true) continue;")]},
+        (_S_STORE, "        (void)cell;\n"),
+        (_S_SKIP, "        if (v == T(0) || true) continue;\n")]},
+    "spread": {SCATTER_HEADER: [
+        ("            const int b = (bytes >> (8 * q)) & 0xff;",
+         "            const int b = ((lane - j - k * a.m_tile) & 31) % B;"
+         " (void)bytes;")]},
 }
 CLUSTERS = {"c2": 2, "c4": 4, "c8": 8}
-COMPUTES = ("full", "c2", "c4", "c8", "pack64")
+# variants of the launch plan on the build of another variant
+PLAN_VARIANTS = {"store-off": "full"}
+COMPUTES = ("full", "store-off", "c2", "c4", "c8", "pack64")
+
+
+def _store_off(p, n_rows):
+    """The plan with the atomic flush forced (on a zeroed output)."""
+    return p._replace(store=False)
 
 
 def _cluster_plan(c: int) -> Callable:
@@ -227,6 +287,9 @@ def _cluster_plan(c: int) -> Callable:
 
 # ---------------------------------------------------------------- inputs
 HIGGS_N, LANE_N, MC_N, OTTO_N = 1_000_000, 12_288, 200_000, 200_000
+# chip_smoke.py's lanes: tenant i trains on 12,288 + 85 i rows from seed
+# 1000 + i; 48 tenants stack into 64 lanes of 16,384 rows
+LANES, LANE_STEP = 48, 85
 HIGGS = {"objective": "binary:logistic", "max_depth": 6, "eta": 0.1,
          "max_bin": 64}
 MC = {"objective": "multi:softmax", "num_class": 6, "max_depth": 6,
@@ -258,10 +321,44 @@ def make_classes(n, f, k, seed, skew):
     return X, logits.argmax(axis=1).astype(np.float32)
 
 
+def capture_k4(device="cuda"):
+    """Every level's K4 inputs of one stacked round of the 48 lanes
+    tenants, as ``chip_smoke.py``'s ``lanes_round_inputs`` captures
+    them: one bucket dispatch of the lane gang."""
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.pipeline.lanes import (LaneGang, _Arrival,
+                                                  _bucket_of)
+    kernel_fn = cuda_hist_lanes.level_histogram_lanes
+    got = []
+
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        got.append((bins, gh.clone(), pos.clone(), n_node, n_bin, mode))
+        return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+    arrs = []
+    for i in range(LANES):
+        X, y = make_higgs_like(LANE_N + LANE_STEP * i, seed=1000 + i)
+        d = xt.DMatrix(X, label=y)
+        spec, why = xt.Booster(HIGGS, [d], device=device).fused_lane_spec(
+            d, 0, 1)
+        if spec is None:
+            raise RuntimeError(f"tenant {i} declined stacking: {why}")
+        arrs.append(_Arrival(f"tenant{i:02d}", spec, lambda it: None))
+    cuda_hist_lanes.level_histogram_lanes = capture
+    try:
+        LaneGang(expected=0)._dispatch_bucket(_bucket_of(arrs[0].spec), arrs)
+    finally:
+        cuda_hist_lanes.level_histogram_lanes = kernel_fn
+    errors = [a.exc for a in arrs if a.exc is not None]
+    if errors or not got:
+        raise RuntimeError(f"one stacked round: {len(got)} levels, errors "
+                           f"{errors[:2]}")
+    return got
+
+
 def capture_levels(paths, device="cuda"):
     """Every level's kernel inputs of one round of each path in
-    ``paths`` (``k3``, ``k1``, ``k1small``, ``otto``): path -> list of
-    (bins, gh, pos, n_node, n_bin, mode)."""
+    ``paths`` (``k3``, ``k1``, ``k1small``, ``otto``, ``k4``): path ->
+    list of (bins, gh, pos, n_node, n_bin, mode)."""
     import xgboost_tpu_torch as xt
     data = {"k1": (HIGGS, lambda: make_higgs_like(HIGGS_N), cuda_hist,
                    "level_histogram"),
@@ -273,6 +370,9 @@ def capture_levels(paths, device="cuda"):
                      cuda_hist_batched, "level_histogram_batched")}
     out = {}
     for path in paths:
+        if path == "k4":
+            out[path] = capture_k4(device)
+            continue
         params, make, mod, attr = data[path]
         X, y = make()
         kernel_fn = getattr(mod, attr)
@@ -291,8 +391,8 @@ def capture_levels(paths, device="cuda"):
 
 
 def plain_of(path):
-    return (cuda_hist_batched.level_histogram_batched_plain
-            if path in ("k3", "otto") else cuda_hist.level_histogram_plain)
+    mod, _ = ENTRY[SOURCE[path]]
+    return getattr(getattr(ops_pkg, mod), PLAIN[SOURCE[path]])
 
 
 # ---------------------------------------------------------------- builds
@@ -303,13 +403,40 @@ def _load_module(name: str, path: Path):
     return mod
 
 
-def parent_wrappers(root: Path):
-    """DIR's K1 and K3 wrapper modules (they build through this
-    package's ``nvcc``, whose library cache the timing swaps)."""
+@contextlib.contextmanager
+def _modules(mods: Dict[str, object]):
+    """``xgboost_tpu_torch.ops.<name>`` resolved to ``mods[name]`` inside
+    the block (imports at call time included), restored after."""
+    saved = {}
+    for name, mod in mods.items():
+        key = f"xgboost_tpu_torch.ops.{name}"
+        saved[name] = (sys.modules.get(key), getattr(ops_pkg, name, None))
+        sys.modules[key] = mod
+        setattr(ops_pkg, name, mod)
+    try:
+        yield
+    finally:
+        for name, (mod, attr) in saved.items():
+            key = f"xgboost_tpu_torch.ops.{name}"
+            if mod is None:
+                sys.modules.pop(key, None)
+            else:
+                sys.modules[key] = mod
+            setattr(ops_pkg, name, attr)
+
+
+def parent_wrappers(root: Path) -> Dict[str, object]:
+    """DIR's wrapper modules of K1, K3 and K4 (those DIR has), each
+    importing DIR's others: they build through this package's ``nvcc``,
+    whose library cache the timing swaps."""
     ops = root / "xgboost_tpu_torch" / "ops"
-    return (_load_module("parent_cuda_hist", ops / "cuda_hist.py"),
-            _load_module("parent_cuda_hist_batched",
-                         ops / "cuda_hist_batched.py"))
+    mods: Dict[str, object] = {}
+    for name in ("cuda_hist", "cuda_hist_batched", "cuda_hist_lanes"):
+        if (ops / f"{name}.py").exists():
+            with _modules(mods):
+                mods[name] = _load_module(f"parent_{name}",
+                                          ops / f"{name}.py")
+    return mods
 
 
 def variant_text(src: str, subs, name: str) -> str:
@@ -320,10 +447,11 @@ def variant_text(src: str, subs, name: str) -> str:
     return src
 
 
-def build_variants(csrc: Path, variants, tag: str
+def build_variants(csrc: Path, variants, tag: str, sources
                    ) -> Dict[str, Dict[str, ctypes.CDLL]]:
-    """variant -> {"hist_level": lib, "hist_batched": lib}, every build
-    of every variant at once.  A variant that nvcc refuses raises."""
+    """variant -> {source: lib} for each of ``sources`` (``hist_level``,
+    ``hist_batched``, ``hist_lanes``), every build of every variant at
+    once.  A variant that nvcc refuses raises."""
     root = nvcc.BUILD_DIR / "split" / tag
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
@@ -333,7 +461,7 @@ def build_variants(csrc: Path, variants, tag: str
         for file, subs in files.items():
             (d / file).write_text(variant_text((d / file).read_text(), subs,
                                                file))
-        for src in ("hist_level", "hist_batched"):
+        for src in sources:
             so = d / f"lib{src}.so"
             procs[(name, src)] = (so, subprocess.Popen(
                 [nvcc.find_nvcc(), *nvcc.NVCC_FLAGS, "-o", str(so),
@@ -367,31 +495,32 @@ def sass_atoms(so: Path) -> Dict[str, int]:
 
 
 class Kernels:
-    """The K1 and K3 calls of one build: ``call(path, level)``; the
+    """The K1, K3 and K4 calls of one build: ``call(path, level)``; the
     libraries are swapped into ``nvcc``'s cache around each call, and
-    where ``plan_fn(plan, n_rows)`` is given, it turns the wrapper's
-    launch plan into the one launched (``launch_plan`` of k3's module,
-    which plans both K1 and K3)."""
+    ``mods`` (a parent's wrapper modules; this package's where empty)
+    into ``xgboost_tpu_torch.ops``; where ``plan_fn(plan, n_rows)`` is
+    given, it turns the wrapper's launch plan into the one launched
+    (``launch_plan`` of ``cuda_hist_batched``, which plans all three)."""
 
-    def __init__(self, libs, k1, k3, plan_fn: Optional[Callable] = None):
-        self.libs, self.k1, self.k3 = libs, k1, k3
+    def __init__(self, libs, mods=None, plan_fn: Optional[Callable] = None):
+        self.libs, self.mods = libs, dict(mods or {})
         self.plan_fn = plan_fn
 
     def call(self, path, level):
-        bins, gh, pos, m, nb, mode = level
-        mod = self.k3 if path in ("k3", "otto") else self.k1
-        fn = mod.level_histogram_batched if mod is self.k3 \
-            else mod.level_histogram
+        mod_name, entry = ENTRY[SOURCE[path]]
+        mod = self.mods.get(mod_name, getattr(ops_pkg, mod_name))
+        kb = self.mods.get("cuda_hist_batched", cuda_hist_batched)
         saved = {k: nvcc._LIBS.get(k) for k in self.libs}
         nvcc._LIBS.update(self.libs)
         if self.plan_fn is not None:
-            planned = self.k3.launch_plan
-            self.k3.launch_plan = lambda *a: self.plan_fn(planned(*a), a[1])
+            planned = kb.launch_plan
+            kb.launch_plan = lambda *a: self.plan_fn(planned(*a), a[1])
         try:
-            return fn(bins, gh, pos, m, nb, mode)
+            with _modules(self.mods):
+                return getattr(mod, entry)(*level)
         finally:
             if self.plan_fn is not None:
-                self.k3.launch_plan = planned
+                kb.launch_plan = planned
             for k, v in saved.items():
                 if v is None:
                     nvcc._LIBS.pop(k, None)
@@ -436,124 +565,167 @@ def report(out: Dict[str, List[float]], computes=()) -> None:
               flush=True)
 
 
-def neighbour_tilings(name: str, level, dev) -> List:
+def _resident(name: str, mode: str, smem: int, dev) -> int:
+    """Blocks of ``smem`` bytes the card holds at once (the library's
+    occupancy query)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = getattr(cuda_hist_batched._lib(name), f"{name}_resident")(
+            cuda_hist.MODES[mode], smem, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{name} occupancy query failed ({rc})")
+    return blocks.value
+
+
+def neighbour_tilings(name: str, level, dev, every: bool = False) -> List:
     """The plan's own launch at ``level`` first, then each of its
     tilings with one tile set to the next smaller or larger size, as
-    ``launch_plan`` would launch it (below the card's occupancy)."""
+    ``launch_plan`` would launch it (below the card's occupancy); with
+    ``every``, all tilings of t_tile <= 4 instead, each at every step of
+    2,048 to 16,384 (row, tree) pairs the card's occupancy keeps."""
     bins, gh, pos, m, nb, mode = level
-    N, F = bins.shape
+    N, F = bins.shape[-2:]
     T = gh.shape[0] if gh.dim() == 3 else 1
+    shared = name != "hist_lanes"
     k = cuda_hist_batched
     own = k.launch_plan(name, N, F, nb, T, m, mode, dev)
-    lib = k._lib(name)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = [own]
     tiles = (own.f_tile, own.t_tile, own.m_tile)
-    for d, n in enumerate((F, T, m)):
-        sizes = k._tile_sizes(n)
-        i = sizes.index(tiles[d])
-        for j in (i - 1, i + 1):
-            if not 0 <= j < len(sizes):
+    if every:
+        cands = [(f, t, mt) for f in k._tile_sizes(F)
+                 for t in k._tile_sizes(T) if t <= 4
+                 for mt in k._tile_sizes(m)]
+    else:
+        cands = []
+        for d, n in enumerate((F, T, m)):
+            sizes = k._tile_sizes(n)
+            i = sizes.index(tiles[d])
+            cands += [tiles[:d] + (sizes[j],) + tiles[d + 1:]
+                      for j in (i - 1, i + 1) if 0 <= j < len(sizes)]
+    for t in cands:
+        p = k.tile_plan(N, F, nb, T, m, *t, n_sm, shared_bins=shared)
+        if p is not None and p.grid > _resident(name, mode, p.smem, dev):
+            p = k.tile_plan(N, F, nb, T, m, *t, n_sm, shared_bins=shared,
+                            max_blocks=_resident(name, mode, p.smem, dev))
+        if p is None:
+            continue
+        steps = [p.rows_per_step]
+        if every:
+            steps += [k._round16(max(16, pairs // t[1]))
+                      for pairs in (2048, 4096, 8192, 16384)]
+        for r in dict.fromkeys(steps):
+            q = p._replace(rows_per_step=r,
+                           smem=k.smem_bytes(p.hist_bytes, t[1], r))
+            if q.smem > k.SMEM_MAX \
+                    or q.grid > _resident(name, mode, q.smem, dev):
                 continue
-            t = list(tiles)
-            t[d] = sizes[j]
-            p = k.tile_plan(N, F, nb, T, m, *t, n_sm)
-            if p is None:
-                continue
-            blocks = ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                rc = getattr(lib, f"{name}_resident")(
-                    cuda_hist.MODES[mode], p.smem, ctypes.byref(blocks))
-            if rc != 0:
-                raise RuntimeError(f"{name} occupancy query failed ({rc})")
-            if p.grid > blocks.value:
-                p = k.tile_plan(N, F, nb, T, m, *t, n_sm,
-                                max_blocks=blocks.value)
-            if p is not None:
-                out.append(p)
+            q = q._replace(cost=k.plan_cost(q, N, F, T, n_sm, shared))
+            if q not in out:
+                out.append(q)
     return out
 
 
-def tilings(levels, reps: int, dev) -> Dict[str, List[float]]:
-    """ms of the plan's tiling and its neighbours at every level, each
+def tilings(levels, reps: int, dev, every: bool = False
+            ) -> Dict[str, List[float]]:
+    """ms of the plan's tiling and its neighbours (with ``every``, all
+    tilings and steps: :func:`neighbour_tilings`) at every level, each
     held bitwise against the plain version first; two rounds, the
     second in reverse order."""
     runs = []
     for path, lv in levels.items():
-        name = "hist_batched" if path in ("k3", "otto") else "hist_level"
         for level in lv:
-            for i, p in enumerate(neighbour_tilings(name, level, dev)):
-                kern = Kernels({}, cuda_hist, cuda_hist_batched,
-                               lambda _p, _n, p=p: p)
+            want = plain_of(path)(*level)
+            for i, p in enumerate(neighbour_tilings(SOURCE[path], level,
+                                                    dev, every)):
+                kern = Kernels({}, plan_fn=lambda _p, _n, p=p: p)
                 got = kern.call(path, level)
-                if not torch.equal(got, plain_of(path)(*level)):
+                if not torch.equal(got, want):
                     raise RuntimeError(f"tiling {p} of {path} != plain")
                 key = (f"{path} n_node={level[3]} "
                        f"{'plan' if i == 0 else 'next'} "
                        f"{p.f_tile}/{p.t_tile}/{p.m_tile} units "
-                       f"{p.n_units} blocks {p.grid} cost {p.cost:.4g}")
+                       f"{p.n_units} blocks {p.grid} rows a step "
+                       f"{p.rows_per_step}"
+                       f"{' store' if p.store else ''} cost {p.cost:.4g}")
                 runs.append((key, kern, path, level))
+            del want
     out: Dict[str, List[float]] = {}
     for key, kern, path, level in runs + runs[::-1]:
         out.setdefault(key, []).append(device_ms(
             lambda: kern.call(path, level), reps, dev))
-    best: Dict[str, Tuple[float, str]] = {}
+    ranked: Dict[str, List[Tuple[float, str]]] = {}
     for key, ms in out.items():
-        print(f"{key}: {' / '.join(f'{x:.4f}' for x in ms)} ms", flush=True)
-        lvl = " ".join(key.split()[:2])
-        if lvl not in best or min(ms) < best[lvl][0]:
-            best[lvl] = (min(ms), key)
-    for lvl, (ms, key) in best.items():
-        own = next(min(v) for k, v in out.items()
-                   if k.startswith(lvl + " plan "))
+        if not every:
+            print(f"{key}: {' / '.join(f'{x:.4f}' for x in ms)} ms",
+                  flush=True)
+        ranked.setdefault(" ".join(key.split()[:2]), []).append(
+            (min(ms), key))
+    for lvl, rows in ranked.items():
+        rows.sort()
+        rank = next(i for i, (_, key) in enumerate(rows)
+                    if key.startswith(lvl + " plan "))
+        own = rows[rank][0]
+        ms, key = rows[0]
         print(f"{lvl}: fastest {key.split(' ', 2)[2]} {ms:.4f} ms; the "
-              f"plan's {own:.4f} ({own / ms - 1:+.1%})", flush=True)
+              f"plan's {own:.4f} ({own / ms - 1:+.1%}), rank {rank + 1} "
+              f"of {len(rows)}", flush=True)
+        for ms, key in rows[:5] if every else ():
+            print(f"    {ms:.4f} {key.split(' ', 2)[2]}", flush=True)
     return out
 
 
-def main(target: str = "scatter", parent_dir: str = "", reps: int = 20
-         ) -> Dict[str, List[float]]:
+def main(target: str = "scatter", parent_dir: str = "", reps: int = 20,
+         paths: Tuple[str, ...] = ()) -> Dict[str, List[float]]:
     if not torch.cuda.is_available():
         raise RuntimeError("hist_scatter_split times CUDA kernels: no GPU")
+    if target not in PATHS:
+        raise ValueError(f"target {target!r}: parent, scatter, compare, "
+                         "tilings or plans")
+    paths = tuple(paths) or PATHS[target]
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    sources = tuple(dict.fromkeys(SOURCE[p] for p in paths))
     builds: Dict[str, Kernels] = {}
-    if target == "tilings":
-        levels = capture_levels(("k3", "k1"))
-        print(f"scatter plan tilings | {device_name(dev)} | {card}",
+    if target in ("tilings", "plans"):
+        levels = capture_levels(paths)
+        print(f"scatter plan {target} | {device_name(dev)} | {card}",
               flush=True)
-        return tilings(levels, reps, dev)
+        return tilings(levels, reps, dev, every=target == "plans")
     if target in ("parent", "compare"):
         root = Path(parent_dir).resolve()
-        k1, k3 = parent_wrappers(root)
+        mods = parent_wrappers(root)
+        files = {f for src in sources for f in PARENT_FILES[src]}
         variants = PARENT_VARIANTS if target == "parent" \
             else {"full": PARENT_VARIANTS["full"]}
+        variants = {name: {f: subs for f, subs in v.items() if f in files}
+                    for name, v in variants.items()}
         for name, libs in build_variants(
-                root / "xgboost_tpu_torch" / "csrc", variants,
-                "parent").items():
+                root / "xgboost_tpu_torch" / "csrc", variants, "parent",
+                sources).items():
             builds["parent" if target == "compare" else name] = \
-                Kernels(libs, k1, k3)
+                Kernels(libs, mods)
     if target in ("scatter", "compare"):
         variants = SCATTER_VARIANTS if target == "scatter" \
             else {"full": SCATTER_VARIANTS["full"]}
-        for name, libs in build_variants(nvcc.CSRC, variants,
-                                         "scatter").items():
+        libs_of = build_variants(nvcc.CSRC, variants, "scatter", sources)
+        for name, libs in libs_of.items():
+            # pack64's planes are unpacked by its atomic flush only
+            plan_fn = _cluster_plan(CLUSTERS[name]) if name in CLUSTERS \
+                else _store_off if name == "pack64" else None
             builds["change" if target == "compare" else name] = \
-                Kernels(libs, cuda_hist, cuda_hist_batched,
-                        _cluster_plan(CLUSTERS[name]) if name in CLUSTERS
-                        else None)
+                Kernels(libs, plan_fn=plan_fn)
         if target == "scatter":
-            for name in ("full", "pack64"):
-                so = nvcc.BUILD_DIR / "split" / "scatter" / name \
-                    / "libhist_batched.so"
-                print(f"[sass] {name} hist_batched: {sass_atoms(so)}",
-                      flush=True)
-    if not builds:
-        raise ValueError(f"target {target!r}: parent, scatter or compare")
-    paths = ("k3", "k1", "k1small") + (("otto",) if target == "compare"
-                                       else ())
+            for name, base in PLAN_VARIANTS.items():
+                builds[name] = Kernels(libs_of[base], plan_fn=_store_off)
+            if "hist_batched" in sources:
+                for name in ("full", "pack64"):
+                    so = nvcc.BUILD_DIR / "split" / "scatter" / name \
+                        / "libhist_batched.so"
+                    print(f"[sass] {name} hist_batched: {sass_atoms(so)}",
+                          flush=True)
     levels = capture_levels(paths)
     print(f"scatter histogram split ({target}; "
           + ", ".join(f"{p}: {len(v)} levels of {tuple(v[0][0].shape)}"
@@ -575,4 +747,5 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     tgt = args.pop(0) if args else "scatter"
     pdir = args.pop(0) if tgt in ("parent", "compare") else ""
-    main(tgt, pdir, *(int(a) for a in args[:1]))
+    main(tgt, pdir, *(int(a) for a in args if a.isdigit()),
+         paths=tuple(a for a in args if not a.isdigit()))
