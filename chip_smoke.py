@@ -8,6 +8,11 @@ every kernel against its plain PyTorch version.  The paths:
 - Higgs: the JAX package's headline benchmark configuration
   (``bench.py``: 1,000,000 x 28, binary logistic, max_depth 6, eta 0.1,
   max_bin 64, hist_precision auto = int8), 20 rounds, kernel K1;
+- the command line (``python -m xgboost_tpu_torch``, called in-process
+  as ``xgboost_tpu_torch.cli.main``) on the Higgs path's data, written
+  as DMatrix buffers: ``task=train`` of the same configuration (K1),
+  ``pred``, ``eval`` and ``dump``, and ``task=lanes`` on 8 of the lanes
+  path's tenants (K4);
 - multiclass: ``bench.py:bench_multiclass`` (200,000 x 28, 6-class
   softmax, max_depth 6, eta 0.3, max_bin 64), all 60 rounds, kernel K3
   (one launch per level for the round's 6 trees);
@@ -90,6 +95,24 @@ bf16 mains with exact launch counts, T1's accuracy line within bf16's
 rounding of K1 fp32, and T4a's and T4b's match checks. Every path counts
 the launches of all twelve kernels and fails on any kernel it should not
 run.
+
+The ``[cli]`` phase, after ``[main]``, writes ``[main]``'s train set and
+holdout with ``DMatrix.save_binary`` and times writing and loading them,
+then fails unless: the buffers hold ``[main]``'s values and labels;
+``task=train`` (``eval[test]=`` the holdout buffer, ``eval_metric=auc``,
+``save_period=10``, ``checkpoint_dir=``) exits 0, launches K1 exactly
+``[main]``'s 120 times and nothing else, writes ``0010.model``,
+``0020.model`` and a ring of two members, and its model's tree arrays and
+cuts equal ``[main]``'s bitwise, its last eval line's ``test-auc``
+``[main]``'s AUC to six decimals; ``task=pred`` on the holdout as libsvm
+text (``{:.9g}`` values) writes ``f"{p:g}"`` of ``Booster.predict`` on
+the buffer, transformed and with ``pred_margin=1``; ``task=eval`` prints
+``eval_set``'s line; ``task=dump`` with ``dump_stats=1`` and a 28-line
+fmap gives the 20 boosters of ``get_dump``; pred, eval and dump launch no
+histogram kernel; ``task=lanes`` over 8 tenants' buffers
+(``lane_stack=1``, one cycle of 10 rounds, gate on AUC) exits 0,
+launches K4 and no K1, and each tenant's trees equal those of
+``run_tenant_lanes`` called on the same tenants' arrays, bitwise.
 
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
@@ -688,7 +711,270 @@ def phase_main(torch, xt, cuda_hist, kernels, device, card):
             fail(f"main-path level n_node={M}: mode {mode}, kernel != plain")
     print(f"[main] kernel == plain, int8 bitwise, at all {len(captured)} "
           "main-path levels", flush=True)
-    return launches, ms_round, captured, max_err
+    main_out = {"X": X, "y": y, "state": bst.gbtree.get_state(),
+                "auc": score, "train_s": train_s, "ms_round": ms_round}
+    return launches, ms_round, captured, max_err, main_out
+
+
+# ------------------------------------------------------------------ [cli]
+CLI_LANES, CLI_LANE_ROUNDS = 8, 10
+
+
+def run_cli(args):
+    """``xgboost_tpu_torch.cli.main(args)`` in this process: (exit code,
+    its standard error)."""
+    import contextlib
+    import io
+
+    from xgboost_tpu_torch.cli import main as cli_main
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(list(args))
+    return rc, err.getvalue()
+
+
+def write_conf(path, **kw):
+    with open(path, "w") as f:
+        f.write("".join(f"{k} = {v}\n" for k, v in kw.items()))
+    return path
+
+
+def write_libsvm_text(path, X, y):
+    """Rows as libsvm text, values as ``{:.9g}`` (they read back as the
+    same float32)."""
+    with open(path, "w") as f:
+        for row, label in zip(X.tolist(), y.tolist()):
+            f.write(f"{label:g} " + " ".join(
+                f"{j}:{v:.9g}" for j, v in enumerate(row)) + "\n")
+
+
+def same_trees(a, b):
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_cli(torch, xt, kernels, device, card, main_out):
+    """The command line on [main]'s data: buffers, ``task=train`` of the
+    Higgs configuration, ``pred``, ``eval``, ``dump`` and ``lanes``, with
+    every check of the module docstring."""
+    import shutil
+
+    from xgboost_tpu_torch.metrics import auc as auc_of
+    from xgboost_tpu_torch.pipeline import (CallableDataSource,
+                                            run_tenant_lanes)
+    root = os.path.join(HERE, ".smoke_out", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    X, y = main_out["X"], main_out["y"]
+    t_phase = time.perf_counter()
+
+    # 1. buffers of [main]'s train set and holdout
+    train_buf = os.path.join(root, "higgs-train.buffer")
+    test_buf = os.path.join(root, "higgs-test.buffer")
+    t0 = time.perf_counter()
+    xt.DMatrix(X[:N_TRAIN], label=y[:N_TRAIN]).save_binary(train_buf)
+    xt.DMatrix(X[N_TRAIN:], label=y[N_TRAIN:]).save_binary(test_buf)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dtrain = xt.DMatrix(train_buf)
+    dtest = xt.DMatrix(test_buf)
+    load_s = time.perf_counter() - t0
+    if not (dtrain.num_row == N_TRAIN and dtrain.num_col == N_FEAT
+            and np.array_equal(dtrain.values, X[:N_TRAIN].ravel())
+            and np.array_equal(dtrain.get_label(), y[:N_TRAIN])
+            and np.array_equal(dtest.values, X[N_TRAIN:].ravel())):
+        fail("the train / holdout buffers do not hold [main]'s matrix")
+    mb = sum(os.path.getsize(p) for p in (train_buf, test_buf)) / 2 ** 20
+    print(f"[cli] buffers of [main]'s {N_TRAIN} + {N_TEST} x {N_FEAT} "
+          f"rows ({mb:.1f} MiB): write {write_s:.2f} s, load {load_s:.2f} "
+          "s; the same values and labels as [main]'s dense matrix",
+          flush=True)
+
+    # 2. task=train of the Higgs configuration (bench.py:394-401)
+    ckpt = os.path.join(root, "ckpt")
+    conf = write_conf(
+        os.path.join(root, "higgs.conf"), task="train",
+        objective="binary:logistic", max_depth=DEPTH, eta=0.1, max_bin=64,
+        num_round=ROUNDS, data=train_buf, **{"eval[test]": test_buf},
+        eval_metric="auc", save_period=10, model_dir=root,
+        checkpoint_dir=ckpt, silent=0, device=device)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rc, err = run_cli([conf])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    lines = [ln for ln in err.splitlines() if ln.startswith("[")]
+    plan = [ln for ln in err.splitlines() if ln.startswith("fusing")]
+    print(f"[cli] task=train: exit {rc}, {train_s:.2f} s (buffer load, "
+          f"cuts, binning, {ROUNDS} rounds with their eval lines and saves);"
+          f" {plan[0] if plan else 'no plan line'}; hist_level launches "
+          f"{counts['hist_level']}; all counts {json.dumps(counts)}",
+          flush=True)
+    if rc != 0:
+        fail(f"task=train exited {rc}: {err[-2000:]}")
+    if counts != only(kernels, hist_level=ROUNDS * DEPTH):
+        fail(f"task=train launch counts {counts}: want hist_level "
+             f"{ROUNDS * DEPTH} as in [main], the others 0")
+    model = os.path.join(root, f"{ROUNDS:04d}.model")
+    ring = sorted(f for f in os.listdir(ckpt) if f.startswith("ckpt-"))
+    for path in (os.path.join(root, "0010.model"), model):
+        if not os.path.exists(path):
+            fail(f"task=train left no {os.path.basename(path)}")
+    if len(ring) != 2 or ring[-1] != f"ckpt-{ROUNDS:06d}.model":
+        fail(f"checkpoint ring {ring}: want two members, the newest at "
+             f"round {ROUNDS}")
+    bst = xt.Booster(model_file=model, device=device)
+    if not same_trees(bst.gbtree.get_state(), main_out["state"]):
+        fail("the CLI's model differs from [main]'s: tree arrays, cuts "
+             "and bins must be bitwise equal")
+    want_auc = f"{main_out['auc']:.6f}"
+    if len(lines) != ROUNDS or not lines[-1].startswith(f"[{ROUNDS - 1}]"):
+        fail(f"task=train printed {len(lines)} eval lines: {lines[-3:]}")
+    if lines[-1] != f"[{ROUNDS - 1}]\ttest-auc:{want_auc}":
+        fail(f"last eval line {lines[-1]!r}: want test-auc {want_auc} "
+             "([main]'s holdout AUC)")
+    print(f"[cli] model == [main]'s, bitwise (tree arrays, cuts); last eval "
+          f"line {lines[-1]!r} == [main]'s AUC {want_auc}; 0010.model, "
+          f"0020.model and ring {ring} written", flush=True)
+    print(f"[cli] {train_s * 1e3 / ROUNDS:.3f} ms per round through the "
+          f"CLI (everything above included) against [main]'s "
+          f"{main_out['train_s'] * 1e3 / ROUNDS:.3f} (train() with cuts "
+          f"and binning) and {main_out['ms_round']:.3f} (rounds alone) | "
+          f"{card}", flush=True)
+
+    # 3. task=pred on the holdout as libsvm text
+    text = os.path.join(root, "higgs-test.libsvm")
+    t0 = time.perf_counter()
+    write_libsvm_text(text, X[N_TRAIN:], y[N_TRAIN:])
+    text_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = xt.DMatrix(text)
+    parse_s = time.perf_counter() - t0
+    if not np.array_equal(parsed.values, dtest.values):
+        fail("the holdout's libsvm text does not read back as its buffer")
+    print(f"[cli] holdout as libsvm text: write {text_write_s:.2f} s, "
+          f"parse {parse_s:.2f} s, against {load_s:.2f} s to load both "
+          "buffers", flush=True)
+    reset_counts(kernels)
+    for margin in (0, 1):
+        out = os.path.join(root, f"pred{margin}.txt")
+        t0 = time.perf_counter()
+        rc, err = run_cli([conf, "task=pred", f"model_in={model}",
+                           f"test:data={text}", f"name_pred={out}",
+                           f"pred_margin={margin}", "silent=1"])
+        pred_s = time.perf_counter() - t0
+        want = bst.predict(dtest, output_margin=bool(margin))
+        with open(out) as f:
+            got = f.read().splitlines()
+        if rc != 0 or got != [f"{p:g}" for p in want]:
+            fail(f"task=pred pred_margin={margin}: exit {rc}, lines != "
+                 "Booster.predict on the buffer")
+        print(f"[cli] task=pred pred_margin={margin}: {pred_s:.2f} s "
+              f"(parse included); {len(got)} lines == f'{{p:g}}' of "
+              "Booster.predict on the buffer", flush=True)
+
+    # 4. task=eval
+    t0 = time.perf_counter()
+    rc, err = run_cli([conf, "task=eval", f"model_in={model}", "silent=1"])
+    eval_s = time.perf_counter() - t0
+    want = xt.Booster(model_file=model, device=device).eval_set(
+        [(dtest, "test")], 0)
+    got = [ln for ln in err.splitlines() if ln.startswith("[")]
+    if rc != 0 or got != [want]:
+        fail(f"task=eval printed {got}: want [{want!r}]")
+    print(f"[cli] task=eval: {eval_s:.2f} s; {got[0]!r} == eval_set's line",
+          flush=True)
+
+    # 5. task=dump with stats and a 28-line fmap
+    fmap = os.path.join(root, "featmap.txt")
+    with open(fmap, "w") as f:
+        f.write("".join(f"{i}\thiggs{i}\tq\n" for i in range(N_FEAT)))
+    dump = os.path.join(root, "dump.txt")
+    t0 = time.perf_counter()
+    rc, err = run_cli([conf, "task=dump", f"model_in={model}",
+                       f"fmap={fmap}", "dump_stats=1", f"name_dump={dump}",
+                       "silent=1"])
+    dump_s = time.perf_counter() - t0
+    with open(dump) as f:
+        text_dump = f.read()
+    want = "".join(f"booster[{i}]:\n{d}"
+                   for i, d in enumerate(bst.get_dump(fmap, True)))
+    if rc != 0 or text_dump != want or text_dump.count("booster[") != ROUNDS:
+        fail(f"task=dump: exit {rc}, {text_dump.count('booster[')} "
+             "boosters, or text != get_dump of the loaded model")
+    counts = read_counts(kernels)
+    if counts != only(kernels):
+        fail(f"pred / eval / dump launched a histogram kernel: {counts}")
+    print(f"[cli] task=dump: {dump_s:.2f} s; {ROUNDS} boosters == get_dump "
+          f"with stats and the fmap; pred / eval / dump launched no "
+          "histogram kernel", flush=True)
+
+    # 6. task=lanes on 8 of [lanes]'s tenants, as per-lane buffers
+    names = [f"tenant{i:02d}" for i in range(CLI_LANES)]
+    arrays = [tenant_arrays(i) for i in range(CLI_LANES)]
+    for name, (Xl, yl, Xh, yh) in zip(names, arrays):
+        xt.DMatrix(Xl, label=yl).save_binary(
+            os.path.join(root, f"{name}-train.buffer"))
+        xt.DMatrix(Xh, label=yh).save_binary(
+            os.path.join(root, f"{name}-hold.buffer"))
+    lanes_dir = os.path.join(root, "lanes")
+    lconf = write_conf(
+        os.path.join(root, "lanes.conf"), task="lanes", silent=1,
+        objective="binary:logistic", max_depth=DEPTH, eta=0.1, max_bin=64,
+        lanes=",".join(f"{n}={os.path.join(lanes_dir, n, 'model.bin')}"
+                       for n in names),
+        lanes_dir=lanes_dir,
+        lane_data=os.path.join(root, "{lane}-train.buffer"),
+        lane_holdout=os.path.join(root, "{lane}-hold.buffer"),
+        lane_stack=1, lane_rounds_per_cycle=CLI_LANE_ROUNDS, lane_cycles=1,
+        pipeline_metric="auc", lane_window_ms=300000, device=device)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rc, err = run_cli([lconf])
+    torch.cuda.synchronize()
+    lanes_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    print(f"[cli] task=lanes, {CLI_LANES} tenants, 1 cycle of "
+          f"{CLI_LANE_ROUNDS} rounds, lane_stack=1: exit {rc}, "
+          f"{lanes_s:.2f} s; hist_lanes launches {counts['hist_lanes']}; "
+          f"all counts {json.dumps(counts)}", flush=True)
+    if rc != 0:
+        fail(f"task=lanes exited {rc}: {err[-2000:]}")
+    if counts["hist_lanes"] <= 0 or counts != only(
+            kernels, hist_lanes=counts["hist_lanes"]):
+        fail(f"task=lanes launch counts {counts}: want K4, and no K1")
+    api = {}
+    for name, (Xl, yl, Xh, yh) in zip(names, arrays):
+        pair = (xt.DMatrix(Xl, label=yl), xt.DMatrix(Xh, label=yh))
+        d = os.path.join(root, "api", name)
+        api[name] = {"publish_path": os.path.join(d, "model.bin"),
+                     "workdir": d,
+                     "source": CallableDataSource(lambda c, p=pair: p),
+                     "rounds_per_cycle": CLI_LANE_ROUNDS, "cycles": 1,
+                     "metric": "auc", "params": dict(LANE_PARAMS, seed=0)}
+    res = run_tenant_lanes(api, quiet=True, stacked=True, window_sec=300.0,
+                           device=device)
+    if any(r["status"] != "ok" for r in res.values()):
+        fail(f"API lanes not ok: {res}")
+    aucs = []
+    for i, name in enumerate(names):
+        cli_model = os.path.join(lanes_dir, name, "model.bin")
+        if not os.path.exists(cli_model):
+            fail(f"task=lanes: {name} published nothing")
+        b = xt.Booster(model_file=cli_model, device=device)
+        ref = xt.Booster(model_file=api[name]["publish_path"], device=device)
+        if not same_trees(b.gbtree.get_state(), ref.gbtree.get_state()):
+            fail(f"task=lanes: {name}'s trees differ from run_tenant_lanes'")
+        Xh, yh = arrays[i][2], arrays[i][3]
+        aucs.append(auc_of(b.predict(xt.DMatrix(Xh)), yh,
+                           np.ones(len(yh), np.float32)))
+    print(f"[cli] task=lanes: every tenant published, trees == "
+          f"run_tenant_lanes through the API, bitwise; holdout AUC min "
+          f"{min(aucs):.6f} | {card}", flush=True)
+    print(f"[cli] phase {time.perf_counter() - t_phase:.1f} s: train "
+          f"{train_s:.2f}, eval {eval_s:.2f}, dump {dump_s:.2f}, lanes "
+          f"{lanes_s:.2f} s", flush=True)
+    return counts["hist_lanes"]
 
 
 def phase_multiclass(torch, xt, kernels, device, card):
@@ -2138,10 +2424,14 @@ def main():
     phase_k4(torch, cuda_hist_lanes, cuda_hist, dev)
     print(f"[K4] checks {time.perf_counter() - t0:.1f} s")
 
-    launches, ms_round, captured, max_err = phase_main(
+    launches, ms_round, captured, max_err, main_out = phase_main(
         torch, xt, cuda_hist, kernels, "cuda", card)
     rows = phase_times(torch, cuda_hist, captured, card)
     del captured
+    t0 = time.perf_counter()
+    phase_cli(torch, xt, kernels, "cuda", card, main_out)
+    del main_out
+    print(f"[cli] checks {time.perf_counter() - t0:.1f} s")
     mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
         torch, xt, kernels, "cuda", card)
     k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)

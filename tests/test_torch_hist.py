@@ -239,3 +239,23 @@ def test_int8_dequantization_matches_pallas_over_scales():
             torch.from_numpy(binned), thist.prepare_hist(
                 torch.from_numpy(gh), "int8"), torch.from_numpy(pos), M, B)
         np.testing.assert_array_equal(_standard(got.numpy()), want)
+
+
+@pytest.mark.parametrize("B", [1, 17, 32, 33, 34, 64, 65, 100, 129, 258])
+def test_node_totals_bitwise_in_xla_cpu_order(B):
+    """On random (not dyadic) cells of every width, the port's node
+    totals on the CPU equal the JAX package's bit for bit: both sum the
+    bins in XLA's CPU order (``ops/histogram.bin_sum``).  A sum in
+    torch's own order flipped a near-tie split at depth 8
+    (``tests/test_torch_cli.py::test_depth8_continuation_from_a_shared_model_file``)."""
+    from xgboost_tpu.ops import histogram as jhist
+    rng = np.random.RandomState(B)
+    native = (rng.randn(3, B, 2, 5)
+              * np.exp(3 * rng.randn(3, B, 2, 5))).astype(np.float32)
+    want = np.asarray(jhist.stats_from_histogram_native(jnp.asarray(native)))
+    got = thist.stats_from_histogram_native(torch.from_numpy(native))
+    np.testing.assert_array_equal(got.numpy(), want)
+    std = np.ascontiguousarray(native.transpose(3, 0, 1, 2))
+    np.testing.assert_array_equal(
+        thist.stats_from_histogram(torch.from_numpy(std)).numpy(),
+        np.asarray(jhist.stats_from_histogram(jnp.asarray(std))))

@@ -241,3 +241,106 @@ def test_int8_training_matches_the_pallas_path(monkeypatch):
     for k in ("tree_leaf_value", "tree_gain", "tree_sum_hess"):
         np.testing.assert_allclose(st[k], np.asarray(sj[k]), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
+
+
+# ------------------------------------------------------- early stopping
+EARLY = {
+    "reg-rmse": ({"objective": "reg:linear", "max_depth": 3, "eta": 0.3,
+                  "max_bin": 32, "hist_precision": "fp32"}, None, 3),
+    "logistic-auc": ({"objective": "binary:logistic", "max_depth": 3,
+                      "eta": 0.3, "max_bin": 32, "hist_precision": "fp32",
+                      "eval_metric": ["error", "auc"]}, None, 2),
+    "error-maximize": ({"objective": "binary:logistic", "max_depth": 3,
+                        "eta": 0.3, "max_bin": 32, "hist_precision": "fp32",
+                        "eval_metric": "error"}, True, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EARLY))
+def test_early_stopping_matches_the_jax_package(case, capsys):
+    """``early_stopping_rounds`` on the last metric of the last eval set
+    (auc maximized by its name, error by ``maximize=True``):
+    ``best_iteration`` equal, ``best_score`` and ``evals_result`` within
+    rtol 1e-5, the same rounds run and the same "Stopping" line keys."""
+    params, maximize, patience = EARLY[case]
+    X, y_reg, y_bin = _data(4)
+    Xt, yt_reg, yt_bin = _data(5)
+    n = 1024
+    y, yt = ((y_reg, yt_reg) if params["objective"] == "reg:linear"
+             else (y_bin, yt_bin))
+    out = {}
+    for name, pkg, kw in (("j", xj, {}), ("t", xt, {"device": "cpu"})):
+        dtr = pkg.DMatrix(X[:n], label=y[:n])
+        dte = pkg.DMatrix(Xt[:n], label=yt[:n])
+        res = {}
+        bst = pkg.train(params, dtr, 40, evals=[(dtr, "train"),
+                                                (dte, "test")],
+                        maximize=maximize, early_stopping_rounds=patience,
+                        evals_result=res, verbose_eval=True, **kw)
+        printed = capsys.readouterr().out
+        out[name] = (bst, res, printed)
+    (bj, rj, pj), (bt, rt, pt) = out["j"], out["t"]
+    assert bt.best_iteration == bj.best_iteration
+    np.testing.assert_allclose(bt.best_score, bj.best_score, rtol=1e-5)
+    assert list(rt) == list(rj)
+    for k in rj:
+        assert len(rt[k]) == len(rj[k]) < 40, k
+        np.testing.assert_allclose(rt[k], rj[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    assert "Stopping. Best iteration:" in pt
+    stop_j = pj.split("Stopping. Best iteration:\n")[1].split("\t")[0]
+    stop_t = pt.split("Stopping. Best iteration:\n")[1].split("\t")[0]
+    assert stop_t == stop_j == f"[{bt.best_iteration}]"
+    assert bt.gbtree.num_trees == len(rt["test-" + list(rt)[-1]
+                                         .split("-", 1)[1]])
+
+
+def test_init_model_is_an_alias_of_xgb_model(tmp_path):
+    X, y, _ = _data(6)
+    params = {"max_depth": 2, "max_bin": 16}
+    d = xt.DMatrix(X[:512], label=y[:512])
+    path = str(tmp_path / "m.model")
+    xt.train(params, d, 2, device="cpu").save_model(path)
+    a = xt.train(params, d, 1, init_model=path, device="cpu")
+    b = xt.train(params, d, 1, xgb_model=path, device="cpu")
+    assert a.gbtree.num_trees == b.gbtree.num_trees == 3
+    assert a.save_raw() == b.save_raw()
+    with pytest.raises(ValueError, match="aliases"):
+        xt.train(params, d, 1, init_model=path, xgb_model=path,
+                 device="cpu")
+
+
+def test_update_many_hooks():
+    """Eval lines per round equal ``eval_set``'s for that round;
+    ``boundary_align`` ends segments at its multiples; ``plan_callback``
+    reports the segment size (0 where the JAX package would not fuse);
+    ``round_callback`` runs on the per-round path only."""
+    X, y, _ = _data(7)
+    d = xt.DMatrix(X[:512], label=y[:512])
+    dv = xt.DMatrix(X[512:1024], label=y[512:1024])
+    params = {"max_depth": 2, "max_bin": 16}
+
+    def feval(preds, dmat):
+        return "maxerr", float(np.abs(preds - dmat.get_label()).max())
+    calls = {"plan": [], "round": [], "seg": [], "eval": []}
+    bst = xt.Booster(params, cache=[d, dv], device="cpu")
+    bst.update_many(d, 0, 7, evals=[(dv, "v"), (d, "t")], feval=feval,
+                    eval_callback=lambda i, m: calls["eval"].append((i, m)),
+                    round_callback=calls["round"].append,
+                    segment_callback=calls["seg"].append,
+                    plan_callback=calls["plan"].append, boundary_align=3,
+                    rounds_per_dispatch=4)
+    assert calls["plan"] == [4] and calls["round"] == []
+    assert calls["seg"] == [2, 5, 6]
+    ref = xt.Booster(params, cache=[d, dv], device="cpu")
+    for i, (it, msg) in enumerate(calls["eval"]):
+        ref.update(d, i)
+        assert it == i and msg == ref.eval_set([(dv, "v"), (d, "t")], i,
+                                               feval)
+        assert "v-maxerr:" in msg
+    assert bst.save_raw() == ref.save_raw()
+    per_round = {"plan": [], "round": []}
+    xt.Booster(dict(params, gamma=0.5), device="cpu").update_many(
+        d, 3, 2, plan_callback=per_round["plan"].append,
+        round_callback=per_round["round"].append)
+    assert per_round == {"plan": [0], "round": [3, 4]}

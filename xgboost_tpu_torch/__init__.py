@@ -8,13 +8,17 @@ histograms and node statistics as hand-written CUDA kernels
 training pipeline and gang-batched tenant lanes live in
 :mod:`xgboost_tpu_torch.pipeline`.  Entry points run on
 ``device="cuda"`` unless the caller passes ``device="cpu"``.
-Model files load in both packages.  Imports torch, never jax.
+The front ends: ``python -m xgboost_tpu_torch <config> [name=value ...]``
+(:mod:`xgboost_tpu_torch.cli`) and the scikit-learn estimators
+(:mod:`xgboost_tpu_torch.sklearn`).  Model files and DMatrix buffers
+load in both packages.  Imports torch, never jax.
 """
 
 from xgboost_tpu_torch.config import TrainParam
 from xgboost_tpu_torch.convert import gbtree_from_jax_state
 from xgboost_tpu_torch.data import DMatrix
 from xgboost_tpu_torch.learner import Booster, train
+from xgboost_tpu_torch.sklearn import XGBClassifier, XGBModel, XGBRegressor
 
-__all__ = ["Booster", "DMatrix", "TrainParam", "gbtree_from_jax_state",
-           "train"]
+__all__ = ["Booster", "DMatrix", "TrainParam", "XGBClassifier", "XGBModel",
+           "XGBRegressor", "gbtree_from_jax_state", "train"]

@@ -4,7 +4,10 @@ The fields, their order and their defaults are those of the JAX
 package's ``TrainParam``, so :meth:`TrainParam.to_dict` writes the same
 model-file header and a file saved by either package loads in the other.
 Many fields select paths this port does not have yet; the learner raises
-``NotImplementedError`` for those (see ROADMAP.md).
+``NotImplementedError`` for those (see ROADMAP.md).  The command line's
+pieces live here too: :func:`parse_config_file` and the
+``task=pipeline`` / ``task=lanes`` knob tables with the JAX package's
+names, defaults and help.
 """
 
 from __future__ import annotations
@@ -167,3 +170,120 @@ def _coerce(value: Any, current: Any) -> Any:
     if target is float:
         return float(value)
     return value
+
+
+# ------------------------------------------------------------- pipeline
+# task=pipeline parameters (``xgboost_tpu/config.py:401``): name ->
+# (default, help).  The CLI seeds its knobs and its usage text from
+# this table; names, defaults and help are the JAX package's.
+PIPELINE_PARAMS: Dict[str, Tuple[Any, str]] = {
+    "pipeline_publish_path": ("", "model file the serving tier polls; "
+                                  "each gated candidate is atomically "
+                                  "published here (REQUIRED; also the "
+                                  "warm-start incumbent)"),
+    "pipeline_dir": ("./pipeline", "pipeline working directory: cycle "
+                                   "state, candidate model, checkpoint "
+                                   "ring, quarantine, gated-hash "
+                                   "ledger"),
+    "pipeline_rounds_per_cycle": (5, "boosting rounds appended to the "
+                                     "incumbent per cycle"),
+    "pipeline_cycles": (1, "cycles to run before exiting (0 = run "
+                           "forever)"),
+    "pipeline_data": ("", "fresh training data per cycle; a {cycle} "
+                          "placeholder substitutes the cycle index "
+                          "(falls back to data=)"),
+    "pipeline_holdout": ("", "held-out eval window the gate scores "
+                             "candidate vs incumbent on (REQUIRED "
+                             "unless a custom DataSource provides "
+                             "one)"),
+    "pipeline_metric": ("", "gate metric name (empty = the "
+                            "objective's default metric)"),
+    "pipeline_min_delta": (0.0, "gate: minimum improvement over the "
+                                "incumbent required to publish "
+                                "(> 0 demands strict improvement)"),
+    "pipeline_max_regression": (0.0, "gate: tolerated worsening vs the "
+                                     "incumbent when pipeline_min_delta "
+                                     "<= 0 (fresh-data drift allowance)"),
+    "pipeline_router_url": ("", "fleet router base URL: publish through "
+                                "the canary rollout lane (POST "
+                                "/fleet/rollout) instead of a direct "
+                                "atomic swap (empty = direct)"),
+    "pipeline_publish_timeout_sec": (600.0, "rollout-lane publish "
+                                            "timeout; must outlive the "
+                                            "router's canary soak "
+                                            "window"),
+    "pipeline_sleep_sec": (0.0, "pause between cycles (and after an "
+                                "idle cycle with no fresh data)"),
+}
+
+
+def pipeline_params_help() -> str:
+    """One line per task=pipeline parameter, for CLI usage text."""
+    return "\n".join(f"  {name:<26} {help_} (default {default!r})"
+                     for name, (default, help_) in PIPELINE_PARAMS.items())
+
+
+# ---------------------------------------------------------------- lanes
+# task=lanes parameters (``xgboost_tpu/config.py:452``).  Per-lane gate
+# knobs reuse the pipeline_* table (metric, min_delta, max_regression,
+# router_url, publish_timeout_sec, sleep_sec apply to every lane).
+LANE_PARAMS: Dict[str, Tuple[Any, str]] = {
+    "lanes": ("", "tenant lane manifest: inline 'name=publish_path' "
+                  "pairs (comma-separated) or a 'name = publish_path' "
+                  "config file — one continuous-training pipeline per "
+                  "tenant (REQUIRED for task=lanes)"),
+    "lanes_dir": ("./lanes", "root working directory; each lane keeps "
+                             "its own cycle state, checkpoint ring, "
+                             "quarantine and gated-hash ledger under "
+                             "<lanes_dir>/<name>"),
+    "lane_stack": (-1, "gang-batched execution: 1 = vmap-stack "
+                       "same-shape lanes into one device dispatch per "
+                       "round segment, 0 = independent host-loop "
+                       "pipelines (the A/B baseline), -1 = auto "
+                       "(XGBTPU_LANE_STACK env, default stacked)"),
+    "lane_window_ms": (200.0, "rendezvous window: a cycle's boosting "
+                              "dispatches when every active lane has "
+                              "arrived or this many ms passed since "
+                              "the first arrival; late lanes join the "
+                              "next batch (model bytes never depend "
+                              "on batch composition — only dispatch "
+                              "sharing does)"),
+    "lane_max_workers": (0, "concurrent lane threads (0 = auto: all "
+                            "lanes when stacked — threads idle at the "
+                            "rendezvous while the device works — else "
+                            "min(lanes, 8) for the host loop)"),
+    "lane_data": ("", "per-lane training data: {lane} and {cycle} "
+                      "placeholders substitute the lane name and "
+                      "cycle index (falls back to data=)"),
+    "lane_holdout": ("", "per-lane gate holdout; a {lane} placeholder "
+                         "substitutes the lane name"),
+    "lane_rounds_per_cycle": (5, "boosting rounds appended per cycle "
+                                 "in every lane (equal-shape lanes "
+                                 "share one compiled stacked scan)"),
+    "lane_cycles": (1, "cycles each lane runs before exiting (0 = run "
+                       "forever)"),
+}
+
+
+def lane_params_help() -> str:
+    """One line per task=lanes parameter, for CLI usage text."""
+    return "\n".join(f"  {name:<26} {help_} (default {default!r})"
+                     for name, (default, help_) in LANE_PARAMS.items())
+
+
+def parse_config_file(path: str) -> List[Tuple[str, str]]:
+    """Parse a ``name = value`` config file (``xgboost_tpu/config.py:681``):
+    one pair per line, ``#`` comments, quoted values.  Returns pairs in
+    file order (later pairs override earlier ones on apply)."""
+    pairs: List[Tuple[str, str]] = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line or "=" not in line:
+                continue
+            name, value = line.split("=", 1)
+            name = name.strip()
+            value = value.strip().strip('"').strip("'")
+            if name:
+                pairs.append((name, value))
+    return pairs

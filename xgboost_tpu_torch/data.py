@@ -2,20 +2,27 @@
 
 Accepts a dense numpy array (``missing`` marks absent values, NaN by
 default), a scipy sparse matrix, an ``(indptr, indices, values,
-num_col)`` CSR tuple, or the path of a libsvm text file (pure-Python
-parser plus the ``.group`` / ``.weight`` / ``.base_margin`` sidecars).
-A dense array is kept as it is and CSR is built only when something
-iterates CSR; the sketch and the binning read dense columns directly.
-The binary DMatrix cache and external memory are not ported yet
-(ROADMAP.md).
+num_col)`` CSR tuple, or a path, routed by
+:mod:`xgboost_tpu_torch.io.dispatch`: libsvm text (pure-Python parser
+plus the ``.group`` / ``.weight`` / ``.base_margin`` sidecars), a binary
+buffer (:meth:`DMatrix.save_binary`, the JAX package's npz layout, so a
+buffer written by either package loads in the other), ``path#cache``,
+``file://`` or ``stdin``.  A dense array is kept as it is and CSR is
+built only when something iterates CSR; the sketch and the binning read
+dense columns directly.  External memory is not ported yet (ROADMAP.md
+section 1 item 12).
 """
 
 from __future__ import annotations
 
 import os
+import zipfile
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+
+# meta fields of a binary buffer, in the JAX package's order
+_BUFFER_META = ("label", "weight", "base_margin")
 
 
 class MetaInfo:
@@ -70,7 +77,8 @@ class DMatrix:
     def __init__(self, data: Any, label=None, weight=None,
                  missing: float = np.nan, base_margin=None, group=None,
                  num_col: Optional[int] = None,
-                 feature_names: Optional[Sequence[str]] = None):
+                 feature_names: Optional[Sequence[str]] = None,
+                 silent: bool = True):
         self.info = MetaInfo()
         self.feature_names = list(feature_names) if feature_names else None
         self._indptr = self._indices = self._values = None
@@ -78,12 +86,8 @@ class DMatrix:
         self._col_cache = None
         self._num_col = 0
         if isinstance(data, (str, os.PathLike)):
-            path = os.fspath(data)
-            indptr, indices, values, labels = parse_libsvm_python(path)
-            self._indptr, self._indices, self._values = indptr, indices, values
-            self._num_col = int(indices.max()) + 1 if len(indices) else 0
-            self.info.set_field("label", labels)
-            load_meta_sidecars(self, path)
+            from xgboost_tpu_torch.io.dispatch import load_dmatrix_into
+            load_dmatrix_into(self, os.fspath(data), silent=silent)
         elif isinstance(data, tuple) and len(data) == 4:
             indptr, indices, values, self._num_col = data
             self._indptr = np.asarray(indptr, dtype=np.int64)
@@ -196,6 +200,60 @@ class DMatrix:
     def get_weight(self):
         w = self.info.get_weight(self.num_row)
         return w.copy() if self.info.weight is not None else w
+
+    # ----------------------------------------------------------- buffers
+    def save_binary(self, path: str, silent: bool = True) -> None:
+        """Write the binary buffer (``xgboost_tpu/data.py:432``): an npz
+        of ``indptr``, ``indices``, ``values``, ``num_col`` and the
+        ``meta_*`` fields, streamed through :func:`atomic_writer` with
+        fixed member times (equal matrices give equal bytes).  Written
+        through a file object, so ``path`` keeps its name (the
+        reference's ``.buffer``)."""
+        from xgboost_tpu_torch.reliability.integrity import atomic_writer
+        fields = [("indptr", self.indptr), ("indices", self.indices),
+                  ("values", self.values),
+                  ("num_col", np.int64(self._num_col))]
+        fields += [("meta_" + f, getattr(self.info, f))
+                   for f in _BUFFER_META if getattr(self.info, f) is not None]
+        if self.info.group_ptr is not None:
+            fields.append(("meta_group_ptr", self.info.group_ptr))
+        with atomic_writer(path) as f:
+            write_npz(f, fields)
+        if not silent:
+            print(f"{self.num_row}x{self.num_col} matrix with "
+                  f"{len(self.values)} entries saved to {path}")
+
+    @classmethod
+    def load_binary(cls, path: str) -> "DMatrix":
+        """Read a buffer written by :meth:`save_binary` of either
+        package (``xgboost_tpu/data.py:455``)."""
+        with np.load(path, allow_pickle=False) as z:
+            for f in ("root_index", "fold_index"):
+                if "meta_" + f in z.files:
+                    raise NotImplementedError(
+                        f"{path}: meta_{f} (multi-root trees) is ROADMAP.md "
+                        "section 1 item 4")
+            dm = cls((z["indptr"], z["indices"], z["values"],
+                      int(z["num_col"])))
+            for f in _BUFFER_META:
+                if "meta_" + f in z.files:
+                    dm.info.set_field(f, z["meta_" + f])
+            if "meta_group_ptr" in z.files:
+                dm.info.group_ptr = np.asarray(z["meta_group_ptr"])
+        return dm
+
+
+def write_npz(f, members) -> None:
+    """``(name, array)`` pairs as an npz archive on the file object
+    ``f`` (``np.load`` reads it), every member stamped 1980-01-01 where
+    ``np.savez`` stamps the clock."""
+    with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED) as zf:
+        for key, val in members:
+            info = zipfile.ZipInfo(key + ".npy",
+                                   date_time=(1980, 1, 1, 0, 0, 0))
+            with zf.open(info, "w", force_zip64=True) as m:
+                np.lib.format.write_array(m, np.asanyarray(val),
+                                          allow_pickle=False)
 
 
 def stored_mask(arr: np.ndarray, missing: float) -> np.ndarray:

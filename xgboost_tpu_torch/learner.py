@@ -27,7 +27,7 @@ import torch
 from xgboost_tpu_torch.binning import (bin_dense_device, bin_matrix,
                                        compute_cuts)
 from xgboost_tpu_torch.config import TrainParam, params_to_dict
-from xgboost_tpu_torch.data import DMatrix
+from xgboost_tpu_torch.data import DMatrix, write_npz
 from xgboost_tpu_torch.metrics import create_metric
 from xgboost_tpu_torch.models.gbtree import GBTree
 from xgboost_tpu_torch.objectives import create_objective
@@ -122,6 +122,7 @@ class Booster:
         self.num_feature = 0
         self._cache: Dict[int, _CacheEntry] = {}
         self.best_iteration: int = -1
+        self.best_score: float = float("nan")
         self.attributes: Dict[str, str] = {}
         self._pending_cache = list(cache)
         if model_file is not None:
@@ -282,31 +283,64 @@ class Booster:
         return [name for name, blocked in checks if blocked]
 
     def update_many(self, dtrain: DMatrix, first_iteration: int,
-                    n_rounds: int, *, segment_callback=None,
+                    n_rounds: int, *, evals=None, feval=None,
+                    eval_callback=None, round_callback=None,
+                    segment_callback=None, plan_callback=None,
+                    boundary_align: int = 0,
                     rounds_per_dispatch=None) -> None:
         """``n_rounds`` rounds in a plain loop that reads nothing back to
-        the host inside a segment (the JAX package's fused round scan,
-        ``learner.py:967``).  Segments are ``rounds_per_dispatch`` rounds
+        the host inside a segment unless ``evals`` asks for it (the JAX
+        package's fused round scan, ``learner.py:967``).  Segments are
+        ``rounds_per_dispatch`` rounds
         (:meth:`_resolve_rounds_per_dispatch`), or one round where the
-        JAX package would not fuse; ``segment_callback(last_iteration)``
-        runs at the end of each (the checkpoint hook).  Without sampling
-        the round's index changes nothing, so ``first_iteration`` only
-        numbers the callbacks."""
+        JAX package would not fuse.  Without sampling the round's index
+        changes nothing, so ``first_iteration`` only numbers the
+        callbacks and eval lines.
+
+        Hooks (the CLI and the pipeline ride these):
+
+        - ``evals`` / ``feval``: a watchlist ``[(dmat, name), ...]`` and
+          a custom metric; round i's line is :meth:`eval_set`'s for i;
+        - ``eval_callback(iteration, msg)``: each round's eval line;
+        - ``round_callback(iteration)``: before each round, on the
+          per-round path only (a segment has no host point between its
+          rounds);
+        - ``segment_callback(last_iteration)``: a segment ended (the
+          checkpoint and save hook);
+        - ``plan_callback(k)``: the resolved segment size, once, 0 where
+          the JAX package would not fuse;
+        - ``boundary_align``: end segments at multiples of it (periodic
+          saves need the model exactly there)."""
         self._lazy_init(dtrain)
         entry = self._entry(dtrain)
-        k = 1
+        evals = list(evals) if evals else []
+        k = 0
         if not self._segment_blockers(n_rounds):
-            k = max(1, self._resolve_rounds_per_dispatch(
-                dtrain.num_row, rounds_per_dispatch))
+            k = self._resolve_rounds_per_dispatch(dtrain.num_row,
+                                                  rounds_per_dispatch)
+        if plan_callback is not None:
+            plan_callback(k)
+        per_round = k <= 0
+        k = max(1, k)
+        align = max(0, int(boundary_align))
         self._sync_margin(entry)
         done = 0
         while done < n_rounds:
+            first = first_iteration + done
             seg = min(k, n_rounds - done)
-            for _ in range(seg):
+            if align:
+                seg = min(seg, align - first % align)
+            for i in range(first, first + seg):
+                if per_round and round_callback is not None:
+                    round_callback(i)
                 self._round(entry)
+                if evals:
+                    msg = self.eval_set(evals, i, feval)
+                    if eval_callback is not None:
+                        eval_callback(i, msg)
             done += seg
             if segment_callback is not None:
-                segment_callback(first_iteration + done - 1)
+                segment_callback(first + seg - 1)
 
     # ------------------------------------------------------- tenant lanes
     def fused_lane_spec(self, dtrain: DMatrix, first_iteration: int,
@@ -499,6 +533,24 @@ class Booster:
     def save_raw(self) -> bytes:
         return _npz_bytes(self._header(False), self.gbtree.get_state())
 
+    # ---------------------------------------------------------------- dumps
+    def get_dump(self, fmap: str = "", with_stats: bool = False) -> List[str]:
+        """One text block a tree (:func:`xgboost_tpu_torch.dump.dump_trees`)."""
+        from xgboost_tpu_torch.dump import dump_trees
+        return dump_trees(self, fmap, with_stats)
+
+    def dump_model(self, fout: str, fmap: str = "",
+                   with_stats: bool = False) -> None:
+        """The dump with ``booster[i]:`` headers, written atomically."""
+        atomic_write(fout, "".join(
+            f"booster[{i}]:\n{s}" for i, s in
+            enumerate(self.get_dump(fmap, with_stats))).encode())
+
+    def get_fscore(self, fmap: str = "") -> Dict[str, int]:
+        """Split counts by feature (reference ``get_fscore``)."""
+        from xgboost_tpu_torch.dump import feature_importance
+        return feature_importance(self, fmap)
+
 
 _MAXIMIZE_METRICS = ("auc", "ams", "ndcg", "map", "pre")
 
@@ -516,16 +568,9 @@ def _npz_bytes(header: dict, state: dict) -> bytes:
     """An npz archive (``np.load`` reads it) with fixed member times, so
     equal models give equal bytes (``np.savez`` stamps the clock)."""
     buf = io.BytesIO()
-    members = [("header", np.frombuffer(json.dumps(header).encode(),
-                                        dtype=np.uint8))]
-    members += list(state.items())
-    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
-        for key, val in members:
-            info = zipfile.ZipInfo(key + ".npy",
-                                   date_time=(1980, 1, 1, 0, 0, 0))
-            with zf.open(info, "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, np.asanyarray(val),
-                                          allow_pickle=False)
+    write_npz(buf, [("header", np.frombuffer(json.dumps(header).encode(),
+                                             dtype=np.uint8)),
+                    *state.items()])
     return buf.getvalue()
 
 
@@ -544,18 +589,25 @@ def _jsonable(d: dict) -> dict:
 
 def train(params, dtrain: DMatrix, num_boost_round: int = 10,
           evals: Sequence[Tuple[DMatrix, str]] = (), obj=None, feval=None,
+          maximize: Optional[bool] = None,
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[dict] = None, verbose_eval=True,
-          xgb_model=None, device=None) -> Booster:
-    """Train a booster (reference wrapper/xgboost.py:533-632) without
-    early stopping.  ``xgb_model`` (a Booster or a model path) continues
-    training: new rounds append to its ensemble."""
+          xgb_model=None, init_model=None, device=None) -> Booster:
+    """Train a booster (reference wrapper/xgboost.py:533-632;
+    ``xgboost_tpu/learner.py:2042``).  ``init_model`` / ``xgb_model``
+    (aliases; a Booster or a model path) continue training: new rounds
+    append to its ensemble.  ``early_stopping_rounds`` stops after that
+    many rounds without improvement of the last metric of the last eval
+    set (larger is better for ``auc``, ``ams``, ``ndcg``, ``map`` and
+    ``pre`` unless ``maximize`` says otherwise) and sets
+    ``best_score`` / ``best_iteration``."""
     if obj is not None:
         raise NotImplementedError(
             "custom objectives: ROADMAP.md section 1 item 6")
-    if early_stopping_rounds is not None:
-        raise NotImplementedError(
-            "early stopping: ROADMAP.md section 1 item 6")
+    if init_model is not None and xgb_model is not None:
+        raise ValueError("pass init_model or xgb_model, not both "
+                         "(they are aliases)")
+    xgb_model = xgb_model if xgb_model is not None else init_model
     start_round = 0
     if xgb_model is not None:
         bst = xgb_model if isinstance(xgb_model, Booster) else Booster(
@@ -566,18 +618,38 @@ def train(params, dtrain: DMatrix, num_boost_round: int = 10,
     else:
         bst = Booster(params, cache=[dtrain] + [d for d, _ in evals],
                       device=device)
-    if not evals:
+    if not evals and early_stopping_rounds is None:
         bst.update_many(dtrain, start_round, num_boost_round)
         return bst
+    best_score, best_iter, best_msg = None, 0, ""
     for i in range(num_boost_round):
         bst.update(dtrain, start_round + i)
+        if not evals:
+            continue
         msg = bst.eval_set(evals, i, feval)
         if verbose_eval and (verbose_eval is True or int(verbose_eval) <= 1
                              or i % int(verbose_eval) == 0
                              or i == num_boost_round - 1):
             print(msg)
+        scores = _parse_eval(msg)
         if evals_result is not None:
-            for part in msg.split("\t")[1:]:
-                k, _, v = part.rpartition(":")
-                evals_result.setdefault(k, []).append(float(v))
+            for k, v in scores.items():
+                evals_result.setdefault(k, []).append(v)
+        if early_stopping_rounds is not None:
+            last_key = list(scores)[-1]
+            score = scores[last_key]
+            mx = maximize
+            if mx is None:
+                metric = last_key.split("-", 1)[1]
+                mx = any(metric.startswith(m) for m in _MAXIMIZE_METRICS)
+            if best_score is None or (score > best_score if mx
+                                      else score < best_score):
+                best_score, best_iter, best_msg = score, i, msg
+            elif i - best_iter >= early_stopping_rounds:
+                if verbose_eval:
+                    print(f"Stopping. Best iteration:\n{best_msg}")
+                break
+    if early_stopping_rounds is not None and best_score is not None:
+        bst.best_score = best_score
+        bst.best_iteration = best_iter
     return bst

@@ -179,17 +179,42 @@ def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
                                       n_node)
 
 
+def bin_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (bin) axis.  On the CPU in XLA's CPU order, so
+    node totals match the JAX package's CPU run bit for bit: a bin axis
+    of B <= 32 is added left to right from 0; a longer one is padded
+    with zeros to a multiple of 32 (half the pad in front, the odd one
+    behind), each run of 32 added left to right, then the runs' sums
+    left to right (XLA's CPU tree-reduction rewrite).  On the GPU one
+    reduction (the JAX package's TPU order is neither)."""
+    if x.device.type != "cpu":
+        return x.sum(dim=-1)
+    B = x.shape[-1]
+    if B > 32:
+        total = -(-B // 32) * 32
+        front = (total - B) // 2
+        x = torch.nn.functional.pad(x, (front, total - B - front))
+        x = x.reshape(*x.shape[:-1], total // 32, 32)
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    if B <= 32:
+        return acc
+    out = torch.zeros(acc.shape[:-1], dtype=x.dtype)
+    for c in range(acc.shape[-1]):
+        out = out + acc[..., c]
+    return out
+
+
 def stats_from_histogram_native(hist: torch.Tensor) -> torch.Tensor:
     """Per-node (G, H) totals from ``(F, B, 2, n_node)``: the bin sums of
-    feature 0 (every active row lands in one bin of every feature).
-    Summed along a contiguous bin axis: each node's total is then the
-    same bits whatever the number of nodes beside it, so T trees'
-    batched level equals T solo levels (a sum over the outer axis of
-    ``(B, 2, n_node)`` groups its additions by the node count on the
-    CPU)."""
-    return hist[0].permute(2, 1, 0).contiguous().sum(dim=-1)
+    feature 0 (every active row lands in one bin of every feature),
+    each node's over its own contiguous bin axis (:func:`bin_sum`): a
+    node's total is then the same bits whatever the number of nodes
+    beside it, so T trees' batched level equals T solo levels."""
+    return bin_sum(hist[0].permute(2, 1, 0).contiguous())
 
 
 def stats_from_histogram(hist: torch.Tensor) -> torch.Tensor:
     """The same from the standard ``(n_node, F, B, 2)`` layout."""
-    return hist[:, 0, :, :].sum(dim=1)
+    return bin_sum(hist[:, 0, :, :].transpose(1, 2))

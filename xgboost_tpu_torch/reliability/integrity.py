@@ -1,9 +1,10 @@
 """Crash-safe, integrity-checked model files (port of
 ``xgboost_tpu/reliability/integrity.py``).
 
-1. :func:`atomic_write` stages into a same-directory temp file, fsyncs
-   it, ``os.replace``-s it over the destination and fsyncs the
-   directory: a crash leaves the old file or the new one, never a prefix.
+1. :func:`atomic_write` (and :func:`atomic_writer`, its streaming
+   form) stages into a same-directory temp file, fsyncs it,
+   ``os.replace``-s it over the destination and fsyncs the directory:
+   a crash leaves the old file or the new one, never a prefix.
 2. Every model file carries a fixed-length ASCII CRC32 footer::
 
        \\nXGTPUCRC1 <crc32:08x> <payload_len:016d>\\n
@@ -14,6 +15,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import sys
@@ -78,10 +80,14 @@ def verify_model_bytes(raw: bytes, name: str = "<buffer>",
     return payload
 
 
-def atomic_write(path: Union[str, os.PathLike], data: bytes,
-                 durable: bool = True) -> None:
-    """Whole-file write: temp file in the destination directory ->
-    flush -> fsync -> ``os.replace`` -> directory fsync."""
+@contextlib.contextmanager
+def atomic_writer(path: Union[str, os.PathLike], durable: bool = True):
+    """A binary file object staged in the destination directory
+    (``xgboost_tpu/reliability/integrity.py:122``): a clean exit
+    flushes, fsyncs, ``os.replace``-s it over ``path`` and fsyncs the
+    directory; an exception unlinks the temp file and leaves ``path``
+    as it was.  For writers that stream (prediction text, DMatrix
+    buffers) and must not stage the whole file in memory."""
     path = os.fspath(path)
     d = os.path.dirname(os.path.abspath(path))
     try:
@@ -94,7 +100,7 @@ def atomic_write(path: Union[str, os.PathLike], data: bytes,
                                suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            yield f
             f.flush()
             os.fchmod(f.fileno(), mode)
             if durable:
@@ -112,6 +118,14 @@ def atomic_write(path: Union[str, os.PathLike], data: bytes,
             os.fsync(dfd)
         finally:
             os.close(dfd)
+
+
+def atomic_write(path: Union[str, os.PathLike], data: bytes,
+                 durable: bool = True) -> None:
+    """Whole-file write: temp file in the destination directory ->
+    flush -> fsync -> ``os.replace`` -> directory fsync."""
+    with atomic_writer(path, durable=durable) as f:
+        f.write(data)
 
 
 def read_file(path: Union[str, os.PathLike]) -> bytes:
