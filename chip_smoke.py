@@ -114,6 +114,62 @@ histogram kernel; ``task=lanes`` over 8 tenants' buffers
 launches K4 and no K1, and each tenant's trees equal those of
 ``run_tenant_lanes`` called on the same tenants' arrays, bitwise.
 
+The phases after ``[cli]`` drive sampled, subtracted and multi-root
+growth and the round profiler on the same data, each with its launch
+counts set to 0 just before and read just after:
+
+- ``[sample]``: [main]'s data and configuration with ``subsample``,
+  ``colsample_bytree`` and ``colsample_bylevel`` 0.8 (seed 0), 20
+  rounds; fails unless K1 runs exactly 120 times and nothing else, the
+  row and feature masks of rounds 0-2 drawn on the card equal bitwise
+  those drawn on the CPU from the same keys, the model bytes equal those
+  of a run with the plain histogram and of a second run, and the holdout
+  AUC is at least the JAX package's CPU AUC for this configuration
+  (``SAMPLE_AUC_JAX``) less 0.005; prints ms per round beside [main]'s
+  and the ms of one 1M-row ``uniform`` draw;
+- ``[subtract]``: [main]'s configuration under
+  ``XGBTPU_HIST_SUBTRACTION=1``; fails unless K1 runs 6 times a tree and
+  K2 5 times (levels 1-5) and nothing else, K1 runs on the compacted rows
+  from level 1 on and equals its plain version there (int8 bitwise), K2's
+  row counts equal its plain version's, each subtracted level equals the
+  same subtraction on the plain versions bitwise and the plain full
+  build within its stated f32 bound, and the AUC is within 0.002 of
+  [main]'s; prints ms per round beside [main]'s.  After ``[forest]`` the
+  multiclass data under the switch, 5 rounds of 6 trees: fails unless
+  K3 runs once a round (level 0), K4 (the small children on each tree's
+  compacted rows) and K2 5 times a round and nothing else, and the plain
+  K3, K4 and K2 give the same model bytes; prints its ms per round beside
+  [multiclass]'s;
+- ``[roots]``: 200,000 of [main]'s rows with ``num_roots=2``, the label
+  flipped where ``X[:, 20] > 0.5``, which is also each row's
+  ``root_index``; fails unless K1 runs 60 times, the trees hold 255 nodes,
+  the AUC is at least the JAX package's CPU AUC less 0.005, every root
+  flipped predicts worse than chance, save / load keeps predictions and
+  leaves bitwise and the plain histogram gives the same model bytes;
+  then the same rows and roots as a forest (``num_parallel_tree=2``,
+  ``subsample=0.8``): fails unless K3 runs 60 times and nothing else,
+  the AUC is at least the one-tree run's less 0.01, flipped roots
+  predict worse than chance and the plain K3 gives the same model bytes;
+- ``[profile]``: [main]'s configuration with ``profile=1`` and the
+  holdout as a watchlist; fails unless it prints a ``[prof]`` line a
+  round and its model bytes equal [main]'s (the ``profile`` parameter
+  reset); prints the ms per round of ``predict``, ``gradient``, ``grow``
+  and ``eval``; then 3 rounds with ``profile=2``: fails unless its
+  ``torch.profiler`` trace is written and holds CUDA activity, and
+  prints the ten CUDA operations with the most device time a round, with
+  their counts, and K1's share of ``grow``;
+- ``[forest]`` (after ``[otto]``): the multiclass data with
+  ``num_parallel_tree=2``, ``subsample`` and ``colsample_bytree`` 0.8, 20
+  rounds of 12 trees; fails unless K3 runs 120 times and nothing else,
+  round 0's 12 trees draw 12 distinct row masks, the plain batched
+  histogram gives the same model bytes and the holdout merror is at most
+  the JAX package's CPU merror plus ``FOREST_MERROR_BOUND``;
+- ``[lanes-sampled]`` (after ``[lanes]``): 8 of [lanes]' tenants at one
+  row count with ``subsample=0.8``, one cycle of 10 rounds, stacked and
+  as the host loop; fails unless the stacked run launches K4 60 times in
+  one dispatch and no K1, the host loop K1 480 times, and both give the
+  same model bytes, ledgers and gate verdicts.
+
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
 not build or launch), on any K1 or K3 launch there, on a launch count
@@ -177,6 +233,37 @@ LANE_STACK = 64                  # 48 tenants pad to a power of two
 # python tests/test_torch_lanes.py 48``): holdout AUC 0.920299 at the
 # lowest tenant, 0.932 on average.  The floor is that lowest minus 0.005.
 LANE_AUC_FLOOR = 0.915299
+# [sample]: [main]'s data and configuration with rows and columns sampled
+SAMPLE_PARAMS = {**PARAMS, "subsample": 0.8, "colsample_bytree": 0.8,
+                 "colsample_bylevel": 0.8, "seed": 0}
+# The JAX package's holdout AUC for SAMPLE_PARAMS on [main]'s data, 20
+# rounds, on a CPU (fp32 histograms); the floor is 0.005 under it
+SAMPLE_AUC_JAX = 0.939369
+# [forest]: bench_multiclass's data as a sampled random forest
+FOREST_NPAR, FOREST_ROUNDS = 2, 20
+FOREST_PARAMS = {**MC_PARAMS, "num_parallel_tree": FOREST_NPAR,
+                 "subsample": 0.8, "colsample_bytree": 0.8}
+# The JAX package's holdout merror for FOREST_PARAMS, 20 rounds, on a CPU.
+# The 20,000 holdout rows give it a standard error near 0.0028; the bound
+# is about 3.5 of them
+FOREST_MERROR_JAX = 0.2068
+FOREST_MERROR_BOUND = 0.01
+# [lanes-sampled]: 8 of [lanes]' tenants at one row count, subsample 0.8
+SL_LANES, SL_ROUNDS = 8, 10
+SL_PARAMS = {**LANE_PARAMS, "subsample": 0.8}
+# [roots]: 200,000 of [main]'s rows, two regimes, one root each
+ROOTS_N, ROOTS_ROUNDS = 200_000, 10
+ROOTS_PARAMS = {**PARAMS, "num_roots": 2}
+# the same rows and roots as a sampled forest: 2 trees a round through K3
+ROOTS_FOREST_PARAMS = {**ROOTS_PARAMS, "num_parallel_tree": 2,
+                       "subsample": 0.8, "seed": 0}
+# The JAX package's holdout AUC for ROOTS_PARAMS on those rows, 10 rounds,
+# on a CPU; the floor is 0.005 under it
+ROOTS_AUC_JAX = 0.931807
+# [subtract] on the multiclass data: rounds of 6 trees under the switch
+SUB_MC_ROUNDS = 5
+# [profile]: rounds of the profile=2 trace
+PROFILE2_ROUNDS = 3
 
 
 def fail(msg):
@@ -712,7 +799,8 @@ def phase_main(torch, xt, cuda_hist, kernels, device, card):
     print(f"[main] kernel == plain, int8 bitwise, at all {len(captured)} "
           "main-path levels", flush=True)
     main_out = {"X": X, "y": y, "state": bst.gbtree.get_state(),
-                "auc": score, "train_s": train_s, "ms_round": ms_round}
+                "auc": score, "train_s": train_s, "ms_round": ms_round,
+                "raw": raw}
     return launches, ms_round, captured, max_err, main_out
 
 
@@ -1215,10 +1303,11 @@ def phase_depth0(torch, xt, kernels, device):
     return launches, captured[:1], max_err
 
 
-def lane_runs(root, data, mode):
-    """``run_tenant_lanes`` kwargs of the 48 tenants under ``root/mode``:
-    a CallableDataSource each (the same pair every cycle), the holdout
-    gate on AUC."""
+def lane_runs(root, data, mode, params=LANE_PARAMS, cycles=LANE_CYCLES,
+              rounds=LANE_ROUNDS):
+    """``run_tenant_lanes`` kwargs of the tenants of ``data`` under
+    ``root/mode``: a CallableDataSource each (the same pair every cycle),
+    the holdout gate on AUC."""
     import shutil
 
     from xgboost_tpu_torch.pipeline import CallableDataSource
@@ -1231,8 +1320,8 @@ def lane_runs(root, data, mode):
             "publish_path": os.path.join(d, "model.bin"),
             "workdir": os.path.join(d, "work"),
             "source": CallableDataSource(lambda c, p=pair: p),
-            "rounds_per_cycle": LANE_ROUNDS, "cycles": LANE_CYCLES,
-            "metric": "auc", "params": dict(LANE_PARAMS)}
+            "rounds_per_cycle": rounds, "cycles": cycles,
+            "metric": "auc", "params": dict(params)}
     return lanes
 
 
@@ -1253,14 +1342,18 @@ def gate_verdicts(events):
     return out
 
 
-def run_lanes(torch, kernels, root, data, mode, device):
+def run_lanes(torch, kernels, root, data, mode, device, params=LANE_PARAMS,
+              cycles=LANE_CYCLES, rounds=LANE_ROUNDS):
     """One ``run_tenant_lanes`` over the tenants, counts set to 0 just
     before and read just after, its events logged to a file of its own.
-    Returns (lanes, results, launch counts, lane-metric deltas, events,
-    seconds)."""
+    The log keeps its events without round phases
+    (``XGBTPU_OBS_PHASES=0``): a configured log otherwise times each
+    round's phases, which keeps every lane's rounds solo, as in the JAX
+    package.  Returns (lanes, results, launch counts, lane-metric
+    deltas, events, seconds)."""
     from xgboost_tpu_torch.obs import configure_log, lane_metrics
     from xgboost_tpu_torch.pipeline import run_tenant_lanes
-    lanes = lane_runs(root, data, mode)
+    lanes = lane_runs(root, data, mode, params, cycles, rounds)
     log = os.path.join(root, f"events-{mode}.jsonl")
     if os.path.exists(log):
         os.remove(log)
@@ -1268,6 +1361,7 @@ def run_lanes(torch, kernels, root, data, mode, device):
     before = (lm.dispatches.value, lm.stacked.value, lm.padded.value,
               lm.restacks.value, lm.solo.values())
     configure_log(log)
+    os.environ["XGBTPU_OBS_PHASES"] = "0"
     try:
         reset_counts(kernels)
         t0 = time.perf_counter()
@@ -1280,6 +1374,7 @@ def run_lanes(torch, kernels, root, data, mode, device):
         counts = read_counts(kernels)
     finally:
         configure_log(None)
+        os.environ.pop("XGBTPU_OBS_PHASES", None)
     solo = {k: v - before[4].get(k, 0.0) for k, v in lm.solo.values().items()}
     delta = {"dispatches": lm.dispatches.value - before[0],
              "stacked": lm.stacked.value - before[1],
@@ -1678,6 +1773,561 @@ def time_lane_cycles(torch, xt, data, device, card):
           f"{host_ts[0] * 1e3:.1f} ms, stacked {stacked_ts[0] * 1e3:.1f} "
           f"ms; identical model bytes | {card}", flush=True)
     return h, st
+
+
+# ------------------------------------------------------------- [sample]
+def auc_of(xt, bst, dmat, y):
+    from xgboost_tpu_torch.metrics import auc
+    pred = bst.predict(dmat)
+    if pred.shape != (len(y),) or not np.isfinite(pred).all():
+        fail(f"holdout predictions: shape {pred.shape}")
+    return auc(pred, y, np.ones(len(y), np.float32))
+
+
+def round_ms(torch, xt, params, dtrain, device):
+    """ms per round of ``params`` on ``dtrain``: a booster's rounds 1 to
+    ROUNDS - 1, round 0 (cuts, binning) untimed; and its model bytes."""
+    bst = xt.Booster(params, cache=[dtrain], device=device)
+    bst.update(dtrain, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst.update_many(dtrain, 1, ROUNDS - 1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (ROUNDS - 1), bst.save_raw()
+
+
+def phase_sample(torch, xt, cuda_hist, kernels, device, card, main_out):
+    """[main]'s Higgs data with row and column sampling."""
+    from xgboost_tpu_torch import random as prng
+    from xgboost_tpu_torch.models import tree as tt
+    X, y = main_out["X"], main_out["y"]
+    dtrain = xt.DMatrix(X[:N_TRAIN], label=y[:N_TRAIN])
+    dtest = xt.DMatrix(X[N_TRAIN:], label=y[N_TRAIN:])
+    dev = torch.device(device)
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bst = xt.train(SAMPLE_PARAMS, dtrain, ROUNDS, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    print(f"[sample] train {ROUNDS} rounds (subsample, colsample_bytree "
+          f"and colsample_bylevel 0.8; cuts and binning included): "
+          f"{train_s:.2f} s; hist_level launches {counts['hist_level']}; all "
+          f"counts {json.dumps(counts)}", flush=True)
+    if counts != only(kernels, hist_level=ROUNDS * DEPTH):
+        fail(f"sampled launch counts {counts}: want hist_level "
+             f"{ROUNDS * DEPTH}, the others 0")
+    raw = bst.save_raw()
+
+    # the draws of rounds 0-2 on the card == those on the CPU, same keys
+    cfg = bst.gbtree.cfg
+    for r in range(3):
+        key = prng.fold_in(prng.fold_in(prng.PRNGKey(0), r), 0)[None]
+        on_card = tt.draw_masks(key, N_TRAIN, N_FEAT, cfg, dev)
+        on_cpu = tt.draw_masks(key, N_TRAIN, N_FEAT, cfg, "cpu")
+        kept = float(on_card.keep.float().mean())
+        if not (torch.equal(on_card.keep.cpu(), on_cpu.keep)
+                and torch.equal(on_card.fmask.cpu(), on_cpu.fmask)):
+            fail(f"round {r}: the card's row or feature masks != the CPU's")
+        print(f"[sample] round {r}: row mask ({kept:.4f} kept) and the "
+              f"{DEPTH} levels' feature masks (features a level "
+              f"{on_cpu.fmask.sum(-1).flatten().tolist()}) bitwise == the "
+              "CPU's draws", flush=True)
+
+    score = auc_of(xt, bst, dtest, y[N_TRAIN:])
+    floor = SAMPLE_AUC_JAX - 0.005
+    print(f"[sample] holdout AUC {score:.6f} (floor {floor:.6f}: the JAX "
+          f"package's {SAMPLE_AUC_JAX} on the CPU - 0.005)", flush=True)
+    if not score >= floor:
+        fail(f"sampled holdout AUC {score} < {floor}")
+
+    ms, raw2 = round_ms(torch, xt, SAMPLE_PARAMS, dtrain, device)
+    if raw2 != raw:
+        fail("a second sampled run gave different model bytes")
+    key = prng.PRNGKey(0)
+    draw_ms = cuda_ms(torch, lambda: prng.uniform_rows(key, N_TRAIN, dev),
+                      20)
+    print(f"[sample] {ms:.3f} ms per round ([main] {main_out['ms_round']:.3f}"
+          f"); one {N_TRAIN}-row uniform draw {draw_ms:.4f} ms | {card}",
+          flush=True)
+
+    kernel_fn = cuda_hist.level_histogram
+    cuda_hist.level_histogram = cuda_hist.level_histogram_plain
+    try:
+        plain = xt.train(SAMPLE_PARAMS, dtrain, ROUNDS, device=device)
+    finally:
+        cuda_hist.level_histogram = kernel_fn
+    if plain.save_raw() != raw:
+        fail("sampled: kernel and plain histograms grew different models")
+    print("[sample] plain-histogram run: identical model bytes", flush=True)
+    return counts["hist_level"], ms, draw_ms, score
+
+
+# ------------------------------------------------------------ [subtract]
+def phase_subtract(torch, xt, cuda_hist, kernels, device, card, main_out):
+    """[main]'s configuration under XGBTPU_HIST_SUBTRACTION=1: per level
+    from 1 on, K2 counts each child's rows, K1 builds the smaller
+    children on the compacted rows, the siblings are parent - small."""
+    from xgboost_tpu_torch.models import tree as tt
+    from xgboost_tpu_torch.ops import histogram as th
+    kn = kernels["node_stats"]
+    X, y = main_out["X"], main_out["y"]
+    dtrain = xt.DMatrix(X[:N_TRAIN], label=y[:N_TRAIN])
+    dtest = xt.DMatrix(X[N_TRAIN:], label=y[N_TRAIN:])
+    os.environ["XGBTPU_HIST_SUBTRACTION"] = "1"
+    try:
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        bst = xt.train(PARAMS, dtrain, ROUNDS, device=device)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        if not bst.gbtree.cfg.hist_subtraction:
+            fail("XGBTPU_HIST_SUBTRACTION=1 did not reach the grow config")
+        want = only(kernels, hist_level=ROUNDS * DEPTH,
+                    node_stats=ROUNDS * (DEPTH - 1))
+        print(f"[subtract] train {ROUNDS} rounds: {train_s:.2f} s; all "
+              f"counts {json.dumps(counts)}", flush=True)
+        if counts != want:
+            fail(f"subtraction launch counts {counts}: want hist_level "
+                 f"{ROUNDS * DEPTH} (6 a tree) and node_stats "
+                 f"{ROUNDS * (DEPTH - 1)} (levels 1-5), the others 0")
+        score = auc_of(xt, bst, dtest, y[N_TRAIN:])
+        print(f"[subtract] holdout AUC {score:.6f} ([main] "
+              f"{main_out['auc']:.6f}, bound 0.002)", flush=True)
+        if not abs(score - main_out["auc"]) <= 0.002:
+            fail(f"subtracted AUC {score} is not within 0.002 of "
+                 f"{main_out['auc']}")
+        ms, _ = round_ms(torch, xt, PARAMS, dtrain, device)
+        print(f"[subtract] {ms:.3f} ms per round ([main] "
+              f"{main_out['ms_round']:.3f}) | {card}", flush=True)
+
+        # one tree's subtracted levels, their inputs captured
+        sub_fn, k1_fn, k2_fn = (tt._subtracted_level_hist,
+                                cuda_hist.level_histogram, kn.node_stats)
+        levels, k1_calls, k2_calls = [], [], []
+
+        def sub(*args):
+            levels.append(args)
+            return sub_fn(*args)
+
+        def k1(bins, gh, pos, n_node, n_bin, mode):
+            k1_calls.append((bins, gh, pos, n_node, n_bin, mode))
+            return k1_fn(bins, gh, pos, n_node, n_bin, mode)
+
+        def k2(gh, pos, n_node):
+            k2_calls.append((gh, pos, n_node))
+            return k2_fn(gh, pos, n_node)
+        tt._subtracted_level_hist = sub
+        cuda_hist.level_histogram, kn.node_stats = k1, k2
+        try:
+            xt.train(PARAMS, dtrain, 1, device=device)
+        finally:
+            tt._subtracted_level_hist = sub_fn
+            cuda_hist.level_histogram, kn.node_stats = k1_fn, k2_fn
+    finally:
+        os.environ.pop("XGBTPU_HIST_SUBTRACTION", None)
+    if len(levels) != DEPTH - 1 or len(k1_calls) != DEPTH \
+            or len(k2_calls) != DEPTH - 1:
+        fail(f"one subtracted tree: {len(levels)} levels, {len(k1_calls)} "
+             f"K1 and {len(k2_calls)} K2 calls")
+    cap = max(256, -(-(N_TRAIN // 2) // 256) * 256)
+    for bins, gh, pos, M, nb, mode in k1_calls[1:]:
+        if bins.shape[0] != cap:
+            fail(f"K1 at n_node={M} ran on {bins.shape[0]} rows, not the "
+                 f"{cap} compacted ones")
+        got, want = (k1_fn(bins, gh, pos, M, nb, mode),
+                     cuda_hist.level_histogram_plain(bins, gh, pos, M, nb,
+                                                     mode))
+        if mode != "int" or not torch.equal(got, want):
+            fail(f"subtraction's compacted K1 n_node={M} != plain")
+    for gh, pos, M in k2_calls:
+        got, want = k2_fn(gh, pos, M), kn.node_stats_plain(gh, pos, M)
+        n = kn.node_stats_plain(torch.ones_like(gh), pos, M)
+        if not sum_bound_ok(torch, got, want, n, want.abs()):
+            fail(f"subtraction's K2 row counts n_node={M} != plain")
+    # each subtracted level against the same subtraction on the plain
+    # versions (int8: bitwise) and against the plain full build.  Every
+    # value the two hold is within the root's sum |gh| in its cell, A:
+    # level 0 and each small child round once (<= 2^-24 A), each of the
+    # d subtractions once more, and the full build once, so they differ
+    # by at most (2 d + 2) 2^-24 A, and one more 2^-24 A for A's own
+    # rounding
+    max_err = 0.0
+    for d, (binned, prep, pos, M, nb, parent, split) in enumerate(levels, 1):
+        got = sub_fn(binned, prep, pos, M, nb, parent, split)
+        cuda_hist.level_histogram, kn.node_stats = (
+            cuda_hist.level_histogram_plain, kn.node_stats_plain)
+        try:
+            same = sub_fn(binned, prep, pos, M, nb, parent, split)
+            full = th.build_level_histogram(binned, prep, pos[0], M, nb)
+            root = th.build_level_histogram(
+                binned, th.HistPrep(prep.gh_in.abs(), prep.scale, prep.mode),
+                torch.zeros_like(pos[0]), 1, nb)
+        finally:
+            cuda_hist.level_histogram, kn.node_stats = k1_fn, k2_fn
+        if not torch.equal(got, same):
+            fail(f"subtracted level n_node={M}: kernels != plain versions")
+        bound = (2 * d + 3) * 2.0 ** -24 * root
+        err = (got - full).abs()
+        max_err = max(max_err, float(err.max()))
+        if bool((err > bound).any()):
+            fail(f"subtracted level n_node={M} beyond its bound of the "
+                 "full build")
+    print(f"[subtract] K1 on {cap} compacted rows == plain (int8 bitwise) "
+          f"at levels 1-{DEPTH - 1}; K2 row counts == plain; each "
+          "subtracted level == the same subtraction on the plain versions "
+          "and within (2 d + 3) 2^-24 of the root's sum |gh| of the full "
+          f"build (max |diff| {max_err:.3e})", flush=True)
+    return counts["hist_level"], counts["node_stats"], ms, score
+
+
+# -------------------------------------------------------------- [forest]
+def phase_forest(torch, xt, kernels, device, card):
+    """bench_multiclass's data as a sampled random forest: 6 classes x 2
+    parallel trees a round through K3, each tree its own masks."""
+    from xgboost_tpu_torch import random as prng
+    from xgboost_tpu_torch.metrics import merror
+    from xgboost_tpu_torch.models import tree as tt
+    from xgboost_tpu_torch.models.gbtree import tree_keys
+    kb = kernels["hist_batched"]
+    X, y = make_multiclass(MC_N + MC_TEST)
+    dtrain = xt.DMatrix(X[:MC_N], label=y[:MC_N])
+    dtest = xt.DMatrix(X[MC_N:], label=y[MC_N:])
+    T = MC_K * FOREST_NPAR
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bst = xt.train(FOREST_PARAMS, dtrain, FOREST_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    want = FOREST_ROUNDS * DEPTH
+    print(f"[forest] {FOREST_ROUNDS} rounds of {T} trees: {train_s:.2f} s "
+          f"(cuts and binning included); all counts {json.dumps(counts)}",
+          flush=True)
+    if counts != only(kernels, hist_batched=want):
+        fail(f"forest launch counts {counts}: want hist_batched {want}")
+    if bst.gbtree.num_trees != FOREST_ROUNDS * T:
+        fail(f"{bst.gbtree.num_trees} trees, want {FOREST_ROUNDS * T}")
+    draws = tt.draw_masks(tree_keys(prng.fold_in(prng.PRNGKey(0), 0), T),
+                          MC_N, MC_FEAT, bst.gbtree.cfg, torch.device(device))
+    masks = {bytes(m.cpu().numpy()) for m in draws.keep}
+    if len(masks) != T:
+        fail(f"round 0's {T} trees drew {len(masks)} distinct row masks")
+    pred = bst.predict(dtest)
+    onehot = np.eye(MC_K, dtype=np.float32)[pred.astype(np.int64)]
+    err = merror(onehot, y[MC_N:], np.ones(MC_TEST, np.float32))
+    ceiling = FOREST_MERROR_JAX + FOREST_MERROR_BOUND
+    print(f"[forest] holdout merror {err:.6f} (ceiling {ceiling:.6f}: the "
+          f"JAX package's {FOREST_MERROR_JAX} on the CPU + "
+          f"{FOREST_MERROR_BOUND}); round 0's {T} trees drew {T} distinct "
+          f"row masks | {card}", flush=True)
+    if not err <= ceiling:
+        fail(f"forest merror {err} > {ceiling}")
+    kernel_fn = kb.level_histogram_batched
+    kb.level_histogram_batched = kb.level_histogram_batched_plain
+    try:
+        plain = xt.train(FOREST_PARAMS, dtrain, FOREST_ROUNDS, device=device)
+    finally:
+        kb.level_histogram_batched = kernel_fn
+    if plain.save_raw() != bst.save_raw():
+        fail("forest: kernel and plain batched histograms grew different "
+             "models")
+    print("[forest] plain-histogram run: identical model bytes", flush=True)
+    return counts["hist_batched"], err
+
+
+# ------------------------------------------------------ [subtract] (mc)
+def phase_subtract_multiclass(torch, xt, kernels, device, card, mc_ms):
+    """The multiclass data under XGBTPU_HIST_SUBTRACTION=1: a round's 6
+    trees build level 0 with K3, then per level K2 counts each child's
+    rows and K4 builds the small children on each tree's compacted rows
+    (the trees as lanes).  The plain versions must grow the same bytes."""
+    from xgboost_tpu_torch.metrics import merror
+    kb, k4, kn = (kernels["hist_batched"], kernels["hist_lanes"],
+                  kernels["node_stats"])
+    X, y = make_multiclass(MC_N + MC_TEST)
+    dtrain = xt.DMatrix(X[:MC_N], label=y[:MC_N])
+    dtest = xt.DMatrix(X[MC_N:], label=y[MC_N:])
+    R = SUB_MC_ROUNDS
+    os.environ["XGBTPU_HIST_SUBTRACTION"] = "1"
+    try:
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        bst = xt.train(MC_PARAMS, dtrain, R, device=device)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        want = only(kernels, hist_batched=R, hist_lanes=R * (DEPTH - 1),
+                    node_stats=R * (DEPTH - 1))
+        pred = bst.predict(dtest)
+        onehot = np.eye(MC_K, dtype=np.float32)[pred.astype(np.int64)]
+        err = merror(onehot, y[MC_N:], np.ones(MC_TEST, np.float32))
+        print(f"[subtract] multiclass, {R} rounds of {MC_K} trees: "
+              f"{train_s:.2f} s (cuts and binning included); all counts "
+              f"{json.dumps(counts)}; holdout merror {err:.6f} | {card}",
+              flush=True)
+        if counts != want:
+            fail(f"multiclass subtraction launch counts {counts}: want "
+                 f"hist_batched {R} (level 0), hist_lanes and node_stats "
+                 f"{R * (DEPTH - 1)} (levels 1-5)")
+        ms, _ = round_ms(torch, xt, MC_PARAMS, dtrain, device)
+        print(f"[subtract] multiclass {ms:.3f} ms per round ([multiclass] "
+              f"{mc_ms:.3f}) | {card}", flush=True)
+        saved = (kb.level_histogram_batched, k4.level_histogram_lanes,
+                 kn.node_stats)
+        kb.level_histogram_batched = kb.level_histogram_batched_plain
+        k4.level_histogram_lanes = k4.level_histogram_lanes_plain
+        kn.node_stats = kn.node_stats_plain
+        try:
+            plain = xt.train(MC_PARAMS, dtrain, R, device=device)
+        finally:
+            (kb.level_histogram_batched, k4.level_histogram_lanes,
+             kn.node_stats) = saved
+    finally:
+        os.environ.pop("XGBTPU_HIST_SUBTRACTION", None)
+    if plain.save_raw() != bst.save_raw():
+        fail("multiclass subtraction: kernels and plain versions grew "
+             "different models")
+    print("[subtract] multiclass plain K3, K4 and K2: identical model bytes",
+          flush=True)
+    return (counts["hist_batched"], counts["hist_lanes"],
+            counts["node_stats"], ms)
+
+
+# ------------------------------------------------------- [lanes-sampled]
+def phase_lanes_sampled(torch, xt, kernels, device, card):
+    """8 of [lanes]' tenants with subsample 0.8, stacked and as the host
+    loop, 1 cycle of 10 rounds.  The row draw is N-shaped, so a sampled
+    bucket holds one row count (``lanes.py:72-80``): each tenant's first
+    LANE_ROWS0 rows, all 8 in one bucket."""
+    root = os.path.join(HERE, ".smoke_out", "lanes_sampled")
+    os.makedirs(root, exist_ok=True)
+    data = []
+    for i in range(SL_LANES):
+        X, y, Xh, yh = tenant_arrays(i)
+        data.append((xt.DMatrix(X[:LANE_ROWS0], label=y[:LANE_ROWS0]),
+                     xt.DMatrix(Xh, label=yh)))
+    want = SL_ROUNDS * DEPTH
+    s_lanes, s_res, counts, delta, s_events, s_sec = run_lanes(
+        torch, kernels, root, data, "stacked", device, SL_PARAMS, 1,
+        SL_ROUNDS)
+    print(f"[lanes-sampled] stacked run: {s_sec:.2f} s; all counts "
+          f"{json.dumps(counts)}; lane metrics {json.dumps(delta)}",
+          flush=True)
+    if any(r["status"] != "ok" for r in s_res.values()):
+        fail(f"sampled stacked lanes not ok: {s_res}")
+    if counts != only(kernels, hist_lanes=want) or delta["solo"] \
+            or delta["dispatches"] != 1:
+        fail(f"sampled stacked run: counts {counts}, lane metrics {delta}: "
+             f"want hist_lanes {want} in one dispatch, no K1, no solo lane")
+    os.environ["XGBTPU_LANE_STACK"] = "0"
+    try:
+        h_lanes, h_res, h_counts, _, h_events, h_sec = run_lanes(
+            torch, kernels, root, data, "host", device, SL_PARAMS, 1,
+            SL_ROUNDS)
+    finally:
+        os.environ.pop("XGBTPU_LANE_STACK", None)
+    if h_counts != only(kernels, hist_level=SL_LANES * want) \
+            or any(r["status"] != "ok" for r in h_res.values()):
+        fail(f"sampled host loop: counts {h_counts}")
+    for name in s_lanes:
+        logs = []
+        for lanes in (s_lanes, h_lanes):
+            with open(lanes[name]["publish_path"], "rb") as f:
+                raw = f.read()
+            with open(os.path.join(lanes[name]["workdir"],
+                                   "gated.log")) as f:
+                logs.append((raw, f.read()))
+        if logs[0] != logs[1]:
+            fail(f"{name}: sampled stacked and host-loop models differ")
+    sv, hv = gate_verdicts(s_events), gate_verdicts(h_events)
+    if sv != hv or len(sv) != SL_LANES:
+        fail(f"sampled gate verdicts differ: {len(sv)} stacked, {len(hv)}")
+    print(f"[lanes-sampled] host loop: {h_sec:.2f} s, hist_level "
+          f"{h_counts['hist_level']}; stacked == host loop: {SL_LANES} "
+          f"tenants' model bytes, ledgers and {len(sv)} gate verdicts "
+          f"identical | {card}", flush=True)
+    return counts["hist_lanes"]
+
+
+# --------------------------------------------------------------- [roots]
+def phase_roots(torch, xt, cuda_hist, kernels, device, card, main_out):
+    """200,000 of [main]'s rows in two regimes, one tree root each: the
+    label is flipped where ``X[:, 20] > 0.5`` (a uniform feature) and
+    that is each row's ``root_index``."""
+    n = ROOTS_N
+    X, y = main_out["X"], main_out["y"]
+    root = (X[:, 20] > 0.5).astype(np.uint32)
+    y = np.where(root == 1, 1.0 - y, y).astype(np.float32)
+
+    def dm(lo, hi, r):
+        d = xt.DMatrix(X[lo:hi], label=y[lo:hi])
+        if r is not None:
+            d.set_uint_info("root_index", r[lo:hi])
+        return d
+    dtrain = dm(0, n, root)
+    reset_counts(kernels)
+    bst = xt.train(ROOTS_PARAMS, dtrain, ROOTS_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    want = ROOTS_ROUNDS * DEPTH
+    if counts != only(kernels, hist_level=want):
+        fail(f"multi-root launch counts {counts}: want hist_level {want}")
+    cap = bst.gbtree.get_state()["tree_feature"].shape[1]
+    if cap != 2 ** (1 + DEPTH + 1) - 1:
+        fail(f"multi-root trees hold {cap} nodes")
+    dtest = dm(N_TRAIN, N_TRAIN + N_TEST, root)
+    flipped = dm(N_TRAIN, N_TRAIN + N_TEST, 1 - root)
+    score = auc_of(xt, bst, dtest, y[N_TRAIN:])
+    score_flip = auc_of(xt, bst, flipped, y[N_TRAIN:])
+    pred = bst.predict(dtest)
+    floor = ROOTS_AUC_JAX - 0.005
+    print(f"[roots] {n} rows, num_roots 2, {ROOTS_ROUNDS} rounds: all counts "
+          f"{json.dumps(counts)}; trees of {cap} nodes; holdout AUC "
+          f"{score:.6f} (floor {floor:.6f}: the JAX package's "
+          f"{ROOTS_AUC_JAX} on the CPU - 0.005), with every root flipped "
+          f"{score_flip:.6f} | {card}", flush=True)
+    if not score >= floor:
+        fail(f"multi-root AUC {score} < {floor}")
+    if not score_flip < 0.5 or np.array_equal(bst.predict(flipped), pred):
+        fail(f"flipped roots predict as well: AUC {score_flip}")
+    path = os.path.join(HERE, ".smoke_out", "smoke_roots.bin")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    bst.save_model(path)
+    loaded = xt.Booster(model_file=path, device=device)
+    if not (np.array_equal(loaded.predict(dtest), pred) and np.array_equal(
+            loaded.predict(dtest, pred_leaf=True),
+            bst.predict(dtest, pred_leaf=True))):
+        fail("multi-root predictions changed over save_model / load_model")
+    kernel_fn = cuda_hist.level_histogram
+    cuda_hist.level_histogram = cuda_hist.level_histogram_plain
+    try:
+        plain = xt.train(ROOTS_PARAMS, dtrain, ROOTS_ROUNDS, device=device)
+    finally:
+        cuda_hist.level_histogram = kernel_fn
+    if plain.save_raw() != bst.save_raw():
+        fail("multi-root: kernel and plain histograms grew different models")
+    print("[roots] save/load: bitwise-equal predictions and leaves; "
+          "plain-histogram run: identical model bytes", flush=True)
+
+    # two trees a round: K3 on the root slots copied per tree
+    kb = kernels["hist_batched"]
+    reset_counts(kernels)
+    forest = xt.train(ROOTS_FOREST_PARAMS, dtrain, ROOTS_ROUNDS,
+                      device=device)
+    torch.cuda.synchronize()
+    f_counts = read_counts(kernels)
+    if f_counts != only(kernels, hist_batched=want):
+        fail(f"multi-root forest launch counts {f_counts}: want "
+             f"hist_batched {want}")
+    f_score = auc_of(xt, forest, dtest, y[N_TRAIN:])
+    f_flip = auc_of(xt, forest, flipped, y[N_TRAIN:])
+    # no JAX figure for the forest: it is held to the one-tree run's AUC
+    # on the same rows, less 0.01
+    f_floor = score - 0.01
+    print(f"[roots] forest (num_parallel_tree 2, subsample 0.8): all counts "
+          f"{json.dumps(f_counts)}; holdout AUC {f_score:.6f} (floor "
+          f"{f_floor:.6f}: the one-tree run's - 0.01), with every root "
+          f"flipped {f_flip:.6f} | {card}", flush=True)
+    if not (f_score >= f_floor and f_flip < 0.5):
+        fail(f"multi-root forest AUC {f_score} (floor {f_floor}), flipped "
+             f"{f_flip}")
+    kernel_fn = kb.level_histogram_batched
+    kb.level_histogram_batched = kb.level_histogram_batched_plain
+    try:
+        plain = xt.train(ROOTS_FOREST_PARAMS, dtrain, ROOTS_ROUNDS,
+                         device=device)
+    finally:
+        kb.level_histogram_batched = kernel_fn
+    if plain.save_raw() != forest.save_raw():
+        fail("multi-root forest: kernel and plain batched histograms grew "
+             "different models")
+    print("[roots] forest plain-histogram run: identical model bytes",
+          flush=True)
+    return counts["hist_level"], f_counts["hist_batched"]
+
+
+# ------------------------------------------------------------- [profile]
+def phase_profile(torch, xt, kernels, device, card, main_out):
+    """[main]'s configuration with profile=1 (20 rounds, the holdout as
+    a watchlist), then 3 rounds with profile=2 and its torch.profiler
+    trace read back."""
+    import contextlib
+    import io
+    import shutil
+    X, y = main_out["X"], main_out["y"]
+    dtrain = xt.DMatrix(X[:N_TRAIN], label=y[:N_TRAIN])
+    dtest = xt.DMatrix(X[N_TRAIN:], label=y[N_TRAIN:])
+    reset_counts(kernels)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        bst = xt.train(dict(PARAMS, profile=1), dtrain, ROUNDS,
+                       evals=[(dtest, "test")], verbose_eval=False,
+                       device=device)
+    counts = read_counts(kernels)
+    if counts != only(kernels, hist_level=ROUNDS * DEPTH):
+        fail(f"profiled launch counts {counts}")
+    lines = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith("[prof]")]
+    if sum(ln.startswith("[prof] round ") for ln in lines) != ROUNDS:
+        fail(f"profile=1 printed {len(lines)} [prof] lines")
+    rounds = bst.profiler.rounds
+    phases = {k: sum(r["phases"].get(k, 0.0) for r in rounds) * 1e3
+              / len(rounds) for k in ("predict", "gradient", "grow", "eval")}
+    print("[profile] profile=1, ms per round: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()) + f" (sum "
+        f"{sum(phases.values()):.3f}; [main] unprofiled "
+        f"{main_out['ms_round']:.3f}) | {card}", flush=True)
+    for ln in lines[-5:]:
+        print(f"[profile]   {ln}", flush=True)
+    bst.set_param("profile", 0)
+    if bst.save_raw() != main_out["raw"]:
+        fail("profile=1 changed the model bytes")
+    print("[profile] model bytes == [main]'s (the profile parameter "
+          "reset: the header records it)", flush=True)
+
+    out_dir = os.path.join(HERE, ".smoke_out", "profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        b2 = xt.train(dict(PARAMS, profile=2, profile_dir=out_dir), dtrain,
+                      PROFILE2_ROUNDS, device=device)
+    if f"trace written to {out_dir}" not in err.getvalue():
+        fail("profile=2 wrote no trace")
+    with open(os.path.join(out_dir, "xgtpu_trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kern = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            k = kern.setdefault(e["name"], [0, 0.0])
+            k[0] += 1
+            k[1] += e["dur"] / 1e3
+    if not kern:
+        fail("the profile=2 trace holds no CUDA activity")
+    n = PROFILE2_ROUNDS
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
+    total = sum(v[1] for v in kern.values()) / n
+    count = sum(v[0] for v in kern.values()) / n
+    wall = sum(sum(r["phases"].values()) for r in b2.profiler.rounds
+               ) * 1e3 / n
+    print(f"[profile] profile=2, {n} rounds: device time {total:.3f} ms a "
+          f"round over {count:.0f} CUDA activities, of {wall:.3f} ms of "
+          f"traced round time (device idle {100 * (1 - total / wall):.1f}%);"
+          " the ten largest, ms and count a round:", flush=True)
+    for name, (cnt, ms) in top:
+        print(f"[profile]   {ms / n:8.4f} ms  {cnt / n:6.1f}x  {name[:110]}",
+              flush=True)
+    k1_ms = sum(v[1] for k, v in kern.items()
+                if "hist_scatter::kernel" in k) / n
+    grow = sum(r["phases"].get("grow", 0.0) for r in b2.profiler.rounds
+               ) * 1e3 / n
+    print(f"[profile] K1 (hist_scatter::kernel) {k1_ms:.4f} ms of grow's "
+          f"{grow:.3f} ms a round ({100 * k1_ms / grow:.1f}%) | {card}",
+          flush=True)
+    return counts["hist_level"], phases, k1_ms, grow
 
 
 # ------------------------------------------------------------- [onehot]
@@ -2430,13 +3080,38 @@ def main():
     del captured
     t0 = time.perf_counter()
     phase_cli(torch, xt, kernels, "cuda", card, main_out)
-    del main_out
     print(f"[cli] checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s_launches, s_ms, draw_ms, _ = phase_sample(torch, xt, cuda_hist,
+                                                kernels, "cuda", card,
+                                                main_out)
+    print(f"[sample] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sub_k1, sub_k2, sub_ms, _ = phase_subtract(torch, xt, cuda_hist,
+                                               kernels, "cuda", card,
+                                               main_out)
+    print(f"[subtract] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r_launches, rf_launches = phase_roots(torch, xt, cuda_hist, kernels,
+                                          "cuda", card, main_out)
+    print(f"[roots] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    p_launches, phases, _, _ = phase_profile(torch, xt, kernels, "cuda",
+                                             card, main_out)
+    print(f"[profile] phase {time.perf_counter() - t0:.1f} s")
+    del main_out
     mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
         torch, xt, kernels, "cuda", card)
     k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)
     del mc_captured
     phase_otto(torch, xt, kernels, "cuda", card)
+    t0 = time.perf_counter()
+    f_launches, _ = phase_forest(torch, xt, kernels, "cuda", card)
+    print(f"[forest] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smc_k3, smc_k4, smc_k2, smc_ms = phase_subtract_multiclass(
+        torch, xt, kernels, "cuda", card, mc_ms_round)
+    print(f"[subtract] multiclass phase {time.perf_counter() - t0:.1f} s")
     d0_launches, d0_captured, d0_err = phase_depth0(torch, xt, kernels,
                                                     "cuda")
     k2_rows = time_k2(torch, cuda_node_stats, d0_captured, card)
@@ -2454,6 +3129,9 @@ def main():
     print(f"[lanes] phase {time.perf_counter() - t0:.1f} s (pipeline runs "
           f"{lane_secs[0]:.2f} s stacked, {lane_secs[1]:.2f} s host loop)")
     t0 = time.perf_counter()
+    sl_launches = phase_lanes_sampled(torch, xt, kernels, "cuda", card)
+    print(f"[lanes-sampled] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist, nvcc,
                                   dev)
     print(f"[onehot] checks {time.perf_counter() - t0:.1f} s")
@@ -2470,20 +3148,27 @@ def main():
                                              cuda_hist, kernels, card)
     print(f"[onehot-bf16] phase {time.perf_counter() - t0:.1f} s")
 
+    # launches: each path's own count, summed over the paths that run
+    # the kernel ([main], [sample], [subtract], [roots], [profile] for
+    # K1; [multiclass], [forest], the [roots] forest and the multiclass
+    # [subtract] for K3; [depth0] and both [subtract] runs for K2;
+    # [lanes], [lanes-sampled] and the multiclass [subtract] for K4)
     records = [
         kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
-                      "xgboost_tpu/ops/pallas_hist.py:46", launches,
-                      max_err, rows),
+                      "xgboost_tpu/ops/pallas_hist.py:46",
+                      launches + s_launches + sub_k1 + r_launches
+                      + p_launches, max_err, rows),
         kernel_record("hist_batched",
                       "xgboost_tpu_torch/csrc/hist_batched.cu",
-                      "xgboost_tpu/ops/pallas_hist.py:374", mc_launches,
+                      "xgboost_tpu/ops/pallas_hist.py:374",
+                      mc_launches + f_launches + rf_launches + smc_k3,
                       mc_err, k3_rows),
         kernel_record("node_stats", "xgboost_tpu_torch/csrc/node_stats.cu",
-                      "xgboost_tpu/ops/pallas_hist.py:609", d0_launches,
-                      d0_err, k2_rows),
+                      "xgboost_tpu/ops/pallas_hist.py:609",
+                      d0_launches + sub_k2 + smc_k2, d0_err, k2_rows),
         kernel_record("hist_lanes", "xgboost_tpu_torch/csrc/hist_lanes.cu",
-                      "xgboost_tpu/ops/pallas_hist.py:283", k4_launches,
-                      k4_err, k4_rows),
+                      "xgboost_tpu/ops/pallas_hist.py:283",
+                      k4_launches + sl_launches + smc_k4, k4_err, k4_rows),
     ]
     for name, (source, replaces) in ONEHOT_SOURCES.items():
         bf16 = name in ONEHOT_BF16_MAIN_LAUNCHES
@@ -2492,8 +3177,12 @@ def main():
             name, source, replaces, (bf_launches if bf16 else oh_launches)[
                 name], max([oh_errs[name]] + [r["err"] for r in rows_k]),
             rows_k))
-    print(f"[time] Higgs path: {ms_round:.3f} ms per round; multiclass "
-          f"path: {mc_ms_round:.3f} ms per round; lanes: {host_ms:.3f} ms "
+    print(f"[time] Higgs path: {ms_round:.3f} ms per round (sampled "
+          f"{s_ms:.3f}, subtracted {sub_ms:.3f}; one 1M-row draw "
+          f"{draw_ms:.4f} ms; profile=1 phases " + ", ".join(
+              f"{k} {v:.3f}" for k, v in phases.items()) + "); multiclass "
+          f"path: {mc_ms_round:.3f} ms per round (subtracted "
+          f"{smc_ms:.3f}); lanes: {host_ms:.3f} ms "
           f"per host-loop cycle, {stacked_ms:.3f} ms per stacked cycle; "
           f"kernel times are means over the levels of one round (K2: one "
           f"depth-0 round) | {card}")

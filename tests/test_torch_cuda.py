@@ -761,3 +761,98 @@ def test_onehot_group_out_of_range_bin_leaves_the_row_in_other_features(
     clean = torch.from_numpy(np.clip(bins, 0, B - 1)).to(cuda_device)
     ref = oh.onehot_group_plain(clean, args[1], args[2], 64, B)
     assert torch.equal(got[:, [0, 3, 4, 5, 6, 7]], ref[:, [0, 3, 4, 5, 6, 7]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_row_draw_on_the_card_matches_the_cpu(cuda_device, n):
+    """The subsample draw (threefry in int64 torch arithmetic) gives the
+    same bits on the card as on the CPU, for one key and a stack."""
+    from xgboost_tpu_torch import random as prng
+    key = prng.fold_in(prng.PRNGKey(42), 7)
+    keys = prng.split(key, 3)
+    for k in (key, keys):
+        got = prng.uniform_rows(k, n, cuda_device).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           prng.uniform_rows(k, n, "cpu").view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 3])
+def test_subtracted_level_matches_the_plain_versions(cuda_device, T):
+    """A subtracted level (K2 counts; K1, or K4 for T trees, on the
+    compacted rows) bitwise equals the same subtraction with the plain
+    versions, in int8."""
+    from xgboost_tpu_torch.models import tree as tt
+    from xgboost_tpu_torch.ops import cuda_hist_lanes, cuda_node_stats
+    from xgboost_tpu_torch.ops import histogram as th
+    rng = np.random.RandomState(4)
+    N, F, B, M = 20011, 7, 64, 8
+    bins = torch.from_numpy(rng.randint(0, B, (N, F)).astype(np.uint8))
+    gh = torch.from_numpy(rng.randn(T, N, 2).astype(np.float32))
+    parent = rng.randint(-1, M // 2, (T, N)).astype(np.int32)
+    child = np.where(parent >= 0, 2 * parent + (rng.rand(T, N) < 0.4),
+                     -1).astype(np.int32)
+    split = torch.from_numpy(rng.rand(T * M // 2) < 0.8)
+    out = []
+    for plain in (False, True):
+        saved = (cuda_hist.level_histogram, cuda_node_stats.node_stats,
+                 cuda_hist_lanes.level_histogram_lanes)
+        if plain:
+            cuda_hist.level_histogram = cuda_hist.level_histogram_plain
+            cuda_node_stats.node_stats = cuda_node_stats.node_stats_plain
+            cuda_hist_lanes.level_histogram_lanes = \
+                cuda_hist_lanes.level_histogram_lanes_plain
+        try:
+            dev = [t.to(cuda_device) for t in (
+                bins, gh if T > 1 else gh[0], torch.from_numpy(parent),
+                torch.from_numpy(child), split)]
+            prep = th.prepare_hist(dev[1], "int8")
+            if T == 1:
+                hp = th.build_level_histogram(dev[0], prep, dev[2][0],
+                                              M // 2, B)
+            else:
+                hp = th.build_level_histogram_batched(dev[0], prep, dev[2],
+                                                      M // 2, B)
+            out.append(tt._subtracted_level_hist(dev[0], prep, dev[3], M, B,
+                                                 hp, dev[4]).cpu())
+        finally:
+            (cuda_hist.level_histogram, cuda_node_stats.node_stats,
+             cuda_hist_lanes.level_histogram_lanes) = saved
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"num_parallel_tree": 2},
+    {"objective": "multi:softmax", "num_class": 3},
+], ids=["forest", "multiclass"])
+def test_multi_root_rounds_of_several_trees_match_plain(cuda_device, extra):
+    """Multi-root training with T > 1 trees a round goes through K3 on
+    the card (the root slots copied per tree: the kernel takes
+    contiguous positions) and grows the model bytes of the plain K3."""
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.ops import cuda_hist_batched as kb
+    rng = np.random.RandomState(9)
+    N = 30001
+    X = rng.rand(N, 6).astype(np.float32)
+    root = (X[:, 5] > 0.5).astype(np.uint32)
+    y = np.where(root == 1, X[:, 0] > 0.5, X[:, 0] <= 0.5).astype(np.float32)
+    if "num_class" in extra:
+        y = np.where(X[:, 1] > 0.7, 2.0, y).astype(np.float32)
+    params = {"objective": "binary:logistic", "max_depth": 3, "max_bin": 64,
+              "num_roots": 2, **extra}
+    raws = []
+    for fn in (kb.level_histogram_batched, kb.level_histogram_batched_plain):
+        saved = kb.level_histogram_batched
+        kb.level_histogram_batched = fn
+        kb.reset_launches()
+        try:
+            d = xt.DMatrix(X, label=y)
+            d.set_uint_info("root_index", root)
+            raws.append(xt.train(params, d, 3, device="cuda").save_raw())
+        finally:
+            kb.level_histogram_batched = saved
+        if len(raws) == 1:
+            assert kb.launches == 3 * 3
+    assert raws[0] == raws[1]

@@ -211,10 +211,10 @@ def test_default_device_needs_a_gpu():
 
 
 @pytest.mark.parametrize("params", [
-    {"subsample": 0.5}, {"colsample_bytree": 0.8},
+    {"updater": "grow_skmaker"}, {"updater": "grow_histmaker,refresh"},
     {"objective": "rank:pairwise"},
     {"booster": "gblinear"}, {"updater": "grow_colmaker"},
-    {"num_roots": 2}])
+    {"dsplit": "row"}])
 def test_unported_options_raise(params):
     X, y, _ = _data(2)
     with pytest.raises(NotImplementedError):

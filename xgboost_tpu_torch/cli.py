@@ -18,6 +18,14 @@ segment; each is written atomically with its CRC footer, and on restart
 a newest member that fails verification is quarantined and the older
 one used.  The continuous trainer resumes from the same ring.
 
+``profile=1`` prints the round profiler's ``[prof]`` line a round and
+its summary at the end of ``task=train``; ``profile=2`` also writes a
+``torch.profiler`` trace of the run into ``profile_dir``
+(``./xgtpu_profile`` by default), as the JAX CLI writes its
+``jax.profiler`` trace.  Row and column sampling, ``num_roots`` with a
+``root_index`` in a buffer and ``XGBTPU_HIST_SUBTRACTION=1`` train as in
+the JAX CLI.
+
 The JAX CLI keeps a persistent jit cache beside the ring; the port has
 no counterpart: its kernels are built once by ``nvcc`` into
 ``xgboost_tpu_torch/_build/`` and reused by every later run.
@@ -325,6 +333,9 @@ class BoostLearnTask:
                 self._save(bst)
             else:
                 self._save(bst, self.num_round - 1)
+        # profile=1|2: the summary, and the trace written
+        from xgboost_tpu_torch.learner import finish_profile
+        finish_profile(bst)
         if not self.silent:
             print(f"\nupdating end, "
                   f"{time.perf_counter() - start:.0f} sec in all",

@@ -22,20 +22,25 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 # meta fields of a binary buffer, in the JAX package's order
-_BUFFER_META = ("label", "weight", "base_margin")
+_BUFFER_META = ("label", "weight", "base_margin", "root_index",
+                "fold_index")
+_UINT_FIELDS = ("root_index", "fold_index")
 
 
 class MetaInfo:
-    """Per-row metadata: label, weight, group pointer, base margin."""
+    """Per-row metadata: label, weight, group pointer, base margin, and
+    the uint32 root slot (multi-root trees) and fold of each row."""
 
     __slots__ = ("label", "weight", "group_ptr", "base_margin",
-                 "version", "_dev")
+                 "root_index", "fold_index", "version", "_dev")
 
     def __init__(self):
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
         self.group_ptr: Optional[np.ndarray] = None
         self.base_margin: Optional[np.ndarray] = None
+        self.root_index: Optional[np.ndarray] = None
+        self.fold_index: Optional[np.ndarray] = None
         self.version = 0  # bumped by set_field
         # device copies of label / weight, per device, until a field changes
         self._dev: Dict[Any, Any] = {}
@@ -67,6 +72,9 @@ class MetaInfo:
                 [[0], np.cumsum(arr.astype(np.int64))])
         elif name in ("label", "weight", "base_margin"):
             setattr(self, name, arr.astype(np.float32).ravel())
+        elif name in _UINT_FIELDS:
+            # uint32: the reference XGDMatrixSetUIntInfo range
+            setattr(self, name, arr.astype(np.uint32).ravel())
         else:
             raise ValueError(f"unknown meta field {name!r}")
 
@@ -194,6 +202,32 @@ class DMatrix:
     def set_base_margin(self, margin):
         self.info.set_field("base_margin", margin)
 
+    def set_uint_info(self, field: str, data) -> None:
+        """``root_index`` or ``fold_index``, uint32 values
+        (``xgboost_tpu/data.py:360``)."""
+        if field not in _UINT_FIELDS:
+            raise ValueError(f"unknown uint field {field!r}")
+        arr = np.asarray(data)
+        if arr.size and (not np.issubdtype(arr.dtype, np.integer)
+                         or int(arr.min()) < 0
+                         or int(arr.max()) > np.iinfo(np.uint32).max):
+            raise ValueError(
+                f"set_uint_info({field!r}): values must fit uint32 "
+                "(reference XGDMatrixSetUIntInfo range)")
+        self.info.set_field(field, arr)
+
+    def get_uint_info(self, field: str) -> np.ndarray:
+        """A uint field, or the read-only ``group_ptr``; unset fields
+        come back empty."""
+        if field == "group_ptr":
+            v = self.info.group_ptr
+        elif field in _UINT_FIELDS:
+            v = getattr(self.info, field)
+        else:
+            raise ValueError(f"unknown uint field {field!r}")
+        return (np.zeros(0, np.uint32) if v is None
+                else np.asarray(v, np.uint32).copy())
+
     def get_label(self):
         return None if self.info.label is None else self.info.label.copy()
 
@@ -228,11 +262,6 @@ class DMatrix:
         """Read a buffer written by :meth:`save_binary` of either
         package (``xgboost_tpu/data.py:455``)."""
         with np.load(path, allow_pickle=False) as z:
-            for f in ("root_index", "fold_index"):
-                if "meta_" + f in z.files:
-                    raise NotImplementedError(
-                        f"{path}: meta_{f} (multi-root trees) is ROADMAP.md "
-                        "section 1 item 4")
             dm = cls((z["indptr"], z["indices"], z["values"],
                       int(z["num_col"])))
             for f in _BUFFER_META:

@@ -7,7 +7,8 @@ The reference format (``src/tree/model.h:403-458``):
 (``i`` indicator, ``q`` quantitative, ``int`` integer).  Node ids are
 heap order (the children of g are 2g+1 and 2g+2).  Values are the model
 file's float32 arrays formatted as the JAX package formats them, so one
-model file dumps to the same bytes in both packages.
+model file dumps to the same bytes in both packages.  A multi-root tree
+dumps each root slot's subtree in turn.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+
+from xgboost_tpu_torch.models.tree import root_level
 
 
 def load_fmap(path: str) -> Dict[int, tuple]:
@@ -43,6 +46,7 @@ def _trees(booster):
 def dump_trees(booster, fmap: str = "", with_stats: bool = False) -> List[str]:
     """One text block a tree (``xgboost_tpu/dump.py:31``)."""
     fmap_d = load_fmap(fmap)
+    n_roots = max(1, booster.param.num_roots)
     out = []
     for feature, thr, default_left, is_leaf, leaf_value, gain, cover \
             in _trees(booster):
@@ -82,7 +86,11 @@ def dump_trees(booster, fmap: str = "", with_stats: bool = False) -> List[str]:
             rec(left, depth + 1)
             rec(right, depth + 1)
 
-        rec(0, 0)
+        # a multi-root tree dumps each root's subtree (the reference
+        # dumps every root, model.h:403-458 over param.num_roots)
+        first = (1 << root_level(n_roots)) - 1
+        for r in range(n_roots):
+            rec(first + r, 0)
         out.append("\n".join(lines) + "\n")
     return out
 

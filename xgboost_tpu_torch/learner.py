@@ -19,11 +19,13 @@ import json
 import math
 import os
 import zipfile
+from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from xgboost_tpu_torch import random as prng
 from xgboost_tpu_torch.binning import (bin_dense_device, bin_matrix,
                                        compute_cuts)
 from xgboost_tpu_torch.config import TrainParam, params_to_dict
@@ -69,13 +71,15 @@ def _check_param(p: TrainParam) -> None:
 
 
 class _CacheEntry:
-    """Per-DMatrix device state: bins, base margin, running margin."""
+    """Per-DMatrix device state: bins, base margin, running margin, and
+    the rows' root slots of a multi-root model."""
 
     def __init__(self, dmat: DMatrix, binned: torch.Tensor,
                  base: torch.Tensor):
         self.dmat = dmat            # strong ref: id(dmat) keys the cache
         self.binned = binned        # (N, F) on the booster's device
         self.base = base            # (N, K) f32
+        self.root: Optional[torch.Tensor] = None   # (N,) int32 root slots
         self.margin: Optional[torch.Tensor] = None
         self.applied = 0            # trees folded into margin
         self.info_version = dmat.info.version
@@ -102,6 +106,7 @@ class LaneSpec(NamedTuple):
     cfg: object              # GrowConfig (hashable)
     grad_fn: object          # Objective.fused_grad (stable identity)
     subsample: float
+    base_key: np.ndarray     # (2,) uint32 PRNGKey(seed): sampling keys
     binned: torch.Tensor     # (N, F) device bins
     margin: torch.Tensor     # (N, K) synced margins
     label: torch.Tensor      # (N,) f32
@@ -124,6 +129,7 @@ class Booster:
         self.best_iteration: int = -1
         self.best_score: float = float("nan")
         self.attributes: Dict[str, str] = {}
+        self._profiler = None
         self._pending_cache = list(cache)
         if model_file is not None:
             self.load_model(model_file)
@@ -206,13 +212,28 @@ class Booster:
             binned = self._device_bins(bin_matrix(dmat, self.gbtree.cuts))
             entry = self._cache[key] = _CacheEntry(
                 dmat, binned, self._base_margin_of(dmat, dmat.num_row))
+            entry.root = self._root_of(dmat, entry.binned.shape[0])
         elif entry.info_version != dmat.info.version:
-            # a set_field since: the base margin and the margin built on
-            # it are stale
+            # a set_field since: the base margin, the root slots and the
+            # margin built on them are stale
             entry.base = self._base_margin_of(dmat, dmat.num_row)
+            entry.root = self._root_of(dmat, entry.binned.shape[0])
             entry.margin, entry.applied = None, 0
             entry.info_version = dmat.info.version
         return entry
+
+    def _root_of(self, dmat: DMatrix, n_rows: int) -> Optional[torch.Tensor]:
+        """The rows' root slots (``root_index``, reference data.h:39-58)
+        of a multi-root model as an (n_rows,) int32 tensor, rows past the
+        info's 0 (a cache entry's: its device row count,
+        ``learner.py:486-505``); None for a single-root model or without
+        ``root_index``."""
+        ri = dmat.info.root_index
+        if ri is None or max(1, self.param.num_roots) <= 1:
+            return None
+        r = np.zeros(n_rows, np.int32)
+        r[:len(ri)] = np.asarray(ri, np.int64).astype(np.int32)
+        return torch.from_numpy(r).to(self.device)
 
     def _sync_margin(self, entry: _CacheEntry) -> None:
         """Fold not-yet-applied trees into the entry's margin, one round's
@@ -226,25 +247,79 @@ class Booster:
         while entry.applied < self.gbtree.num_trees:
             n = min(per_round, self.gbtree.num_trees - entry.applied)
             entry.margin = self.gbtree.predict_incremental(
-                entry.binned, entry.margin, entry.applied, n)
+                entry.binned, entry.margin, entry.applied, n, entry.root)
             entry.applied += n
 
+    # ------------------------------------------------------------ profiling
+    @property
+    def profiler(self):
+        """The :class:`~xgboost_tpu_torch.obs.RoundProfiler`, made at
+        first use when ``profile >= 1``, or at level 0 when the event log
+        is on (``obs.phases_enabled``), else None
+        (``learner.py:851-870``).  Phases end on device barriers and keep
+        the rounds per round, the cost contract of ``profile=1``."""
+        if self._profiler is not None:
+            return self._profiler
+        from xgboost_tpu_torch import obs
+        if self.param.profile <= 0 and not obs.phases_enabled():
+            return None
+        self._profiler = obs.RoundProfiler(self.param.profile,
+                                           self.param.profile_dir or None)
+        self._profiler.start()
+        return self._profiler
+
     # ------------------------------------------------------------- training
-    def _round(self, entry: _CacheEntry) -> None:
-        """One boosting round on a synced entry; all on the device."""
-        info = entry.dmat.info
-        if entry.labels_checked != info.version:
-            self.obj.validate_labels(info)
-            entry.labels_checked = info.version
-        n = entry.margin.shape[0]
-        gh = self.obj.get_gradient(entry.margin,
-                                   info.on_device("label", n, self.device),
-                                   info.on_device("weight", n, self.device))
-        entry.margin = entry.margin + self.gbtree.do_boost(entry.binned, gh)
-        entry.applied = self.gbtree.num_trees
+    def _round_key(self, iteration: int):
+        """The round's sampling key, ``fold_in(PRNGKey(seed), iteration)``
+        (``learner.py:1313-1316``), a host value; None when nothing
+        samples."""
+        if not self.gbtree.cfg.sampled:
+            return None
+        return prng.fold_in(prng.PRNGKey(self.param.seed), iteration)
+
+    def _round(self, entry: _CacheEntry, iteration: int, prof=None) -> None:
+        """One boosting round on an entry, all on the device, in the
+        phases ``predict`` (fold new trees into the margin), ``gradient``
+        and ``grow`` when ``prof`` is a profiler (``learner.py:873-930``)."""
+        def ph(name):
+            return prof.phase(name) if prof else nullcontext()
+        with ph("predict") as p:
+            self._sync_margin(entry)
+            if prof:
+                p.block(entry.margin)
+        with ph("gradient") as p:
+            info = entry.dmat.info
+            if entry.labels_checked != info.version:
+                self.obj.validate_labels(info)
+                entry.labels_checked = info.version
+            n = entry.margin.shape[0]
+            gh = self.obj.get_gradient(
+                entry.margin, info.on_device("label", n, self.device),
+                info.on_device("weight", n, self.device))
+            if prof:
+                p.block(gh)
+        with ph("grow") as p:
+            entry.margin = entry.margin + self.gbtree.do_boost(
+                entry.binned, gh, key=self._round_key(iteration),
+                root=entry.root)
+            entry.applied = self.gbtree.num_trees
+            if prof:
+                p.block(entry.margin)
+
+    def _profiled_round(self, entry: _CacheEntry, iteration: int) -> None:
+        prof = self.profiler
+        if prof is None:
+            self._round(entry, iteration)
+            return
+        prof.begin_round(iteration)
+        try:
+            self._round(entry, iteration, prof)
+        finally:
+            prof.end_round()
 
     def update(self, dtrain: DMatrix, iteration: int, fobj=None):
-        """One boosting round (reference UpdateOneIter)."""
+        """One boosting round (reference UpdateOneIter); ``iteration``
+        picks the round's sampling key."""
         if fobj is not None:
             raise NotImplementedError(
                 "custom objectives: ROADMAP.md section 1 item 6")
@@ -277,7 +352,9 @@ class Booster:
         ups = parse_updaters(self.param.updater)
         checks = (
             ("single_round", n_rounds <= 1),
+            ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
+            ("multi_root", max(1, self.param.num_roots) != 1),
             ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
         )
         return [name for name, blocked in checks if blocked]
@@ -293,9 +370,13 @@ class Booster:
         package's fused round scan, ``learner.py:967``).  Segments are
         ``rounds_per_dispatch`` rounds
         (:meth:`_resolve_rounds_per_dispatch`), or one round where the
-        JAX package would not fuse.  Without sampling the round's index
-        changes nothing, so ``first_iteration`` only numbers the
-        callbacks and eval lines.
+        JAX package would not fuse (a profiler, multi-root trees, pruning
+        ...).  Round i's index picks its sampling key,
+        ``fold_in(PRNGKey(seed), i)``, on either path, so a segment and
+        per-round training give the same bits; it also numbers the
+        callbacks and eval lines.  On the per-round path an active
+        profiler times each round's ``predict``, ``gradient`` and
+        ``grow`` phases and its eval lines as ``eval``.
 
         Hooks (the CLI and the pipeline ride these):
 
@@ -333,9 +414,12 @@ class Booster:
             for i in range(first, first + seg):
                 if per_round and round_callback is not None:
                     round_callback(i)
-                self._round(entry)
+                # a profiler blocks segments: it only ever times per round
+                self._profiled_round(entry, i)
                 if evals:
-                    msg = self.eval_set(evals, i, feval)
+                    prof = self.profiler
+                    with prof.phase("eval") if prof else nullcontext():
+                        msg = self.eval_set(evals, i, feval)
                     if eval_callback is not None:
                         eval_callback(i, msg)
             done += seg
@@ -352,7 +436,9 @@ class Booster:
         the port, plus ``ensemble``: a round of more than one tree
         (``K * num_parallel_tree > 1``) runs solo through K3 here.  On
         eligibility the labels are checked and the entry's margin is
-        synced, as :meth:`update_many` would."""
+        synced, as :meth:`update_many` would.  A sampled lane draws with
+        its own ``PRNGKey(seed)`` (``LaneSpec.base_key``) and absolute
+        iterations, the keys of its solo rounds."""
         from xgboost_tpu_torch.models.updaters import parse_updaters
         if self.param.booster != "gbtree":
             return None, "booster"
@@ -362,9 +448,11 @@ class Booster:
         npar = max(1, self.param.num_parallel_tree)
         checks = (
             ("no_rounds", n_rounds < 1),
-            ("prune", self.param.gamma > 0.0 and "prune" in ups),
-            ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
             ("ensemble", self._K * npar > 1),
+            ("profiler", self.profiler is not None),
+            ("prune", self.param.gamma > 0.0 and "prune" in ups),
+            ("multi_root", max(1, self.param.num_roots) != 1),
+            ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
         )
         blockers = [name for name, blocked in checks if blocked]
         if blockers:
@@ -382,7 +470,8 @@ class Booster:
             n_features=int(entry.binned.shape[1]), n_rounds=int(n_rounds),
             first_iteration=int(first_iteration), seg_k=int(k), K=self._K,
             npar=npar, cfg=self.gbtree.cfg, grad_fn=self.obj.fused_grad(),
-            subsample=float(self.param.subsample), binned=entry.binned,
+            subsample=float(self.param.subsample),
+            base_key=prng.PRNGKey(self.param.seed), binned=entry.binned,
             margin=entry.margin,
             label=dtrain.info.on_device("label", N, self.device),
             weight=dtrain.info.on_device("weight", N, self.device),
@@ -423,7 +512,7 @@ class Booster:
             data = DMatrix(np.asarray(data, dtype=np.float32))
         cached = self._cache.get(id(data))
         if cached is not None:
-            binned, base = cached.binned, cached.base
+            binned, base, root = cached.binned, cached.base, cached.root
         else:
             if self.num_feature and data.num_col > self.num_feature:
                 raise ValueError(
@@ -431,13 +520,16 @@ class Booster:
                     f"with {self.num_feature}")
             binned = self._bins_for(data)
             base = self._base_margin_of(data, data.num_row)
+            root = self._root_of(data, data.num_row)
         if pred_leaf:
-            return self.gbtree.predict_leaf(binned, ntree_limit).cpu().numpy()
+            return self.gbtree.predict_leaf(binned, ntree_limit,
+                                            root).cpu().numpy()
         if cached is not None and ntree_limit == 0:
             self._sync_margin(cached)
             margin = cached.margin
         else:
-            margin = self.gbtree.predict_margin(binned, base, ntree_limit)
+            margin = self.gbtree.predict_margin(binned, base, ntree_limit,
+                                                root)
         out = self.obj.pred_transform(margin, output_margin=output_margin)
         out = out.cpu().numpy()
         # one column -> (N,); softprob and multiclass margins stay (N, K)
@@ -618,15 +710,19 @@ def train(params, dtrain: DMatrix, num_boost_round: int = 10,
     else:
         bst = Booster(params, cache=[dtrain] + [d for d, _ in evals],
                       device=device)
+    best_score, best_iter, best_msg = None, 0, ""
     if not evals and early_stopping_rounds is None:
         bst.update_many(dtrain, start_round, num_boost_round)
-        return bst
-    best_score, best_iter, best_msg = None, 0, ""
-    for i in range(num_boost_round):
+        rounds = ()
+    else:
+        rounds = range(num_boost_round)
+    for i in rounds:
         bst.update(dtrain, start_round + i)
         if not evals:
             continue
-        msg = bst.eval_set(evals, i, feval)
+        prof = bst.profiler
+        with prof.phase("eval") if prof else nullcontext():
+            msg = bst.eval_set(evals, i, feval)
         if verbose_eval and (verbose_eval is True or int(verbose_eval) <= 1
                              or i % int(verbose_eval) == 0
                              or i == num_boost_round - 1):
@@ -652,4 +748,14 @@ def train(params, dtrain: DMatrix, num_boost_round: int = 10,
     if early_stopping_rounds is not None and best_score is not None:
         bst.best_score = best_score
         bst.best_iteration = best_iter
+    finish_profile(bst)
     return bst
+
+
+def finish_profile(bst: Booster) -> None:
+    """The end of a training run (``learner.py:2128-2130``): the
+    profiler's summary at ``profile >= 1``, and its trace written at
+    ``profile=2``."""
+    if bst._profiler is not None:
+        bst._profiler.print_summary()
+        bst._profiler.stop()

@@ -4,28 +4,37 @@
 Trees are fixed-shape tensors on the booster's device.  A boosting round
 grows ``num_output_group x num_parallel_tree`` trees together
 (:func:`~.tree.grow_trees`; tree j of a round belongs to group
-``j // num_parallel_tree``) and returns the (N, K) margin delta read off
+``j // num_parallel_tree`` and draws its samples from
+``fold_in(round_key, j)``) and returns the (N, K) margin delta read off
 the grow-time leaf positions, the reference's prediction-buffer
 shortcut.  The JAX package's fused multi-round ``lax.scan`` becomes the
 learner's plain loop over rounds, which reads nothing back to the host.
 :func:`scan_rounds_lanes` is the lane-stacked counterpart of the JAX
 package's ``_scan_rounds_lanes_impl``: L tenant boosters' rounds of a
 segment in one loop, one K4 launch per level for all of them.
+
+Row and column sampling, multi-root trees (``num_roots``) and histogram
+subtraction (the ``XGBTPU_HIST_SUBTRACTION=1`` switch; a
+``hist_subtraction`` parameter is ignored with the JAX package's
+warning) follow the JAX grow config, :func:`make_grow_config`.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from xgboost_tpu_torch import random as prng
 from xgboost_tpu_torch.binning import CutMatrix
 from xgboost_tpu_torch.config import TrainParam
 from xgboost_tpu_torch.models.tree import (GrowConfig, TreeArrays,
                                            grow_trees, predict_leaf_binned,
                                            predict_margin_binned,
-                                           table_lookup)
+                                           table_lookup, tree_capacity)
 from xgboost_tpu_torch.models.updaters import parse_updaters, prune_tree
 from xgboost_tpu_torch.ops.split import SplitConfig
 
@@ -35,35 +44,47 @@ _NUMPY_DTYPES = {"feature": np.int32, "cut_index": np.int32,
                  "gain": np.float32, "sum_hess": np.float32}
 
 
+_WARNED: set = set()    # the one-time warnings given
+
+
 def make_grow_config(p: TrainParam, n_bin: int) -> GrowConfig:
-    """The grower's configuration; options not ported yet raise."""
-    sampled = [name for name in ("subsample", "colsample_bytree",
-                                 "colsample_bylevel")
-               if getattr(p, name) < 1.0]
-    if sampled:
-        raise NotImplementedError(
-            f"{', '.join(sampled)} < 1 needs the threefry port: ROADMAP.md "
-            "section 1 item 4")
-    if p.num_roots > 1:
-        raise NotImplementedError(
-            "num_roots > 1 (multi-root trees): ROADMAP.md section 1 item 4")
-    if "hist_subtraction" in p.extras:
-        raise NotImplementedError(
-            "hist_subtraction: ROADMAP.md section 1 item 4")
+    """The grower's configuration (``gbtree.py:45-72``).  Histogram
+    subtraction is the environment switch ``XGBTPU_HIST_SUBTRACTION=1``,
+    not a parameter: a ``hist_subtraction=...`` parameter is ignored,
+    with the JAX package's one-time warning under ``silent=0``."""
     parse_updaters(p.updater)
     split = SplitConfig(
         reg_lambda=p.reg_lambda, reg_alpha=p.reg_alpha,
         max_delta_step=p.max_delta_step, min_child_weight=p.min_child_weight,
         gamma=p.gamma, eta=p.eta, default_direction=p.default_direction)
+    hs = os.environ.get("XGBTPU_HIST_SUBTRACTION", "0") == "1"
+    if ("hist_subtraction" in p.extras and int(p.silent) == 0
+            and "hist_subtraction" not in _WARNED):
+        _WARNED.add("hist_subtraction")
+        print("[config] hist_subtraction is no longer a parameter "
+              "(measured ~10x slower on TPU; PROFILE.md round 3) — "
+              "ignored.  Set env XGBTPU_HIST_SUBTRACTION=1 to force "
+              "the subtraction path for kernel A/Bs.", file=sys.stderr)
     return GrowConfig(split=split, max_depth=p.max_depth, n_bin=n_bin,
-                      hist_precision=p.hist_precision)
+                      hist_precision=p.hist_precision,
+                      subsample=p.subsample,
+                      colsample_bytree=p.colsample_bytree,
+                      colsample_bylevel=p.colsample_bylevel,
+                      hist_subtraction=hs, n_roots=max(1, p.num_roots))
+
+
+def tree_keys(round_key, n_tree: int) -> np.ndarray:
+    """Tree j of a round samples with ``fold_in(round_key, j)``
+    (``gbtree.py:154,565``): (n_tree, 2) host keys."""
+    return prng.fold_in(round_key, np.arange(n_tree))
 
 
 def scan_rounds_lanes(binned: torch.Tensor, margin: torch.Tensor,
                       label: torch.Tensor, weight: torch.Tensor,
                       cut_values: torch.Tensor, n_cuts: torch.Tensor,
                       row_valid: torch.Tensor, *, n_rounds: int,
-                      cfg: GrowConfig, grad_fn
+                      cfg: GrowConfig, grad_fn, base_keys=None,
+                      first_iterations=None
                       ) -> Tuple[torch.Tensor, List[TreeArrays]]:
     """``n_rounds`` boosting rounds of L same-shape tenant lanes at once
     (``gbtree.py:275-318``, ``_scan_rounds_lanes_impl``): (L, N, F)
@@ -73,19 +94,27 @@ def scan_rounds_lanes(binned: torch.Tensor, margin: torch.Tensor,
     lanes' shared objective gradient, run once over all L * N rows.
     Each round grows one tree per lane through :func:`grow_trees` (one
     K4 launch per level) and adds its leaf values to the lane's margin,
-    exactly as a solo round of :meth:`GBTree.do_boost` does.  Reads
-    nothing back to the host.
+    exactly as a solo round of :meth:`GBTree.do_boost` does.  A sampled
+    config needs ``base_keys`` (L, 2), each lane's ``PRNGKey(seed)``,
+    and ``first_iterations`` (L,), each lane's absolute round: lane l's
+    round i samples with ``fold_in(base_keys[l], first_iterations[l] +
+    i)``, its tree with that key folded with 0, the keys of its solo
+    rounds.  Reads nothing back to the host.
 
     Returns (final margins (L, N, 1), one (L, n_nodes) tree stack per
     round)."""
     L, N, K = margin.shape
     valid = row_valid.to(torch.float32)
     stacks = []
-    for _ in range(n_rounds):
+    for i in range(n_rounds):
+        keys = None
+        if cfg.sampled:
+            keys = prng.fold_in(prng.fold_in(
+                base_keys, np.asarray(first_iterations) + i), 0)
         gh = grad_fn(margin.reshape(L * N, K), label.reshape(-1),
                      weight.reshape(-1)).reshape(L, N, K, 2)
         trees, _, row_val = grow_trees(binned, gh[:, :, 0, :], cut_values,
-                                       n_cuts, cfg, row_valid)
+                                       n_cuts, cfg, row_valid, keys)
         margin = margin + (row_val * valid)[..., None]
         stacks.append(trees)
     return margin, stacks
@@ -133,25 +162,31 @@ class GBTree:
         return self.n_group * max(1, self.param.num_parallel_tree)
 
     def do_boost(self, binned: torch.Tensor, gh: torch.Tensor,
-                 row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 row_valid: Optional[torch.Tensor] = None, key=None,
+                 root: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One boosting round: grow the round's T = K x num_parallel_tree
-        trees on ``gh`` (N, K, 2) together, prune each when ``gamma > 0``,
-        append them.  Returns the (N, K) margin delta: each group's trees
-        added in tree order (``gbtree.py:681-757``)."""
+        trees on ``gh`` (N, K, 2) together, tree j sampling with
+        ``fold_in(key, j)`` (``key`` the round's host key, needed when the
+        config samples) and rows entering at their ``root`` slot, prune
+        each when ``gamma > 0``, append them.  Returns the (N, K) margin
+        delta: each group's trees added in tree order
+        (``gbtree.py:681-757``)."""
         npar = max(1, self.param.num_parallel_tree)
         T, K = self.trees_per_round, self.n_group
         group = [j // npar for j in range(T)]
         # (T, N, 2) from views: no index tensor sent to the device
         gh_t = torch.stack([gh[:, g, :] for g in group])
+        keys = None if key is None else tree_keys(key, T)
         trees, row_leaf, ds = grow_trees(binned, gh_t, self.cut_values_dev,
                                          self.n_cuts_dev, self.cfg,
-                                         row_valid)
+                                         row_valid, keys, root)
         if "prune" in parse_updaters(self.param.updater) \
                 and self.param.gamma > 0.0:
             pruned, ds = [], list(ds)
             for j in range(T):
                 tree, resolve = prune_tree(TreeArrays(*(x[j] for x in trees)),
-                                           self.param.gamma)
+                                           self.param.gamma,
+                                           self.cfg.n_roots)
                 ds[j] = table_lookup(tree.leaf_value[torch.as_tensor(
                     resolve, dtype=torch.int64, device=binned.device)],
                     row_leaf[j])
@@ -200,29 +235,36 @@ class GBTree:
         return TreeArrays(*(x[:T] for x in stack)), group[:T]
 
     def predict_margin(self, binned: torch.Tensor, base: torch.Tensor,
-                       ntree_limit: int = 0) -> torch.Tensor:
+                       ntree_limit: int = 0,
+                       root: Optional[torch.Tensor] = None) -> torch.Tensor:
         stack, group = self._stack(ntree_limit)
         return predict_margin_binned(stack, group, binned, base,
-                                     self.cfg.max_depth, self.n_group)
+                                     self.cfg.max_depth, self.n_group,
+                                     root, self.cfg.n_roots)
 
     def predict_incremental(self, binned: torch.Tensor, margin: torch.Tensor,
-                            first_tree: int, n_trees: int) -> torch.Tensor:
+                            first_tree: int, n_trees: int,
+                            root: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
         """``margin`` plus trees ``[first_tree, first_tree + n_trees)``,
         their contributions summed from 0 first (``gbtree.py:1103-1128``)."""
         stack, group = self._stack(first_tree + n_trees)
         part = TreeArrays(*(x[first_tree:] for x in stack))
         zero = torch.zeros((), dtype=torch.float32, device=binned.device)
         return predict_margin_binned(part, group[first_tree:], binned, zero,
-                                     self.cfg.max_depth,
-                                     self.n_group) + margin
+                                     self.cfg.max_depth, self.n_group,
+                                     root, self.cfg.n_roots) + margin
 
-    def predict_leaf(self, binned: torch.Tensor,
-                     ntree_limit: int = 0) -> torch.Tensor:
+    def predict_leaf(self, binned: torch.Tensor, ntree_limit: int = 0,
+                     root: Optional[torch.Tensor] = None) -> torch.Tensor:
         stack, _ = self._stack(ntree_limit)
-        return predict_leaf_binned(stack, binned, self.cfg.max_depth)
+        return predict_leaf_binned(stack, binned, self.cfg.max_depth, root,
+                                   self.cfg.n_roots)
 
     def get_state(self) -> dict:
-        """The model-file arrays, numpy (``gbtree.py:1145-1152``)."""
+        """The model-file arrays, numpy (``gbtree.py:1145-1152``): each
+        tree a row of ``tree_capacity(max_depth, num_roots)`` nodes, the
+        multi-root layout with its root-slot levels included."""
         stack, group = self._stack(0)
         state = {f"tree_{f}": getattr(stack, f).cpu().numpy().astype(
             _NUMPY_DTYPES[f]) for f in TreeArrays._fields}
@@ -241,6 +283,12 @@ class GBTree:
             state[f"tree_{f}"], _NUMPY_DTYPES[f])).to(device)
             for f in TreeArrays._fields})
         groups = [int(g) for g in np.asarray(state["tree_group_arr"])]
+        want = tree_capacity(gbt.cfg.max_depth, gbt.cfg.n_roots)
+        if stack.feature.shape[0] and stack.feature.shape[1] != want:
+            raise ValueError(
+                f"model trees hold {stack.feature.shape[1]} nodes; "
+                f"max_depth={gbt.cfg.max_depth} with num_roots="
+                f"{gbt.cfg.n_roots} lays out {want}")
         if stack.feature.shape[0]:
             gbt._parts = [stack]
         gbt.tree_group = groups

@@ -15,6 +15,14 @@ cuts and gradients, with one K4 launch per level.  Everything stays on
 the tensors' device; nothing in a level reads a value back to the
 host.
 
+Sampling draws from each tree's host key (:func:`draw_masks`, threefry
+bit for bit as ``jax.random``): the row mask on the device, the feature
+masks of every level on the host, uploaded once a tree.  Multi-root
+trees start growth and traversal at the root-slot level, each row at
+its ``root_index`` slot.  Under histogram subtraction a level from the
+second on builds only each parent's smaller child, on compacted rows
+(:func:`_subtracted_level_hist`).
+
 The JAX package reads per-node values per row with one-hot compare-sums
 (gathers serialize on a TPU) for tables of up to 1024 entries, and
 gathers past that (``tree.py:121-134``).  Here they are gathers:
@@ -27,9 +35,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from xgboost_tpu_torch.ops.histogram import (build_level_histogram,
+from xgboost_tpu_torch import random as prng
+from xgboost_tpu_torch.ops.histogram import (HistPrep, build_level_histogram,
                                              build_level_histogram_batched,
                                              build_level_histogram_lanes,
                                              node_stats, prepare_hist,
@@ -57,21 +67,42 @@ class TreeArrays(NamedTuple):
 
 
 class GrowConfig(NamedTuple):
-    """Static configuration of tree growth."""
+    """Static configuration of tree growth (``tree.py:47-69``; the JAX
+    package's field names, ``hist_precision`` kept fourth)."""
     split: SplitConfig
     max_depth: int
     n_bin: int                  # histogram bins B (incl. missing bin 0)
     hist_precision: str = "auto"
+    subsample: float = 1.0
+    colsample_bytree: float = 1.0
+    colsample_bylevel: float = 1.0
+    # build only each parent's smaller child on compacted rows and take
+    # the sibling as parent - small (:func:`_subtracted_level_hist`)
+    hist_subtraction: bool = False
+    # multi-root trees: the top root_level(n_roots) levels are root slots
+    # and row i enters at node (2**d0 - 1) + root_index[i]
+    n_roots: int = 1
+
+    @property
+    def sampled(self) -> bool:
+        return min(self.subsample, self.colsample_bytree,
+                   self.colsample_bylevel) < 1.0
 
 
-def tree_capacity(max_depth: int) -> int:
-    return 2 ** (max_depth + 1) - 1
+def root_level(n_roots: int) -> int:
+    """Depth of the level holding the root slots (0 for one root)."""
+    return max(n_roots - 1, 0).bit_length()
 
 
-def empty_tree(max_depth: int, n_tree: int, device=None) -> TreeArrays:
+def tree_capacity(max_depth: int, n_roots: int = 1) -> int:
+    return 2 ** (root_level(n_roots) + max_depth + 1) - 1
+
+
+def empty_tree(max_depth: int, n_tree: int, device=None,
+               n_roots: int = 1) -> TreeArrays:
     """A (n_tree, n_nodes) stack of all-unused arrays for a
-    depth-``max_depth`` perfect layout."""
-    shape = (n_tree, tree_capacity(max_depth))
+    depth-``max_depth`` perfect layout under ``n_roots`` root slots."""
+    shape = (n_tree, tree_capacity(max_depth, n_roots))
     return TreeArrays(**{
         name: (torch.full(shape, -1, dtype=dt, device=device)
                if name == "feature"
@@ -102,74 +133,161 @@ def bin_of_feature(binned: torch.Tensor, f_row: torch.Tensor) -> torch.Tensor:
     return binned.gather(1, cols).T.reshape(f_row.shape).to(torch.int32)
 
 
+# ---------------------------------------------------------------- sampling
+
+def sample_features(keys: np.ndarray, n_feature: int,
+                    rate: float) -> np.ndarray:
+    """Each key's feature mask, (..., F) bool on the host for keys
+    (..., 2) (``tree.py:520-527``): a feature is kept when its uniform
+    draw is below ``rate``; an empty mask becomes the one feature of a
+    ``randint`` on the same key (drawn only for the keys that need it:
+    the others never read it)."""
+    if rate >= 1.0:
+        return np.ones(keys.shape[:-1] + (n_feature,), np.bool_)
+    mask = prng.uniform(keys, n_feature) < np.float32(rate)
+    empty = ~mask.any(axis=-1)
+    if empty.any():
+        pick = prng.randint(keys[empty], (), 0, n_feature)
+        mask[empty] = np.arange(n_feature)[None, :] == pick[:, None]
+    return mask
+
+
+class _Draws(NamedTuple):
+    """One grow call's random draws: the row keep masks on the device,
+    and the feature masks of every level as one device tensor."""
+    keep: Optional[torch.Tensor]        # (T, N) bool, None = every row
+    fmask: Optional[torch.Tensor]       # (levels, T, F) bool, None = all
+
+
+def draw_masks(keys, n_rows: int, n_feature: int, cfg: GrowConfig,
+               device) -> _Draws:
+    """The draws of ``tree.py:305-320,400-405`` for T trees' keys (T, 2):
+    each key splits into (rows, tree features, level features); rows are
+    kept where ``uniform(key_rows, (N,)) < subsample``; the level at
+    depth d keeps the tree's features that ``fold_in(key_flevel, d)``
+    also keeps.  Keys and feature masks are host values; the row draw
+    runs on ``device`` and the feature masks go up in one copy."""
+    if not cfg.sampled:
+        return _Draws(None, None)
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    parts = prng.split(keys, 3)                   # (T, 3, 2)
+    keep = None
+    if cfg.subsample < 1.0:
+        rows = parts[:, 0] if len(keys) > 1 else parts[0, 0]
+        keep = (prng.uniform_rows(rows, n_rows, device)
+                < cfg.subsample).reshape(len(keys), n_rows)
+    fmask = None
+    if min(cfg.colsample_bytree, cfg.colsample_bylevel) < 1.0:
+        d0 = root_level(cfg.n_roots)
+        depths = np.arange(d0, d0 + cfg.max_depth)[:, None]   # (D, 1)
+        host = np.broadcast_to(
+            sample_features(parts[:, 1], n_feature, cfg.colsample_bytree),
+            (cfg.max_depth, len(keys), n_feature))
+        if cfg.colsample_bylevel < 1.0:
+            # every level's key at once: fold_in(key_flevel, depth)
+            host = host & sample_features(
+                prng.fold_in(parts[None, :, 2], depths), n_feature,
+                cfg.colsample_bylevel)
+        fmask = torch.from_numpy(np.ascontiguousarray(host)).to(
+            device, non_blocking=True)
+    return _Draws(keep, fmask)
+
+
+# ---------------------------------------------------------------- growth
+
 def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
               cut_values: torch.Tensor, n_cuts: torch.Tensor,
-              cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None
+              cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
+              key=None, root: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
-    """Grow one tree level by level (``tree.py:260-465``, single root):
+    """Grow one tree level by level (``tree.py:260-465``):
     :func:`grow_trees` for T = 1, with the one-tree histogram K1.
 
     binned (N, F) u8 bins (0 = missing); gh (N, 2) f32; cut_values
     (F, C) f32 and n_cuts (F,) int32 on the same device; row_valid
-    optional (N,) bool (rows outside it add nothing and reach no leaf).
+    optional (N,) bool (rows outside it add nothing and reach no leaf);
+    ``key`` the tree's host key (2,) uint32, needed when the config
+    samples; ``root`` optional (N,) int32 root slot of each row.
 
     Returns (tree, row_leaf (N,) int32 leaf node per row, row_val (N,)
     f32 the row's leaf value, recorded when the row is parked)."""
+    keys = None if key is None else np.asarray(key, np.uint32)[None]
     trees, row_leaf, row_val = grow_trees(binned, gh[None], cut_values,
-                                          n_cuts, cfg, row_valid)
+                                          n_cuts, cfg, row_valid, keys,
+                                          root)
     return TreeArrays(*(x[0] for x in trees)), row_leaf[0], row_val[0]
 
 
 def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
                cut_values: torch.Tensor, n_cuts: torch.Tensor,
-               cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None
+               cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
+               keys=None, root: Optional[torch.Tensor] = None
                ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow T trees together on shared bins, each on its own gradients
-    ``gh`` (T, N, 2) (the JAX package's ``jax.vmap`` of ``grow_tree``
-    over an ensemble round, ``gbtree.py:681``).
+    ``gh`` (T, N, 2) and its own host key ``keys[t]`` (T, 2) uint32 (the
+    JAX package's ``jax.vmap`` of ``grow_tree`` over an ensemble round,
+    ``gbtree.py:681``, with tree t's key ``fold_in(round_key, t)``).
 
     Per level: one histogram of all T trees, ``(F, B, 2, T * n_node)``
     tree outer (K3, or K1 when T = 1); one split search over the
     ``T * n_node`` columns, which are independent (the prefix sum runs
     along the bins only), so each tree's splits are bitwise those of a
     solo search; routing gathers ``binned[r, feature[t, node]]`` per
-    tree.  Returns (tree stack (T, n_nodes), row_leaf (T, N) int32,
-    row_val (T, N) f32).
+    tree.  Sampling (:func:`draw_masks`) zeroes the gradients of each
+    tree's dropped rows, which still flow to a leaf, and gives each
+    tree's columns its own feature mask in the split search.  With
+    ``cfg.n_roots > 1`` growth starts at the root-slot level, each row
+    at its ``root`` slot (slot 0 without ``root``).  Returns (tree stack
+    (T, n_nodes), row_leaf (T, N) int32, row_val (T, N) f32).
 
     Lanes: with binned (L, N, F), the T = L trees are L tenants' (the
     JAX package's ``jax.vmap`` of the round scan over lanes,
     ``gbtree.py:275-318``), each with its own cut_values (L, F, W),
-    n_cuts (L, F) and row_valid (L, N) (pad rows and pad lanes False).
-    The histogram is K4's ``(F, B, 2, L * n_node)``, the split search
-    reads each column's own cut count, thresholds come from each lane's
-    own cuts and routing gathers ``binned[l, r, feature[l, node]]``."""
+    n_cuts (L, F), row_valid (L, N) (pad rows and pad lanes False) and
+    key.  The histogram is K4's ``(F, B, 2, L * n_node)``, the split
+    search reads each column's own cut count, thresholds come from each
+    lane's own cuts and routing gathers ``binned[l, r, feature[l,
+    node]]``."""
     lanes = binned.dim() == 3
     T, N = gh.shape[:2]
+    F = binned.shape[-1]
     D = cfg.max_depth
+    d0 = root_level(cfg.n_roots)
     dev = binned.device
+    if cfg.sampled and keys is None:
+        raise ValueError("a sampled grow config needs one key per tree")
+    draws = draw_masks(keys, N, F, cfg, dev)
     gh_used = gh
-    pos = torch.zeros((T, N), dtype=torch.int32, device=dev)
+    if draws.keep is not None:
+        gh_used = gh * draws.keep[..., None].to(gh.dtype)
+    if root is not None and d0 > 0:
+        # a copy per tree: the kernels take contiguous positions only
+        pos = torch.clamp(root.to(torch.int32), 0, cfg.n_roots - 1)
+        pos = pos.expand(T, N).contiguous()
+    else:
+        pos = torch.zeros((T, N), dtype=torch.int32, device=dev)
     if row_valid is not None:
         rv = row_valid if lanes else row_valid[None, :]
-        gh_used = gh * rv[..., None].to(gh.dtype)
+        gh_used = gh_used * rv[..., None].to(gh.dtype)
         pos = torch.where(rv, pos, -1)
 
-    tree = empty_tree(D, T, dev)
+    tree = empty_tree(D, T, dev, cfg.n_roots)
     row_leaf = torch.zeros((T, N), dtype=torch.int32, device=dev)
     row_val = torch.zeros((T, N), dtype=torch.float32, device=dev)
     prep = prepare_hist(gh_used[0] if T == 1 and not lanes else gh_used,
                         cfg.hist_precision)
     if lanes:
-        F, W = cut_values.shape[1:]
+        W = cut_values.shape[2]
         flat_cuts = cut_values.reshape(T * F, W)
         lane_row = (torch.arange(T, dtype=torch.int64, device=dev)
                     * F)[:, None]                    # lane l's first row
     prev = None  # (best, nst, do_split) of the previous level
+    hist_prev = None
 
-    for depth in range(D + 1):
+    for depth in range(d0, d0 + D + 1):
         n_node = 1 << depth
         base = n_node - 1
-        if depth == D:
+        if depth == d0 + D:
             # terminal level: node stats from the parent's split (left =
             # the winner's left sums, right = parent - left)
             if prev is not None:
@@ -187,7 +305,10 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             make_leaf = torch.ones(T * n_node, dtype=torch.bool, device=dev)
             best = thr = None
         else:
-            if lanes:
+            if hist_prev is not None:
+                hist = _subtracted_level_hist(binned, prep, pos, n_node,
+                                              cfg.n_bin, hist_prev, prev[2])
+            elif lanes:
                 hist = build_level_histogram_lanes(binned, prep, pos,
                                                    n_node, cfg.n_bin)
             elif T == 1:
@@ -196,19 +317,26 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             else:
                 hist = build_level_histogram_batched(binned, prep, pos,
                                                      n_node, cfg.n_bin)
+            if cfg.hist_subtraction:
+                hist_prev = hist
             nst = stats_from_histogram_native(hist)     # (T * n_node, 2)
+            fmask = None
+            if draws.fmask is not None:
+                # each column's own tree's features: (F, T * n_node)
+                fmask = draws.fmask[depth - d0].T[:, :, None].expand(
+                    -1, T, n_node).reshape(F, T * n_node)
             if lanes:
                 # each column's own lane's cut counts: (F, L * n_node)
                 col_cuts = n_cuts.T[:, :, None].expand(
                     -1, T, n_node).reshape(-1, T * n_node)
                 best = find_best_splits_native(hist, nst, col_cuts,
-                                               cfg.split)
+                                               cfg.split, fmask)
                 cut_row = (lane_row + best.feature.reshape(T, n_node)
                            ).reshape(-1)
                 thr = flat_cuts[cut_row, best.cut_index.to(torch.int64)]
             else:
                 best = find_best_splits_native(hist, nst, n_cuts,
-                                               cfg.split)
+                                               cfg.split, fmask)
                 thr = cut_values[best.feature.to(torch.int64),
                                  best.cut_index.to(torch.int64)]
             # cannot_split (param.h:174): too little hessian to split
@@ -240,6 +368,71 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             new_pos = 2 * pos + (~go_left).to(torch.int32)
             pos = torch.where(active & ~row_is_leaf, new_pos, -1)
     return tree, row_leaf, row_val
+
+
+def _subtracted_level_hist(binned: torch.Tensor, prep: HistPrep,
+                           pos: torch.Tensor, n_node: int, n_bin: int,
+                           hist_parent: torch.Tensor,
+                           parent_split: torch.Tensor) -> torch.Tensor:
+    """A level's ``(F, B, 2, T * n_node)`` histogram by subtraction
+    (``tree.py:183-246``): per parent only the child with fewer active
+    rows is built, on its rows compacted into ``cap`` rows, and the
+    sibling is ``parent - small`` under a split parent (0 under a leaf,
+    whose children have no rows).
+
+    The per-child row counts come from K2; the small children of one
+    tree are built by K1 on its compacted rows, those of T trees or
+    lanes by K4 with each tree's compacted rows as a lane's bins.  On one
+    device the small children of a level hold at most N/2 active rows
+    (each parent's smaller half), which fits ``cap``, so the JAX
+    package's fallback to the full build (its ``lax.cond``, for a
+    sharded row set whose local rows can overflow) has no case here;
+    it returns with distributed training (ROADMAP.md section 1 item 13).
+    The counts are f32 sums, exact below 2**24 rows."""
+    T, N = pos.shape
+    F = binned.shape[-1]
+    dev = binned.device
+    half = n_node // 2
+    ones = (pos >= 0).to(torch.float32)[..., None].expand(T, N, 2)
+    counts = node_stats(ones.contiguous(), pos, n_node)[..., 0]   # (T, M)
+    small_is_left = counts[:, 0::2] <= counts[:, 1::2]
+    is_small = torch.stack([small_is_left, ~small_is_left],
+                           dim=2).reshape(T, n_node)
+    node = torch.clamp(pos, 0, n_node - 1).to(torch.int64)
+    msk = (pos >= 0) & is_small.gather(1, node)
+    cap = max(256, -(-(N // 2) // 256) * 256)
+    dest = torch.where(msk, (torch.cumsum(msk, dim=1) - 1).clamp_max(cap),
+                       cap)                      # row cap: the dump row
+
+    def compact(src, fill, t):
+        out = torch.full((cap + 1,) + src.shape[1:], fill, dtype=src.dtype,
+                         device=dev)
+        return out.index_copy_(0, dest[t], src)[:cap]
+    lanes = binned.dim() == 3
+    if T == 1 and not lanes:
+        hist_small = build_level_histogram(
+            compact(binned, 0, 0), HistPrep(compact(prep.gh_in, 0, 0),
+                                            prep.scale, prep.mode),
+            compact(pos[0], -1, 0), n_node, n_bin)
+    else:
+        b_small = torch.stack([compact(binned[t] if lanes else binned, 0,
+                                       t) for t in range(T)])
+        g_small = torch.stack([compact(prep.gh_in[t], 0, t)
+                               for t in range(T)])
+        p_small = torch.stack([compact(pos[t], -1, t) for t in range(T)])
+        hist_small = build_level_histogram_lanes(
+            b_small, HistPrep(g_small, prep.scale, prep.mode), p_small,
+            n_node, n_bin)
+    hs = hist_small.reshape(F, n_bin, 2, T, n_node)
+    # the small child of each parent: the pair's sum (the sibling's
+    # slots are zero)
+    small_of_parent = hs.reshape(F, n_bin, 2, T, half, 2).sum(dim=-1)
+    sibling = torch.where(parent_split.reshape(T, half),
+                          hist_parent.reshape(F, n_bin, 2, T, half)
+                          - small_of_parent, 0.0)
+    sib_child = sibling.repeat_interleave(2, dim=-1)
+    return torch.where(is_small, hs, sib_child).reshape(
+        F, n_bin, 2, T * n_node)
 
 
 def apply_level(tree: TreeArrays, depth: int, nst: torch.Tensor,
@@ -277,15 +470,22 @@ def apply_level(tree: TreeArrays, depth: int, nst: torch.Tensor,
 
 # ---------------------------------------------------------------- traversal
 
-def traverse_one(tree: TreeArrays, binned: torch.Tensor,
-                 max_depth: int) -> torch.Tensor:
+def traverse_one(tree: TreeArrays, binned: torch.Tensor, max_depth: int,
+                 root: Optional[torch.Tensor] = None,
+                 n_roots: int = 1) -> torch.Tensor:
     """Leaf node index per row for one tree on binned data, missing
-    values following the default direction (``tree.py:532-597``)."""
+    values following the default direction (``tree.py:532-597``); with
+    ``n_roots > 1`` each row starts at its ``root`` slot (slot 0 without
+    ``root``)."""
     N = binned.shape[0]
     dev = binned.device
-    pos = torch.zeros(N, dtype=torch.int32, device=dev)
+    d0 = root_level(n_roots)
+    if n_roots > 1 and root is not None:
+        pos = torch.clamp(root.to(torch.int32), 0, n_roots - 1)
+    else:
+        pos = torch.zeros(N, dtype=torch.int32, device=dev)
     leaf_node = torch.zeros(N, dtype=torch.int32, device=dev)
-    for d in range(max_depth + 1):
+    for d in range(d0, d0 + max_depth + 1):
         n_node = 1 << d
         base = n_node - 1
         sl = slice(base, base + n_node)
@@ -293,9 +493,9 @@ def traverse_one(tree: TreeArrays, binned: torch.Tensor,
         node = torch.clamp(pos, 0, n_node - 1).to(torch.int64)
         f_row = tree.feature[sl][node]
         stop = active & (tree.is_leaf[sl][node] | (f_row < 0)
-                         | (d == max_depth))
+                         | (d == d0 + max_depth))
         leaf_node = torch.where(stop, base + pos, leaf_node)
-        if d == max_depth:
+        if d == d0 + max_depth:
             break
         b = bin_of_feature(binned, torch.clamp_min(f_row, 0))
         go_left = torch.where(b == 0, tree.default_left[sl][node],
@@ -311,7 +511,9 @@ def _tree(stack: TreeArrays, t: int) -> TreeArrays:
 
 def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
                           binned: torch.Tensor, base: torch.Tensor,
-                          max_depth: int, n_group: int) -> torch.Tensor:
+                          max_depth: int, n_group: int,
+                          root: Optional[torch.Tensor] = None,
+                          n_roots: int = 1) -> torch.Tensor:
     """(N, n_group) margins: ``base`` plus every tree's leaf values added
     to its group's column, in tree order (the JAX scan's order,
     ``tree.py:676-695``)."""
@@ -321,15 +523,18 @@ def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
     groups = tree_group.tolist()
     for t in range(stack.feature.shape[0]):
         tree = _tree(stack, t)
-        leaf = traverse_one(tree, binned, max_depth).to(torch.int64)
+        leaf = traverse_one(tree, binned, max_depth, root,
+                            n_roots).to(torch.int64)
         margin[:, groups[t]] += table_lookup(tree.leaf_value, leaf)
     return margin
 
 
 def predict_leaf_binned(stack: TreeArrays, binned: torch.Tensor,
-                        max_depth: int) -> torch.Tensor:
+                        max_depth: int, root: Optional[torch.Tensor] = None,
+                        n_roots: int = 1) -> torch.Tensor:
     """(N, T) leaf node index per tree, every group's trees in tree
     order."""
-    leaves = [traverse_one(_tree(stack, t), binned, max_depth)
+    leaves = [traverse_one(_tree(stack, t), binned, max_depth, root,
+                           n_roots)
               for t in range(stack.feature.shape[0])]
     return torch.stack(leaves, dim=1)

@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from xgboost_tpu_torch.models.tree import TreeArrays
+from xgboost_tpu_torch.models.tree import TreeArrays, root_level
 
 KNOWN_UPDATERS = ("grow_colmaker", "grow_histmaker", "grow_skmaker",
                   "prune", "refresh", "distcol", "sync")
@@ -34,7 +34,7 @@ def parse_updaters(updater: str) -> Tuple[str, ...]:
     return seq
 
 
-def prune_tree(tree: TreeArrays, gamma: float
+def prune_tree(tree: TreeArrays, gamma: float, n_roots: int = 1
                ) -> Tuple[TreeArrays, np.ndarray]:
     """Bottom-up post-prune (reference TreePruner::TryPruneLeaf,
     updater_prune-inl.hpp:42-72): a split node whose children are both
@@ -61,8 +61,13 @@ def prune_tree(tree: TreeArrays, gamma: float
             gain[nid] = 0.0
 
     resolve = np.arange(n, dtype=np.int32)
+    # the levels above a multi-root tree's root slots are placeholders
+    # that never split: a root slot must not resolve into them
+    start_real = (1 << root_level(n_roots)) - 1
     for nid in range(1, n):  # a node under a pruned ancestor -> ancestor
         parent = (nid - 1) // 2
+        if parent < start_real:
+            continue
         if is_leaf[resolve[parent]] or feature[resolve[parent]] < 0:
             resolve[nid] = resolve[parent]
 

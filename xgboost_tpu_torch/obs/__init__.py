@@ -1,6 +1,9 @@
-"""xgboost_tpu_torch.obs: spans, the JSONL event log and the metric groups
-of the pipeline and tenant lanes (port of the part of ``xgboost_tpu/obs``
-that these paths call; same metric and event names)."""
+"""xgboost_tpu_torch.obs: spans, the JSONL event log, the round profiler
+and the metric groups of training, the pipeline and tenant lanes (port
+of the part of ``xgboost_tpu/obs`` that these paths call; same metric and
+event names)."""
+
+import os
 
 from xgboost_tpu_torch.obs.events import configure_log, get_log
 from xgboost_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,
@@ -9,9 +12,27 @@ from xgboost_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,
                                            lane_metrics, pipeline_metrics,
                                            registry, reliability_metrics,
                                            training_metrics)
+from xgboost_tpu_torch.obs.profiler import RoundProfiler
 from xgboost_tpu_torch.obs.trace import event, span
 
+
+def phases_enabled() -> bool:
+    """True when round-phase instrumentation runs without ``profile>=1``
+    (``obs/__init__.py:51-70``): the event log is configured or
+    ``XGBTPU_OBS=1``.  Phases end on device barriers and keep the round
+    loop per round (no segment, no lane stacking), the cost contract of
+    ``profile=1``.  ``XGBTPU_OBS_PHASES=0`` keeps a configured event log
+    without them.  The port has no metrics server yet (ROADMAP.md
+    section 1 item 16)."""
+    if os.environ.get("XGBTPU_OBS_PHASES", "") == "0":
+        return False
+    if get_log() is not None:
+        return True
+    return os.environ.get("XGBTPU_OBS", "") not in ("", "0")
+
+
 __all__ = ["Counter", "Gauge", "Histogram", "LabeledCounter", "LaneMetrics",
-           "PipelineMetrics", "TrainingMetrics", "configure_log", "event",
-           "get_log", "lane_metrics", "pipeline_metrics", "registry",
+           "PipelineMetrics", "RoundProfiler", "TrainingMetrics",
+           "configure_log", "event", "get_log", "lane_metrics",
+           "phases_enabled", "pipeline_metrics", "registry",
            "reliability_metrics", "span", "training_metrics"]

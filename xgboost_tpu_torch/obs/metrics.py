@@ -1,6 +1,7 @@
 """Prometheus-style metric primitives and the metric groups the pipeline
 and tenant lanes feed (port of ``xgboost_tpu/obs/metrics.py:45-235,
-443-551,672-815``, with the same metric names).
+443-551,672-815``, with the same metric names), and the round
+profiler's training metrics.
 
 One process-wide :class:`MetricsRegistry` holds every group's render
 function, so ``registry().render()`` is the whole process's exposition
@@ -161,17 +162,31 @@ class _Group:
 
 
 class TrainingMetrics(_Group):
-    """``xgbtpu_training_*``: what the checkpoint ring writes."""
+    """``xgbtpu_training_*``: what the round profiler (obs/profiler.py)
+    and the checkpoint ring write (``obs/metrics.py:443-470``)."""
 
     def __init__(self, prefix: str = "xgbtpu_training"):
         p = prefix
+        self.rounds = Counter(
+            f"{p}_rounds_total", "boosting rounds completed")
+        self.round = Gauge(
+            f"{p}_round", "most recently completed boosting round index")
+        self.round_seconds = Histogram(
+            f"{p}_round_seconds", "wall time per boosting round",
+            _ROUND_BUCKETS)
+        self.phase_seconds = LabeledCounter(
+            f"{p}_phase_seconds_total", "phase",
+            "cumulative wall seconds per round phase "
+            "(predict/gradient/grow/eval)")
         self.checkpoints = Counter(
             f"{p}_checkpoints_total", "model checkpoints written")
         self.checkpoint_seconds = Counter(
             f"{p}_checkpoint_seconds_total",
             "cumulative wall seconds spent writing checkpoints "
             "(the reference report_stats' checkpoint cost)")
-        self._all = (self.checkpoints, self.checkpoint_seconds)
+        self._all = (self.rounds, self.round, self.round_seconds,
+                     self.phase_seconds, self.checkpoints,
+                     self.checkpoint_seconds)
         registry().register("training", self.render)
 
 

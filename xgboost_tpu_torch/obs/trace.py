@@ -14,10 +14,25 @@ import os
 import threading
 import time
 from contextlib import contextmanager
+from typing import Optional
 
 from xgboost_tpu_torch.obs import events
 
 _tls = threading.local()
+_round_lock = threading.Lock()
+_current_round: Optional[int] = None
+
+
+def set_round(version: Optional[int]) -> None:
+    """Record the boosting round in progress (the round profiler's
+    seam), so discrete events name the round that produced them."""
+    global _current_round
+    with _round_lock:
+        _current_round = version
+
+
+def current_round() -> Optional[int]:
+    return _current_round
 
 
 def new_id() -> str:
@@ -75,6 +90,9 @@ def event(name: str, **fields) -> None:
     trace = getattr(_tls, "trace", None)
     if trace is not None:
         rec["trace"] = trace
+    rnd = current_round()
+    if rnd is not None:
+        rec["round"] = rnd
     if fields:
         rec["attrs"] = fields
     events.emit(rec)

@@ -103,7 +103,10 @@ def find_best_splits_native(hist: torch.Tensor, nstats: torch.Tensor,
     = missing), ``nstats`` (n_node, 2) node totals, ``n_cuts`` (F,)
     valid cuts per feature (``split.py:147-201``), or (F, n_node): one
     count per column, for lane-stacked levels whose tenants have cuts
-    of their own.  Only the valid-cut mask reads ``n_cuts``."""
+    of their own.  Only the valid-cut mask reads ``n_cuts``.
+    ``feature_mask`` (F,) bool, or (F, n_node): one column mask per node
+    (each tree's or lane's sampled features on its own columns), keeps
+    the candidates of the features it holds."""
     F, B, _, n_node = hist.shape
     C = B - 2
     cum = prefix_sum(hist, dim=1)                       # (F, B, 2, M)
@@ -128,7 +131,10 @@ def find_best_splits_native(hist: torch.Tensor, nstats: torch.Tensor,
     else:   # (F, C, M) per column
         ok &= (cut_ids[None, :, None] < n_cuts[:, None, :])[:, :, None, :]
     if feature_mask is not None:
-        ok &= feature_mask[:, None, None, None]
+        fm = feature_mask
+        if fm.dim() == 1:
+            fm = fm[:, None]
+        ok &= fm[:, None, None, :]
     if cfg.default_direction in (1, 2):   # forced left / forced right
         dirs = torch.tensor([cfg.default_direction == 2,
                              cfg.default_direction == 1], device=hist.device)

@@ -37,8 +37,10 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from xgboost_tpu_torch import random as prng
 from xgboost_tpu_torch.obs import event, lane_metrics, span
 from xgboost_tpu_torch.pipeline.trainer import ContinuousTrainer
 
@@ -55,7 +57,9 @@ def _pow2_at_least(n: int, floor: int = 1) -> int:
 def _bucket_of(spec):
     """Shape-bucket key (``lanes.py:76``): everything that must agree for
     lanes to advance together -- padded rows (a power of two, at least
-    64, when ``subsample == 1``), features, padded cut width (a power of
+    64, when ``subsample == 1``; the exact rows otherwise, since the row
+    draw is N-shaped and pad rows would shift a solo run's draws,
+    ``lanes.py:72-80``), features, padded cut width (a power of
     two, at least 8), the bins' type and device, K / npar, round and
     segment counts, the grow config and the gradient's identity."""
     if spec.subsample >= 1.0:
@@ -251,6 +255,11 @@ class LaneGang:
              rv_s) = _stack_bucket(specs, L, n_pad, w_pad)
 
         n_rounds, seg_k = s0.n_rounds, s0.seg_k
+        # each lane samples with its own PRNGKey(seed) at its own absolute
+        # rounds; pad lanes get PRNGKey(0) (lanes.py:276-290)
+        base_keys = np.stack([s.base_key for s in specs]
+                             + [prng.PRNGKey(0)] * (L - L_real))
+        first_its = [s.first_iteration for s in specs] + [0] * (L - L_real)
         done = 0
         views: List[Optional[torch.Tensor]] = [None] * L_real
         while done < n_rounds:
@@ -260,7 +269,9 @@ class LaneGang:
                 t0 = time.perf_counter()
                 margin_s, stacks = scan_rounds_lanes(
                     binned_s, margin_s, label_s, weight_s, cut_s, ncut_s,
-                    rv_s, n_rounds=seg, cfg=s0.cfg, grad_fn=s0.grad_fn)
+                    rv_s, n_rounds=seg, cfg=s0.cfg, grad_fn=s0.grad_fn,
+                    base_keys=base_keys,
+                    first_iterations=[it + done for it in first_its])
                 # the segment's wall time includes the device's work
                 if margin_s.is_cuda:
                     torch.cuda.synchronize(margin_s.device)
