@@ -26,6 +26,11 @@ every kernel against its plain PyTorch version.  The paths:
   K4 launch per level for all tenants (a stack of 64 lanes of 16,384
   rows; K4 is K1's and K3's scatter kernel with the lanes as its trees),
   then the same tenants through the host loop (K1 per tenant);
+- ranking: ``bench.py:bench_rank`` (1,000,000 x 28, 10,000 groups of
+  100, rank:ndcg, depth 6), cut to 20 rounds, on the group-padded layout
+  (K1 on 1,040,000 slots), then the sort path (``rank:map``,
+  ``rank:pairwise``) and the host path; the rest of the Booster API
+  (custom objectives, ``boost``, ``cv``, the ranking metrics);
 - the histogram microbenchmarks: the seven ported Pallas prototypes'
   ``main``s (``xgboost_tpu_torch.tools``: T5 ``hist_microbench``, T3
   ``hist_int8_proto``, T2 ``hist_notrans_proto``, T7 ``hist_r5_ab``; the
@@ -170,6 +175,43 @@ counts set to 0 just before and read just after:
   one dispatch and no K1, the host loop K1 480 times, and both give the
   same model bytes, ledgers and gate verdicts.
 
+The ranking and API phases (after ``[lanes-sampled]``), each run's
+launch counts set to 0 just before and read just after:
+
+- ``[rank]``: ``bench.py:bench_rank`` at full width (rank:ndcg,
+  1,000,000 x 28 from ``RandomState(11)``, 10,000 groups of 100, depth 6,
+  eta 0.1, max_bin 64), its 50 rounds cut to 20, on the group-padded
+  layout (10,000 groups of L = 104 lanes, 1,040,000 slots); fails unless
+  the one ``[rank]`` path line names ``group-padded``, K1 runs 120 times
+  and nothing else, the training NDCG is at least the JAX package's CPU
+  NDCG for the same data, rounds and parameters (``RANK_NDCG_JAX``) less
+  0.005, K1 equals its plain version (int8 bitwise) on round 0's six
+  levels of the padded layout, padding slots included, one round's
+  gradient on the card has the CPU's partner lanes bitwise and g / h
+  within 16 ulp + 2^-21 (1 + n_other) of the CPU's on the same margin,
+  and the plain K1 grows the same model bytes; prints ms per round and
+  the gradient's ms a call (CUDA events);
+- ``[rank-sort]``: the same data under ``XGBTPU_RANK_PAD=0``, 5 rounds
+  of ``rank:map`` and of ``rank:pairwise`` on the sort path, then
+  ``rank_impl=host`` (``rank:ndcg``) on the first 100,000 rows for 2
+  rounds; fails unless K1 runs 6 times a round and nothing else, the
+  path line names ``sort-based`` (none on the host path), the training
+  NDCG is within ``RANK_SORT_TOL`` (``RANK_HOST_TOL`` on the host path)
+  of a padded run of the same objective, rows and rounds, and the sort
+  path's partners drawn on the card equal the CPU's; prints ms per round
+  and the gradient's ms a call;
+- ``[api]``: 200,000 Higgs rows (``make_higgs_like``, seed 77; 50,000
+  more held out), 5 rounds: ``train(obj=)`` with a numpy logistic
+  objective on ``binary:logitraw`` (K1 30 launches) within 0.005 holdout
+  AUC of ``binary:logistic``; ``boost()`` with the built-in gradient
+  pulled to the host gives ``update()``'s model bytes; ``cv`` (3 folds,
+  ``auc``, ``ams@0.15``, ``pratio@0.1``, the numpy objective, int8 sums
+  and 32-aligned bins) prints its lines, launches K1 90 times and its
+  lines equal the CPU port's on the same data; and ``ndcg@10``,
+  ``map@10`` and ``pre@10`` of ``[rank]``'s booster read through
+  ``eval_set`` on the padded entry equal the metric functions on the
+  host copy of ``predict`` (user order).
+
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
 not build or launch), on any K1 or K3 launch there, on a launch count
@@ -264,6 +306,28 @@ ROOTS_AUC_JAX = 0.931807
 SUB_MC_ROUNDS = 5
 # [profile]: rounds of the profile=2 trace
 PROFILE2_ROUNDS = 3
+# [rank]: bench.py:bench_rank (rank:ndcg, 1,000,000 x 28 from
+# RandomState(11), 10,000 groups of 100, depth 6, eta 0.1, max_bin 64),
+# its 50 rounds cut to 20; the group-padded layout is 10,000 groups of
+# L = 104 lanes, 1,040,000 slots
+RANK_N, RANK_GSIZE, RANK_ROUNDS = 1_000_000, 100, 20
+RANK_PARAMS = {"objective": "rank:ndcg", "max_depth": DEPTH, "eta": 0.1,
+               "max_bin": 64}
+# The JAX package's training-set NDCG for RANK_PARAMS, 20 rounds, on a
+# CPU (fp32 histograms, the padded layout); the floor is 0.005 under it
+RANK_NDCG_JAX = 0.96991980301737
+# [rank-sort]: the same data on the sort path (XGBTPU_RANK_PAD=0), 5
+# rounds of rank:map and rank:pairwise; then rank_impl=host on the first
+# 100,000 rows, 2 rounds.  Each run's training NDCG against a padded run
+# of the same objective, rounds and rows: the layouts draw other pairs
+# and order tied predictions otherwise (round 0 ties every row).  A CPU
+# run of the port at 200,000 rows put the sort path within 0.0015 of the
+# padded one after 5 rounds and the host path within 0.006 after 2
+RANK_SORT_ROUNDS, RANK_HOST_N, RANK_HOST_ROUNDS = 5, 100_000, 2
+RANK_SORT_TOL, RANK_HOST_TOL = 0.01, 0.02
+# [api]: 200,000 Higgs rows (and 50,000 held out), 5 rounds
+API_N, API_TEST, API_ROUNDS = 200_000, 50_000, 5
+API_PARAMS = {"max_depth": DEPTH, "eta": 0.1, "max_bin": 64}
 
 
 def fail(msg):
@@ -2334,6 +2398,347 @@ def phase_profile(torch, xt, kernels, device, card, main_out):
 # The one-hot tensor-core kernels (T5, T3, T2, T7; the bf16 family T1,
 # T4a, T4b, T6) and the TPU prototypes they replace (the Pallas kernel
 # body of each)
+# ------------------------------------------------------------------ [rank]
+def make_rank(n=RANK_N):
+    """``bench.py:bench_rank``'s data: relevance 0-2 from a noisy score
+    of three features, groups of RANK_GSIZE rows."""
+    rng = np.random.RandomState(11)
+    X = rng.randn(n, N_FEAT).astype(np.float32)
+    rel = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.5 * rng.randn(n)
+    y = np.clip((rel > 0.5) + (rel > 1.5), 0, 2).astype(np.float32)
+    return X, y, np.full(n // RANK_GSIZE, RANK_GSIZE, np.int64)
+
+
+def rank_dmatrix(xt, X, y, group):
+    d = xt.DMatrix(X, label=y)
+    d.set_group(group)
+    return d
+
+
+def boost_told(torch, kernels, xt, params, d, rounds, device,
+               wrap_first=None):
+    """The path's counted run: a Booster's round 0 (cuts, binning, the
+    layout; under ``wrap_first``, a context) and, timed, rounds 1 to
+    ``rounds - 1`` (``update_many``), with every launch count set to 0
+    just before and read just after and stderr captured and echoed:
+    (booster, ms per timed round, counts, the ``[rank]`` path lines)."""
+    import contextlib
+    import io
+    err = io.StringIO()
+    reset_counts(kernels)
+    with contextlib.redirect_stderr(err):
+        bst = xt.Booster(params, cache=[d], device=device)
+        with wrap_first() if wrap_first else contextlib.nullcontext():
+            bst.update(d, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.update_many(d, 1, rounds - 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (rounds - 1)
+    counts = read_counts(kernels)
+    sys.stderr.write(err.getvalue())
+    return bst, ms, counts, [ln for ln in err.getvalue().splitlines()
+                             if ln.startswith("[rank] LambdaRank gradient")]
+
+
+def ndcg_of(bst, d):
+    from xgboost_tpu_torch.metrics import ndcg
+    p = bst.predict(d)
+    if p.shape != (d.num_row,) or not np.isfinite(p).all():
+        fail(f"rank predictions: shape {p.shape}")
+    return ndcg(p, d.get_label(), None, d.info.group_ptr)
+
+
+def rank_grad_bound(torch, want, n_other):
+    """``tests/test_torch_rank.py``'s bound on one round's gradient pairs
+    (one pair draw, no list weight) against another device's: 16 ulp of
+    the value plus 2^-21 (1 + n_other).  The two devices' log and exp
+    differ by an ulp or two; the NDCG weight is a difference of two such
+    sums over the IDCG, and a row adds its own side and up to n_other
+    times the side it receives."""
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return 16 * ulp + 2.0 ** -21 * (1.0 + n_other)[:, None]
+
+
+def phase_rank(torch, xt, cuda_hist, kernels, device, card):
+    """bench_rank on the group-padded layout (K1 on 1,040,000 slots)."""
+    import contextlib
+    from xgboost_tpu_torch import rank_device as rd
+    t0 = time.perf_counter()
+    X, y, group = make_rank()
+    d = rank_dmatrix(xt, X, y, group)
+    print(f"[rank] data {RANK_N} x {N_FEAT}, {len(group)} groups of "
+          f"{RANK_GSIZE}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # round 0's levels captured as K1 runs them (the capture adds no
+    # launch); the comparisons below come after the counts are read
+    kernel_fn = cuda_hist.level_histogram
+    captured = []
+
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin, mode))
+        return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+
+    @contextlib.contextmanager
+    def capturing():
+        cuda_hist.level_histogram = capture
+        try:
+            yield
+        finally:
+            cuda_hist.level_histogram = kernel_fn
+    t0 = time.perf_counter()
+    bst, ms, counts, told = boost_told(torch, kernels, xt, RANK_PARAMS, d,
+                                       RANK_ROUNDS, device, capturing)
+    secs = time.perf_counter() - t0
+    entry = bst._cache[id(d)]
+    prep = entry.rank_pad_prep
+    print(f"[rank] {RANK_ROUNDS} rounds (cuts, binning and the padded "
+          f"layout in round 0): {secs:.2f} s; hist_level launches "
+          f"{counts['hist_level']}; all counts {json.dumps(counts)}",
+          flush=True)
+    if counts != only(kernels, hist_level=RANK_ROUNDS * DEPTH):
+        fail(f"rank launch counts {counts}: want hist_level "
+             f"{RANK_ROUNDS * DEPTH}, the others 0")
+    if len(told) != 1 or "group-padded" not in told[0] or prep is None:
+        fail(f"rank path lines {told}: want one naming group-padded")
+    slots = prep.G * prep.L + prep.n_tail
+    print(f"[rank] layout: {prep.G} groups x L = {prep.L} lanes = {slots} "
+          f"slots ({slots / RANK_N:.3f}x the rows)", flush=True)
+    score = ndcg_of(bst, d)
+    floor = RANK_NDCG_JAX - 0.005
+    print(f"[rank] training NDCG {score:.6f} (floor {floor:.6f}: the JAX "
+          f"package's {RANK_NDCG_JAX:.6f} on the CPU - 0.005)", flush=True)
+    if not score >= floor:
+        fail(f"rank NDCG {score} < {floor}")
+    raw = bst.save_raw()
+
+    max_err = 0.0
+    for bins, gh, pos, M, nb, mode in captured:
+        got = kernel_fn(bins, gh, pos, M, nb, mode)
+        want = cuda_hist.level_histogram_plain(bins, gh, pos, M, nb, mode)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got - want).abs().max()))
+        if mode != "int" or not torch.equal(got, want):
+            fail(f"rank level n_node={M}: mode {mode}, kernel != plain")
+    inactive = float((captured[0][2] < 0).float().mean())
+    print(f"[rank] kernel == plain, int8 bitwise, at all {len(captured)} "
+          f"levels of round 0 on the padded layout ({inactive:.4f} of the "
+          "slots padding, pos -1)", flush=True)
+    del captured
+
+    # one round's gradient on the card against the CPU's on its margin
+    bst._sync_margin(entry)
+    margin = entry.margin
+    key = bst.obj.round_key(RANK_ROUNDS)
+    grad_ms = cuda_ms(torch, lambda: bst.obj.get_gradient(
+        margin, d.info, RANK_ROUNDS, pad_prep=prep), 20)
+    on_card = bst.obj.get_gradient(margin, d.info, RANK_ROUNDS,
+                                   pad_prep=prep)[:, 0].cpu()
+    cpu_prep = rd.PadRankPrep(*(x.cpu() if torch.is_tensor(x) else x
+                                for x in prep))
+    on_cpu = rd.rank_gradient_padded(margin[:, 0].cpu(), key, cpu_prep,
+                                     "ndcg")
+    if not torch.equal(rd.pad_partners(key, 0, prep).cpu(),
+                       rd.pad_partners(key, 0, cpu_prep)):
+        fail("rank: the card's partner lanes != the CPU's")
+    n_other = torch.clamp_min(cpu_prep.g_size - cpu_prep.b_sz, 1).reshape(
+        -1).float()
+    n_other = torch.cat([n_other, torch.zeros(prep.n_tail)])
+    err = (on_card - on_cpu).abs()
+    if not bool((err <= rank_grad_bound(torch, on_cpu, n_other)).all()):
+        fail(f"rank: the card's gradient != the CPU's within the bound "
+             f"(max abs err {float(err.max()):.3g})")
+    print(f"[rank] round {RANK_ROUNDS}'s gradient: partner lanes bitwise == "
+          f"the CPU's, g / h within 16 ulp + 2^-21 (1 + n_other) of the "
+          f"CPU's (max abs err {float(err.max()):.3g})", flush=True)
+    print(f"[rank] {ms:.3f} ms per round ({slots / ms * 1e3:.4g} slots/s), "
+          f"gradient {grad_ms:.4f} ms a call | {card}", flush=True)
+
+    # the same rounds with the plain histogram forced on the card
+    cuda_hist.level_histogram = cuda_hist.level_histogram_plain
+    try:
+        plain = xt.train({**RANK_PARAMS, "silent": 1}, d, RANK_ROUNDS,
+                         device=device)
+    finally:
+        cuda_hist.level_histogram = kernel_fn
+    plain.set_param("silent", 0)
+    if plain.save_raw() != raw:
+        fail("rank: kernel and plain histograms grew different models")
+    print("[rank] plain-histogram run: identical model bytes", flush=True)
+    return counts["hist_level"], ms, grad_ms, max_err, (bst, d, score)
+
+
+def phase_rank_sort(torch, xt, kernels, device, card):
+    """bench_rank's data on the sort path and on the host path."""
+    from xgboost_tpu_torch import rank_device as rd
+    X, y, group = make_rank()
+    launches, rows = 0, []
+    for kind, n, rounds, impl in (
+            ("map", RANK_N, RANK_SORT_ROUNDS, "device"),
+            ("pairwise", RANK_N, RANK_SORT_ROUNDS, "device"),
+            ("ndcg", RANK_HOST_N, RANK_HOST_ROUNDS, "host")):
+        params = {**RANK_PARAMS, "objective": f"rank:{kind}",
+                  "rank_impl": impl}
+        tag = f"rank:{kind} " + ("sort path" if impl == "device"
+                                 else "host path")
+        g = group[:n // RANK_GSIZE]
+        d = rank_dmatrix(xt, X[:n], y[:n], g)
+        t0 = time.perf_counter()
+        os.environ["XGBTPU_RANK_PAD"] = "0"
+        try:
+            bst, ms, counts, told = boost_told(torch, kernels, xt, params,
+                                               d, rounds, device)
+        finally:
+            del os.environ["XGBTPU_RANK_PAD"]
+        launches += counts["hist_level"]
+        print(f"[rank-sort] {tag}: {n} rows, {rounds} rounds "
+              f"{time.perf_counter() - t0:.2f} s; hist_level launches "
+              f"{counts['hist_level']}; all counts {json.dumps(counts)}",
+              flush=True)
+        if counts != only(kernels, hist_level=rounds * DEPTH):
+            fail(f"{tag}: launch counts {counts}")
+        want_told = 1 if impl == "device" else 0
+        if len(told) != want_told or not all("sort-based" in t
+                                             for t in told):
+            fail(f"{tag}: path lines {told}")
+        entry = bst._cache[id(d)]
+        if entry.rank_pad_prep is not None:
+            fail(f"{tag}: a padded entry under XGBTPU_RANK_PAD=0")
+        score = ndcg_of(bst, d)
+        # a booster of its own on the same matrix (its cuts are shared)
+        padded = xt.train({**params, "rank_impl": "device", "silent": 1},
+                          d, rounds, device=device)
+        if padded._cache[id(d)].rank_pad_prep is None:
+            fail(f"{tag}: the padded reference run is not padded")
+        ref = ndcg_of(padded, d)
+        tol = RANK_SORT_TOL if impl == "device" else RANK_HOST_TOL
+        print(f"[rank-sort] {tag}: training NDCG {score:.6f}, the padded "
+              f"layout's {ref:.6f} (tolerance {tol})", flush=True)
+        if not abs(score - ref) <= tol:
+            fail(f"{tag}: NDCG {score} vs padded {ref}")
+        bst._sync_margin(entry)
+        margin = entry.margin
+        grad_ms = cuda_ms(torch, lambda: bst.obj.get_gradient(
+            margin, d.info, rounds), 3 if impl == "host" else 20)
+        if impl == "device":
+            prep = bst.obj._prep(d.info, n, margin.device)
+            cpu_prep = rd.RankPrep(*(x.cpu() for x in prep))
+            key = bst.obj.round_key(rounds)
+            if not torch.equal(rd.sort_partners(key, 0, prep).cpu(),
+                               rd.sort_partners(key, 0, cpu_prep)):
+                fail(f"{tag}: the card's partners != the CPU's")
+            print(f"[rank-sort] {tag}: partner rows of round {rounds} "
+                  "bitwise == the CPU's", flush=True)
+        print(f"[rank-sort] {tag}: {ms:.3f} ms per round, gradient "
+              f"{grad_ms:.4f} ms a call | {card}", flush=True)
+        rows.append((tag, ms, grad_ms))
+    return launches, rows
+
+
+def logistic_fobj(preds, dtrain):
+    """binary logistic loss on margins, float64 numpy on the host."""
+    p = 1.0 / (1.0 + np.exp(-preds.astype(np.float64)))
+    y = dtrain.get_label()
+    return p - y, p * (1.0 - p)
+
+
+def phase_api(torch, xt, kernels, device, card, rank_out):
+    """train(obj=), boost(), cv() and the ranking metrics of eval_set."""
+    t_phase = time.perf_counter()
+    X, y = make_higgs_like(API_N + API_TEST, seed=77)
+    dtrain = xt.DMatrix(X[:API_N], label=y[:API_N])
+    dtest = xt.DMatrix(X[API_N:], label=y[API_N:])
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    custom = xt.train({**API_PARAMS, "objective": "binary:logitraw"},
+                      dtrain, API_ROUNDS, obj=logistic_fobj, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    launches = counts["hist_level"]
+    print(f"[api] train(obj=) {API_ROUNDS} rounds: {secs:.2f} s; "
+          f"hist_level launches {launches}; all counts "
+          f"{json.dumps(counts)}", flush=True)
+    if counts != only(kernels, hist_level=API_ROUNDS * DEPTH):
+        fail(f"[api] custom objective: launch counts {counts}")
+    builtin = xt.train({**API_PARAMS, "objective": "binary:logistic"},
+                       dtrain, API_ROUNDS, device=device)
+    a_custom = auc_of(xt, custom, dtest, y[API_N:])
+    a_builtin = auc_of(xt, builtin, dtest, y[API_N:])
+    print(f"[api] holdout AUC: custom logistic objective {a_custom:.6f}, "
+          f"binary:logistic {a_builtin:.6f}", flush=True)
+    if not abs(a_custom - a_builtin) <= 0.005:
+        fail(f"[api] custom-objective AUC {a_custom} vs {a_builtin}")
+
+    # boost() with the built-in gradient pulled to the host == update()
+    params = {**API_PARAMS, "objective": "binary:logistic"}
+    b1 = xt.Booster(params, cache=[dtrain], device=device)
+    b2 = xt.Booster(params, cache=[dtrain], device=device)
+    for i in range(API_ROUNDS):
+        b1.update(dtrain, i)
+        b2._lazy_init(dtrain)
+        e = b2._entry(dtrain)
+        b2._sync_margin(e)
+        gh = b2.obj.get_gradient(e.margin, dtrain.info, i).cpu().numpy()
+        b2.boost(dtrain, gh[:, 0, 0], gh[:, 0, 1])
+    if b1.save_raw() != b2.save_raw():
+        fail("[api] boost() from the host gradient != update()")
+    print("[api] boost() with the built-in gradient pulled to the host: "
+          "identical model bytes to update()", flush=True)
+
+    # cv on the card against cv on the CPU: int8 sums and a host
+    # objective keep both bitwise
+    cv_params = {**API_PARAMS, "objective": "binary:logitraw",
+                 "hist_precision": "int8", "hist_bin_align": 32}
+    cv_kw = {"nfold": 3, "metrics": ["auc", "ams@0.15", "pratio@0.1"],
+             "obj": logistic_fobj, "seed": 0}
+    import contextlib
+    import io
+    out = io.StringIO()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        lines = xt.cv(cv_params, dtrain, API_ROUNDS, device=device, **cv_kw)
+    cv_secs = time.perf_counter() - t0
+    cv_counts = read_counts(kernels)
+    sys.stdout.write(out.getvalue())
+    if out.getvalue().splitlines() != lines or len(lines) != API_ROUNDS:
+        fail("[api] cv printed other lines than it returned")
+    if cv_counts != only(kernels, hist_level=3 * API_ROUNDS * DEPTH):
+        fail(f"[api] cv launch counts {cv_counts}")
+    launches += cv_counts["hist_level"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_lines = xt.cv(cv_params, xt.DMatrix(X[:API_N], label=y[:API_N]),
+                          API_ROUNDS, device="cpu", **cv_kw)
+    if lines != cpu_lines:
+        fail(f"[api] cv lines on the card != on the CPU: {lines} vs "
+             f"{cpu_lines}")
+    print(f"[api] cv: 3 folds x {API_ROUNDS} rounds {cv_secs:.2f} s, "
+          f"hist_level launches {cv_counts['hist_level']}; lines == the "
+          "CPU's", flush=True)
+
+    # the ranking metrics of eval_set on [rank]'s padded entry
+    from xgboost_tpu_torch import metrics as M
+    bst, d, _ = rank_out
+    names = ["ndcg@10", "map@10", "pre@10"]
+    for name in names:
+        bst.set_param("eval_metric", name)
+    line = bst.eval_set([(d, "train")], RANK_ROUNDS - 1)
+    p = bst.predict(d)
+    want = "\t".join([f"[{RANK_ROUNDS - 1}]"] + [
+        f"train-{n}:{M.create_metric(n)(p, d.get_label(), d.get_weight(), d.info.group_ptr):.6f}"
+        for n in names])
+    print(f"[api] eval_set on the padded entry: {line!r}", flush=True)
+    if line != want:
+        fail(f"[api] eval_set {line!r} != the metrics of predict {want!r}")
+    print(f"[api] == the metric functions on the host copy of predict; "
+          f"hist_level launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 ONEHOT_SOURCES = {
     "onehot_variant": ("xgboost_tpu_torch/csrc/onehot_variant.cu",
                        "tools/hist_microbench.py:26"),
@@ -3132,6 +3537,17 @@ def main():
     sl_launches = phase_lanes_sampled(torch, xt, kernels, "cuda", card)
     print(f"[lanes-sampled] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    rk_launches, rk_ms, rk_grad_ms, rk_err, rank_out = phase_rank(
+        torch, xt, cuda_hist, kernels, "cuda", card)
+    print(f"[rank] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rs_launches, rs_rows = phase_rank_sort(torch, xt, kernels, "cuda", card)
+    print(f"[rank-sort] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    api_launches = phase_api(torch, xt, kernels, "cuda", card, rank_out)
+    del rank_out
+    print(f"[api] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist, nvcc,
                                   dev)
     print(f"[onehot] checks {time.perf_counter() - t0:.1f} s")
@@ -3149,15 +3565,16 @@ def main():
     print(f"[onehot-bf16] phase {time.perf_counter() - t0:.1f} s")
 
     # launches: each path's own count, summed over the paths that run
-    # the kernel ([main], [sample], [subtract], [roots], [profile] for
-    # K1; [multiclass], [forest], the [roots] forest and the multiclass
+    # the kernel ([main], [sample], [subtract], [roots], [profile],
+    # [rank], [rank-sort] and [api] for K1; [multiclass], [forest], the [roots] forest and the multiclass
     # [subtract] for K3; [depth0] and both [subtract] runs for K2;
     # [lanes], [lanes-sampled] and the multiclass [subtract] for K4)
     records = [
         kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
                       "xgboost_tpu/ops/pallas_hist.py:46",
                       launches + s_launches + sub_k1 + r_launches
-                      + p_launches, max_err, rows),
+                      + p_launches + rk_launches + rs_launches
+                      + api_launches, max(max_err, rk_err), rows),
         kernel_record("hist_batched",
                       "xgboost_tpu_torch/csrc/hist_batched.cu",
                       "xgboost_tpu/ops/pallas_hist.py:374",
@@ -3184,6 +3601,10 @@ def main():
           f"path: {mc_ms_round:.3f} ms per round (subtracted "
           f"{smc_ms:.3f}); lanes: {host_ms:.3f} ms "
           f"per host-loop cycle, {stacked_ms:.3f} ms per stacked cycle; "
+          f"rank:ndcg padded {rk_ms:.3f} ms per round (gradient "
+          f"{rk_grad_ms:.4f} ms), " + ", ".join(
+              f"{t} {m:.3f} (gradient {g:.4f})" for t, m, g in rs_rows)
+          + "; "
           f"kernel times are means over the levels of one round (K2: one "
           f"depth-0 round) | {card}")
     print(json.dumps({"kernels": records}))

@@ -856,3 +856,88 @@ def test_multi_root_rounds_of_several_trees_match_plain(cuda_device, extra):
         if len(raws) == 1:
             assert kb.launches == 3 * 3
     assert raws[0] == raws[1]
+
+
+def _rank_case(seed, n_groups=300, lo=20, hi=100):
+    """Ragged groups of 20-99 rows, relevance 0-2 from a noisy score."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(lo, hi, n_groups)
+    n = int(sizes.sum())
+    X = rng.rand(n, 6).astype(np.float32)
+    score = X[:, 0] * 2 + X[:, 1] + 0.3 * rng.randn(n)
+    y = np.digitize(score, np.quantile(score, [0.7, 0.9])).astype(np.float32)
+    return X, y, sizes, np.concatenate([[0], np.cumsum(sizes)])
+
+
+def _rank_bound(want, n_other, scale):
+    """``tests/test_torch_rank.py``'s bound: 16 ulp + 2^-21 (1 + n_other)
+    times the pair scale (the card's log and exp against the CPU's)."""
+    a = want.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return 16 * ulp + 2.0 ** -21 * (1.0 + n_other)[:, None] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pairwise", "ndcg", "map"])
+@pytest.mark.parametrize("nps", [1, 2])
+def test_rank_gradients_on_the_card_match_the_cpu(cuda_device, kind, nps):
+    """Both device rank gradients on the card against the same code on
+    the CPU: partners bitwise, g / h within the stated bound."""
+    from xgboost_tpu_torch import random as prng
+    from xgboost_tpu_torch import rank_device as rd
+    _, y, _, gptr = _rank_case(3)
+    key = prng.fold_in(prng.PRNGKey(4177), 7)
+    rng = np.random.RandomState(4)
+    pp = {d: rd.build_pad_prep(y, gptr, d) for d in ("cpu", cuda_device)}
+    n = pp["cpu"].G * pp["cpu"].L
+    pred = torch.from_numpy(rng.randn(n).astype(np.float32))
+    got = rd.rank_gradient_padded(pred.to(cuda_device), key,
+                                  pp[cuda_device], kind, nps).cpu()
+    want = rd.rank_gradient_padded(pred, key, pp["cpu"], kind, nps)
+    for k in range(nps):
+        assert torch.equal(rd.pad_partners(key, k, pp[cuda_device]).cpu(),
+                           rd.pad_partners(key, k, pp["cpu"]))
+    n_other = torch.clamp_min(pp["cpu"].g_size - pp["cpu"].b_sz,
+                              1).reshape(-1).float()
+    assert bool(((got - want).abs() <= _rank_bound(want, n_other,
+                                                   1.0 / nps)).all())
+    sp = {d: rd.build_prep(y, gptr, len(y), d) for d in ("cpu", cuda_device)}
+    pred = torch.from_numpy(rng.randn(len(y)).astype(np.float32))
+    got = rd.rank_gradient(pred.to(cuda_device), key, sp[cuda_device], kind,
+                           nps).cpu()
+    want = rd.rank_gradient(pred, key, sp["cpu"], kind, nps)
+    assert torch.equal(rd.pred_order(pred.to(cuda_device),
+                                     sp[cuda_device]).cpu(),
+                       rd.pred_order(pred, sp["cpu"]))
+    for k in range(nps):
+        assert torch.equal(rd.sort_partners(key, k, sp[cuda_device]).cpu(),
+                           rd.sort_partners(key, k, sp["cpu"]))
+    n_other = torch.clamp_min(sp["cpu"].g_size - sp["cpu"].b_sz, 1).float()
+    assert bool(((got - want).abs() <= _rank_bound(want, n_other,
+                                                   1.0 / nps)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pairwise", "ndcg", "map"])
+def test_padded_rank_training_matches_plain_k1(cuda_device, kind):
+    """rank:* on the group-padded layout through K1 (padding slots at
+    pos -1 with zero gradients) grows the model bytes of the plain K1."""
+    import xgboost_tpu_torch as xt
+    X, y, sizes, _ = _rank_case(5)
+    params = {"objective": f"rank:{kind}", "max_depth": 4, "max_bin": 64,
+              "silent": 1}
+    raws = []
+    for fn in (cuda_hist.level_histogram, cuda_hist.level_histogram_plain):
+        saved = cuda_hist.level_histogram
+        cuda_hist.level_histogram = fn
+        cuda_hist.reset_launches()
+        try:
+            d = xt.DMatrix(X, label=y, group=sizes)
+            bst = xt.train(params, d, 3, device="cuda")
+            assert bst._cache[id(d)].rank_pad_prep is not None
+            raws.append(bst.save_raw())
+        finally:
+            cuda_hist.level_histogram = saved
+        if len(raws) == 1:
+            assert cuda_hist.launches == 3 * 4
+    assert raws[0] == raws[1]

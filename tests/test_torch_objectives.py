@@ -21,6 +21,7 @@ from xgboost_tpu import objectives as jo  # noqa: E402
 from xgboost_tpu.data import MetaInfo as JMeta  # noqa: E402
 from xgboost_tpu_torch import metrics as tm  # noqa: E402
 from xgboost_tpu_torch import objectives as to  # noqa: E402
+from xgboost_tpu_torch.data import MetaInfo as TMeta  # noqa: E402
 
 ULP4 = 4 * 2.0 ** -23
 P_ULP4 = 4 * 2.0 ** -24   # 4 ulp of any p in [0.5, 1)
@@ -44,8 +45,10 @@ def _grads(name, margin, label, weight, spw=1.0):
                                       len(label)))
     ot = to.create_objective(name)
     ot.set_param("scale_pos_weight", spw)
-    got = ot.get_gradient(torch.from_numpy(margin), torch.from_numpy(label),
-                          torch.from_numpy(weight)).numpy()
+    tinfo = TMeta()
+    tinfo.set_field("label", label)
+    tinfo.set_field("weight", weight)
+    got = ot.get_gradient(torch.from_numpy(margin), tinfo, 0).numpy()
     return got, want
 
 
@@ -93,10 +96,30 @@ def test_label_validation():
     to.create_objective("reg:linear").validate_labels(info)
 
 
-def test_unported_objectives_raise():
-    for name in ("rank:pairwise", "rank:ndcg"):
-        with pytest.raises(NotImplementedError):
-            to.create_objective(name)
+@pytest.mark.parametrize("name", ["rank:pairwise", "rank:ndcg", "rank:map"])
+def test_rank_objectives_match_the_jax_package(name):
+    """The LambdaRank objectives: default metric, base margin and
+    transforms as the JAX package's, and the host path's gradients (the
+    same numpy code on the same RandomState) bitwise."""
+    oj, ot = jo.create_objective(name), to.create_objective(name)
+    assert ot.default_metric == oj.default_metric
+    assert ot.prob_to_margin(0.3) == oj.prob_to_margin(0.3)
+    rng = np.random.RandomState(9)
+    margin = rng.randn(300, 1).astype(np.float32)
+    label = rng.randint(0, 3, 300).astype(np.float32)
+    np.testing.assert_array_equal(
+        ot.pred_transform(torch.from_numpy(margin)).numpy(),
+        np.asarray(oj.pred_transform(jnp.asarray(margin))))
+    infos = []
+    for o, meta in ((oj, JMeta()), (ot, TMeta())):
+        o.set_param("rank_impl", "host")
+        o.set_param("num_pairsample", 2)
+        meta.set_field("label", label)
+        meta.set_field("group", [100, 120, 80])
+        infos.append(meta)
+    want = np.asarray(oj.get_gradient(jnp.asarray(margin), infos[0], 4, 300))
+    got = ot.get_gradient(torch.from_numpy(margin), infos[1], 4).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", ["rmse", "logloss", "error", "auc"])
@@ -122,6 +145,16 @@ def test_grouped_auc():
                - jm.auc(preds, labels, w, gptr)) <= 1e-7
 
 
-def test_unported_metric_raises():
-    with pytest.raises(NotImplementedError):
-        tm.create_metric("ndcg@5")
+@pytest.mark.parametrize("name", ["ndcg@5", "map@5-", "pre@5"])
+def test_grouped_ranking_metrics_bitwise(name):
+    """The ranklist metrics over groups, on float32 predictions of a
+    trained model's size, equal to the JAX package's to the bit."""
+    rng = np.random.RandomState(6)
+    preds = rng.randn(600).astype(np.float32)
+    labels = rng.randint(0, 3, 600).astype(np.float32)
+    labels[:50] = 0                       # a group without relevant rows
+    gptr = np.array([0, 50, 170, 350, 600])
+    w = np.ones(600, np.float32)
+    want = jm.create_metric(name)(preds, labels, w, gptr)
+    got = tm.create_metric(name)(preds, labels, w, gptr)
+    assert np.float64(got).tobytes() == np.float64(want).tobytes()

@@ -212,13 +212,36 @@ def test_default_device_needs_a_gpu():
 
 @pytest.mark.parametrize("params", [
     {"updater": "grow_skmaker"}, {"updater": "grow_histmaker,refresh"},
-    {"objective": "rank:pairwise"},
     {"booster": "gblinear"}, {"updater": "grow_colmaker"},
     {"dsplit": "row"}])
 def test_unported_options_raise(params):
     X, y, _ = _data(2)
     with pytest.raises(NotImplementedError):
         xt.train(params, xt.DMatrix(X[:64], label=y[:64]), 1, device="cpu")
+
+
+@pytest.mark.parametrize("objective", ["rank:pairwise", "rank:ndcg",
+                                       "rank:map"])
+def test_rank_objectives_train_like_the_jax_package(objective):
+    """``rank:*`` on 64 groups of 64 rows: the group-padded layout in
+    both packages, tree structure bitwise and eval lines equal."""
+    X, y_reg, _ = _data(4)
+    y = np.clip(np.round(np.nan_to_num(y_reg)), 0, 3).astype(np.float32)
+    params = {"objective": objective, "max_depth": 3, "eta": 0.3,
+              "max_bin": 32, "hist_precision": "fp32", "silent": 1}
+    out = []
+    for pkg, kw in ((xj, {}), (xt, {"device": "cpu"})):
+        d = pkg.DMatrix(X, label=y, group=np.full(64, 64))
+        res = {}
+        out.append((pkg.train(params, d, ROUNDS, evals=[(d, "train")],
+                              evals_result=res, verbose_eval=False, **kw),
+                    res))
+    (bj, rj), (bt, rt) = out
+    sj, st = bj.gbtree.get_state(), bt.gbtree.get_state()
+    for k in ("tree_feature", "tree_cut_index", "tree_threshold",
+              "tree_default_left", "tree_is_leaf"):
+        np.testing.assert_array_equal(st[k], np.asarray(sj[k]), err_msg=k)
+    assert rt == rj
 
 
 def test_int8_training_matches_the_pallas_path(monkeypatch):

@@ -1,8 +1,10 @@
 """xgboost_tpu_torch: the PyTorch/CUDA port of xgboost_tpu.
 
 The histogram booster's main path: ``DMatrix`` -> ``train`` / ``Booster``
--> ``predict`` / ``eval_set`` -> ``save_model`` / ``load_model``, one-group
-and multiclass (``num_class``, ``num_parallel_tree``), with the level
+-> ``predict`` / ``eval_set`` -> ``save_model`` / ``load_model``, one-group,
+multiclass (``num_class``, ``num_parallel_tree``) and LambdaRank
+(``rank:pairwise|ndcg|map``), custom objectives (``train(obj=)``,
+``Booster.boost``) and ``cv``, with the level
 histograms and node statistics as hand-written CUDA kernels
 (``csrc/*.cu``, built by ``nvcc`` at first use).  The continuous-
 training pipeline and gang-batched tenant lanes live in
@@ -17,8 +19,10 @@ load in both packages.  Imports torch, never jax.
 from xgboost_tpu_torch.config import TrainParam
 from xgboost_tpu_torch.convert import gbtree_from_jax_state
 from xgboost_tpu_torch.data import DMatrix
-from xgboost_tpu_torch.learner import Booster, train
+from xgboost_tpu_torch.learner import (Booster, CVPack, aggcv, cv, mknfold,
+                                       train)
 from xgboost_tpu_torch.sklearn import XGBClassifier, XGBModel, XGBRegressor
 
-__all__ = ["Booster", "DMatrix", "TrainParam", "XGBClassifier", "XGBModel",
-           "XGBRegressor", "gbtree_from_jax_state", "train"]
+__all__ = ["Booster", "CVPack", "DMatrix", "TrainParam", "XGBClassifier",
+           "XGBModel", "XGBRegressor", "aggcv", "cv", "gbtree_from_jax_state",
+           "mknfold", "train"]

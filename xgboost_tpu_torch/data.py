@@ -25,6 +25,7 @@ import numpy as np
 _BUFFER_META = ("label", "weight", "base_margin", "root_index",
                 "fold_index")
 _UINT_FIELDS = ("root_index", "fold_index")
+_FLOAT_FIELDS = ("label", "weight", "base_margin")
 
 
 class MetaInfo:
@@ -78,9 +79,23 @@ class MetaInfo:
         else:
             raise ValueError(f"unknown meta field {name!r}")
 
+    def slice(self, rindex: np.ndarray) -> "MetaInfo":
+        """The rows ``rindex`` of every per-row field
+        (``xgboost_tpu/data.py:102-110``).  The group pointer is dropped,
+        as the reference's XGDMatrixSliceDMatrix drops it: groups do not
+        survive an arbitrary row selection."""
+        out = MetaInfo()
+        for f in _BUFFER_META:
+            v = getattr(self, f)
+            if v is not None:
+                setattr(out, f, v[rindex])
+        return out
+
 
 class DMatrix:
-    """Sparse (CSR) or dense data matrix with metadata."""
+    """Sparse (CSR) or dense data matrix with metadata.  The cut matrices
+    that boosters sketch from it stay on it, one per set of sketch
+    parameters, so boosters on one matrix sketch it once."""
 
     def __init__(self, data: Any, label=None, weight=None,
                  missing: float = np.nan, base_margin=None, group=None,
@@ -92,6 +107,7 @@ class DMatrix:
         self._indptr = self._indices = self._values = None
         self._dense: Optional[tuple] = None   # (arr, missing) until CSR
         self._col_cache = None
+        self._cuts: Dict[tuple, Any] = {}   # the boosters' cut matrices
         self._num_col = 0
         if isinstance(data, (str, os.PathLike)):
             from xgboost_tpu_torch.io.dispatch import load_dmatrix_into
@@ -228,12 +244,72 @@ class DMatrix:
         return (np.zeros(0, np.uint32) if v is None
                 else np.asarray(v, np.uint32).copy())
 
+    def set_float_info(self, field: str, data) -> None:
+        """``label``, ``weight`` or ``base_margin`` as float32
+        (``xgboost_tpu/data.py:345``)."""
+        if field not in _FLOAT_FIELDS:
+            raise ValueError(f"unknown float field {field!r}")
+        self.info.set_field(field, np.asarray(data, dtype=np.float32))
+
+    def get_float_info(self, field: str) -> np.ndarray:
+        """A float field as a copy; an unset one comes back empty, as in
+        the reference (``get_weight`` gives the implicit ones instead)."""
+        if field not in _FLOAT_FIELDS:
+            raise ValueError(f"unknown float field {field!r}")
+        v = getattr(self.info, field)
+        return (np.zeros(0, np.float32) if v is None
+                else np.asarray(v, np.float32).copy())
+
     def get_label(self):
         return None if self.info.label is None else self.info.label.copy()
 
     def get_weight(self):
         w = self.info.get_weight(self.num_row)
         return w.copy() if self.info.weight is not None else w
+
+    def get_base_margin(self):
+        return (None if self.info.base_margin is None
+                else self.info.base_margin.copy())
+
+    # ------------------------------------------------------------ slices
+    def to_dense(self, missing: float = np.nan) -> np.ndarray:
+        """(num_row, num_col) float32, absent entries ``missing``
+        (``xgboost_tpu/data.py:411``)."""
+        src = self.dense_source()
+        if src is not None:
+            arr, marker = src
+            out = np.full((arr.shape[0], self._num_col), missing, np.float32)
+            out[:, :arr.shape[1]] = np.where(stored_mask(arr, marker), arr,
+                                             np.float32(missing))
+            return out
+        out = np.full((self.num_row, self._num_col), missing,
+                      dtype=np.float32)
+        rows = np.repeat(np.arange(self.num_row), np.diff(self.indptr))
+        out[rows, self.indices] = self.values
+        return out
+
+    def slice(self, rindex) -> "DMatrix":
+        """The rows ``rindex`` in their given order, with their meta
+        fields and without the group pointer (``xgboost_tpu/data.py:417``;
+        reference XGDMatrixSliceDMatrix).  A dense source slices to a
+        dense matrix with the same ``missing``, which stores the same
+        entries as the JAX package's CSR slice; CSR slices to CSR."""
+        rindex = np.asarray(rindex, dtype=np.int64)
+        src = self.dense_source()
+        if src is not None:
+            out = DMatrix(src[0][rindex], missing=src[1],
+                          num_col=self._num_col)
+        else:
+            counts = np.diff(self.indptr)[rindex]
+            indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            sel = np.concatenate(
+                [np.arange(self.indptr[r], self.indptr[r + 1])
+                 for r in rindex]) if len(rindex) else np.zeros(0, np.int64)
+            out = DMatrix((indptr, self.indices[sel], self.values[sel],
+                           self._num_col))
+        out.info = self.info.slice(rindex)
+        out.feature_names = self.feature_names
+        return out
 
     # ----------------------------------------------------------- buffers
     def save_binary(self, path: str, silent: bool = True) -> None:

@@ -18,6 +18,7 @@ import io
 import json
 import math
 import os
+import sys
 import zipfile
 from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -71,11 +72,14 @@ def _check_param(p: TrainParam) -> None:
 
 
 class _CacheEntry:
-    """Per-DMatrix device state: bins, base margin, running margin, and
-    the rows' root slots of a multi-root model."""
+    """Per-DMatrix device state: bins, base margin, running margin, the
+    rows' root slots of a multi-root model, and the group-padded rank
+    layout (``learner.py:48-80``)."""
 
     def __init__(self, dmat: DMatrix, binned: torch.Tensor,
-                 base: torch.Tensor):
+                 base: torch.Tensor,
+                 row_valid: Optional[torch.Tensor] = None,
+                 rank_pad_prep=None):
         self.dmat = dmat            # strong ref: id(dmat) keys the cache
         self.binned = binned        # (N, F) on the booster's device
         self.base = base            # (N, K) f32
@@ -84,6 +88,17 @@ class _CacheEntry:
         self.applied = 0            # trees folded into margin
         self.info_version = dmat.info.version
         self.labels_checked = -1    # info version whose labels passed
+        self.row_valid = row_valid  # (N,) bool on a padded layout
+        # rank_device.PadRankPrep of a group-padded entry: its rows are
+        # relaid (label-sorted, lane-padded per group), so what users
+        # see comes back through user_rows
+        self.rank_pad_prep = rank_pad_prep
+
+    def user_rows(self, x):
+        """The user's rows of a host per-row array, in the user's order."""
+        if self.rank_pad_prep is not None:
+            return x[self.rank_pad_prep.user_map]
+        return x
 
 
 class LaneSpec(NamedTuple):
@@ -130,6 +145,7 @@ class Booster:
         self.best_score: float = float("nan")
         self.attributes: Dict[str, str] = {}
         self._profiler = None
+        self._rank_path_told = False
         self._pending_cache = list(cache)
         if model_file is not None:
             self.load_model(model_file)
@@ -152,8 +168,9 @@ class Booster:
     def _init_obj(self):
         _check_param(self.param)
         self.obj = create_objective(self.param.objective)
-        self.obj.set_param("scale_pos_weight", self.param.scale_pos_weight)
-        self.obj.set_param("num_class", self.param.num_class)
+        for name in ("scale_pos_weight", "num_class", "num_pairsample",
+                     "fix_list_weight", "rank_impl", "seed"):
+            self.obj.set_param(name, getattr(self.param, name))
 
     @property
     def _K(self) -> int:
@@ -178,10 +195,17 @@ class Booster:
             self.num_feature = dtrain.num_col
             margin_kw = ({"bin_align_margin": None}
                          if int(self.param.hist_bin_align) > 0 else {})
-            cuts = compute_cuts(dtrain, self.param.max_bin,
-                                self.param.sketch_eps,
-                                self.param.sketch_ratio,
-                                bin_align=self._bin_align(), **margin_kw)
+            # the sketch reads every column on the host, the most costly
+            # step of a first round; boosters on one matrix share its cuts
+            key = (self.param.max_bin, self.param.sketch_eps,
+                   self.param.sketch_ratio, self._bin_align(),
+                   tuple(margin_kw.items()))
+            cuts = dtrain._cuts.get(key)
+            if cuts is None:
+                cuts = dtrain._cuts[key] = compute_cuts(
+                    dtrain, self.param.max_bin, self.param.sketch_eps,
+                    self.param.sketch_ratio, bin_align=self._bin_align(),
+                    **margin_kw)
             self.gbtree = GBTree(self.param, cuts, self.device)
         for d in self._pending_cache:
             self._entry(d)
@@ -204,14 +228,24 @@ class Booster:
     def _entry(self, dmat: DMatrix) -> _CacheEntry:
         key = id(dmat)
         entry = self._cache.get(key)
+        if entry is not None and entry.rank_pad_prep is not None and (
+                entry.info_version != dmat.info.version
+                or not self._device_rank()):
+            # the padded layout derives from the labels and groups, and
+            # only the device rank gradient reads it (learner.py:376-390)
+            del self._cache[key]
+            entry = None
         if entry is None:
             if self.num_feature and dmat.num_col > self.num_feature:
                 raise ValueError(
                     f"data has {dmat.num_col} features, model was trained "
                     f"with {self.num_feature}")
-            binned = self._device_bins(bin_matrix(dmat, self.gbtree.cuts))
-            entry = self._cache[key] = _CacheEntry(
-                dmat, binned, self._base_margin_of(dmat, dmat.num_row))
+            if self._rank_pad_ok(dmat):
+                entry = self._cache[key] = self._make_rank_padded_entry(dmat)
+            else:
+                binned = self._device_bins(bin_matrix(dmat, self.gbtree.cuts))
+                entry = self._cache[key] = _CacheEntry(
+                    dmat, binned, self._base_margin_of(dmat, dmat.num_row))
             entry.root = self._root_of(dmat, entry.binned.shape[0])
         elif entry.info_version != dmat.info.version:
             # a set_field since: the base margin, the root slots and the
@@ -221,6 +255,89 @@ class Booster:
             entry.margin, entry.applied = None, 0
             entry.info_version = dmat.info.version
         return entry
+
+    # ------------------------------------------------------------- ranking
+    def _device_rank(self) -> bool:
+        """A LambdaRank objective with its gradient on the device."""
+        return getattr(self.obj, "rank_impl", None) == "device"
+
+    def _rank_pad_ok(self, dmat: DMatrix) -> bool:
+        """The gate of the group-padded rank layout (``learner.py:
+        669-709``): device LambdaRank, one output group, grouped data
+        with lanes of at most ``XGBTPU_RANK_PAD_MAXLANE`` (256, the last
+        lane count exact in the JAX package's bf16 partner dot), a
+        padding blow-up of at most 1.4 (3.0 up to 200,000 rows), and
+        labels that are integers in [0, 32).  ``XGBTPU_RANK_PAD=0``
+        turns it off."""
+        info = dmat.info
+        if (os.environ.get("XGBTPU_RANK_PAD", "1") == "0"
+                or not self._device_rank()
+                or self._K != 1
+                or info.group_ptr is None or len(info.group_ptr) < 2
+                or info.label is None
+                or (info.root_index is not None
+                    and max(1, self.param.num_roots) > 1)):
+            return False
+        gptr = np.asarray(info.group_ptr, np.int64)
+        sizes = np.diff(gptr)
+        if len(sizes) == 0 or sizes.min() <= 0:
+            return False
+        G = len(sizes)
+        L = max(8, int(-(-sizes.max() // 8) * 8))
+        n = dmat.num_row
+        max_lane = min(256, int(os.environ.get("XGBTPU_RANK_PAD_MAXLANE",
+                                               "256")))
+        la = np.asarray(info.label)
+        blow = (G * L + (n - int(gptr[-1]))) / max(n, 1)
+        return (L <= max_lane
+                and G * L * L <= (1 << 28)       # the (G, L, L) planes
+                and (blow <= 1.4 or (n <= 200_000 and blow <= 3.0))
+                and bool(np.all(la >= 0)) and bool(np.all(la < 32))
+                and bool(np.all(la == np.round(la))))
+
+    def _make_rank_padded_entry(self, dmat: DMatrix) -> _CacheEntry:
+        """An entry in the group-padded layout (``learner.py:711-749``):
+        group g owns slots ``[g L, (g + 1) L)``, its rows sorted by
+        label; padding slots carry bin 0, zero gradients, and the first
+        row's base margin.  The layout's tables are kept on the info."""
+        from xgboost_tpu_torch.rank_device import build_pad_prep
+        info = dmat.info
+        tag = ("rank_pad_prep", str(self.device))
+        if tag not in info._dev:
+            info._dev[tag] = build_pad_prep(
+                np.asarray(info.label, np.float32),
+                np.asarray(info.group_ptr, np.int64), self.device)
+        prep = info._dev[tag]
+        n_slots = prep.G * prep.L + prep.n_tail
+        occupied = prep.pad_map >= 0
+        src = prep.pad_map[occupied]
+        binned_host = bin_matrix(dmat, self.gbtree.cuts)
+        binned_pad = np.zeros((n_slots, binned_host.shape[1]),
+                              binned_host.dtype)
+        binned_pad[occupied] = binned_host[src]
+        base = self._base_margin_of(dmat, dmat.num_row).cpu().numpy()
+        base_pad = np.full((n_slots, self._K),
+                           float(base.reshape(-1)[0]) if base.size else 0.0,
+                           np.float32)
+        base_pad[occupied] = base.reshape(dmat.num_row, self._K)[src]
+        return _CacheEntry(dmat, self._device_bins(binned_pad),
+                           torch.from_numpy(base_pad).to(self.device),
+                           row_valid=torch.from_numpy(occupied).to(
+                               self.device),
+                           rank_pad_prep=prep)
+
+    def _announce_rank_path(self, entry: _CacheEntry) -> None:
+        """Once, under ``silent=0``: the LambdaRank gradient path of the
+        training matrix on stderr (``learner.py:645-667``)."""
+        if self._rank_path_told or not self._device_rank():
+            return
+        self._rank_path_told = True
+        path = ("group-padded" if entry.rank_pad_prep is not None
+                else "sort-based")
+        if int(self.param.silent) == 0:
+            print(f"[rank] LambdaRank gradient path: {path} "
+                  "(set XGBTPU_RANK_PAD=0 to force sort-based; "
+                  "see README 'Ranking')", file=sys.stderr)
 
     def _root_of(self, dmat: DMatrix, n_rows: int) -> Optional[torch.Tensor]:
         """The rows' root slots (``root_index``, reference data.h:39-58)
@@ -277,53 +394,90 @@ class Booster:
             return None
         return prng.fold_in(prng.PRNGKey(self.param.seed), iteration)
 
-    def _round(self, entry: _CacheEntry, iteration: int, prof=None) -> None:
+    def _round(self, entry: _CacheEntry, iteration: int, prof=None,
+               fobj=None) -> None:
         """One boosting round on an entry, all on the device, in the
         phases ``predict`` (fold new trees into the margin), ``gradient``
-        and ``grow`` when ``prof`` is a profiler (``learner.py:873-930``)."""
+        and ``grow`` when ``prof`` is a profiler (``learner.py:873-930``).
+        The objective's gradient reads the entry's info, the round and a
+        padded rank layout; a custom objective ``fobj(preds, dtrain)``
+        instead sees the transformed predictions of the user's rows
+        (1-D for one group) and its ``(grad, hess)`` go through
+        :meth:`boost`."""
         def ph(name):
             return prof.phase(name) if prof else nullcontext()
         with ph("predict") as p:
+            self._announce_rank_path(entry)
             self._sync_margin(entry)
             if prof:
                 p.block(entry.margin)
+        if fobj is not None:
+            pred = entry.user_rows(
+                self.obj.pred_transform(entry.margin).cpu().numpy())
+            grad, hess = fobj(pred[:, 0] if pred.shape[1] == 1 else pred,
+                              entry.dmat)
+            self.boost(entry.dmat, grad, hess)
+            return
         with ph("gradient") as p:
             info = entry.dmat.info
             if entry.labels_checked != info.version:
                 self.obj.validate_labels(info)
                 entry.labels_checked = info.version
-            n = entry.margin.shape[0]
-            gh = self.obj.get_gradient(
-                entry.margin, info.on_device("label", n, self.device),
-                info.on_device("weight", n, self.device))
+            gh = self.obj.get_gradient(entry.margin, info, iteration,
+                                       pad_prep=entry.rank_pad_prep)
             if prof:
                 p.block(gh)
         with ph("grow") as p:
-            entry.margin = entry.margin + self.gbtree.do_boost(
-                entry.binned, gh, key=self._round_key(iteration),
-                root=entry.root)
-            entry.applied = self.gbtree.num_trees
+            self._grow(entry, gh, iteration)
             if prof:
                 p.block(entry.margin)
 
-    def _profiled_round(self, entry: _CacheEntry, iteration: int) -> None:
+    def _grow(self, entry: _CacheEntry, gh: torch.Tensor,
+              iteration: int) -> None:
+        entry.margin = entry.margin + self.gbtree.do_boost(
+            entry.binned, gh, row_valid=entry.row_valid,
+            key=self._round_key(iteration), root=entry.root)
+        entry.applied = self.gbtree.num_trees
+
+    def _profiled_round(self, entry: _CacheEntry, iteration: int,
+                        fobj=None) -> None:
         prof = self.profiler
         if prof is None:
-            self._round(entry, iteration)
+            self._round(entry, iteration, fobj=fobj)
             return
         prof.begin_round(iteration)
         try:
-            self._round(entry, iteration, prof)
+            self._round(entry, iteration, prof, fobj)
         finally:
             prof.end_round()
 
     def update(self, dtrain: DMatrix, iteration: int, fobj=None):
         """One boosting round (reference UpdateOneIter); ``iteration``
-        picks the round's sampling key."""
-        if fobj is not None:
-            raise NotImplementedError(
-                "custom objectives: ROADMAP.md section 1 item 6")
-        self.update_many(dtrain, iteration, 1)
+        picks the round's sampling key.  With ``fobj`` the round boosts
+        from the custom objective's gradients (``learner.py:915-929``)."""
+        self.update_many(dtrain, iteration, 1, fobj)
+
+    def boost(self, dtrain: DMatrix, grad, hess) -> None:
+        """One round grown from given gradients (``learner.py:1276-1304``;
+        reference XGBoosterBoostOneIter): ``grad`` / ``hess`` per user row
+        (and group), scattered to their slots on a padded rank entry,
+        whose padding slots get zeros.  The round's sampling key is that
+        of round ``num_boosted_rounds``."""
+        self._lazy_init(dtrain)
+        entry = self._entry(dtrain)
+        self._sync_margin(entry)
+        K = self._K
+        g = np.asarray(grad, np.float32).reshape(dtrain.num_row, K)
+        h = np.asarray(hess, np.float32).reshape(dtrain.num_row, K)
+        if entry.rank_pad_prep is not None:
+            n_dev = entry.binned.shape[0]
+            gp = np.zeros((n_dev, K), np.float32)
+            hp = np.zeros((n_dev, K), np.float32)
+            gp[entry.rank_pad_prep.user_map] = g
+            hp[entry.rank_pad_prep.user_map] = h
+            g, h = gp, hp
+        gh = torch.from_numpy(np.stack([g, h], axis=-1)).to(self.device)
+        self._grow(entry, gh, self.gbtree.num_boosted_rounds)
 
     def _resolve_rounds_per_dispatch(self, n_rows: int,
                                      override=None) -> int:
@@ -345,22 +499,24 @@ class Booster:
         return max(1, min(64, math.ceil(9.0 * _FIT_FIXED_ROUND_S
                                         / per_round)))
 
-    def _segment_blockers(self, n_rounds: int) -> List[str]:
+    def _segment_blockers(self, n_rounds: int, fobj=None) -> List[str]:
         """The JAX package's reasons for one round per dispatch
         (``learner.py:1041-1062``) that apply to the port."""
         from xgboost_tpu_torch.models.updaters import parse_updaters
         ups = parse_updaters(self.param.updater)
         checks = (
+            ("custom_objective", fobj is not None),
             ("single_round", n_rounds <= 1),
             ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
             ("multi_root", max(1, self.param.num_roots) != 1),
             ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
+            ("no_fused_grad", getattr(self.obj, "needs_host_margin", False)),
         )
         return [name for name, blocked in checks if blocked]
 
     def update_many(self, dtrain: DMatrix, first_iteration: int,
-                    n_rounds: int, *, evals=None, feval=None,
+                    n_rounds: int, fobj=None, *, evals=None, feval=None,
                     eval_callback=None, round_callback=None,
                     segment_callback=None, plan_callback=None,
                     boundary_align: int = 0,
@@ -374,7 +530,8 @@ class Booster:
         ...).  Round i's index picks its sampling key,
         ``fold_in(PRNGKey(seed), i)``, on either path, so a segment and
         per-round training give the same bits; it also numbers the
-        callbacks and eval lines.  On the per-round path an active
+        callbacks and eval lines.  ``fobj`` is a custom objective
+        (:meth:`_round`).  On the per-round path an active
         profiler times each round's ``predict``, ``gradient`` and
         ``grow`` phases and its eval lines as ``eval``.
 
@@ -396,7 +553,7 @@ class Booster:
         entry = self._entry(dtrain)
         evals = list(evals) if evals else []
         k = 0
-        if not self._segment_blockers(n_rounds):
+        if not self._segment_blockers(n_rounds, fobj):
             k = self._resolve_rounds_per_dispatch(dtrain.num_row,
                                                   rounds_per_dispatch)
         if plan_callback is not None:
@@ -415,7 +572,7 @@ class Booster:
                 if per_round and round_callback is not None:
                     round_callback(i)
                 # a profiler blocks segments: it only ever times per round
-                self._profiled_round(entry, i)
+                self._profiled_round(entry, i, fobj)
                 if evals:
                     prof = self.profiler
                     with prof.phase("eval") if prof else nullcontext():
@@ -434,7 +591,12 @@ class Booster:
         when the lane dispatcher may stack it with its bucket peers, else
         ``(None, reason)``, the reasons of the JAX package that apply to
         the port, plus ``ensemble``: a round of more than one tree
-        (``K * num_parallel_tree > 1``) runs solo through K3 here.  On
+        (``K * num_parallel_tree > 1``) runs solo through K3 here, and
+        ``rank``: a device LambdaRank lane on the sort path, which the
+        JAX package stacks, runs solo here (its gradient needs the
+        matrix's groups and the round).  A padded rank entry declines
+        with ``rank_layout`` and the host rank path with
+        ``no_fused_grad``, as in the JAX package.  On
         eligibility the labels are checked and the entry's margin is
         synced, as :meth:`update_many` would.  A sampled lane draws with
         its own ``PRNGKey(seed)`` (``LaneSpec.base_key``) and absolute
@@ -449,10 +611,13 @@ class Booster:
         checks = (
             ("no_rounds", n_rounds < 1),
             ("ensemble", self._K * npar > 1),
+            ("rank", self._device_rank() and entry.rank_pad_prep is None),
             ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
             ("multi_root", max(1, self.param.num_roots) != 1),
             ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
+            ("rank_layout", entry.rank_pad_prep is not None),
+            ("no_fused_grad", self.obj.fused_grad() is None),
         )
         blockers = [name for name, blocked in checks if blocked]
         if blockers:
@@ -522,8 +687,9 @@ class Booster:
             base = self._base_margin_of(data, data.num_row)
             root = self._root_of(data, data.num_row)
         if pred_leaf:
-            return self.gbtree.predict_leaf(binned, ntree_limit,
-                                            root).cpu().numpy()
+            leaves = self.gbtree.predict_leaf(binned, ntree_limit,
+                                              root).cpu().numpy()
+            return cached.user_rows(leaves) if cached is not None else leaves
         if cached is not None and ntree_limit == 0:
             self._sync_margin(cached)
             margin = cached.margin
@@ -532,6 +698,8 @@ class Booster:
                                                 root)
         out = self.obj.pred_transform(margin, output_margin=output_margin)
         out = out.cpu().numpy()
+        if cached is not None:
+            out = cached.user_rows(out)
         # one column -> (N,); softprob and multiclass margins stay (N, K)
         return out[:, 0] if out.shape[1] == 1 else out
 
@@ -549,12 +717,18 @@ class Booster:
         for dmat, name in evals:
             entry = self._entry(dmat)
             self._sync_margin(entry)
-            tr = self.obj.eval_transform(entry.margin).cpu().numpy()
+            tr = entry.user_rows(
+                self.obj.eval_transform(entry.margin).cpu().numpy())
             preds = tr[:, 0] if tr.shape[1] == 1 else tr   # (N,) or (N, K)
             labels = np.asarray(dmat.get_label())
             weights = np.asarray(dmat.get_weight())
+            gptr = dmat.info.group_ptr
             for m in self._metrics(feval):
-                val = m(preds, labels, weights, dmat.info.group_ptr)
+                if getattr(m, "needs_fold_index", False):
+                    val = m(preds, labels, weights, gptr,
+                            fold_index=dmat.info.fold_index)
+                else:
+                    val = m(preds, labels, weights, gptr)
                 parts.append(f"{name}-{m.metric_name}:{val:.6f}")
             if feval is not None:
                 mname, val = feval(preds, dmat)
@@ -692,10 +866,8 @@ def train(params, dtrain: DMatrix, num_boost_round: int = 10,
     many rounds without improvement of the last metric of the last eval
     set (larger is better for ``auc``, ``ams``, ``ndcg``, ``map`` and
     ``pre`` unless ``maximize`` says otherwise) and sets
-    ``best_score`` / ``best_iteration``."""
-    if obj is not None:
-        raise NotImplementedError(
-            "custom objectives: ROADMAP.md section 1 item 6")
+    ``best_score`` / ``best_iteration``.  ``obj`` is a custom objective
+    ``obj(preds, dtrain) -> (grad, hess)`` (:meth:`Booster.update`)."""
     if init_model is not None and xgb_model is not None:
         raise ValueError("pass init_model or xgb_model, not both "
                          "(they are aliases)")
@@ -712,12 +884,12 @@ def train(params, dtrain: DMatrix, num_boost_round: int = 10,
                       device=device)
     best_score, best_iter, best_msg = None, 0, ""
     if not evals and early_stopping_rounds is None:
-        bst.update_many(dtrain, start_round, num_boost_round)
+        bst.update_many(dtrain, start_round, num_boost_round, obj)
         rounds = ()
     else:
         rounds = range(num_boost_round)
     for i in rounds:
-        bst.update(dtrain, start_round + i)
+        bst.update(dtrain, start_round + i, obj)
         if not evals:
             continue
         prof = bst.profiler
@@ -750,6 +922,86 @@ def train(params, dtrain: DMatrix, num_boost_round: int = 10,
         bst.best_iteration = best_iter
     finish_profile(bst)
     return bst
+
+
+class CVPack:
+    """One fold's train and test matrices and its booster
+    (``learner.py:2144``; reference wrapper/xgboost.py:635-650)."""
+
+    def __init__(self, dtrain: DMatrix, dtest: DMatrix, params,
+                 device=None):
+        self.dtrain, self.dtest = dtrain, dtest
+        self.bst = Booster(params, cache=[dtrain, dtest], device=device)
+        self.watchlist = [(dtrain, "train"), (dtest, "test")]
+
+    def update(self, i, fobj):
+        self.bst.update(self.dtrain, i, fobj)
+
+    def eval(self, i, feval):
+        return self.bst.eval_set(self.watchlist, i, feval)
+
+
+def mknfold(dall: DMatrix, nfold: int, params, seed: int, evals=(),
+            fpreproc=None, device=None) -> List[CVPack]:
+    """``nfold`` folds of ``dall`` (``learner.py:2157``): the rows of
+    ``RandomState(seed).permutation`` in ``np.array_split`` parts, each
+    fold's rows sorted; ``fpreproc(dtrain, dtest, params)`` may rewrite
+    each fold's matrices and parameters."""
+    rng = np.random.RandomState(seed)
+    folds = np.array_split(rng.permutation(dall.num_row), nfold)
+    packs = []
+    for k in range(nfold):
+        train_idx = np.concatenate([folds[j] for j in range(nfold)
+                                    if j != k])
+        dtrain = dall.slice(np.sort(train_idx))
+        dtest = dall.slice(np.sort(folds[k]))
+        p = params_to_dict(params)
+        if fpreproc is not None:
+            dtrain, dtest, p = fpreproc(dtrain, dtest, p)
+        packs.append(CVPack(dtrain, dtest, p, device))
+    return packs
+
+
+def aggcv(rlist: List[str], show_stdv: bool = True) -> str:
+    """The folds' eval lines of one round as one line of means (and
+    standard deviations), ``cv-<set>-<metric>`` (``learner.py:2177``)."""
+    cvmap: Dict[str, List[float]] = {}
+    ret = rlist[0].split("\t")[0]
+    for line in rlist:
+        for part in line.split("\t")[1:]:
+            k, _, v = part.rpartition(":")
+            cvmap.setdefault(k, []).append(float(v))
+    for k, vals in cvmap.items():
+        v = np.asarray(vals)
+        if show_stdv:
+            ret += f"\tcv-{k}:{v.mean():.6f}+{v.std():.6f}"
+        else:
+            ret += f"\tcv-{k}:{v.mean():.6f}"
+    return ret
+
+
+def cv(params, dtrain: DMatrix, num_boost_round: int = 10, nfold: int = 3,
+       metrics=(), obj=None, feval=None, fpreproc=None,
+       show_stdv: bool = True, seed: int = 0, verbose_eval: bool = True,
+       device=None) -> List[str]:
+    """k-fold cross validation (``learner.py:2195``; reference
+    wrapper/xgboost.py:697-740): each round boosts every fold, then
+    prints and returns the :func:`aggcv` line; ``metrics`` replace the
+    parameters' ``eval_metric``."""
+    params = params_to_dict(params)
+    if metrics:
+        params["eval_metric"] = list(metrics)
+    packs = mknfold(dtrain, nfold, params, seed, fpreproc=fpreproc,
+                    device=device)
+    results = []
+    for i in range(num_boost_round):
+        for p in packs:
+            p.update(i, obj)
+        line = aggcv([p.eval(i, feval) for p in packs], show_stdv)
+        if verbose_eval:
+            print(line)
+        results.append(line)
+    return results
 
 
 def finish_profile(bst: Booster) -> None:

@@ -1,11 +1,14 @@
 """Objective functions (port of ``xgboost_tpu/objectives.py``: the
 one-group regression losses ``reg:linear``, ``reg:logistic``,
-``binary:logistic`` and ``binary:logitraw``, and the softmax multiclass
-objectives ``multi:softmax`` and ``multi:softprob``).
+``binary:logistic`` and ``binary:logitraw``, the softmax multiclass
+objectives ``multi:softmax`` and ``multi:softprob``, and the LambdaRank
+objectives ``rank:pairwise|ndcg|map`` of :mod:`.rank_obj`).
 
-Margins are (N, K) tensors, K = 1 unless multiclass; gradients come back
-as (N, K, 2) on the margin's device.  Ranking objectives are not ported
-yet (ROADMAP.md).
+Margins are (N, K) tensors, K = 1 unless multiclass.  Every objective's
+gradient is ``get_gradient(margin, info, iteration, pad_prep=None)``:
+the entry's margin, the DMatrix's :class:`~.data.MetaInfo` (labels,
+weights, groups), the round, and the padded rank layout of an entry
+laid out so; gradients come back as (N, K, 2) on the margin's device.
 """
 
 from __future__ import annotations
@@ -16,6 +19,14 @@ import numpy as np
 import torch
 
 _EPS = 1e-16
+
+
+def _label_weight(margin: torch.Tensor, info):
+    """The info's labels and weights (ones when unset) as f32 tensors on
+    the margin's device, one per margin row."""
+    n = margin.shape[0]
+    return (info.on_device("label", n, margin.device),
+            info.on_device("weight", n, margin.device))
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +79,9 @@ class RegLossObj:
                 raise ValueError(
                     "label must be in [0,1] for logistic regression")
 
-    def get_gradient(self, margin, label, weight) -> torch.Tensor:
+    def get_gradient(self, margin, info, iteration: int = 0,
+                     pad_prep=None) -> torch.Tensor:
+        label, weight = _label_weight(margin, info)
         return regloss_grad(margin, label, weight, self.loss,
                             float(self.scale_pos_weight))
 
@@ -140,8 +153,9 @@ class SoftmaxMultiClassObj:
             raise ValueError(
                 f"SoftmaxMultiClassObj: label must be in [0, {self.nclass})")
 
-    def get_gradient(self, margin, label, weight) -> torch.Tensor:
-        return softmax_grad(margin, label, weight)
+    def get_gradient(self, margin, info, iteration: int = 0,
+                     pad_prep=None) -> torch.Tensor:
+        return softmax_grad(margin, *_label_weight(margin, info))
 
     def fused_grad(self):
         """See :meth:`RegLossObj.fused_grad`."""
@@ -171,6 +185,6 @@ def create_objective(name: str):
     if name == "multi:softprob":
         return SoftmaxMultiClassObj(True)
     if name in ("rank:pairwise", "rank:ndcg", "rank:map"):
-        raise NotImplementedError(
-            f"objective {name}: ranking is ROADMAP.md section 1 item 10")
+        from xgboost_tpu_torch.rank_obj import LambdaRankObj
+        return LambdaRankObj(name)
     raise ValueError(f"unknown objective function type: {name}")

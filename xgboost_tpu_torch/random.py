@@ -185,11 +185,10 @@ def _threefry_torch(k1, k2, x0, x1):
     return x0, x1
 
 
-def uniform_rows(keys, n: int, device) -> "torch.Tensor":
-    """``jax.random.uniform(key, (n,))`` for each key of ``keys`` (one
-    key ``(2,)`` -> ``(n,)``; a stack ``(T, 2)`` -> ``(T, n)``), float32
-    on ``device``.  The keys are kernel arguments (one key) or one small
-    upload (a stack); nothing is read back."""
+def _bits_rows(keys, n: int, device) -> "torch.Tensor":
+    """32-bit ``jax.random.bits(key, (n,))`` for each key of ``keys``
+    (``(2,)`` -> ``(n,)``, ``(T, 2)`` -> ``(T, n)``) as int64 tensors
+    holding uint32 words on ``device``."""
     import torch
     keys = np.asarray(keys, np.uint32)
     if keys.ndim == 1:
@@ -202,7 +201,48 @@ def uniform_rows(keys, n: int, device) -> "torch.Tensor":
     # the counters' high words: 0 below 2**32 rows, a constant then
     hi = 0 if n <= 2 ** 32 else idx >> 32
     b1, b2 = _threefry_torch(k1, k2, hi, idx & MASK)
-    bits = (b1 ^ b2) >> 9 | 0x3F800000
+    return b1 ^ b2
+
+
+def uniform_rows(keys, n: int, device) -> "torch.Tensor":
+    """``jax.random.uniform(key, (n,))`` for each key of ``keys`` (one
+    key ``(2,)`` -> ``(n,)``; a stack ``(T, 2)`` -> ``(T, n)``), float32
+    on ``device``.  The keys are kernel arguments (one key) or one small
+    upload (a stack); nothing is read back."""
+    import torch
+    bits = _bits_rows(keys, n, device) >> 9 | 0x3F800000
     # int64 -> int32 keeps the low 32 bits: the float's bit pattern
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(floats, 0.0)
+
+
+def _mul32(a, b):
+    """``a * b`` modulo 2**32 for int64 tensors (or ints) holding uint32
+    words, in 16-bit halves so no product leaves int64."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK
+
+
+def randint_rows(key, shape: Shape, minval: int, maxval: int,
+                 device) -> "torch.Tensor":
+    """``jax.random.randint(key, shape, minval, maxval)`` as an int32
+    tensor on ``device``: :func:`randint`'s arithmetic on the device's
+    bit streams, element i of the row-major ``shape`` hashing index i."""
+    import torch
+    shape = _shape(shape)
+    lo32, hi32 = -2 ** 31, 2 ** 31 - 1
+    minv = min(max(int(minval), lo32), hi32)
+    maxv = min(max(int(maxval), lo32), hi32)
+    span = (maxv - minv) & MASK if maxv > minv else 1
+    if int(maxval) > hi32 and maxv > minv:
+        span = (span + 1) & MASK
+    keys = split(key)
+    n = math.prod(shape)
+    higher = _bits_rows(keys[0], n, device)
+    lower = _bits_rows(keys[1], n, device)
+    if span == 0:           # a span of 2**32: the remainders do nothing
+        offset = lower
+    else:
+        mult = ((2 ** 16 % span) ** 2 & MASK) % span   # uint32 wraps
+        offset = (_mul32(higher % span, mult) + lower % span) & MASK
+        offset = offset % span
+    return (minv + offset).to(torch.int32).reshape(shape)
