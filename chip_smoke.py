@@ -26,6 +26,10 @@ every kernel against its plain PyTorch version.  The paths:
   K4 launch per level for all tenants (a stack of 64 lanes of 16,384
   rows; K4 is K1's and K3's scatter kernel with the lanes as its trees),
   then the same tenants through the host loop (K1 per tenant);
+- serving: the Higgs and multiclass models behind
+  ``xgboost_tpu_torch.serving`` (one CUDA graph per row bucket, the
+  micro-batcher, the HTTP server with a hot reload and a rollback, the
+  feature store);
 - ranking: ``bench.py:bench_rank`` (1,000,000 x 28, 10,000 groups of
   100, rank:ndcg, depth 6), cut to 20 rounds, on the group-padded layout
   (K1 on 1,040,000 slots), then the sort path (``rank:map``,
@@ -211,6 +215,39 @@ launch counts set to 0 just before and read just after:
   ``map@10`` and ``pre@10`` of ``[rank]``'s booster read through
   ``eval_set`` on the padded entry equal the metric functions on the
   host copy of ``predict`` (user order).
+
+The ``[serve]`` phase (after ``[multiclass]``, launch counts set to 0
+just before and read just after; none of the twelve kernels may launch)
+serves ``[main]``'s model file (20 trees, one padded chunk of 32) and
+``[multiclass]``'s (360 trees, 12 chunks of 32) through
+``xgboost_tpu_torch.serving`` and fails unless: (a) a ``PredictEngine``
+with the default ladder 8-8192 captures exactly 11 CUDA graphs in
+``warmup`` and none afterwards; (b) predictions and margins of
+``[main]``'s 100,000 holdout rows in requests of 1, 5, 8, 100, 1,000 and
+8,192 rows (up to 200 requests a size) and all at once equal
+``Booster.predict`` byte for byte, and the multiclass model's at 1, 100
+and 8,192 rows (``multi:softmax``: shape ``(n,)``), and
+``Booster.predict``'s chunked traversal (``pred_chunk`` 32, the card's
+default) gives both models' holdout predictions and margins byte for
+byte equal to the per-tree path's (``pred_chunk`` 0); (c) each bucket's
+graph replay equals the eager margin function byte for byte; (d) 16
+threads x 50 requests of 1-64 rows through ``MicroBatcher`` each equal
+``Booster.predict`` of their rows, in fewer flushes than requests; (e)
+``run_server`` on port 0 answers a 1,000-row CSV ``/predict`` with
+``Booster.predict``'s values, ``/healthz`` is ok, ``/metrics`` holds the
+serve counters, overwriting the model file with ``[cli]``'s
+``0010.model`` (while a client keeps asking) moves ``model_version`` and
+the predictions to that model's, and a rollback restores the first;
+(f) ``predict_by_id`` of 1,000 ids put in a ``FeatureStore`` equals
+``predict`` of their rows with no feature bytes uploaded; (g) the phase
+ends within 90 s; and every graph's pool, read at capture, is not
+empty.  It prints each engine's ``device_bytes`` (graph pools included)
+beside the growth of ``torch.cuda.memory_reserved`` over its load and
+warmup (the cache emptied before and after), p50 / p99 ms of ``engine.predict`` over 200
+calls at 1, 64, 1,024 and 8,192 rows for both models and rows/s at
+8,192, the eager function's and the graph's ms at 8 and 8,192 rows, the
+HTTP round trip's p50 / p99 at 1 and 1,000 rows and ``predict_by_id``'s
+at 64 ids.
 
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
@@ -1244,6 +1281,389 @@ def phase_multiclass(torch, xt, kernels, device, card):
     print(f"[multiclass] K3 == plain and each tree == solo K1, int8 "
           f"bitwise, at all {len(captured)} levels of a round", flush=True)
     return launches, ms_round, captured, max_err, err
+
+
+# ---------------------------------------------------------------- [serve]
+SERVE_SIZES = (1, 5, 8, 100, 1000, 8192)     # (b): request sizes, Higgs
+SERVE_MC_SIZES = (1, 100, 8192)               # (b): multiclass
+SERVE_REQS = 200                              # requests a size, at most
+SERVE_LAT_SIZES = (1, 64, 1024, 8192)         # p50 / p99 over 200 calls
+SERVE_THREADS, SERVE_THREAD_REQS = 16, 50     # (d)
+SERVE_STORE_IDS = 1000                        # (f)
+SERVE_PHASE_S = 90.0                          # (g)
+
+
+def pct_ms(xs):
+    a = np.asarray(xs) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def timed_calls(fn, n):
+    """Wall seconds of ``n`` calls of ``fn`` (each ends on a host copy or
+    a synchronize)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def serve_requests(eng, X, ref, refm, sizes, tag):
+    """(b): requests of each size over the holdout, margins and
+    predictions, each against ``Booster.predict``'s rows byte for byte;
+    then all rows at once."""
+    n_all = X.shape[0]
+    done = []
+    for s in sizes:
+        rows = min(n_all, s * SERVE_REQS)
+        for o in range(0, rows, s):
+            e = min(o + s, rows)
+            for want, om in ((ref, False), (refm, True)):
+                got = eng.predict(X[o:e], output_margin=om)
+                if got.shape != want[o:e].shape or \
+                        got.tobytes() != want[o:e].tobytes():
+                    fail(f"[serve] {tag}: a {e - o}-row request at row {o} "
+                         f"(output_margin={om}) != Booster.predict")
+        done.append(f"{s} x {-(-rows // s)}")
+    for want, om in ((ref, False), (refm, True)):
+        if eng.predict(X, output_margin=om).tobytes() != want.tobytes():
+            fail(f"[serve] {tag}: all {n_all} rows at once "
+                 f"(output_margin={om}) != Booster.predict")
+    return done
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def graph_vs_eager(torch, eng, X, tag):
+    """(c): each bucket's graph replay against the eager margin function
+    on the same rows, byte for byte; and the eager function's and the
+    replay's ms (median of 20, synchronised) at the smallest and largest
+    buckets."""
+    fn = eng.margin_function()
+    dev = eng.device
+    times = {}
+    for b in eng.buckets:
+        x = torch.from_numpy(np.ascontiguousarray(X[:b])).to(dev)
+        base = torch.full((b, eng._K), eng._base_scalar, device=dev)
+        exe = eng._executable(b)
+        with exe.lock:
+            exe.x.copy_(x)
+            got = exe.run().clone()
+            want = fn(x, base)
+            if got.cpu().numpy().tobytes() != want.cpu().numpy().tobytes():
+                fail(f"[serve] {tag}: bucket {b}: graph replay != the "
+                     "eager margin function")
+            if b in (eng.buckets[0], eng.buckets[-1]):
+                def run_graph():
+                    exe.run()
+                    sync(torch, dev)
+
+                def run_eager():
+                    fn(x, base)
+                    sync(torch, dev)
+                run_eager()
+                times[b] = (float(np.median(timed_calls(run_eager, 20))),
+                            float(np.median(timed_calls(run_graph, 20))))
+    return times
+
+
+def http_post(url, body, timeout=60.0):
+    import urllib.request
+    return json.load(urllib.request.urlopen(urllib.request.Request(
+        url, data=body, method="POST"), timeout=timeout))
+
+
+def http_get(url, timeout=60.0):
+    import urllib.request
+    return urllib.request.urlopen(url, timeout=timeout).read()
+
+
+def csv_body(X):
+    return "\n".join(",".join(repr(float(v)) for v in row)
+                     for row in X).encode()
+
+
+def phase_serve(torch, xt, kernels, card, main_hold, device="cuda"):
+    """Serving on the card: the engine's CUDA graphs, the batcher, the HTTP
+    server with hot reload and rollback, and the feature store, on
+    [main]'s and [multiclass]'s model files; gates (a)-(g) of the module
+    docstring.  No kernel of the twelve may launch."""
+    import shutil
+    import threading
+
+    from xgboost_tpu_torch.obs.metrics import predict_metrics
+    from xgboost_tpu_torch.profiling import ServingMetrics
+    from xgboost_tpu_torch.serving import (FeatureStore, MicroBatcher,
+                                           PredictEngine, predict_by_id,
+                                           run_server)
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_out")
+    root = os.path.join(out, "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    main_path = os.path.join(root, "higgs.bin")
+    mc_path = os.path.join(root, "multiclass.bin")
+    shutil.copyfile(os.path.join(out, "smoke_model.bin"), main_path)
+    shutil.copyfile(os.path.join(out, "smoke_multiclass.bin"), mc_path)
+    v10_path = os.path.join(out, "cli", "0010.model")
+    Xh = np.ascontiguousarray(main_hold)
+    Xm = np.ascontiguousarray(make_multiclass(MC_N + MC_TEST)[0][MC_N:])
+
+    reset_counts(kernels)
+    bst = xt.Booster(model_file=main_path, device=device)
+    mc = xt.Booster(model_file=mc_path, device=device)
+    ref, refm = bst.predict(Xh), bst.predict(Xh, output_margin=True)
+    mref, mrefm = mc.predict(Xm), mc.predict(Xm, output_margin=True)
+    if mref.shape != (MC_TEST,) or mrefm.shape != (MC_TEST, MC_K):
+        fail(f"[serve] multiclass Booster.predict shapes {mref.shape}, "
+             f"{mrefm.shape}")
+    # Booster.predict runs the chunked traversal here (pred_chunk 32);
+    # hold it against the per-tree path (pred_chunk 0) on the same rows
+    for tag, bb, X, want in (("higgs", bst, Xh, (ref, refm)),
+                             ("multiclass", mc, Xm, (mref, mrefm))):
+        if bb.gbtree.pred_chunk != 32:
+            fail(f"[serve] {tag}: Booster pred_chunk "
+                 f"{bb.gbtree.pred_chunk}, want 32 on the card")
+        bb.gbtree.pred_chunk = 0
+        try:
+            per_tree = (bb.predict(X), bb.predict(X, output_margin=True))
+        finally:
+            bb.gbtree.pred_chunk = 32
+        if any(p.shape != w.shape or p.tobytes() != w.tobytes()
+               for p, w in zip(per_tree, want)):
+            fail(f"[serve] {tag}: chunked (32) predictions or margins != "
+                 "the per-tree path's (pred_chunk 0)")
+    print(f"[serve] Booster.predict chunked (pred_chunk 32) == the per-tree "
+          f"path (pred_chunk 0), predictions and margins byte for byte: "
+          f"higgs {Xh.shape[0]} rows, multiclass {Xm.shape[0]} rows",
+          flush=True)
+
+    # (a) the default ladder 8-8192: 11 captures in warmup, none after
+    engines = {}
+    for tag, path, b in (("higgs", main_path, bst), ("multiclass", mc_path,
+                                                     mc)):
+        sync(torch, device)
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        eng = PredictEngine(path, warmup=True, device=device)
+        sync(torch, device)
+        warm_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        # what the engine keeps: its model, static buffers and graph pools
+        reserved = torch.cuda.memory_reserved() - r0
+        pools = [e.pool for e in eng._compiled.values()]
+        if min(pools) <= 0:
+            fail(f"[serve] {tag}: a graph's pool read {min(pools)} bytes "
+                 "at capture")
+        pools = sum(pools)
+        d = eng.describe()
+        if eng.compile_count != 11 or d["compiled"] != eng.buckets \
+                or eng.buckets != [8 << i for i in range(11)] \
+                or d["graphs"] != (device == "cuda"):
+            fail(f"[serve] {tag}: warmup captured {eng.compile_count} "
+                 f"graphs ({d}), want the 11 buckets 8-8192")
+        print(f"[serve] {tag}: {d['num_trees']} trees, tree_chunk "
+              f"{d['tree_chunk']} ({d['tree_chunks']} chunks), fused "
+              f"{d['fused']}: warmup captured {eng.compile_count} CUDA "
+              f"graphs (buckets 8-8192) in {warm_s:.2f} s; device_bytes "
+              f"{eng.device_bytes() / 2 ** 20:.1f} MiB (graph pools "
+              f"{pools / 2 ** 20:.1f} MiB); memory_reserved grew "
+              f"{reserved / 2 ** 20:.1f} MiB over load and warmup (cache "
+              f"emptied before and after)",
+              flush=True)
+        engines[tag] = eng
+    eng, meng = engines["higgs"], engines["multiclass"]
+
+    # (b) requests of every size, and all at once, == Booster.predict
+    t0 = time.perf_counter()
+    done = serve_requests(eng, Xh, ref, refm, SERVE_SIZES, "higgs")
+    mdone = serve_requests(meng, Xm, mref, mrefm, SERVE_MC_SIZES,
+                           "multiclass")
+    print(f"[serve] (b) predictions and margins == Booster.predict byte for "
+          f"byte: higgs requests (rows x count) {', '.join(done)} and all "
+          f"{Xh.shape[0]} rows at once; multiclass {', '.join(mdone)} and "
+          f"all {Xm.shape[0]} at once (multi:softmax shape "
+          f"{meng.predict(Xm[:3]).shape}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) every graph replay == the eager margin function
+    ge = {tag: graph_vs_eager(torch, e, X, tag)
+          for tag, e, X in (("higgs", eng, Xh), ("multiclass", meng, Xm))}
+    for tag, t in ge.items():
+        print(f"[serve] (c) {tag}: each of the 11 graph replays == the "
+              "eager margin function, byte for byte; margin ms (median of "
+              "20, synchronised) " + "; ".join(
+                  f"{b} rows eager {e * 1e3:.3f} graph {g * 1e3:.3f}"
+                  for b, (e, g) in sorted(t.items())) + f" | {card}",
+              flush=True)
+
+    # latency of engine.predict (host rows in, numpy out)
+    for tag, e, X in (("higgs", eng, Xh), ("multiclass", meng, Xm)):
+        parts = []
+        for n in SERVE_LAT_SIZES:
+            xs = X[:n]
+            p50, p99 = pct_ms(timed_calls(lambda: e.predict(xs), 200))
+            parts.append(f"{n} rows p50 {p50:.3f} p99 {p99:.3f}")
+            if n == 8192:
+                rate = 8192 / (p50 / 1e3)
+        print(f"[serve] {tag} engine.predict ms over 200 calls: "
+              + "; ".join(parts) + f"; {rate:.4g} rows/s at 8192 | {card}",
+              flush=True)
+    if eng.compile_count != 11 or meng.compile_count != 11:
+        fail(f"[serve] captures after warmup: {eng.compile_count}, "
+             f"{meng.compile_count}")
+
+    # (d) 16 threads x 50 requests through MicroBatcher
+    metrics = ServingMetrics()
+    batcher = MicroBatcher(eng.predict, max_batch_rows=1024, max_wait_ms=2,
+                           max_queue_rows=1 << 16, metrics=metrics)
+    bad, lock = [], threading.Lock()
+
+    def client(seed):
+        rng = np.random.RandomState(seed)
+        for _ in range(SERVE_THREAD_REQS):
+            n = int(rng.randint(1, 65))
+            o = int(rng.randint(0, Xh.shape[0] - n))
+            got = batcher.submit(Xh[o:o + n], timeout=60.0)
+            if got.tobytes() != ref[o:o + n].tobytes():
+                with lock:
+                    bad.append((seed, o, n))
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(i,))
+          for i in range(SERVE_THREADS)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    batcher.close()
+    reqs = SERVE_THREADS * SERVE_THREAD_REQS
+    flushes = int(metrics.batches.value)
+    if bad or any(t.is_alive() for t in ts) or not flushes < reqs \
+            or metrics.requests.value != reqs:
+        fail(f"[serve] (d) batcher: {len(bad)} wrong answers {bad[:3]}, "
+             f"{flushes} flushes for {reqs} requests")
+    print(f"[serve] (d) {SERVE_THREADS} threads x {SERVE_THREAD_REQS} "
+          f"requests of 1-64 rows through MicroBatcher: each == "
+          f"Booster.predict, {flushes} flushes for {reqs} requests, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (f) the feature store: predict_by_id of 1,000 ids == predict
+    store = FeatureStore(eng.num_feature, budget_mb=64.0, device=device)
+    ids = [f"e{i}" for i in range(SERVE_STORE_IDS)]
+    store.put(ids, Xh[:SERVE_STORE_IDS])
+    b0 = predict_metrics().transfer_bytes.value
+    got = predict_by_id(eng, store, ids)
+    moved = predict_metrics().transfer_bytes.value - b0
+    if got.tobytes() != ref[:SERVE_STORE_IDS].tobytes() or moved != 0:
+        fail(f"[serve] (f) predict_by_id != predict, or {moved} feature "
+             "bytes uploaded")
+    p50, p99 = pct_ms(timed_calls(lambda: predict_by_id(eng, store,
+                                                        ids[:64]), 200))
+    print(f"[serve] (f) predict_by_id of {SERVE_STORE_IDS} resident ids == "
+          f"predict of their rows, 0 feature bytes uploaded; 64 ids p50 "
+          f"{p50:.3f} p99 {p99:.3f} ms | {card}", flush=True)
+
+    # (e) the HTTP server: predict, healthz, metrics, reload, rollback
+    srv = run_server(main_path, port=0, poll_sec=0.2, max_wait_ms=1,
+                     quiet=True, block=False, device=device)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        body = csv_body(Xh[:1000])
+        resp = http_post(base + "/predict", body)
+        got = np.asarray(resp["predictions"], np.float32)
+        if got.tobytes() != ref[:1000].tobytes() or resp["rows"] != 1000 \
+                or resp["model_version"] != 1:
+            fail(f"[serve] (e) /predict of 1,000 CSV rows != "
+                 f"Booster.predict (rows {resp['rows']}, model_version "
+                 f"{resp['model_version']})")
+        h = json.loads(http_get(base + "/healthz"))
+        mtext = http_get(base + "/metrics").decode()
+        names = ("xgbtpu_serving_requests_total", "xgbtpu_serving_rows_total",
+                 "xgbtpu_serving_padded_rows_total",
+                 "xgbtpu_serving_batches_total",
+                 "xgbtpu_serving_compiles_total",
+                 "xgbtpu_serving_latency_p99_seconds",
+                 "xgbtpu_predict_transfer_bytes_total")
+        missing = [m for m in names if m not in mtext]
+        if h.get("status") != "ok" or h.get("buckets_compiled") != 11 \
+                or missing:
+            fail(f"[serve] (e) /healthz {h} or /metrics missing {missing}")
+        one = csv_body(Xh[:1])
+        lat1 = timed_calls(lambda: http_post(base + "/predict", one), 200)
+        lat1k = timed_calls(lambda: http_post(base + "/predict", body), 50)
+        # overwrite the watched file with the CLI phase's 0010.model while
+        # a client keeps asking: the poll thread captures the new graphs
+        # while the batcher replays the old ones
+        v10 = xt.Booster(model_file=v10_path, device=device)
+        ref10 = v10.predict(Xh[:1000])
+        stop, errs = threading.Event(), []
+
+        def hammer():
+            while not stop.is_set():
+                try:
+                    r = http_post(base + "/predict", one)
+                    p = np.asarray(r["predictions"], np.float32)
+                    if p.tobytes() not in (ref[:1].tobytes(),
+                                           ref10[:1].tobytes()):
+                        errs.append(r)
+                except Exception as e:  # noqa: BLE001 -- failed below
+                    errs.append(e)
+        th = threading.Thread(target=hammer)
+        th.start()
+        t0 = time.perf_counter()
+        shutil.copyfile(v10_path, main_path + ".tmp")
+        os.replace(main_path + ".tmp", main_path)
+        while json.loads(http_get(base + "/healthz"))["model_version"] != 2:
+            if time.perf_counter() - t0 > 60:
+                stop.set()
+                fail("[serve] (e) model_version did not move within 60 s "
+                     "of overwriting the model file")
+            time.sleep(0.05)
+        reload_s = time.perf_counter() - t0
+        stop.set()
+        th.join(60)
+        resp = http_post(base + "/predict", body)
+        if errs or np.asarray(resp["predictions"], np.float32).tobytes() \
+                != ref10.tobytes() or resp["model_version"] != 2:
+            fail(f"[serve] (e) after the reload: {len(errs)} bad answers "
+                 f"({errs[:2]}) or predictions != 0010.model's")
+        rb = http_post(base + "/-/rollback", b"")
+        resp = http_post(base + "/predict", body)
+        if not rb["rolled_back"] or np.asarray(
+                resp["predictions"], np.float32).tobytes() \
+                != ref[:1000].tobytes():
+            fail(f"[serve] (e) rollback {rb}: predictions != the first "
+                 "model's")
+        a, b = pct_ms(lat1), pct_ms(lat1k)
+        print(f"[serve] (e) HTTP on port {srv.port}: 1,000-row CSV "
+              f"/predict == Booster.predict; /healthz ok, /metrics holds "
+              f"the serve counters; overwrite with 0010.model -> "
+              f"model_version 2 in {reload_s:.2f} s (reload captured under "
+              f"traffic), predictions == 0010.model's; rollback -> "
+              f"model_version {rb['model_version']}, the first model's "
+              f"predictions; round trip ms p50 / p99: 1 row {a[0]:.3f} / "
+              f"{a[1]:.3f} (200 calls), 1,000 rows {b[0]:.3f} / {b[1]:.3f} "
+              f"(50 calls) | {card}", flush=True)
+    finally:
+        srv.shutdown()
+
+    counts = read_counts(kernels)
+    if counts != only(kernels):
+        fail(f"[serve] launch counts {counts}: serving runs none of the "
+             "twelve kernels")
+    secs = time.perf_counter() - t_phase
+    print(f"[serve] all counts {json.dumps(counts)}; phase {secs:.1f} s "
+          f"(limit {SERVE_PHASE_S:.0f})", flush=True)
+    if secs > SERVE_PHASE_S:
+        fail(f"[serve] phase took {secs:.1f} s > {SERVE_PHASE_S} s")
+    for e in engines.values():
+        e.release()
+
 
 
 def phase_otto(torch, xt, kernels, device, card):
@@ -3504,11 +3924,14 @@ def main():
     p_launches, phases, _, _ = phase_profile(torch, xt, kernels, "cuda",
                                              card, main_out)
     print(f"[profile] phase {time.perf_counter() - t0:.1f} s")
+    main_hold = main_out["X"][N_TRAIN:]
     del main_out
     mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
         torch, xt, kernels, "cuda", card)
     k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)
     del mc_captured
+    phase_serve(torch, xt, kernels, card, main_hold)
+    del main_hold
     phase_otto(torch, xt, kernels, "cuda", card)
     t0 = time.perf_counter()
     f_launches, _ = phase_forest(torch, xt, kernels, "cuda", card)

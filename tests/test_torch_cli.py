@@ -610,9 +610,10 @@ def test_task_lanes_matches_run_tenant_lanes(tmp_path):
 
 # ------------------------------------------------ what is not ported
 @pytest.mark.parametrize("arg,item", [
-    ("task=serve", 14), ("task=fleet_router", 14), ("task=stream", 15),
-    ("task=placer", 15), ("mock=0,1,1", 13), ("keepalive=1", 13),
-    ("shard_load=0", 13), ("faults=eio@x", 16), ("metrics_port=0", 16)])
+    ("booster=gblinear", 11), ("task=fleet_router", "14b"),
+    ("task=stream", 15), ("task=placer", 15), ("mock=0,1,1", 13),
+    ("keepalive=1", 13), ("shard_load=0", 13), ("dsplit=row", 13),
+    ("metrics_port=0", 16)])
 def test_unported_names_raise_with_their_item(svm, tmp_path, arg, item):
     d = svm["dense"]
     conf = write_conf(tmp_path / "u.conf", **base_conf(d["train"], d["test"]))

@@ -941,3 +941,155 @@ def test_padded_rank_training_matches_plain_k1(cuda_device, kind):
         if len(raws) == 1:
             assert cuda_hist.launches == 3 * 4
     assert raws[0] == raws[1]
+
+
+# ---------------------------------------------------------------- serving
+def _serving_model(dev, rounds=12, num_class=0, seed=0):
+    import xgboost_tpu_torch as xt
+    rng = np.random.RandomState(seed)
+    X = rng.randn(4000, 8).astype(np.float32)
+    X[rng.rand(*X.shape) < 0.05] = np.nan
+    Z = np.nan_to_num(X)
+    if num_class:
+        y = np.argmax(Z[:, :num_class], axis=1).astype(np.float32)
+        p = {"objective": "multi:softprob", "num_class": num_class}
+    else:
+        y = (Z[:, 0] + Z[:, 1] * Z[:, 2] > 0).astype(np.float32)
+        p = {"objective": "binary:logistic"}
+    p.update(max_depth=5, eta=0.3, max_bin=64)
+    return xt.train(p, xt.DMatrix(X, label=y), rounds, device=dev), X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_class,chunk", [(0, "32"), (3, "32"),
+                                             (3, "0")])
+def test_graph_replay_equals_eager_at_every_bucket(cuda_device, num_class,
+                                                   chunk, monkeypatch):
+    """Every bucket's captured graph against the eager margin function
+    on the same input, byte for byte, and predictions against
+    ``Booster.predict``."""
+    monkeypatch.setenv("XGBTPU_PREDICT_TREE_CHUNK", chunk)
+    from xgboost_tpu_torch.serving import PredictEngine
+    bst, X = _serving_model(cuda_device, num_class=num_class)
+    eng = PredictEngine(bst, min_bucket=8, max_bucket=1024, warmup=True)
+    assert eng.compile_count == len(eng.buckets) == 8
+    pools = [exe.pool for exe in eng._compiled.values()]
+    assert min(pools) > 0 and eng.device_bytes() > sum(pools)
+    fn = eng.margin_function()
+    for b in eng.buckets:
+        x = torch.from_numpy(X[:b]).to(cuda_device)
+        base = torch.full((b, eng._K), eng._base_scalar,
+                          device=cuda_device)
+        exe = eng._executable(b)
+        with exe.lock:
+            exe.x.copy_(x)
+            got = exe.run().clone()
+        assert torch.equal(got, fn(x, base)), b
+        assert got.cpu().numpy().tobytes() == fn(x, base).cpu().numpy() \
+            .tobytes()
+    for n in (1, 7, 100, 1024, 3000):
+        assert eng.predict(X[:n]).tobytes() == bst.predict(X[:n]).tobytes()
+    assert eng.compile_count == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_class", [0, 3])
+def test_chunked_prediction_equals_the_per_tree_path(cuda_device,
+                                                     num_class):
+    """On the card ``Booster.predict`` and the engine run the chunked
+    traversal (``pred_chunk`` 32); its margins, predictions and leaf
+    indices equal the per-tree path's (``pred_chunk`` 0) and chunk 8's,
+    byte for byte."""
+    from xgboost_tpu_torch.serving import PredictEngine
+    bst, X = _serving_model(cuda_device, num_class=num_class)
+    g = bst.gbtree
+    assert g.pred_chunk == 32
+    outs = {}
+    try:
+        for chunk in (32, 8, 0):
+            g.pred_chunk = chunk
+            outs[chunk] = [bst.predict(X, output_margin=True),
+                           bst.predict(X), bst.predict(X, pred_leaf=True)]
+    finally:
+        g.pred_chunk = 32
+    for chunk in (8, 0):
+        for want, got in zip(outs[chunk], outs[32]):
+            assert got.shape == want.shape
+            assert got.tobytes() == want.tobytes(), chunk
+    eng = PredictEngine(bst, min_bucket=8, max_bucket=1024, warmup=True)
+    assert eng.describe()["tree_chunk"] == 32
+    for n in (1, 100, 3000):
+        assert eng.predict(X[:n], output_margin=True).tobytes() == \
+            outs[0][0][:n].tobytes()
+        assert eng.predict(X[:n]).tobytes() == outs[0][1][:n].tobytes()
+
+
+@pytest.mark.cuda
+def test_graph_replays_from_eight_threads(cuda_device):
+    import threading
+    from xgboost_tpu_torch.serving import PredictEngine
+    bst, X = _serving_model(cuda_device)
+    eng = PredictEngine(bst, min_bucket=8, max_bucket=64, warmup=True)
+    want = {n: bst.predict(X[n:2 * n + 1]) for n in range(1, 65)}
+    errors = []
+
+    def worker(seed):
+        rng = np.random.RandomState(seed)
+        for _ in range(50):
+            n = int(rng.randint(1, 65))
+            got = eng.predict(X[n:2 * n + 1])
+            if got.tobytes() != want[n].tobytes():
+                errors.append((seed, n))
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    assert not errors, errors[:5]
+    assert eng.compile_count == len(eng.buckets)
+
+
+@pytest.mark.cuda
+def test_capture_during_replay_on_reload(cuda_device, tmp_path):
+    """The registry captures the new version in its own thread while
+    the batcher's thread replays the old one (thread-local capture
+    mode); every answer is one model's, never a mixture."""
+    import threading
+    from xgboost_tpu_torch.serving import MicroBatcher, ModelRegistry
+    bst_a, X = _serving_model(cuda_device, seed=0)
+    bst_b, _ = _serving_model(cuda_device, rounds=7, seed=1)
+    path = str(tmp_path / "m.bin")
+    bst_a.save_model(path)
+    reg = ModelRegistry(path, warmup=True, poll_sec=0, min_bucket=8,
+                        max_bucket=256)
+    batcher = MicroBatcher(reg.predict, max_batch_rows=256, max_wait_ms=1)
+    Xq = X[:37]
+    ref_a, ref_b = bst_a.predict(Xq), bst_b.predict(Xq)
+    stop, outs, errors = threading.Event(), [], []
+
+    def hammer():
+        while not stop.is_set():
+            try:
+                outs.append(batcher.submit(Xq, timeout=30.0))
+            except BaseException as e:  # noqa: BLE001 -- asserted below
+                errors.append(e)
+    ts = [threading.Thread(target=hammer) for _ in range(4)]
+    try:
+        for t in ts:
+            t.start()
+        bst_b.save_model(path)
+        reloaded = {}
+        poll = threading.Thread(
+            target=lambda: reloaded.update(ok=reg.check_reload()))
+        poll.start()
+        poll.join(300)
+        post = batcher.submit(Xq, timeout=30.0)
+    finally:
+        stop.set()
+        for t in ts:
+            t.join(60)
+        batcher.close()
+    assert reloaded.get("ok") and not errors, errors[:3]
+    assert post.tobytes() == ref_b.tobytes()
+    for o in outs:
+        assert o.tobytes() in (ref_a.tobytes(), ref_b.tobytes())

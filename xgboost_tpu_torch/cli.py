@@ -2,7 +2,7 @@
 [name=value ...]`` (port of ``xgboost_tpu/cli.py``).
 
 A config file of ``name = value`` pairs plus ``name=value`` overrides,
-dispatching ``task=train|pred|eval|dump|pipeline|lanes`` with the JAX
+dispatching ``task=train|pred|eval|dump|serve|pipeline|lanes`` with the JAX
 package's parameter names (``num_round``, ``save_period``, ``model_in``,
 ``model_out``, ``model_dir``, ``eval[name]=path``, ``test:data``,
 ``name_pred``, ``pred_margin``, ``ntree_limit``, ``fmap``,
@@ -30,10 +30,17 @@ The JAX CLI keeps a persistent jit cache beside the ring; the port has
 no counterpart: its kernels are built once by ``nvcc`` into
 ``xgboost_tpu_torch/_build/`` and reused by every later run.
 
+``task=serve`` runs the HTTP prediction service
+(:mod:`xgboost_tpu_torch.serving`) on ``model_in`` or a ``catalog=``
+manifest, with the ``serve_*`` and catalog parameters; ``faults=`` arms
+the I/O and serving fault registry (``reliability/faults.py``) before
+the task runs.
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md
-section 1 item: ``task=serve`` and ``fleet_router`` (item 14),
+section 1 item: ``fleet_router``, ``serve_router_url``,
+``serve_replica_id`` and ``serve_advertise_url`` (item 14b),
 ``stream`` and ``placer`` (item 15), ``mock=``, ``keepalive``,
-``shard_load`` and the multi-host launcher (item 13), ``faults=`` and
+``shard_load`` and the multi-host launcher (item 13), and
 ``metrics_port >= 0`` (item 16).
 """
 
@@ -45,7 +52,8 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
-from xgboost_tpu_torch.config import (LANE_PARAMS, PIPELINE_PARAMS,
+from xgboost_tpu_torch.config import (CATALOG_PARAMS, LANE_PARAMS,
+                                      PIPELINE_PARAMS, SERVE_PARAMS,
                                       parse_config_file)
 
 # process start, for the resume line's recovery cost
@@ -59,9 +67,11 @@ Tasks (task=...):
   pred    write predictions (model_in=..., test:data=..., name_pred=...)
   eval    print eval metrics (model_in=..., eval[name]=path)
   dump    dump trees as text (model_in=..., name_dump=...)
-  serve   HTTP prediction service -- not ported (ROADMAP.md item 14)
+  serve   HTTP prediction service (model_in=...; see parameters below,
+          or `python -m xgboost_tpu_torch.serving --help`): one CUDA
+          graph per row bucket, hot reload, feature store, catalog
   fleet_router
-          fleet front door -- not ported (ROADMAP.md item 14)
+          fleet front door -- not ported (ROADMAP.md item 14b)
   pipeline
           continuous training (xgboost_tpu_torch.pipeline): warm-start
           from the published model, append pipeline_rounds_per_cycle
@@ -82,6 +92,17 @@ Device: device=cuda (the default; raises without a GPU) or device=cpu.
 Observability: obs_log=PATH appends a JSONL event log;
 metrics_port= is not ported (ROADMAP.md item 16).
 
+task=serve parameters (serve_router_url, serve_replica_id and
+serve_advertise_url: the fleet, ROADMAP.md item 14b):
+{serve_params}
+
+catalog parameters (multi-model serving, task=serve):
+{catalog_params}
+
+Faults: faults="kind[=arg][@path][*times];..." arms the I/O and serving
+fault registry (torn_write, bit_flip, enospc, slow_read, read_flip,
+reload, slow_replica; XGBTPU_FAULTS in the environment does the same).
+
 task=pipeline parameters:
 {pipeline_params}
 
@@ -90,14 +111,12 @@ task=lanes parameters (gang-batched multi-tenant training):
 """
 
 # name -> (ROADMAP.md section 1 item, what it is)
-_UNPORTED_TASKS = {"serve": (14, "the HTTP prediction service"),
-                   "fleet_router": (14, "the fleet router"),
+_UNPORTED_TASKS = {"fleet_router": ("14b", "the fleet router"),
                    "stream": (15, "streaming continuous training"),
                    "placer": (15, "catalog placement")}
 _UNPORTED_PARAMS = {"mock": (13, "collective fault injection"),
                     "keepalive": (13, "restart on a worker's failure"),
-                    "shard_load": (13, "per-rank split loading"),
-                    "faults": (16, "I/O fault injection")}
+                    "shard_load": (13, "per-rank split loading")}
 
 
 class BoostLearnTask:
@@ -132,6 +151,9 @@ class BoostLearnTask:
         self.pipeline_params = {k: v
                                 for k, (v, _) in PIPELINE_PARAMS.items()}
         self.lane_params = {k: v for k, (v, _) in LANE_PARAMS.items()}
+        self.serve_params = {k: v for k, (v, _) in SERVE_PARAMS.items()}
+        self.catalog_params = {k: v for k, (v, _) in CATALOG_PARAMS.items()}
+        self.faults_spec: Optional[str] = None
 
     # ------------------------------------------------------------- params
     _OWN = {
@@ -173,6 +195,13 @@ class BoostLearnTask:
             self.name_pred = val
         elif name == "checkpoint_dir":
             self.checkpoint_dir = val
+        elif name == "faults":
+            # the I/O and serving fault registry (reliability/faults.py)
+            self.faults_spec = val
+        elif name in self.serve_params:
+            self.serve_params[name] = type(SERVE_PARAMS[name][0])(val)
+        elif name in self.catalog_params:
+            self.catalog_params[name] = type(CATALOG_PARAMS[name][0])(val)
         elif name in self.pipeline_params:
             self.pipeline_params[name] = type(PIPELINE_PARAMS[name][0])(val)
         elif name in self.lane_params:
@@ -190,9 +219,13 @@ class BoostLearnTask:
     # ---------------------------------------------------------------- run
     def run(self, argv: List[str]) -> int:
         if not argv:
-            from xgboost_tpu_torch.config import (lane_params_help,
-                                                  pipeline_params_help)
-            print(_USAGE.format(pipeline_params=pipeline_params_help(),
+            from xgboost_tpu_torch.config import (catalog_params_help,
+                                                  lane_params_help,
+                                                  pipeline_params_help,
+                                                  serve_params_help)
+            print(_USAGE.format(serve_params=serve_params_help(),
+                                catalog_params=catalog_params_help(),
+                                pipeline_params=pipeline_params_help(),
                                 lane_params=lane_params_help()))
             return 0
         if os.path.exists(argv[0]) or "=" not in argv[0]:
@@ -208,6 +241,9 @@ class BoostLearnTask:
         if self.model_out == "stdout" or self.name_pred == "stdout":
             self.set_param("silent", "1")
             self.save_period = 0
+        if self.faults_spec:
+            from xgboost_tpu_torch.reliability import faults
+            faults.install_spec(self.faults_spec)
         if os.environ.get("XGBTPU_COORD"):
             raise NotImplementedError(
                 "multi-host workers (XGBTPU_COORD) are ROADMAP.md section 1 "
@@ -236,6 +272,7 @@ class BoostLearnTask:
                 f"{item}")
         tasks = {"train": self.task_train, "pred": self.task_pred,
                  "eval": self.task_eval, "dump": self.task_dump,
+                 "serve": self.task_serve,
                  "pipeline": self.task_pipeline, "lanes": self.task_lanes}
         if self.task not in tasks:
             raise ValueError(f"unknown task {self.task!r}")
@@ -382,6 +419,42 @@ class BoostLearnTask:
             raise ValueError("model_in not specified")
         self._make_booster().dump_model(self.name_dump, self.name_fmap,
                                         with_stats=self.dump_stats != 0)
+        return 0
+
+    # -------------------------------------------------------------- serve
+    def task_serve(self) -> int:
+        """The HTTP prediction service (``xgboost_tpu/cli.py:644-680``) on
+        ``model_in``, or on a ``catalog=`` manifest where bare
+        ``/predict`` serves the default model and ``?model=NAME`` picks
+        one, on this task's device."""
+        sp = self.serve_params
+        cp = self.catalog_params
+        if not (self.model_in or cp["catalog"]):
+            raise ValueError("model_in not specified (or pass "
+                             "catalog=name=path,...)")
+        from xgboost_tpu_torch.serving import run_server
+        run_server(
+            self.model_in or "",
+            host=sp["serve_host"], port=sp["serve_port"],
+            min_bucket=sp["serve_min_bucket"],
+            max_bucket=sp["serve_max_bucket"],
+            max_batch_rows=sp["serve_max_batch_rows"],
+            max_wait_ms=sp["serve_max_wait_ms"],
+            max_queue_rows=sp["serve_queue_rows"],
+            poll_sec=sp["serve_poll_sec"],
+            keep_versions=sp["serve_keep_versions"],
+            warmup=bool(sp["serve_warmup"]),
+            drain_sec=sp["serve_drain_sec"],
+            max_body_mb=sp["serve_max_body_mb"],
+            featurestore_mb=sp["serve_featurestore_mb"],
+            catalog=cp["catalog"],
+            catalog_default=cp["catalog_default"],
+            catalog_mb=cp["serve_catalog_mb"],
+            catalog_hysteresis_sec=cp["catalog_hysteresis_sec"],
+            router_url=sp["serve_router_url"],
+            replica_id=sp["serve_replica_id"],
+            advertise_url=sp["serve_advertise_url"],
+            quiet=self.silent != 0, block=True, device=self.device)
         return 0
 
     # ----------------------------------------------------------- pipeline

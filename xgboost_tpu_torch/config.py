@@ -271,6 +271,85 @@ def lane_params_help() -> str:
                      for name, (default, help_) in LANE_PARAMS.items())
 
 
+# ------------------------------------------------------------- serving
+# task=serve parameters (``xgboost_tpu/config.py:270-300``), the one table
+# both surfaces read: ``python -m xgboost_tpu_torch task=serve serve_port=...``
+# and ``python -m xgboost_tpu_torch.serving --port ...``.  Values are
+# (default, help); the default's type drives coercion.  The three fleet
+# rows (serve_router_url, serve_replica_id, serve_advertise_url) are kept
+# so both CLIs take the same names; a non-empty value raises until the
+# fleet is ported (ROADMAP.md section 1 item 14b).
+SERVE_PARAMS: Dict[str, Tuple[Any, str]] = {
+    "serve_host": ("127.0.0.1", "bind address for the HTTP server"),
+    "serve_port": (8080, "HTTP port (0 = ephemeral, printed at startup)"),
+    "serve_min_bucket": (8, "smallest power-of-two row bucket"),
+    "serve_max_bucket": (8192, "largest row bucket; bigger requests are "
+                               "chunked through it"),
+    "serve_max_batch_rows": (1024, "max rows coalesced into one device "
+                                   "call by the micro-batcher"),
+    "serve_max_wait_ms": (2.0, "micro-batch window: how long the first "
+                               "request waits for company"),
+    "serve_queue_rows": (8192, "bounded queue size in rows; overflow "
+                               "rejects with HTTP 503"),
+    "serve_poll_sec": (1.0, "model-file hot-reload poll interval "
+                            "(0 disables watching)"),
+    "serve_keep_versions": (2, "previous model versions kept warm for "
+                               "instant rollback"),
+    "serve_warmup": (1, "pre-compile every row bucket at startup "
+                        "(recompile-free steady state)"),
+    "serve_drain_sec": (30.0, "SIGTERM drain grace: max seconds to wait "
+                              "for in-flight requests before exit"),
+    "serve_max_body_mb": (64.0, "largest accepted request body; bigger "
+                                "Content-Length is rejected with 413 "
+                                "before buffering"),
+    "serve_featurestore_mb": (0.0, "device byte budget for the "
+                                   "hot-entity feature store backing "
+                                   "POST /predict_by_id (0 disables; "
+                                   "LRU-evicts past the budget)"),
+    "serve_router_url": ("", "not ported (ROADMAP.md item 14b): the "
+                             "fleet router base URL"),
+    "serve_replica_id": ("", "not ported (ROADMAP.md item 14b): the "
+                             "replica's fleet identity"),
+    "serve_advertise_url": ("", "not ported (ROADMAP.md item 14b): the "
+                                "URL the router dials"),
+}
+
+
+def serve_params_help() -> str:
+    """One line per task=serve parameter, for CLI usage text."""
+    return "\n".join(f"  {name:<22} {help_} (default {default!r})"
+                     for name, (default, help_) in SERVE_PARAMS.items())
+
+
+# The catalog parameters task=serve passes (``config.py:579-596``); the
+# router's tenant quotas stay with the fleet (ROADMAP.md item 14b).
+CATALOG_PARAMS: Dict[str, Tuple[Any, str]] = {
+    "catalog": ("", "model catalog manifest: inline "
+                    "'name=path,name=path' pairs, or a path to a "
+                    "'name = path' config file (one model per line). "
+                    "Empty = single-model serving (a catalog of one)"),
+    "catalog_default": ("", "model served by bare /predict (no "
+                            "?model=); default: the model= file when "
+                            "given, else the manifest's first entry"),
+    "serve_catalog_mb": (0.0, "shared device byte budget across ALL "
+                              "resident catalog models (engines + "
+                              "per-model feature stores); past it the "
+                              "coldest non-default models are evicted "
+                              "(0 = unlimited, everything stays "
+                              "resident)"),
+    "catalog_hysteresis_sec": (3.0, "minimum residency before a model "
+                                    "becomes evictable — bounds "
+                                    "admit/evict thrash when the "
+                                    "working set exceeds the budget"),
+}
+
+
+def catalog_params_help() -> str:
+    """One line per catalog parameter, for CLI usage text."""
+    return "\n".join(f"  {name:<22} {help_} (default {default!r})"
+                     for name, (default, help_) in CATALOG_PARAMS.items())
+
+
 def parse_config_file(path: str) -> List[Tuple[str, str]]:
     """Parse a ``name = value`` config file (``xgboost_tpu/config.py:681``):
     one pair per line, ``#`` comments, quoted values.  Returns pairs in

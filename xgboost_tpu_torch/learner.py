@@ -160,10 +160,13 @@ class Booster:
         if self.obj is not None:
             self._init_obj()
         if self.gbtree is not None:
-            from xgboost_tpu_torch.models.gbtree import make_grow_config
+            from xgboost_tpu_torch.models.gbtree import (make_grow_config,
+                                                         resolve_pred_chunk)
             self.gbtree.param = self.param
             self.gbtree.cfg = make_grow_config(self.param,
                                                self.gbtree.cuts.max_bin)
+            self.gbtree.pred_chunk = resolve_pred_chunk(self.param,
+                                                        self.device)
 
     def _init_obj(self):
         _check_param(self.param)
@@ -700,6 +703,8 @@ class Booster:
         out = out.cpu().numpy()
         if cached is not None:
             out = cached.user_rows(out)
+        from xgboost_tpu_torch.obs.metrics import predict_metrics
+        predict_metrics().rows.inc(out.shape[0])
         # one column -> (N,); softprob and multiclass margins stay (N, K)
         return out[:, 0] if out.shape[1] == 1 else out
 

@@ -73,6 +73,20 @@ def make_grow_config(p: TrainParam, n_bin: int) -> GrowConfig:
                       hist_subtraction=hs, n_roots=max(1, p.num_roots))
 
 
+def resolve_pred_chunk(param: TrainParam, device: torch.device) -> int:
+    """Trees a chunk of the chunked traversal traverses at once
+    (``gbtree.py:363-375``): ``XGBTPU_PREDICT_TREE_CHUNK`` when set,
+    else ``predict_tree_chunk``, whose -1 (auto) is 32 on a GPU and the
+    per-tree path (0) on the CPU.  0 and 1 mean the per-tree path."""
+    env_chunk = os.environ.get("XGBTPU_PREDICT_TREE_CHUNK")
+    if env_chunk not in (None, ""):
+        return max(0, int(env_chunk))
+    pc = int(param.predict_tree_chunk)
+    if pc < 0:
+        pc = 32 if torch.device(device).type == "cuda" else 0
+    return pc
+
+
 def tree_keys(round_key, n_tree: int) -> np.ndarray:
     """Tree j of a round samples with ``fold_in(round_key, j)``
     (``gbtree.py:154,565``): (n_tree, 2) host keys."""
@@ -144,6 +158,8 @@ class GBTree:
         self.tree_group: List[int] = []
         self._stack_cache: Optional[Tuple[int, TreeArrays,
                                           torch.Tensor]] = None
+        self._group_dev: Optional[Tuple[int, torch.Tensor]] = None
+        self.pred_chunk = resolve_pred_chunk(param, device)
 
     @property
     def num_trees(self) -> int:
@@ -234,13 +250,26 @@ class GBTree:
         _, stack, group = self._stack_cache
         return TreeArrays(*(x[:T] for x in stack)), group[:T]
 
+    def group_on_device(self, n_trees: int) -> torch.Tensor:
+        """The first ``n_trees`` tree groups on the booster's device,
+        uploaded once per ensemble size: the chunked traversal reads
+        them there, never on the host."""
+        cached = self._group_dev
+        if cached is None or cached[0] != self.num_trees:
+            cached = self._group_dev = (self.num_trees,
+                                        self._stack(0)[1].to(self.device))
+        return cached[1][:n_trees]
+
     def predict_margin(self, binned: torch.Tensor, base: torch.Tensor,
                        ntree_limit: int = 0,
                        root: Optional[torch.Tensor] = None) -> torch.Tensor:
         stack, group = self._stack(ntree_limit)
+        if self.pred_chunk > 1:
+            group = self.group_on_device(len(group))
         return predict_margin_binned(stack, group, binned, base,
                                      self.cfg.max_depth, self.n_group,
-                                     root, self.cfg.n_roots)
+                                     root, self.cfg.n_roots,
+                                     tree_chunk=self.pred_chunk)
 
     def predict_incremental(self, binned: torch.Tensor, margin: torch.Tensor,
                             first_tree: int, n_trees: int,
@@ -249,17 +278,21 @@ class GBTree:
         """``margin`` plus trees ``[first_tree, first_tree + n_trees)``,
         their contributions summed from 0 first (``gbtree.py:1103-1128``)."""
         stack, group = self._stack(first_tree + n_trees)
+        if self.pred_chunk > 1:
+            group = self.group_on_device(len(group))
         part = TreeArrays(*(x[first_tree:] for x in stack))
         zero = torch.zeros((), dtype=torch.float32, device=binned.device)
         return predict_margin_binned(part, group[first_tree:], binned, zero,
                                      self.cfg.max_depth, self.n_group,
-                                     root, self.cfg.n_roots) + margin
+                                     root, self.cfg.n_roots,
+                                     tree_chunk=self.pred_chunk) + margin
 
     def predict_leaf(self, binned: torch.Tensor, ntree_limit: int = 0,
                      root: Optional[torch.Tensor] = None) -> torch.Tensor:
         stack, _ = self._stack(ntree_limit)
         return predict_leaf_binned(stack, binned, self.cfg.max_depth, root,
-                                   self.cfg.n_roots)
+                                   self.cfg.n_roots,
+                                   tree_chunk=self.pred_chunk)
 
     def get_state(self) -> dict:
         """The model-file arrays, numpy (``gbtree.py:1145-1152``): each

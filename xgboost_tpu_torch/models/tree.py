@@ -509,14 +509,153 @@ def _tree(stack: TreeArrays, t: int) -> TreeArrays:
     return TreeArrays(*(x[t] for x in stack))
 
 
+def traverse_chunk(chunk: TreeArrays, binned: torch.Tensor, max_depth: int,
+                   root: Optional[torch.Tensor] = None,
+                   n_roots: int = 1) -> torch.Tensor:
+    """(C, N) leaf node indices of a (C, n_nodes) chunk of trees, all C
+    traversing at once (the JAX package's ``_chunk_leaves``, its
+    ``_traverse_one`` vmapped over trees): each level is one batch of
+    gathers and compares on a (C, N) position tensor, and row ``r`` of
+    tree ``c`` follows exactly :func:`traverse_one`'s path."""
+    C = chunk.feature.shape[0]
+    N = binned.shape[0]
+    dev = binned.device
+    d0 = root_level(n_roots)
+    if n_roots > 1 and root is not None:
+        pos = torch.clamp(root.to(torch.int32), 0, n_roots - 1)[None, :] \
+            .expand(C, N).contiguous()
+    else:
+        pos = torch.zeros((C, N), dtype=torch.int32, device=dev)
+    leaf_node = torch.zeros((C, N), dtype=torch.int32, device=dev)
+    for d in range(d0, d0 + max_depth + 1):
+        n_node = 1 << d
+        base = n_node - 1
+        sl = slice(base, base + n_node)
+        active = pos >= 0
+        node = torch.clamp(pos, 0, n_node - 1).to(torch.int64)
+
+        def pick(v):
+            return v[:, sl].gather(1, node)
+        f_row = pick(chunk.feature)
+        stop = active & (pick(chunk.is_leaf) | (f_row < 0)
+                         | (d == d0 + max_depth))
+        leaf_node = torch.where(stop, base + pos, leaf_node)
+        if d == d0 + max_depth:
+            break
+        b = bin_of_feature(binned, torch.clamp_min(f_row, 0))
+        go_left = torch.where(b == 0, pick(chunk.default_left),
+                              b <= pick(chunk.cut_index) + 1)
+        new_pos = 2 * pos + (~go_left).to(torch.int32)
+        pos = torch.where(active & ~stop, new_pos, -1)
+    return leaf_node
+
+
+def padded_tree_count(T: int, tree_chunk: int) -> int:
+    """Padded ensemble size of the chunked traversal for ``T`` trees
+    (``tree.py:600-620``): below the chunk the next power of two >= T,
+    capped at ``tree_chunk``; above it the next multiple of
+    ``tree_chunk``."""
+    if tree_chunk <= 1:
+        return T
+    if T <= tree_chunk:
+        return min(1 << max(T - 1, 0).bit_length(), tree_chunk)
+    return -(-T // tree_chunk) * tree_chunk
+
+
+def predict_chunk_layout(T: int, tree_chunk: int):
+    """(T_padded, chunk_size, n_chunks) of the chunked traversal
+    (``tree.py:623-632``); below the chunk the whole padded ensemble is
+    one chunk."""
+    if tree_chunk <= 1:
+        return T, 1, T
+    T_pad = padded_tree_count(T, tree_chunk)
+    C = T_pad if T <= tree_chunk else tree_chunk
+    return T_pad, C, T_pad // C
+
+
+def pad_predict_stack(stack: TreeArrays, tree_group: torch.Tensor,
+                      tree_chunk: int):
+    """A (T, ...) stack padded to :func:`padded_tree_count` with trees
+    that are a leaf of value 0 at the root (``tree.py:635-660``).
+    Returns ``(stack_padded, group_padded, n_valid)``; the traversal
+    never adds a padded tree to the margin."""
+    T = int(stack.feature.shape[0])
+    T_pad = padded_tree_count(T, tree_chunk)
+    if T_pad == T:
+        return stack, tree_group, T
+
+    def pad(x, fill=0):
+        return torch.cat([x, torch.full((T_pad - T,) + tuple(x.shape[1:]),
+                                        fill, dtype=x.dtype,
+                                        device=x.device)])
+    stack = TreeArrays(**{f: pad(getattr(stack, f), -1 if f == "feature"
+                                 else 0) for f in TreeArrays._fields})
+    return stack, pad(tree_group), T
+
+
+def predict_margin_chunked(stack: TreeArrays, tree_group: torch.Tensor,
+                           n_valid: int, binned: torch.Tensor,
+                           base: torch.Tensor, max_depth: int, n_group: int,
+                           root: Optional[torch.Tensor], n_roots: int,
+                           tree_chunk: int) -> torch.Tensor:
+    """The chunked traversal core (``tree.py:698-743``) on a stack
+    already padded to a multiple of ``tree_chunk``: each chunk's leaves
+    come from one :func:`traverse_chunk`, and the first ``n_valid``
+    trees' leaf values go into their group's margin column in tree
+    order.  ``tree_group`` is read on its own device, never on the host,
+    so the whole function runs without a device-to-host read (a CUDA
+    graph can hold it).
+
+    A tree adds ``margin[:, g] + contrib`` to its own column and leaves
+    the others as they are, the per-tree path's ``margin[:, g] +=``, so
+    margins equal it byte for byte.  The JAX package adds
+    ``contrib * one_hot(g)`` to every column, which turns a -0.0 of
+    another group into +0.0: the two agree as values, not always as
+    bytes."""
+    N = binned.shape[0]
+    T_pad = stack.feature.shape[0]
+    C = tree_chunk
+    margin = torch.broadcast_to(base, (N, n_group)).to(torch.float32)
+    margin = margin.clone()
+    sel = None
+    if n_group > 1:
+        sel = tree_group.to(torch.int64)[:, None] == torch.arange(
+            n_group, device=tree_group.device)                 # (T_pad, K)
+        sel = sel.to(binned.device)
+    for s in range(0, min(T_pad, n_valid), C):
+        chunk = TreeArrays(*(x[s:s + C] for x in stack))
+        leaves = traverse_chunk(chunk, binned, max_depth, root, n_roots)
+        contribs = table_lookup(chunk.leaf_value, leaves)        # (C, N)
+        for c in range(min(C, n_valid - s)):
+            if sel is None:
+                margin = margin + contribs[c][:, None]
+            else:
+                margin = torch.where(sel[s + c], margin
+                                     + contribs[c][:, None], margin)
+    return margin
+
+
 def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
                           binned: torch.Tensor, base: torch.Tensor,
                           max_depth: int, n_group: int,
                           root: Optional[torch.Tensor] = None,
-                          n_roots: int = 1) -> torch.Tensor:
+                          n_roots: int = 1,
+                          tree_chunk: int = 0) -> torch.Tensor:
     """(N, n_group) margins: ``base`` plus every tree's leaf values added
     to its group's column, in tree order (the JAX scan's order,
-    ``tree.py:676-695``)."""
+    ``tree.py:746-778``).  ``tree_chunk > 1`` pads the stack to the
+    :func:`padded_tree_count` ladder and traverses ``tree_chunk`` trees
+    at once (:func:`predict_margin_chunked`); ``tree_chunk <= 1`` runs
+    the trees one by one, the reference path, which reads the group ids
+    on the host.  Both give the same bytes."""
+    if tree_chunk > 1:
+        _, C, _ = predict_chunk_layout(int(stack.feature.shape[0]),
+                                       tree_chunk)
+        stack, tree_group, n_valid = pad_predict_stack(stack, tree_group,
+                                                       tree_chunk)
+        return predict_margin_chunked(stack, tree_group, n_valid, binned,
+                                      base, max_depth, n_group, root,
+                                      n_roots, C)
     N = binned.shape[0]
     margin = torch.broadcast_to(base, (N, n_group)).to(torch.float32)
     margin = margin.clone()
@@ -529,12 +668,53 @@ def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
     return margin
 
 
+def predict_margin_fused(stack: TreeArrays, tree_group: torch.Tensor,
+                         X: torch.Tensor, cut_values: torch.Tensor,
+                         base: torch.Tensor, max_depth: int, n_group: int,
+                         root: Optional[torch.Tensor] = None,
+                         n_roots: int = 1,
+                         tree_chunk: int = 0,
+                         n_valid: Optional[int] = None) -> torch.Tensor:
+    """Quantize and traverse in one function (``tree.py:822-856``): raw
+    f32 rows (NaN = missing) and the cut matrix in, margins out.  The
+    quantization is :func:`~xgboost_tpu_torch.binning.bin_dense_device`
+    itself, so the margins are those of quantize-then-
+    :func:`predict_margin_binned` on the same rows, byte for byte.
+
+    ``n_valid`` says that ``stack`` and ``tree_group`` are already
+    padded by :func:`pad_predict_stack` and hold that many real trees:
+    the serving engine pads once per model and captures this function
+    per row bucket, so no padding runs inside the graph."""
+    from xgboost_tpu_torch.binning import bin_dense_device
+    binned = bin_dense_device(X, cut_values)
+    if n_valid is not None and tree_chunk > 1:
+        _, C, _ = predict_chunk_layout(n_valid, tree_chunk)
+        return predict_margin_chunked(stack, tree_group, n_valid, binned,
+                                      base, max_depth, n_group, root,
+                                      n_roots, C)
+    return predict_margin_binned(stack, tree_group, binned, base,
+                                 max_depth, n_group, root, n_roots,
+                                 tree_chunk)
+
+
 def predict_leaf_binned(stack: TreeArrays, binned: torch.Tensor,
                         max_depth: int, root: Optional[torch.Tensor] = None,
-                        n_roots: int = 1) -> torch.Tensor:
+                        n_roots: int = 1,
+                        tree_chunk: int = 0) -> torch.Tensor:
     """(N, T) leaf node index per tree, every group's trees in tree
-    order."""
+    order (``tree.py:889-906``); ``tree_chunk > 1`` traverses chunks of
+    trees at once, padded like the margins, and drops the padded
+    columns."""
+    T = int(stack.feature.shape[0])
+    if tree_chunk > 1:
+        _, C, _ = predict_chunk_layout(T, tree_chunk)
+        group = torch.zeros(T, dtype=torch.int32)   # layout only
+        stack, _, _ = pad_predict_stack(stack, group, tree_chunk)
+        leaves = torch.cat([traverse_chunk(
+            TreeArrays(*(x[s:s + C] for x in stack)), binned, max_depth,
+            root, n_roots) for s in range(0, stack.feature.shape[0], C)])
+        return leaves[:T].T
     leaves = [traverse_one(_tree(stack, t), binned, max_depth, root,
                            n_roots)
-              for t in range(stack.feature.shape[0])]
+              for t in range(T)]
     return torch.stack(leaves, dim=1)

@@ -1,19 +1,29 @@
-"""xgboost_tpu_torch.obs: spans, the JSONL event log, the round profiler
-and the metric groups of training, the pipeline and tenant lanes (port
-of the part of ``xgboost_tpu/obs`` that these paths call; same metric and
+"""xgboost_tpu_torch.obs: spans, trace ids, the JSONL event log, the
+round profiler and the metric groups of training, the pipeline, tenant
+lanes, prediction, the feature store, the catalog and serving (port of
+the part of ``xgboost_tpu/obs`` that these paths call; same metric and
 event names)."""
 
 import os
 
 from xgboost_tpu_torch.obs.events import configure_log, get_log
-from xgboost_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,
-                                           LabeledCounter, LaneMetrics,
-                                           PipelineMetrics, TrainingMetrics,
+from xgboost_tpu_torch.obs.metrics import (CatalogMetrics, Counter,
+                                           FeatureStoreMetrics, Gauge,
+                                           Histogram, LabeledCounter,
+                                           LabeledGauge, LaneMetrics,
+                                           PipelineMetrics, PredictMetrics,
+                                           ServingMetrics, TrainingMetrics,
+                                           catalog_metrics,
+                                           featurestore_metrics,
                                            lane_metrics, pipeline_metrics,
-                                           registry, reliability_metrics,
+                                           predict_metrics, registry,
+                                           reliability_metrics,
+                                           tenant_dequeues, timed_device_put,
                                            training_metrics)
 from xgboost_tpu_torch.obs.profiler import RoundProfiler
-from xgboost_tpu_torch.obs.trace import event, span
+from xgboost_tpu_torch.obs.trace import (current_span_id,
+                                         current_trace_id, event, span,
+                                         trace_context)
 
 
 def phases_enabled() -> bool:
@@ -31,8 +41,12 @@ def phases_enabled() -> bool:
     return os.environ.get("XGBTPU_OBS", "") not in ("", "0")
 
 
-__all__ = ["Counter", "Gauge", "Histogram", "LabeledCounter", "LaneMetrics",
-           "PipelineMetrics", "RoundProfiler", "TrainingMetrics",
-           "configure_log", "event", "get_log", "lane_metrics",
-           "phases_enabled", "pipeline_metrics", "registry",
-           "reliability_metrics", "span", "training_metrics"]
+__all__ = ["CatalogMetrics", "Counter", "FeatureStoreMetrics", "Gauge",
+           "Histogram", "LabeledCounter", "LabeledGauge", "LaneMetrics",
+           "PipelineMetrics", "PredictMetrics", "RoundProfiler",
+           "ServingMetrics", "TrainingMetrics", "catalog_metrics",
+           "configure_log", "current_span_id", "current_trace_id", "event",
+           "featurestore_metrics", "get_log", "lane_metrics",
+           "phases_enabled", "pipeline_metrics", "predict_metrics",
+           "registry", "reliability_metrics", "span", "tenant_dequeues",
+           "timed_device_put", "trace_context", "training_metrics"]

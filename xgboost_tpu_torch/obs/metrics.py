@@ -1,13 +1,13 @@
-"""Prometheus-style metric primitives and the metric groups the pipeline
-and tenant lanes feed (port of ``xgboost_tpu/obs/metrics.py:45-235,
-443-551,672-815``, with the same metric names), and the round
-profiler's training metrics.
+"""Prometheus-style metric primitives and the metric groups of training,
+the pipeline, tenant lanes, prediction, the feature store, the catalog
+and serving (port of ``xgboost_tpu/obs/metrics.py:45-672,672-815,
+896-1058,1197-1289``, with the same metric names).
 
 One process-wide :class:`MetricsRegistry` holds every group's render
 function, so ``registry().render()`` is the whole process's exposition
-text.  Only what the pipeline, the checkpoint ring and the lane dispatcher
-call is ported; serving, predict, stream and catalog groups are not
-(ROADMAP.md section 1 item 16).
+text, and a :class:`ServingMetrics` render appends every other group.
+The stream, fleet, tenant-quota and placer groups are not ported (ROADMAP.md
+section 1 items 14b and 15).
 """
 
 from __future__ import annotations
@@ -15,8 +15,13 @@ from __future__ import annotations
 import bisect
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+# latency buckets in seconds: 0.5ms .. 5s, roughly x2 per step
+_LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                    0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
+# batch-size buckets in rows: powers of two
+_ROWS_BUCKETS = tuple(float(1 << i) for i in range(15))
 # per-round wall-time buckets in seconds: 1ms .. 60s
 _ROUND_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                   0.5, 1.0, 2.5, 5.0, 15.0, 60.0)
@@ -93,8 +98,37 @@ class LabeledCounter:
         return "\n".join(lines) + "\n"
 
 
+class LabeledGauge:
+    """A gauge family with one label dimension (``obs/metrics.py:127``)."""
+
+    def __init__(self, name: str, label: str, help_text: str = ""):
+        self.name, self.label, self.help = name, label, help_text
+        self._v: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def set(self, label_value: str, v: float) -> None:
+        with self._lock:
+            self._v[label_value] = float(v)
+
+    def value(self, label_value: str) -> float:
+        return self._v.get(label_value, 0.0)
+
+    def values(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._v)
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} gauge"]
+        for lv, v in sorted(self.values().items()):
+            lines.append(f'{self.name}{{{self.label}="{_escape_label(lv)}"}}'
+                         f' {_fmt(v)}')
+        return "\n".join(lines) + "\n"
+
+
 class Histogram:
-    """Fixed-bucket histogram (Prometheus ``histogram``)."""
+    """Fixed-bucket histogram (Prometheus ``histogram``) with quantiles
+    interpolated within the winning bucket (``obs/metrics.py:158``)."""
 
     def __init__(self, name: str, help_text: str = "",
                  buckets: Sequence[float] = _ROUND_BUCKETS):
@@ -111,6 +145,42 @@ class Histogram:
             self._counts[i] += 1
             self._sum += x
             self._n += 1
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def quantile(self, q: float) -> float:
+        """Approximate q-quantile from the bucket counts: 0.0 without
+        observations; ``q <= 0`` the lower edge of the first non-empty
+        bucket; ``q >= 1`` the upper edge of the last non-empty finite
+        bucket."""
+        with self._lock:
+            n = self._n
+            counts = list(self._counts)
+        if n == 0:
+            return 0.0
+        if q <= 0.0:
+            for i, c in enumerate(counts):
+                if c > 0:
+                    return self.bounds[i - 1] if i > 0 else 0.0
+            return 0.0
+        target = min(q, 1.0) * n
+        cum = 0.0
+        for i, c in enumerate(counts):
+            prev = cum
+            cum += c
+            if cum >= target and c > 0:
+                lo = self.bounds[i - 1] if i > 0 else 0.0
+                hi = self.bounds[i] if i < len(self.bounds) else lo
+                if hi <= lo:
+                    return hi
+                return lo + (hi - lo) * (target - prev) / c
+        return self.bounds[-1]
 
     def render(self) -> str:
         lines = [f"# HELP {self.name} {self.help}",
@@ -139,9 +209,17 @@ class MetricsRegistry:
         with self._lock:
             self._groups[name] = render_fn
 
-    def render(self) -> str:
+    def unregister(self, name: str) -> None:
         with self._lock:
-            fns = list(self._groups.values())
+            self._groups.pop(name, None)
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return list(self._groups)
+
+    def render(self, exclude: Sequence[str] = ()) -> str:
+        with self._lock:
+            fns = [fn for n, fn in self._groups.items() if n not in exclude]
         return "".join(fn() for fn in fns)
 
 
@@ -191,21 +269,123 @@ class TrainingMetrics(_Group):
 
 
 class ReliabilityMetrics(_Group):
-    """``xgbtpu_*`` failure-path counters the checkpoint ring feeds."""
+    """``xgbtpu_reliability_*`` and ``xgbtpu_deadline_*``: how often the
+    crash-safety machinery engaged (``obs/metrics.py:342-428``): the
+    checkpoint ring and model I/O, the serving stack's shed, dropped and
+    rejected requests, poisoned reloads, drains and injected faults."""
 
-    def __init__(self, prefix: str = "xgbtpu"):
+    def __init__(self, prefix: str = "xgbtpu_reliability"):
         p = prefix
+        self.integrity_failures = Counter(
+            f"{p}_integrity_failures_total",
+            "persisted files that failed CRC/footer verification")
         self.ring_fallbacks = Counter(
             f"{p}_ckpt_ring_fallbacks_total",
             "checkpoint loads that fell back past a corrupt ring member")
         self.quarantines = Counter(
             f"{p}_quarantined_files_total",
             "corrupt files moved aside as *.corrupt")
+        self.poisoned_reloads = Counter(
+            f"{p}_poisoned_reload_skips_total",
+            "reload polls skipped because the file content is known-bad")
+        self.shed_requests = Counter(
+            f"{p}_shed_requests_total",
+            "abandoned (caller timed out) requests shed before dispatch")
+        self.faults_injected = Counter(
+            f"{p}_faults_injected_total",
+            "chaos faults fired by the injection registry")
+        self.drain_seconds = Gauge(
+            f"{p}_drain_seconds",
+            "duration of the last HTTP drain (SIGTERM to stopped)")
+        self.deadline_rejected = Counter(
+            "xgbtpu_deadline_rejected_total",
+            "requests rejected before device work because the deadline "
+            "budget was spent or cannot cover observed service time")
+        self.deadline_dropped = Counter(
+            "xgbtpu_deadline_dropped_total",
+            "expired requests dropped by the micro-batcher pre-dispatch")
         self.swallowed = LabeledCounter(
-            f"{p}_swallowed_errors_total", "site",
+            "xgbtpu_swallowed_errors_total", "site",
             "exceptions deliberately swallowed, by site")
-        self._all = (self.ring_fallbacks, self.quarantines, self.swallowed)
+        self._all = (self.integrity_failures, self.ring_fallbacks,
+                     self.quarantines, self.poisoned_reloads,
+                     self.shed_requests, self.faults_injected,
+                     self.drain_seconds, self.deadline_rejected,
+                     self.deadline_dropped, self.swallowed)
         registry().register("reliability", self.render)
+
+
+class PredictMetrics(_Group):
+    """``xgbtpu_predict_*`` (``obs/metrics.py:552-606``): rows through
+    the tree traversal, its seconds per tree chunk, and the host-to-device
+    feature uploads of the prediction paths."""
+
+    def __init__(self, prefix: str = "xgbtpu_predict"):
+        p = prefix
+        self.rows = Counter(
+            f"{p}_rows_total",
+            "rows predicted through the gbtree traversal "
+            "(Learner.predict + serving engine)")
+        self.chunk_seconds = Histogram(
+            f"{p}_chunk_seconds",
+            "device traversal wall seconds per tree chunk "
+            "(margin launch time / chunk count)", _LATENCY_BUCKETS)
+        self.transfer_seconds = Histogram(
+            f"{p}_transfer_seconds",
+            "host→device feature upload wall seconds per transfer "
+            "(prediction paths: learner blocks, engine batches, "
+            "feature-store puts)", _LATENCY_BUCKETS)
+        self.transfer_bytes = Counter(
+            f"{p}_transfer_bytes_total",
+            "host→device feature bytes uploaded on prediction paths "
+            "(flat while the feature store serves resident entities)")
+        self._all = (self.rows, self.chunk_seconds,
+                     self.transfer_seconds, self.transfer_bytes)
+        registry().register("predict", self.render)
+
+    def observe_transfer(self, nbytes: int, seconds: float) -> None:
+        """Account one host-to-device feature upload."""
+        self.transfer_bytes.inc(nbytes)
+        self.transfer_seconds.observe(seconds)
+
+
+def timed_device_put(arr, out, observe=None):
+    """The prediction upload (``obs/metrics.py:608``): host array ``arr``
+    copied into the device tensor ``out`` of its shape, synchronised so
+    the copy is timed whole, and ``observe(nbytes, seconds)`` called
+    when given (``predict_metrics().observe_transfer``; None for warmup
+    traffic).  Returns ``out``."""
+    import torch
+    t0 = time.perf_counter()
+    out.copy_(torch.from_numpy(arr))
+    if out.device.type == "cuda":
+        torch.cuda.current_stream(out.device).synchronize()
+    if observe is not None:
+        observe(getattr(arr, "nbytes", 0), time.perf_counter() - t0)
+    return out
+
+
+class FeatureStoreMetrics(_Group):
+    """``xgbtpu_featurestore_*`` (``obs/metrics.py:628``): hits, misses,
+    evictions and resident bytes of the device feature store."""
+
+    def __init__(self, prefix: str = "xgbtpu_featurestore"):
+        p = prefix
+        self.hits = Counter(
+            f"{p}_hits_total",
+            "entity rows served from the device-resident store")
+        self.misses = Counter(
+            f"{p}_misses_total",
+            "entity lookups that were not resident")
+        self.evictions = Counter(
+            f"{p}_evictions_total",
+            "entity rows evicted by LRU byte-budget pressure")
+        self.resident_bytes = Gauge(
+            f"{p}_resident_bytes",
+            "feature bytes currently resident on device")
+        self._all = (self.hits, self.misses, self.evictions,
+                     self.resident_bytes)
+        registry().register("featurestore", self.render)
 
 
 class PipelineMetrics(_Group):
@@ -311,6 +491,128 @@ class LaneMetrics(_Group):
         registry().register("lanes", self.render)
 
 
+class CatalogMetrics(_Group):
+    """``xgbtpu_catalog_*`` (``obs/metrics.py:1011``): configured and
+    resident models, the shared device budget, admissions, evictions and
+    resolves by model."""
+
+    def __init__(self, prefix: str = "xgbtpu_catalog"):
+        p = prefix
+        self.models_configured = Gauge(
+            f"{p}_models_configured",
+            "models named in this replica's catalog manifest")
+        self.models_resident = Gauge(
+            f"{p}_models_resident",
+            "models with a live engine on device right now")
+        self.bytes_used = Gauge(
+            f"{p}_bytes_used",
+            "estimated device bytes held by resident model engines")
+        self.bytes_budget = Gauge(
+            f"{p}_bytes_budget",
+            "serve_catalog_mb budget in bytes (0 = unlimited)")
+        self.admissions = Counter(
+            f"{p}_admissions_total",
+            "evicted models re-built and re-warmed on demand")
+        self.evictions = Counter(
+            f"{p}_evictions_total",
+            "cold models' engines LRU-evicted to fit the budget")
+        self.requests = LabeledCounter(
+            f"{p}_requests_total", "model",
+            "catalog resolves served, by model name")
+        self.unknown_model = Counter(
+            f"{p}_unknown_model_total",
+            "requests naming a model the catalog does not hold (404)")
+        self._all = (self.models_configured, self.models_resident,
+                     self.bytes_used, self.bytes_budget, self.admissions,
+                     self.evictions, self.requests, self.unknown_model)
+        registry().register("catalog", self.render)
+
+
+class ServingMetrics(_Group):
+    """``xgbtpu_serving_*`` (``obs/metrics.py:1197-1289``): one instance
+    is shared by engine, batcher, registry and HTTP front end.  It
+    registers as group ``"serving"`` (the latest instance wins), and its
+    :meth:`render` appends every other registered group, so one scrape
+    covers the process."""
+
+    def __init__(self, prefix: str = "xgbtpu_serving"):
+        self.prefix = prefix
+        self._metrics: Dict[str, object] = {}
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+        p = prefix
+        self.requests = self.counter(
+            f"{p}_requests_total", "prediction requests received")
+        self.rows = self.counter(
+            f"{p}_rows_total", "real (caller-supplied) rows predicted")
+        self.padded_rows = self.counter(
+            f"{p}_padded_rows_total",
+            "padding rows added to reach the shape bucket")
+        self.rejected = self.counter(
+            f"{p}_rejected_total", "requests rejected with QueueFull (503)")
+        self.errors = self.counter(
+            f"{p}_errors_total", "requests that raised during prediction")
+        self.batches = self.counter(
+            f"{p}_batches_total", "coalesced device batches executed")
+        self.compiles = self.counter(
+            f"{p}_compiles_total", "predict executables compiled")
+        self.reloads = self.counter(
+            f"{p}_reloads_total", "successful model hot-reloads")
+        self.reload_errors = self.counter(
+            f"{p}_reload_errors_total", "failed model reload attempts")
+        self.queue_rows = self.gauge(
+            f"{p}_queue_rows", "rows currently waiting in the batch queue")
+        self.model_version = self.gauge(
+            f"{p}_model_version", "monotonic version of the served model")
+        self.batch_rows = self.histogram(
+            f"{p}_batch_rows", "rows per coalesced device batch",
+            _ROWS_BUCKETS)
+        self.latency = self.histogram(
+            f"{p}_latency_seconds",
+            "request latency, submit to result (includes queueing)")
+        self.latency_p50 = self.gauge(
+            f"{p}_latency_p50_seconds", "p50 request latency")
+        self.latency_p99 = self.gauge(
+            f"{p}_latency_p99_seconds", "p99 request latency")
+        registry().register("serving", self._render_own)
+
+    def counter(self, name: str, help_text: str = "") -> Counter:
+        return self._register(Counter(name, help_text))
+
+    def gauge(self, name: str, help_text: str = "") -> Gauge:
+        return self._register(Gauge(name, help_text))
+
+    def histogram(self, name: str, help_text: str = "",
+                  buckets: Sequence[float] = _LATENCY_BUCKETS) -> Histogram:
+        return self._register(Histogram(name, help_text, buckets))
+
+    def _register(self, m):
+        with self._lock:
+            if m.name in self._metrics:
+                return self._metrics[m.name]
+            self._metrics[m.name] = m
+            return m
+
+    @property
+    def uptime_seconds(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def quantiles(self, qs: Tuple[float, ...] = (0.5, 0.99)
+                  ) -> Dict[float, float]:
+        return {q: self.latency.quantile(q) for q in qs}
+
+    def _render_own(self) -> str:
+        self.latency_p50.set(self.latency.quantile(0.5))
+        self.latency_p99.set(self.latency.quantile(0.99))
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return "".join(m.render() for m in metrics)
+
+    def render(self) -> str:
+        reliability_metrics()
+        return self._render_own() + registry().render(exclude=("serving",))
+
+
 _SINGLETONS: Dict[type, _Group] = {}
 _SINGLETON_LOCK = threading.Lock()
 
@@ -339,6 +641,37 @@ def pipeline_metrics() -> PipelineMetrics:
 
 def lane_metrics() -> LaneMetrics:
     return _singleton(LaneMetrics)
+
+
+def predict_metrics() -> PredictMetrics:
+    return _singleton(PredictMetrics)
+
+
+def featurestore_metrics() -> FeatureStoreMetrics:
+    return _singleton(FeatureStoreMetrics)
+
+
+def catalog_metrics() -> CatalogMetrics:
+    return _singleton(CatalogMetrics)
+
+
+_TENANT_DEQUEUES: Optional[LabeledCounter] = None
+
+
+def tenant_dequeues() -> LabeledCounter:
+    """``xgbtpu_batcher_tenant_dequeues_total{model}``
+    (``obs/metrics.py:896``): requests the micro-batcher dequeued per
+    tenant, the observable side of its weighted round robin."""
+    global _TENANT_DEQUEUES
+    if _TENANT_DEQUEUES is None:
+        with _SINGLETON_LOCK:
+            if _TENANT_DEQUEUES is None:
+                c = LabeledCounter(
+                    "xgbtpu_batcher_tenant_dequeues_total", "model",
+                    "micro-batcher dequeues per tenant (WRR fairness)")
+                registry().register("batcher", c.render)
+                _TENANT_DEQUEUES = c
+    return _TENANT_DEQUEUES
 
 
 def swallowed_error(site: str, exc: Optional[BaseException] = None) -> None:

@@ -48,7 +48,7 @@ def run_pipeline(publish_path: str, workdir: str = "./pipeline",
     if router_url:
         raise NotImplementedError(
             "router_url: the fleet rollout publisher needs the serving "
-            "router, ROADMAP.md section 1 item 14")
+            "router, ROADMAP.md section 1 item 14b (the fleet)")
     if source is None:
         if not data or not holdout:
             raise ValueError(

@@ -1,22 +1,23 @@
 """Compatibility shim (port of ``xgboost_tpu/profiling.py``): the round
-profiler and the metric primitives live in :mod:`xgboost_tpu_torch.obs`;
-``from xgboost_tpu_torch.profiling import RoundProfiler`` keeps working.
-The serving metric group is not ported (ROADMAP.md section 1 item 16)."""
+profiler and the metric primitives and groups live in
+:mod:`xgboost_tpu_torch.obs`; ``from xgboost_tpu_torch.profiling import
+RoundProfiler`` (or ``ServingMetrics``) keeps working."""
 
 from __future__ import annotations
 
 from xgboost_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,
-                                           LabeledCounter, MetricsRegistry,
+                                           LabeledCounter, LabeledGauge,
+                                           MetricsRegistry,
                                            ReliabilityMetrics,
-                                           TrainingMetrics, registry,
-                                           reliability_metrics,
+                                           ServingMetrics, TrainingMetrics,
+                                           registry, reliability_metrics,
                                            training_metrics)
 from xgboost_tpu_torch.obs.profiler import RoundProfiler
 
 __all__ = [
     "RoundProfiler",
-    "Counter", "Gauge", "Histogram", "LabeledCounter",
+    "Counter", "Gauge", "Histogram", "LabeledCounter", "LabeledGauge",
     "MetricsRegistry", "registry",
-    "ReliabilityMetrics", "TrainingMetrics",
+    "ReliabilityMetrics", "ServingMetrics", "TrainingMetrics",
     "reliability_metrics", "training_metrics",
 ]

@@ -23,6 +23,8 @@ import tempfile
 import zlib
 from typing import Union
 
+from xgboost_tpu_torch.reliability import faults
+
 FOOTER_MAGIC = b"XGTPUCRC1"
 # \n + magic(9) + sp + crc(8 hex) + sp + len(16 dec) + \n
 FOOTER_LEN = 1 + 9 + 1 + 8 + 1 + 16 + 1
@@ -59,6 +61,7 @@ def verify_model_bytes(raw: bytes, name: str = "<buffer>",
         torn_prefix = any(raw.endswith(head[:k])
                           for k in range(2, len(head)))
         if torn_prefix or FOOTER_MAGIC in raw[-(FOOTER_LEN + 8):]:
+            _count_integrity_failure(name, "truncated footer (torn write)")
             raise ModelIntegrityError(
                 f"{name}: truncated integrity footer (torn write)")
         if warn and name not in _warned_unverified:
@@ -69,15 +72,25 @@ def verify_model_bytes(raw: bytes, name: str = "<buffer>",
     payload = raw[:-FOOTER_LEN]
     want_crc, want_len = int(m.group(1), 16), int(m.group(2))
     if len(payload) != want_len:
+        _count_integrity_failure(name, "length mismatch (torn write)")
         raise ModelIntegrityError(
             f"{name}: payload is {len(payload)} bytes, footer says "
             f"{want_len} (torn write)")
     got_crc = zlib.crc32(payload) & 0xFFFFFFFF
     if got_crc != want_crc:
+        _count_integrity_failure(name, "CRC32 mismatch")
         raise ModelIntegrityError(
             f"{name}: CRC32 mismatch (footer {want_crc:08x}, content "
             f"{got_crc:08x})")
     return payload
+
+
+def _count_integrity_failure(name: str, reason: str) -> None:
+    """``xgbtpu_reliability_integrity_failures_total`` and an
+    ``integrity.failure`` event (``integrity.py:113``)."""
+    from xgboost_tpu_torch.obs import event, reliability_metrics
+    reliability_metrics().integrity_failures.inc()
+    event("integrity.failure", file=name, reason=reason)
 
 
 @contextlib.contextmanager
@@ -123,14 +136,21 @@ def atomic_writer(path: Union[str, os.PathLike], durable: bool = True):
 def atomic_write(path: Union[str, os.PathLike], data: bytes,
                  durable: bool = True) -> None:
     """Whole-file write: temp file in the destination directory ->
-    flush -> fsync -> ``os.replace`` -> directory fsync."""
+    flush -> fsync -> ``os.replace`` -> directory fsync.  The bytes pass
+    the ``faults.mutate_write`` seam first (torn writes, bit flips,
+    ENOSPC under chaos, ``integrity.py:174``)."""
+    data = faults.mutate_write(os.fspath(path), data)
     with atomic_writer(path, durable=durable) as f:
         f.write(data)
 
 
 def read_file(path: Union[str, os.PathLike]) -> bytes:
-    with open(os.fspath(path), "rb") as f:
-        return f.read()
+    """Whole-file read through the ``faults.mutate_read`` seam
+    (slow reads, read bit flips, ``integrity.py:184``)."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        raw = f.read()
+    return faults.mutate_read(path, raw)
 
 
 def quarantine(path: Union[str, os.PathLike]) -> str:
