@@ -30,6 +30,11 @@ every kernel against its plain PyTorch version.  The paths:
   ``xgboost_tpu_torch.serving`` (one CUDA graph per row bucket, the
   micro-batcher, the HTTP server with a hot reload and a rollback, the
   feature store);
+- the fleet: a router (``python -m xgboost_tpu_torch task=fleet_router``,
+  a subprocess) over two replicas of the Higgs model on the card in this
+  process, with consistent-hash ``/predict_by_id``, the catalog placer,
+  a canary rollout of a candidate trained on the card and its rollback,
+  a killed replica and load shedding;
 - ranking: ``bench.py:bench_rank`` (1,000,000 x 28, 10,000 groups of
   100, rank:ndcg, depth 6), cut to 20 rounds, on the group-padded layout
   (K1 on 1,040,000 slots), then the sort path (``rank:map``,
@@ -248,6 +253,41 @@ calls at 1, 64, 1,024 and 8,192 rows for both models and rows/s at
 8,192, the eager function's and the graph's ms at 8 and 8,192 rows, the
 HTTP round trip's p50 / p99 at 1 and 1,000 rows and ``predict_by_id``'s
 at 64 ids.
+
+The ``[fleet]`` phase (after ``[serve]``, launch counts set to 0 just
+before and read just after: only the candidate's training launches a
+kernel, K1 60 times) starts the router as a subprocess
+(``fleet_lease_sec`` 3, ``fleet_hc_sec`` 0.5) and two replicas, ``r0``
+and ``r1``, as ``run_server(..., device="cuda", router_url=...,
+replica_id=...)`` on copies of ``[main]``'s model file, each with a
+catalog budget (``serve_catalog_mb``) of its default engine and one more
+in the bytes ``[serve]`` measured (graph pools included), and fails
+unless: (a) both are in rotation within 10 s; (b) ``/predict`` of 1, 64
+and 1,000 CSV holdout rows through the router gives the body of the same
+request sent to ``r0``, byte for byte, and ``Booster.predict``'s values;
+(c) 1,000 ids put through the router live each on its ``HashRing`` owner
+only, and three repeats of the merged ``/predict_by_id`` (and 20 single
+ids a repeat) equal ``/predict`` of their rows; (g) a placer converges a
+two-model catalog (``[main]``'s and ``[multiclass]``'s models) with
+each model on a replica, each replica hosting one and its advertised
+``used_bytes`` within its ``budget_bytes``, and ``/predict?model=``
+through the router equal to that model's ``Booster.predict``; (d) ``POST
+/fleet/rollout`` (1 canary, a 2 s soak) of a candidate trained on the
+card (10 rounds on the first 200,000 rows) succeeds under traffic, both
+replicas report its sha256 and answer its predictions, and ``POST
+/fleet/rollback`` restores the first hash and answers, every answer
+under traffic one model's; (e) ``replica_kill`` on ``r1`` (its
+``on_kill`` stops the server with no drain) fires during 200 requests
+from 8 threads, no client sees an error, ``r1`` leaves rotation within
+``fleet_lease_sec`` + ``fleet_hc_sec``, the router's ``/metrics`` shows
+retries and the breaker counter, and ``r1`` restarted under its id is in
+rotation again; (f) a second router with ``fleet_inflight=2`` over a
+replica wedged by ``slow_replica`` (0.2 s) answers 16 concurrent
+requests with some 503 ``"shed"`` and every 200 right; the phase ends
+within 120 s.  It prints the router's and a direct request's p50 / p99
+at 1 and 1,000 rows, the rollout's seconds, the time to eject the killed
+replica and each replica's advertised bytes beside
+``torch.cuda.memory_reserved``.
 
 The ``[lanes]`` phase fails on a solo lane or a ``lanes.stack_error``
 event in the stacked run (the solo fallback would hide a K4 that does
@@ -1371,15 +1411,38 @@ def graph_vs_eager(torch, eng, X, tag):
     return times
 
 
-def http_post(url, body, timeout=60.0):
+def http_call(url, body=None, timeout=60.0):
+    """(status, parsed JSON or {}, raw body) of a GET (body None) or a
+    POST; an HTTP error status is returned, not raised."""
+    import urllib.error
     import urllib.request
-    return json.load(urllib.request.urlopen(urllib.request.Request(
-        url, data=body, method="POST"), timeout=timeout))
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    try:
+        return status, json.loads(raw), raw
+    except ValueError:
+        return status, {}, raw
+
+
+def http_post(url, body, timeout=60.0):
+    """The JSON answer of a POST that must succeed."""
+    status, js, raw = http_call(url, body, timeout)
+    if status != 200:
+        raise RuntimeError(f"POST {url}: HTTP {status} {raw[:200]!r}")
+    return js
 
 
 def http_get(url, timeout=60.0):
-    import urllib.request
-    return urllib.request.urlopen(url, timeout=timeout).read()
+    """The body of a GET that must succeed."""
+    status, _, raw = http_call(url, timeout=timeout)
+    if status != 200:
+        raise RuntimeError(f"GET {url}: HTTP {status} {raw[:200]!r}")
+    return raw
 
 
 def csv_body(X):
@@ -1661,9 +1724,471 @@ def phase_serve(torch, xt, kernels, card, main_hold, device="cuda"):
           f"(limit {SERVE_PHASE_S:.0f})", flush=True)
     if secs > SERVE_PHASE_S:
         fail(f"[serve] phase took {secs:.1f} s > {SERVE_PHASE_S} s")
+    engine_bytes = {tag: e.device_bytes() for tag, e in engines.items()}
     for e in engines.values():
         e.release()
+    return engine_bytes
 
+
+
+# ---------------------------------------------------------------- [fleet]
+FLEET_LEASE_S, FLEET_HC_S = 3.0, 0.5       # router lease and health pass
+FLEET_ROTATION_S = 10.0                    # (a)
+FLEET_SIZES = (1, 64, 1000)                # (b)
+FLEET_IDS = 1000                           # (c)
+FLEET_CAND_N, FLEET_CAND_ROUNDS = 200_000, 10   # (d)
+FLEET_KILL_THREADS, FLEET_KILL_REQS = 8, 200    # (e)
+FLEET_SHED_INFLIGHT, FLEET_SHED_S, FLEET_SHED_REQS = 2, 0.2, 16   # (f)
+FLEET_PHASE_S = 120.0
+
+
+def start_router(*params):
+    """``python -m xgboost_tpu_torch task=fleet_router fleet_port=0`` as a
+    subprocess: (process, base URL read from its banner, its stderr
+    lines)."""
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "xgboost_tpu_torch", "task=fleet_router",
+         "fleet_port=0", f"fleet_lease_sec={FLEET_LEASE_S}",
+         f"fleet_hc_sec={FLEET_HC_S}", *params],
+        cwd=HERE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    lines = []
+
+    def drain():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+    threading.Thread(target=drain, daemon=True).start()
+    return proc, lines
+
+
+def router_url(proc, lines, timeout=90.0):
+    import re
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        for line in lines:
+            m = re.search(r"router on (http://[0-9.]+:\d+)", line)
+            if m:
+                return m.group(1)
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    fail(f"[fleet] the router did not start: rc {proc.poll()}, stderr "
+         f"{lines[-5:]}")
+
+
+def kill_now(srv, killed):
+    """The ``replica_kill`` fault's ``on_kill``: stop the server with no
+    drain and no deregistration (the router must notice by itself), and
+    never leave the process."""
+    killed.setdefault("t", time.perf_counter())
+    srv.lease_client = None
+    srv.shutdown()
+
+
+def members(base):
+    return http_call(base + "/fleet/members")[1]
+
+
+def wait_rotation(base, want, timeout):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        m = members(base)
+        ids = sorted(r["replica_id"] for r in m["replicas"]
+                     if r["in_rotation"])
+        if ids == want:
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    fail(f"[fleet] rotation {ids} != {want} within {timeout} s")
+
+
+def phase_fleet(torch, xt, kernels, card, main_hold, fleet_train,
+                engine_bytes, device="cuda"):
+    """The fleet on the card: a router subprocess over two replicas of
+    [main]'s model in this process (``run_server(..., router_url=)``);
+    gates (a)-(g) of the module docstring.  Only the candidate's
+    training launches a kernel (K1)."""
+    import hashlib
+    import shutil
+    import threading
+
+    from xgboost_tpu_torch.fleet import HashRing, scrape_samples
+    from xgboost_tpu_torch.placer import run_placer
+    from xgboost_tpu_torch.reliability import faults
+    from xgboost_tpu_torch.serving import run_server
+    t_phase = time.perf_counter()
+    out = os.path.join(HERE, ".smoke_out")
+    root = os.path.join(out, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    first = os.path.join(out, "smoke_model.bin")
+    paths = {}
+    for rid in ("r0", "r1", "r-shed"):
+        paths[rid] = os.path.join(root, f"{rid}.bin")
+        shutil.copyfile(first, paths[rid])
+    tenants = {"higgs": os.path.join(root, "tenant-higgs.bin"),
+               "multiclass": os.path.join(root, "tenant-multiclass.bin")}
+    shutil.copyfile(first, tenants["higgs"])
+    shutil.copyfile(os.path.join(out, "smoke_multiclass.bin"),
+                    tenants["multiclass"])
+    # each replica's catalog holds its default model and one tenant, in
+    # the bytes [serve] measured on this card (graph pools included)
+    eh, em = engine_bytes["higgs"], engine_bytes["multiclass"]
+    budget = eh + max(eh, em) + min(eh, em) // 2
+    catalog_mb = budget / 1e6
+    Xh = np.ascontiguousarray(main_hold)
+    Xm = np.ascontiguousarray(make_multiclass(MC_N + MC_TEST)[0][MC_N:])
+
+    procs, servers = [], []
+    reset_counts(kernels)
+    try:
+        procs.append(start_router())
+        procs.append(start_router(f"fleet_inflight={FLEET_SHED_INFLIGHT}"))
+        # (d)'s candidate: 10 rounds on [main]'s first 200,000 rows, K1 only
+        t0 = time.perf_counter()
+        Xc, yc = fleet_train
+        cand = xt.train(PARAMS, xt.DMatrix(Xc, label=yc), FLEET_CAND_ROUNDS,
+                        device=device)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        if counts != only(kernels, hist_level=FLEET_CAND_ROUNDS * DEPTH):
+            fail(f"[fleet] candidate launch counts {counts}: want "
+                 f"hist_level {FLEET_CAND_ROUNDS * DEPTH}, the others 0")
+        cand_path = os.path.join(root, "candidate.bin")
+        cand.save_model(cand_path)
+        print(f"[fleet] candidate: {FLEET_CAND_ROUNDS} rounds on "
+              f"{FLEET_CAND_N} rows in {time.perf_counter() - t0:.2f} s, "
+              f"hist_level launches {counts['hist_level']}", flush=True)
+        bst = xt.Booster(model_file=first, device=device)
+        mc = xt.Booster(model_file=tenants["multiclass"], device=device)
+        ref = bst.predict(Xh[:FLEET_IDS])
+        cref = cand.predict(Xh[:FLEET_IDS])
+        mref = mc.predict(Xm[:100])
+        base = router_url(*procs[0])
+        shed_base = router_url(*procs[1])
+
+        killed = {}
+
+        def replica(rid, url):
+            srv = run_server(paths[rid], port=0, poll_sec=0, max_wait_ms=1,
+                             featurestore_mb=64.0, catalog_mb=catalog_mb,
+                             quiet=True, block=False, device=device,
+                             router_url=url, replica_id=rid)
+            srv.lease_client.on_kill = lambda: kill_now(srv, killed)
+            servers.append(srv)
+            return srv
+
+        # (a) both replicas in rotation within 10 s
+        t0 = time.perf_counter()
+        r0, r1 = replica("r0", base), replica("r1", base)
+        rot_s = wait_rotation(base, ["r0", "r1"], max(
+            0.1, FLEET_ROTATION_S - (time.perf_counter() - t0)))
+        print(f"[fleet] (a) r0, r1 started (11 graphs each) and in "
+              f"rotation {time.perf_counter() - t0:.2f} s after the first "
+              f"start, {rot_s:.2f} s after the second's registration; "
+              f"router {base} (a subprocess), catalog budget "
+              f"{budget / 2 ** 20:.1f} MiB a replica from [serve]'s "
+              f"engines ({eh / 2 ** 20:.1f} / {em / 2 ** 20:.1f} MiB)",
+              flush=True)
+
+        # (b) routed bodies == direct bodies, predictions == Booster's
+        direct = f"http://127.0.0.1:{r0.port}"
+        lat = {}
+        for n in FLEET_SIZES:
+            body = csv_body(Xh[:n])
+            seen = set()
+            for _ in range(4):
+                st, js, raw = http_call(base + "/predict", body)
+                sd, _, rawd = http_call(direct + "/predict", body)
+                if st != 200 or sd != 200 or raw != rawd:
+                    fail(f"[fleet] (b) {n} rows: router {st} != direct "
+                         f"{sd}, or the bodies differ")
+                seen.add(raw)
+            if len(seen) != 1 or np.asarray(
+                    js["predictions"], np.float32).tobytes() \
+                    != ref[:n].tobytes():
+                fail(f"[fleet] (b) {n} rows: predictions != Booster.predict")
+            if n in (1, 1000):
+                calls = 200 if n == 1 else 50
+                lat[n] = (pct_ms(timed_calls(
+                    lambda: http_call(base + "/predict", body), calls)),
+                    pct_ms(timed_calls(
+                        lambda: http_call(direct + "/predict", body),
+                        calls)))
+        print(f"[fleet] (b) /predict of {', '.join(map(str, FLEET_SIZES))} "
+              "CSV rows through the router == the same request to r0, "
+              "byte for byte, == Booster.predict; ms p50 / p99, router | "
+              "direct: " + "; ".join(
+                  f"{n} row{'s' if n > 1 else ''} {a[0]:.3f} / {a[1]:.3f} "
+                  f"| {b[0]:.3f} / {b[1]:.3f}" for n, (a, b)
+                  in sorted(lat.items())) + f" | {card}", flush=True)
+
+        # (c) 1,000 ids through the router, each on its ring owner
+        ids = [f"u{i}" for i in range(FLEET_IDS)]
+        st, js, _ = http_call(base + "/featurestore/put", json.dumps(
+            {"ids": ids, "rows": Xh[:FLEET_IDS].tolist()}).encode())
+        if st != 200:
+            fail(f"[fleet] (c) put {st} {js}")
+        ring = HashRing(64)
+        ring.rebuild(["r0", "r1"])
+        owner = {i: ring.route(i, {"r0", "r1"}) for i in ids}
+        for rid, srv in (("r0", r0), ("r1", r1)):
+            held = set(ids) - set(srv.featurestore.missing(ids))
+            if held != {i for i in ids if owner[i] == rid}:
+                fail(f"[fleet] (c) {rid} holds {len(held)} ids, not "
+                     "exactly its HashRing keys")
+        for _ in range(3):
+            st, js, _ = http_call(base + "/predict_by_id",
+                                  json.dumps({"ids": ids}).encode())
+            if st != 200 or np.asarray(js["predictions"], np.float32) \
+                    .tobytes() != ref.tobytes():
+                fail(f"[fleet] (c) merged predict_by_id {st}: != /predict")
+            for i in range(0, FLEET_IDS, 50):
+                st, js, _ = http_call(base + "/predict_by_id",
+                                      json.dumps({"ids": [ids[i]]}).encode())
+                if st != 200 or np.float32(js["predictions"][0]) != ref[i]:
+                    fail(f"[fleet] (c) {ids[i]} not answered by its owner "
+                         f"{owner[i]} ({st})")
+        n0 = sum(1 for i in ids if owner[i] == "r0")
+        print(f"[fleet] (c) {FLEET_IDS} ids put through the router: {n0} on "
+              f"r0, {FLEET_IDS - n0} on r1, each on its HashRing owner only; "
+              "3 repeats of the merged request == /predict of the rows and "
+              "20 single ids a repeat answered by their owners", flush=True)
+
+        # (g) the placer: a two-model catalog onto r0 and r1
+        t0 = time.perf_counter()
+        ctl = run_placer(base, tenants, block=False, placer_id="smoke",
+                         lease_sec=30.0, replication=1, hot_replication=1)
+        report = {}
+        while time.perf_counter() - t0 < 60.0:
+            report = ctl.tick()
+            if report.get("converged"):
+                break
+            time.sleep(0.5)
+        if not report.get("converged"):
+            fail(f"[fleet] (g) the placer did not converge: {report}")
+        place_s = time.perf_counter() - t0
+        m = members(base)
+        hosted = {t: sorted(r["replica_id"] for r in m["replicas"]
+                            if t in r["models"]) for t in tenants}
+        per_rep = {r["replica_id"]: sorted(set(r["models"]) & set(tenants))
+                   for r in m["replicas"]}
+        if any(not h for h in hosted.values()) \
+                or sorted(len(v) for v in per_rep.values()) != [1, 1]:
+            fail(f"[fleet] (g) hosting {hosted}, per replica {per_rep}")
+        for t, X, want in (("higgs", Xh[:1000], ref),
+                           ("multiclass", Xm[:100], mref)):
+            st, js, _ = http_call(base + f"/predict?model={t}", csv_body(X))
+            if st != 200 or np.asarray(js["predictions"], np.float32) \
+                    .tobytes() != want.tobytes():
+                fail(f"[fleet] (g) /predict?model={t} through the router "
+                     f"({st} {str(js)[:200]}) != Booster.predict")
+        # the advertisement once both tenants are resident (a heartbeat
+        # after their admissions): bytes within each replica's budget
+        t1 = time.perf_counter()
+        while True:
+            m = members(base)
+            adv = {r["replica_id"]: r["device"] for r in m["replicas"]}
+            if all(((r["models_detail"].get(t) or {}).get("bytes") or 0) > 0
+                   for r in m["replicas"] for t in per_rep[r["replica_id"]]):
+                break
+            if time.perf_counter() - t1 > 10.0:
+                fail(f"[fleet] (g) tenants not resident after 10 s: {m}")
+            time.sleep(0.1)
+        if any(d["used_bytes"] > d["budget_bytes"] for d in adv.values()):
+            fail(f"[fleet] (g) advertised device bytes over budget: {adv}")
+        torch.cuda.synchronize()
+        print(f"[fleet] (g) placer converged in {place_s:.2f} s: "
+              f"{json.dumps(hosted)}; advertised bytes " + "; ".join(
+                  f"{rid} {d['used_bytes'] / 2 ** 20:.1f} of "
+                  f"{d['budget_bytes'] / 2 ** 20:.1f} MiB"
+                  for rid, d in sorted(adv.items()))
+              + f" (sum {sum(d['used_bytes'] for d in adv.values()) / 2 ** 20:.1f}"
+              f" MiB) beside torch.cuda.memory_reserved "
+              f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB for the "
+              "whole process; /predict?model= == Booster.predict for both "
+              f"| {card}", flush=True)
+
+        # (d) canary rollout and rollback under traffic
+        h_first = http_call(direct + "/healthz")[1]["model_hash"]
+        with open(cand_path, "rb") as f:
+            h_cand = hashlib.sha256(f.read()).hexdigest()
+        stop, errs = threading.Event(), []
+        one = csv_body(Xh[:1])
+
+        def hammer():
+            while not stop.is_set():
+                try:
+                    st, js, _ = http_call(base + "/predict", one)
+                except OSError as e:
+                    errs.append(repr(e))
+                    continue
+                p = np.asarray(js.get("predictions", []), np.float32)
+                if st != 200 or p.tobytes() not in (ref[:1].tobytes(),
+                                                     cref[:1].tobytes()):
+                    errs.append((st, js))
+        th = threading.Thread(target=hammer)
+        th.start()
+        t0 = time.perf_counter()
+        st, rep, _ = http_call(base + "/fleet/rollout", json.dumps(
+            {"model_path": cand_path, "canaries": 1, "soak_sec": 2.0,
+             "gate_p99_ms": 1000.0}).encode(), timeout=120.0)
+        roll_s = time.perf_counter() - t0
+        hashes = [http_call(f"http://127.0.0.1:{s.port}/healthz")[1][
+            "model_hash"] for s in (r0, r1)]
+        st2, js, _ = http_call(base + "/predict", csv_body(Xh[:1000]))
+        if st != 200 or rep.get("status") != "ok" or hashes != [h_cand] * 2 \
+                or st2 != 200 or np.asarray(js["predictions"], np.float32) \
+                .tobytes() != cref.tobytes():
+            stop.set()
+            fail(f"[fleet] (d) rollout {st} {rep}; replica hashes {hashes}; "
+                 f"/predict after it {st2} {str(js)[:300]}; {len(errs)} bad "
+                 f"answers under traffic {errs[:3]}")
+        t1 = time.perf_counter()
+        st, rb, _ = http_call(base + "/fleet/rollback", b"", timeout=120.0)
+        back_s = time.perf_counter() - t1
+        stop.set()
+        th.join(60)
+        hashes = [http_call(f"http://127.0.0.1:{s.port}/healthz")[1][
+            "model_hash"] for s in (r0, r1)]
+        st2, js, _ = http_call(base + "/predict", csv_body(Xh[:1000]))
+        if st != 200 or rb.get("status") != "rolled_back" \
+                or hashes != [h_first] * 2 or errs or st2 != 200 \
+                or np.asarray(js["predictions"], np.float32).tobytes() \
+                != ref.tobytes():
+            fail(f"[fleet] (d) rollback {st} {rb}; hashes {hashes}; "
+                 f"/predict after it {st2} {str(js)[:300]}; {len(errs)} bad "
+                 f"answers under traffic {errs[:2]}")
+        print(f"[fleet] (d) rollout of the candidate (canary "
+              f"{rep.get('canaries')}, soak 2 s, captured under traffic): "
+              f"{roll_s:.2f} s, both replicas on its sha256, answers == its "
+              f"Booster.predict; rollback {back_s:.2f} s, the first hash and "
+              f"answers back; no bad answer under traffic | {card}",
+              flush=True)
+
+        # (e) replica_kill on r1 during 200 requests from 8 threads
+        results, lock = [], threading.Lock()
+
+        def client(k):
+            for j in range(FLEET_KILL_REQS // FLEET_KILL_THREADS):
+                i = (k * 31 + j * 7) % FLEET_IDS
+                st, js, _ = http_call(base + "/predict",
+                                      csv_body(Xh[i:i + 1]))
+                ok = st == 200 and np.asarray(
+                    js["predictions"], np.float32).tobytes() \
+                    == ref[i:i + 1].tobytes()
+                with lock:
+                    results.append((ok, st, time.perf_counter(),
+                                    None if ok else str(js)[:160]))
+                time.sleep(0.1)
+        faults.inject("replica_kill", path_sub="r1", times=1)
+        ts = [threading.Thread(target=client, args=(k,))
+              for k in range(FLEET_KILL_THREADS)]
+        for t in ts:
+            t.start()
+        t_out = None
+        while any(t.is_alive() for t in ts) or (t_out is None
+                                                 and "t" in killed):
+            if "t" in killed and t_out is None:
+                rot = [r["replica_id"] for r in members(base)["replicas"]
+                       if r["in_rotation"]]
+                if "r1" not in rot:
+                    t_out = time.perf_counter()
+            if "t" in killed and time.perf_counter() - killed["t"] > 30:
+                break
+            time.sleep(0.02)
+        for t in ts:
+            t.join(60)
+        faults.clear_faults()
+        last = max(r[2] for r in results) if results else 0.0
+        bad = [r for r in results if not r[0]]
+        if "t" not in killed or killed["t"] > last or bad \
+                or len(results) != FLEET_KILL_REQS or t_out is None:
+            fail(f"[fleet] (e) kill fired {killed} (last request at "
+                 f"{last}); {len(bad)} client errors {bad[:3]}; "
+                 f"{len(results)} answers; left rotation {t_out}; "
+                 f"members {members(base)}")
+        eject_s = t_out - killed["t"]
+        if eject_s > FLEET_LEASE_S + FLEET_HC_S:
+            fail(f"[fleet] (e) r1 left rotation {eject_s:.2f} s after the "
+                 f"kill > lease {FLEET_LEASE_S} + health {FLEET_HC_S} s")
+        sm = scrape_samples(http_call(base + "/metrics")[2].decode())
+        if sm.get("xgbtpu_fleet_retries_total", 0) < 1 \
+                or "xgbtpu_fleet_breaker_trips_total" not in sm:
+            fail("[fleet] (e) the router's /metrics lack the retry or "
+                 "breaker counters")
+        t0 = time.perf_counter()
+        r1 = replica("r1", base)
+        back = wait_rotation(base, ["r0", "r1"], FLEET_ROTATION_S)
+        print(f"[fleet] (e) replica_kill on r1 during {len(results)} "
+              f"requests from {FLEET_KILL_THREADS} threads: no client error, "
+              f"r1 out of rotation {eject_s:.3f} s after the kill (limit "
+              f"{FLEET_LEASE_S + FLEET_HC_S:.1f}); retries "
+              f"{sm['xgbtpu_fleet_retries_total']:.0f}, breaker trips "
+              f"{sm['xgbtpu_fleet_breaker_trips_total']:.0f}; restarted "
+              f"under its id, in rotation {time.perf_counter() - t0:.2f} s "
+              f"later ({back:.2f} s after registering)", flush=True)
+
+        # (f) shedding: 16 concurrent requests, budget 2, a 0.2 s wedge
+        replica("r-shed", shed_base)
+        wait_rotation(shed_base, ["r-shed"], FLEET_ROTATION_S)
+        faults.inject("slow_replica", FLEET_SHED_S, path_sub="r-shed",
+                      times=1000)
+        shed = []
+
+        def shed_client():
+            st, js, _ = http_call(shed_base + "/predict", one)
+            with lock:
+                shed.append((st, js))
+        ts = [threading.Thread(target=shed_client)
+              for _ in range(FLEET_SHED_REQS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        faults.clear_faults()
+        codes = sorted(st for st, _ in shed)
+        wrong = [js for st, js in shed if st == 200 and np.asarray(
+            js["predictions"], np.float32).tobytes() != ref[:1].tobytes()]
+        unshed = [js for st, js in shed if st == 503 and not js.get("shed")]
+        if not set(codes) <= {200, 503} or 200 not in codes \
+                or 503 not in codes or wrong or unshed:
+            fail(f"[fleet] (f) codes {codes}; {len(wrong)} wrong 200s; "
+                 f"503s without shed {unshed[:2]}")
+        print(f"[fleet] (f) fleet_inflight {FLEET_SHED_INFLIGHT}, "
+              f"slow_replica {FLEET_SHED_S} s, {FLEET_SHED_REQS} concurrent "
+              f"requests: {codes.count(200)} answered (each == "
+              f"Booster.predict), {codes.count(503)} shed with 503 "
+              f"\"shed\"", flush=True)
+    except SystemExit:
+        for _, lines in procs:
+            print("[fleet] router stderr, last lines:\n  "
+                  + "\n  ".join(lines[-40:]), file=sys.stderr, flush=True)
+        raise
+    finally:
+        faults.clear_faults()
+        for srv in servers:
+            try:
+                srv.shutdown()
+            except Exception as e:  # noqa: BLE001 -- best-effort stop
+                print(f"[fleet] shutdown: {e}", flush=True)
+        for proc, _ in procs:
+            proc.terminate()
+            try:
+                proc.wait(15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(15)
+
+    counts = read_counts(kernels)
+    if counts != only(kernels, hist_level=FLEET_CAND_ROUNDS * DEPTH):
+        fail(f"[fleet] launch counts {counts}: serving launched a kernel")
+    secs = time.perf_counter() - t_phase
+    print(f"[fleet] all counts {json.dumps(counts)} (the candidate's "
+          f"training only); phase {secs:.1f} s (limit {FLEET_PHASE_S:.0f})",
+          flush=True)
+    if secs > FLEET_PHASE_S:
+        fail(f"[fleet] phase took {secs:.1f} s > {FLEET_PHASE_S} s")
 
 
 def phase_otto(torch, xt, kernels, device, card):
@@ -3925,13 +4450,19 @@ def main():
                                              card, main_out)
     print(f"[profile] phase {time.perf_counter() - t0:.1f} s")
     main_hold = main_out["X"][N_TRAIN:]
+    fleet_train = (main_out["X"][:FLEET_CAND_N].copy(),
+                   main_out["y"][:FLEET_CAND_N].copy())
     del main_out
     mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
         torch, xt, kernels, "cuda", card)
     k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)
     del mc_captured
-    phase_serve(torch, xt, kernels, card, main_hold)
-    del main_hold
+    engine_bytes = phase_serve(torch, xt, kernels, card, main_hold)
+    t0 = time.perf_counter()
+    phase_fleet(torch, xt, kernels, card, main_hold, fleet_train,
+                engine_bytes)
+    print(f"[fleet] checks {time.perf_counter() - t0:.1f} s")
+    del main_hold, fleet_train
     phase_otto(torch, xt, kernels, "cuda", card)
     t0 = time.perf_counter()
     f_launches, _ = phase_forest(torch, xt, kernels, "cuda", card)

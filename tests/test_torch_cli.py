@@ -609,16 +609,75 @@ def test_task_lanes_matches_run_tenant_lanes(tmp_path):
 
 
 # ------------------------------------------------ what is not ported
+REF_MODEL = os.path.join(REPO, "tests", "data", "ref_agaricus.model")
+
+
 @pytest.mark.parametrize("arg,item", [
-    ("booster=gblinear", 11), ("task=fleet_router", "14b"),
-    ("task=stream", 15), ("task=placer", 15), ("mock=0,1,1", 13),
-    ("keepalive=1", 13), ("shard_load=0", 13), ("dsplit=row", 13),
-    ("metrics_port=0", 16)])
+    ("booster=gblinear", 11), ("data=http://127.0.0.1:1/t.libsvm", 12),
+    ("task=stream", 15), ("data=ext:train.libsvm", 12),
+    ("mock=0,1,1", 13), ("keepalive=1", 13), ("shard_load=0", 13),
+    ("dsplit=row", 13), (f"model_in={REF_MODEL}", 11)])
 def test_unported_names_raise_with_their_item(svm, tmp_path, arg, item):
     d = svm["dense"]
     conf = write_conf(tmp_path / "u.conf", **base_conf(d["train"], d["test"]))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         run_cli(port_main, [conf, "device=cpu", arg], tmp_path)
+
+
+def test_fleet_router_placer_and_metrics_port_run(svm, tmp_path):
+    """The names this slice ported: ``task=fleet_router`` answers on its
+    bound port, ``task=placer`` takes the router's placer lease, and
+    ``metrics_port=0`` serves /metrics while ``task=train`` runs."""
+    import re
+    import time
+    import urllib.request
+    env = dict(os.environ, PYTHONPATH=REPO)
+    router = subprocess.Popen(
+        [sys.executable, "-m", "xgboost_tpu_torch", "task=fleet_router",
+         "fleet_port=0", "fleet_hc_sec=0"],
+        stderr=subprocess.PIPE, text=True, env=env, cwd=str(tmp_path))
+    procs = [router]
+    try:
+        banner = router.stderr.readline()
+        base = re.search(r"http://[0-9.]+:\d+", banner).group(0)
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+            health = json.load(r)
+        assert health["role"] == "fleet_router"
+        placer = subprocess.Popen(
+            [sys.executable, "-m", "xgboost_tpu_torch", "task=placer",
+             f"placer_router_url={base}", "placer_catalog=a=m.bin",
+             "placer_id=cli", "placer_tick_sec=0.2", "silent=2"],
+            stderr=subprocess.DEVNULL, env=env, cwd=str(tmp_path))
+        procs.append(placer)
+        deadline = time.perf_counter() + 60.0
+        holder = None
+        while holder != "cli" and time.perf_counter() < deadline:
+            time.sleep(0.2)
+            with urllib.request.urlopen(base + "/placer/status",
+                                        timeout=10) as r:
+                holder = json.load(r)["holder"]
+        assert holder == "cli"
+    finally:
+        for p in procs:
+            p.terminate()
+            p.wait(30)
+    d = svm["dense"]
+    conf = write_conf(tmp_path / "m.conf",
+                      **base_conf(d["train"], d["test"], silent="0"))
+    from xgboost_tpu_torch.obs import (get_metrics_server,
+                                       stop_metrics_server)
+    try:
+        rc, _, err = run_cli(port_main, [conf, "device=cpu",
+                                         "metrics_port=0"], tmp_path)
+        srv = get_metrics_server()
+        with urllib.request.urlopen(
+                f"http://{srv.host}:{srv.port}/metrics", timeout=10) as r:
+            text = r.read().decode()
+    finally:
+        stop_metrics_server()
+    assert rc == 0
+    assert f"training metrics on http://{srv.host}:{srv.port}" in err
+    assert "# TYPE xgbtpu_training_rounds_total counter" in text
 
 
 def test_multi_host_launch_raises_item_13(svm, tmp_path, monkeypatch):

@@ -1093,3 +1093,113 @@ def test_capture_during_replay_on_reload(cuda_device, tmp_path):
     assert post.tobytes() == ref_b.tobytes()
     for o in outs:
         assert o.tobytes() in (ref_a.tobytes(), ref_b.tobytes())
+
+
+# ------------------------------------------------------------------ fleet
+def _fleet_replica(path, base, rid):
+    from xgboost_tpu_torch.serving import run_server
+    return run_server(path, port=0, min_bucket=8, max_bucket=256,
+                      max_wait_ms=1.0, poll_sec=0, quiet=True, block=False,
+                      router_url=base, replica_id=rid, device="cuda")
+
+
+def _post_csv(url, X):
+    import json
+    import urllib.request
+    body = "\n".join(",".join(repr(float(v)) for v in row)
+                     for row in X).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+            url, data=body, method="POST"), timeout=120) as r:
+        raw = r.read()
+    return raw, np.asarray(json.loads(raw)["predictions"], np.float32)
+
+
+@pytest.mark.cuda
+def test_router_bytes_equal_engine_bytes_on_the_card(cuda_device, tmp_path):
+    """Two replicas on one card behind a router: the routed body equals
+    the direct one byte for byte, and its predictions equal each
+    replica engine's bytes."""
+    from xgboost_tpu_torch.fleet import FleetRouter
+    bst, X = _serving_model(cuda_device)
+    path = str(tmp_path / "m.bin")
+    bst.save_model(path)
+    X = np.nan_to_num(X)
+    rt = FleetRouter(port=0, hc_sec=0.5, quiet=True).start()
+    base = f"http://{rt.host}:{rt.port}"
+    reps = [_fleet_replica(path, base, rid) for rid in ("r0", "r1")]
+    try:
+        assert rt.membership.describe()["in_rotation"] == 2
+        for n in (1, 37, 256, 600):
+            raw, got = _post_csv(base + "/predict", X[:n])
+            for srv in reps:
+                assert _post_csv(f"http://127.0.0.1:{srv.port}/predict",
+                                 X[:n])[0] == raw
+                assert got.tobytes() == \
+                    srv.registry.engine.predict(X[:n]).tobytes()
+            assert got.tobytes() == bst.predict(X[:n]).tobytes()
+        for srv in reps:
+            assert srv.registry.engine.compile_count == 6
+    finally:
+        for srv in reps:
+            srv.shutdown()
+        rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_two_replicas_one_capturing_while_the_other_replays(cuda_device,
+                                                           tmp_path):
+    """Two replicas share the card: r0 reloads (captures its buckets'
+    graphs in the reload thread) while clients keep r1 and r0 busy
+    through the router; every answer is one model's bytes, r1's never
+    change, and afterwards r0 serves the new model."""
+    import threading
+    import time
+    import urllib.request
+    from xgboost_tpu_torch.fleet import FleetRouter
+    bst_a, X = _serving_model(cuda_device, seed=0)
+    bst_b, _ = _serving_model(cuda_device, rounds=7, seed=1)
+    X = np.nan_to_num(X)
+    paths = {rid: str(tmp_path / f"{rid}.bin") for rid in ("r0", "r1")}
+    for p in paths.values():
+        bst_a.save_model(p)
+    rt = FleetRouter(port=0, hc_sec=0.5, quiet=True).start()
+    base = f"http://{rt.host}:{rt.port}"
+    reps = {rid: _fleet_replica(p, base, rid) for rid, p in paths.items()}
+    Xq = X[:37]
+    ref_a, ref_b = bst_a.predict(Xq).tobytes(), bst_b.predict(Xq).tobytes()
+    stop, seen, errors = threading.Event(), [], []
+
+    def hammer(url):
+        while not stop.is_set():
+            try:
+                seen.append((url, _post_csv(url, Xq)[1].tobytes()))
+            except BaseException as e:  # noqa: BLE001 -- asserted below
+                errors.append(e)
+    r1_url = f"http://127.0.0.1:{reps['r1'].port}/predict"
+    ts = [threading.Thread(target=hammer, args=(u,))
+          for u in (base + "/predict", r1_url, r1_url, base + "/predict")]
+    try:
+        for t in ts:
+            t.start()
+        bst_b.save_model(paths["r0"])
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{reps['r0'].port}/-/reload", data=b"",
+                method="POST"), timeout=300) as r:
+            r.read()
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in ts:
+            t.join(60)
+    try:
+        assert not errors, errors[:3]
+        assert reps["r0"].registry.version == 2
+        assert all(b in (ref_a, ref_b) for _, b in seen)
+        assert all(b == ref_a for u, b in seen if u == r1_url)
+        assert _post_csv(f"http://127.0.0.1:{reps['r0'].port}/predict",
+                         Xq)[1].tobytes() == ref_b
+        assert reps["r1"].registry.engine.compile_count == 6
+    finally:
+        for srv in reps.values():
+            srv.shutdown()
+        rt.shutdown()

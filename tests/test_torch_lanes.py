@@ -17,12 +17,10 @@ Tolerances and why:
   rounding (torch and XLA sum in different orders, ROADMAP.md section
   3).  reg:linear because its gradients (margin - label, 1) are exact in
   both packages, so what is compared is the lane machinery;
-- binary:logistic (the JAX tests' objective): the first tree of every
-  tenant bitwise in structure (its gradients, at the base margin, are
-  exact in both packages) and the gate verdicts equal.  Later trees are
-  not held bitwise: the logistic gradients differ by a few ulp (XLA's
-  ``exp`` against torch's, ROADMAP.md section 3), and at 64 rows that
-  flips a near-tie split of tenant001 (gain 0.0212, cycle 0, round 1).
+- binary:logistic (the JAX tests' objective): the same, and the gate
+  verdicts equal.  The logistic gradients are bitwise: on the CPU the
+  port's ``exp`` is XLA's (before, an ulp of it flipped a near-tie split
+  of tenant001 at 64 rows, gain 0.0212, cycle 0, round 1).
 
 The JAX side runs once per objective (module-scoped fixture): its
 vmapped scan compiles take seconds each.
@@ -181,8 +179,18 @@ def test_first_tree_matches_jax_lanes(runs):
 @pytest.mark.parametrize("runs", ["reg:linear"], indirect=True)
 def test_published_models_match_jax_lanes_reg_linear(runs):
     """reg:linear: every published tree bitwise in structure, leaf values
-    and holdout margins at rtol 1e-5 (binary:logistic: see the module
-    docstring)."""
+    and holdout margins at rtol 1e-5."""
+    _assert_published_models_match(runs)
+
+
+@pytest.mark.parametrize("runs", ["binary:logistic"], indirect=True)
+def test_published_models_match_jax_lanes_binary_logistic(runs):
+    """binary:logistic, the same holds: the logistic gradients are
+    bitwise since the port's CPU exp is XLA's."""
+    _assert_published_models_match(runs)
+
+
+def _assert_published_models_match(runs):
     jlanes, _ = runs["jax"]
     s_lanes = runs["stacked"][0]
     for i, name in enumerate(jlanes):
@@ -514,11 +522,22 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 
 def test_entry_points_default_to_the_gpu(tmp_path):
     """``device`` defaults to cuda: without a GPU the entry points raise
-    rather than run on the CPU unasked; a router URL is not ported."""
-    from xgboost_tpu_torch.pipeline import run_pipeline
+    rather than run on the CPU unasked; a router URL publishes through
+    the fleet's canary rollout (``RolloutPublisher``)."""
+    from xgboost_tpu_torch.pipeline import RolloutPublisher, run_pipeline
     kw = lane_kwargs(tmp_path, "dev", "t", 1)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_pipeline(router_url="http://localhost:1", device="cpu", **kw)
+    seen = {}
+
+    class Capture:
+        def __init__(self, *args, publisher=None, **kwargs):
+            seen["publisher"] = publisher
+
+        def run(self, cycles, sleep_sec):
+            return {}
+    run_pipeline(router_url="http://localhost:1", device="cpu",
+                 trainer_cls=Capture, **kw)
+    assert isinstance(seen["publisher"], RolloutPublisher)
+    assert seen["publisher"].router_url == "http://localhost:1"
     if torch.cuda.is_available():
         return   # the default is a real card here
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -781,12 +781,33 @@ def test_drain_answers_503_then_stops(model, tmp_path):
     assert not srv.enter_request()
 
 
-@pytest.mark.parametrize("kw", [{"router_url": "http://127.0.0.1:1"},
+@pytest.mark.parametrize("kw", [{},
                                 {"replica_id": "r1"},
                                 {"advertise_url": "http://127.0.0.1:2"}])
 def test_router_url_names_the_fleet_item(model, kw):
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        run_server(model[2], block=False, device="cpu", **kw)
+    """``router_url`` joins a fleet: the replica registers under
+    ``replica_id`` (default host:port) and advertises ``advertise_url``
+    (default its bound address), its models and its device bytes."""
+    from xgboost_tpu_torch.fleet import FleetRouter
+    rt = FleetRouter(port=0, hc_sec=0, quiet=True).start()
+    base = f"http://{rt.host}:{rt.port}"
+    srv = run_server(model[2], port=0, block=False, device="cpu",
+                     warmup=False, poll_sec=0, quiet=True,
+                     router_url=base, **kw)
+    try:
+        rid = kw.get("replica_id", f"{srv.host}:{srv.port}")
+        rep = rt.membership.get(rid)
+        assert rep is not None and rt.membership.describe()[
+            "in_rotation"] == 1
+        assert rep.url == kw.get("advertise_url",
+                                 f"http://{srv.host}:{srv.port}")
+        assert set(rep.models) == {"default"}
+        assert rep.device["used_bytes"] == srv.catalog.bytes_used() > 0
+        assert srv.lease_client.replica_id == rid
+    finally:
+        srv.shutdown()
+        rt.shutdown()
+    assert rt.membership.get(rid) is None   # deregistered on shutdown
 
 
 def _free_port():
@@ -847,7 +868,11 @@ def test_cli_usage_lists_serve_params(capsys):
                  "serve_featurestore_mb", "catalog_default",
                  "serve_catalog_mb"):
         assert name in out, f"{name} missing from CLI usage"
-    assert "faults=" in out and "item 14b" in out
+    assert "faults=" in out and "item 14b" not in out
+    for name in ("serve_router_url", "serve_replica_id",
+                 "serve_advertise_url", "fleet_port", "tenant_rate",
+                 "placer_router_url"):
+        assert f"\n  {name} " in out, f"{name} missing from CLI usage"
 
 
 def test_serving_main_parser_builds():
@@ -860,8 +885,8 @@ def test_serving_main_parser_builds():
 
 
 def test_task_serve_routes_to_run_server(model, tmp_path, monkeypatch):
-    """``task=serve`` hands its serve_* and catalog parameters and the
-    device to ``run_server``; a router URL raises naming item 14b."""
+    """``task=serve`` hands its serve_* and catalog parameters, the
+    fleet's three among them, and the device to ``run_server``."""
     from xgboost_tpu_torch import cli, serving
     seen = {}
     monkeypatch.setattr(serving, "run_server",
@@ -875,10 +900,16 @@ def test_task_serve_routes_to_run_server(model, tmp_path, monkeypatch):
     assert seen["featurestore_mb"] == 2.0
     assert seen["catalog_hysteresis_sec"] == 1.0
     assert str(seen["device"]) == "cpu" and seen["block"] is True
+    assert seen["router_url"] == seen["replica_id"] == ""
+    seen.clear()
+    rc = cli.main(["task=serve", f"model_in={model[2]}", "device=cpu",
+                   "serve_router_url=http://127.0.0.1:1",
+                   "serve_replica_id=r7",
+                   "serve_advertise_url=http://10.0.0.7:80", "silent=1"])
+    assert rc == 0 and seen["router_url"] == "http://127.0.0.1:1"
+    assert seen["replica_id"] == "r7"
+    assert seen["advertise_url"] == "http://10.0.0.7:80"
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        cli.main(["task=serve", f"model_in={model[2]}", "device=cpu",
-                  "serve_router_url=http://127.0.0.1:1"])
     with pytest.raises(ValueError, match="model_in"):
         cli.main(["task=serve", "device=cpu"])
 

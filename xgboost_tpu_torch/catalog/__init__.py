@@ -7,11 +7,13 @@ bucket graphs, hot-reload poll, micro-batcher and optional feature store,
 admitted under one shared device-memory budget with LRU eviction and a
 hysteresis window; every server is a catalog server, a model path alone
 a catalog of one.  :func:`parse_manifest` reads the ``catalog=`` (and
-``lanes=``) ``name=path`` manifests.  The router's per-tenant quotas
-(``TenantQuotas``) stay with the fleet (ROADMAP.md section 1 item 14b).
+``lanes=``) ``name=path`` manifests.  :class:`TenantQuotas` is the fleet
+router's per-tenant admission (in-flight cap and token bucket).
 """
 
 from xgboost_tpu_torch.catalog.catalog import (CatalogEntry, ModelCatalog,
                                                UnknownModel, parse_manifest)
+from xgboost_tpu_torch.catalog.quota import TenantQuotas
 
-__all__ = ["CatalogEntry", "ModelCatalog", "UnknownModel", "parse_manifest"]
+__all__ = ["CatalogEntry", "ModelCatalog", "UnknownModel", "TenantQuotas",
+           "parse_manifest"]

@@ -373,6 +373,17 @@ class ModelCatalog:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def models(self) -> Dict[str, Dict[str, Optional[str]]]:
+        """The advertisement a fleet replica's heartbeat carries
+        (``catalog/catalog.py:374``): every configured model, resident
+        or not, with the content hash it would serve and its device
+        bytes (CUDA-graph pools included; 0 while evicted, when the
+        placer costs it by its file size)."""
+        with self._lock:
+            return {e.name: {"path": e.path, "hash": e.content_hash(),
+                             "bytes": e.device_bytes()}
+                    for e in self._entries.values()}
+
     def describe(self) -> dict:
         now = time.monotonic()
         with self._lock:

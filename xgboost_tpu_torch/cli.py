@@ -36,12 +36,17 @@ manifest, with the ``serve_*`` and catalog parameters; ``faults=`` arms
 the I/O and serving fault registry (``reliability/faults.py``) before
 the task runs.
 
+``task=fleet_router`` runs the fleet's front door
+(:mod:`xgboost_tpu_torch.fleet`) with the ``fleet_*`` and tenant-quota
+parameters, and ``task=placer`` the catalog placement controller
+(:mod:`xgboost_tpu_torch.placer`) with the ``placer_*`` ones; neither
+does device work, so neither reads ``device=``.  ``metrics_port=N``
+serves live ``/metrics`` and ``/healthz`` during ``task=train`` and
+``task=pipeline`` (0 = ephemeral, -1 = off).
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md
-section 1 item: ``fleet_router``, ``serve_router_url``,
-``serve_replica_id`` and ``serve_advertise_url`` (item 14b),
-``stream`` and ``placer`` (item 15), ``mock=``, ``keepalive``,
-``shard_load`` and the multi-host launcher (item 13), and
-``metrics_port >= 0`` (item 16).
+section 1 item: ``stream`` (item 15), ``mock=``, ``keepalive``,
+``shard_load`` and the multi-host launcher (item 13).
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
-from xgboost_tpu_torch.config import (CATALOG_PARAMS, LANE_PARAMS,
-                                      PIPELINE_PARAMS, SERVE_PARAMS,
+from xgboost_tpu_torch.config import (CATALOG_PARAMS, FLEET_PARAMS,
+                                      LANE_PARAMS, PIPELINE_PARAMS,
+                                      PLACER_PARAMS, SERVE_PARAMS,
                                       parse_config_file)
 
 # process start, for the resume line's recovery cost
@@ -71,7 +77,11 @@ Tasks (task=...):
           or `python -m xgboost_tpu_torch.serving --help`): one CUDA
           graph per row bucket, hot reload, feature store, catalog
   fleet_router
-          fleet front door -- not ported (ROADMAP.md item 14b)
+          fleet front door (xgboost_tpu_torch.fleet): replicas started
+          with serve_router_url=... register here; dispatch is
+          least-loaded (/predict) or consistent-hash (/predict_by_id),
+          with circuit breakers, load shedding, and canary rollout
+          (quickstart: xgboost_tpu_torch/tools/launch_fleet.py)
   pipeline
           continuous training (xgboost_tpu_torch.pipeline): warm-start
           from the published model, append pipeline_rounds_per_cycle
@@ -84,20 +94,30 @@ Tasks (task=...):
           and publish knobs ride the pipeline_* table
   stream  streaming drift-aware training -- not ported (ROADMAP.md
           item 15)
-  placer  autonomous catalog placement -- not ported (ROADMAP.md
-          item 15)
+  placer  autonomous catalog placement (xgboost_tpu_torch.placer):
+          watch the router's per-tenant load, bin-pack placer_catalog
+          models onto in-rotation replicas within their device budgets
+          (CUDA-graph pools included), and converge the fleet by
+          pushing manifest deltas (elastic resizing rides
+          xgboost_tpu_torch/tools/launch_fleet.py --supervise)
 
 Device: device=cuda (the default; raises without a GPU) or device=cpu.
 
 Observability: obs_log=PATH appends a JSONL event log;
-metrics_port= is not ported (ROADMAP.md item 16).
+metrics_port=N serves live /metrics + /healthz during task=train and
+task=pipeline (0 = ephemeral, -1 = off).
 
-task=serve parameters (serve_router_url, serve_replica_id and
-serve_advertise_url: the fleet, ROADMAP.md item 14b):
+task=serve parameters:
 {serve_params}
 
-catalog parameters (multi-model serving, task=serve):
+task=fleet_router parameters:
+{fleet_params}
+
+catalog parameters (multi-model serving, task=serve + task=fleet_router):
 {catalog_params}
+
+task=placer parameters (autonomous placement + elastic fleet):
+{placer_params}
 
 Faults: faults="kind[=arg][@path][*times];..." arms the I/O and serving
 fault registry (torn_write, bit_flip, enospc, slow_read, read_flip,
@@ -111,9 +131,7 @@ task=lanes parameters (gang-batched multi-tenant training):
 """
 
 # name -> (ROADMAP.md section 1 item, what it is)
-_UNPORTED_TASKS = {"fleet_router": ("14b", "the fleet router"),
-                   "stream": (15, "streaming continuous training"),
-                   "placer": (15, "catalog placement")}
+_UNPORTED_TASKS = {"stream": (15, "streaming continuous training")}
 _UNPORTED_PARAMS = {"mock": (13, "collective fault injection"),
                     "keepalive": (13, "restart on a worker's failure"),
                     "shard_load": (13, "per-rank split loading")}
@@ -153,6 +171,8 @@ class BoostLearnTask:
         self.lane_params = {k: v for k, (v, _) in LANE_PARAMS.items()}
         self.serve_params = {k: v for k, (v, _) in SERVE_PARAMS.items()}
         self.catalog_params = {k: v for k, (v, _) in CATALOG_PARAMS.items()}
+        self.fleet_params = {k: v for k, (v, _) in FLEET_PARAMS.items()}
+        self.placer_params = {k: v for k, (v, _) in PLACER_PARAMS.items()}
         self.faults_spec: Optional[str] = None
 
     # ------------------------------------------------------------- params
@@ -202,6 +222,10 @@ class BoostLearnTask:
             self.serve_params[name] = type(SERVE_PARAMS[name][0])(val)
         elif name in self.catalog_params:
             self.catalog_params[name] = type(CATALOG_PARAMS[name][0])(val)
+        elif name in self.fleet_params:
+            self.fleet_params[name] = type(FLEET_PARAMS[name][0])(val)
+        elif name in self.placer_params:
+            self.placer_params[name] = type(PLACER_PARAMS[name][0])(val)
         elif name in self.pipeline_params:
             self.pipeline_params[name] = type(PIPELINE_PARAMS[name][0])(val)
         elif name in self.lane_params:
@@ -220,10 +244,14 @@ class BoostLearnTask:
     def run(self, argv: List[str]) -> int:
         if not argv:
             from xgboost_tpu_torch.config import (catalog_params_help,
+                                                  fleet_params_help,
                                                   lane_params_help,
                                                   pipeline_params_help,
+                                                  placer_params_help,
                                                   serve_params_help)
             print(_USAGE.format(serve_params=serve_params_help(),
+                                fleet_params=fleet_params_help(),
+                                placer_params=placer_params_help(),
                                 catalog_params=catalog_params_help(),
                                 pipeline_params=pipeline_params_help(),
                                 lane_params=lane_params_help()))
@@ -252,17 +280,21 @@ class BoostLearnTask:
 
     def _setup_obs(self) -> None:
         """``obs_log=`` (or ``XGBTPU_OBS_LOG``) opens the JSONL event
-        log; ``metrics_port >= 0`` (the live metrics server) raises."""
+        log; ``metrics_port=`` serves live ``/metrics`` + ``/healthz``
+        from a daemon thread during ``task=train|pipeline``
+        (``xgboost_tpu/cli.py:350-375``; one process, rank 0)."""
+        from xgboost_tpu_torch import obs
         params = self._params_dict()
-        port = int(params.get("metrics_port", -1))
-        if port >= 0:
-            raise NotImplementedError(
-                f"metrics_port={port}: the metrics server (obs/server.py) "
-                "is ROADMAP.md section 1 item 16")
         obs_path = params.get("obs_log") or os.environ.get("XGBTPU_OBS_LOG")
         if obs_path:
-            from xgboost_tpu_torch.obs import configure_log
-            configure_log(obs_path)
+            obs.configure_log(obs_path)
+        port = int(params.get("metrics_port", -1))
+        if port >= 0 and self.task in ("train", "pipeline"):
+            srv = obs.start_metrics_server(port=port)
+            if self.silent < 2:
+                print(f"[obs] training metrics on "
+                      f"http://{srv.host}:{srv.port}/metrics (rank 0)",
+                      file=sys.stderr)
 
     def _dispatch(self) -> int:
         if self.task in _UNPORTED_TASKS:
@@ -270,6 +302,11 @@ class BoostLearnTask:
             raise NotImplementedError(
                 f"task={self.task} ({what}) is ROADMAP.md section 1 item "
                 f"{item}")
+        if self.task in ("fleet_router", "placer"):
+            # host-side control planes: no device, no learner
+            self._setup_obs()
+            return (self.task_fleet_router() if self.task == "fleet_router"
+                    else self.task_placer())
         tasks = {"train": self.task_train, "pred": self.task_pred,
                  "eval": self.task_eval, "dump": self.task_dump,
                  "serve": self.task_serve,
@@ -455,6 +492,72 @@ class BoostLearnTask:
             replica_id=sp["serve_replica_id"],
             advertise_url=sp["serve_advertise_url"],
             quiet=self.silent != 0, block=True, device=self.device)
+        return 0
+
+    # ------------------------------------------------------- fleet_router
+    def task_fleet_router(self) -> int:
+        """Run the fleet routing front door (``xgboost_tpu/cli.py:681``).
+        Replicas join with ``task=serve serve_router_url=http://host:port``;
+        the router itself does no device work."""
+        from xgboost_tpu_torch.fleet import run_router
+        fp = self.fleet_params
+        cp = self.catalog_params
+        run_router(
+            host=fp["fleet_host"], port=fp["fleet_port"],
+            lease_sec=fp["fleet_lease_sec"], hc_sec=fp["fleet_hc_sec"],
+            inflight_budget=fp["fleet_inflight"],
+            breaker_failures=fp["fleet_breaker_failures"],
+            breaker_cooldown_sec=fp["fleet_breaker_cooldown_sec"],
+            retry=bool(fp["fleet_retry"]),
+            forward_timeout=fp["fleet_timeout_sec"],
+            max_body_mb=fp["fleet_max_body_mb"],
+            deadline_ms=fp["fleet_deadline_ms"],
+            slow_eject_factor=fp["fleet_slow_eject_factor"],
+            slow_eject_cooldown_sec=fp["fleet_slow_eject_cooldown_sec"],
+            state_path=fp["fleet_state_path"],
+            tenant_inflight=cp["tenant_inflight"],
+            tenant_rate=cp["tenant_rate"],
+            tenant_burst=cp["tenant_burst"],
+            rollout_defaults={
+                "canaries": fp["fleet_canaries"],
+                "soak_sec": fp["fleet_soak_sec"],
+                "gate_error_rate": fp["fleet_gate_error_rate"],
+                "gate_p99_ms": fp["fleet_gate_p99_ms"],
+            },
+            quiet=self.silent != 0, block=True)
+        return 0
+
+    # ------------------------------------------------------------- placer
+    def task_placer(self) -> int:
+        """Run the autonomous placement controller
+        (``xgboost_tpu/cli.py:714``) against a fleet router:
+        watch per-tenant load, bin-pack the ``placer_catalog`` models
+        onto in-rotation replicas, push manifest deltas until the fleet
+        converges.  Loops until SIGTERM/Ctrl-C."""
+        from xgboost_tpu_torch.catalog import parse_manifest
+        from xgboost_tpu_torch.placer import run_placer
+        pp = self.placer_params
+        router_url = pp["placer_router_url"]
+        if not router_url:
+            raise ValueError("task=placer requires placer_router_url=")
+        if not pp["placer_catalog"]:
+            raise ValueError("task=placer requires placer_catalog= "
+                             "(name=path,... or a manifest file)")
+        manifest = parse_manifest(pp["placer_catalog"])
+        if self.silent < 2:
+            print(f"[placer] managing {len(manifest)} tenant(s) on "
+                  f"{router_url}", file=sys.stderr)
+        run_placer(
+            router_url, manifest,
+            plan_path=pp["placer_plan_path"],
+            placer_id=pp["placer_id"],
+            tick_sec=pp["placer_tick_sec"],
+            lease_sec=pp["placer_lease_sec"],
+            replication=pp["placer_replication"],
+            hot_replication=pp["placer_hot_replication"],
+            hot_fraction=pp["placer_hot_fraction"],
+            load_alpha=pp["placer_load_alpha"],
+            block=True)
         return 0
 
     # ----------------------------------------------------------- pipeline

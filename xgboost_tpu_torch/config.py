@@ -275,10 +275,7 @@ def lane_params_help() -> str:
 # task=serve parameters (``xgboost_tpu/config.py:270-300``), the one table
 # both surfaces read: ``python -m xgboost_tpu_torch task=serve serve_port=...``
 # and ``python -m xgboost_tpu_torch.serving --port ...``.  Values are
-# (default, help); the default's type drives coercion.  The three fleet
-# rows (serve_router_url, serve_replica_id, serve_advertise_url) are kept
-# so both CLIs take the same names; a non-empty value raises until the
-# fleet is ported (ROADMAP.md section 1 item 14b).
+# (default, help); the default's type drives coercion.
 SERVE_PARAMS: Dict[str, Tuple[Any, str]] = {
     "serve_host": ("127.0.0.1", "bind address for the HTTP server"),
     "serve_port": (8080, "HTTP port (0 = ephemeral, printed at startup)"),
@@ -306,12 +303,18 @@ SERVE_PARAMS: Dict[str, Tuple[Any, str]] = {
                                    "hot-entity feature store backing "
                                    "POST /predict_by_id (0 disables; "
                                    "LRU-evicts past the budget)"),
-    "serve_router_url": ("", "not ported (ROADMAP.md item 14b): the "
-                             "fleet router base URL"),
-    "serve_replica_id": ("", "not ported (ROADMAP.md item 14b): the "
-                             "replica's fleet identity"),
-    "serve_advertise_url": ("", "not ported (ROADMAP.md item 14b): the "
-                                "URL the router dials"),
+    "serve_router_url": ("", "fleet router base URL (e.g. "
+                             "http://127.0.0.1:8000); the replica "
+                             "registers there and renews a heartbeat "
+                             "lease (empty = standalone, no fleet)"),
+    "serve_replica_id": ("", "stable replica identity used with the "
+                            "fleet router (default host:port; a "
+                            "restarted replica re-registering under "
+                            "its old id is the recover path)"),
+    "serve_advertise_url": ("", "endpoint the router should dial for "
+                                "this replica (default the bind "
+                                "address; REQUIRED for cross-host "
+                                "fleets binding 0.0.0.0)"),
 }
 
 
@@ -321,8 +324,77 @@ def serve_params_help() -> str:
                      for name, (default, help_) in SERVE_PARAMS.items())
 
 
-# The catalog parameters task=serve passes (``config.py:579-596``); the
-# router's tenant quotas stay with the fleet (ROADMAP.md item 14b).
+# --------------------------------------------------------------- fleet
+# task=fleet_router parameters (``xgboost_tpu/config.py:327-392``), the
+# same single-table discipline as SERVE_PARAMS: the CLI derives its
+# surface from this dict, so usage text stays complete as knobs are added.
+FLEET_PARAMS: Dict[str, Tuple[Any, str]] = {
+    "fleet_host": ("127.0.0.1", "bind address for the router"),
+    "fleet_port": (8000, "router HTTP port (0 = ephemeral, printed at "
+                         "startup)"),
+    "fleet_lease_sec": (10.0, "replica heartbeat lease: a replica that "
+                              "stops renewing leaves rotation within "
+                              "this window"),
+    "fleet_hc_sec": (2.0, "health-check interval: the router probes "
+                          "each replica's /healthz (draining/degraded "
+                          "replicas leave rotation; 0 disables)"),
+    "fleet_inflight": (256, "global in-flight request budget; requests "
+                            "past it are shed with HTTP 503"),
+    "fleet_breaker_failures": (3, "consecutive dispatch failures that "
+                                  "trip a replica's circuit breaker "
+                                  "open"),
+    "fleet_breaker_cooldown_sec": (5.0, "seconds an open breaker waits "
+                                        "before allowing one half-open "
+                                        "probe request"),
+    "fleet_retry": (1, "retry a failed /predict once on a different "
+                       "healthy replica (predictions are idempotent; "
+                       "the retry spends the request's REMAINING "
+                       "deadline budget after a jittered backoff)"),
+    "fleet_timeout_sec": (30.0, "per-hop forward timeout to a replica "
+                                "(shrunk to the remaining deadline "
+                                "budget when the request carries one)"),
+    "fleet_deadline_ms": (0.0, "default end-to-end deadline stamped "
+                               "(X-Deadline-Ms) on requests that carry "
+                               "none; expired requests are rejected 504 "
+                               "before any dispatch (0 = off)"),
+    "fleet_slow_eject_factor": (3.0, "eject a replica from least-"
+                                     "loaded dispatch when its latency "
+                                     "EWMA exceeds this multiple of "
+                                     "its peers' median (0 disables; "
+                                     "entity-id owners are exempt — "
+                                     "sticky routes have no failover)"),
+    "fleet_slow_eject_cooldown_sec": (5.0, "seconds an ejected replica "
+                                           "waits before one probe "
+                                           "request decides "
+                                           "readmission"),
+    "fleet_max_body_mb": (64.0, "largest accepted request body (413 "
+                                "past it, before buffering)"),
+    "fleet_canaries": (1, "default canary replica count for POST "
+                          "/fleet/rollout"),
+    "fleet_soak_sec": (3.0, "default canary soak window before the "
+                            "rollout gate reads canary /metrics"),
+    "fleet_gate_error_rate": (0.02, "rollout gate: max canary error "
+                                    "rate (errors/requests) during the "
+                                    "soak"),
+    "fleet_gate_p99_ms": (250.0, "rollout gate: max canary p99 request "
+                                 "latency in milliseconds"),
+    "fleet_state_path": ("", "membership snapshot file (CRC-footered, "
+                             "atomically rewritten on membership "
+                             "changes and each health pass): a "
+                             "restarted router restores its replica "
+                             "set from here instead of waiting for "
+                             "heartbeats (empty = stateless restart)"),
+}
+
+
+def fleet_params_help() -> str:
+    """One line per task=fleet_router parameter, for CLI usage text."""
+    return "\n".join(f"  {name:<26} {help_} (default {default!r})"
+                     for name, (default, help_) in FLEET_PARAMS.items())
+
+
+# The catalog parameters (``config.py:570-606``): the replica-side catalog
+# of task=serve and the per-tenant quotas of task=fleet_router.
 CATALOG_PARAMS: Dict[str, Tuple[Any, str]] = {
     "catalog": ("", "model catalog manifest: inline "
                     "'name=path,name=path' pairs, or a path to a "
@@ -341,6 +413,16 @@ CATALOG_PARAMS: Dict[str, Tuple[Any, str]] = {
                                     "becomes evictable — bounds "
                                     "admit/evict thrash when the "
                                     "working set exceeds the budget"),
+    "tenant_inflight": (0, "router: per-tenant in-flight request "
+                           "budget; a tenant past it sheds 503 without "
+                           "touching its neighbors (0 = no per-tenant "
+                           "cap)"),
+    "tenant_rate": (0.0, "router: per-tenant sustained request rate "
+                         "limit in req/s (token bucket; over-rate "
+                         "requests shed 429; 0 = unlimited)"),
+    "tenant_burst": (8.0, "router: token-bucket burst size — requests "
+                          "a tenant may send back-to-back before "
+                          "tenant_rate applies"),
 }
 
 
@@ -348,6 +430,70 @@ def catalog_params_help() -> str:
     """One line per catalog parameter, for CLI usage text."""
     return "\n".join(f"  {name:<22} {help_} (default {default!r})"
                      for name, (default, help_) in CATALOG_PARAMS.items())
+
+
+# --------------------------------------------------------------- placer
+# Autonomous placement + elastic fleet (``xgboost_tpu/config.py:616-678``,
+# SERVING.md "Autonomous placement"): knobs for task=placer, the control
+# plane that decides which replicas host which catalog models and how
+# many replicas the fleet should run.  Same single-table discipline as
+# the other *_PARAMS tables.
+PLACER_PARAMS: Dict[str, Tuple[Any, str]] = {
+    "placer_router_url": ("", "base URL of the fleet router whose "
+                              "catalog the placer manages (required "
+                              "for task=placer)"),
+    "placer_catalog": ("", "tenant manifest the placer places: inline "
+                           "'name=path,name=path' pairs or a 'name = "
+                           "path' config file — same syntax as "
+                           "catalog="),
+    "placer_plan_path": ("", "CRC-footered snapshot of the target "
+                             "assignment; a restarted placer resumes "
+                             "this plan instead of replanning from "
+                             "scratch (empty = no snapshot)"),
+    "placer_id": ("", "placer identity for the router-side single-"
+                      "holder lease (default: host:pid)"),
+    "placer_tick_sec": (2.0, "control-loop period: scrape load, "
+                             "replan, push manifest deltas (jittered "
+                             "±20%)"),
+    "placer_lease_sec": (10.0, "router-side placer lease: a standby "
+                               "placer takes over this long after the "
+                               "holder's last renewal"),
+    "placer_replication": (1, "replication floor — every tenant is "
+                              "placed on at least this many in-"
+                              "rotation replicas (capped by fleet "
+                              "size)"),
+    "placer_hot_replication": (2, "replication floor for HOT tenants "
+                                  "(load share >= placer_hot_fraction)"),
+    "placer_hot_fraction": (0.5, "a tenant whose share of observed "
+                                 "request load meets this fraction is "
+                                 "hot and gets the raised floor"),
+    "placer_load_alpha": (0.3, "EWMA smoothing for per-tenant request "
+                               "rates scraped from the router's "
+                               "xgbtpu_tenant_* counters"),
+    "placer_util_low": (0.2, "elastic band floor: fleet in-flight/"
+                             "slot utilization (EWMA) below this "
+                             "drains one replica"),
+    "placer_util_high": (0.75, "elastic band ceiling: utilization "
+                               "above this spawns one replica"),
+    "placer_util_alpha": (0.3, "EWMA smoothing for the fleet "
+                               "utilization signal"),
+    "placer_replica_slots": (8, "nominal concurrent requests one "
+                                "replica absorbs; utilization = "
+                                "in-flight / (slots * replicas)"),
+    "placer_cooldown_sec": (10.0, "minimum gap between elastic "
+                                  "resizes, so one burst cannot "
+                                  "thrash the fleet size"),
+    "placer_min_replicas": (1, "elastic supervisor never drains the "
+                               "fleet below this many replicas"),
+    "placer_max_replicas": (8, "elastic supervisor never spawns the "
+                               "fleet above this many replicas"),
+}
+
+
+def placer_params_help() -> str:
+    """One line per task=placer parameter, for CLI usage text."""
+    return "\n".join(f"  {name:<26} {help_} (default {default!r})"
+                     for name, (default, help_) in PLACER_PARAMS.items())
 
 
 def parse_config_file(path: str) -> List[Tuple[str, str]]:

@@ -29,10 +29,62 @@ def _label_weight(margin: torch.Tensor, info):
             info.on_device("weight", n, margin.device))
 
 
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add: the f64
+    product of two f32 values is exact, the f64 sum is rounded to odd
+    (two-sum error, then a step to the odd neighbour) so that its one
+    rounding to f32 is the correctly rounded result."""
+    p = a.double() * torch.as_tensor(b, dtype=torch.float64)
+    c = torch.as_tensor(c, dtype=torch.float64)
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    away = torch.where(err > 0, torch.tensor(float("inf"), dtype=s.dtype),
+                       torch.tensor(float("-inf"), dtype=s.dtype))
+    return torch.where(step, torch.nextafter(s, away), s).float()
+
+
+# XLA's CPU f32 exp (the Cephes polynomial of its LLVM emitter), in
+# the order it evaluates: clamp, n = floor(x log2(e) + 1/2), the
+# two-part reduction x - n C1 - n C2, a degree-5 polynomial, 1 + z, and
+# z 2^n with results below 2^-126 flushed to zero.  Every multiply-add
+# there is one FMA.
+_EXP_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _xla_cpu_exp(x: torch.Tensor) -> torch.Tensor:
+    x = torch.clamp(x, -87.8, 88.8)
+    n = torch.clamp(torch.floor(_fma(x, np.float32(_EXP_LOG2E), 0.5)),
+                    -127.0, 127.0)
+    r = _fma(n, np.float32(-_EXP_C1), x)
+    r = _fma(n, np.float32(-_EXP_C2), r)
+    z = _fma(r, np.float32(_EXP_P[0]), np.float32(_EXP_P[1]))
+    for p in _EXP_P[2:]:
+        z = _fma(z, r, np.float32(p))
+    z = 1.0 + _fma(z, r * r, r)
+    y = z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(y < _F32_TINY, torch.zeros_like(y), y)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``exp``: on the CPU bit for bit the JAX package's (XLA's CPU
+    ``exp``, which ``torch.exp`` misses by an ulp on ~10% of inputs and
+    which breaks softmax ties its own way); ``torch.exp`` on a GPU."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return _xla_cpu_exp(x)
+    return torch.exp(x)
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``1 / (1 + exp(-x))`` in f32, the JAX package's expression (not
     ``torch.sigmoid``, which rounds differently)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    return 1.0 / (1.0 + exp(-x))
 
 
 def regloss_grad(margin, label, weight, loss: str,
@@ -111,9 +163,16 @@ class RegLossObj:
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax along axis 1 in f32 with ``jax.nn.softmax``'s expression:
-    ``exp(x - max) / sum(exp(x - max))``."""
-    e = torch.exp(x - x.amax(dim=1, keepdim=True))
-    return e / e.sum(dim=1, keepdim=True)
+    ``exp(x - max) / sum(exp(x - max))``.  On the CPU the sum runs over
+    the classes left to right, XLA's CPU order, so p is the JAX
+    package's bit for bit."""
+    e = exp(x - x.amax(dim=1, keepdim=True))
+    if x.device.type != "cpu":
+        return e / e.sum(dim=1, keepdim=True)
+    s = e[:, 0].clone()
+    for k in range(1, e.shape[1]):
+        s += e[:, k]
+    return e / s[:, None]
 
 
 def softmax_grad(margin, label, weight) -> torch.Tensor:

@@ -1,13 +1,13 @@
 """Prometheus-style metric primitives and the metric groups of training,
-the pipeline, tenant lanes, prediction, the feature store, the catalog
-and serving (port of ``xgboost_tpu/obs/metrics.py:45-672,672-815,
-896-1058,1197-1289``, with the same metric names).
+the pipeline, tenant lanes, prediction, the feature store, the catalog,
+the fleet router, tenant quotas, the placer and serving (port of
+``xgboost_tpu/obs/metrics.py:45-672,672-815,896-1289``, with the same
+metric names).
 
 One process-wide :class:`MetricsRegistry` holds every group's render
 function, so ``registry().render()`` is the whole process's exposition
 text, and a :class:`ServingMetrics` render appends every other group.
-The stream, fleet, tenant-quota and placer groups are not ported (ROADMAP.md
-section 1 items 14b and 15).
+The stream group is not ported (ROADMAP.md section 1 item 15).
 """
 
 from __future__ import annotations
@@ -528,6 +528,176 @@ class CatalogMetrics(_Group):
         registry().register("catalog", self.render)
 
 
+class FleetMetrics(_Group):
+    """Router-side fleet accounting (``xgbtpu_fleet_*``, SERVING.md
+    fleet section): per-replica request/error attribution, the global
+    admission budget's shed count, retry and breaker activity, and the
+    membership gauge pair (registered vs in-rotation — their gap is the
+    fleet's sick-replica count).  One instance per process
+    (:func:`fleet_metrics`); rendered into every /metrics body via the
+    registry."""
+
+    def __init__(self, prefix: str = "xgbtpu_fleet"):
+        p = prefix
+        self.requests = LabeledCounter(
+            f"{p}_requests_total", "replica",
+            "requests dispatched by the router, by replica")
+        self.errors = LabeledCounter(
+            f"{p}_errors_total", "replica",
+            "dispatches that failed (connect/5xx), by replica")
+        self.latency = Histogram(
+            f"{p}_latency_seconds",
+            "router-side request latency, dispatch to response "
+            "(includes the replica hop and any retry)")
+        self.shed = Counter(
+            f"{p}_shed_total",
+            "requests shed with 503 by the router's in-flight budget")
+        self.retries = Counter(
+            f"{p}_retries_total",
+            "requests retried on a second replica after a failure")
+        self.breaker_trips = Counter(
+            f"{p}_breaker_trips_total",
+            "circuit breakers tripped open (consecutive failures)")
+        self.breaker_open = LabeledGauge(
+            f"{p}_breaker_open", "replica",
+            "1 while a replica's circuit breaker is open/half-open")
+        self.members = Gauge(
+            f"{p}_members",
+            "replicas currently in rotation (lease live + healthy + "
+            "serving)")
+        self.members_registered = Gauge(
+            f"{p}_members_registered",
+            "replicas currently registered (any state)")
+        self.inflight = Gauge(
+            f"{p}_inflight", "requests in flight through the router")
+        self.rollouts = Counter(
+            f"{p}_rollouts_total", "canary rollouts completed fleet-wide")
+        self.rollbacks = Counter(
+            f"{p}_rollbacks_total",
+            "rollouts rolled back (gate failure or operator command)")
+        # latency-aware ejection (fleet/membership.py): a slow-but-alive
+        # replica sails under the failure-count breaker while wrecking
+        # fleet p99 — these make the ejection state machine scrapeable
+        self.slow_ejections = Counter(
+            f"{p}_slow_ejections_total",
+            "replicas ejected from least-loaded dispatch for latency "
+            "(EWMA above k x the peers' median)")
+        self.ejected = LabeledGauge(
+            f"{p}_ejected", "replica",
+            "1 while a replica is latency-ejected (awaiting its "
+            "readmission probe)")
+        self.replica_latency = LabeledGauge(
+            f"{p}_replica_latency_ewma_seconds", "replica",
+            "per-replica EWMA of router-observed dispatch latency")
+        # heartbeat payload drift fix: every advertisement change the
+        # membership table absorbs mid-lease (catalog delta, eviction)
+        # is counted, so "how stale could the routing map have been"
+        # is answerable from a scrape
+        self.advert_updates = Counter(
+            f"{p}_advert_updates_total",
+            "heartbeats whose model/device advertisement differed "
+            "from the membership table (map updated in place)")
+        self._all = (self.requests, self.errors, self.latency, self.shed,
+                     self.retries, self.breaker_trips, self.breaker_open,
+                     self.members, self.members_registered, self.inflight,
+                     self.rollouts, self.rollbacks, self.slow_ejections,
+                     self.ejected, self.replica_latency,
+                     self.advert_updates)
+        registry().register("fleet", self.render)
+
+
+class TenantMetrics(_Group):
+    """Router-side per-tenant accounting (``xgbtpu_tenant_*``,
+    SERVING.md catalog section): request/shed/latency per model name at
+    the front door, so one tenant's overload is attributable — and
+    provably isolated — at a glance.  Latency is a labeled
+    milliseconds-sum counter; pair with ``requests_total`` for the
+    per-tenant mean (per-tenant quantiles live in the bench/chaos
+    reports, which sample client-side).  One instance per process
+    (:func:`tenant_metrics`)."""
+
+    def __init__(self, prefix: str = "xgbtpu_tenant"):
+        p = prefix
+        self.requests = LabeledCounter(
+            f"{p}_requests_total", "model",
+            "requests entering the router, by model name")
+        self.shed = LabeledCounter(
+            f"{p}_shed_total", "model",
+            "requests shed by that tenant's quota (429 rate / "
+            "503 in-flight)")
+        self.latency_ms = LabeledCounter(
+            f"{p}_latency_ms_total", "model",
+            "cumulative router-side request milliseconds, by model")
+        self.inflight = LabeledGauge(
+            f"{p}_inflight", "model",
+            "requests currently in flight through the router, by model")
+        self._all = (self.requests, self.shed, self.latency_ms,
+                     self.inflight)
+        registry().register("tenant", self.render)
+
+
+class PlacerMetrics(_Group):
+    """Control-plane accounting for the autonomous placer
+    (``xgbtpu_placer_*``, SERVING.md "Autonomous placement"): plan
+    churn, manifest-delta pushes, convergence state, and the elastic
+    supervisor's band/resize activity.  One instance per process
+    (:func:`placer_metrics`); rendered into every /metrics body via
+    the registry."""
+
+    def __init__(self, prefix: str = "xgbtpu_placer"):
+        p = prefix
+        self.ticks = Counter(
+            f"{p}_ticks_total",
+            "placement control-loop iterations (lease held)")
+        self.standby_ticks = Counter(
+            f"{p}_standby_ticks_total",
+            "iterations skipped because another placer holds the lease")
+        self.plans = Counter(
+            f"{p}_plans_total",
+            "target assignments computed that differ from the last")
+        self.moves = LabeledCounter(
+            f"{p}_moves_total", "kind",
+            "tenant placement deltas decided, kind=attach|detach")
+        self.pushes = Counter(
+            f"{p}_pushes_total",
+            "manifest-delta pushes sent to replica admin surfaces")
+        self.push_errors = Counter(
+            f"{p}_push_errors_total",
+            "manifest-delta pushes that failed (replica unreachable "
+            "or rejected)")
+        self.tenants = Gauge(
+            f"{p}_tenants",
+            "tenant models under placer management")
+        self.tenants_placed = Gauge(
+            f"{p}_tenants_placed",
+            "managed tenants with >=1 in-rotation host advertising "
+            "them")
+        self.converged = Gauge(
+            f"{p}_converged",
+            "1 while the fleet's advertised hosting matches the "
+            "target assignment")
+        self.fleet_util = Gauge(
+            f"{p}_fleet_utilization",
+            "EWMA of fleet in-flight / (replica_slots * replicas), "
+            "the elastic band signal")
+        self.replicas_target = Gauge(
+            f"{p}_replicas_target",
+            "replica count the elastic supervisor is converging to")
+        self.resizes = LabeledCounter(
+            f"{p}_resizes_total", "direction",
+            "elastic resizes executed, direction=up|down")
+        self.resize_holds = Counter(
+            f"{p}_resize_holds_total",
+            "resizes deferred because a rollout/canary soak was in "
+            "flight (path-group pinning)")
+        self._all = (self.ticks, self.standby_ticks, self.plans,
+                     self.moves, self.pushes, self.push_errors,
+                     self.tenants, self.tenants_placed, self.converged,
+                     self.fleet_util, self.replicas_target, self.resizes,
+                     self.resize_holds)
+        registry().register("placer", self.render)
+
+
 class ServingMetrics(_Group):
     """``xgbtpu_serving_*`` (``obs/metrics.py:1197-1289``): one instance
     is shared by engine, batcher, registry and HTTP front end.  It
@@ -653,6 +823,18 @@ def featurestore_metrics() -> FeatureStoreMetrics:
 
 def catalog_metrics() -> CatalogMetrics:
     return _singleton(CatalogMetrics)
+
+
+def fleet_metrics() -> FleetMetrics:
+    return _singleton(FleetMetrics)
+
+
+def tenant_metrics() -> TenantMetrics:
+    return _singleton(TenantMetrics)
+
+
+def placer_metrics() -> PlacerMetrics:
+    return _singleton(PlacerMetrics)
 
 
 _TENANT_DEQUEUES: Optional[LabeledCounter] = None

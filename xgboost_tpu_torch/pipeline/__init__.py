@@ -9,7 +9,8 @@ boundary through its checkpoint ring and ledger.
 :func:`run_tenant_lanes` runs one such pipeline per tenant, their
 boosting rounds stacked into one launch per level (K4) by default.
 Every booster lives on ``device`` (``"cuda"`` unless the caller passes
-``"cpu"``).  The fleet's rollout lane is not ported yet.
+``"cpu"``).  ``router_url`` publishes through the fleet router's
+canary rollout (:class:`RolloutPublisher`) instead.
 """
 
 from typing import Optional
@@ -19,7 +20,9 @@ from xgboost_tpu_torch.pipeline.datasource import (CallableDataSource,
                                                    FileDataSource,
                                                    SyntheticDataSource)
 from xgboost_tpu_torch.pipeline.gate import EvalGate
-from xgboost_tpu_torch.pipeline.publisher import Publisher, PublishRejected
+from xgboost_tpu_torch.pipeline.publisher import (Publisher,
+                                                  PublishRejected,
+                                                  RolloutPublisher)
 from xgboost_tpu_torch.pipeline.trainer import ContinuousTrainer
 
 
@@ -41,14 +44,10 @@ def run_pipeline(publish_path: str, workdir: str = "./pipeline",
     tenant's model bytes never depend on its neighbours.
     ``trainer_cls`` swaps the trainer (the lane dispatcher passes a
     :class:`~xgboost_tpu_torch.pipeline.lanes.GangTrainer` factory).
-    ``router_url`` (the fleet's canary rollout) raises: the router is
-    not ported yet."""
+    ``router_url`` publishes through the fleet's canary rollout
+    (:class:`RolloutPublisher`, ``pipeline/__init__.py:72-75``)."""
     if not publish_path:
         raise ValueError("pipeline_publish_path is required")
-    if router_url:
-        raise NotImplementedError(
-            "router_url: the fleet rollout publisher needs the serving "
-            "router, ROADMAP.md section 1 item 14b (the fleet)")
     if source is None:
         if not data or not holdout:
             raise ValueError(
@@ -59,12 +58,16 @@ def run_pipeline(publish_path: str, workdir: str = "./pipeline",
         import zlib
         params = dict(params or {})
         params["seed"] = zlib.crc32(lane.encode("utf-8")) & 0x7FFFFFFF
+    publisher = (RolloutPublisher(publish_path, router_url,
+                                  timeout=publish_timeout_sec,
+                                  model=lane)
+                 if router_url else Publisher(publish_path))
     gate = EvalGate(metric=metric, min_delta=min_delta,
                     max_regression=max_regression)
     trainer = (trainer_cls or ContinuousTrainer)(
         publish_path, source, workdir,
         rounds_per_cycle=rounds_per_cycle, params=params, gate=gate,
-        publisher=Publisher(publish_path), quiet=quiet, lane=lane,
+        publisher=publisher, quiet=quiet, lane=lane,
         device=device)
     return trainer.run(cycles=cycles, sleep_sec=sleep_sec)
 
@@ -164,5 +167,6 @@ def run_tenant_lanes(lanes: dict, quiet: bool = False,
 __all__ = [
     "ContinuousTrainer", "DataSource", "FileDataSource",
     "SyntheticDataSource", "CallableDataSource", "EvalGate",
-    "Publisher", "PublishRejected", "run_pipeline", "run_tenant_lanes",
+    "Publisher", "RolloutPublisher", "PublishRejected", "run_pipeline",
+    "run_tenant_lanes",
 ]

@@ -1,9 +1,10 @@
 """Process-wide fault registry for the I/O and serving seams (port of
 ``xgboost_tpu/reliability/faults.py``, whole).  In the port the I/O
-seams (``integrity.atomic_write`` / ``read_file``), the registry reload
-and the replica predict path fire; the fleet and gang kinds parse and
-arm here but have no seam until the fleet and the multi-host launcher
-are ported (ROADMAP.md section 1 items 14b and 13).
+seams (``integrity.atomic_write`` / ``read_file``), the registry reload,
+the replica predict path (``slow_replica``) and the fleet lease client
+(``heartbeat_loss``, ``replica_kill``) fire; the gang kinds parse and arm
+here but have no seam until the multi-host launcher is ported (ROADMAP.md
+section 1 item 13).
 
 The reference proves recovery by *injecting* failures at exact
 coordinates (``AllreduceMock``, ``subtree/rabit/src/allreduce_mock.h``);

@@ -11,8 +11,8 @@ poisoned-fingerprint memory; :class:`FeatureStore` keeps hot entities'
 rows on the device for :func:`predict_by_id`; :class:`PredictServer` is
 the stdlib HTTP front end (``/predict``, ``/predict_by_id``,
 ``/featurestore/*``, ``/healthz``, ``/metrics``, ``/-/reload``,
-``/-/rollback``, ``/-/catalog``), draining on SIGTERM.  The fleet (router,
-membership, rollout) is not ported (ROADMAP.md section 1 item 14b).
+``/-/rollback``, ``/-/catalog``), draining on SIGTERM and joining a
+fleet router (:mod:`xgboost_tpu_torch.fleet`) through ``attach_fleet``.
 
 Quickstart::
 

@@ -1,6 +1,5 @@
 """Stdlib-only HTTP front end for the serving stack (port of
-``xgboost_tpu/serving/http.py``, the same routes and JSON keys; the fleet
-membership, ``attach_fleet``, waits for ROADMAP.md section 1 item 14b).
+``xgboost_tpu/serving/http.py``, the same routes and JSON keys).
 
 Endpoints (SERVING.md):
 
@@ -58,12 +57,10 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from xgboost_tpu_torch.obs import span, trace, trace_context
+from xgboost_tpu_torch.obs.server import PROM_CONTENT_TYPE
 from xgboost_tpu_torch.reliability.deadline import Deadline, DeadlineExceeded
 from xgboost_tpu_torch.serving.batcher import MicroBatcher, QueueFull
 from xgboost_tpu_torch.serving.registry import ModelRegistry
-
-# the Prometheus text exposition content type (``obs/server.py:24``)
-PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
 def parse_csv_rows(text: str) -> np.ndarray:
@@ -476,11 +473,15 @@ class _Handler(BaseHTTPRequestHandler):
                     f"cover observed service time {est * 1e3:.1f}ms",
                     dl, sp)
                 return
-        # chaos seam: `slow_replica` wedges the predict path without
-        # killing anything (keyed on the fleet replica id in the JAX
-        # package; a replica outside a fleet has none)
+        # chaos seam: `slow_replica` (keyed on this replica's fleet id,
+        # like the lease client's heartbeat_loss/replica_kill) wedges
+        # the predict path without killing anything — the
+        # latency-ejection machinery must route around it
         from xgboost_tpu_torch.reliability import faults
-        wedge = faults.delay_for("slow_replica", path=None)
+        wedge = faults.delay_for(
+            "slow_replica",
+            path=(ps.lease_client.replica_id
+                  if ps.lease_client is not None else None))
         if wedge > 0.0:
             time.sleep(wedge)
         t_submit = time.perf_counter()
@@ -740,6 +741,9 @@ class PredictServer:
         self._svc_ewma: dict = {}
         self.drain_grace = float(drain_grace)
         self.max_body_bytes = int(max_body_mb * (1 << 20))
+        # fleet membership (attach_fleet): registration/heartbeat lease
+        # client against a fleet router; None = standalone replica
+        self.lease_client = None
         # /healthz uptime_seconds: perf_counter — uptime is a duration,
         # and an NTP step must not make it jump (XGT006)
         self.t0 = time.perf_counter()
@@ -862,6 +866,49 @@ class PredictServer:
                 key = max(smaller, key=lambda k: self._svc_ewma[k])
             self._svc_ewma[key] *= factor
 
+    # -------------------------------------------------------------- fleet
+    def attach_fleet(self, router_url: str,
+                     replica_id: Optional[str] = None,
+                     advertise_url: str = "",
+                     on_kill=None) -> None:
+        """Join a fleet (SERVING.md fleet section): register with the
+        router at ``router_url`` and keep a heartbeat lease alive.  The
+        lease client starts with :meth:`start`/:meth:`serve_forever`
+        and deregisters when the drain begins, so a draining replica
+        leaves rotation BEFORE it starts 503ing (the router's health
+        checker is the backstop for crashes).  ``replica_id`` defaults
+        to ``host:port`` — a restarted replica re-registering under its
+        old id is the tracker ``recover`` path."""
+        from xgboost_tpu_torch.fleet.membership import LeaseClient
+        rid = replica_id or f"{self.host}:{self.port}"
+        # the ADVERTISED endpoint is what the router dials — a wildcard
+        # bind (0.0.0.0/::) is reachable locally but unroutable from
+        # the router's side, so cross-host replicas must say where they
+        # actually live (serve_advertise_url)
+        self_url = (advertise_url.rstrip("/") if advertise_url
+                    else f"http://{self.host}:{self.port}")
+        if not advertise_url and self.host in ("0.0.0.0", "::", ""):
+            print(f"[fleet] WARNING: advertising wildcard bind "
+                  f"{self_url} to the router — unroutable from other "
+                  "hosts; set serve_advertise_url", file=sys.stderr)
+        self.lease_client = LeaseClient(
+            router_url, rid, self_url,
+            model_path=self.registry.path,
+            model_hash_fn=lambda: self.registry.content_hash,
+            # catalog advertisement: every heartbeat carries the model
+            # set (name -> path/hash) so the router can route ?model=
+            # to replicas that actually HOST the model
+            models_fn=(self.catalog.models
+                       if self.catalog is not None else None),
+            # device budget advertisement: the placer bin-packs tenant
+            # models against (budget - used) per replica; the used bytes
+            # are the card's, each engine's CUDA-graph pools included
+            device_fn=(
+                (lambda: {"budget_bytes": self.catalog.budget_bytes,
+                          "used_bytes": self.catalog.bytes_used()})
+                if self.catalog is not None else None),
+            on_kill=on_kill)
+
     # -------------------------------------------------------- drain state
     @property
     def inflight(self) -> int:
@@ -890,6 +937,11 @@ class PredictServer:
         grace = self.drain_grace if grace is None else float(grace)
         t0 = time.perf_counter()
         deadline = t0 + grace
+        if self.lease_client is not None:
+            # leave the fleet FIRST: the router stops dispatching here
+            # before this replica starts answering 503 (requests already
+            # routed ride the retry path)
+            self.lease_client.stop(deregister=True)
         with self._inflight_cv:
             if self.state == "serving":
                 self.state = "draining"
@@ -936,6 +988,8 @@ class PredictServer:
             target=self._httpd.serve_forever, daemon=True,
             name="xgbtpu-http")
         self._thread.start()
+        if self.lease_client is not None:
+            self.lease_client.start()
         return self
 
     def serve_forever(self) -> None:
@@ -947,6 +1001,8 @@ class PredictServer:
                 signal.signal(signal.SIGTERM, self._handle_sigterm)
             except ValueError:
                 pass  # exotic embedding; drain() stays available
+        if self.lease_client is not None:
+            self.lease_client.start()
         try:
             self._httpd.serve_forever()
         except KeyboardInterrupt:
@@ -960,6 +1016,8 @@ class PredictServer:
                 return
             self._shut = True
             self.state = "stopped"
+        if self.lease_client is not None:
+            self.lease_client.stop(deregister=True)
         self.registry.stop()
         if self.catalog is not None:
             self.catalog.stop()  # re-stop of the default entry is a no-op
@@ -1003,22 +1061,15 @@ def run_server(model_path: str = "", host: str = "127.0.0.1",
     (zero-upload repeat traffic) and the ``/featurestore/*`` admin
     routes.
 
-    A non-empty ``router_url``, ``replica_id`` or ``advertise_url``
-    (joining a fleet) raises ``NotImplementedError``: the fleet is
-    ROADMAP.md section 1 item 14b.
+    ``router_url`` joins a fleet (xgboost_tpu_torch.fleet): the replica
+    registers with the router there, heartbeats a lease (advertising
+    its model set and its device bytes), and deregisters when draining.
 
     ``device`` is where every engine runs: ``"cuda"`` (the default,
     raising without a GPU) or ``"cpu"``.
 
     With ``block=False`` the server runs on a background thread and the
     :class:`PredictServer` is returned (tests, embedding)."""
-    for name, value in (("router_url", router_url),
-                        ("replica_id", replica_id),
-                        ("advertise_url", advertise_url)):
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r}: joining a fleet (membership, router, "
-                "rollout) is ROADMAP.md section 1 item 14b")
     from xgboost_tpu_torch.catalog import ModelCatalog, parse_manifest
     from xgboost_tpu_torch.profiling import ServingMetrics
     metrics = ServingMetrics()
@@ -1083,6 +1134,9 @@ def run_server(model_path: str = "", host: str = "127.0.0.1",
                            quiet=quiet, drain_grace=drain_sec,
                            max_body_mb=max_body_mb, featurestore=store,
                            catalog=cat)
+    if router_url:
+        server.attach_fleet(router_url, replica_id=replica_id or None,
+                            advertise_url=advertise_url)
     if not quiet:
         eng = registry.engine
         print(f"[serving] model {paths[default_name]} "

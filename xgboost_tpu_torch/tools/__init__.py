@@ -13,6 +13,10 @@ with
 
     python -m xgboost_tpu_torch.tools.hist_microbench
 
+``launch_fleet`` brings up a local serving fleet (the router in its
+process, N replicas on the card as ``python -m xgboost_tpu_torch
+task=serve`` subprocesses; ``--supervise`` holds utilization in a band).
+
 Each ``main`` runs on the card unless it is given ``device="cpu"``.
 Unlike the JAX scripts, none of them catches a variant's exception: a
 kernel that does not build or launch fails the run.
