@@ -172,6 +172,21 @@ counts set to 0 just before and read just after:
   ``torch.profiler`` trace is written and holds CUDA activity, and
   prints the ten CUDA operations with the most device time a round, with
   their counts, and K1's share of ``grow``;
+- ``[updaters]`` (after ``[profile]``): [main]'s data and configuration
+  with ``updater=grow_colmaker``, 5 rounds: fails unless K2 runs 7
+  times a tree (every level, exact node sums) and nothing else, one
+  rank build runs, the holdout AUC is at least ``EXACT_AUC_JAX`` less
+  0.005, and the model loaded on the CPU predicts margins within 1e-6
+  and the same leaves; ``grow_skmaker``, 10 rounds: K1 60 and K2 10
+  (the terminal levels) only, AUC at least ``SK_AUC_JAX`` less 0.005;
+  on the multiclass data, 5 rounds: K3 30 and K2 5 (6 trees a launch)
+  only, merror better than chance; ``refresh`` of [main]'s model on a
+  fresh 1M-row draw (seed 43): K2 7 only (all 20 trees a launch), the
+  structure unchanged, leaf values within rtol 1e-5 plus the f32
+  summation bound of the port's CPU refresh on the same rows and
+  gradients; then 2 rounds of ``grow_histmaker,refresh``: K1 12 and K2
+  14 only.  Prints ms per exact and skmaker round, the rank build's s
+  and ms a refresh pass;
 - ``[forest]`` (after ``[otto]``): the multiclass data with
   ``num_parallel_tree=2``, ``subsample`` and ``colsample_bytree`` 0.8, 20
   rounds of 12 trees; fails unless K3 runs 120 times and nothing else,
@@ -277,8 +292,9 @@ card (10 rounds on the first 200,000 rows) succeeds under traffic, both
 replicas report its sha256 and answer its predictions, and ``POST
 /fleet/rollback`` restores the first hash and answers, every answer
 under traffic one model's; (e) ``replica_kill`` on ``r1`` (its
-``on_kill`` stops the server with no drain) fires during 200 requests
-from 8 threads, no client sees an error, ``r1`` leaves rotation within
+``on_kill`` stops the server with no drain; first r1 is let back from a
+latency ejection of (d), up to 15 s) fires during 400 requests from 16
+threads, no client sees an error, ``r1`` leaves rotation within
 ``fleet_lease_sec`` + ``fleet_hc_sec``, the router's ``/metrics`` shows
 retries and the breaker counter, and ``r1`` restarted under its id is in
 rotation again; (f) a second router with ``fleet_inflight=2`` over a
@@ -405,6 +421,25 @@ RANK_SORT_TOL, RANK_HOST_TOL = 0.01, 0.02
 # [api]: 200,000 Higgs rows (and 50,000 held out), 5 rounds
 API_N, API_TEST, API_ROUNDS = 200_000, 50_000, 5
 API_PARAMS = {"max_depth": DEPTH, "eta": 0.1, "max_bin": 64}
+# [updaters]: [main]'s data and configuration with updater=grow_colmaker
+# (5 rounds: K2 at every level, 7 a tree), grow_skmaker (10 rounds: K1
+# at levels 0-5, K2 at the terminal one; then [multiclass]'s data, 5
+# rounds of 6 trees: K3 and one K2 a round), and refresh on [main]'s
+# 20-tree model against a fresh 1M draw (one K2 launch a level for all
+# 20 trees), then 2 rounds of grow_histmaker,refresh
+UPD_EXACT_ROUNDS, UPD_SK_ROUNDS, UPD_SK_MC_ROUNDS = 5, 10, 5
+UPD_REFRESH_SEED, UPD_GROW_REFRESH_ROUNDS = 43, 2
+EXACT_PARAMS = {**PARAMS, "updater": "grow_colmaker"}
+SK_PARAMS = {**PARAMS, "updater": "grow_skmaker"}
+# The JAX package's holdout AUC for EXACT_PARAMS (5 rounds) and
+# SK_PARAMS (10 rounds, fp32 histograms) on a CPU, trained on the first
+# UPD_JAX_ROWS rows of [main]'s training set (the 100,000 holdout rows
+# the same), a CPU-sized run of the reference (a model trained on more
+# rows is no worse); the floors are 0.005 under
+# (``tests/test_torch_updaters.py`` run as a script prints them)
+UPD_JAX_ROWS = 100_000
+EXACT_AUC_JAX = 0.928636
+SK_AUC_JAX = 0.931701
 
 
 def fail(msg):
@@ -715,24 +750,28 @@ def phase_k3(torch, kb, cuda_hist, dev):
 
 
 def phase_k2(torch, kn, dev):
-    """K2 at the depth-0 path's shapes (T = 1 and 6 trees of 200k rows)
-    and with more nodes: dyadic gh bitwise, random gh within the f32
-    summation bound, and the same bits on a second launch."""
+    """K2 at the depth-0 path's shapes (T = 1 and 6 trees of 200k rows),
+    with more nodes, and at the exact and refresh paths' shapes (T = 1
+    and 20 trees of 1,000,000 rows at 64 nodes): dyadic gh bitwise,
+    random gh within the f32 summation bound, and the same bits on a
+    second launch.  Times the new shapes (events) beside the plain
+    version."""
     max_err = 0.0
-    for T, M in ((1, 1), (MC_K, 1), (MC_K, 8), (2, 20)):
+    for T, M, N in ((1, 1, MC_N), (MC_K, 1, MC_N), (MC_K, 8, MC_N),
+                    (2, 20, MC_N), (1, 64, N_TRAIN), (20, 64, N_TRAIN)):
         g = torch.Generator(device=dev).manual_seed(T * 31 + M)
-        pos = torch.randint(0, M, (T, MC_N), generator=g, device=dev,
+        pos = torch.randint(0, M, (T, N), generator=g, device=dev,
                             dtype=torch.int32)
-        pos[torch.rand(T, MC_N, generator=g, device=dev) < 0.2] = -1
-        dy = torch.randint(-512, 512, (T, MC_N, 2), generator=g, device=dev,
+        pos[torch.rand(T, N, generator=g, device=dev) < 0.2] = -1
+        dy = torch.randint(-512, 512, (T, N, 2), generator=g, device=dev,
                            dtype=torch.int32).to(torch.float32) / 256.0
-        tag = f"K2 N={MC_N} T={T} n_node={M}"
+        tag = f"K2 N={N} T={T} n_node={M}"
         got = kn.node_stats(dy, pos, M)
         if got.shape != (T, M, 2) or not torch.equal(
                 got, kn.node_stats_plain(dy, pos, M)):
             fail(f"{tag}: not bitwise equal to the plain version on "
                  "dyadic gh")
-        gh = torch.randn(T, MC_N, 2, generator=g, device=dev)
+        gh = torch.randn(T, N, 2, generator=g, device=dev)
         got = kn.node_stats(gh, pos, M)
         want = kn.node_stats_plain(gh, pos, M)
         n = kn.node_stats_plain(torch.ones_like(gh), pos, M)
@@ -743,8 +782,16 @@ def phase_k2(torch, kn, dev):
         if not torch.equal(kn.node_stats(gh, pos, M), got):
             fail(f"{tag}: two launches gave different bits")
         max_err = max(max_err, float((got - want).abs().max()))
-        print(f"[K2] N={MC_N} T={T} n_node={M}: bitwise on dyadic gh, "
-              "within bound on random gh, deterministic", flush=True)
+        extra = ""
+        if N == N_TRAIN:
+            ms = cuda_ms(torch, lambda: kn.node_stats(gh, pos, M), 20)
+            plain = cuda_ms(torch, lambda: kn.node_stats_plain(gh, pos, M),
+                            5)
+            nbytes = T * N * 12 + T * M * 8
+            extra = (f"; {ms:.4f} ms (plain {plain:.4f}, bound "
+                     f"{nbytes / PEAK_BYTES_S * 1e3:.4f} bytes)")
+        print(f"[K2] N={N} T={T} n_node={M}: bitwise on dyadic gh, "
+              f"within bound on random gh, deterministic{extra}", flush=True)
     print(f"[K2] max |kernel - plain| on random gh: {max_err}", flush=True)
 
 
@@ -1737,7 +1784,13 @@ FLEET_ROTATION_S = 10.0                    # (a)
 FLEET_SIZES = (1, 64, 1000)                # (b)
 FLEET_IDS = 1000                           # (c)
 FLEET_CAND_N, FLEET_CAND_ROUNDS = 200_000, 10   # (d)
-FLEET_KILL_THREADS, FLEET_KILL_REQS = 8, 200    # (e)
+# (e): the router sends a request to the least-loaded replica, ties to
+# r0, so r1 sees traffic only while r0 is busy: 16 threads keep enough
+# requests in flight that r1 is dispatched to between its kill and its
+# ejection (8 threads once left that window without one, and so with no
+# retry to count)
+FLEET_KILL_THREADS, FLEET_KILL_REQS = 16, 400
+FLEET_READMIT_S = 15.0   # (e): the longest wait for r1's readmission
 FLEET_SHED_INFLIGHT, FLEET_SHED_S, FLEET_SHED_REQS = 2, 0.2, 16   # (f)
 FLEET_PHASE_S = 120.0
 
@@ -2066,7 +2119,26 @@ def phase_fleet(torch, xt, kernels, card, main_hold, fleet_train,
               f"answers back; no bad answer under traffic | {card}",
               flush=True)
 
-        # (e) replica_kill on r1 during 200 requests from 8 threads
+        # (e) replica_kill on r1 during 400 requests from 16 threads.
+        # A replica latency-ejected during (d)'s reload takes no traffic
+        # until a probe readmits it after the cooldown, and a kill of a
+        # replica that takes none leaves nothing to retry: first let r1
+        # back into the least-loaded pool.  The probe goes to r1 only
+        # while r0 is busy (ties go to r0), so the traffic comes in bursts
+        t_wait = time.perf_counter()
+        while time.perf_counter() - t_wait < FLEET_READMIT_S:
+            reps = {r["replica_id"]: r for r in members(base)["replicas"]}
+            if reps.get("r1", {}).get("in_rotation") \
+                    and not reps["r1"].get("ejected"):
+                break
+            burst = [threading.Thread(target=http_call, args=(
+                base + "/predict", csv_body(Xh[:1]))) for _ in range(4)]
+            for t in burst:
+                t.start()
+            for t in burst:
+                t.join(30)
+            time.sleep(0.1)
+        r1_wait = time.perf_counter() - t_wait
         results, lock = [], threading.Lock()
 
         def client(k):
@@ -2116,11 +2188,13 @@ def phase_fleet(torch, xt, kernels, card, main_hold, fleet_train,
         if sm.get("xgbtpu_fleet_retries_total", 0) < 1 \
                 or "xgbtpu_fleet_breaker_trips_total" not in sm:
             fail("[fleet] (e) the router's /metrics lack the retry or "
-                 "breaker counters")
+                 f"breaker counters (r1 readmitted after {r1_wait:.2f} s: "
+                 f"{members(base)})")
         t0 = time.perf_counter()
         r1 = replica("r1", base)
         back = wait_rotation(base, ["r0", "r1"], FLEET_ROTATION_S)
-        print(f"[fleet] (e) replica_kill on r1 during {len(results)} "
+        print(f"[fleet] (e) r1 in the least-loaded pool after {r1_wait:.2f} "
+              f"s; replica_kill on r1 during {len(results)} "
               f"requests from {FLEET_KILL_THREADS} threads: no client error, "
               f"r1 out of rotation {eject_s:.3f} s after the kill (limit "
               f"{FLEET_LEASE_S + FLEET_HC_S:.1f}); retries "
@@ -3344,6 +3418,208 @@ def phase_profile(torch, xt, kernels, device, card, main_out):
 # T4a, T4b, T6) and the TPU prototypes they replace (the Pallas kernel
 # body of each)
 # ------------------------------------------------------------------ [rank]
+def phase_updaters(torch, xt, kernels, device, card, main_out):
+    """ROADMAP item 9 on [main]'s data, every run's launch counts set to
+    0 just before and read just after: (a) exact ``grow_colmaker``, (b)
+    ``grow_skmaker`` (Higgs, then [multiclass]'s data), (c) ``refresh``
+    of [main]'s model on a fresh draw, then ``grow_histmaker,refresh``.
+    Returns {kernel: launches} summed over the phase and its times."""
+    from xgboost_tpu_torch.metrics import auc
+    from xgboost_tpu_torch.models import colmaker
+
+    X, y = main_out["X"], main_out["y"]
+    dtrain = xt.DMatrix(X[:N_TRAIN], label=y[:N_TRAIN])
+    dtest = xt.DMatrix(X[N_TRAIN:], label=y[N_TRAIN:])
+    ones = np.ones(N_TEST, np.float32)
+    total = {name: 0 for name in kernels}
+    times = {}
+
+    def counted(want, fn):
+        reset_counts(kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        if counts != only(kernels, **want):
+            fail(f"[updaters] launch counts {counts}: want {want}, the "
+                 "others 0")
+        for name, n in counts.items():
+            total[name] += n
+        return out
+
+    def rounds(params, dmat, n, want):
+        """``n`` rounds: round 0 (entry, cuts or ranks) apart, the rest
+        timed, host clock ending in a synchronize."""
+        bst = xt.Booster(params, cache=[dmat], device=device)
+
+        def run():
+            t0 = time.perf_counter()
+            bst.update(dmat, 0)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bst.update_many(dmat, 1, n - 1)
+            torch.cuda.synchronize()
+            return first, (time.perf_counter() - t0) * 1e3 / (n - 1)
+        first, ms = counted(want, run)
+        return bst, first, ms
+
+    # (a) exact: K2 at every level, D + 1 a tree; the one-off rank build
+    rank_s = []
+    real_ranks = colmaker.build_exact_ranks
+
+    def timed_ranks(Xh):
+        t0 = time.perf_counter()
+        out = real_ranks(Xh)
+        rank_s.append(time.perf_counter() - t0)
+        return out
+    colmaker.build_exact_ranks = timed_ranks
+    try:
+        bst, first, ms = rounds(EXACT_PARAMS, dtrain, UPD_EXACT_ROUNDS,
+                                {"node_stats": UPD_EXACT_ROUNDS
+                                 * (DEPTH + 1)})
+    finally:
+        colmaker.build_exact_ranks = real_ranks
+    if not bst.gbtree.exact_raw or len(rank_s) != 1:
+        fail(f"[updaters] exact: exact_raw {bst.gbtree.exact_raw}, rank "
+             f"builds {len(rank_s)}")
+    pred = bst.predict(dtest)
+    score = auc(pred, y[N_TRAIN:], ones)
+    floor = EXACT_AUC_JAX - 0.005
+    print(f"[updaters] exact {UPD_EXACT_ROUNDS} rounds: K2 "
+          f"{UPD_EXACT_ROUNDS * (DEPTH + 1)} launches; holdout AUC "
+          f"{score:.6f} (floor {floor:.6f}); {ms:.3f} ms per round; round "
+          f"0 {first:.2f} s with the rank build {rank_s[0]:.2f} s | {card}",
+          flush=True)
+    if not score >= floor:
+        fail(f"[updaters] exact holdout AUC {score} < {floor}")
+    times.update(exact_ms=ms, exact_rank_s=rank_s[0])
+    # the model saved on the card predicts the same on the CPU
+    cpu = xt.Booster(device="cpu")
+    cpu.load_raw(bst.save_raw())
+    hold = X[N_TRAIN:]
+    m_card = bst.predict(hold, output_margin=True)
+    m_cpu = cpu.predict(hold, output_margin=True)
+    if not np.allclose(m_cpu, m_card, rtol=0, atol=1e-6) or not \
+            np.array_equal(cpu.predict(hold, pred_leaf=True),
+                           bst.predict(hold, pred_leaf=True)):
+        fail("[updaters] exact: the card's model predicts otherwise on the "
+             f"CPU (max |margin diff| {np.abs(m_cpu - m_card).max()})")
+    print("[updaters] exact model on the CPU: margins within 1e-6 "
+          f"(max {np.abs(m_cpu - m_card).max()}), pred_leaf equal",
+          flush=True)
+    del bst, cpu
+
+    # (b) skmaker: K1 at levels 0-5, K2 at the terminal level
+    bst, _, ms = rounds(SK_PARAMS, dtrain, UPD_SK_ROUNDS,
+                        {"hist_level": UPD_SK_ROUNDS * DEPTH,
+                         "node_stats": UPD_SK_ROUNDS})
+    score = auc(bst.predict(dtest), y[N_TRAIN:], ones)
+    floor = SK_AUC_JAX - 0.005
+    print(f"[updaters] skmaker {UPD_SK_ROUNDS} rounds: K1 "
+          f"{UPD_SK_ROUNDS * DEPTH}, K2 {UPD_SK_ROUNDS}; holdout AUC "
+          f"{score:.6f} (floor {floor:.6f}); {ms:.3f} ms per round | {card}",
+          flush=True)
+    if not score >= floor:
+        fail(f"[updaters] skmaker holdout AUC {score} < {floor}")
+    times["skmaker_ms"] = ms
+    del bst
+    Xm, ym = make_multiclass(MC_N + MC_TEST)
+    dmc = xt.DMatrix(Xm[:MC_N], label=ym[:MC_N])
+    bst, _, ms = rounds({**MC_PARAMS, "updater": "grow_skmaker"}, dmc,
+                        UPD_SK_MC_ROUNDS,
+                        {"hist_batched": UPD_SK_MC_ROUNDS * DEPTH,
+                         "node_stats": UPD_SK_MC_ROUNDS})
+    merr = float(np.mean(bst.predict(Xm[MC_N:]) != ym[MC_N:]))
+    print(f"[updaters] skmaker multiclass {UPD_SK_MC_ROUNDS} rounds of "
+          f"{MC_K} trees: K3 {UPD_SK_MC_ROUNDS * DEPTH}, K2 "
+          f"{UPD_SK_MC_ROUNDS} ({MC_K} trees a launch); holdout merror "
+          f"{merr:.4f}; {ms:.3f} ms per round | {card}", flush=True)
+    if not merr < 1.0 - 1.0 / MC_K:
+        fail(f"[updaters] skmaker multiclass merror {merr}: no better than "
+             "chance")
+    times["skmaker_mc_ms"] = ms
+    del bst, dmc, Xm, ym
+
+    # (c) refresh: [main]'s 20 trees on a fresh draw, one K2 a level
+    Xf, yf = make_higgs_like(N_TRAIN, seed=UPD_REFRESH_SEED)
+    dfresh = xt.DMatrix(Xf, label=yf)
+    bst = xt.Booster(device=device)
+    bst.load_raw(main_out["raw"])
+    bst.set_param({"updater": "refresh"})
+    before = bst.gbtree.get_state()
+    it = bst.gbtree.num_boosted_rounds
+    counted({"node_stats": DEPTH + 1}, lambda: bst.update(dfresh, it))
+    after = bst.gbtree.get_state()
+    for f in ("feature", "cut_index", "threshold", "default_left",
+              "is_leaf"):
+        if not np.array_equal(after["tree_" + f], before["tree_" + f]):
+            fail(f"[updaters] refresh changed the trees' {f}")
+    # the same pass on the CPU, on the card's gradients: leaf values
+    # within rtol 1e-5 plus the f32 summation bound of their node sums
+    # (the kernel and index_add_ add in different orders)
+    from xgboost_tpu_torch.models.updaters import refresh_trees
+    entry = bst._entry(dfresh)
+    model0 = xt.Booster(device=device)
+    model0.load_raw(main_out["raw"])
+    st0, _ = model0.gbtree._stack(0)
+    T = st0.feature.shape[0]
+    sp, depth = bst.gbtree.cfg.split, bst.gbtree.cfg.max_depth
+    gh = bst.obj.get_gradient(model0.gbtree.predict_margin(
+        entry.binned, entry.base), dfresh.info, it)
+    g = gh[:, 0, 0][None].expand(T, -1)
+    h = gh[:, 0, 1][None].expand(T, -1)
+    st0_cpu = type(st0)(*(x.cpu() for x in st0))
+    want = refresh_trees(st0_cpu, entry.binned.cpu(),
+                         torch.stack([g, h], -1).cpu(), sp, depth)
+
+    def node_sums(v):       # (T, n_nodes) sums of a per-row value
+        return refresh_trees(st0, entry.binned, torch.stack(
+            [v, v], -1).contiguous(), sp, depth).sum_hess.cpu()
+    G, n, s_abs = node_sums(g), node_sums(torch.ones_like(g)), \
+        node_sums(g.abs())
+    H = want.sum_hess
+    eps = 2.0 * n * 2.0 ** -24
+    dG, dH = eps * s_abs, eps * H
+    hl = (H + sp.reg_lambda - dH).clamp_min(1e-30)
+    tol = (sp.eta * (dG / hl + G.abs() * dH / (hl * (H + sp.reg_lambda)))
+           + 1e-5 * want.leaf_value.abs())
+    got_leaf = torch.from_numpy(after["tree_leaf_value"])
+    diff = (got_leaf - want.leaf_value).abs()
+    rel = float((diff / want.leaf_value.abs().clamp_min(1e-30))[
+        want.leaf_value != 0].max())
+    print(f"[updaters] refresh vs the CPU's on the card's gradients: max "
+          f"|leaf diff| {float(diff.max()):.3g}, max relative {rel:.3g} "
+          f"(rtol 1e-5 alone holds: "
+          f"{bool((diff <= 1e-5 * want.leaf_value.abs()).all())})",
+          flush=True)
+    if not bool((diff <= tol).all()):
+        fail("[updaters] refreshed leaf values beyond rtol 1e-5 plus the "
+             "f32 summation bound of the CPU's")
+    del model0, st0, st0_cpu, want
+    # ms a pass: the refresh alone, K2 7 launches for all 20 trees
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        bst.gbtree.do_refresh(entry.binned, gh, root=entry.root)
+    torch.cuda.synchronize()
+    pass_ms = (time.perf_counter() - t0) * 1e3 / reps
+    times["refresh_ms"] = pass_ms
+    print(f"[updaters] refresh of {T} trees on "
+          f"{N_TRAIN} rows: K2 {DEPTH + 1} launches; structure unchanged; "
+          f"{pass_ms:.3f} ms a pass | {card}", flush=True)
+    # grow_histmaker,refresh: K1 6 and K2 7 a round
+    bst.set_param({"updater": "grow_histmaker,refresh"})
+    n = UPD_GROW_REFRESH_ROUNDS
+    counted({"hist_level": n * DEPTH, "node_stats": n * (DEPTH + 1)},
+            lambda: bst.update_many(dfresh, it + 1, n))
+    if bst.gbtree.num_trees != 20 + n:
+        fail(f"[updaters] grow_histmaker,refresh: {bst.gbtree.num_trees} "
+             f"trees, want {20 + n}")
+    print(f"[updaters] grow_histmaker,refresh {n} rounds: K1 {n * DEPTH}, "
+          f"K2 {n * (DEPTH + 1)}", flush=True)
+    return total, times
+
+
 def make_rank(n=RANK_N):
     """``bench.py:bench_rank``'s data: relevance 0-2 from a noisy score
     of three features, groups of RANK_GSIZE rows."""
@@ -4449,6 +4725,10 @@ def main():
     p_launches, phases, _, _ = phase_profile(torch, xt, kernels, "cuda",
                                              card, main_out)
     print(f"[profile] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    upd_launches, upd_times = phase_updaters(torch, xt, kernels, "cuda",
+                                             card, main_out)
+    print(f"[updaters] phase {time.perf_counter() - t0:.1f} s")
     main_hold = main_out["X"][N_TRAIN:]
     fleet_train = (main_out["X"][:FLEET_CAND_N].copy(),
                    main_out["y"][:FLEET_CAND_N].copy())
@@ -4520,23 +4800,27 @@ def main():
 
     # launches: each path's own count, summed over the paths that run
     # the kernel ([main], [sample], [subtract], [roots], [profile],
-    # [rank], [rank-sort] and [api] for K1; [multiclass], [forest], the [roots] forest and the multiclass
-    # [subtract] for K3; [depth0] and both [subtract] runs for K2;
-    # [lanes], [lanes-sampled] and the multiclass [subtract] for K4)
+    # [updaters], [rank], [rank-sort] and [api] for K1; [multiclass],
+    # [forest], the [roots] forest, the multiclass [subtract] and
+    # [updaters] for K3; [depth0], both [subtract] runs and [updaters]
+    # for K2; [lanes], [lanes-sampled] and the multiclass [subtract] for
+    # K4)
     records = [
         kernel_record("hist_level", "xgboost_tpu_torch/csrc/hist_level.cu",
                       "xgboost_tpu/ops/pallas_hist.py:46",
                       launches + s_launches + sub_k1 + r_launches
-                      + p_launches + rk_launches + rs_launches
-                      + api_launches, max(max_err, rk_err), rows),
+                      + p_launches + upd_launches["hist_level"]
+                      + rk_launches + rs_launches + api_launches,
+                      max(max_err, rk_err), rows),
         kernel_record("hist_batched",
                       "xgboost_tpu_torch/csrc/hist_batched.cu",
                       "xgboost_tpu/ops/pallas_hist.py:374",
-                      mc_launches + f_launches + rf_launches + smc_k3,
-                      mc_err, k3_rows),
+                      mc_launches + f_launches + rf_launches + smc_k3
+                      + upd_launches["hist_batched"], mc_err, k3_rows),
         kernel_record("node_stats", "xgboost_tpu_torch/csrc/node_stats.cu",
                       "xgboost_tpu/ops/pallas_hist.py:609",
-                      d0_launches + sub_k2 + smc_k2, d0_err, k2_rows),
+                      d0_launches + sub_k2 + smc_k2
+                      + upd_launches["node_stats"], d0_err, k2_rows),
         kernel_record("hist_lanes", "xgboost_tpu_torch/csrc/hist_lanes.cu",
                       "xgboost_tpu/ops/pallas_hist.py:283",
                       k4_launches + sl_launches + smc_k4, k4_err, k4_rows),
@@ -4558,7 +4842,11 @@ def main():
           f"rank:ndcg padded {rk_ms:.3f} ms per round (gradient "
           f"{rk_grad_ms:.4f} ms), " + ", ".join(
               f"{t} {m:.3f} (gradient {g:.4f})" for t, m, g in rs_rows)
-          + "; "
+          + f"; updaters: exact {upd_times['exact_ms']:.3f} ms per round "
+          f"(rank build {upd_times['exact_rank_s']:.2f} s), skmaker "
+          f"{upd_times['skmaker_ms']:.3f} (multiclass "
+          f"{upd_times['skmaker_mc_ms']:.3f}), refresh "
+          f"{upd_times['refresh_ms']:.3f} ms a pass; "
           f"kernel times are means over the levels of one round (K2: one "
           f"depth-0 round) | {card}")
     print(json.dumps({"kernels": records}))

@@ -1203,3 +1203,92 @@ def test_two_replicas_one_capturing_while_the_other_replays(cuda_device,
         for srv in reps.values():
             srv.shutdown()
         rt.shutdown()
+
+
+# ----------------------------------------------------- the other updaters
+def _exact_fixture():
+    """4,000 rows x 6 features, 15% missing, a rounded column (ties)."""
+    rng = np.random.RandomState(17)
+    X = rng.randn(4000, 6).astype(np.float32)
+    X[:, 5] = np.round(X[:, 5] * 2) / 2
+    X[rng.rand(*X.shape) < 0.15] = np.nan
+    gh = np.stack([rng.randn(4000), rng.rand(4000) + 0.05],
+                  axis=1).astype(np.float32)
+    return X, gh
+
+
+@pytest.mark.cuda
+def test_exact_splits_on_the_card_match_the_cpu(cuda_device):
+    """The exact grower on the card (stable sorts, f32 cumsum prefix
+    sums, K2) against the port's CPU run: structure and each split's
+    threshold equal (a leaf's holds its rejected candidate), gains and
+    leaf values within rtol 1e-5, and the default direction of every
+    split whose node has missing values of its feature.  Where it has
+    none, both directions see the same sums and the last bits of
+    ``G - G_present`` pick one (ROADMAP.md section 3)."""
+    from xgboost_tpu_torch.models import colmaker
+    from xgboost_tpu_torch.models.tree import GrowConfig
+    from xgboost_tpu_torch.ops.split import SplitConfig
+    X, gh = _exact_fixture()
+    cfg = GrowConfig(split=SplitConfig(min_child_weight=1.0, eta=0.3),
+                     max_depth=4, n_bin=3)
+    rk, uq = colmaker.build_exact_ranks(X)
+    args = [torch.from_numpy(a) for a in (X, gh, rk, uq)]
+    cpu, leaf_cpu = colmaker.grow_tree_exact(args[0], args[1], cfg,
+                                             rank_t=args[2], uniq=args[3])
+    dev = [a.to(cuda_device) for a in args]
+    card, leaf_card = colmaker.grow_tree_exact(dev[0], dev[1], cfg,
+                                               rank_t=dev[2], uniq=dev[3])
+    assert torch.equal(card.feature.cpu(), cpu.feature)
+    assert torch.equal(card.is_leaf.cpu(), cpu.is_leaf)
+    split = cpu.feature >= 0
+    assert torch.equal(card.threshold.cpu()[split], cpu.threshold[split])
+    # rows of every node (the CPU tree's routing): a split's direction
+    # is compared where its feature has missing values in its node
+    rows, missing = {0: np.arange(len(X))}, np.zeros(len(split), bool)
+    for nid in np.nonzero(split.numpy())[0]:
+        x = X[rows[nid], int(cpu.feature[nid])]
+        missing[nid] = bool(np.isnan(x).any())
+        left = np.where(np.isnan(x), bool(cpu.default_left[nid]),
+                        x < float(cpu.threshold[nid]))
+        rows[2 * nid + 1], rows[2 * nid + 2] = (rows[nid][left],
+                                                rows[nid][~left])
+    have = torch.from_numpy(missing)
+    assert int(have.sum()) >= 7
+    assert torch.equal(card.default_left.cpu()[have], cpu.default_left[have])
+    for f in ("gain", "leaf_value", "sum_hess"):
+        np.testing.assert_allclose(getattr(card, f).cpu().numpy(),
+                                   getattr(cpu, f).numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=f)
+    assert torch.equal(leaf_card.cpu(), leaf_cpu)
+    assert int((cpu.feature >= 0).sum()) >= 7
+
+
+@pytest.mark.cuda
+def test_exact_and_refresh_rounds_launch_k2_a_level(cuda_device):
+    """One exact round of depth 4 launches K2 5 times and nothing else;
+    one refresh round of its 3 trees (a continued model) 5 times, all 3
+    trees in each launch."""
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.ops import cuda_hist_batched, cuda_node_stats
+    X, _ = _exact_fixture()
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float32)
+    d = xt.DMatrix(X, label=y)
+    b = xt.Booster({"updater": "grow_colmaker", "max_depth": 4,
+                    "silent": 1}, device=cuda_device)
+    b.update(d, 0)                     # entry and ranks apart
+    cuda_node_stats.reset_launches()
+    cuda_hist.reset_launches()
+    b.update(d, 1)
+    torch.cuda.synchronize()
+    assert cuda_node_stats.launches == 5 and cuda_hist.launches == 0
+    h = xt.train({"max_depth": 4, "silent": 1}, d, 3, device=cuda_device)
+    h.set_param({"updater": "refresh"})
+    cuda_node_stats.reset_launches()
+    cuda_hist.reset_launches()
+    cuda_hist_batched.reset_launches()
+    h.update(xt.DMatrix(X[::-1].copy(), label=y[::-1].copy()), 3)
+    torch.cuda.synchronize()
+    assert cuda_node_stats.launches == 5
+    assert cuda_hist.launches == 0 == cuda_hist_batched.launches
+    assert h.gbtree.num_trees == 3

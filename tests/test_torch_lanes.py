@@ -222,12 +222,13 @@ def test_gate_verdicts_match_jax_lanes(runs):
 # -------------------------------------------------------------- bucket key
 def test_bucket_of_groups_by_shape_and_pads_rows():
     def spec(n_rows=100, n_features=4, w=7, subsample=1.0, K=1,
-             dtype=torch.uint8):
+             dtype=torch.uint8, split_finder=None):
         return SimpleNamespace(
             n_rows=n_rows, n_features=n_features, subsample=subsample,
             binned=torch.zeros((n_rows, n_features), dtype=dtype),
             cut_values=torch.zeros((n_features, w)), K=K, npar=1,
-            n_rounds=2, seg_k=64, cfg="cfg", grad_fn="g")
+            n_rounds=2, seg_k=64, cfg="cfg", grad_fn="g",
+            split_finder=split_finder)
 
     # rows pad to a shared power-of-two bucket (floor 64) at subsample 1
     assert _bucket_of(spec(n_rows=65)) == _bucket_of(spec(n_rows=100))
@@ -242,6 +243,8 @@ def test_bucket_of_groups_by_shape_and_pads_rows():
     assert _bucket_of(spec(n_features=5)) != _bucket_of(spec())
     assert _bucket_of(spec(K=2)) != _bucket_of(spec())
     assert _bucket_of(spec(dtype=torch.int32)) != _bucket_of(spec())
+    # lanes with different split finders never stack
+    assert _bucket_of(spec(split_finder="sk")) != _bucket_of(spec())
 
 
 # --------------------------------------------------------------- isolation

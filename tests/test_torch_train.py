@@ -211,9 +211,7 @@ def test_default_device_needs_a_gpu():
 
 
 @pytest.mark.parametrize("params", [
-    {"updater": "grow_skmaker"}, {"updater": "grow_histmaker,refresh"},
-    {"booster": "gblinear"}, {"updater": "grow_colmaker"},
-    {"dsplit": "row"}])
+    {"booster": "gblinear"}, {"dsplit": "row"}, {"updater": "distcol"}])
 def test_unported_options_raise(params):
     X, y, _ = _data(2)
     with pytest.raises(NotImplementedError):

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from xgboost_tpu_torch import random as prng
-from xgboost_tpu_torch.binning import (bin_dense_device, bin_matrix,
-                                       compute_cuts)
+from xgboost_tpu_torch.binning import (CutMatrix, bin_dense_device,
+                                       bin_matrix, compute_cuts)
 from xgboost_tpu_torch.config import TrainParam, params_to_dict
 from xgboost_tpu_torch.data import DMatrix, write_npz
 from xgboost_tpu_torch.metrics import create_metric
@@ -93,6 +93,12 @@ class _CacheEntry:
         # relaid (label-sorted, lane-padded per group), so what users
         # see comes back through user_rows
         self.rank_pad_prep = rank_pad_prep
+        # exact mode (grow_colmaker): ``binned`` holds raw values; whether
+        # any is missing, and the one-off dense ranks of a training matrix
+        # (built from ``exact_host`` at its first boost, then dropped)
+        self.exact_has_missing = True
+        self.exact_ranks = None
+        self.exact_host: Optional[np.ndarray] = None
 
     def user_rows(self, x):
         """The user's rows of a host per-row array, in the user's order."""
@@ -120,6 +126,7 @@ class LaneSpec(NamedTuple):
     npar: int                # num_parallel_tree
     cfg: object              # GrowConfig (hashable)
     grad_fn: object          # Objective.fused_grad (stable identity)
+    split_finder: object     # GBTree.split_finder() (stable identity)
     subsample: float
     base_key: np.ndarray     # (2,) uint32 PRNGKey(seed): sampling keys
     binned: torch.Tensor     # (N, F) device bins
@@ -195,24 +202,51 @@ class Booster:
         if self.obj is None:
             self._init_obj()
         if self.gbtree is None:
+            from xgboost_tpu_torch.models.updaters import parse_updaters
             self.num_feature = dtrain.num_col
-            margin_kw = ({"bin_align_margin": None}
-                         if int(self.param.hist_bin_align) > 0 else {})
-            # the sketch reads every column on the host, the most costly
-            # step of a first round; boosters on one matrix share its cuts
-            key = (self.param.max_bin, self.param.sketch_eps,
-                   self.param.sketch_ratio, self._bin_align(),
-                   tuple(margin_kw.items()))
-            cuts = dtrain._cuts.get(key)
-            if cuts is None:
-                cuts = dtrain._cuts[key] = compute_cuts(
-                    dtrain, self.param.max_bin, self.param.sketch_eps,
-                    self.param.sketch_ratio, bin_align=self._bin_align(),
-                    **margin_kw)
+            if "grow_colmaker" in parse_updaters(self.param.updater):
+                # exact mode is bin-free: an (F, 1) cut matrix of +inf
+                # holds the place (learner.py:271-283)
+                cuts = CutMatrix(
+                    np.full((dtrain.num_col, 1), np.inf, np.float32),
+                    np.zeros(dtrain.num_col, np.int32))
+            else:
+                cuts = self._cuts_of(dtrain)
             self.gbtree = GBTree(self.param, cuts, self.device)
         for d in self._pending_cache:
             self._entry(d)
         self._pending_cache = []
+
+    def _cuts_of(self, dtrain: DMatrix) -> CutMatrix:
+        """The training matrix's quantile cuts.  The sketch reads every
+        column on the host, the most costly step of a first round;
+        boosters on one matrix share its cuts."""
+        margin_kw = ({"bin_align_margin": None}
+                     if int(self.param.hist_bin_align) > 0 else {})
+        key = (self.param.max_bin, self.param.sketch_eps,
+               self.param.sketch_ratio, self._bin_align(),
+               tuple(margin_kw.items()))
+        cuts = dtrain._cuts.get(key)
+        if cuts is None:
+            cuts = dtrain._cuts[key] = compute_cuts(
+                dtrain, self.param.max_bin, self.param.sketch_eps,
+                self.param.sketch_ratio, bin_align=self._bin_align(),
+                **margin_kw)
+        return cuts
+
+    def _raw_dense(self, dmat: DMatrix) -> Tuple[torch.Tensor, bool,
+                                                 np.ndarray]:
+        """An exact-mode matrix (``learner.py:752-773``): raw values, NaN
+        = missing, cut or NaN-padded to the model's width.  Returns (the
+        device matrix, whether a value is missing, the host matrix)."""
+        X = dmat.to_dense(missing=np.nan)[:, :self.num_feature]
+        has_missing = bool(np.isnan(X).any())
+        if X.shape[1] < self.num_feature:
+            X = np.pad(X, ((0, 0), (0, self.num_feature - X.shape[1])),
+                       constant_values=np.nan)
+            has_missing = True
+        X = np.ascontiguousarray(X, np.float32)
+        return torch.from_numpy(X).to(self.device), has_missing, X
 
     def _base_margin_of(self, dmat: DMatrix, n: int) -> torch.Tensor:
         bm = dmat.info.base_margin
@@ -243,7 +277,13 @@ class Booster:
                 raise ValueError(
                     f"data has {dmat.num_col} features, model was trained "
                     f"with {self.num_feature}")
-            if self._rank_pad_ok(dmat):
+            if self.gbtree.exact_raw:
+                raw, has_missing, host = self._raw_dense(dmat)
+                entry = self._cache[key] = _CacheEntry(
+                    dmat, raw, self._base_margin_of(dmat, dmat.num_row))
+                entry.exact_has_missing = has_missing
+                entry.exact_host = host
+            elif self._rank_pad_ok(dmat):
                 entry = self._cache[key] = self._make_rank_padded_entry(dmat)
             else:
                 binned = self._device_bins(bin_matrix(dmat, self.gbtree.cuts))
@@ -437,10 +477,35 @@ class Booster:
 
     def _grow(self, entry: _CacheEntry, gh: torch.Tensor,
               iteration: int) -> None:
-        entry.margin = entry.margin + self.gbtree.do_boost(
-            entry.binned, gh, row_valid=entry.row_valid,
-            key=self._round_key(iteration), root=entry.root)
-        entry.applied = self.gbtree.num_trees
+        """The round's updaters on the gradient snapshot ``gh``
+        (``learner.py:1337-1376``): growth (the exact grower builds the
+        training matrix's ranks once), then ``refresh`` over every tree,
+        ``refresh,prune`` pruning against the refreshed gains, after which
+        every cached margin is stale."""
+        from xgboost_tpu_torch.models.updaters import parse_updaters
+        ups = parse_updaters(self.param.updater)
+        grows = any(u.startswith("grow") for u in ups)
+        if grows and self.gbtree.exact_raw and entry.exact_ranks is None:
+            from xgboost_tpu_torch.models.colmaker import build_exact_ranks
+            rk, uq = build_exact_ranks(entry.exact_host)
+            entry.exact_ranks = (torch.from_numpy(rk).to(self.device),
+                                 torch.from_numpy(uq).to(self.device))
+            entry.exact_host = None
+        if grows:
+            entry.margin = entry.margin + self.gbtree.do_boost(
+                entry.binned, gh, row_valid=entry.row_valid,
+                key=self._round_key(iteration), root=entry.root,
+                exact_has_missing=entry.exact_has_missing,
+                exact_ranks=entry.exact_ranks)
+            entry.applied = self.gbtree.num_trees
+        if "refresh" in ups:
+            self.gbtree.do_refresh(entry.binned, gh,
+                                   row_valid=entry.row_valid, root=entry.root)
+            if "prune" in ups and self.param.gamma > 0.0 and not grows:
+                self.gbtree.prune_all()
+            for e in self._cache.values():
+                e.margin, e.applied = None, 0
+            self._sync_margin(entry)
 
     def _profiled_round(self, entry: _CacheEntry, iteration: int,
                         fobj=None) -> None:
@@ -513,6 +578,8 @@ class Booster:
             ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
             ("multi_root", max(1, self.param.num_roots) != 1),
+            ("exact", self.gbtree.exact_raw),
+            ("refresh", "refresh" in ups),
             ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
             ("no_fused_grad", getattr(self.obj, "needs_host_margin", False)),
         )
@@ -618,6 +685,8 @@ class Booster:
             ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
             ("multi_root", max(1, self.param.num_roots) != 1),
+            ("exact", self.gbtree.exact_raw),
+            ("refresh", "refresh" in ups),
             ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
             ("rank_layout", entry.rank_pad_prep is not None),
             ("no_fused_grad", self.obj.fused_grad() is None),
@@ -638,6 +707,7 @@ class Booster:
             n_features=int(entry.binned.shape[1]), n_rounds=int(n_rounds),
             first_iteration=int(first_iteration), seg_k=int(k), K=self._K,
             npar=npar, cfg=self.gbtree.cfg, grad_fn=self.obj.fused_grad(),
+            split_finder=self.gbtree.split_finder(),
             subsample=float(self.param.subsample),
             base_key=prng.PRNGKey(self.param.seed), binned=entry.binned,
             margin=entry.margin,
@@ -659,7 +729,10 @@ class Booster:
     # ----------------------------------------------------------- prediction
     def _bins_for(self, data: DMatrix) -> torch.Tensor:
         """Bins of a one-off matrix: a dense source quantizes on the
-        device, sparse data on the host; both give the same bins."""
+        device, sparse data on the host; both give the same bins.  An
+        exact-mode model reads raw values (``learner.py:1645-1647``)."""
+        if self.gbtree.exact_raw:
+            return self._raw_dense(data)[0]
         src = data.dense_source()
         if src is not None and np.isnan(src[1]):
             X = torch.from_numpy(np.ascontiguousarray(src[0])).to(self.device)

@@ -17,6 +17,12 @@ Row and column sampling, multi-root trees (``num_roots``) and histogram
 subtraction (the ``XGBTPU_HIST_SUBTRACTION=1`` switch; a
 ``hist_subtraction`` parameter is ignored with the JAX package's
 warning) follow the JAX grow config, :func:`make_grow_config`.
+
+``updater=grow_colmaker`` makes an exact-mode ensemble (``exact_raw``):
+its trees grow one by one on raw values (:mod:`.colmaker`) and predict
+from raw values.  ``grow_skmaker`` swaps the grower's split finder for
+the skmaker finder (:mod:`.skmaker`), and :meth:`GBTree.do_refresh` is
+the ``refresh`` updater over every tree at once.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from xgboost_tpu_torch.models.tree import (GrowConfig, TreeArrays,
                                            grow_trees, predict_leaf_binned,
                                            predict_margin_binned,
                                            table_lookup, tree_capacity)
-from xgboost_tpu_torch.models.updaters import parse_updaters, prune_tree
+from xgboost_tpu_torch.models.updaters import (parse_updaters, prune_stack,
+                                               prune_tree, refresh_trees)
 from xgboost_tpu_torch.ops.split import SplitConfig
 
 _NUMPY_DTYPES = {"feature": np.int32, "cut_index": np.int32,
@@ -98,7 +105,7 @@ def scan_rounds_lanes(binned: torch.Tensor, margin: torch.Tensor,
                       cut_values: torch.Tensor, n_cuts: torch.Tensor,
                       row_valid: torch.Tensor, *, n_rounds: int,
                       cfg: GrowConfig, grad_fn, base_keys=None,
-                      first_iterations=None
+                      first_iterations=None, split_finder=None
                       ) -> Tuple[torch.Tensor, List[TreeArrays]]:
     """``n_rounds`` boosting rounds of L same-shape tenant lanes at once
     (``gbtree.py:275-318``, ``_scan_rounds_lanes_impl``): (L, N, F)
@@ -113,7 +120,8 @@ def scan_rounds_lanes(binned: torch.Tensor, margin: torch.Tensor,
     and ``first_iterations`` (L,), each lane's absolute round: lane l's
     round i samples with ``fold_in(base_keys[l], first_iterations[l] +
     i)``, its tree with that key folded with 0, the keys of its solo
-    rounds.  Reads nothing back to the host.
+    rounds.  ``split_finder`` is the lanes' shared finder (None = the
+    histogram argmax).  Reads nothing back to the host.
 
     Returns (final margins (L, N, 1), one (L, n_nodes) tree stack per
     round)."""
@@ -128,7 +136,8 @@ def scan_rounds_lanes(binned: torch.Tensor, margin: torch.Tensor,
         gh = grad_fn(margin.reshape(L * N, K), label.reshape(-1),
                      weight.reshape(-1)).reshape(L, N, K, 2)
         trees, _, row_val = grow_trees(binned, gh[:, :, 0, :], cut_values,
-                                       n_cuts, cfg, row_valid, keys)
+                                       n_cuts, cfg, row_valid, keys,
+                                       split_finder=split_finder)
         margin = margin + (row_val * valid)[..., None]
         stacks.append(trees)
     return margin, stacks
@@ -152,6 +161,9 @@ class GBTree:
         self.cuts = cuts
         self.device = device
         self.cfg = make_grow_config(param, cuts.max_bin)
+        # exact greedy growth on raw values (gbtree.py:329-337); the
+        # port has no dsplit=row, the one case the JAX package quantizes
+        self.exact_raw = "grow_colmaker" in parse_updaters(param.updater)
         self.cut_values_dev = torch.as_tensor(cuts.cut_values).to(device)
         self.n_cuts_dev = torch.as_tensor(cuts.n_cuts).to(device)
         self._parts: List[TreeArrays] = []   # (t_i, n_nodes) stacks
@@ -177,37 +189,54 @@ class GBTree:
     def trees_per_round(self) -> int:
         return self.n_group * max(1, self.param.num_parallel_tree)
 
+    def split_finder(self):
+        """The grower's split finder (``gbtree.py:408-422``): skmaker's
+        of summary size K under ``updater=grow_skmaker``, else None (the
+        histogram argmax).  Memoized by K, so equal configurations share
+        one function."""
+        if "grow_skmaker" not in parse_updaters(self.param.updater):
+            return None
+        from xgboost_tpu_torch.models.skmaker import (sketch_size,
+                                                      skmaker_split_finder)
+        return skmaker_split_finder(sketch_size(
+            self.param.sketch_ratio, self.param.sketch_eps, self.cfg.n_bin))
+
+    def _do_prune(self) -> bool:
+        return ("prune" in parse_updaters(self.param.updater)
+                and self.param.gamma > 0.0)
+
     def do_boost(self, binned: torch.Tensor, gh: torch.Tensor,
                  row_valid: Optional[torch.Tensor] = None, key=None,
-                 root: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 root: Optional[torch.Tensor] = None,
+                 exact_has_missing: bool = True,
+                 exact_ranks=None) -> torch.Tensor:
         """One boosting round: grow the round's T = K x num_parallel_tree
         trees on ``gh`` (N, K, 2) together, tree j sampling with
         ``fold_in(key, j)`` (``key`` the round's host key, needed when the
         config samples) and rows entering at their ``root`` slot, prune
         each when ``gamma > 0``, append them.  Returns the (N, K) margin
         delta: each group's trees added in tree order
-        (``gbtree.py:681-757``)."""
+        (``gbtree.py:681-757``).  An exact-mode ensemble grows on the raw
+        values ``binned`` holds (:meth:`_do_boost_exact`)."""
         npar = max(1, self.param.num_parallel_tree)
         T, K = self.trees_per_round, self.n_group
         group = [j // npar for j in range(T)]
         # (T, N, 2) from views: no index tensor sent to the device
         gh_t = torch.stack([gh[:, g, :] for g in group])
         keys = None if key is None else tree_keys(key, T)
+        if self.exact_raw:
+            return self._do_boost_exact(binned, gh_t, group, row_valid, keys,
+                                        exact_has_missing, exact_ranks)
         trees, row_leaf, ds = grow_trees(binned, gh_t, self.cut_values_dev,
                                          self.n_cuts_dev, self.cfg,
-                                         row_valid, keys, root)
-        if "prune" in parse_updaters(self.param.updater) \
-                and self.param.gamma > 0.0:
-            pruned, ds = [], list(ds)
-            for j in range(T):
-                tree, resolve = prune_tree(TreeArrays(*(x[j] for x in trees)),
-                                           self.param.gamma,
-                                           self.cfg.n_roots)
-                ds[j] = table_lookup(tree.leaf_value[torch.as_tensor(
-                    resolve, dtype=torch.int64, device=binned.device)],
-                    row_leaf[j])
-                pruned.append(tree)
-            trees = TreeArrays(*(torch.stack(xs) for xs in zip(*pruned)))
+                                         row_valid, keys, root,
+                                         split_finder=self.split_finder())
+        if self._do_prune():
+            trees, resolves = prune_stack(trees, self.param.gamma,
+                                          self.cfg.n_roots)
+            ds = [table_lookup(trees.leaf_value[j][torch.as_tensor(
+                resolves[j], dtype=torch.int64, device=binned.device)],
+                row_leaf[j]) for j in range(T)]
         if row_valid is not None:
             ds = [d * row_valid.to(d.dtype) for d in ds]
         self._parts.append(trees)
@@ -222,6 +251,67 @@ class GBTree:
         for j in range(T):
             delta[:, group[j]] += ds[j]
         return delta
+
+    def _do_boost_exact(self, X: torch.Tensor, gh_t: torch.Tensor,
+                        group: List[int], row_valid, keys,
+                        has_missing: bool, ranks) -> torch.Tensor:
+        """An exact round (``gbtree.py:623-680``): the round's trees grow
+        one after another on raw values X (their scans share nothing),
+        each pruned when ``gamma > 0``; each group's delta is its trees'
+        leaf values summed in tree order."""
+        from xgboost_tpu_torch.models.colmaker import grow_tree_exact
+        rk, uq = ranks if ranks is not None else (None, None)
+        trees, deltas = [], {}
+        for j, g in enumerate(group):
+            tree, row_leaf = grow_tree_exact(
+                X, gh_t[j], self.cfg, row_valid, has_missing, rk, uq,
+                None if keys is None else keys[j])
+            leaf_value = tree.leaf_value
+            if self._do_prune():
+                tree, resolve = prune_tree(tree, self.param.gamma)
+                leaf_value = tree.leaf_value[torch.as_tensor(
+                    resolve, dtype=torch.int64, device=X.device)]
+            d = table_lookup(leaf_value, row_leaf)
+            if row_valid is not None:
+                d = d * row_valid.to(d.dtype)
+            trees.append(tree)
+            deltas[g] = d if g not in deltas else deltas[g] + d
+        self._parts.append(TreeArrays(*(torch.stack(xs)
+                                        for xs in zip(*trees))))
+        self.tree_group.extend(group)
+        self._stack_cache = None
+        return torch.stack([deltas[k] for k in range(self.n_group)], dim=1)
+
+    def do_refresh(self, binned: torch.Tensor, gh: torch.Tensor,
+                   row_valid: Optional[torch.Tensor] = None,
+                   root: Optional[torch.Tensor] = None) -> None:
+        """The ``refresh`` updater (``gbtree.py:1009-1034``): every tree's
+        node sums, leaf values and gains recomputed on ``binned`` with
+        the gradients ``gh`` (N, K, 2) of its group, one snapshot for all
+        trees, as in the JAX package; one K2 launch a level for all of
+        them (:func:`~.updaters.refresh_trees`)."""
+        if self.exact_raw:
+            # the JAX package would read the raw values as bin ids here
+            raise NotImplementedError(
+                "refresh routes rows by bins; an exact-mode (grow_colmaker) "
+                "ensemble has none")
+        if self.num_trees == 0:
+            return
+        stack, group = self._stack(0)
+        idx = group.to(device=binned.device, dtype=torch.int64)
+        gh_t = gh.index_select(1, idx).permute(1, 0, 2)
+        self._parts = [refresh_trees(stack, binned, gh_t, self.cfg.split,
+                                     self.cfg.max_depth, row_valid, root,
+                                     self.cfg.n_roots)]
+        self._stack_cache = None
+
+    def prune_all(self) -> None:
+        """``refresh,prune``: every tree pruned against its refreshed
+        gains (``learner.py:1364-1370``)."""
+        if self.num_trees:
+            self._parts = [prune_stack(self._stack(0)[0], self.param.gamma,
+                                       self.cfg.n_roots)[0]]
+            self._stack_cache = None
 
     def absorb_round_stacks(self, flat: TreeArrays, n_rounds: int) -> None:
         """Install one lane's flat ``(n_rounds * T, n_nodes)`` tree stack
@@ -264,6 +354,10 @@ class GBTree:
                        ntree_limit: int = 0,
                        root: Optional[torch.Tensor] = None) -> torch.Tensor:
         stack, group = self._stack(ntree_limit)
+        if self.exact_raw:
+            from xgboost_tpu_torch.models.colmaker import predict_margin_raw
+            return predict_margin_raw(stack, group, binned, base,
+                                      self.cfg.max_depth, self.n_group)
         if self.pred_chunk > 1:
             group = self.group_on_device(len(group))
         return predict_margin_binned(stack, group, binned, base,
@@ -278,10 +372,15 @@ class GBTree:
         """``margin`` plus trees ``[first_tree, first_tree + n_trees)``,
         their contributions summed from 0 first (``gbtree.py:1103-1128``)."""
         stack, group = self._stack(first_tree + n_trees)
-        if self.pred_chunk > 1:
-            group = self.group_on_device(len(group))
         part = TreeArrays(*(x[first_tree:] for x in stack))
         zero = torch.zeros((), dtype=torch.float32, device=binned.device)
+        if self.exact_raw:
+            from xgboost_tpu_torch.models.colmaker import predict_margin_raw
+            return predict_margin_raw(part, group[first_tree:], binned, zero,
+                                      self.cfg.max_depth,
+                                      self.n_group) + margin
+        if self.pred_chunk > 1:
+            group = self.group_on_device(len(group))
         return predict_margin_binned(part, group[first_tree:], binned, zero,
                                      self.cfg.max_depth, self.n_group,
                                      root, self.cfg.n_roots,
@@ -290,6 +389,9 @@ class GBTree:
     def predict_leaf(self, binned: torch.Tensor, ntree_limit: int = 0,
                      root: Optional[torch.Tensor] = None) -> torch.Tensor:
         stack, _ = self._stack(ntree_limit)
+        if self.exact_raw:
+            from xgboost_tpu_torch.models.colmaker import predict_leaf_raw
+            return predict_leaf_raw(stack, binned, self.cfg.max_depth)
         return predict_leaf_binned(stack, binned, self.cfg.max_depth, root,
                                    self.cfg.n_roots,
                                    tree_chunk=self.pred_chunk)

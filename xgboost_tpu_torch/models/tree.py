@@ -198,7 +198,8 @@ def draw_masks(keys, n_rows: int, n_feature: int, cfg: GrowConfig,
 def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
               cut_values: torch.Tensor, n_cuts: torch.Tensor,
               cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
-              key=None, root: Optional[torch.Tensor] = None
+              key=None, root: Optional[torch.Tensor] = None,
+              split_finder=None
               ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow one tree level by level (``tree.py:260-465``):
     :func:`grow_trees` for T = 1, with the one-tree histogram K1.
@@ -214,14 +215,15 @@ def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
     keys = None if key is None else np.asarray(key, np.uint32)[None]
     trees, row_leaf, row_val = grow_trees(binned, gh[None], cut_values,
                                           n_cuts, cfg, row_valid, keys,
-                                          root)
+                                          root, split_finder)
     return TreeArrays(*(x[0] for x in trees)), row_leaf[0], row_val[0]
 
 
 def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
                cut_values: torch.Tensor, n_cuts: torch.Tensor,
                cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
-               keys=None, root: Optional[torch.Tensor] = None
+               keys=None, root: Optional[torch.Tensor] = None,
+               split_finder=None
                ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow T trees together on shared bins, each on its own gradients
     ``gh`` (T, N, 2) and its own host key ``keys[t]`` (T, 2) uint32 (the
@@ -247,8 +249,15 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
     key.  The histogram is K4's ``(F, B, 2, L * n_node)``, the split
     search reads each column's own cut count, thresholds come from each
     lane's own cuts and routing gathers ``binned[l, r, feature[l,
-    node]]``."""
+    node]]``.
+
+    ``split_finder`` replaces :func:`find_best_splits_native` with a
+    function of the same arguments (the skmaker finder,
+    :mod:`.skmaker`); a finder that leaves no left sums makes the
+    terminal level take its node sums from K2 (``tree.py:367-380``)."""
     lanes = binned.dim() == 3
+    if split_finder is None:
+        split_finder = find_best_splits_native
     T, N = gh.shape[:2]
     F = binned.shape[-1]
     D = cfg.max_depth
@@ -289,8 +298,9 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
         base = n_node - 1
         if depth == d0 + D:
             # terminal level: node stats from the parent's split (left =
-            # the winner's left sums, right = parent - left)
-            if prev is not None:
+            # the winner's left sums, right = parent - left) where the
+            # finder gave them, else K2
+            if prev is not None and prev[0].left_g is not None:
                 p_best, p_nst, p_split = prev
                 gl = torch.where(p_split, p_best.left_g, 0.0)
                 hl = torch.where(p_split, p_best.left_h, 0.0)
@@ -329,16 +339,14 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
                 # each column's own lane's cut counts: (F, L * n_node)
                 col_cuts = n_cuts.T[:, :, None].expand(
                     -1, T, n_node).reshape(-1, T * n_node)
-                best = find_best_splits_native(hist, nst, col_cuts,
-                                               cfg.split, fmask)
+                best = split_finder(hist, nst, col_cuts, cfg.split, fmask)
                 cut_row = (lane_row + best.feature.reshape(T, n_node)
                            ).reshape(-1)
-                thr = flat_cuts[cut_row, best.cut_index.to(torch.int64)]
+                thr = flat_cuts[cut_row, _cut_col(best, W)]
             else:
-                best = find_best_splits_native(hist, nst, n_cuts,
-                                               cfg.split, fmask)
+                best = split_finder(hist, nst, n_cuts, cfg.split, fmask)
                 thr = cut_values[best.feature.to(torch.int64),
-                                 best.cut_index.to(torch.int64)]
+                                 _cut_col(best, cut_values.shape[1])]
             # cannot_split (param.h:174): too little hessian to split
             can_try = nst[:, 1] >= 2.0 * cfg.split.min_child_weight
             do_split = best.valid & can_try
@@ -368,6 +376,13 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             new_pos = 2 * pos + (~go_left).to(torch.int32)
             pos = torch.where(active & ~row_is_leaf, new_pos, -1)
     return tree, row_leaf, row_val
+
+
+def _cut_col(best: BestSplit, width: int) -> torch.Tensor:
+    """The cut column of each node's threshold, clamped to the table as
+    the skmaker finder clamps it (``skmaker.py:168-169``); the default
+    finder's cut indices are always inside."""
+    return torch.clamp(best.cut_index.to(torch.int64), 0, width - 1)
 
 
 def _subtracted_level_hist(binned: torch.Tensor, prep: HistPrep,

@@ -29,7 +29,7 @@ def _label_weight(margin: torch.Tensor, info):
             info.on_device("weight", n, margin.device))
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """f32 ``a * b + c`` rounded once, as a fused multiply-add: the f64
     product of two f32 values is exact, the f64 sum is rounded to odd
     (two-sum error, then a step to the odd neighbour) so that its one
@@ -60,14 +60,14 @@ _F32_TINY = float(np.finfo(np.float32).tiny)
 
 def _xla_cpu_exp(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x, -87.8, 88.8)
-    n = torch.clamp(torch.floor(_fma(x, np.float32(_EXP_LOG2E), 0.5)),
+    n = torch.clamp(torch.floor(fma_f32(x, np.float32(_EXP_LOG2E), 0.5)),
                     -127.0, 127.0)
-    r = _fma(n, np.float32(-_EXP_C1), x)
-    r = _fma(n, np.float32(-_EXP_C2), r)
-    z = _fma(r, np.float32(_EXP_P[0]), np.float32(_EXP_P[1]))
+    r = fma_f32(n, np.float32(-_EXP_C1), x)
+    r = fma_f32(n, np.float32(-_EXP_C2), r)
+    z = fma_f32(r, np.float32(_EXP_P[0]), np.float32(_EXP_P[1]))
     for p in _EXP_P[2:]:
-        z = _fma(z, r, np.float32(p))
-    z = 1.0 + _fma(z, r * r, r)
+        z = fma_f32(z, r, np.float32(p))
+    z = 1.0 + fma_f32(z, r * r, r)
     y = z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return torch.where(y < _F32_TINY, torch.zeros_like(y), y)
 

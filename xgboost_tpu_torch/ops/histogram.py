@@ -158,7 +158,10 @@ def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
                precision: str = "auto") -> torch.Tensor:
     """Per-node (G, H) sums: gh (N, 2) and pos (N,) -> (n_node, 2), or
     with a leading tree axis (T, N, 2) and (T, N) -> (T, n_node, 2), f32.
-    Runs only where the split finder left no sums behind: depth-0 trees.
+    Runs wherever the split finder leaves no sums behind: the terminal
+    level of depth-0 and skmaker trees, every level of exact
+    (``grow_colmaker``) growth, every level of a ``refresh`` pass (all
+    trees in one call), and the row counts of histogram subtraction.
     K2 on a GPU, its plain version on the CPU; "fixed" precision is the
     JAX package's plain int32 scatter on every device
     (``ops/histogram.py:304-308``)."""
@@ -181,12 +184,12 @@ def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
 
 def bin_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last (bin) axis.  On the CPU in XLA's CPU order, so
-    node totals match the JAX package's CPU run bit for bit: a bin axis
-    of B <= 32 is added left to right from 0; a longer one is padded
-    with zeros to a multiple of 32 (half the pad in front, the odd one
-    behind), each run of 32 added left to right, then the runs' sums
-    left to right (XLA's CPU tree-reduction rewrite).  On the GPU one
-    reduction (the JAX package's TPU order is neither)."""
+    node totals match the JAX package's CPU run bit for bit: an axis of
+    n <= 32 is added left to right from 0; a longer one is padded with
+    zeros to a multiple of 32 (half the pad in front, the odd one
+    behind), each run of 32 added left to right, and the runs' sums
+    reduced the same way (XLA's CPU tree-reduction rewrite).  On the GPU
+    one reduction (the JAX package's TPU order is neither)."""
     if x.device.type != "cpu":
         return x.sum(dim=-1)
     B = x.shape[-1]
@@ -198,12 +201,7 @@ def bin_sum(x: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros(x.shape[:-1], dtype=x.dtype)
     for j in range(x.shape[-1]):
         acc = acc + x[..., j]
-    if B <= 32:
-        return acc
-    out = torch.zeros(acc.shape[:-1], dtype=x.dtype)
-    for c in range(acc.shape[-1]):
-        out = out + acc[..., c]
-    return out
+    return bin_sum(acc) if B > 32 else acc
 
 
 def stats_from_histogram_native(hist: torch.Tensor) -> torch.Tensor:

@@ -61,7 +61,8 @@ def _bucket_of(spec):
     draw is N-shaped and pad rows would shift a solo run's draws,
     ``lanes.py:72-80``), features, padded cut width (a power of
     two, at least 8), the bins' type and device, K / npar, round and
-    segment counts, the grow config and the gradient's identity."""
+    segment counts, the grow config, the gradient's identity and the
+    split finder's."""
     if spec.subsample >= 1.0:
         n_key = _pow2_at_least(spec.n_rows, 64)
     else:
@@ -69,15 +70,18 @@ def _bucket_of(spec):
     w_key = _pow2_at_least(int(spec.cut_values.shape[1]), 8)
     return (n_key, spec.n_features, w_key, str(spec.binned.dtype),
             str(spec.binned.device), spec.K, spec.npar, spec.n_rounds,
-            spec.seg_k, spec.cfg, spec.grad_fn)
+            spec.seg_k, spec.cfg, spec.grad_fn, spec.split_finder)
 
 
 def _stack_bucket(specs, n_lane: int, n_pad: int, w_pad: int):
     """The stacked device columns of a bucket: (L, n_pad, F) bins,
     (L, n_pad, K) margins, (L, n_pad) labels, weights and row_valid,
-    (L, F, w_pad) cut values (+inf pad columns are inert: thresholds
-    read ``cut_values[f, i]`` at ``i < n_cuts[f]`` only) and (L, F) cut
-    counts.  Lanes past ``len(specs)`` are pad lanes."""
+    (L, F, w_pad) cut values and (L, F) cut counts.  A lane's pad
+    columns repeat its last column: a split reads ``cut_values[f, i]`` at
+    ``i < n_cuts[f]`` only, and a node the skmaker finder leaves unsplit
+    may name a cut past the table, which the solo grower clamps to the
+    last column, so the stacked threshold is the solo one.  Lanes past
+    ``len(specs)`` are pad lanes."""
     s0 = specs[0]
     dev, F, K = s0.binned.device, s0.n_features, s0.K
     binned = torch.zeros((n_lane, n_pad, F), dtype=s0.binned.dtype,
@@ -97,7 +101,9 @@ def _stack_bucket(specs, n_lane: int, n_pad: int, w_pad: int):
         label[i, :n] = s.label
         weight[i, :n] = s.weight
         valid[i, :n] = True
-        cuts[i, :, :s.cut_values.shape[1]] = s.cut_values
+        w = s.cut_values.shape[1]
+        cuts[i, :, :w] = s.cut_values
+        cuts[i, :, w:] = s.cut_values[:, -1:]
         ncut[i] = s.n_cuts
     return binned, margin, label, weight, cuts, ncut, valid
 
@@ -270,7 +276,7 @@ class LaneGang:
                 margin_s, stacks = scan_rounds_lanes(
                     binned_s, margin_s, label_s, weight_s, cut_s, ncut_s,
                     rv_s, n_rounds=seg, cfg=s0.cfg, grad_fn=s0.grad_fn,
-                    base_keys=base_keys,
+                    base_keys=base_keys, split_finder=s0.split_finder,
                     first_iterations=[it + done for it in first_its])
                 # the segment's wall time includes the device's work
                 if margin_s.is_cuda:

@@ -153,6 +153,10 @@ class PredictEngine:
                 "PredictEngine serves gbtree models (binned tree "
                 "traversal); gblinear predict is already a single matmul "
                 "— serve it via Learner.predict")
+        if booster.gbtree.exact_raw:
+            raise NotImplementedError(
+                "exact-mode (grow_colmaker) models route on raw values; "
+                "the serving engine's binned bucket cache does not apply")
         self.booster = booster
         self.device = booster.device
         self.gbtree = booster.gbtree
