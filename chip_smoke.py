@@ -187,6 +187,30 @@ counts set to 0 just before and read just after:
   gradients; then 2 rounds of ``grow_histmaker,refresh``: K1 12 and K2
   14 only.  Prints ms per exact and skmaker round, the rank build's s
   and ms a refresh pass;
+- ``[linear]``, ``[compat]``, ``[extmem]`` (after ``[updaters]``):
+  ``booster=gblinear`` on [main]'s data (10 rounds)
+  and [multiclass]'s (5 rounds): fails on any histogram kernel, on
+  weights or bias outside rtol 1e-4 / atol 1e-6 of the port's CPU run on
+  the same rows, on a holdout AUC under ``LIN_AUC_JAX`` less 0.002 or a
+  merror over ``LIN_MERROR_JAX`` plus 0.005, or if the model file on the
+  CPU predicts otherwise; the reference CLI's ``ref_agaricus.model`` and
+  ``.bs64`` on the card must predict 10,000 synthetic rows to the CPU's
+  bytes, and [main]'s model written with ``save_reference_model`` and
+  read back must predict [main]'s holdout bytes; [main]'s 1M training
+  rows as an external-memory matrix of 16 pages under an 8 MiB budget,
+  5 rounds: fails unless K1 runs 480 times and K2 560 and nothing else,
+  a second streamed run grows the same model bytes, every K1 launch of
+  a streamed round (batches of 65,536 and 16,960 rows, up to 32 nodes)
+  equals the plain K1 bitwise and every K2 launch (up to 64 nodes) the
+  plain K2 within 2 n 2^-24 sum|x|, one level's 16 int32 partial
+  histograms add up to the plain K1 on the whole matrix bitwise, a
+  streamed round adds fewer device bytes at its peak than an in-memory
+  one, and the holdout AUC is within 0.002 of the in-memory model's;
+  under the default budget the same matrix must train in memory (K1
+  30, no batch up); then a 50,000-row libsvm file through
+  ``DMatrix("ext:...")`` and ``task=train``.  Prints ms per gblinear
+  and per streamed round (twice, and in memory), upload seconds,
+  ingest, sketch and binning seconds;
 - ``[forest]`` (after ``[otto]``): the multiclass data with
   ``num_parallel_tree=2``, ``subsample`` and ``colsample_bytree`` 0.8, 20
   rounds of 12 trees; fails unless K3 runs 120 times and nothing else,
@@ -4637,6 +4661,367 @@ def time_onehot_rows(torch, oh, rows, card, tag):
     return out
 
 
+# ------------------------------------------------------------- [linear]
+# booster=gblinear on [main]'s data, then on [multiclass]'s
+LIN_ROUNDS, LIN_MC_ROUNDS = 10, 5
+LIN_PARAMS = {"booster": "gblinear", "objective": "binary:logistic",
+              "eta": 0.5, "lambda": 1.0, "alpha": 0.01}
+LIN_MC_PARAMS = {**LIN_PARAMS, "objective": "multi:softmax",
+                 "num_class": MC_K}
+# The JAX package's holdout AUC for LIN_PARAMS on [main]'s rows (10
+# rounds) and holdout merror for LIN_MC_PARAMS on [multiclass]'s (5
+# rounds), on a CPU; the floor is 0.002 under the AUC, the ceiling 0.005
+# over the merror
+LIN_AUC_JAX = 0.864947
+LIN_MERROR_JAX = 0.109
+
+
+def phase_linear(torch, xt, kernels, device, card, main_out):
+    """gblinear on the card: no histogram kernel, weights and bias
+    against the port's CPU run on the same rows, holdout AUC / merror
+    against the JAX package's, the model file on the CPU.  Returns the
+    ms a round of the Higgs and multiclass runs."""
+    from xgboost_tpu_torch.metrics import auc, merror
+    X, y = main_out["X"], main_out["y"]
+    Xm, ym = make_multiclass(MC_N + MC_TEST)
+    runs = (("higgs", LIN_PARAMS, LIN_ROUNDS, X, y, N_TRAIN),
+            ("multiclass", LIN_MC_PARAMS, LIN_MC_ROUNDS, Xm, ym, MC_N))
+    ms = {}
+    for tag, params, rounds, XX, yy, n in runs:
+        dtrain = xt.DMatrix(XX[:n], label=yy[:n])
+        dtest = xt.DMatrix(XX[n:], label=yy[n:])
+        reset_counts(kernels)
+        bst = xt.Booster(params, cache=[dtrain], device=device)
+        bst.update(dtrain, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.update_many(dtrain, 1, rounds - 1)
+        torch.cuda.synchronize()
+        ms[tag] = (time.perf_counter() - t0) * 1e3 / (rounds - 1)
+        counts = read_counts(kernels)
+        if counts != only(kernels):
+            fail(f"[linear] {tag}: a histogram kernel ran: {counts}")
+        cpu = xt.train(params, xt.DMatrix(XX[:n], label=yy[:n]), rounds,
+                       device="cpu")
+        for name in ("weight", "bias"):
+            got = getattr(bst.gbtree, name).cpu().numpy()
+            want = getattr(cpu.gbtree, name).numpy()
+            if not np.allclose(got, want, rtol=1e-4, atol=1e-6):
+                fail(f"[linear] {tag}: {name} differs from the CPU run by "
+                     f"{np.abs(got - want).max()}")
+        if tag == "higgs":
+            pred = bst.predict(dtest)
+            score = auc(pred, yy[n:], np.ones(len(yy) - n, np.float32))
+            floor = LIN_AUC_JAX - 0.002
+            print(f"[linear] higgs: holdout AUC {score:.6f} (JAX CPU "
+                  f"{LIN_AUC_JAX}, floor {floor:.6f})", flush=True)
+            if not score >= floor:
+                fail(f"[linear] holdout AUC {score} < {floor}")
+        else:
+            pred = bst.predict(dtest, output_margin=True)
+            err = merror(pred, yy[n:], np.ones(len(yy) - n, np.float32))
+            ceil = LIN_MERROR_JAX + 0.005
+            print(f"[linear] multiclass: holdout merror {err:.6f} (JAX CPU "
+                  f"{LIN_MERROR_JAX}, ceiling {ceil:.6f})", flush=True)
+            if not err <= ceil:
+                fail(f"[linear] holdout merror {err} > {ceil}")
+        path = os.path.join(HERE, ".smoke_out", f"linear_{tag}.bin")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        bst.save_model(path)
+        on_cpu = xt.Booster(model_file=path, device="cpu")
+        if not (np.array_equal(on_cpu.gbtree.weight.numpy(),
+                               bst.gbtree.weight.cpu().numpy())
+                and np.allclose(on_cpu.predict(xt.DMatrix(XX[n:]),
+                                               output_margin=True),
+                                bst.predict(dtest, output_margin=True),
+                                rtol=1e-5, atol=1e-5)):
+            fail(f"[linear] {tag}: the model file on the CPU predicts "
+                 "otherwise")
+        print(f"[linear] {tag}: {rounds} rounds, weights within rtol 1e-4 "
+              f"of the CPU run, no histogram kernel, the file on the CPU "
+              f"predicts the same; {ms[tag]:.3f} ms per round | {card}",
+              flush=True)
+    return ms
+
+
+# ------------------------------------------------------------- [compat]
+COMPAT_ROWS = 10_000
+
+
+def phase_compat(torch, xt, device, card, main_out):
+    """The reference's model files on the card, and [main]'s model
+    through the reference format and back."""
+    from xgboost_tpu_torch.compat import save_reference_model
+    rng = np.random.RandomState(126)
+    Xr = (rng.rand(COMPAT_ROWS, 126) < 0.2).astype(np.float32)
+    cpu = xt.Booster(model_file=os.path.join(
+        HERE, "tests", "data", "ref_agaricus.model"), device="cpu")
+    want = cpu.predict(xt.DMatrix(Xr)).tobytes()
+    for name in ("ref_agaricus.model", "ref_agaricus.bs64"):
+        bst = xt.Booster(model_file=os.path.join(HERE, "tests", "data",
+                                                 name), device=device)
+        if bst.predict(xt.DMatrix(Xr)).tobytes() != want:
+            fail(f"[compat] {name} on the card predicts other bytes than "
+                 "on the CPU")
+    print(f"[compat] ref_agaricus.model and .bs64 on the card: "
+          f"{COMPAT_ROWS} rows, bytes == the CPU's", flush=True)
+    main = xt.Booster(device=device)
+    main.load_raw(main_out["raw"])
+    X = main_out["X"][N_TRAIN:]
+    path = os.path.join(HERE, ".smoke_out", "main.refmodel")
+    t0 = time.perf_counter()
+    save_reference_model(main, path)
+    back = xt.Booster(model_file=path, device=device)
+    secs = time.perf_counter() - t0
+    if back.predict(xt.DMatrix(X)).tobytes() != \
+            main.predict(xt.DMatrix(X)).tobytes():
+        fail("[compat] [main]'s model through the reference format "
+             "predicts other bytes")
+    print(f"[compat] [main]'s model written in the reference format and "
+          f"read back on the card: {N_TEST} holdout predictions "
+          f"byte-equal ({secs:.2f} s) | {card}", flush=True)
+
+
+# ------------------------------------------------------------- [extmem]
+EXT_PAGE = 65_536                # 16 pages of [main]'s 1M rows
+EXT_ROUNDS, EXT_BUDGET_MB = 5, 8
+EXT_LIBSVM_ROWS = 50_000
+
+
+def phase_extmem(torch, xt, kernels, device, card, main_out):
+    """[main]'s training rows as an external-memory matrix streamed in 16
+    batches a level (K1 at levels 0-5, K2 at 0-6, each once a batch),
+    then the same matrix under the default budget, then a libsvm file
+    through ``DMatrix("ext:...")`` and ``task=train``."""
+    from xgboost_tpu_torch import external, native
+    from xgboost_tpu_torch.metrics import auc
+    from xgboost_tpu_torch.ops import cuda_hist, cuda_node_stats
+    if not native.available():
+        fail("[extmem] the native IO library did not build")
+    X, y = main_out["X"], main_out["y"]
+    Xh, yh = X[N_TRAIN:], y[N_TRAIN:]
+    n_pages = -(-N_TRAIN // EXT_PAGE)
+    times = {}
+    os.makedirs(os.path.join(HERE, ".smoke_out", "ext"), exist_ok=True)
+    t0 = time.perf_counter()
+    d = external.ExtMemDMatrix(
+        ((X[s:min(s + EXT_PAGE, N_TRAIN)], y[s:min(s + EXT_PAGE, N_TRAIN)])
+         for s in range(0, N_TRAIN, EXT_PAGE)),
+        cache=os.path.join(HERE, ".smoke_out", "ext", "m"),
+        page_rows=EXT_PAGE)
+    times["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cuts = d.sketch_cuts(PARAMS["max_bin"])
+    times["sketch_s"] = time.perf_counter() - t0
+    d._cuts[(PARAMS["max_bin"], 0.03, 2.0)] = cuts
+    t0 = time.perf_counter()
+    d.build_binned(cuts)
+    times["binning_s"] = time.perf_counter() - t0
+    print(f"[extmem] {N_TRAIN} rows in {n_pages} pages of {EXT_PAGE}: "
+          f"ingest {times['ingest_s']:.2f} s, sketch {times['sketch_s']:.2f}"
+          f" s, binning {times['binning_s']:.2f} s; binned "
+          f"{d.binned_nbytes() / 1e6:.1f} MB", flush=True)
+    ones = np.ones(N_TEST, np.float32)
+
+    def train(tag, budget=EXT_BUDGET_MB):
+        """EXT_ROUNDS rounds on ``d``: (booster, counts, ms a round of
+        rounds 1..4, upload stats)."""
+        saved = os.environ.pop("XGBTPU_EXT_DEVICE_CACHE_MB", None)
+        if budget is not None:
+            os.environ["XGBTPU_EXT_DEVICE_CACHE_MB"] = str(budget)
+        try:
+            reset_counts(kernels)
+            external.reset_upload_stats()
+            bst = xt.Booster(PARAMS, cache=[d], device=device)
+            bst.update(d, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst.update_many(d, 1, EXT_ROUNDS - 1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (EXT_ROUNDS - 1)
+            counts = read_counts(kernels)
+            stats = dict(external.UPLOAD_STATS)
+        finally:
+            os.environ.pop("XGBTPU_EXT_DEVICE_CACHE_MB", None)
+            if saved is not None:
+                os.environ["XGBTPU_EXT_DEVICE_CACHE_MB"] = saved
+        print(f"[extmem] {tag}: {EXT_ROUNDS} rounds, {ms:.3f} ms per round;"
+              f" {stats['batches']} batches up ({stats['bytes'] / 1e6:.1f} "
+              f"MB, {stats['seconds']:.4f} s of synchronous uploads); all "
+              f"counts {json.dumps(counts)} | {card}", flush=True)
+        return bst, counts, ms, stats
+
+    # the counted run: 8 MiB of budget holds four 1.8 MB batches
+    streamed, counts, ms_s, up_s = train("streamed")
+    if not streamed._cache[id(d)].external:
+        fail("[extmem] the 8 MiB budget did not stream the matrix")
+    want = {"hist_level": EXT_ROUNDS * DEPTH * n_pages,
+            "node_stats": EXT_ROUNDS * (DEPTH + 1) * n_pages}
+    if counts != only(kernels, **want):
+        fail(f"[extmem] streamed launch counts {counts}: want {want}")
+    launches = dict(counts)
+    again, counts2, ms_a, _ = train("streamed again")
+    if counts2 != counts or again.save_raw() != streamed.save_raw():
+        fail("[extmem] two streamed runs grew other model bytes")
+    print("[extmem] a second streamed run: identical model bytes", flush=True)
+    del again
+    errs = {"hist_level": 0.0, "node_stats": 0.0}
+    os.environ["XGBTPU_EXT_DEVICE_CACHE_MB"] = str(EXT_BUDGET_MB)
+    try:
+        # every K1 and K2 launch of one streamed round, each against its
+        # plain version on the same inputs, and one level's paged int8
+        # histogram against the plain K1 on the whole matrix
+        k1_calls, k2_calls = [], []
+        k1, k2 = cuda_hist.level_histogram, cuda_node_stats.node_stats
+
+        def cap1(bins, gh, pos, n_node, n_bin, mode):
+            out = k1(bins, gh, pos, n_node, n_bin, mode)
+            k1_calls.append((n_node, bins.clone(), gh.clone(), pos.clone(),
+                             out, mode, n_bin))
+            return out
+
+        def cap2(gh, pos, n_node):
+            out = k2(gh, pos, n_node)
+            k2_calls.append((n_node, gh.clone(), pos.clone(), out))
+            return out
+        cuda_hist.level_histogram = cap1
+        cuda_node_stats.node_stats = cap2
+        try:
+            b1 = xt.Booster(PARAMS, cache=[d], device=device)
+            b1.update(d, 0)
+        finally:
+            cuda_hist.level_histogram = k1
+            cuda_node_stats.node_stats = k2
+        rows = {c[1].shape[0] for c in k1_calls} | {c[1].shape[1]
+                                                    for c in k2_calls}
+        last = N_TRAIN - (n_pages - 1) * EXT_PAGE
+        if len(k1_calls) != DEPTH * n_pages \
+                or len(k2_calls) != (DEPTH + 1) * n_pages \
+                or rows != {EXT_PAGE, last} \
+                or max(c[0] for c in k1_calls) != 1 << (DEPTH - 1) \
+                or max(c[0] for c in k2_calls) != 1 << DEPTH \
+                or any(c[5] != "int" for c in k1_calls):
+            fail(f"[extmem] captured {len(k1_calls)} K1 and {len(k2_calls)}"
+                 f" K2 calls on rows {sorted(rows)}: want {DEPTH * n_pages}"
+                 f" int8 K1 and {(DEPTH + 1) * n_pages} K2 on {EXT_PAGE} "
+                 f"and {last} rows")
+        for n_node, bins, gh, pos, out, mode, n_bin in k1_calls:
+            if not torch.equal(out, cuda_hist.level_histogram_plain(
+                    bins, gh, pos, n_node, n_bin, mode)):
+                fail(f"[extmem] K1 on a batch of {bins.shape[0]} rows at "
+                     f"{n_node} nodes != the plain version")
+        for n_node, gh, pos, out in k2_calls:
+            want_k2 = cuda_node_stats.node_stats_plain(gh, pos, n_node)
+            n = cuda_node_stats.node_stats_plain(torch.ones_like(gh), pos,
+                                                 n_node)
+            a = cuda_node_stats.node_stats_plain(gh.abs(), pos, n_node)
+            if not sum_bound_ok(torch, out, want_k2, n, a):
+                fail(f"[extmem] K2 on a batch of {gh.shape[1]} rows at "
+                     f"{n_node} nodes: |kernel - plain| beyond 2 n 2^-24 "
+                     "sum|x|")
+            errs["node_stats"] = max(errs["node_stats"], float(
+                (out - want_k2).abs().max()))
+        print(f"[extmem] round 0's {len(k1_calls)} K1 launches (batches of "
+              f"{EXT_PAGE} and {last} rows, 1-{1 << (DEPTH - 1)} nodes) == "
+              f"the plain version bitwise; its {len(k2_calls)} K2 launches "
+              f"(1-{1 << DEPTH} nodes) within the f32 bound (max |diff| "
+              f"{errs['node_stats']:.3e})", flush=True)
+        lv = [c for c in k1_calls if c[0] == 8]
+        paged = sum(c[4] for c in lv)
+        whole = cuda_hist.level_histogram_plain(
+            torch.cat([c[1] for c in lv]), torch.cat([c[2] for c in lv]),
+            torch.cat([c[3] for c in lv]), 8, lv[0][6], "int")
+        torch.cuda.synchronize()
+        if paged.dtype != torch.int32 or not torch.equal(paged, whole):
+            fail("[extmem] level 3's paged int8 histogram != the plain K1 "
+                 "on the whole matrix")
+        print(f"[extmem] level 3 (8 nodes): the {n_pages} batches' int32 "
+              "partial sums == the plain K1 on the whole matrix, bitwise",
+              flush=True)
+        del k1_calls, k2_calls, lv, paged, whole
+
+        # the device bytes a round adds at its peak, streamed and in
+        # memory (over what is allocated when it starts)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        b1.update(d, 1)
+        torch.cuda.synchronize()
+        peak_stream = torch.cuda.max_memory_allocated() - base
+    finally:
+        del os.environ["XGBTPU_EXT_DEVICE_CACHE_MB"]
+
+    # the default budget: the matrix fits and trains in memory
+    mem, counts_m, ms_m, up_m = train("default budget", budget=None)
+    if mem._cache[id(d)].external or up_m["batches"] != 0:
+        fail("[extmem] the in-budget matrix streamed")
+    if counts_m != only(kernels, hist_level=EXT_ROUNDS * DEPTH):
+        fail(f"[extmem] in-budget launch counts {counts_m}")
+    launches["hist_level"] += counts_m["hist_level"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mem.update(d, EXT_ROUNDS)
+    torch.cuda.synchronize()
+    peak_mem = torch.cuda.max_memory_allocated() - base
+    print(f"[extmem] device bytes a round adds at its peak: streamed "
+          f"{peak_stream / 1e6:.1f} MB, in memory {peak_mem / 1e6:.1f} MB",
+          flush=True)
+    if not peak_stream < peak_mem:
+        fail(f"[extmem] a streamed round peaked at {peak_stream} bytes, "
+             f"the in-memory one at {peak_mem}")
+    a_stream = auc(streamed.predict(xt.DMatrix(Xh)), yh, ones)
+    a_mem = auc(mem.predict(xt.DMatrix(Xh)), yh, ones)
+    print(f"[extmem] holdout AUC: streamed {a_stream:.6f}, in memory "
+          f"{a_mem:.6f}", flush=True)
+    if not abs(a_stream - a_mem) <= 0.002:
+        fail(f"[extmem] streamed AUC {a_stream} vs in-memory {a_mem}")
+
+    # a libsvm file through DMatrix("ext:...") and the command line
+    svm = os.path.join(HERE, ".smoke_out", "ext", "train.svm")
+    write_libsvm_text(svm, X[:EXT_LIBSVM_ROWS], y[:EXT_LIBSVM_ROWS])
+    dl = xt.DMatrix(f"ext:{svm}#{svm}.cache")
+    if not isinstance(dl, external.ExtMemDMatrix) \
+            or dl.num_row != EXT_LIBSVM_ROWS:
+        fail("[extmem] DMatrix('ext:...') did not make a paged matrix")
+    model = os.path.join(HERE, ".smoke_out", "ext", "cli.model")
+    conf = write_conf(os.path.join(HERE, ".smoke_out", "ext", "ext.conf"),
+                      task="train", objective="binary:logistic",
+                      max_depth=DEPTH, eta=0.1, max_bin=64, num_round=3,
+                      data=f"ext:{svm}#{svm}.cli", model_out=model,
+                      silent=1)
+    rc, err = run_cli([conf, "device=cuda"])
+    if rc != 0 or not os.path.exists(model):
+        fail(f"[extmem] task=train on an ext: matrix: rc {rc}: {err[-500:]}")
+    print(f"[extmem] {EXT_LIBSVM_ROWS}-row libsvm file: DMatrix('ext:...') "
+          f"{dl.num_row} x {dl.num_col}, task=train wrote its model",
+          flush=True)
+    times.update(ms_streamed=ms_s, ms_again=ms_a, ms_in_memory=ms_m,
+                 upload_s=up_s["seconds"], upload_mb=up_s["bytes"] / 1e6)
+    return launches, errs, times
+
+
+def phases_linear_compat_extmem(torch, xt, kernels, card, main_out):
+    """[linear], [compat] and [extmem] in turn: (the K1 and K2 launches
+    of [extmem], their largest errors against the plain versions, the
+    times of all three)."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    lin_ms = phase_linear(torch, xt, kernels, "cuda", card, main_out)
+    print(f"[linear] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_compat(torch, xt, "cuda", card, main_out)
+    print(f"[compat] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ext_launches, ext_errs, times = phase_extmem(torch, xt, kernels,
+                                                 "cuda", card, main_out)
+    print(f"[extmem] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    times.update(lin_ms=lin_ms["higgs"], lin_mc_ms=lin_ms["multiclass"])
+    print(f"[linear+compat+extmem] {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+    return ext_launches, ext_errs, times
+
+
 def kernel_record(name, source, replaces, launches, max_err, rows):
     def mean(key):
         return sum(r[key] for r in rows) / len(rows)
@@ -4729,6 +5114,8 @@ def main():
     upd_launches, upd_times = phase_updaters(torch, xt, kernels, "cuda",
                                              card, main_out)
     print(f"[updaters] phase {time.perf_counter() - t0:.1f} s")
+    ext_launches, ext_errs, ext_times = phases_linear_compat_extmem(
+        torch, xt, kernels, card, main_out)
     main_hold = main_out["X"][N_TRAIN:]
     fleet_train = (main_out["X"][:FLEET_CAND_N].copy(),
                    main_out["y"][:FLEET_CAND_N].copy())
@@ -4810,8 +5197,9 @@ def main():
                       "xgboost_tpu/ops/pallas_hist.py:46",
                       launches + s_launches + sub_k1 + r_launches
                       + p_launches + upd_launches["hist_level"]
+                      + ext_launches["hist_level"]
                       + rk_launches + rs_launches + api_launches,
-                      max(max_err, rk_err), rows),
+                      max(max_err, rk_err, ext_errs["hist_level"]), rows),
         kernel_record("hist_batched",
                       "xgboost_tpu_torch/csrc/hist_batched.cu",
                       "xgboost_tpu/ops/pallas_hist.py:374",
@@ -4820,7 +5208,9 @@ def main():
         kernel_record("node_stats", "xgboost_tpu_torch/csrc/node_stats.cu",
                       "xgboost_tpu/ops/pallas_hist.py:609",
                       d0_launches + sub_k2 + smc_k2
-                      + upd_launches["node_stats"], d0_err, k2_rows),
+                      + upd_launches["node_stats"]
+                      + ext_launches["node_stats"],
+                      max(d0_err, ext_errs["node_stats"]), k2_rows),
         kernel_record("hist_lanes", "xgboost_tpu_torch/csrc/hist_lanes.cu",
                       "xgboost_tpu/ops/pallas_hist.py:283",
                       k4_launches + sl_launches + smc_k4, k4_err, k4_rows),
@@ -4846,7 +5236,16 @@ def main():
           f"(rank build {upd_times['exact_rank_s']:.2f} s), skmaker "
           f"{upd_times['skmaker_ms']:.3f} (multiclass "
           f"{upd_times['skmaker_mc_ms']:.3f}), refresh "
-          f"{upd_times['refresh_ms']:.3f} ms a pass; "
+          f"{upd_times['refresh_ms']:.3f} ms a pass; gblinear "
+          f"{ext_times['lin_ms']:.3f} ms per round (multiclass "
+          f"{ext_times['lin_mc_ms']:.3f}); external memory "
+          f"{ext_times['ms_streamed']:.3f} ms per streamed round (again "
+          f"{ext_times['ms_again']:.3f}; in memory "
+          f"{ext_times['ms_in_memory']:.3f}), upload "
+          f"{ext_times['upload_s']:.4f} s for {ext_times['upload_mb']:.1f}"
+          f" MB, ingest {ext_times['ingest_s']:.2f} s, sketch "
+          f"{ext_times['sketch_s']:.2f} s, binning "
+          f"{ext_times['binning_s']:.2f} s; "
           f"kernel times are means over the levels of one round (K2: one "
           f"depth-0 round) | {card}")
     print(json.dumps({"kernels": records}))

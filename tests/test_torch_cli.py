@@ -490,14 +490,6 @@ def test_stdin_data_loading(monkeypatch):
     np.testing.assert_array_equal(d.indptr, [0, 2, 3, 4])
 
 
-@pytest.mark.parametrize("uri", ["s3://bucket/train.txt",
-                                 "gs://bucket/train.txt#cache",
-                                 "ext:train.txt", "!train.txt#cache"])
-def test_remote_and_paged_data_raise_item_12(uri):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        xt.DMatrix(uri)
-
-
 def test_cli_trains_from_a_buffer_as_from_text(svm, tmp_path):
     text_model, _ = port_train(tmp_path, svm, "text", variant="nan")
     buf = str(tmp_path / "train.buffer")
@@ -609,14 +601,9 @@ def test_task_lanes_matches_run_tenant_lanes(tmp_path):
 
 
 # ------------------------------------------------ what is not ported
-REF_MODEL = os.path.join(REPO, "tests", "data", "ref_agaricus.model")
-
-
 @pytest.mark.parametrize("arg,item", [
-    ("booster=gblinear", 11), ("data=http://127.0.0.1:1/t.libsvm", 12),
-    ("task=stream", 15), ("data=ext:train.libsvm", 12),
-    ("mock=0,1,1", 13), ("keepalive=1", 13), ("shard_load=0", 13),
-    ("dsplit=row", 13), (f"model_in={REF_MODEL}", 11)])
+    ("task=stream", 15), ("mock=0,1,1", 13), ("keepalive=1", 13),
+    ("shard_load=0", 13), ("dsplit=row", 13)])
 def test_unported_names_raise_with_their_item(svm, tmp_path, arg, item):
     d = svm["dense"]
     conf = write_conf(tmp_path / "u.conf", **base_conf(d["train"], d["test"]))

@@ -1205,6 +1205,135 @@ def test_two_replicas_one_capturing_while_the_other_replays(cuda_device,
         rt.shutdown()
 
 
+@pytest.mark.cuda
+def test_twenty_reloads_capture_while_eight_threads_replay(cuda_device,
+                                                           tmp_path):
+    """The stress form of the two-replica case: replica r0's registry
+    reloads 20 times (each reload captures its six buckets' graphs in
+    this thread and releases the engine that leaves the ring) while 8
+    threads replay: four on replica r1's engine and four on r0's, at
+    every bucket, copying the predictions out.  No capture fails, every
+    r1 answer is its model's bytes, every r0 answer one of the two
+    models', and r1 never captures again."""
+    import threading
+    from xgboost_tpu_torch.serving import ModelRegistry
+    bst_a, X = _serving_model(cuda_device, seed=0)
+    bst_b, _ = _serving_model(cuda_device, rounds=7, seed=1)
+    X = np.nan_to_num(X)
+    p0, p1 = str(tmp_path / "r0.bin"), str(tmp_path / "r1.bin")
+    bst_a.save_model(p0)
+    bst_a.save_model(p1)
+    kw = dict(warmup=True, poll_sec=0, min_bucket=8, max_bucket=256)
+    reg0, reg1 = ModelRegistry(p0, **kw), ModelRegistry(p1, **kw)
+    sizes = (1, 9, 37, 100, 200, 256)
+    want_a = {n: bst_a.predict(X[:n]).tobytes() for n in sizes}
+    want_b = {n: bst_b.predict(X[:n]).tobytes() for n in sizes}
+    stop, errors, answers = threading.Event(), [], [0]
+
+    def hammer(i, reg):
+        k = i
+        while not stop.is_set():
+            n = sizes[k % len(sizes)]
+            k += 1
+            try:
+                got = reg.predict(X[:n]).tobytes()
+            except BaseException as e:  # noqa: BLE001 -- asserted below
+                errors.append(e)
+                continue
+            if got != want_a[n] and (reg is reg1 or got != want_b[n]):
+                errors.append(("bytes", i, n))
+            answers[0] += 1
+    ts = [threading.Thread(target=hammer, args=(i, reg1 if i < 4 else reg0))
+          for i in range(8)]
+    reloads = []
+    try:
+        for t in ts:
+            t.start()
+        for i in range(20):
+            (bst_b if i % 2 == 0 else bst_a).save_model(p0)
+            reloads.append(reg0.check_reload(force=True))
+    finally:
+        stop.set()
+        for t in ts:
+            t.join(60)
+    try:
+        assert not errors, errors[:3]
+        assert all(reloads), (reloads, reg0.last_reload_error)
+        assert reg0.version == 21 and answers[0] > 0
+        assert reg0.engine.predict(X[:37]).tobytes() == want_a[37]
+        assert reg1.engine.compile_count == 6
+    finally:
+        reg0.release()
+        reg1.release()
+
+
+@pytest.mark.cuda
+def test_captures_from_many_threads_at_once(cuda_device, tmp_path):
+    """Captures in several threads at once: replicas r0 and r1 reload 10
+    times each in two threads, while 8 threads replay them and a third
+    engine, built without warm-up and released every few requests, so its
+    buckets are captured again and again inside those requests.  No
+    capture fails and every answer is one model's bytes."""
+    import threading
+    from xgboost_tpu_torch.serving import ModelRegistry
+    bst_a, X = _serving_model(cuda_device, seed=0)
+    bst_b, _ = _serving_model(cuda_device, rounds=7, seed=1)
+    X = np.nan_to_num(X)
+    paths = [str(tmp_path / f"r{i}.bin") for i in range(3)]
+    for p in paths:
+        bst_a.save_model(p)
+    kw = dict(poll_sec=0, min_bucket=8, max_bucket=256)
+    regs = [ModelRegistry(paths[0], warmup=True, **kw),
+            ModelRegistry(paths[1], warmup=True, **kw),
+            ModelRegistry(paths[2], warmup=False, **kw)]
+    sizes = (1, 9, 37, 100, 200, 256)
+    want = {n: (bst_a.predict(X[:n]).tobytes(),
+                bst_b.predict(X[:n]).tobytes()) for n in sizes}
+    stop, errors, answers = threading.Event(), [], [0]
+
+    def hammer(i):
+        reg, k = regs[i % 3], i
+        while not stop.is_set():
+            n = sizes[k % len(sizes)]
+            k += 1
+            try:
+                got = reg.predict(X[:n]).tobytes()
+                if reg is regs[2] and k % 7 == 0:
+                    reg.engine.release()
+            except BaseException as e:  # noqa: BLE001 -- asserted below
+                errors.append(e)
+                continue
+            if got not in want[n] or (reg is regs[2] and got != want[n][0]):
+                errors.append(("bytes", i, n))
+            answers[0] += 1
+    reloads = {0: [], 1: []}
+
+    def reloader(r):
+        for i in range(10):
+            (bst_b if i % 2 == 0 else bst_a).save_model(paths[r])
+            reloads[r].append(regs[r].check_reload(force=True))
+    ts = [threading.Thread(target=hammer, args=(i,)) for i in range(8)]
+    rs = [threading.Thread(target=reloader, args=(r,)) for r in (0, 1)]
+    try:
+        for t in ts + rs:
+            t.start()
+        for t in rs:
+            t.join(600)
+    finally:
+        stop.set()
+        for t in ts:
+            t.join(60)
+    try:
+        assert not errors, errors[:3]
+        assert all(reloads[0] + reloads[1]), (
+            reloads, regs[0].last_reload_error, regs[1].last_reload_error)
+        assert regs[0].version == regs[1].version == 11 and answers[0] > 0
+        assert regs[2].engine.compile_count > len(regs[2].engine.buckets)
+    finally:
+        for r in regs:
+            r.release()
+
+
 # ----------------------------------------------------- the other updaters
 def _exact_fixture():
     """4,000 rows x 6 features, 15% missing, a rounded column (ties)."""
@@ -1292,3 +1421,133 @@ def test_exact_and_refresh_rounds_launch_k2_a_level(cuda_device):
     assert cuda_node_stats.launches == 5
     assert cuda_hist.launches == 0 == cuda_hist_batched.launches
     assert h.gbtree.num_trees == 3
+
+
+# --------------------------------------- gblinear and external memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [65_536, 16_960])
+def test_k1_and_k2_at_the_paged_batch_shapes(cuda_device, N):
+    """K1 at 32 nodes and K2 at 64, the largest levels of a depth-6
+    paged tree, on a full batch of 65,536 rows and the last batch of
+    16,960 (of 1M rows in 65,536-row pages): int8 K1 bitwise, fp32 K1
+    and K2 on random gradients within 2 n 2^-24 sum|x| of the plain
+    versions."""
+    from xgboost_tpu_torch.ops import cuda_node_stats as kn
+    bins, gh, pos = _batched_case(cuda_device, 1, N, 28, 64, 32, seed=N,
+                                  dyadic=False)
+    bins, gh, pos = bins, gh[0].contiguous(), pos[0].contiguous()
+    gq, _ = cuda_hist.quantize_gh(gh)
+    got = cuda_hist.level_histogram(bins, gq, pos, 32, 64, "int")
+    assert torch.equal(got, cuda_hist.level_histogram_plain(bins, gq, pos,
+                                                            32, 64, "int"))
+    got = cuda_hist.level_histogram(bins, gh, pos, 32, 64, "fp32")
+    want = cuda_hist.level_histogram_plain(bins, gh, pos, 32, 64, "fp32")
+    ones = torch.ones_like(gh)
+    n = cuda_hist.level_histogram_plain(bins, ones, pos, 32, 64, "fp32")
+    a = cuda_hist.level_histogram_plain(bins, gh.abs(), pos, 32, 64, "fp32")
+    assert bool(((got - want).abs() <= 2.0 * n * 2.0 ** -24 * a).all())
+    pos64 = torch.randint(-1, 64, (N,), dtype=torch.int32,
+                          device=cuda_device)
+    got = kn.node_stats(gh[None], pos64[None], 64)
+    want = kn.node_stats_plain(gh[None], pos64[None], 64)
+    n = kn.node_stats_plain(ones[None], pos64[None], 64)
+    a = kn.node_stats_plain(gh.abs()[None], pos64[None], 64)
+    assert bool(((got - want).abs() <= 2.0 * n * 2.0 ** -24 * a).all())
+
+
+def _paged_matrix(n, page_rows, seed, cache):
+    from xgboost_tpu_torch.external import ExtMemDMatrix
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, 8).astype(np.float32)
+    X[rng.rand(n, 8) < 0.05] = np.nan
+    Z = np.nan_to_num(X)
+    y = ((Z[:, 0] > 0.5) ^ (Z[:, 1] > 0.3)).astype(np.float32)
+    d = ExtMemDMatrix(((X[s:s + page_rows], y[s:s + page_rows])
+                       for s in range(0, n, page_rows)), cache=cache,
+                      page_rows=page_rows)
+    return X, y, d
+
+
+@pytest.mark.cuda
+def test_paged_rounds_launch_k1_and_k2_once_a_batch_and_level(
+        cuda_device, tmp_path, monkeypatch):
+    """A streamed round of depth 3 over 13 batches (a 1.6 MB binned
+    matrix, a 1 MiB budget, batches of 128 KiB): K1 at levels 0-2 and K2
+    at 0-3, once a batch; nothing else.  The int8 model equals itself
+    over three runs, ``XGBTPU_EXT_PREFETCH`` either way."""
+    from xgboost_tpu_torch.ops import cuda_node_stats as kn
+    monkeypatch.setenv("XGBTPU_EXT_DEVICE_CACHE_MB", "1")
+    _, _, d = _paged_matrix(200_000, 16_384, 3, str(tmp_path / "m"))
+    params = {"objective": "binary:logistic", "max_depth": 3,
+              "max_bin": 64}
+    raws = []
+    for switch in ("1", "0", "1"):
+        monkeypatch.setenv("XGBTPU_EXT_PREFETCH", switch)
+        k1, k2 = cuda_hist.launches, kn.launches
+        bst = xt_train(params, d, 2, cuda_device)
+        torch.cuda.synchronize()
+        assert bst._cache[id(d)].external
+        assert cuda_hist.launches - k1 == 2 * 3 * 13
+        assert kn.launches - k2 == 2 * 4 * 13
+        raws.append(bst.save_raw())
+    assert raws[0] == raws[1] == raws[2]
+
+
+def xt_train(params, d, rounds, dev):
+    import xgboost_tpu_torch as xt
+    return xt.train(params, d, rounds, device=dev)
+
+
+@pytest.mark.cuda
+def test_streamed_batches_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A streamed matrix's batches reach the card in order, each with its
+    bytes, staged synchronously whatever ``XGBTPU_EXT_PREFETCH`` says,
+    and each upload is counted."""
+    from xgboost_tpu_torch import external
+    X, _, d = _paged_matrix(50_000, 8_192, 5, str(tmp_path / "s"))
+    d.build_binned(d.sketch_cuts(64))
+    host = [(s, np.asarray(b).copy()) for s, b in d.binned_batches()]
+    for switch in ("1", "0"):
+        monkeypatch.setenv("XGBTPU_EXT_PREFETCH", switch)
+        external.reset_upload_stats()
+        sums = [(s, b.device.type, b.to(torch.int64).sum(dim=0))
+                for s, b in d.device_batches(cuda_device)]
+        torch.cuda.synchronize()
+        assert [s for s, _, _ in sums] == [s for s, _ in host]
+        assert {t for _, t, _ in sums} == {"cuda"}
+        for (_, _, got), (_, b) in zip(sums, host):
+            assert np.array_equal(got.cpu().numpy(),
+                                  b.astype(np.int64).sum(axis=0))
+        assert external.UPLOAD_STATS["batches"] == len(host)
+        assert external.UPLOAD_STATS["bytes"] == sum(b.nbytes
+                                                     for _, b in host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,K", [("binary:logistic", 1),
+                                         ("multi:softmax", 3)])
+def test_gblinear_on_the_card_equals_the_cpu(cuda_device, objective, K):
+    """gblinear's weights and bias on the card against the CPU run of the
+    same rows within rtol 1e-4 / atol 1e-6 (true f32 products, another
+    order), and no histogram kernel."""
+    import xgboost_tpu_torch as xt
+    rng = np.random.RandomState(K)
+    X = rng.randn(20000, 12).astype(np.float32)
+    X[rng.rand(*X.shape) < 0.1] = np.nan
+    Z = np.nan_to_num(X)
+    y = (np.argmax(Z[:, :3], 1) if K > 1
+         else (Z[:, 0] + Z[:, 1] > 0)).astype(np.float32)
+    params = {"booster": "gblinear", "objective": objective, "eta": 0.5,
+              "alpha": 0.01, "linear_block": 3}
+    if K > 1:
+        params["num_class"] = K
+    k1 = cuda_hist.launches
+    gpu = xt.train(params, xt.DMatrix(X, label=y), 5, device=cuda_device)
+    cpu = xt.train(params, xt.DMatrix(X, label=y), 5, device="cpu")
+    assert cuda_hist.launches == k1
+    assert gpu.gbtree.weight.is_cuda
+    np.testing.assert_allclose(gpu.gbtree.weight.cpu().numpy(),
+                               cpu.gbtree.weight.numpy(), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(gpu.gbtree.bias.cpu().numpy(),
+                               cpu.gbtree.bias.numpy(), rtol=1e-4, atol=1e-6)

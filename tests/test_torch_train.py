@@ -211,7 +211,8 @@ def test_default_device_needs_a_gpu():
 
 
 @pytest.mark.parametrize("params", [
-    {"booster": "gblinear"}, {"dsplit": "row"}, {"updater": "distcol"}])
+    {"booster": "gblinear", "dsplit": "row"}, {"dsplit": "row"},
+    {"updater": "distcol"}])
 def test_unported_options_raise(params):
     X, y, _ = _data(2)
     with pytest.raises(NotImplementedError):

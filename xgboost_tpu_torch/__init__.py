@@ -13,16 +13,19 @@ training pipeline and gang-batched tenant lanes live in
 The front ends: ``python -m xgboost_tpu_torch <config> [name=value ...]``
 (:mod:`xgboost_tpu_torch.cli`) and the scikit-learn estimators
 (:mod:`xgboost_tpu_torch.sklearn`).  Model files and DMatrix buffers
-load in both packages.  Imports torch, never jax.
+load in both packages.  ``booster=gblinear``, the reference's model
+files and external memory (:class:`ExtMemDMatrix`, rows paged on disk
+and streamed to the card) are ported too.  Imports torch, never jax.
 """
 
 from xgboost_tpu_torch.config import TrainParam
 from xgboost_tpu_torch.convert import gbtree_from_jax_state
 from xgboost_tpu_torch.data import DMatrix
+from xgboost_tpu_torch.external import ExtMemDMatrix
 from xgboost_tpu_torch.learner import (Booster, CVPack, aggcv, cv, mknfold,
                                        train)
 from xgboost_tpu_torch.sklearn import XGBClassifier, XGBModel, XGBRegressor
 
-__all__ = ["Booster", "CVPack", "DMatrix", "TrainParam", "XGBClassifier",
-           "XGBModel", "XGBRegressor", "aggcv", "cv", "gbtree_from_jax_state",
-           "mknfold", "train"]
+__all__ = ["Booster", "CVPack", "DMatrix", "ExtMemDMatrix", "TrainParam",
+           "XGBClassifier", "XGBModel", "XGBRegressor", "aggcv", "cv",
+           "gbtree_from_jax_state", "mknfold", "train"]

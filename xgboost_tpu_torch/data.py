@@ -3,14 +3,17 @@
 Accepts a dense numpy array (``missing`` marks absent values, NaN by
 default), a scipy sparse matrix, an ``(indptr, indices, values,
 num_col)`` CSR tuple, or a path, routed by
-:mod:`xgboost_tpu_torch.io.dispatch`: libsvm text (pure-Python parser
-plus the ``.group`` / ``.weight`` / ``.base_margin`` sidecars), a binary
-buffer (:meth:`DMatrix.save_binary`, the JAX package's npz layout, so a
-buffer written by either package loads in the other), ``path#cache``,
-``file://`` or ``stdin``.  A dense array is kept as it is and CSR is
-built only when something iterates CSR; the sketch and the binning read
-dense columns directly.  External memory is not ported yet (ROADMAP.md
-section 1 item 12).
+:mod:`xgboost_tpu_torch.io.dispatch`: libsvm text (the native parser of
+:mod:`xgboost_tpu_torch.native` where it builds, else the pure-Python
+one, plus the ``.group`` / ``.weight`` / ``.base_margin`` sidecars), a
+binary buffer (:meth:`DMatrix.save_binary`, the JAX package's npz
+layout, so a buffer written by either package loads in the other),
+``path#cache``, ``file://``, a remote ``scheme://`` URI or ``stdin``.
+``DMatrix("ext:path#cache")`` and ``DMatrix("!path#cache")`` construct
+the paged :class:`~xgboost_tpu_torch.external.ExtMemDMatrix` instead
+(the second its HalfRAM variant).  A dense array is kept as it is and
+CSR is built only when something iterates CSR; the sketch and the
+binning read dense columns directly.
 """
 
 from __future__ import annotations
@@ -96,6 +99,35 @@ class DMatrix:
     """Sparse (CSR) or dense data matrix with metadata.  The cut matrices
     that boosters sketch from it stay on it, one per set of sketch
     parameters, so boosters on one matrix sketch it once."""
+
+    def __new__(cls, data: Any = None, *args, **kwargs):
+        # "ext:path" / "!path#cache" construct the paged matrix, which is
+        # no subclass, so __init__ below is skipped for it
+        # (``data.py:129-156``); "!" counts only with a "#cache" suffix,
+        # as in the reference's routing
+        if cls is DMatrix and isinstance(data, str) and (
+                data.startswith("ext:")
+                or (data.startswith("!") and "#" in data)):
+            from xgboost_tpu_torch.external import ExtMemDMatrix
+            path = data[4:] if data.startswith("ext:") else data
+            names = ("label", "weight", "missing", "base_margin", "group",
+                     "num_col", "feature_names", "silent")
+            for name, val in zip(names, args):
+                kwargs.setdefault(name, val)
+            unsupported = [k for k in ("base_margin", "group", "num_col",
+                                       "feature_names")
+                           if kwargs.get(k) is not None]
+            if unsupported:
+                raise ValueError(
+                    f"DMatrix({data!r}): {unsupported} not supported on "
+                    "external-memory matrices; construct ExtMemDMatrix and "
+                    "use set_base_margin/set_group instead")
+            return ExtMemDMatrix(
+                path, label=kwargs.get("label"),
+                weight=kwargs.get("weight"),
+                missing=kwargs.get("missing", np.nan),
+                silent=kwargs.get("silent", True))
+        return super().__new__(cls)
 
     def __init__(self, data: Any, label=None, weight=None,
                  missing: float = np.nan, base_margin=None, group=None,
@@ -406,6 +438,17 @@ def iter_libsvm_chunks(path: str, chunk_rows: int):
                 yield emit()
     if labels:
         yield emit()
+
+
+def parse_libsvm(path: str):
+    """The whole libsvm file as (indptr, indices, values, labels): the
+    native parser where it builds (``data.py:477-493``), else
+    :func:`parse_libsvm_python`."""
+    from xgboost_tpu_torch.native import parse_libsvm_native
+    out = parse_libsvm_native(path)
+    if out is not None:
+        return out
+    return parse_libsvm_python(path)
 
 
 def parse_libsvm_python(path: str):

@@ -8,7 +8,8 @@ The reference format (``src/tree/model.h:403-458``):
 heap order (the children of g are 2g+1 and 2g+2).  Values are the model
 file's float32 arrays formatted as the JAX package formats them, so one
 model file dumps to the same bytes in both packages.  A multi-root tree
-dumps each root slot's subtree in turn.
+dumps each root slot's subtree in turn.  A gblinear model dumps its
+bias and weights (``GBLinear.dump_text``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,10 @@ def _trees(booster):
 
 
 def dump_trees(booster, fmap: str = "", with_stats: bool = False) -> List[str]:
-    """One text block a tree (``xgboost_tpu/dump.py:31``)."""
+    """One text block a tree (``xgboost_tpu/dump.py:31``); a gblinear
+    model dumps one block of its bias and weights."""
+    if booster.param.booster == "gblinear":
+        return [booster.gbtree.dump_text()]
     fmap_d = load_fmap(fmap)
     n_roots = max(1, booster.param.num_roots)
     out = []
@@ -98,6 +102,10 @@ def dump_trees(booster, fmap: str = "", with_stats: bool = False) -> List[str]:
 def feature_importance(booster, fmap: str = "") -> Dict[str, int]:
     """Split counts by feature name (reference get_fscore,
     ``wrapper/xgboost.py:512-530``): reachable split nodes only."""
+    if booster.param.booster == "gblinear":
+        # as the JAX package's, which reads the trees a linear model lacks
+        raise AttributeError("a gblinear model has no trees to count "
+                             "splits in")
     fmap_d = load_fmap(fmap)
     counts: Dict[str, int] = {}
     for feature, _, _, is_leaf, _, _, cover in _trees(booster):

@@ -5,7 +5,12 @@ single-device main path).
 use, one binned matrix and running margin per DMatrix it has seen
 (advanced incrementally per round, the reference's prediction buffer),
 ``update`` / ``update_many``, ``predict``, ``eval_set`` lines, and model
-files (npz + JSON header + CRC footer) that load in both packages.
+files (npz + JSON header + CRC footer) that load in both packages, or
+the reference's binary model files (:mod:`~xgboost_tpu_torch.compat`).
+A gblinear booster keeps the (F, N) dense matrix of each DMatrix
+instead of its bins; an external-memory matrix over the device budget
+keeps no matrix on the device, its batches streamed at every level
+(:mod:`~xgboost_tpu_torch.external`).
 
 Every entry point runs on ``device`` (default ``"cuda"``); without a GPU
 it raises unless the caller asks for ``"cpu"``.
@@ -62,9 +67,6 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _check_param(p: TrainParam) -> None:
-    if p.booster != "gbtree":
-        raise NotImplementedError(
-            f"booster={p.booster}: gblinear is ROADMAP.md section 1 item 11")
     if p.dsplit not in ("auto",):
         raise NotImplementedError(
             f"dsplit={p.dsplit}: distributed training is ROADMAP.md section "
@@ -99,6 +101,9 @@ class _CacheEntry:
         self.exact_has_missing = True
         self.exact_ranks = None
         self.exact_host: Optional[np.ndarray] = None
+        # an external-memory matrix over the device budget: no ``binned``
+        # tensor; its batches stream from the matrix's binned memmap
+        self.external = False
 
     def user_rows(self, x):
         """The user's rows of a host per-row array, in the user's order."""
@@ -170,6 +175,8 @@ class Booster:
             from xgboost_tpu_torch.models.gbtree import (make_grow_config,
                                                          resolve_pred_chunk)
             self.gbtree.param = self.param
+            if self._linear:
+                return
             self.gbtree.cfg = make_grow_config(self.param,
                                                self.gbtree.cuts.max_bin)
             self.gbtree.pred_chunk = resolve_pred_chunk(self.param,
@@ -187,6 +194,11 @@ class Booster:
         """Output groups: the margin's columns."""
         return max(1, self.param.num_output_group)
 
+    @property
+    def _linear(self) -> bool:
+        """A gblinear model (``booster=gblinear``)."""
+        return self.param.booster == "gblinear"
+
     def _bin_align(self) -> int:
         """Bin-count quantum of the cut proposal: 32 where the histogram
         kernel runs (a GPU, any precision but "fixed"), as the JAX
@@ -201,10 +213,25 @@ class Booster:
     def _lazy_init(self, dtrain: DMatrix):
         if self.obj is None:
             self._init_obj()
-        if self.gbtree is None:
+        if self.gbtree is None and self._linear:
+            from xgboost_tpu_torch.models.gblinear import GBLinear
+            self.num_feature = dtrain.num_col
+            self.gbtree = GBLinear(self.param, dtrain.num_col, self.device)
+        elif self.gbtree is None:
             from xgboost_tpu_torch.models.updaters import parse_updaters
             self.num_feature = dtrain.num_col
-            if "grow_colmaker" in parse_updaters(self.param.updater):
+            external = getattr(dtrain, "is_external", False)
+            if external:
+                # the streaming sketch over the raw pages, shared by the
+                # boosters on the matrix as a DMatrix's cuts are; paged
+                # matrices are binned end to end, whatever the updater
+                # (learner.py:252-260, :313-316)
+                key = (self.param.max_bin, self.param.sketch_eps,
+                       self.param.sketch_ratio)
+                cuts = dtrain._cuts.get(key)
+                if cuts is None:
+                    cuts = dtrain._cuts[key] = dtrain.sketch_cuts(*key)
+            elif "grow_colmaker" in parse_updaters(self.param.updater):
                 # exact mode is bin-free: an (F, 1) cut matrix of +inf
                 # holds the place (learner.py:271-283)
                 cuts = CutMatrix(
@@ -213,6 +240,8 @@ class Booster:
             else:
                 cuts = self._cuts_of(dtrain)
             self.gbtree = GBTree(self.param, cuts, self.device)
+            if external:
+                self.gbtree.exact_raw = False
         for d in self._pending_cache:
             self._entry(d)
         self._pending_cache = []
@@ -265,6 +294,11 @@ class Booster:
     def _entry(self, dmat: DMatrix) -> _CacheEntry:
         key = id(dmat)
         entry = self._cache.get(key)
+        if entry is not None and entry.external \
+                and dmat._binned_cuts is not self.gbtree.cuts:
+            # another model re-binned this matrix meanwhile: bin it again
+            # and rebuild the margins (learner.py:361-367)
+            entry = self._cache[key] = self._build_ext_entry(dmat)
         if entry is not None and entry.rank_pad_prep is not None and (
                 entry.info_version != dmat.info.version
                 or not self._device_rank()):
@@ -277,7 +311,13 @@ class Booster:
                 raise ValueError(
                     f"data has {dmat.num_col} features, model was trained "
                     f"with {self.num_feature}")
-            if self.gbtree.exact_raw:
+            if getattr(dmat, "is_external", False):
+                entry = self._cache[key] = self._build_ext_entry(dmat)
+            elif self._linear:
+                entry = self._cache[key] = _CacheEntry(
+                    dmat, self.gbtree.device_matrix(dmat),
+                    self._base_margin_of(dmat, dmat.num_row))
+            elif self.gbtree.exact_raw:
                 raw, has_missing, host = self._raw_dense(dmat)
                 entry = self._cache[key] = _CacheEntry(
                     dmat, raw, self._base_margin_of(dmat, dmat.num_row))
@@ -289,14 +329,49 @@ class Booster:
                 binned = self._device_bins(bin_matrix(dmat, self.gbtree.cuts))
                 entry = self._cache[key] = _CacheEntry(
                     dmat, binned, self._base_margin_of(dmat, dmat.num_row))
-            entry.root = self._root_of(dmat, entry.binned.shape[0])
+            entry.root = self._root_of(dmat, self._entry_rows(entry))
         elif entry.info_version != dmat.info.version:
             # a set_field since: the base margin, the root slots and the
             # margin built on them are stale
             entry.base = self._base_margin_of(dmat, dmat.num_row)
-            entry.root = self._root_of(dmat, entry.binned.shape[0])
+            entry.root = self._root_of(dmat, self._entry_rows(entry))
             entry.margin, entry.applied = None, 0
             entry.info_version = dmat.info.version
+        return entry
+
+    def _entry_rows(self, entry: _CacheEntry) -> int:
+        """The entry's device row count: its bins' rows (a padded rank
+        layout has more than the matrix), the matrix's rows for a
+        gblinear (feature-major) or streamed entry."""
+        if entry.external or self._linear:
+            return entry.dmat.num_row
+        return int(entry.binned.shape[0])
+
+    def _build_ext_entry(self, dmat) -> _CacheEntry:
+        """An external-memory matrix's entry (``learner.py:509-542``),
+        binned with this model's cuts (again when another model binned
+        it since).  When the binned matrix fits the device budget
+        (:meth:`ExtMemDMatrix.fits_device_budget`), external memory has
+        done its job and the entry is an in-memory one; otherwise its
+        batches stream at every level."""
+        if self._linear:
+            raise NotImplementedError(
+                "gblinear reads a dense design matrix; load this matrix in "
+                "memory (DMatrix) for booster=gblinear")
+        if self.gbtree.exact_raw:
+            raise NotImplementedError(
+                "exact-mode (grow_colmaker) models route on raw values; "
+                "external-memory matrices are binned — load this matrix "
+                "in memory (DMatrix) for exact-mode predict/eval/train")
+        if dmat._binned_mm is None or dmat._binned_cuts is not self.gbtree.cuts:
+            dmat.build_binned(self.gbtree.cuts)
+        base = self._base_margin_of(dmat, dmat.num_row)
+        if dmat.fits_device_budget(self.device):
+            return _CacheEntry(dmat,
+                               self._device_bins(np.array(dmat._binned_mm)),
+                               base)
+        entry = _CacheEntry(dmat, None, base)
+        entry.external = True
         return entry
 
     # ------------------------------------------------------------- ranking
@@ -391,6 +466,9 @@ class Booster:
         ri = dmat.info.root_index
         if ri is None or max(1, self.param.num_roots) <= 1:
             return None
+        if getattr(dmat, "is_external", False):
+            raise NotImplementedError(
+                "root_index on external-memory matrices is not supported")
         r = np.zeros(n_rows, np.int32)
         r[:len(ri)] = np.asarray(ri, np.int64).astype(np.int32)
         return torch.from_numpy(r).to(self.device)
@@ -398,7 +476,17 @@ class Booster:
     def _sync_margin(self, entry: _CacheEntry) -> None:
         """Fold not-yet-applied trees into the entry's margin, one round's
         trees at a time (the order of the JAX package's per-round path,
-        ``learner.py:790-818``)."""
+        ``learner.py:790-818``); a gblinear margin is recomputed whole,
+        a streamed entry's margin batch by batch (:meth:`_sync_margin_ext`)."""
+        if entry.external:
+            self._sync_margin_ext(entry)
+            return
+        if self._linear:
+            if entry.margin is None or entry.applied != self.gbtree.version:
+                entry.margin = self.gbtree.predict_margin(entry.binned,
+                                                          entry.base)
+                entry.applied = self.gbtree.version
+            return
         if entry.applied > self.gbtree.num_trees:
             entry.margin, entry.applied = None, 0
         if entry.margin is None:
@@ -409,6 +497,21 @@ class Booster:
             entry.margin = self.gbtree.predict_incremental(
                 entry.binned, entry.margin, entry.applied, n, entry.root)
             entry.applied += n
+
+    def _sync_margin_ext(self, entry: _CacheEntry) -> None:
+        """A streamed entry's margin (``learner.py:820-846``): the trees
+        not yet applied, summed from 0 batch by batch, added to the
+        margin at once."""
+        if entry.margin is None:
+            entry.margin = entry.base.clone()
+            entry.applied = 0
+        if entry.applied >= self.gbtree.num_trees:
+            return
+        n_new = self.gbtree.num_trees - entry.applied
+        parts = [self.gbtree.predict_contrib(batch, entry.applied, n_new)
+                 for _, batch in entry.dmat.device_batches(self.device)]
+        entry.margin = entry.margin + torch.cat(parts)
+        entry.applied = self.gbtree.num_trees
 
     # ------------------------------------------------------------ profiling
     @property
@@ -482,8 +585,24 @@ class Booster:
         training matrix's ranks once), then ``refresh`` over every tree,
         ``refresh,prune`` pruning against the refreshed gains, after which
         every cached margin is stale."""
+        if self._linear:
+            # gblinear (learner.py:1317-1323): the margin is recomputed
+            self.gbtree.do_boost(entry.binned, gh, entry.dmat.info)
+            entry.margin = None
+            self._sync_margin(entry)
+            return
         from xgboost_tpu_torch.models.updaters import parse_updaters
         ups = parse_updaters(self.param.updater)
+        if entry.external:
+            # paged growth (learner.py:1326-1336)
+            if "refresh" in ups:
+                raise NotImplementedError(
+                    "updater=refresh is not supported on external-memory "
+                    "matrices")
+            entry.margin = entry.margin + self.gbtree.do_boost_paged(
+                entry.dmat, gh, key=self._round_key(iteration))
+            entry.applied = self.gbtree.num_trees
+            return
         grows = any(u.startswith("grow") for u in ups)
         if grows and self.gbtree.exact_raw and entry.exact_ranks is None:
             from xgboost_tpu_torch.models.colmaker import build_exact_ranks
@@ -538,7 +657,7 @@ class Booster:
         g = np.asarray(grad, np.float32).reshape(dtrain.num_row, K)
         h = np.asarray(hess, np.float32).reshape(dtrain.num_row, K)
         if entry.rank_pad_prep is not None:
-            n_dev = entry.binned.shape[0]
+            n_dev = self._entry_rows(entry)
             gp = np.zeros((n_dev, K), np.float32)
             hp = np.zeros((n_dev, K), np.float32)
             gp[entry.rank_pad_prep.user_map] = g
@@ -567,21 +686,26 @@ class Booster:
         return max(1, min(64, math.ceil(9.0 * _FIT_FIXED_ROUND_S
                                         / per_round)))
 
-    def _segment_blockers(self, n_rounds: int, fobj=None) -> List[str]:
+    def _segment_blockers(self, n_rounds: int, fobj=None, entry=None,
+                          evals=()) -> List[str]:
         """The JAX package's reasons for one round per dispatch
-        (``learner.py:1041-1062``) that apply to the port."""
+        (``learner.py:1041-1062``) that apply to the port, in its order."""
         from xgboost_tpu_torch.models.updaters import parse_updaters
         ups = parse_updaters(self.param.updater)
         checks = (
             ("custom_objective", fobj is not None),
             ("single_round", n_rounds <= 1),
+            ("booster", self.param.booster != "gbtree"),
+            ("external_train", entry is not None and entry.external),
             ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
             ("multi_root", max(1, self.param.num_roots) != 1),
-            ("exact", self.gbtree.exact_raw),
+            ("exact", getattr(self.gbtree, "exact_raw", False)),
             ("refresh", "refresh" in ups),
             ("no_grow_updater", not any(u.startswith("grow") for u in ups)),
             ("no_fused_grad", getattr(self.obj, "needs_host_margin", False)),
+            ("external_eval", any(self._entry(d).external
+                                  for d, _ in evals)),
         )
         return [name for name, blocked in checks if blocked]
 
@@ -623,7 +747,7 @@ class Booster:
         entry = self._entry(dtrain)
         evals = list(evals) if evals else []
         k = 0
-        if not self._segment_blockers(n_rounds, fobj):
+        if not self._segment_blockers(n_rounds, fobj, entry, evals):
             k = self._resolve_rounds_per_dispatch(dtrain.num_row,
                                                   rounds_per_dispatch)
         if plan_callback is not None:
@@ -680,6 +804,7 @@ class Booster:
         npar = max(1, self.param.num_parallel_tree)
         checks = (
             ("no_rounds", n_rounds < 1),
+            ("external_train", entry.external),
             ("ensemble", self._K * npar > 1),
             ("rank", self._device_rank() and entry.rank_pad_prep is None),
             ("profiler", self.profiler is not None),
@@ -730,7 +855,10 @@ class Booster:
     def _bins_for(self, data: DMatrix) -> torch.Tensor:
         """Bins of a one-off matrix: a dense source quantizes on the
         device, sparse data on the host; both give the same bins.  An
-        exact-mode model reads raw values (``learner.py:1645-1647``)."""
+        exact-mode model reads raw values (``learner.py:1645-1647``), a
+        gblinear one its (F, N) dense matrix."""
+        if self._linear:
+            return self.gbtree.device_matrix(data)
         if self.gbtree.exact_raw:
             return self._raw_dense(data)[0]
         src = data.dense_source()
@@ -749,9 +877,17 @@ class Booster:
         may also be a 2-D array (NaN = missing)."""
         if self.gbtree is None:
             raise ValueError("model not trained/loaded")
-        if not isinstance(data, DMatrix):
+        if not isinstance(data, DMatrix) and \
+                not getattr(data, "is_external", False):
             data = DMatrix(np.asarray(data, dtype=np.float32))
         cached = self._cache.get(id(data))
+        if cached is None and getattr(data, "is_external", False):
+            # a one-off external matrix: an entry that is not registered
+            # (learner.py:1594-1598)
+            cached = self._build_ext_entry(data)
+        if cached is not None and cached.external:
+            return self._predict_streamed(cached, output_margin,
+                                          ntree_limit, pred_leaf)
         if cached is not None:
             binned, base, root = cached.binned, cached.base, cached.root
         else:
@@ -780,6 +916,28 @@ class Booster:
         predict_metrics().rows.inc(out.shape[0])
         # one column -> (N,); softprob and multiclass margins stay (N, K)
         return out[:, 0] if out.shape[1] == 1 else out
+
+    def _predict_streamed(self, entry: _CacheEntry, output_margin: bool,
+                          ntree_limit: int, pred_leaf: bool) -> np.ndarray:
+        """Predictions of a streamed external entry, batch by batch
+        (``learner.py:1599-1615``)."""
+        batches = entry.dmat.device_batches(self.device)
+        if pred_leaf:
+            out = torch.cat([self.gbtree.predict_leaf(b, ntree_limit)
+                             for _, b in batches]).cpu().numpy()
+        else:
+            if ntree_limit == 0:
+                self._sync_margin(entry)
+                margin = entry.margin
+            else:
+                margin = torch.cat([self.gbtree.predict_margin(
+                    b, entry.base[s:s + b.shape[0]], ntree_limit)
+                    for s, b in batches])
+            out = self.obj.pred_transform(
+                margin, output_margin=output_margin).cpu().numpy()
+        from xgboost_tpu_torch.obs.metrics import predict_metrics
+        predict_metrics().rows.inc(out.shape[0])
+        return out[:, 0] if out.ndim == 2 and out.shape[1] == 1 else out
 
     # ----------------------------------------------------------- evaluation
     def _metrics(self, feval=None) -> List:
@@ -843,18 +1001,24 @@ class Booster:
                       name=path)
 
     def load_raw(self, raw: bytes, name: str = "<buffer>"):
-        """Load from bytes: our npz, or its bs64 encoding."""
-        if raw[:5] == b"bs64\t":
+        """Load from bytes (``learner.py:1895-1924``): our npz, its bs64
+        encoding, or the reference's binary model (``binf``, or its own
+        ``bs64`` encoding), which :mod:`~xgboost_tpu_torch.compat`
+        reads."""
+        head = raw[:5]
+        if head[:4] in (b"binf", b"bs64") and head != b"bs64\t":
+            self._load_reference(raw)
+            return
+        if head == b"bs64\t":
             try:
                 raw = base64.b64decode(b"".join(raw[5:].split()),
                                        validate=True)
             except ValueError as e:
                 raise ModelIntegrityError(
                     f"{name}: torn/invalid bs64 payload: {e}")
-        if not raw.startswith(b"PK"):
-            raise NotImplementedError(
-                f"{name}: not an xgboost_tpu npz model (the reference's "
-                "binary format is ROADMAP.md section 1 item 11)")
+            if not raw.startswith(b"PK"):   # the reference's stream
+                self._load_reference(raw)
+                return
         try:
             z = np.load(io.BytesIO(raw), allow_pickle=False)
         except (ValueError, OSError, zipfile.BadZipFile) as e:
@@ -871,7 +1035,22 @@ class Booster:
         self.attributes = header.get("attributes", {})
         self.best_iteration = header.get("best_iteration", -1)
         self._init_obj()
-        self.gbtree = GBTree.from_state(self.param, state, self.device)
+        if self._linear:
+            from xgboost_tpu_torch.models.gblinear import GBLinear
+            self.gbtree = GBLinear.from_state(self.param, state, self.device)
+        else:
+            self.gbtree = GBTree.from_state(self.param, state, self.device)
+        self._cache.clear()
+
+    def _load_reference(self, src) -> None:
+        """Adopt a reference-format model's state (path or bytes;
+        ``learner.py:1952-1961``)."""
+        from xgboost_tpu_torch.compat import load_reference_model
+        other = load_reference_model(src, device=self.device)
+        self.param = other.param
+        self.obj = other.obj
+        self.gbtree = other.gbtree
+        self.num_feature = other.num_feature
         self._cache.clear()
 
     def save_raw(self) -> bytes:

@@ -282,6 +282,50 @@ class GBTree:
         self._stack_cache = None
         return torch.stack([deltas[k] for k in range(self.n_group)], dim=1)
 
+    def do_boost_paged(self, dmat, gh: torch.Tensor, key=None
+                       ) -> torch.Tensor:
+        """One boosting round over an external-memory matrix
+        (``gbtree.py:961-1005``): each of the round's K x
+        ``num_parallel_tree`` trees grows on its own over the streamed
+        batches (:func:`~xgboost_tpu_torch.external.grow_tree_paged`),
+        tree j sampling with ``fold_in(key, j)``, and is pruned when
+        ``gamma > 0``.  gh (N, K, 2) on the device; returns the (N, K)
+        margin delta, each group's trees added into zeros in tree
+        order."""
+        from xgboost_tpu_torch.external import grow_tree_paged
+        if self.cfg.n_roots > 1:
+            raise NotImplementedError(
+                "num_roots > 1 is not supported on external-memory "
+                "matrices (root_index routing is in-memory only)")
+        npar = max(1, self.param.num_parallel_tree)
+        T, K = self.trees_per_round, self.n_group
+        keys = None if key is None else tree_keys(key, T)
+        deltas = torch.zeros((dmat.num_row, K), dtype=torch.float32,
+                             device=gh.device)
+        trees = []
+        for j in range(T):
+            k = j // npar
+            tree, row_leaf = grow_tree_paged(
+                dmat, gh[:, k, :], self.cut_values_dev, self.n_cuts_dev,
+                self.cfg, key=None if keys is None else keys[j],
+                split_finder=self.split_finder())
+            if self._do_prune():
+                pruned, resolve = prune_tree(TreeArrays(*(x[0]
+                                                          for x in tree)),
+                                             self.param.gamma)
+                tree = TreeArrays(*(x[None] for x in pruned))
+                row_leaf = torch.as_tensor(
+                    resolve, dtype=torch.int64,
+                    device=gh.device)[row_leaf.to(torch.int64)]
+            # each row's leaf from growth: the JAX package traverses the
+            # batches once more for it (_paged_leaf_delta), the same leaf
+            deltas[:, k] += table_lookup(tree.leaf_value[0], row_leaf)
+            trees.append(tree)
+            self.tree_group.append(k)
+        self._parts.append(TreeArrays(*(torch.cat(xs) for xs in zip(*trees))))
+        self._stack_cache = None
+        return deltas
+
     def do_refresh(self, binned: torch.Tensor, gh: torch.Tensor,
                    row_valid: Optional[torch.Tensor] = None,
                    root: Optional[torch.Tensor] = None) -> None:
@@ -371,20 +415,27 @@ class GBTree:
                             ) -> torch.Tensor:
         """``margin`` plus trees ``[first_tree, first_tree + n_trees)``,
         their contributions summed from 0 first (``gbtree.py:1103-1128``)."""
+        return self.predict_contrib(binned, first_tree, n_trees,
+                                    root) + margin
+
+    def predict_contrib(self, binned: torch.Tensor, first_tree: int,
+                        n_trees: int, root: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """The (N, K) sum of trees ``[first_tree, first_tree + n_trees)``
+        from 0."""
         stack, group = self._stack(first_tree + n_trees)
         part = TreeArrays(*(x[first_tree:] for x in stack))
         zero = torch.zeros((), dtype=torch.float32, device=binned.device)
         if self.exact_raw:
             from xgboost_tpu_torch.models.colmaker import predict_margin_raw
             return predict_margin_raw(part, group[first_tree:], binned, zero,
-                                      self.cfg.max_depth,
-                                      self.n_group) + margin
+                                      self.cfg.max_depth, self.n_group)
         if self.pred_chunk > 1:
             group = self.group_on_device(len(group))
         return predict_margin_binned(part, group[first_tree:], binned, zero,
                                      self.cfg.max_depth, self.n_group,
                                      root, self.cfg.n_roots,
-                                     tree_chunk=self.pred_chunk) + margin
+                                     tree_chunk=self.pred_chunk)
 
     def predict_leaf(self, binned: torch.Tensor, ntree_limit: int = 0,
                      root: Optional[torch.Tensor] = None) -> torch.Tensor:

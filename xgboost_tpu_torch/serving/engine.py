@@ -14,9 +14,19 @@ site; after :meth:`warmup` it does not move.
 
 A graph's static buffers make it non-reentrant, unlike a JAX executable:
 each bucket has a lock, and copy-in, replay and copy-out run under it.
-Captures use ``capture_error_mode="thread_local"``, so the registry can
-capture a new model version in its poll thread while the batcher's
-thread replays the old one.  A failed capture raises; nothing on
+Each bucket also has a CUDA stream of its own, on which its copies,
+replays and transform run, never the legacy default stream.  Captures
+take one process-wide lock (``_CAPTURE_LOCK``) and run, warm-up
+included, on one capture stream per device that nothing else uses (the
+one stream this module takes from PyTorch's high-priority pool, so no
+bucket stream, drawn from the default-priority pool, can alias it), with
+``capture_error_mode="thread_local"`` and Python's garbage collector
+paused.  Entering ``torch.cuda.graph`` synchronises the device and
+empties the allocator's cache, which tears a capture open in another
+thread, so captures (and the destruction of graphs) take turns, while
+replays never wait on that lock.  The registry can thus capture a new
+model version in its poll thread while other threads replay the old
+one, or another engine's buckets.  A failed capture raises; nothing on
 ``cuda`` runs the eager function instead.  On the CPU the same margin
 function runs eagerly, one "build" per bucket.
 
@@ -43,10 +53,12 @@ thread's allocations in that window count too), and
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
 import time as _time
 from bisect import bisect_left
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -54,6 +66,20 @@ import torch
 
 DEFAULT_MIN_BUCKET = 8
 DEFAULT_MAX_BUCKET = 8192
+
+# One CUDA graph capture at a time in the process, and no graph destroyed
+# during one (see the module docstring).  Replays never take it.
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The device's capture stream (under ``_CAPTURE_LOCK``): the one
+    stream taken from the high-priority pool, used for nothing else."""
+    s = _CAPTURE_STREAMS.get(device)
+    if s is None:
+        s = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device, priority=-1)
+    return s
 
 
 def power_of_two_buckets(min_bucket: int = DEFAULT_MIN_BUCKET,
@@ -83,18 +109,25 @@ def pad_to_width(X: np.ndarray, num_feature: int) -> np.ndarray:
 
 
 class _Bucket:
-    """One bucket's runner: the captured graph and its static buffers on
-    ``cuda``, the eager function on the CPU.  ``lock`` serialises
-    copy-in, run and copy-out."""
+    """One bucket's runner: the captured graph, its static buffers and
+    its stream on ``cuda``, the eager function on the CPU.  ``lock``
+    serialises copy-in, run and copy-out."""
 
     __slots__ = ("rows", "x", "base", "out", "graph", "fn", "pool",
-                 "lock")
+                 "lock", "stream")
 
-    def __init__(self, rows, x, base, out, graph, fn, pool=0):
+    def __init__(self, rows, x, base, out, graph, fn, pool=0, stream=None):
         self.rows, self.x, self.base, self.out = rows, x, base, out
         self.graph, self.fn = graph, fn
         self.pool = pool                # bytes the graph's pool reserved
+        self.stream = stream            # the bucket's CUDA stream
         self.lock = threading.Lock()
+
+    def on_stream(self):
+        """The context that makes the bucket's stream current (nothing
+        on the CPU)."""
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else nullcontext())
 
     def run(self) -> torch.Tensor:
         if self.graph is not None:
@@ -231,8 +264,9 @@ class PredictEngine:
 
     def _executable(self, bucket: int) -> _Bucket:
         """The bucket's runner: on ``cuda`` a CUDA graph of the margin
-        function, captured once (after a warm-up run on a side stream)
-        with its static buffers; on the CPU the eager function.  A
+        function, captured once on the bucket's own stream (after a
+        warm-up run there) with its static buffers, under the
+        process-wide capture lock; on the CPU the eager function.  A
         failed capture raises."""
         exe = self._compiled.get(bucket)
         if exe is not None:
@@ -242,22 +276,36 @@ class PredictEngine:
             if exe is not None:
                 return exe
             fn = self.margin_function()
-            x, base = self._inputs(bucket)
             if self.device.type == "cuda":
-                side = torch.cuda.Stream(self.device)
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
-                    fn(x, base)              # allocations before capture
-                torch.cuda.current_stream(self.device).wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
-                    # read after entering: entering empties the cache
-                    r0 = torch.cuda.memory_reserved(self.device)
-                    out = fn(x, base)
-                pool = max(0, torch.cuda.memory_reserved(self.device) - r0)
-                exe = _Bucket(bucket, x, base, out, graph, None, pool)
+                stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(stream):
+                    x, base = self._inputs(bucket)
+                with _CAPTURE_LOCK:
+                    cs = _capture_stream(self.device)
+                    cs.wait_stream(stream)
+                    gc_on = gc.isenabled()
+                    gc.disable()
+                    try:
+                        with torch.cuda.stream(cs):
+                            fn(x, base)      # allocations before capture
+                        graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(
+                                graph, stream=cs,
+                                capture_error_mode="thread_local"):
+                            # read after entering: entering empties the
+                            # cache
+                            r0 = torch.cuda.memory_reserved(self.device)
+                            out = fn(x, base)
+                        pool = max(0, torch.cuda.memory_reserved(self.device)
+                                   - r0)
+                    finally:
+                        if gc_on:
+                            gc.enable()
+                    stream.wait_stream(cs)
+                exe = _Bucket(bucket, x, base, out, graph, None, pool,
+                              stream)
             else:
+                x, base = self._inputs(bucket)
                 exe = _Bucket(bucket, x, base, None, None, fn)
             self.compile_count += 1
             if self.metrics is not None:
@@ -292,9 +340,10 @@ class PredictEngine:
         with self._lock:
             runners = list(self._compiled.values())
             self._compiled = {}
-        for r in runners:
-            with r.lock:
-                r.graph = r.x = r.base = r.out = None
+        with _CAPTURE_LOCK if self.device.type == "cuda" else nullcontext():
+            for r in runners:
+                with r.lock:
+                    r.graph = r.x = r.base = r.out = None
 
     # ------------------------------------------------------------- predict
     def predict(self, X, output_margin: bool = False) -> np.ndarray:
@@ -354,7 +403,15 @@ class PredictEngine:
         pm = None if self._warming else predict_metrics()
         exe = self._executable(bucket)
 
+        src = (torch.cuda.current_stream(self.device)
+               if self.device.type == "cuda" else None)
+
         def load(x):
+            if src is not None:
+                # the block was written on the caller's stream; the copy
+                # runs on the bucket's
+                torch.cuda.current_stream(self.device).wait_stream(src)
+                X_dev.record_stream(torch.cuda.current_stream(self.device))
             x.copy_(X_dev)
         return self._margin_out(exe, load, n, output_margin, pm,
                                 transfer_bytes=0)
@@ -379,16 +436,18 @@ class PredictEngine:
                 exe.lock.release()
                 exe = self._executable(exe.rows)
             try:
-                load(exe.x)
-                t0 = _time.perf_counter()
-                margin = exe.run()
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
-                if pm is not None:
-                    pm.chunk_seconds.observe(
-                        (_time.perf_counter() - t0) / max(self._n_chunks, 1))
-                out = self.obj.pred_transform(
-                    margin, output_margin=output_margin)[:n].cpu().numpy()
+                with exe.on_stream():
+                    load(exe.x)
+                    t0 = _time.perf_counter()
+                    margin = exe.run()
+                    if exe.stream is not None:
+                        exe.stream.synchronize()
+                    if pm is not None:
+                        pm.chunk_seconds.observe(
+                            (_time.perf_counter() - t0)
+                            / max(self._n_chunks, 1))
+                    out = self.obj.pred_transform(
+                        margin, output_margin=output_margin)[:n].cpu().numpy()
             finally:
                 exe.lock.release()
         if pm is not None:

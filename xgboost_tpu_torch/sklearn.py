@@ -166,6 +166,9 @@ class XGBModel(BaseEstimator):
 
     @property
     def feature_importances_(self) -> np.ndarray:
+        if self.booster == "gblinear":
+            raise AttributeError(
+                "feature_importances_ is not supported for booster=gblinear")
         booster = self.get_booster()
         out = np.zeros(booster.num_feature, dtype=np.float32)
         for name, count in booster.get_fscore().items():
