@@ -128,6 +128,33 @@ histogram kernel; ``task=lanes`` over 8 tenants' buffers
 launches K4 and no K1, and each tenant's trees equal those of
 ``run_tenant_lanes`` called on the same tenants' arrays, bitwise.
 
+The ``[dist]`` phase, after ``[cli]``, trains row-split
+(``xgboost_tpu_torch.parallel``) on [cli]'s buffers with W ranks on this
+one card over gloo, each started by the user's entry point ``python -m
+xgboost_tpu_torch.parallel.launch -n W python -m xgboost_tpu_torch
+dist.conf`` ([main]'s configuration, ``eval[test]=`` the holdout), and
+fails unless: (a) at W = 2 and 4 with ``device_sketch=0`` the model's
+tree arrays and cuts equal [main]'s bitwise and the last eval line is
+[main]'s; (b) at W = 2 with the default device sketch the cuts equal
+the same sketch run on the CPU over the same two blocks and every
+rank's, and the holdout AUC is at [main]'s floor; (c) a rank worker
+(this script's ``--dist-worker`` entry, W = 2) finds each level's K1 on
+its 500,000-row block equal to the plain version (int8 bitwise) and
+each reduced level equal to the plain histogram of all 1M rows, a
+refresh pass's K2 launches, on each block and summed over the ranks,
+within K2's own f32 bound of the f64 sums of the same rows, node by
+node (gamma_L of the node's sum|x|, L the additions a term passes in
+the kernel's order), while a planted fault (16 rows of the fullest
+node dropped) exceeds it, and a 6-class round of 200,000 x 28 (K3)
+byte-equal to a world of one; (d) a split load (``shard_load=1``) of
+[cli]'s 100,000 holdout rows of libsvm text trains the trees of their
+replicated load with ``device_sketch=1``; (e) it prints ms per round at
+W = 1 (this process, a world of one), 2 and 4, each rank's launch counts
+and the collectives a round (calls, bytes, seconds from
+``obs/comm.py``); (f) any failed rank, a launcher past its time limit
+or a mismatch exits non-zero.  (a), (b) and (d) run at once; the timed
+worlds run alone.
+
 The phases after ``[cli]`` drive sampled, subtracted and multi-root
 growth and the round profiler on the same data, each with its launch
 counts set to 0 just before and read just after:
@@ -1275,6 +1302,419 @@ def phase_cli(torch, xt, kernels, device, card, main_out):
           f"{train_s:.2f}, eval {eval_s:.2f}, dump {dump_s:.2f}, lanes "
           f"{lanes_s:.2f} s", flush=True)
     return counts["hist_lanes"]
+
+
+# ----------------------------------------------------------------- [dist]
+# row-split training (xgboost_tpu_torch.parallel) on [main]'s data from
+# [cli]'s buffers: W ranks on this one card over gloo, each launched by
+# the port's launcher, the CLI or the worker entry of this script
+DIST_WORLDS = (2, 4)
+DIST_TIMEOUT_S = 300
+DIST_MC_N = 200_000
+DIST_PARAMS = {**PARAMS, "dsplit": "row", "device_sketch": 0}
+
+
+def dist_launch(n, cmd, cwd):
+    """``python -m xgboost_tpu_torch.parallel.launch -n n cmd`` from
+    ``cwd``, started; the launcher ends its ranks past DIST_TIMEOUT_S."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=HERE)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "xgboost_tpu_torch.parallel.launch", "-n",
+         str(n), "--timeout-sec", str(DIST_TIMEOUT_S), *cmd], cwd=cwd,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def dist_wait(procs):
+    """Wait for launches ``{name: proc}`` at once: ``{name: (stdout,
+    stderr, seconds from its start to its end)}``.  Any failed rank, a
+    hang or a launcher past its limit fails the phase (gate f)."""
+    import threading
+    done = {}
+
+    def wait(name, proc):
+        try:
+            out, err = proc.communicate(timeout=DIST_TIMEOUT_S + 60)
+        except Exception:
+            proc.kill()
+            out, err = proc.communicate()
+        done[name] = (out, err, time.perf_counter() - proc.t0)
+    threads = [threading.Thread(target=wait, args=item)
+               for item in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            fail(f"[dist] {name}: launcher exit {proc.returncode} (124: a "
+                 f"rank hung past {DIST_TIMEOUT_S} s): "
+                 f"{done[name][1][-3000:]}")
+    return done
+
+
+def dist_eval_lines(err):
+    return [ln for ln in err.splitlines() if ln.startswith("[")
+            and "\t" in ln]
+
+
+def dist_worker(out_dir, task):
+    """A rank of [dist]'s own checks (gates c and e), launched by the
+    port's launcher: the timed Higgs rounds with this rank's launch
+    counts and collective tallies, and for ``check`` every level's K1 on
+    this rank's block against the plain version, the reduced level
+    against the plain histogram of all rows, a refresh pass's K2, the
+    device sketch's cuts on this rank, and a 6-class round (K3)."""
+    import hashlib
+
+    import torch
+    sys.path.insert(0, HERE)
+    import xgboost_tpu_torch as xt
+    from xgboost_tpu_torch.obs import comm
+    from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
+                                       cuda_node_stats)
+    from xgboost_tpu_torch.parallel.launch import init_worker
+    from xgboost_tpu_torch.parallel.mesh import data_parallel_mesh
+    init_worker()
+    mesh = data_parallel_mesh("cuda")
+    kernels = {"hist_level": cuda_hist, "hist_batched": cuda_hist_batched,
+               "node_stats": cuda_node_stats}
+    res = {"rank": mesh.rank, "world": mesh.world}
+    dtrain = xt.DMatrix(os.path.join(HERE, ".smoke_out", "cli",
+                                     "higgs-train.buffer"))
+    bst = xt.Booster(DIST_PARAMS, cache=[dtrain])
+    bst.update(dtrain, 0)                      # cuts, binning: untimed
+    torch.cuda.synchronize()
+    before = comm.totals()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bst.update_many(dtrain, 1, ROUNDS - 1)
+    torch.cuda.synchronize()
+    res["ms_round"] = (time.perf_counter() - t0) * 1e3 / (ROUNDS - 1)
+    res["counts"] = read_counts(kernels)
+    after = comm.totals()
+    res["comm"] = {op: {k: (after[op][k] - before[op][k]) / (ROUNDS - 1)
+                        for k in after[op]} for op in after}
+    if task == "check":
+        P = DIST_PARAMS
+        kernel_fn = cuda_hist.level_histogram
+        captured = []
+
+        def capture(bins, gh, pos, n_node, n_bin, mode):
+            captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin,
+                             mode))
+            return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+        cuda_hist.level_histogram = capture
+        try:
+            b1 = xt.train(P, dtrain, 1)
+        finally:
+            cuda_hist.level_histogram = kernel_fn
+        bins_all = torch.cat(mesh.all_gather(captured[0][0]))
+        levels = []
+        for bins, gh, pos, M, nb, mode in captured:
+            got = kernel_fn(bins, gh, pos, M, nb, mode)
+            want = cuda_hist.level_histogram_plain(bins, gh, pos, M, nb, mode)
+            red = mesh.sum(got)
+            all_gh = torch.cat(mesh.all_gather(gh))
+            all_pos = torch.cat(mesh.all_gather(pos))
+            want_all = cuda_hist.level_histogram_plain(bins_all, all_gh,
+                                                       all_pos, M, nb, mode)
+            levels.append([int(bins.shape[0]), M, mode,
+                           bool(torch.equal(got, want)),
+                           bool(torch.equal(red, want_all))])
+        res["levels"] = levels
+        # one refresh pass of b1's tree: each K2 call on this rank's
+        # block against its rows' f64 sums, and the sums over the ranks
+        # against all rows' f64 sums, each node within K2's own bound; a
+        # planted fault (16 rows of the fullest node dropped) must fail
+        # the same gate
+        k2_fn = cuda_node_stats.node_stats
+        calls = []
+
+        def capture2(gh, pos, n_node):
+            calls.append((gh.clone(), pos.clone(), n_node))
+            return k2_fn(gh, pos, n_node)
+        b1.set_param({"updater": "refresh"})
+        cuda_node_stats.node_stats = capture2
+        cuda_node_stats.reset_launches()
+        try:
+            b1.update(dtrain, 1)
+        finally:
+            cuda_node_stats.node_stats = k2_fn
+        res["k2_launches"] = cuda_node_stats.launches
+        k2 = []
+        for gh, pos, M in calls:
+            got = k2_fn(gh, pos, M)
+            exact = node_sums_f64(torch, gh, pos, M)
+            bound = k2_bound(torch, gh, pos, M)
+            all_gh = torch.cat(mesh.all_gather(gh), dim=1)
+            all_pos = torch.cat(mesh.all_gather(pos), dim=1)
+            red = mesh.sum(got)
+            exact_all = node_sums_f64(torch, all_gh, all_pos, M)
+            bound_all = k2_bound(torch, all_gh, all_pos, M, gh.shape[1],
+                                 mesh.world - 1)
+            count = torch.bincount(pos[(pos >= 0) & (pos < M)].long(),
+                                   minlength=M)
+            rows = (pos == int(count.argmax())).nonzero()[:16]
+            bad_pos = pos.clone()
+            bad_pos[rows[:, 0], rows[:, 1]] = -1
+            bad = k2_fn(gh, bad_pos, M)
+            k2.append([M, ratio(got, exact, bound),
+                       ratio(red, exact_all, bound_all),
+                       ratio(bad, exact, bound),
+                       float((got.double() - exact).abs().max()),
+                       float((red.double() - exact_all).abs().max())])
+        res["k2"] = k2
+        # gate (b): the device sketch's cuts on this rank
+        from xgboost_tpu_torch.parallel.sketch_device import sketch_cuts_mesh
+        cuts = sketch_cuts_mesh(mesh, dtrain.to_dense(), None, PARAMS[
+            "max_bin"])
+        res["sketch_sha"] = hashlib.sha256(
+            cuts.cut_values.tobytes() + cuts.n_cuts.tobytes()).hexdigest()
+        # a 6-class round through K3
+        Xm, ym = make_multiclass(DIST_MC_N)
+        cuda_hist_batched.reset_launches()
+        bm = xt.train({**MC_PARAMS, "dsplit": "row", "device_sketch": 0},
+                      xt.DMatrix(Xm, label=ym), 1)
+        res["k3_launches"] = cuda_hist_batched.launches
+        res["k3_sha"] = hashlib.sha256(bm.save_raw()).hexdigest()
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.barrier()
+
+
+def k2_bound(torch, gh, pos, n_node, block_rows=None, after=0):
+    """K2's own error bound on each node and channel, gamma_L sum|x| over
+    the node's rows (u = 2^-24, gamma_L = L u / (1 - L u)): in the
+    kernel's fixed order (csrc/node_stats.cu) a term passes at most L f32
+    additions, its thread's rows, five warp shuffles, the block's warps
+    and the cluster's blocks, plus ``after`` more (the ranks' rank-order
+    sum of blocks of ``block_rows`` rows); the f64 reference's own error,
+    n 2^-53 sum|x|, is added."""
+    from xgboost_tpu_torch.ops.cuda_node_stats import node_stats_plan
+    n = gh.shape[1]
+    p = node_stats_plan(block_rows or n, gh.shape[0], n_node)
+    L = (-(-p.rows_per_block // p.threads) + 5 + p.threads // 32 - 1
+         + p.cluster - 1 + after)
+    gamma = L * 2.0 ** -24 / (1 - L * 2.0 ** -24) + n * 2.0 ** -53
+    return gamma * node_sums_f64(torch, gh.abs(), pos, n_node)
+
+
+def ratio(got, exact, bound):
+    """max |got - exact| / bound: at most 1 passes K2's gate."""
+    return float(((got.double() - exact).abs() / bound.clamp_min(
+        1e-300)).max())
+
+
+def node_sums_f64(torch, gh, pos, n_node):
+    """K2's function in f64 (a reference for both f32 orders)."""
+    T = gh.shape[0]
+    slot = torch.where(pos < 0, n_node, pos).to(torch.int64)
+    idx = slot + (n_node + 1) * torch.arange(
+        T, dtype=torch.int64, device=gh.device)[:, None]
+    out = torch.zeros((T * (n_node + 1), 2), dtype=torch.float64,
+                      device=gh.device)
+    out.index_add_(0, idx.reshape(-1), gh.double().reshape(-1, 2))
+    return out.reshape(T, n_node + 1, 2)[:, :n_node]
+
+
+def read_ranks(d, world):
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_dist(torch, xt, kernels, card, main_out):
+    """Row-split training on the card (gates a-f of the module
+    docstring): W ranks over gloo through the port's launcher."""
+    import hashlib
+    import shutil
+
+    from xgboost_tpu_torch.binning import pack_cuts
+    from xgboost_tpu_torch.parallel.mesh import DataMesh
+    from xgboost_tpu_torch.parallel import sketch_device as tsd
+    t_phase = time.perf_counter()
+    cli_root = os.path.join(HERE, ".smoke_out", "cli")
+    train_buf = os.path.join(cli_root, "higgs-train.buffer")
+    test_buf = os.path.join(cli_root, "higgs-test.buffer")
+    text = os.path.join(cli_root, "higgs-test.libsvm")
+    root = os.path.join(HERE, ".smoke_out", "dist")
+    shutil.rmtree(root, ignore_errors=True)
+    conf = write_conf(
+        os.path.join(HERE, ".smoke_out", "dist.conf"), task="train",
+        objective="binary:logistic", max_depth=DEPTH, eta=0.1, max_bin=64,
+        num_round=ROUNDS, data=train_buf, **{"eval[test]": test_buf},
+        eval_metric="auc", silent=0, model_out="final.model")
+    cli = [sys.executable, "-m", "xgboost_tpu_torch", conf]
+    want_line = f"[{ROUNDS - 1}]\ttest-auc:{main_out['auc']:.6f}"
+    dirs = {}
+
+    def start(name, world, cmd):
+        d = dirs[name] = os.path.join(root, name)
+        os.makedirs(d)
+        return dist_launch(world, cmd, d)
+
+    # (a) W = 2 and 4 with the host sketch on every rank, (b) the
+    # default device sketch, (d) the split load of libsvm text against
+    # its replicated load: started at once (their times are not (e)'s)
+    procs = {f"cli{w}": start(f"cli{w}", w, cli + ["device_sketch=0"])
+             for w in DIST_WORLDS}
+    procs.update({
+        "sketch": start("sketch", 2, cli),
+        "split": start("split", 2, cli + [f"data={text}",
+                                          "device_sketch=1"]),
+        "replicated": start("replicated", 2, cli + [
+            f"data={text}", "device_sketch=1", "shard_load=0"]),
+    })
+    outs = dist_wait(procs)
+    for world in DIST_WORLDS:
+        name = f"cli{world}"
+        lines = dist_eval_lines(outs[name][1])
+        b = xt.Booster(model_file=os.path.join(dirs[name], "final.model"))
+        if not same_trees(b.gbtree.get_state(), main_out["state"]):
+            fail(f"[dist] W={world}: the model differs from [main]'s (tree "
+                 "arrays, cuts)")
+        if len(lines) != ROUNDS or lines[-1] != want_line:
+            fail(f"[dist] W={world}: {len(lines)} eval lines, last "
+                 f"{lines[-1:]}: want {want_line!r}")
+        print(f"[dist] (a) W={world}: launch -n {world} python -m "
+              f"xgboost_tpu_torch dist.conf device_sketch=0: "
+              f"{outs[name][2]:.1f} s, beside the other launches (start, "
+              f"buffer load, host sketch, binning, {ROUNDS} rounds); model "
+              f"== [main]'s, bitwise (tree arrays, cuts); last eval line "
+              f"{lines[-1]!r} == [main]'s", flush=True)
+    # (c) and (e) at W = 2: the checks worker, alone on the card
+    procs = {"check": start("check", 2, [
+        sys.executable, os.path.join(HERE, "chip_smoke.py"),
+        "--dist-worker", "", "check"])}
+    outs.update(dist_wait(procs))
+    # (b): the cuts of the CLI run against the device sketch on the CPU
+    # over the same two blocks
+    X = main_out["X"][:N_TRAIN]
+    K = tsd.sketch_size(64, 0.03, 2.0)
+    parts = []
+    for r in range(2):
+        start_r, stop_r, _ = DataMesh(r, 2, "cpu").block(N_TRAIN)
+        blk = torch.from_numpy(np.ascontiguousarray(X[start_r:stop_r].T))
+        parts.append(tsd.local_summary(blk, torch.ones(stop_r - start_r), K))
+    cpu_cuts = tsd.propose_cuts_dev(tsd.fold_summaries(parts, K), 63).numpy()
+    cpu_cuts = pack_cuts([c[np.isfinite(c)] for c in cpu_cuts])
+    b = xt.Booster(model_file=os.path.join(dirs["sketch"], "final.model"))
+    if not (np.array_equal(b.gbtree.cuts.cut_values, cpu_cuts.cut_values)
+            and np.array_equal(b.gbtree.cuts.n_cuts, cpu_cuts.n_cuts)):
+        fail("[dist] (b): the device sketch's cuts differ from the same "
+             "sketch on the CPU over the same blocks")
+    ranks = read_ranks(dirs["check"], 2)
+    sha = hashlib.sha256(cpu_cuts.cut_values.tobytes()
+                         + cpu_cuts.n_cuts.tobytes()).hexdigest()
+    if any(r["sketch_sha"] != sha for r in ranks):
+        fail("[dist] (b): a rank's device-sketch cuts differ")
+    lines = dist_eval_lines(outs["sketch"][1])
+    auc_b = float(lines[-1].rpartition(":")[2])
+    print(f"[dist] (b) W=2, the default device sketch: {outs['sketch'][2]:.1f}"
+          f" s; cuts == the device sketch on the CPU over the same blocks, "
+          f"== on every rank; holdout AUC {auc_b:.6f} (floor {AUC_FLOOR})",
+          flush=True)
+    if not auc_b >= AUC_FLOOR:
+        fail(f"[dist] (b): holdout AUC {auc_b} < {AUC_FLOOR}")
+    # (d)
+    bs, br = (xt.Booster(model_file=os.path.join(dirs[n], "final.model"))
+              for n in ("split", "replicated"))
+    if not same_trees(bs.gbtree.get_state(), br.gbtree.get_state()):
+        fail("[dist] (d): the split-loaded model differs from the "
+             "replicated load's")
+    if dist_eval_lines(outs["split"][1]) != dist_eval_lines(
+            outs["replicated"][1]):
+        fail("[dist] (d): split-loaded eval lines differ")
+    print(f"[dist] (d) W=2 on {N_TEST} rows of libsvm text: shard_load=1 "
+          f"(each rank parses its block) == the replicated load with "
+          f"device_sketch=1, bitwise; {outs['split'][2]:.1f} s and "
+          f"{outs['replicated'][2]:.1f} s", flush=True)
+    # (c)
+    for r in ranks:
+        bad = [lv for lv in r["levels"] if not (lv[3] and lv[4])]
+        if len(r["levels"]) != DEPTH or bad:
+            fail(f"[dist] (c) rank {r['rank']}: levels {r['levels']}")
+        if r["k2_launches"] != len(r["k2"]) or not all(c[1] <= 1 and c[2] <= 1 < c[3]
+                                  for c in r["k2"]):
+            fail(f"[dist] (c) rank {r['rank']}: refresh K2 [nodes, block "
+                 f"err / bound, reduced err / bound, planted fault err / "
+                 f"bound, ...] {r['k2']}")
+    mc = xt.train({**MC_PARAMS, "dsplit": "row", "device_sketch": 0},
+                  xt.DMatrix(*make_multiclass(DIST_MC_N)), 1)
+    mc_sha = hashlib.sha256(mc.save_raw()).hexdigest()
+    if any(r["k3_sha"] != mc_sha or r["k3_launches"] != DEPTH
+           for r in ranks):
+        fail("[dist] (c): the 6-class round at W=2 differs from W=1 or "
+             f"launched K3 {[r['k3_launches'] for r in ranks]} times")
+    k2_err = max(max(c[4], c[5]) for r in ranks for c in r["k2"])
+    k2_ratio = [max(c[i] for r in ranks for c in r["k2"]) for i in (1, 2)]
+    k2_fault = min(c[3] for r in ranks for c in r["k2"])
+    print(f"[dist] (c) W=2 round 0 on the card: K1 on each rank's block of "
+          f"{ranks[0]['levels'][0][0]} rows == plain, int8 bitwise, at all "
+          f"{DEPTH} levels; each reduced level == the plain histogram of all "
+          f"{N_TRAIN} rows, bitwise; a refresh pass's {ranks[0]['k2_launches']} "
+          f"K2 launches a rank, each node within K2's bound gamma_L "
+          f"sum_node|x| of its f64 sums: a block's at most "
+          f"{k2_ratio[0]:.4g} of the bound, the reduced sums of all rows "
+          f"{k2_ratio[1]:.4g} (max |K2 - f64| {k2_err:.4g}); a planted "
+          f"fault (16 rows of the fullest node dropped) reads at least "
+          f"{k2_fault:.4g} of it and fails; 6-class round ({DIST_MC_N} x 28, K3 "
+          f"{DEPTH} launches a rank) byte-equal to W=1", flush=True)
+    # (e): ms per round at W = 1 (this process: a world of one), 2 (the
+    # checks worker) and 4, collectives, each rank's launches
+    from xgboost_tpu_torch.obs import comm
+    dtrain = xt.DMatrix(train_buf)
+    b1 = xt.Booster(DIST_PARAMS, cache=[dtrain])
+    b1.update(dtrain, 0)
+    torch.cuda.synchronize()
+    before = comm.totals()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    b1.update_many(dtrain, 1, ROUNDS - 1)
+    torch.cuda.synchronize()
+    after = comm.totals()
+    timing = {1: [{"rank": 0, "ms_round": (time.perf_counter() - t0) * 1e3
+                   / (ROUNDS - 1), "counts": read_counts(kernels),
+                   "comm": {op: {k: (after[op][k] - before[op][k])
+                                 / (ROUNDS - 1) for k in after[op]}
+                            for op in after}}], 2: ranks}
+    del dtrain, b1
+    p = start("time4", 4, [sys.executable, os.path.join(
+        HERE, "chip_smoke.py"), "--dist-worker", "", "time"])
+    dist_wait({"time4": p})
+    timing[4] = read_ranks(dirs["time4"], 4)
+    want_k1 = (ROUNDS - 1) * DEPTH
+    for world, rs in sorted(timing.items()):
+        for r in rs:
+            want = dict(only(kernels, hist_level=want_k1)) if world == 1 \
+                else {"hist_level": want_k1, "hist_batched": 0,
+                      "node_stats": 0}
+            if r["counts"] != want:
+                fail(f"[dist] (e) W={world} rank {r['rank']}: counts "
+                     f"{r['counts']}: want {want}")
+        c = rs[0]["comm"]
+        print(f"[dist] (e) W={world}: {max(r['ms_round'] for r in rs):.3f} "
+              f"ms per round (slowest rank; rounds 1-{ROUNDS - 1}, host "
+              f"clock to synchronize); per round: allreduce "
+              f"{c['allreduce']['count']:.1f} calls, "
+              f"{c['allreduce']['bytes'] / 2 ** 20:.3f} MiB, "
+              f"{c['allreduce']['seconds'] * 1e3:.3f} ms; allgather "
+              f"{c['allgather']['count']:.1f} calls, "
+              f"{c['allgather']['bytes'] / 2 ** 20:.3f} MiB, "
+              f"{c['allgather']['seconds'] * 1e3:.3f} ms; each rank's "
+              f"launches {[r['counts'] for r in rs]} | {card}", flush=True)
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # the ranks' launches on [dist]'s counted paths: the timed rounds
+    # (K1), the refresh pass (K2) and the 6-class round (K3) of W=2
+    return {"hist_level": sum(r["counts"]["hist_level"] for r in ranks),
+            "hist_batched": sum(r["k3_launches"] for r in ranks),
+            "node_stats": sum(r["k2_launches"] for r in ranks),
+            "node_stats_err": k2_err}
 
 
 def phase_multiclass(torch, xt, kernels, device, card):
@@ -3015,9 +3455,9 @@ def phase_subtract(torch, xt, cuda_hist, kernels, device, card, main_out):
                                 cuda_hist.level_histogram, kn.node_stats)
         levels, k1_calls, k2_calls = [], [], []
 
-        def sub(*args):
+        def sub(*args, **kw):
             levels.append(args)
-            return sub_fn(*args)
+            return sub_fn(*args, **kw)
 
         def k1(bins, gh, pos, n_node, n_bin, mode):
             k1_calls.append((bins, gh, pos, n_node, n_bin, mode))
@@ -5039,6 +5479,9 @@ def kernel_record(name, source, replaces, launches, max_err, rows):
 
 def main():
     sys.stdout.reconfigure(line_buffering=True)
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2], sys.argv[3])
+        return
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -5092,6 +5535,7 @@ def main():
     t0 = time.perf_counter()
     phase_cli(torch, xt, kernels, "cuda", card, main_out)
     print(f"[cli] checks {time.perf_counter() - t0:.1f} s")
+    dist_launches = phase_dist(torch, xt, kernels, card, main_out)
     t0 = time.perf_counter()
     s_launches, s_ms, draw_ms, _ = phase_sample(torch, xt, cuda_hist,
                                                 kernels, "cuda", card,
@@ -5198,19 +5642,23 @@ def main():
                       launches + s_launches + sub_k1 + r_launches
                       + p_launches + upd_launches["hist_level"]
                       + ext_launches["hist_level"]
-                      + rk_launches + rs_launches + api_launches,
+                      + rk_launches + rs_launches + api_launches
+                      + dist_launches["hist_level"],
                       max(max_err, rk_err, ext_errs["hist_level"]), rows),
         kernel_record("hist_batched",
                       "xgboost_tpu_torch/csrc/hist_batched.cu",
                       "xgboost_tpu/ops/pallas_hist.py:374",
                       mc_launches + f_launches + rf_launches + smc_k3
-                      + upd_launches["hist_batched"], mc_err, k3_rows),
+                      + upd_launches["hist_batched"]
+                      + dist_launches["hist_batched"], mc_err, k3_rows),
         kernel_record("node_stats", "xgboost_tpu_torch/csrc/node_stats.cu",
                       "xgboost_tpu/ops/pallas_hist.py:609",
                       d0_launches + sub_k2 + smc_k2
                       + upd_launches["node_stats"]
-                      + ext_launches["node_stats"],
-                      max(d0_err, ext_errs["node_stats"]), k2_rows),
+                      + ext_launches["node_stats"]
+                      + dist_launches["node_stats"],
+                      max(d0_err, ext_errs["node_stats"],
+                          dist_launches["node_stats_err"]), k2_rows),
         kernel_record("hist_lanes", "xgboost_tpu_torch/csrc/hist_lanes.cu",
                       "xgboost_tpu/ops/pallas_hist.py:283",
                       k4_launches + sl_launches + smc_k4, k4_err, k4_rows),

@@ -602,8 +602,8 @@ def test_task_lanes_matches_run_tenant_lanes(tmp_path):
 
 # ------------------------------------------------ what is not ported
 @pytest.mark.parametrize("arg,item", [
-    ("task=stream", 15), ("mock=0,1,1", 13), ("keepalive=1", 13),
-    ("shard_load=0", 13), ("dsplit=row", 13)])
+    ("task=stream", 15), ("mock=0,1,1", "13b"), ("keepalive=1", "13b"),
+    ("dsplit=col", "13b"), ("updater=distcol", "13b")])
 def test_unported_names_raise_with_their_item(svm, tmp_path, arg, item):
     d = svm["dense"]
     conf = write_conf(tmp_path / "u.conf", **base_conf(d["train"], d["test"]))
@@ -668,7 +668,12 @@ def test_fleet_router_placer_and_metrics_port_run(svm, tmp_path):
 
 
 def test_multi_host_launch_raises_item_13(svm, tmp_path, monkeypatch):
+    """``XGBTPU_COORD`` without ``XGBTPU_WORKER_ID`` / ``XGBTPU_NUM_WORKER``
+    asks for ranks from a scheduler's environment, which is item 13b
+    (the port's launcher exports both: ``tests/test_torch_launch.py``)."""
     monkeypatch.setenv("XGBTPU_COORD", "localhost:1234")
+    monkeypatch.delenv("XGBTPU_WORKER_ID", raising=False)
+    monkeypatch.delenv("XGBTPU_NUM_WORKER", raising=False)
     d = svm["dense"]
     conf = write_conf(tmp_path / "u.conf", **base_conf(d["train"], d["test"]))
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -6,11 +6,15 @@ Tolerances and why:
 
 - the bias of a boosting step bitwise: its row sums follow XLA's CPU
   reduction order (``ops/histogram.bin_sum``);
-- weights within rtol 1e-5 / atol 1e-6: the block products ``X_b^T g``
-  are XLA CPU dots, whose summation order the port does not replay, and
-  coordinate descent carries each step's last bits into the next (a few
-  ulp; ROADMAP.md section 3, F9); a weight the elastic net zeroes is
-  zero in both;
+- boosting steps bitwise, one output group at blocks 1 and 4 and
+  several at block 1 (the port replays XLA's CPU dot and update orders,
+  read from its dumped LLVM IR, ``models/gblinear._xla_loop_dot`` /
+  ``_fma_chain`` / ``_update_cpu``), and so the trained weights of one
+  group; a multiclass model within rtol 1e-5 / atol 1e-6, since its
+  margin ``X @ W`` is a library GEMM (Eigen) in the JAX package, as are
+  the products at a block above 1, and fewer than ~500 rows unroll
+  otherwise (a few ulp; ROADMAP.md section 3, F9); a weight the elastic
+  net zeroes is zero in both;
 - eval lines (``train`` and ``cv``) byte-equal; predictions within
   1e-5;
 - one model file: dumps, predictions and the CLI's ``task=pred`` /
@@ -133,13 +137,57 @@ def trained(request, tmp_path_factory):
 
 def test_weights_and_bias_match_jax(trained):
     bj, bt = trained["jax"]["bst"], trained["port"]["bst"]
-    np.testing.assert_allclose(bt.gbtree.weight.numpy(),
-                               np.asarray(bj.gbtree.weight),
-                               rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(bt.gbtree.bias.numpy(),
-                               np.asarray(bj.gbtree.bias),
-                               rtol=RTOL, atol=ATOL)
+    for got, want in ((bt.gbtree.weight, bj.gbtree.weight),
+                      (bt.gbtree.bias, bj.gbtree.bias)):
+        if trained["obj"] == "multi:softmax":
+            # each step is bitwise (test_one_group_step_is_bitwise), but
+            # a K > 1 margin X @ W is a library GEMM in the JAX package
+            # (F9): its last bits reach the next round's gradients
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=RTOL, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert bt.gbtree.version == bj.gbtree.version == ROUNDS
+
+
+@pytest.mark.parametrize("n,block,K", [(2400, 1, 1), (2400, 4, 1),
+                                       (3000, 1, 1), (1200, 4, 1),
+                                       (2400, 1, 3), (2403, 1, 3)])
+def test_one_group_step_is_bitwise(n, block, K):
+    """Three chained steps bitwise: one output group at blocks 1 and 4,
+    rows a multiple of 32 or not (the dot's epilogue loop at 8 lanes,
+    16 and 24 rows past the main loop), and three groups at block 1
+    (FMA chains, the update's third column rounded apart, 3 rows past
+    the last whole 8)."""
+    rng = np.random.RandomState(n + block)
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < 0.1] = 0.0
+    gh = np.stack([rng.randn(n, K), rng.rand(n, K) + 0.5],
+                  -1).astype(np.float32)
+    wj, bj = jnp.zeros((F, K)), jnp.zeros(K)
+    wt, bt = torch.zeros(F, K), torch.zeros(K)
+    XT = torch.from_numpy(np.ascontiguousarray(X.T))
+    for _ in range(3):
+        wj, bj = jgl._linear_boost_step(jnp.asarray(X), jnp.asarray(gh),
+                                        wj, bj, 0.5, 1.0, 0.01, 0.0,
+                                        block=block)
+        wt, bt = tgl._linear_boost_step(XT, torch.from_numpy(gh), wt, bt,
+                                        0.5, 1.0, 0.01, 0.0, block=block)
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+        np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+
+
+def test_k_group_products_are_fma_chains():
+    """K = 3 at block 1: each block's ``Gf`` / ``Hf`` is XLA's elemental
+    dot, one FMA chain over the rows (``_fma_chain``), bitwise against
+    the same product by an XLA CPU dot of that form."""
+    rng = np.random.RandomState(9)
+    n = 2400
+    x = rng.randn(n).astype(np.float32)
+    Y = rng.randn(n, 3).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x, Y, b: jax.lax.dynamic_slice_in_dim(
+        x[:, None], b, 1, 1).T @ Y)(jnp.asarray(x), jnp.asarray(Y), 0))[0]
+    np.testing.assert_array_equal(tgl._fma_chain(x, Y), want)
 
 
 def test_eval_lines_byte_equal(trained):
@@ -253,10 +301,17 @@ def test_engine_and_feature_importance_refuse_gblinear(trained):
 
 
 def test_dsplit_row_gblinear_names_item_13():
+    """``dsplit=row`` gblinear trains (a world of one without a process
+    group: the weights of ``dsplit=auto``); ``dsplit=col`` raises naming
+    item 13b."""
     X, y, _, _ = _data(4)
+    d = xt.DMatrix(X[:640], label=y[:640])
+    row = xt.train(_params("reg:linear", dsplit="row"), d, 2, device="cpu")
+    auto = xt.train(_params("reg:linear"), d, 2, device="cpu")
+    np.testing.assert_array_equal(row.gbtree.weight.numpy(),
+                                  auto.gbtree.weight.numpy())
     with pytest.raises(NotImplementedError, match="item 13"):
-        xt.train(_params("reg:linear", dsplit="row"),
-                 xt.DMatrix(X[:64], label=y[:64]), 1, device="cpu")
+        xt.train(_params("reg:linear", dsplit="col"), d, 1, device="cpu")
 
 
 def test_sklearn_gblinear_matches_jax():

@@ -103,6 +103,47 @@ def pack_cuts(per_feature) -> CutMatrix:
     return CutMatrix(cut_values, n_cuts)
 
 
+def compute_cuts_exact(dmat: DMatrix, max_exact_bin: int = 4096
+                       ) -> CutMatrix:
+    """Cuts at every distinct value of each feature, the minimum
+    included (``binning.py:162-200``): the quantized form of exact greedy
+    growth that ``updater=grow_colmaker`` trains under ``dsplit=row``.  A
+    split before each distinct value enumerates the reference's sorted
+    scan's partitions (only the recorded threshold differs); a cut at
+    the minimum, with the learned default direction, is the
+    missing-against-present split.  A feature with more than
+    ``max_exact_bin`` distinct values gets that many quantile cuts, with
+    a note on stderr from rank 0."""
+    import sys
+    per_feature = []
+    n_capped = 0
+    for f in range(dmat.num_col):
+        _, vals = dmat.column_values(f)
+        uniq = np.unique(vals)
+        if len(uniq) > max_exact_bin:
+            n_capped += 1
+            cuts = propose_cuts(
+                prune_summary(make_summary(vals), 2 * max_exact_bin),
+                max_exact_bin)
+        else:
+            cuts = uniq.astype(np.float32)
+        per_feature.append(cuts)
+    if n_capped and _rank0():
+        print(f"[grow_colmaker] {n_capped}/{dmat.num_col} features exceed "
+              f"max_exact_bin={max_exact_bin} distinct values and were "
+              "quantized to that many cuts: dsplit=row exact mode is "
+              "approximate past the cap (single-device training uses the "
+              "uncapped exact grower; the reference itself runs histmaker, "
+              "not exact, under row split)", file=sys.stderr)
+    return pack_cuts(per_feature)
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
 def bin_matrix(dmat: DMatrix, cuts: CutMatrix) -> np.ndarray:
     """Dense (n_rows, F) bin ids (0 = missing): u8, or u16 past 256 bins.
     Absent entries and stored NaNs are missing."""

@@ -44,9 +44,21 @@ does device work, so neither reads ``device=``.  ``metrics_port=N``
 serves live ``/metrics`` and ``/healthz`` during ``task=train`` and
 ``task=pipeline`` (0 = ephemeral, -1 = off).
 
+Row-split distributed training (:mod:`xgboost_tpu_torch.parallel`):
+under ``XGBTPU_COORD`` / ``XGBTPU_NUM_WORKER`` / ``XGBTPU_WORKER_ID``
+(``python -m xgboost_tpu_torch.parallel.launch -n N python -m
+xgboost_tpu_torch <config>``, or a scheduler exporting them) the task
+joins the world before any device use, ``dsplit`` defaults to ``row``,
+ranks other than 0 are silenced and leave ``pred`` / ``eval`` / ``dump``
+to rank 0, rank 0 alone writes models and checkpoints, and a resume is
+rank 0's checkpoint broadcast to every rank.  The training text is
+split-loaded per rank (``shard_load=1``, the default; ``shard_load=0``
+loads it whole on every rank).  A fatal error ends the rank's process at
+once, so the launcher sees it die.
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md
-section 1 item: ``stream`` (item 15), ``mock=``, ``keepalive``,
-``shard_load`` and the multi-host launcher (item 13).
+section 1 item: ``stream`` (item 15), ``mock=`` and ``keepalive``
+(item 13b).
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ import re
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from xgboost_tpu_torch.config import (CATALOG_PARAMS, FLEET_PARAMS,
                                       LANE_PARAMS, PIPELINE_PARAMS,
@@ -132,9 +146,8 @@ task=lanes parameters (gang-batched multi-tenant training):
 
 # name -> (ROADMAP.md section 1 item, what it is)
 _UNPORTED_TASKS = {"stream": (15, "streaming continuous training")}
-_UNPORTED_PARAMS = {"mock": (13, "collective fault injection"),
-                    "keepalive": (13, "restart on a worker's failure"),
-                    "shard_load": (13, "per-rank split loading")}
+_UNPORTED_PARAMS = {"mock": ("13b", "collective fault injection"),
+                    "keepalive": ("13b", "restart on a worker's failure")}
 
 
 class BoostLearnTask:
@@ -153,6 +166,9 @@ class BoostLearnTask:
         self.save_base64 = 0
         self.task = "train"
         self.device = "cuda"
+        self.shard_load = 1  # per-rank split loading in distributed mode
+        self.rank = 0        # this process's rank under a launcher
+        self._distributed = False
         self.train_path = ""
         self.test_path = ""
         self.model_in: Optional[str] = None
@@ -180,6 +196,7 @@ class BoostLearnTask:
         "silent": int, "use_buffer": int, "num_round": int,
         "save_period": int, "eval_train": int, "pred_margin": int,
         "ntree_limit": int, "dump_stats": int, "save_base64": int,
+        "shard_load": int,
     }
 
     def set_param(self, name: str, val: str) -> None:
@@ -272,29 +289,60 @@ class BoostLearnTask:
         if self.faults_spec:
             from xgboost_tpu_torch.reliability import faults
             faults.install_spec(self.faults_spec)
-        if os.environ.get("XGBTPU_COORD"):
-            raise NotImplementedError(
-                "multi-host workers (XGBTPU_COORD) are ROADMAP.md section 1 "
-                "item 13")
+        # a rank of a launched world (parallel/launch.py or a scheduler
+        # exporting XGBTPU_COORD): join it before any device use, train
+        # dsplit=row, silence the other ranks, save from rank 0 only
+        # (reference xgboost_main.cpp:48-50, :242-245)
+        from xgboost_tpu_torch.parallel.launch import init_worker
+        if self.task not in ("fleet_router", "placer"):
+            self._distributed = init_worker(self.device)
+        if self._distributed:
+            import torch.distributed as dist
+            self.rank = dist.get_rank()
+            if not any(k == "dsplit" for k, _ in self.learner_params):
+                self.set_param("dsplit", "row")
+            if self.rank != 0:
+                self.silent = max(self.silent, 2)
+                if self.task != "train":
+                    # pred / eval / dump are one rank's work (and
+                    # concurrent writes of one output would race)
+                    return 0
+            # a fatal error ends this rank at once: the other ranks wait
+            # in a collective, and the launcher must see it die
+            try:
+                return self._dispatch()
+            except SystemExit:
+                raise
+            except BaseException:
+                import traceback
+                from xgboost_tpu_torch.reliability.rc import WORKER_CRASH_RC
+                traceback.print_exc()
+                sys.stderr.flush()
+                os._exit(WORKER_CRASH_RC)
         return self._dispatch()
 
     def _setup_obs(self) -> None:
         """``obs_log=`` (or ``XGBTPU_OBS_LOG``) opens the JSONL event
         log; ``metrics_port=`` serves live ``/metrics`` + ``/healthz``
         from a daemon thread during ``task=train|pipeline``
-        (``xgboost_tpu/cli.py:350-375``; one process, rank 0)."""
+        (``xgboost_tpu/cli.py:350-375``); rank r of a launched world
+        writes ``<obs_log>.rank<r>`` and serves on ``metrics_port + r``."""
         from xgboost_tpu_torch import obs
         params = self._params_dict()
         obs_path = params.get("obs_log") or os.environ.get("XGBTPU_OBS_LOG")
         if obs_path:
+            if self.rank != 0:
+                obs_path = f"{obs_path}.rank{self.rank}"
             obs.configure_log(obs_path)
         port = int(params.get("metrics_port", -1))
         if port >= 0 and self.task in ("train", "pipeline"):
-            srv = obs.start_metrics_server(port=port)
+            # rank r serves its own collective stats on port + r
+            srv = obs.start_metrics_server(
+                port=port + self.rank if port > 0 else 0, rank=self.rank)
             if self.silent < 2:
                 print(f"[obs] training metrics on "
-                      f"http://{srv.host}:{srv.port}/metrics (rank 0)",
-                      file=sys.stderr)
+                      f"http://{srv.host}:{srv.port}/metrics "
+                      f"(rank {self.rank})", file=sys.stderr)
 
     def _dispatch(self) -> int:
         if self.task in _UNPORTED_TASKS:
@@ -336,7 +384,38 @@ class BoostLearnTask:
             bst.set_param(self._params_dict())
         return bst
 
+    def _load_train_data(self):
+        """The training data: split-loaded per rank under a launcher with
+        ``dsplit=row`` (``xgboost_tpu/cli.py:436-474``; the reference's
+        rank / npart partition of text loads), when the data is a libsvm
+        text file and every eval metric of ``eval_train`` has a partial-sum
+        form; else the whole matrix on every rank.  ``shard_load=0`` opts
+        out."""
+        path = self.train_path
+        params = self._params_dict()
+        from xgboost_tpu_torch.metrics import _DIST_METRICS
+        metrics = params.get("eval_metric", [])
+        metrics = [metrics] if isinstance(metrics, str) else list(metrics)
+        eligible = (
+            self._distributed and self.shard_load
+            and params.get("dsplit", "row") == "row"
+            and params.get("booster", "gbtree") != "gblinear"
+            and not str(params.get("objective", "")).startswith("rank:")
+            and "grow_colmaker" not in str(params.get("updater", ""))
+            and (not self.eval_train
+                 or all(m.partition("@")[0] in _DIST_METRICS
+                        for m in metrics))
+            and not path.startswith(("ext:", "!")) and "#" not in path
+            and path != "stdin" and os.path.exists(path)
+            and _looks_like_text(path))
+        if eligible:
+            from xgboost_tpu_torch.parallel.sharded import ShardedDMatrix
+            return ShardedDMatrix(path, silent=self.silent != 0)
+        return self._load_data(path)
+
     def _save(self, bst, i: Optional[int] = None) -> None:
+        if self.rank != 0:   # rank-0-only saves (xgboost_main.cpp:242-245)
+            return
         if i is None:
             path = self.model_out
         else:
@@ -373,7 +452,7 @@ class BoostLearnTask:
             if self.save_period != 0 \
                     and (last_i + 1) % self.save_period == 0:
                 self._save(bst, last_i)
-            if self.checkpoint_dir:
+            if self.checkpoint_dir and self.rank == 0:
                 _save_checkpoint(self.checkpoint_dir, bst, last_i + 1)
 
         bst.update_many(data, start_round, self.num_round - start_round,
@@ -383,7 +462,7 @@ class BoostLearnTask:
                         boundary_align=self.save_period)
 
     def task_train(self) -> int:
-        data = self._load_data(self.train_path)
+        data = self._load_train_data()
         evals = [(self._load_data(p), n)
                  for p, n in zip(self.eval_paths, self.eval_names)]
         if self.eval_train:
@@ -391,9 +470,13 @@ class BoostLearnTask:
         bst = self._make_booster(cache=[data] + [d for d, _ in evals])
         start_round = 0
         if self.checkpoint_dir:
-            bst, start_round = _load_checkpoint(
-                self.checkpoint_dir, bst, self._params_dict())
-            if start_round:
+            if self.rank == 0:   # other ranks get rank 0's resume below
+                bst, start_round = _load_checkpoint(
+                    self.checkpoint_dir, bst, self._params_dict())
+            if self._distributed:
+                bst, start_round = _broadcast_checkpoint(
+                    bst, start_round, self.rank, self._params_dict())
+            if start_round and self.rank == 0:
                 print(f"[ckpt] resume at round {start_round} "
                       f"({time.perf_counter() - _T0:.2f}s from process "
                       "start)", file=sys.stderr)
@@ -705,6 +788,34 @@ def _load_checkpoint(ckpt_dir: str, bst, params: dict):
             bst.set_param(params)
         return bst, int(name[5:11])
     return bst, 0
+
+
+def _broadcast_checkpoint(bst, start_round: int, rank: int, params: dict):
+    """Rank 0's recovered model and round on every rank
+    (``xgboost_tpu/cli.py:969-988``; ``rabit::LoadCheckPoint``), so every
+    rank resumes at the same round without a shared file system."""
+    from xgboost_tpu_torch.parallel.mesh import data_parallel_mesh
+    payload = b""
+    if rank == 0:   # the round, then the model when there is one
+        payload = np.int64(start_round).tobytes() + (
+            bst.save_raw() if start_round > 0 else b"")
+    payload = data_parallel_mesh().broadcast_bytes(payload)
+    rounds = int(np.frombuffer(payload[:8], np.int64)[0])
+    if rounds and rank != 0:
+        bst.load_raw(payload[8:])
+        bst.set_param(params)
+    return bst, rounds
+
+
+def _looks_like_text(path: str) -> bool:
+    """A libsvm text file, not a binary buffer: no NUL byte in its first
+    bytes and no zip magic (``xgboost_tpu/cli.py:874-882``)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(256)
+    except OSError:
+        return False
+    return bool(head) and b"\x00" not in head and not head.startswith(b"PK")
 
 
 if __name__ == "__main__":

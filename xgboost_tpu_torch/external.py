@@ -518,8 +518,8 @@ def _paged_level_hist(batch: torch.Tensor, gh_in: torch.Tensor,
 
 def grow_tree_paged(dmat: ExtMemDMatrix, gh: torch.Tensor,
                     cut_values: torch.Tensor, n_cuts: torch.Tensor,
-                    cfg: GrowConfig, key=None, split_finder=None
-                    ) -> Tuple[TreeArrays, torch.Tensor]:
+                    cfg: GrowConfig, key=None, split_finder=None,
+                    mesh=None) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree level by level over the streamed batches of
     ``dmat`` (``external.py:549-621``).
 
@@ -532,7 +532,16 @@ def grow_tree_paged(dmat: ExtMemDMatrix, gh: torch.Tensor,
     at the terminal level) and node sums (K2) to the level's, in batch
     order.  The level's node sums drive the split search, as in the JAX
     package.  Returns (the tree as a (1, n_nodes) stack, the (N,) int32
-    leaf node of each row)."""
+    leaf node of each row).
+
+    Under row split (``mesh``, ``external.py:521-546``) every rank holds
+    the matrix and all rows' gradients (one int8 scale for all of them);
+    each batch's rows are split into the ranks' blocks, this rank builds
+    the partial K1 and K2 sums of its block, and they are reduced over
+    the ranks before they are added across batches.  Every rank routes
+    all rows, so every rank returns every row's leaf."""
+    from xgboost_tpu_torch.parallel.dp import hist_reduce
+    red = hist_reduce(mesh)
     if split_finder is None:
         split_finder = find_best_splits_native
     dev = gh.device
@@ -565,9 +574,17 @@ def grow_tree_paged(dmat: ExtMemDMatrix, gh: torch.Tensor,
                 bpos = _advance(tree, depth - 1, batch, bpos,
                                 row_leaf[rows])
                 pos[rows] = bpos
-            h, s = _paged_level_hist(batch, prep.gh_in[rows], gh[rows],
-                                     bpos, n_node, cfg.n_bin, mode,
-                                     not terminal)
+            mine = slice(None)
+            if red is not None:
+                # this rank's block of the batch's rows
+                b0, b1, _ = mesh.block(n)
+                mine = slice(min(b0, n), min(b1, n))
+            h, s = _paged_level_hist(batch[mine], prep.gh_in[rows][mine],
+                                     gh[rows][mine], bpos[mine], n_node,
+                                     cfg.n_bin, mode, not terminal)
+            if red is not None:
+                h = None if h is None else red(h)
+                s = red(s)
             if h is not None:
                 hist = h if hist is None else hist + h
             nst = s if nst is None else nst + s

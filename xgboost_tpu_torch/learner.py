@@ -14,6 +14,17 @@ keeps no matrix on the device, its batches streamed at every level
 
 Every entry point runs on ``device`` (default ``"cuda"``); without a GPU
 it raises unless the caller asks for ``"cpu"``.
+
+``dsplit=row`` trains across the ranks of a ``torch.distributed`` world
+(:mod:`xgboost_tpu_torch.parallel`): each rank keeps the block of every
+matrix's rows that the JAX mesh gives its device, and the histograms,
+node sums and gblinear sums are reduced over the ranks.  Custom
+objectives and ``boost`` see and give every row; ``predict`` and the eval
+lines of a replicated matrix read the gathered margins, so they are
+byte-equal to a world of one; a split-loaded matrix
+(:class:`~xgboost_tpu_torch.parallel.sharded.ShardedDMatrix`) reduces
+metric partials instead.  Without a process group ``dsplit=row`` is a
+world of one and trains the model of ``dsplit=auto``.
 """
 
 from __future__ import annotations
@@ -66,11 +77,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_ITEM_13B = "ROADMAP.md section 1 item 13b"
+
+
 def _check_param(p: TrainParam) -> None:
-    if p.dsplit not in ("auto",):
+    if p.dsplit == "col":
         raise NotImplementedError(
-            f"dsplit={p.dsplit}: distributed training is ROADMAP.md section "
-            "1 item 13")
+            f"dsplit=col (column-split training) is {_ITEM_13B}")
+    if p.dsplit not in ("auto", "row"):
+        raise ValueError(f"dsplit={p.dsplit!r}: expected auto, row or col")
+    if p.dsplit == "row" and p.objective.startswith("rank:"):
+        raise NotImplementedError(
+            f"ranking on row-sharded data (dsplit=row, {p.objective}) is "
+            f"{_ITEM_13B}")
 
 
 class _CacheEntry:
@@ -104,6 +123,10 @@ class _CacheEntry:
         # an external-memory matrix over the device budget: no ``binned``
         # tensor; its batches stream from the matrix's binned memmap
         self.external = False
+        # row split: the metadata of this rank's block, and the block
+        # (start, stop, rows, all rows) of the padded layout
+        self.info = dmat.info
+        self.block: Optional[Tuple[int, int, int, int]] = None
 
     def user_rows(self, x):
         """The user's rows of a host per-row array, in the user's order."""
@@ -158,6 +181,10 @@ class Booster:
         self.attributes: Dict[str, str] = {}
         self._profiler = None
         self._rank_path_told = False
+        # dsplit=row: this rank's world (resolved at _lazy_init), and
+        # the same when it has more than one rank (None otherwise)
+        self._mesh = None
+        self._dist = None
         self._pending_cache = list(cache)
         if model_file is not None:
             self.load_model(model_file)
@@ -213,38 +240,93 @@ class Booster:
     def _lazy_init(self, dtrain: DMatrix):
         if self.obj is None:
             self._init_obj()
+        if self.param.dsplit == "row" and self._mesh is None:
+            self._mesh = self._resolve_mesh(dtrain)
+            self._dist = self._mesh if self._mesh.world > 1 else None
         if self.gbtree is None and self._linear:
             from xgboost_tpu_torch.models.gblinear import GBLinear
+            if getattr(dtrain, "is_sharded", False):
+                raise NotImplementedError(
+                    "gblinear reads dense feature columns; per-rank split "
+                    "loading supports gbtree only")
             self.num_feature = dtrain.num_col
             self.gbtree = GBLinear(self.param, dtrain.num_col, self.device)
         elif self.gbtree is None:
-            from xgboost_tpu_torch.models.updaters import parse_updaters
             self.num_feature = dtrain.num_col
-            external = getattr(dtrain, "is_external", False)
-            if external:
-                # the streaming sketch over the raw pages, shared by the
-                # boosters on the matrix as a DMatrix's cuts are; paged
-                # matrices are binned end to end, whatever the updater
-                # (learner.py:252-260, :313-316)
-                key = (self.param.max_bin, self.param.sketch_eps,
-                       self.param.sketch_ratio)
-                cuts = dtrain._cuts.get(key)
-                if cuts is None:
-                    cuts = dtrain._cuts[key] = dtrain.sketch_cuts(*key)
-            elif "grow_colmaker" in parse_updaters(self.param.updater):
-                # exact mode is bin-free: an (F, 1) cut matrix of +inf
-                # holds the place (learner.py:271-283)
-                cuts = CutMatrix(
-                    np.full((dtrain.num_col, 1), np.inf, np.float32),
-                    np.zeros(dtrain.num_col, np.int32))
-            else:
-                cuts = self._cuts_of(dtrain)
-            self.gbtree = GBTree(self.param, cuts, self.device)
-            if external:
+            self.gbtree = GBTree(self.param, self._initial_cuts(dtrain),
+                                 self.device)
+            if getattr(dtrain, "is_external", False):
                 self.gbtree.exact_raw = False
         for d in self._pending_cache:
             self._entry(d)
         self._pending_cache = []
+
+    def _resolve_mesh(self, dtrain):
+        """This booster's world under ``dsplit=row``: the installed one
+        (``set_mesh``), else the initialised ``torch.distributed`` world,
+        else a world of one, on this booster's device."""
+        from xgboost_tpu_torch.parallel import mesh as pmesh
+        from xgboost_tpu_torch.parallel.mesh import DataMesh
+        m = pmesh.data_parallel_mesh(self.device)
+        if getattr(dtrain, "is_sharded", False) and (
+                dtrain.mesh.world, dtrain.mesh.rank) != (m.world, m.rank):
+            raise ValueError("the ShardedDMatrix was loaded for another "
+                             "world than this booster's")
+        return DataMesh(m.rank, m.world, self.device, m.group, m.backend)
+
+    def _initial_cuts(self, dtrain) -> CutMatrix:
+        """The new model's cuts, in the JAX package's order
+        (``learner.py:223-300``)."""
+        from xgboost_tpu_torch.models.updaters import parse_updaters
+        exact = "grow_colmaker" in parse_updaters(self.param.updater)
+        p = self.param
+        if getattr(dtrain, "is_sharded", False):
+            # per-rank split loading: no rank holds a full column, so
+            # the device sketch over the ranks' blocks
+            if p.dsplit != "row":
+                raise NotImplementedError(
+                    "a ShardedDMatrix is row-block loaded: train it with "
+                    "dsplit=row")
+            if exact:
+                raise NotImplementedError(
+                    "updater=grow_colmaker needs cuts at every distinct "
+                    "value, which no rank can propose from its block; "
+                    "load replicated for exact-greedy training")
+            from xgboost_tpu_torch.parallel.sketch_device import \
+                sketch_cuts_global
+            vals, w = dtrain.device_raw(self.device)
+            return sketch_cuts_global(self._mesh, vals, w, p.max_bin,
+                                      p.sketch_eps, p.sketch_ratio)
+        if getattr(dtrain, "is_external", False):
+            # the streaming sketch over the raw pages, shared by the
+            # boosters on the matrix as a DMatrix's cuts are; paged
+            # matrices are binned end to end, whatever the updater
+            # (learner.py:252-260, :313-316)
+            key = (p.max_bin, p.sketch_eps, p.sketch_ratio)
+            cuts = dtrain._cuts.get(key)
+            if cuts is None:
+                cuts = dtrain._cuts[key] = dtrain.sketch_cuts(*key)
+            return cuts
+        if exact and p.dsplit == "row":
+            # exact greedy under row split is the histogram grower on
+            # the cuts of every distinct value (learner.py:261-270)
+            from xgboost_tpu_torch.binning import compute_cuts_exact
+            return compute_cuts_exact(dtrain, p.max_exact_bin)
+        if exact:
+            # exact mode is bin-free: an (F, 1) cut matrix of +inf holds
+            # the place (learner.py:271-283)
+            return CutMatrix(np.full((dtrain.num_col, 1), np.inf, np.float32),
+                             np.zeros(dtrain.num_col, np.int32))
+        if p.dsplit == "row" and (p.device_sketch > 0 or (
+                p.device_sketch < 0 and self._mesh.world > 1)):
+            # the device sketch: every rank summarises its block, the
+            # summaries are gathered and folded in rank order
+            from xgboost_tpu_torch.parallel.sketch_device import \
+                sketch_cuts_mesh
+            return sketch_cuts_mesh(self._mesh, dtrain.to_dense(),
+                                    dtrain.info.weight, p.max_bin,
+                                    p.sketch_eps, p.sketch_ratio)
+        return self._cuts_of(dtrain)
 
     def _cuts_of(self, dtrain: DMatrix) -> CutMatrix:
         """The training matrix's quantile cuts.  The sketch reads every
@@ -311,8 +393,15 @@ class Booster:
                 raise ValueError(
                     f"data has {dmat.num_col} features, model was trained "
                     f"with {self.num_feature}")
+            if getattr(dmat, "is_sharded", False):
+                entry = self._cache[key] = self._make_shard_loaded_entry(
+                    dmat)
+                return entry
             if getattr(dmat, "is_external", False):
                 entry = self._cache[key] = self._build_ext_entry(dmat)
+            elif self._dist is not None:
+                entry = self._cache[key] = self._make_sharded_entry(dmat)
+                return entry
             elif self._linear:
                 entry = self._cache[key] = _CacheEntry(
                     dmat, self.gbtree.device_matrix(dmat),
@@ -330,6 +419,11 @@ class Booster:
                 entry = self._cache[key] = _CacheEntry(
                     dmat, binned, self._base_margin_of(dmat, dmat.num_row))
             entry.root = self._root_of(dmat, self._entry_rows(entry))
+        elif entry.info_version != dmat.info.version and (
+                entry.block is not None):
+            # a set_field since: a block entry's metadata is rebuilt
+            del self._cache[key]
+            return self._entry(dmat)
         elif entry.info_version != dmat.info.version:
             # a set_field since: the base margin, the root slots and the
             # margin built on them are stale
@@ -341,11 +435,105 @@ class Booster:
 
     def _entry_rows(self, entry: _CacheEntry) -> int:
         """The entry's device row count: its bins' rows (a padded rank
-        layout has more than the matrix), the matrix's rows for a
-        gblinear (feature-major) or streamed entry."""
+        layout has more than the matrix), the block's rows under row
+        split, the matrix's rows for a gblinear (feature-major) or
+        streamed entry."""
+        if entry.block is not None:
+            return entry.block[2]
         if entry.external or self._linear:
             return entry.dmat.num_row
         return int(entry.binned.shape[0])
+
+    # ------------------------------------------------------------ row split
+    def _block_info(self, info, rows: np.ndarray, m: int):
+        """The metadata of a block: the rows ``rows`` of ``info``, padded
+        to ``m`` rows with label 0 and weight 0, so that padding rows
+        give zero gradients (``learner.py:1992-2022``)."""
+        from xgboost_tpu_torch.data import MetaInfo
+        pad = m - len(rows)
+        out = MetaInfo()
+        if info.label is not None:
+            out.label = np.concatenate([np.asarray(info.label,
+                                                   np.float32)[rows],
+                                        np.zeros(pad, np.float32)])
+        weight = (np.ones(len(rows), np.float32) if info.weight is None
+                  else np.asarray(info.weight, np.float32)[rows])
+        out.weight = np.concatenate([weight, np.zeros(pad, np.float32)])
+        return out
+
+    def _make_sharded_entry(self, dmat: DMatrix,
+                            binned_mm=None) -> _CacheEntry:
+        """This rank's block of a replicated matrix under row split
+        (``learner.py:544-577``): the rows of the padded layout that the
+        JAX mesh gives this rank's device, binned here (byte-equal to
+        that block of the whole binned matrix), padding rows as bin 0
+        outside ``row_valid``, with the block's label, weight (0 on
+        padding) and base margin on the device.  A gblinear entry holds
+        the block's (F, m) columns; an external matrix that fits the
+        device passes its binned rows (``binned_mm``)."""
+        mesh = self._dist
+        n = dmat.num_row
+        start, stop, m = mesh.block(n)
+        rows = np.arange(start, min(stop, n), dtype=np.int64)
+        if self._linear:
+            XT = np.zeros((self.num_feature, m), np.float32)
+            XT[:, :len(rows)] = self.gbtree.host_matrix(dmat.slice(rows)).T
+            binned = torch.from_numpy(XT).to(self.device)
+        else:
+            b = (bin_matrix(dmat.slice(rows), self.gbtree.cuts)
+                 if binned_mm is None else binned_mm[start:start + len(rows)])
+            host = np.zeros((m, b.shape[1]), b.dtype)
+            host[:len(rows)] = b
+            binned = self._device_bins(host)
+        from xgboost_tpu_torch.parallel.dp import shard_rows
+        base = shard_rows(mesh, self._base_margin_of(dmat, n))
+        row_valid = torch.from_numpy(np.arange(start, stop) < n).to(
+            self.device)
+        entry = _CacheEntry(dmat, binned, base, row_valid=row_valid)
+        entry.info = self._block_info(dmat.info, rows, m)
+        entry.block = (start, stop, m, n)
+        root = self._root_of(dmat, n)
+        if root is not None:
+            entry.root = shard_rows(mesh, root)
+        return entry
+
+    def _make_shard_loaded_entry(self, dmat) -> _CacheEntry:
+        """The entry of a split-loaded matrix (``learner.py:579-630``):
+        the rank bins its own rows, padded to the block, which is the
+        same block a replicated load gives it, so both train the same
+        model."""
+        if self._linear:
+            raise NotImplementedError(
+                "gblinear reads dense feature columns; per-rank split "
+                "loading supports gbtree only")
+        n_loc, m, K = dmat.local_num_row, dmat.block_rows, self._K
+        b = bin_matrix(dmat._local, self.gbtree.cuts)
+        host = np.zeros((m, self.num_feature), b.dtype)
+        host[:n_loc, :b.shape[1]] = b[:, :self.num_feature]
+        if dmat._full_base_margin is not None:
+            base = np.asarray(dmat._full_base_margin, np.float32).reshape(
+                dmat.global_num_row, K)[dmat.row_start:dmat.row_end]
+        elif dmat.info.base_margin is not None:
+            base = np.asarray(dmat.info.base_margin,
+                              np.float32).reshape(n_loc, K)
+        else:
+            base = np.full((n_loc, K), self.obj.prob_to_margin(
+                self.param.base_score), np.float32)
+        base = torch.from_numpy(dmat.pad_local(base)).to(self.device)
+        entry = _CacheEntry(dmat, self._device_bins(host), base,
+                            row_valid=dmat.row_valid(self.device))
+        entry.info = self._block_info(dmat.info, np.arange(n_loc), m)
+        entry.block = (dmat.block_start, dmat.block_start + m, m,
+                       dmat.global_num_row)
+        return entry
+
+    def _gather_rows(self, entry: _CacheEntry, x: torch.Tensor
+                     ) -> torch.Tensor:
+        """A per-row tensor of a block entry gathered over the ranks,
+        padding rows cut: every row of the matrix, on every rank."""
+        if entry.block is None or self._dist is None:
+            return x
+        return torch.cat(self._dist.all_gather(x))[:entry.block[3]]
 
     def _build_ext_entry(self, dmat) -> _CacheEntry:
         """An external-memory matrix's entry (``learner.py:509-542``),
@@ -365,8 +553,11 @@ class Booster:
                 "in memory (DMatrix) for exact-mode predict/eval/train")
         if dmat._binned_mm is None or dmat._binned_cuts is not self.gbtree.cuts:
             dmat.build_binned(self.gbtree.cuts)
+        fits = dmat.fits_device_budget(self.device)
+        if fits and self._dist is not None:
+            return self._make_sharded_entry(dmat, dmat._binned_mm)
         base = self._base_margin_of(dmat, dmat.num_row)
-        if dmat.fits_device_budget(self.device):
+        if fits:
             return _CacheEntry(dmat,
                                self._device_bins(np.array(dmat._binned_mm)),
                                base)
@@ -558,14 +749,18 @@ class Booster:
             if prof:
                 p.block(entry.margin)
         if fobj is not None:
-            pred = entry.user_rows(
-                self.obj.pred_transform(entry.margin).cpu().numpy())
+            if getattr(entry.dmat, "is_sharded", False):
+                raise NotImplementedError(
+                    "custom objectives need every row's prediction and "
+                    "gradient; load replicated (DMatrix) for them")
+            pred = entry.user_rows(self._gather_rows(
+                entry, self.obj.pred_transform(entry.margin)).cpu().numpy())
             grad, hess = fobj(pred[:, 0] if pred.shape[1] == 1 else pred,
                               entry.dmat)
             self.boost(entry.dmat, grad, hess)
             return
         with ph("gradient") as p:
-            info = entry.dmat.info
+            info = entry.info
             if entry.labels_checked != info.version:
                 self.obj.validate_labels(info)
                 entry.labels_checked = info.version
@@ -587,7 +782,8 @@ class Booster:
         every cached margin is stale."""
         if self._linear:
             # gblinear (learner.py:1317-1323): the margin is recomputed
-            self.gbtree.do_boost(entry.binned, gh, entry.dmat.info)
+            self.gbtree.do_boost(entry.binned, gh, entry.info,
+                                 mesh=self._dist)
             entry.margin = None
             self._sync_margin(entry)
             return
@@ -600,7 +796,8 @@ class Booster:
                     "updater=refresh is not supported on external-memory "
                     "matrices")
             entry.margin = entry.margin + self.gbtree.do_boost_paged(
-                entry.dmat, gh, key=self._round_key(iteration))
+                entry.dmat, gh, key=self._round_key(iteration),
+                mesh=self._dist)
             entry.applied = self.gbtree.num_trees
             return
         grows = any(u.startswith("grow") for u in ups)
@@ -615,11 +812,12 @@ class Booster:
                 entry.binned, gh, row_valid=entry.row_valid,
                 key=self._round_key(iteration), root=entry.root,
                 exact_has_missing=entry.exact_has_missing,
-                exact_ranks=entry.exact_ranks)
+                exact_ranks=entry.exact_ranks, mesh=self._dist)
             entry.applied = self.gbtree.num_trees
         if "refresh" in ups:
             self.gbtree.do_refresh(entry.binned, gh,
-                                   row_valid=entry.row_valid, root=entry.root)
+                                   row_valid=entry.row_valid, root=entry.root,
+                                   mesh=self._dist)
             if "prune" in ups and self.param.gamma > 0.0 and not grows:
                 self.gbtree.prune_all()
             for e in self._cache.values():
@@ -648,14 +846,23 @@ class Booster:
         """One round grown from given gradients (``learner.py:1276-1304``;
         reference XGBoosterBoostOneIter): ``grad`` / ``hess`` per user row
         (and group), scattered to their slots on a padded rank entry,
-        whose padding slots get zeros.  The round's sampling key is that
-        of round ``num_boosted_rounds``."""
+        whose padding slots get zeros; under row split every row's,
+        of which this rank takes its block.  The round's sampling key is
+        that of round ``num_boosted_rounds``."""
+        if getattr(dtrain, "is_sharded", False):
+            raise NotImplementedError(
+                "boost needs every row's gradients; load replicated "
+                "(DMatrix) for it")
         self._lazy_init(dtrain)
         entry = self._entry(dtrain)
         self._sync_margin(entry)
         K = self._K
         g = np.asarray(grad, np.float32).reshape(dtrain.num_row, K)
         h = np.asarray(hess, np.float32).reshape(dtrain.num_row, K)
+        if entry.block is not None:
+            # every row's gradients: this rank takes its block's
+            from xgboost_tpu_torch.parallel.dp import shard_rows
+            g, h = shard_rows(self._dist, g), shard_rows(self._dist, h)
         if entry.rank_pad_prep is not None:
             n_dev = self._entry_rows(entry)
             gp = np.zeros((n_dev, K), np.float32)
@@ -687,7 +894,7 @@ class Booster:
                                         / per_round)))
 
     def _segment_blockers(self, n_rounds: int, fobj=None, entry=None,
-                          evals=()) -> List[str]:
+                          evals=(), feval=None) -> List[str]:
         """The JAX package's reasons for one round per dispatch
         (``learner.py:1041-1062``) that apply to the port, in its order."""
         from xgboost_tpu_torch.models.updaters import parse_updaters
@@ -706,6 +913,8 @@ class Booster:
             ("no_fused_grad", getattr(self.obj, "needs_host_margin", False)),
             ("external_eval", any(self._entry(d).external
                                   for d, _ in evals)),
+            ("sharded_eval_feval", feval is not None and any(
+                getattr(d, "is_sharded", False) for d, _ in evals)),
         )
         return [name for name, blocked in checks if blocked]
 
@@ -747,7 +956,8 @@ class Booster:
         entry = self._entry(dtrain)
         evals = list(evals) if evals else []
         k = 0
-        if not self._segment_blockers(n_rounds, fobj, entry, evals):
+        if not self._segment_blockers(n_rounds, fobj, entry, evals,
+                                      feval):
             k = self._resolve_rounds_per_dispatch(dtrain.num_row,
                                                   rounds_per_dispatch)
         if plan_callback is not None:
@@ -765,6 +975,9 @@ class Booster:
             for i in range(first, first + seg):
                 if per_round and round_callback is not None:
                     round_callback(i)
+                if self._dist is not None:
+                    from xgboost_tpu_torch.obs import comm
+                    comm.begin_round(i)
                 # a profiler blocks segments: it only ever times per round
                 self._profiled_round(entry, i, fobj)
                 if evals:
@@ -784,7 +997,8 @@ class Booster:
         ``n_rounds`` rounds (``learner.py:1193``): ``(LaneSpec, None)``
         when the lane dispatcher may stack it with its bucket peers, else
         ``(None, reason)``, the reasons of the JAX package that apply to
-        the port, plus ``ensemble``: a round of more than one tree
+        the port (``mesh``: lanes are single-process), plus ``ensemble``:
+        a round of more than one tree
         (``K * num_parallel_tree > 1``) runs solo through K3 here, and
         ``rank``: a device LambdaRank lane on the sort path, which the
         JAX package stacks, runs solo here (its gradient needs the
@@ -805,6 +1019,7 @@ class Booster:
         checks = (
             ("no_rounds", n_rounds < 1),
             ("external_train", entry.external),
+            ("mesh", self._dist is not None),
             ("ensemble", self._K * npar > 1),
             ("rank", self._device_rank() and entry.rank_pad_prep is None),
             ("profiler", self.profiler is not None),
@@ -878,7 +1093,8 @@ class Booster:
         if self.gbtree is None:
             raise ValueError("model not trained/loaded")
         if not isinstance(data, DMatrix) and \
-                not getattr(data, "is_external", False):
+                not getattr(data, "is_external", False) and \
+                not getattr(data, "is_sharded", False):
             data = DMatrix(np.asarray(data, dtype=np.float32))
         cached = self._cache.get(id(data))
         if cached is None and getattr(data, "is_external", False):
@@ -888,6 +1104,11 @@ class Booster:
         if cached is not None and cached.external:
             return self._predict_streamed(cached, output_margin,
                                           ntree_limit, pred_leaf)
+        if cached is None and getattr(data, "is_sharded", False):
+            cached = self._make_shard_loaded_entry(data)   # not registered
+        if cached is not None and cached.block is not None:
+            return self._predict_block(cached, output_margin, ntree_limit,
+                                       pred_leaf)
         if cached is not None:
             binned, base, root = cached.binned, cached.base, cached.root
         else:
@@ -916,6 +1137,35 @@ class Booster:
         predict_metrics().rows.inc(out.shape[0])
         # one column -> (N,); softprob and multiclass margins stay (N, K)
         return out[:, 0] if out.shape[1] == 1 else out
+
+    def _predict_block(self, entry: _CacheEntry, output_margin: bool,
+                       ntree_limit: int, pred_leaf: bool) -> np.ndarray:
+        """Predictions of a row-split entry (``learner.py:1565-1590,
+        1689-1702``): a replicated matrix's blocks gathered over the
+        ranks, padding cut, so every rank returns all N rows, byte-equal
+        to a world of one; a split-loaded matrix's rows of this rank
+        only (no rank holds them all)."""
+        if pred_leaf:
+            out = self.gbtree.predict_leaf(entry.binned, ntree_limit,
+                                           entry.root)
+        else:
+            if ntree_limit == 0:
+                self._sync_margin(entry)
+                margin = entry.margin
+            else:
+                margin = self.gbtree.predict_margin(
+                    entry.binned, entry.base, ntree_limit, entry.root)
+            out = self.obj.pred_transform(margin,
+                                          output_margin=output_margin)
+        if getattr(entry.dmat, "is_sharded", False):
+            out = out.cpu().numpy()[:entry.dmat.local_num_row]
+        else:
+            out = self._gather_rows(entry, out).cpu().numpy()
+        from xgboost_tpu_torch.obs.metrics import predict_metrics
+        predict_metrics().rows.inc(out.shape[0])
+        if pred_leaf or out.shape[1] != 1:
+            return out
+        return out[:, 0]
 
     def _predict_streamed(self, entry: _CacheEntry, output_margin: bool,
                           ntree_limit: int, pred_leaf: bool) -> np.ndarray:
@@ -953,8 +1203,11 @@ class Booster:
         for dmat, name in evals:
             entry = self._entry(dmat)
             self._sync_margin(entry)
-            tr = entry.user_rows(
-                self.obj.eval_transform(entry.margin).cpu().numpy())
+            if getattr(dmat, "is_sharded", False):
+                self._eval_sharded(dmat, entry, name, parts, feval)
+                continue
+            tr = entry.user_rows(self._gather_rows(
+                entry, self.obj.eval_transform(entry.margin)).cpu().numpy())
             preds = tr[:, 0] if tr.shape[1] == 1 else tr   # (N,) or (N, K)
             labels = np.asarray(dmat.get_label())
             weights = np.asarray(dmat.get_weight())
@@ -970,6 +1223,55 @@ class Booster:
                 mname, val = feval(preds, dmat)
                 parts.append(f"{name}-{mname}:{val:.6f}")
         return "\t".join(parts)
+
+    def _eval_sharded(self, dmat, entry: _CacheEntry, name: str,
+                      parts: List[str], feval) -> None:
+        """The eval of a split-loaded matrix (``learner.py:1765-1840``):
+        each rank's metric partials on its own rows, summed over the
+        ranks (the reference's rabit ``Allreduce`` of ``(sum, wsum)``);
+        the exact AUC merges every rank's value runs, unless their count
+        passes ``dist_auc_max_runs`` or ``dist_auc=approx`` asks for the
+        mean of the ranks' AUCs."""
+        if feval is not None:
+            raise NotImplementedError(
+                "a custom feval needs every row's prediction; load the eval "
+                "set replicated (DMatrix)")
+        from xgboost_tpu_torch.metrics import (_DIST_METRICS, auc_compress,
+                                               auc_exact_from_runs)
+        tr = self.obj.eval_transform(entry.margin).cpu().numpy()[
+            :dmat.local_num_row]
+        p = tr[:, 0] if tr.shape[1] == 1 else tr
+        labels = np.asarray(dmat.info.label)
+        weights = np.asarray(dmat.info.get_weight(dmat.local_num_row))
+        for m in self._metrics():
+            if not hasattr(m, "partial_fn"):
+                raise NotImplementedError(
+                    f"metric {m.metric_name!r} has no distributed "
+                    "partial-sum form; supported on split-loaded data: "
+                    f"{sorted(_DIST_METRICS)}")
+            if m.metric_name == "auc" and self.param.dist_auc != "approx":
+                runs = auc_compress(p, labels, weights)
+                limit = int(self.param.dist_auc_max_runs)
+                # decided on the summed run count, so every rank takes the
+                # same collective
+                total_runs = int(dmat.allsum(
+                    np.array([float(len(runs))]))[0])
+                if total_runs > limit:
+                    if not getattr(self, "_warned_auc_runs", False):
+                        self._warned_auc_runs = True
+                        print(f"[dist-auc] {total_runs} distinct-value runs "
+                              f"across ranks exceeds dist_auc_max_runs="
+                              f"{limit}; falling back to the reference's "
+                              "approximate mean-of-shards AUC",
+                              file=sys.stderr)
+                    val = m.finalize_fn(dmat.allsum(
+                        m.partial_fn(p, labels, weights, None)))
+                else:
+                    val = auc_exact_from_runs(dmat.allgatherv(runs))
+            else:
+                val = m.finalize_fn(dmat.allsum(
+                    m.partial_fn(p, labels, weights, None)))
+            parts.append(f"{name}-{m.metric_name}:{val:.6f}")
 
     def eval(self, data: DMatrix, name: str = "eval",
              iteration: int = 0) -> str:

@@ -7,9 +7,15 @@ metrics ``ndcg``, ``map`` and ``pre`` with ``@n`` and the trailing
 Host-side numpy on float64, the same arithmetic as the JAX package, so
 every value is equal to its value there to the bit.  Predictions arrive
 already eval-transformed by the objective: (N,) for one output group,
-(N, K) softmax probabilities for the multiclass metrics.  The JAX
-package's per-shard partial sums (its split-loaded evaluation) are not
-ported: the port has no distributed training yet (ROADMAP.md).
+(N, K) softmax probabilities for the multiclass metrics.
+
+The simple metrics also carry per-shard partial sums
+(``partial_fn`` / ``finalize_fn``, ``metrics.py:265-364``) for the
+evaluation of a split-loaded matrix
+(:class:`~xgboost_tpu_torch.parallel.sharded.ShardedDMatrix`): each
+rank's ``(sum, wsum)`` is summed over the ranks before the final
+ratio, and the exact AUC merges every rank's ``(value, pos, neg)`` runs
+(:func:`auc_compress`, :func:`auc_exact_from_runs`).
 """
 
 from __future__ import annotations
@@ -235,6 +241,93 @@ def _rank_metric(preds, labels, group_ptr, n, minus, fn):
     return float(total / max(ngroup, 1))
 
 
+# ----------------------------------------------- distributed partial sums
+#
+# Per-shard (sum, wsum) partials and their reduction over the ranks (the
+# reference's rabit::Allreduce in EvalEWiseBase::Eval,
+# evaluation-inl.hpp:45, and EvalAuc, :405-414), used by the evaluation
+# of a split-loaded matrix instead of gathering predictions.
+
+def _ewise_partial(point_fn):
+    def partial(preds, labels, weights, group_ptr=None):
+        return np.array([float(np.sum(point_fn(preds, labels) * weights)),
+                         float(np.sum(weights))], np.float64)
+    return partial
+
+
+def _ratio_final(s):
+    return float(s[0] / s[1])
+
+
+def _auc_partial(preds, labels, weights, group_ptr=None):
+    """Sum of per-group AUCs and the group count on this shard; without
+    groups the shard is one group, so the reduced result is the mean of
+    the shards' AUCs (the reference's approximation, ``dist_auc=approx``)."""
+    preds = np.asarray(preds).ravel()
+    if group_ptr is None:
+        group_ptr = np.array([0, len(preds)])
+    total, ngroup = 0.0, 0
+    for g in range(len(group_ptr) - 1):
+        s, e = group_ptr[g], group_ptr[g + 1]
+        v = _auc_group(preds[s:e], labels[s:e], weights[s:e])
+        if v is None:
+            continue
+        total += v
+        ngroup += 1
+    return np.array([total, float(ngroup)], np.float64)
+
+
+def _auc_final(s):
+    if s[1] == 0:
+        raise ValueError("AUC: the dataset only contains pos or neg samples")
+    return float(s[0] / s[1])
+
+
+def auc_compress(preds, labels, weights) -> np.ndarray:
+    """(K, 3) float64 ``[value, pos_weight, neg_weight]`` runs sorted by
+    value: this shard's exact-AUC partial, one row a distinct value."""
+    p = np.asarray(preds, np.float64).ravel()
+    y = np.asarray(labels, np.float64).ravel()
+    w = np.asarray(weights, np.float64).ravel()
+    v, gpos, gneg = _value_runs(p, w * (y > 0), w * (y <= 0))
+    return np.stack([v, gpos, gneg], axis=1)
+
+
+def auc_exact_from_runs(runs: np.ndarray) -> float:
+    """Exact weighted AUC (ties at half credit) from the shards' runs
+    concatenated: merging runs of one value is itself a
+    :func:`_value_runs` pass."""
+    _, mp, mn = _value_runs(runs[:, 0], runs[:, 1], runs[:, 2])
+    v = _runs_auc(mp, mn)
+    if v is None:
+        raise ValueError(
+            "AUC: the dataset only contains pos or neg samples")
+    return float(v)
+
+
+def _mlogloss_points(preds, labels):
+    p = np.clip(preds[np.arange(len(labels)), labels.astype(np.int64)],
+                _EPS, None)
+    return -np.log(p)
+
+
+_DIST_METRICS = {
+    "rmse": (_ewise_partial(lambda p, l: (p - l) ** 2),
+             lambda s: float(np.sqrt(s[0] / s[1]))),
+    "logloss": (_ewise_partial(lambda p, l: -(
+        l * np.log(np.clip(p, _EPS, 1 - _EPS))
+        + (1.0 - l) * np.log(1.0 - np.clip(p, _EPS, 1 - _EPS)))),
+        _ratio_final),
+    "error": (_ewise_partial(lambda p, l: np.where(
+        p > 0.5, l != 1.0, l != 0.0).astype(np.float64)), _ratio_final),
+    "merror": (_ewise_partial(lambda p, l: (
+        np.argmax(p, axis=1) != l.astype(np.int64)).astype(np.float64)),
+        _ratio_final),
+    "mlogloss": (_ewise_partial(_mlogloss_points), _ratio_final),
+    "auc": (_auc_partial, _auc_final),
+}
+
+
 _SIMPLE: Dict[str, Callable] = {"rmse": rmse, "logloss": logloss,
                                 "error": error, "merror": merror,
                                 "mlogloss": mlogloss, "auc": auc}
@@ -261,7 +354,9 @@ def create_metric(name: str) -> Callable:
     if suffix.endswith("-"):
         minus, suffix = True, suffix[:-1]
     if not at and base in _SIMPLE:
-        return _named(_SIMPLE[base], name)
+        fn = _named(_SIMPLE[base], name)
+        fn.partial_fn, fn.finalize_fn = _DIST_METRICS[base]
+        return fn
     if base == "ams":
         ratio = float(suffix) if suffix else 0.15
         return _named(lambda p, l, w, g=None: ams(p, l, w, g, ratio), name)

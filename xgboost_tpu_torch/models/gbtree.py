@@ -23,6 +23,14 @@ its trees grow one by one on raw values (:mod:`.colmaker`) and predict
 from raw values.  ``grow_skmaker`` swaps the grower's split finder for
 the skmaker finder (:mod:`.skmaker`), and :meth:`GBTree.do_refresh` is
 the ``refresh`` updater over every tree at once.
+
+Under row split (``dsplit=row``) :meth:`GBTree.do_boost`,
+:meth:`~GBTree.do_boost_paged` and :meth:`~GBTree.do_refresh` take the
+rank's :class:`~xgboost_tpu_torch.parallel.mesh.DataMesh` (``mesh=``)
+and grow on its block of rows through the ``hist_reduce`` seam
+(:mod:`xgboost_tpu_torch.parallel.dp`); ``grow_colmaker`` is then the
+histogram grower on the cuts of every distinct value
+(``compute_cuts_exact``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -161,9 +169,10 @@ class GBTree:
         self.cuts = cuts
         self.device = device
         self.cfg = make_grow_config(param, cuts.max_bin)
-        # exact greedy growth on raw values (gbtree.py:329-337); the
-        # port has no dsplit=row, the one case the JAX package quantizes
-        self.exact_raw = "grow_colmaker" in parse_updaters(param.updater)
+        # exact greedy growth on raw values (gbtree.py:329-337), except
+        # under dsplit=row, which quantizes at every distinct value
+        self.exact_raw = ("grow_colmaker" in parse_updaters(param.updater)
+                          and param.dsplit != "row")
         self.cut_values_dev = torch.as_tensor(cuts.cut_values).to(device)
         self.n_cuts_dev = torch.as_tensor(cuts.n_cuts).to(device)
         self._parts: List[TreeArrays] = []   # (t_i, n_nodes) stacks
@@ -209,7 +218,7 @@ class GBTree:
                  row_valid: Optional[torch.Tensor] = None, key=None,
                  root: Optional[torch.Tensor] = None,
                  exact_has_missing: bool = True,
-                 exact_ranks=None) -> torch.Tensor:
+                 exact_ranks=None, mesh=None) -> torch.Tensor:
         """One boosting round: grow the round's T = K x num_parallel_tree
         trees on ``gh`` (N, K, 2) together, tree j sampling with
         ``fold_in(key, j)`` (``key`` the round's host key, needed when the
@@ -217,7 +226,10 @@ class GBTree:
         each when ``gamma > 0``, append them.  Returns the (N, K) margin
         delta: each group's trees added in tree order
         (``gbtree.py:681-757``).  An exact-mode ensemble grows on the raw
-        values ``binned`` holds (:meth:`_do_boost_exact`)."""
+        values ``binned`` holds (:meth:`_do_boost_exact`).  ``mesh``: this
+        rank's world under row split; ``binned`` and ``gh`` are its
+        block."""
+        from xgboost_tpu_torch.parallel.dp import hist_reduce
         npar = max(1, self.param.num_parallel_tree)
         T, K = self.trees_per_round, self.n_group
         group = [j // npar for j in range(T)]
@@ -230,7 +242,8 @@ class GBTree:
         trees, row_leaf, ds = grow_trees(binned, gh_t, self.cut_values_dev,
                                          self.n_cuts_dev, self.cfg,
                                          row_valid, keys, root,
-                                         split_finder=self.split_finder())
+                                         split_finder=self.split_finder(),
+                                         hist_reduce=hist_reduce(mesh))
         if self._do_prune():
             trees, resolves = prune_stack(trees, self.param.gamma,
                                           self.cfg.n_roots)
@@ -282,7 +295,7 @@ class GBTree:
         self._stack_cache = None
         return torch.stack([deltas[k] for k in range(self.n_group)], dim=1)
 
-    def do_boost_paged(self, dmat, gh: torch.Tensor, key=None
+    def do_boost_paged(self, dmat, gh: torch.Tensor, key=None, mesh=None
                        ) -> torch.Tensor:
         """One boosting round over an external-memory matrix
         (``gbtree.py:961-1005``): each of the round's K x
@@ -291,7 +304,10 @@ class GBTree:
         tree j sampling with ``fold_in(key, j)``, and is pruned when
         ``gamma > 0``.  gh (N, K, 2) on the device; returns the (N, K)
         margin delta, each group's trees added into zeros in tree
-        order."""
+        order.  ``mesh``: under row split every batch's rows are split
+        into the ranks' blocks and this rank builds the partial sums of
+        its part of each; every rank routes all rows, so all N rows'
+        delta comes back on every rank."""
         from xgboost_tpu_torch.external import grow_tree_paged
         if self.cfg.n_roots > 1:
             raise NotImplementedError(
@@ -308,7 +324,7 @@ class GBTree:
             tree, row_leaf = grow_tree_paged(
                 dmat, gh[:, k, :], self.cut_values_dev, self.n_cuts_dev,
                 self.cfg, key=None if keys is None else keys[j],
-                split_finder=self.split_finder())
+                split_finder=self.split_finder(), mesh=mesh)
             if self._do_prune():
                 pruned, resolve = prune_tree(TreeArrays(*(x[0]
                                                           for x in tree)),
@@ -328,12 +344,14 @@ class GBTree:
 
     def do_refresh(self, binned: torch.Tensor, gh: torch.Tensor,
                    row_valid: Optional[torch.Tensor] = None,
-                   root: Optional[torch.Tensor] = None) -> None:
+                   root: Optional[torch.Tensor] = None, mesh=None) -> None:
         """The ``refresh`` updater (``gbtree.py:1009-1034``): every tree's
         node sums, leaf values and gains recomputed on ``binned`` with
         the gradients ``gh`` (N, K, 2) of its group, one snapshot for all
         trees, as in the JAX package; one K2 launch a level for all of
-        them (:func:`~.updaters.refresh_trees`)."""
+        them (:func:`~.updaters.refresh_trees`); under row split the node
+        sums of every rank's block are reduced (``mesh``)."""
+        from xgboost_tpu_torch.parallel.dp import hist_reduce
         if self.exact_raw:
             # the JAX package would read the raw values as bin ids here
             raise NotImplementedError(
@@ -346,7 +364,7 @@ class GBTree:
         gh_t = gh.index_select(1, idx).permute(1, 0, 2)
         self._parts = [refresh_trees(stack, binned, gh_t, self.cfg.split,
                                      self.cfg.max_depth, row_valid, root,
-                                     self.cfg.n_roots)]
+                                     self.cfg.n_roots, hist_reduce(mesh))]
         self._stack_cache = None
 
     def prune_all(self) -> None:

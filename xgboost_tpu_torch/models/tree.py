@@ -199,7 +199,7 @@ def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
               cut_values: torch.Tensor, n_cuts: torch.Tensor,
               cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
               key=None, root: Optional[torch.Tensor] = None,
-              split_finder=None
+              split_finder=None, hist_reduce=None
               ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow one tree level by level (``tree.py:260-465``):
     :func:`grow_trees` for T = 1, with the one-tree histogram K1.
@@ -215,7 +215,7 @@ def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
     keys = None if key is None else np.asarray(key, np.uint32)[None]
     trees, row_leaf, row_val = grow_trees(binned, gh[None], cut_values,
                                           n_cuts, cfg, row_valid, keys,
-                                          root, split_finder)
+                                          root, split_finder, hist_reduce)
     return TreeArrays(*(x[0] for x in trees)), row_leaf[0], row_val[0]
 
 
@@ -223,7 +223,7 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
                cut_values: torch.Tensor, n_cuts: torch.Tensor,
                cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
                keys=None, root: Optional[torch.Tensor] = None,
-               split_finder=None
+               split_finder=None, hist_reduce=None
                ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow T trees together on shared bins, each on its own gradients
     ``gh`` (T, N, 2) and its own host key ``keys[t]`` (T, 2) uint32 (the
@@ -254,8 +254,18 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
     ``split_finder`` replaces :func:`find_best_splits_native` with a
     function of the same arguments (the skmaker finder,
     :mod:`.skmaker`); a finder that leaves no left sums makes the
-    terminal level take its node sums from K2 (``tree.py:367-380``)."""
+    terminal level take its node sums from K2 (``tree.py:367-380``).
+
+    ``hist_reduce`` is the collective seam of row-split training
+    (``tree.py:263,296,377-392``), a
+    :class:`~xgboost_tpu_torch.parallel.dp.HistReduce` or None: it sums a
+    tensor of this rank's partial sums over the ranks, bitwise alike on
+    every rank, and is applied to every level histogram and node-stat
+    tensor before dequantisation; its ``max`` gives the int8 scales of
+    all ranks' rows, and its ``world`` the row count they must hold.  Split decisions are
+    then taken on every rank alike, and each rank routes its own rows."""
     lanes = binned.dim() == 3
+    red = hist_reduce
     if split_finder is None:
         split_finder = find_best_splits_native
     T, N = gh.shape[:2]
@@ -284,7 +294,9 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
     row_leaf = torch.zeros((T, N), dtype=torch.int32, device=dev)
     row_val = torch.zeros((T, N), dtype=torch.float32, device=dev)
     prep = prepare_hist(gh_used[0] if T == 1 and not lanes else gh_used,
-                        cfg.hist_precision)
+                        cfg.hist_precision,
+                        N * (1 if red is None else red.world),
+                        None if red is None else red.max)
     if lanes:
         W = cut_values.shape[2]
         flat_cuts = cut_values.reshape(T * F, W)
@@ -310,23 +322,18 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
                     [torch.stack([gl, gr], 1).reshape(-1),
                      torch.stack([hl, hr], 1).reshape(-1)], dim=1)
             else:
-                nst = node_stats(gh_used, pos, n_node,
-                                 cfg.hist_precision).reshape(T * n_node, 2)
+                nst = node_stats(gh_used, pos, n_node, cfg.hist_precision,
+                                 red).reshape(T * n_node, 2)
             make_leaf = torch.ones(T * n_node, dtype=torch.bool, device=dev)
             best = thr = None
         else:
             if hist_prev is not None:
                 hist = _subtracted_level_hist(binned, prep, pos, n_node,
-                                              cfg.n_bin, hist_prev, prev[2])
-            elif lanes:
-                hist = build_level_histogram_lanes(binned, prep, pos,
-                                                   n_node, cfg.n_bin)
-            elif T == 1:
-                hist = build_level_histogram(binned, prep, pos[0], n_node,
-                                             cfg.n_bin)
+                                              cfg.n_bin, hist_prev, prev[2],
+                                              red=red)
             else:
-                hist = build_level_histogram_batched(binned, prep, pos,
-                                                     n_node, cfg.n_bin)
+                hist = _full_level_hist(binned, prep, pos, n_node,
+                                        cfg.n_bin, red)
             if cfg.hist_subtraction:
                 hist_prev = hist
             nst = stats_from_histogram_native(hist)     # (T * n_node, 2)
@@ -385,10 +392,26 @@ def _cut_col(best: BestSplit, width: int) -> torch.Tensor:
     return torch.clamp(best.cut_index.to(torch.int64), 0, width - 1)
 
 
+def _full_level_hist(binned: torch.Tensor, prep: HistPrep,
+                     pos: torch.Tensor, n_node: int, n_bin: int,
+                     red=None) -> torch.Tensor:
+    """A level's ``(F, B, 2, T * n_node)`` histogram of every active row:
+    K4 for lane bins (L, N, F), K1 for one tree, K3 for T trees."""
+    if binned.dim() == 3:
+        return build_level_histogram_lanes(binned, prep, pos, n_node, n_bin,
+                                           red)
+    if pos.shape[0] == 1:
+        return build_level_histogram(binned, prep, pos[0], n_node, n_bin,
+                                     red)
+    return build_level_histogram_batched(binned, prep, pos, n_node, n_bin,
+                                         red)
+
+
 def _subtracted_level_hist(binned: torch.Tensor, prep: HistPrep,
                            pos: torch.Tensor, n_node: int, n_bin: int,
                            hist_parent: torch.Tensor,
-                           parent_split: torch.Tensor) -> torch.Tensor:
+                           parent_split: torch.Tensor,
+                           red=None) -> torch.Tensor:
     """A level's ``(F, B, 2, T * n_node)`` histogram by subtraction
     (``tree.py:183-246``): per parent only the child with fewer active
     rows is built, on its rows compacted into ``cap`` rows, and the
@@ -397,25 +420,32 @@ def _subtracted_level_hist(binned: torch.Tensor, prep: HistPrep,
 
     The per-child row counts come from K2; the small children of one
     tree are built by K1 on its compacted rows, those of T trees or
-    lanes by K4 with each tree's compacted rows as a lane's bins.  On one
-    device the small children of a level hold at most N/2 active rows
-    (each parent's smaller half), which fits ``cap``, so the JAX
-    package's fallback to the full build (its ``lax.cond``, for a
-    sharded row set whose local rows can overflow) has no case here;
-    it returns with distributed training (ROADMAP.md section 1 item 13).
-    The counts are f32 sums, exact below 2**24 rows."""
+    lanes by K4 with each tree's compacted rows as a lane's bins.  The
+    counts are f32 sums, exact below 2**24 rows.  Under row split
+    (``red``) the counts are every rank's, so every rank builds the same
+    children; the small children of all ranks hold at most half of all
+    rows, but one rank's share of them can exceed its buffer of half its
+    own rows, so the local overflow flag is reduced and every rank takes
+    the full build together when any rank overflows (the JAX package's
+    ``lax.cond`` on a psum'd flag).  On one device the small children
+    hold at most N/2 rows and the full build never runs."""
     T, N = pos.shape
     F = binned.shape[-1]
     dev = binned.device
     half = n_node // 2
     ones = (pos >= 0).to(torch.float32)[..., None].expand(T, N, 2)
-    counts = node_stats(ones.contiguous(), pos, n_node)[..., 0]   # (T, M)
+    counts = node_stats(ones.contiguous(), pos, n_node,
+                        reduce=red)[..., 0]                     # (T, M)
     small_is_left = counts[:, 0::2] <= counts[:, 1::2]
     is_small = torch.stack([small_is_left, ~small_is_left],
                            dim=2).reshape(T, n_node)
     node = torch.clamp(pos, 0, n_node - 1).to(torch.int64)
     msk = (pos >= 0) & is_small.gather(1, node)
     cap = max(256, -(-(N // 2) // 256) * 256)
+    if red is not None:
+        over = (msk.sum(dim=1).max() > cap).to(torch.int32).reshape(1)
+        if int(red(over)[0]) > 0:
+            return _full_level_hist(binned, prep, pos, n_node, n_bin, red)
     dest = torch.where(msk, (torch.cumsum(msk, dim=1) - 1).clamp_max(cap),
                        cap)                      # row cap: the dump row
 
@@ -428,7 +458,7 @@ def _subtracted_level_hist(binned: torch.Tensor, prep: HistPrep,
         hist_small = build_level_histogram(
             compact(binned, 0, 0), HistPrep(compact(prep.gh_in, 0, 0),
                                             prep.scale, prep.mode),
-            compact(pos[0], -1, 0), n_node, n_bin)
+            compact(pos[0], -1, 0), n_node, n_bin, red)
     else:
         b_small = torch.stack([compact(binned[t] if lanes else binned, 0,
                                        t) for t in range(T)])
@@ -437,7 +467,7 @@ def _subtracted_level_hist(binned: torch.Tensor, prep: HistPrep,
         p_small = torch.stack([compact(pos[t], -1, t) for t in range(T)])
         hist_small = build_level_histogram_lanes(
             b_small, HistPrep(g_small, prep.scale, prep.mode), p_small,
-            n_node, n_bin)
+            n_node, n_bin, red)
     hs = hist_small.reshape(F, n_bin, 2, T, n_node)
     # the small child of each parent: the pair's sum (the sibling's
     # slots are zero)

@@ -8,11 +8,11 @@ the updater registry, the prune updater and the refresh updater).
 - ``prune``: post-prunes splits with ``loss_chg < gamma`` bottom-up;
 - ``refresh``: recomputes every tree's node sums, leaf values and gains
   on (new) data, keeping its structure (:func:`refresh_trees`);
-- ``sync``: broadcasts trees from rank 0 in the reference, a no-op on one
-  device.
+- ``sync``: broadcasts trees from rank 0 in the reference, a no-op here:
+  under row split every rank grows the same trees.
 
-``distcol`` (column-split growth) comes with distributed training
-(ROADMAP.md section 1 item 13) and raises.
+``distcol`` (column-split growth) is ROADMAP.md section 1 item 13b and
+raises.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def parse_updaters(updater: str) -> Tuple[str, ...]:
         if u not in PORTED_UPDATERS:
             raise NotImplementedError(
                 f"updater {u!r} is column-split distributed growth: "
-                "ROADMAP.md section 1 item 13")
+                "ROADMAP.md section 1 item 13b")
     return seq
 
 
@@ -95,7 +95,7 @@ def refresh_trees(stack: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
                   cfg: SplitConfig, max_depth: int,
                   row_valid: Optional[torch.Tensor] = None,
                   root: Optional[torch.Tensor] = None,
-                  n_roots: int = 1) -> TreeArrays:
+                  n_roots: int = 1, hist_reduce=None) -> TreeArrays:
     """Recompute T trees' node sums, leaf values and gains on (new) data
     (``updaters.py:103-169``, the reference's TreeRefresher): each row
     adds its gradients at every node on its root-to-leaf path, the leaf
@@ -109,7 +109,9 @@ def refresh_trees(stack: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
     sums of one level are one K2 call for all T trees: at step i a row's
     position is its node minus the level's first id, -1 once it is
     parked at a leaf.  On the CPU the sums run in row order, the order
-    of the JAX package's scatter, so they are its bits."""
+    of the JAX package's scatter, so they are its bits.  Under row split
+    ``hist_reduce`` sums every node's sums over the ranks once, after
+    the last level (``dp.py:63-82``)."""
     T, n_nodes = stack.feature.shape
     N = binned.shape[0]
     dev = binned.device
@@ -143,6 +145,8 @@ def refresh_trees(stack: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
                            - go_left.to(torch.int64))
         parked = parked | leaf
     acc = torch.cat(parts, dim=1)                          # (T, n_nodes, 2)
+    if hist_reduce is not None:
+        acc = hist_reduce(acc)
     G, H = acc[..., 0], acc[..., 1]
     new_weight = calc_weight(G, H, cfg) * cfg.eta
     left = torch.arange(n_nodes, device=dev) * 2 + 1
@@ -164,11 +168,12 @@ def refresh_tree(tree: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
                  cfg: SplitConfig, max_depth: int,
                  row_valid: Optional[torch.Tensor] = None,
                  root: Optional[torch.Tensor] = None,
-                 n_roots: int = 1) -> TreeArrays:
+                 n_roots: int = 1, hist_reduce=None) -> TreeArrays:
     """One tree's refresh (``updaters.py:103-169``): :func:`refresh_trees`
     with T = 1; gh (N, 2)."""
     out = refresh_trees(TreeArrays(*(x[None] for x in tree)), binned,
-                        gh[None], cfg, max_depth, row_valid, root, n_roots)
+                        gh[None], cfg, max_depth, row_valid, root, n_roots,
+                        hist_reduce)
     return TreeArrays(*(x[0] for x in out))
 
 

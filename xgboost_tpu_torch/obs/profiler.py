@@ -10,9 +10,9 @@ Three consumers, all driven by the same phase boundaries:
   ``jax.profiler`` trace there);
 - the event log: every phase and every round emit ``kind="span"``
   records (``train.phase`` / ``train.round``) when ``obs_log=`` is set,
-  the round's carrying its phase breakdown.  The port has no
-  collectives yet (ROADMAP.md section 1 item 13), so a round span
-  carries no ``comm`` attributes;
+  the round's carrying its phase breakdown and, under row-split
+  training, the round's collective tallies (``comm``: op -> count,
+  bytes, seconds, from :mod:`~xgboost_tpu_torch.obs.comm`);
 - metrics: rounds completed, the last round, round wall time and
   per-phase seconds on :class:`~xgboost_tpu_torch.obs.metrics.
   TrainingMetrics`.
@@ -102,13 +102,17 @@ class RoundProfiler:
         tm.round.set(c["round"])
         tm.round_seconds.observe(dur)
         if events.get_log() is not None:
+            from xgboost_tpu_torch.obs import comm
+            attrs = {"phases_ms": {k: round(v * 1e3, 3)
+                                   for k, v in c["phases"].items()}}
+            cs = comm.round_stats(c["round"])
+            if cs:
+                attrs["comm"] = cs
             events.emit({
                 "ts": round(time.time(), 6), "kind": "span",
                 "name": "train.round", "trace": self._round_trace,
                 "span": trace.new_id(), "round": c["round"],
-                "dur_ms": round(dur * 1e3, 3),
-                "attrs": {"phases_ms": {k: round(v * 1e3, 3)
-                                        for k, v in c["phases"].items()}}})
+                "dur_ms": round(dur * 1e3, 3), "attrs": attrs})
         if self.level >= 1:
             parts = " ".join(f"{k}={v * 1e3:.1f}ms"
                              for k, v in c["phases"].items())

@@ -50,12 +50,17 @@ def resolve_precision(precision: str, n_rows: int) -> str:
     return precision
 
 
-def quantize_gh(gh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_gh(gh: torch.Tensor, scale_reduce=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-channel int8 quantization of (N, 2) grad/hess:
     ``(gh_q int32, scale f32)``, with the op order of
     ``pallas_hist.py:152-162`` so the bits match: the scale is the
-    channel's max |gh| over ALL rows, rounding is half to even."""
-    scale = torch.clamp_min(gh.abs().amax(dim=-2), 1e-30)
+    channel's max |gh| over ALL rows (every rank's, after
+    ``scale_reduce``, under row split), rounding is half to even."""
+    amax = gh.abs().amax(dim=-2)
+    if scale_reduce is not None:
+        amax = scale_reduce(amax)
+    scale = torch.clamp_min(amax, 1e-30)
     gh_q = torch.clamp(torch.round(gh / scale[..., None, :] * 127.0),
                        -127, 127).to(torch.int32)
     return gh_q, scale

@@ -20,6 +20,17 @@ histogram is in the kernel's node-minor layout ``(F, B, 2, n_node)``
 (``pallas_hist.py`` "native"), at every depth; a batched level is
 ``(F, B, 2, T * n_node)``, tree outer, and a lane level
 ``(F, B, 2, L * n_node)``, lane outer.
+
+Row-split training (:mod:`xgboost_tpu_torch.parallel`) passes a
+``reduce`` that sums a tensor of this rank's partial sums over the
+ranks: every level histogram and node-stat tensor is reduced as the
+kernel returns it, before dequantisation, so "fixed" and int8 reduce
+their exact int32 sums and dequantise once (the JAX package's
+``dequantize_hist(red(...))``).  int8 quantises every rank's rows on
+one scale, the channel's ``max |gh|`` over all ranks
+(``prepare_hist(scale_reduce=)``), so a level is bitwise the same at
+any world size; the JAX package's TPU path quantises each shard on its
+own scale (a deliberate difference, ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -66,13 +77,17 @@ class HistPrep(NamedTuple):
     mode: str                    # fp32 | bf16 | int8 | fixed
 
 
-def prepare_hist(gh: torch.Tensor, precision: str) -> HistPrep:
+def prepare_hist(gh: torch.Tensor, precision: str, n_rows: int = 0,
+                 scale_reduce=None) -> HistPrep:
     """Quantize (int8, fixed) or keep (fp32, bf16) the tree's (N, 2)
     gradients, or T trees' or L lanes' (T, N, 2) (int8 scales per tree
-    or lane), once for every level."""
-    mode = resolve_mode(precision, gh.device, gh.shape[-2])
+    or lane), once for every level.  ``n_rows`` (default N) is the row
+    count the int8 sums must hold, all ranks' under row split;
+    ``scale_reduce`` takes the int8 channel maxima to their maxima over
+    the ranks."""
+    mode = resolve_mode(precision, gh.device, max(n_rows, gh.shape[-2]))
     if mode == "int8":
-        gh_q, scale = cuda_hist.quantize_gh(gh)
+        gh_q, scale = cuda_hist.quantize_gh(gh, scale_reduce)
         return HistPrep(gh_q.contiguous(), scale, mode)
     if mode == "fixed":
         q = torch.round(gh * FIXED_SCALE).to(torch.int32)
@@ -80,15 +95,19 @@ def prepare_hist(gh: torch.Tensor, precision: str) -> HistPrep:
     return HistPrep(gh.to(torch.float32).contiguous(), None, mode)
 
 
+def _reduced(hist: torch.Tensor, reduce) -> torch.Tensor:
+    return hist if reduce is None else reduce(hist)
+
+
 def build_level_histogram(binned: torch.Tensor, prep: HistPrep,
                           pos: torch.Tensor, n_node: int,
-                          n_bin: int) -> torch.Tensor:
+                          n_bin: int, reduce=None) -> torch.Tensor:
     """Per-(feature, bin, channel, node) grad/hess sums of one level,
     f32 ``(F, n_bin, 2, n_node)``.  ``pos`` (N,) int32 is each row's
     level-local node, -1 = inactive.  int8 and fixed sums come back
-    dequantized."""
-    hist = cuda_hist.level_histogram(binned, prep.gh_in, pos, n_node,
-                                     n_bin, _KMODE[prep.mode])
+    dequantized, after ``reduce``."""
+    hist = _reduced(cuda_hist.level_histogram(
+        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode]), reduce)
     if prep.mode == "int8":
         # the exact int32 sums back to f32 (pallas_hist.py:268-270)
         return hist.to(torch.float32) * _int8_step(prep.scale)[None, None, :,
@@ -98,29 +117,29 @@ def build_level_histogram(binned: torch.Tensor, prep: HistPrep,
 
 def build_level_histogram_batched(binned: torch.Tensor, prep: HistPrep,
                                   pos: torch.Tensor, n_node: int,
-                                  n_bin: int) -> torch.Tensor:
+                                  n_bin: int, reduce=None) -> torch.Tensor:
     """The level histograms of T trees on shared bins in one launch of
     K3: f32 ``(F, n_bin, 2, T * n_node)``, tree outer.  ``prep`` holds
     (T, N, 2) gradients; ``pos`` (T, N) int32 is each tree's level-local
     node per row, -1 = inactive.  int8 sums come back dequantized with
     each tree's scales (``pallas_hist.py:628-631``), fixed sums with
     FIXED_SCALE."""
-    hist = cuda_hist_batched.level_histogram_batched(
-        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode])
+    hist = _reduced(cuda_hist_batched.level_histogram_batched(
+        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode]), reduce)
     return _dequantize_columns(hist, prep, n_node)
 
 
 def build_level_histogram_lanes(binned: torch.Tensor, prep: HistPrep,
                                 pos: torch.Tensor, n_node: int,
-                                n_bin: int) -> torch.Tensor:
+                                n_bin: int, reduce=None) -> torch.Tensor:
     """The level histograms of L tenant lanes, each on its own bins, in
     one launch of K4: binned (L, N, F), ``prep`` holding (L, N, 2)
     gradients, ``pos`` (L, N) int32 (-1 = inactive, pad rows and pad
     lanes included) -> f32 ``(F, n_bin, 2, L * n_node)``, lane outer.
     int8 sums come back dequantized with each lane's scales
     (``pallas_hist.py:337-346``), fixed sums with FIXED_SCALE."""
-    hist = cuda_hist_lanes.level_histogram_lanes(
-        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode])
+    hist = _reduced(cuda_hist_lanes.level_histogram_lanes(
+        binned, prep.gh_in, pos, n_node, n_bin, _KMODE[prep.mode]), reduce)
     return _dequantize_columns(hist, prep, n_node)
 
 
@@ -155,7 +174,7 @@ def dequantize_hist(hist: torch.Tensor) -> torch.Tensor:
 
 
 def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
-               precision: str = "auto") -> torch.Tensor:
+               precision: str = "auto", reduce=None) -> torch.Tensor:
     """Per-node (G, H) sums: gh (N, 2) and pos (N,) -> (n_node, 2), or
     with a leading tree axis (T, N, 2) and (T, N) -> (T, n_node, 2), f32.
     Runs wherever the split finder leaves no sums behind: the terminal
@@ -164,9 +183,11 @@ def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
     trees in one call), and the row counts of histogram subtraction.
     K2 on a GPU, its plain version on the CPU; "fixed" precision is the
     JAX package's plain int32 scatter on every device
-    (``ops/histogram.py:304-308``)."""
+    (``ops/histogram.py:304-308``).  ``reduce`` sums the sums over the
+    ranks before "fixed" dequantises."""
     if gh.dim() == 2:
-        return node_stats(gh[None], pos[None], n_node, precision)[0]
+        return node_stats(gh[None], pos[None], n_node, precision,
+                          reduce)[0]
     if precision == "fixed":
         q = torch.round(gh * FIXED_SCALE).to(torch.int32)
         T = gh.shape[0]
@@ -176,10 +197,11 @@ def node_stats(gh: torch.Tensor, pos: torch.Tensor, n_node: int,
         out = torch.zeros((T * (n_node + 1), 2), dtype=torch.int32,
                           device=gh.device)
         out.index_add_(0, idx.reshape(-1), q.reshape(-1, 2))
-        return dequantize_hist(out.reshape(T, n_node + 1, 2)[:, :n_node])
-    return cuda_node_stats.node_stats(gh.to(torch.float32).contiguous(),
-                                      pos.to(torch.int32).contiguous(),
-                                      n_node)
+        return dequantize_hist(_reduced(
+            out.reshape(T, n_node + 1, 2)[:, :n_node], reduce))
+    return _reduced(cuda_node_stats.node_stats(
+        gh.to(torch.float32).contiguous(), pos.to(torch.int32).contiguous(),
+        n_node), reduce)
 
 
 def bin_sum(x: torch.Tensor) -> torch.Tensor:
