@@ -22,7 +22,7 @@ every kernel against its plain PyTorch version.  The paths:
   launch a round, one kernel a launch);
 - lanes: ``pipeline.run_tenant_lanes`` over 48 tenant pipelines at the
   Higgs booster's width (depth 6, eta 0.1, max_bin 64, 28 features),
-  12,288 to 16,283 rows each, 2 cycles of 10 rounds, stacked into one
+  12,288 to 16,283 rows each, 2 cycles of 3 rounds, stacked into one
   K4 launch per level for all tenants (a stack of 64 lanes of 16,384
   rows; K4 is K1's and K3's scatter kernel with the lanes as its trees),
   then the same tenants through the host loop (K1 per tenant);
@@ -149,11 +149,24 @@ node dropped) exceeds it, and a 6-class round of 200,000 x 28 (K3)
 byte-equal to a world of one; (d) a split load (``shard_load=1``) of
 [cli]'s 100,000 holdout rows of libsvm text trains the trees of their
 replicated load with ``device_sketch=1``; (e) it prints ms per round at
-W = 1 (this process, a world of one), 2 and 4, each rank's launch counts
-and the collectives a round (calls, bytes, seconds from
+W = 1 (this process, a world of one) and 2 (the worker), each rank's
+launch counts and the collectives a round (calls, bytes, seconds from
 ``obs/comm.py``); (f) any failed rank, a launcher past its time limit
-or a mismatch exits non-zero.  (a), (b) and (d) run at once; the timed
-worlds run alone.
+or a mismatch exits non-zero; column split and ranking on row-split
+data (``xgboost_tpu_torch.parallel.colsplit``): (g) at W = 2 the CLI
+with ``dsplit=col`` (every rank all rows, its 14 of the 28 features)
+trains [main]'s tree arrays and cuts bitwise with [main]'s last eval
+line, and in the worker round 0's K1 on each rank's block equals the
+plain version and rounds 1-19 launch K1 6 times a round on each rank
+and nothing else; (h) the worker's exact ``grow_colmaker`` with
+``dsplit=col`` on 200,000 of [main]'s rows, 3 rounds, gives the model
+bytes of a world of one, K2 7 times a tree on each rank, each launch
+node by node within K2's bound of the f64 sums; (i) its ``rank:ndcg``
+with ``dsplit=row`` on 200,000 rows of ``make_rank`` in 2,000 groups, 5
+rounds, gives the model bytes of a world of one with K1 6 times a tree;
+each prints its seconds and collectives a round.  (a), (b), (d) and
+(g)'s CLI run at once; the worker runs alone.  Each launch has a limit
+of DIST_LIMIT_S (the worker DIST_CHECK_LIMIT_S).
 
 The phases after ``[cli]`` drive sampled, subtracted and multi-root
 growth and the round profiler on the same data, each with its launch
@@ -363,15 +376,26 @@ other than cycles x rounds x 6 levels for K4, on any difference in a
 tenant's published bytes or gate verdicts between the stacked run and
 the host loop, and on a holdout AUC under ``LANE_AUC_FLOOR``.
 
-Prints a ``{"kernels": [...]}`` line and the card's name and power limit
-before the last line, ``{"ok": true, "device": {...}}``.  Scratch files
-go to ``.smoke_out/`` beside this script (git-ignored).
+One clock times every phase (:func:`phase`); the script prints a
+``[phases] {"<phase>": seconds, ..., "total": seconds}`` line, then a
+``{"kernels": [...]}`` line and the card's name and power limit before
+the last line, ``{"ok": true, "device": {...}}``.  A watchdog thread ends
+the run at ``SMOKE_DEADLINE_S``: it prints the phase table so far with
+the phase that is running, kills every process group the script started
+and fails.  ``python3 chip_smoke.py --stop-after PHASE`` runs the phases
+up to PHASE and ends there with the phase table (no kernel record, no
+result line).  Scratch files go to ``.smoke_out/`` beside this script
+(git-ignored).
 """
 
+import atexit
+import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -411,14 +435,16 @@ D0_PARAMS = {**MC_PARAMS, "max_depth": 0}
 # judged on 2,048 holdout rows from seed 5000 + i; 48 tenants share one
 # bucket of 16,384 rows and pad to a stack of 64 lanes
 LANES_N, LANE_ROWS0, LANE_ROWS_STEP, LANE_HOLD = 48, 12_288, 85, 2048
-LANE_CYCLES, LANE_ROUNDS = 2, 10
+LANE_CYCLES, LANE_ROUNDS = 2, 3
+LANE_TIMED_CYCLES = 1            # [time] lanes cycle: cycles after cycle 0
 LANE_PARAMS = dict(PARAMS)
 LANE_STACK = 64                  # 48 tenants pad to a power of two
 # The JAX package's own stacked lanes on these 48 tenants' arrays, the
 # same parameters, cycles and rounds, on a CPU (``JAX_PLATFORMS=cpu
-# python tests/test_torch_lanes.py 48``): holdout AUC 0.920299 at the
-# lowest tenant, 0.932 on average.  The floor is that lowest minus 0.005.
-LANE_AUC_FLOOR = 0.915299
+# python tests/test_torch_lanes.py 48``): holdout AUC 0.90692 at the
+# lowest tenant, 0.924 on average.  The floor is that lowest minus 0.005.
+LANE_JAX_AUC_MIN = 0.90692
+LANE_AUC_FLOOR = LANE_JAX_AUC_MIN - 0.005
 # [sample]: [main]'s data and configuration with rows and columns sampled
 SAMPLE_PARAMS = {**PARAMS, "subsample": 0.8, "colsample_bytree": 0.8,
                  "colsample_bylevel": 0.8, "seed": 0}
@@ -493,8 +519,77 @@ EXACT_AUC_JAX = 0.928636
 SK_AUC_JAX = 0.931701
 
 
+# ------------------------------------------------------------ phase clock
+SMOKE_DEADLINE_S = 1080          # 90% of the run's 1,200 s limit
+_T_START = time.perf_counter()
+PHASE_SECONDS = {}               # phase -> seconds, in the order run
+_RUNNING = [None, 0.0]           # the running phase and its start
+CHILDREN = []                    # processes started in sessions of their own
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Time the phase ``name`` into the phase table."""
+    _RUNNING[:] = [name, time.perf_counter()]
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - _RUNNING[1])
+        _RUNNING[:] = [None, 0.0]
+
+
+def print_phases():
+    """``[phases] {...}``: every phase's seconds so far, the running one
+    marked, and the total."""
+    table = {k: round(v, 1) for k, v in PHASE_SECONDS.items()}
+    name, t0 = _RUNNING
+    if name is not None:
+        table[f"{name} (running)"] = round(time.perf_counter() - t0, 1)
+    table["total"] = round(time.perf_counter() - _T_START, 1)
+    print(f"[phases] {json.dumps(table)}", flush=True)
+
+
+def start_child(cmd, **kw):
+    """``subprocess.Popen(cmd)`` in a session of its own, so that its whole
+    process group can be ended (:func:`kill_children`)."""
+    proc = subprocess.Popen(cmd, start_new_session=True, **kw)
+    CHILDREN.append(proc)
+    return proc
+
+
+def kill_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+
+atexit.register(kill_children)
+
+
+def start_deadline():
+    """The watchdog: at ``SMOKE_DEADLINE_S`` it prints the phase table with
+    the running phase, ends every process group the script started and
+    fails the run."""
+    def watch():
+        time.sleep(max(0.0, SMOKE_DEADLINE_S
+                       - (time.perf_counter() - _T_START)))
+        print_phases()
+        fail(f"the run passed its deadline of {SMOKE_DEADLINE_S} s in phase "
+             f"[{_RUNNING[0]}]")
+    threading.Thread(target=watch, daemon=True).start()
+
+
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    if threading.current_thread() is not threading.main_thread():
+        # the watchdog: end the process, whatever the main thread does
+        kill_children()
+        sys.stdout.flush()
+        os._exit(1)
     sys.exit(1)
 
 
@@ -1309,21 +1404,35 @@ def phase_cli(torch, xt, kernels, device, card, main_out):
 # [cli]'s buffers: W ranks on this one card over gloo, each launched by
 # the port's launcher, the CLI or the worker entry of this script
 DIST_WORLDS = (2, 4)
-DIST_TIMEOUT_S = 300
+# each launch's limit, about three times its seconds on an H100 at 700 W
+# (PERF.md section 6): the CLI launches that run at once 42-86 s, the
+# checks worker 43-60 s; dist_wait allows DIST_GRACE_S more
+DIST_LIMIT_S = 240
+DIST_CHECK_LIMIT_S = 180
+DIST_GRACE_S = 10
 DIST_MC_N = 200_000
 DIST_PARAMS = {**PARAMS, "dsplit": "row", "device_sketch": 0}
+# (g): [main]'s configuration by features; (h): exact column split on
+# [main]'s first rows; (i): rank:ndcg under row split on make_rank's
+# generator, 2,000 groups of 100 rows
+DIST_COL_PARAMS = {**PARAMS, "dsplit": "col"}
+DIST_EXACT_N, DIST_EXACT_ROUNDS = 200_000, 3
+DIST_EXACT_PARAMS = {**PARAMS, "updater": "grow_colmaker", "dsplit": "col"}
+DIST_RANK_N, DIST_RANK_ROUNDS = 200_000, 5
+DIST_RANK_PARAMS = {"objective": "rank:ndcg", "max_depth": DEPTH,
+                    "eta": 0.1, "max_bin": 64, "dsplit": "row",
+                    "device_sketch": 0}
 
 
-def dist_launch(n, cmd, cwd):
+def dist_launch(n, cmd, cwd, limit=DIST_LIMIT_S):
     """``python -m xgboost_tpu_torch.parallel.launch -n n cmd`` from
-    ``cwd``, started; the launcher ends its ranks past DIST_TIMEOUT_S."""
-    import subprocess
+    ``cwd``, started; the launcher ends its ranks past ``limit`` s."""
     env = dict(os.environ, PYTHONPATH=HERE)
-    proc = subprocess.Popen(
+    proc = start_child(
         [sys.executable, "-m", "xgboost_tpu_torch.parallel.launch", "-n",
-         str(n), "--timeout-sec", str(DIST_TIMEOUT_S), *cmd], cwd=cwd,
+         str(n), "--timeout-sec", str(limit), *cmd], cwd=cwd,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    proc.t0 = time.perf_counter()
+    proc.t0, proc.limit = time.perf_counter(), limit
     return proc
 
 
@@ -1331,14 +1440,13 @@ def dist_wait(procs):
     """Wait for launches ``{name: proc}`` at once: ``{name: (stdout,
     stderr, seconds from its start to its end)}``.  Any failed rank, a
     hang or a launcher past its limit fails the phase (gate f)."""
-    import threading
     done = {}
 
     def wait(name, proc):
         try:
-            out, err = proc.communicate(timeout=DIST_TIMEOUT_S + 60)
-        except Exception:
-            proc.kill()
+            out, err = proc.communicate(timeout=proc.limit + DIST_GRACE_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
             out, err = proc.communicate()
         done[name] = (out, err, time.perf_counter() - proc.t0)
     threads = [threading.Thread(target=wait, args=item)
@@ -1347,10 +1455,13 @@ def dist_wait(procs):
         t.start()
     for t in threads:
         t.join()
+    print("[dist] launches: " + ", ".join(
+        f"{name} {done[name][2]:.1f} s (limit {proc.limit} s)"
+        for name, proc in procs.items()), flush=True)
     for name, proc in procs.items():
         if proc.returncode != 0:
             fail(f"[dist] {name}: launcher exit {proc.returncode} (124: a "
-                 f"rank hung past {DIST_TIMEOUT_S} s): "
+                 f"rank hung past {proc.limit} s): "
                  f"{done[name][1][-3000:]}")
     return done
 
@@ -1360,13 +1471,120 @@ def dist_eval_lines(err):
             and "\t" in ln]
 
 
-def dist_worker(out_dir, task):
-    """A rank of [dist]'s own checks (gates c and e), launched by the
+def state_sha(state):
+    """One hash of a model's tree arrays and cuts (``get_state``)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode() + np.ascontiguousarray(state[k]).tobytes())
+    return h.hexdigest()
+
+
+def timed_rounds(torch, comm, kernels, bst, dtrain, rounds):
+    """Rounds 1 to ``rounds - 1`` of a booster whose round 0 ran:
+    (ms a round, launch counts, collectives a round)."""
+    torch.cuda.synchronize()
+    before = comm.totals()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    bst.update_many(dtrain, 1, rounds - 1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (rounds - 1)
+    return ms, read_counts(kernels), comm_per(comm, before, rounds - 1)
+
+
+def comm_per(comm, before, n):
+    """The collectives since ``before`` (``comm.totals()``), per one of
+    ``n`` rounds."""
+    after = comm.totals()
+    return {op: {k: (after[op][k] - before[op][k]) / n for k in after[op]}
+            for op in after}
+
+
+def dist_col_checks(torch, xt, kernels, dtrain, res):
+    """Gates g-i on this rank: [main]'s rounds by features (round 0's K1
+    on this rank's block == plain, rounds 1-19 timed); exact column
+    split on DIST_EXACT_N of [main]'s rows, each K2 launch within its
+    bound of the f64 sums; rank:ndcg under row split."""
+    from xgboost_tpu_torch.obs import comm
+    from xgboost_tpu_torch.ops import cuda_hist, cuda_node_stats
+    kernel_fn = cuda_hist.level_histogram
+    captured = []
+
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin, mode))
+        return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+    bst = xt.Booster(DIST_COL_PARAMS, cache=[dtrain])
+    cuda_hist.level_histogram = capture
+    try:
+        bst.update(dtrain, 0)                  # cuts, binning: untimed
+    finally:
+        cuda_hist.level_histogram = kernel_fn
+    res["col_levels"] = [
+        [int(bins.shape[1]), M, bool(torch.equal(
+            kernel_fn(bins, gh, pos, M, nb, mode),
+            cuda_hist.level_histogram_plain(bins, gh, pos, M, nb, mode)))]
+        for bins, gh, pos, M, nb, mode in captured]
+    del captured
+    res["col_ms"], res["col_counts"], res["col_comm"] = timed_rounds(
+        torch, comm, kernels, bst, dtrain, ROUNDS)
+    res["col_sha"] = state_sha(bst.gbtree.get_state())
+    del bst
+    # (h)
+    X, y = make_higgs_like(N_TRAIN + N_TEST)
+    dx = xt.DMatrix(X[:DIST_EXACT_N], label=y[:DIST_EXACT_N])
+    del X, y
+    k2_fn = cuda_node_stats.node_stats
+    calls = []
+
+    def capture2(gh, pos, n_node):
+        calls.append((gh.clone(), pos.clone(), n_node))
+        return k2_fn(gh, pos, n_node)
+    before = comm.totals()
+    reset_counts(kernels)
+    cuda_node_stats.node_stats = capture2
+    t0 = time.perf_counter()
+    try:
+        bx = xt.train(DIST_EXACT_PARAMS, dx, DIST_EXACT_ROUNDS)
+    finally:
+        cuda_node_stats.node_stats = k2_fn
+    torch.cuda.synchronize()
+    res["exact_s"] = time.perf_counter() - t0
+    res["exact_counts"] = read_counts(kernels)
+    res["exact_comm"] = comm_per(comm, before, DIST_EXACT_ROUNDS)
+    res["exact_sha"] = hashlib_sha(bx.save_raw())
+    res["exact_k2"] = []
+    for gh, pos, M in calls:
+        got, want = k2_fn(gh, pos, M), node_sums_f64(torch, gh, pos, M)
+        res["exact_k2"].append([M, ratio(got, want, k2_bound(
+            torch, gh, pos, M)), float((got.double() - want).abs().max())])
+    del bx, dx, calls
+    # (i)
+    dr = rank_dmatrix(xt, *make_rank(DIST_RANK_N))
+    before = comm.totals()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    br = xt.train(DIST_RANK_PARAMS, dr, DIST_RANK_ROUNDS)
+    torch.cuda.synchronize()
+    res["rank_s"] = time.perf_counter() - t0
+    res["rank_counts"] = read_counts(kernels)
+    res["rank_comm"] = comm_per(comm, before, DIST_RANK_ROUNDS)
+    res["rank_sha"] = hashlib_sha(br.save_raw())
+
+
+def hashlib_sha(raw: bytes) -> str:
+    import hashlib
+    return hashlib.sha256(raw).hexdigest()
+
+
+def dist_worker(out_dir):
+    """A rank of [dist]'s own checks (gates c, e, g-i), launched by the
     port's launcher: the timed Higgs rounds with this rank's launch
-    counts and collective tallies, and for ``check`` every level's K1 on
+    counts and collective tallies, every level's K1 on
     this rank's block against the plain version, the reduced level
     against the plain histogram of all rows, a refresh pass's K2, the
-    device sketch's cuts on this rank, and a 6-class round (K3)."""
+    device sketch's cuts on this rank, a 6-class round (K3) and
+    :func:`dist_col_checks`."""
     import hashlib
 
     import torch
@@ -1386,100 +1604,92 @@ def dist_worker(out_dir, task):
                                      "higgs-train.buffer"))
     bst = xt.Booster(DIST_PARAMS, cache=[dtrain])
     bst.update(dtrain, 0)                      # cuts, binning: untimed
-    torch.cuda.synchronize()
-    before = comm.totals()
-    reset_counts(kernels)
-    t0 = time.perf_counter()
-    bst.update_many(dtrain, 1, ROUNDS - 1)
-    torch.cuda.synchronize()
-    res["ms_round"] = (time.perf_counter() - t0) * 1e3 / (ROUNDS - 1)
-    res["counts"] = read_counts(kernels)
-    after = comm.totals()
-    res["comm"] = {op: {k: (after[op][k] - before[op][k]) / (ROUNDS - 1)
-                        for k in after[op]} for op in after}
-    if task == "check":
-        P = DIST_PARAMS
-        kernel_fn = cuda_hist.level_histogram
-        captured = []
+    res["ms_round"], res["counts"], res["comm"] = timed_rounds(
+        torch, comm, kernels, bst, dtrain, ROUNDS)
+    P = DIST_PARAMS
+    kernel_fn = cuda_hist.level_histogram
+    captured = []
 
-        def capture(bins, gh, pos, n_node, n_bin, mode):
-            captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin,
-                             mode))
-            return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
-        cuda_hist.level_histogram = capture
-        try:
-            b1 = xt.train(P, dtrain, 1)
-        finally:
-            cuda_hist.level_histogram = kernel_fn
-        bins_all = torch.cat(mesh.all_gather(captured[0][0]))
-        levels = []
-        for bins, gh, pos, M, nb, mode in captured:
-            got = kernel_fn(bins, gh, pos, M, nb, mode)
-            want = cuda_hist.level_histogram_plain(bins, gh, pos, M, nb, mode)
-            red = mesh.sum(got)
-            all_gh = torch.cat(mesh.all_gather(gh))
-            all_pos = torch.cat(mesh.all_gather(pos))
-            want_all = cuda_hist.level_histogram_plain(bins_all, all_gh,
-                                                       all_pos, M, nb, mode)
-            levels.append([int(bins.shape[0]), M, mode,
-                           bool(torch.equal(got, want)),
-                           bool(torch.equal(red, want_all))])
-        res["levels"] = levels
-        # one refresh pass of b1's tree: each K2 call on this rank's
-        # block against its rows' f64 sums, and the sums over the ranks
-        # against all rows' f64 sums, each node within K2's own bound; a
-        # planted fault (16 rows of the fullest node dropped) must fail
-        # the same gate
-        k2_fn = cuda_node_stats.node_stats
-        calls = []
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin,
+                         mode))
+        return kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+    cuda_hist.level_histogram = capture
+    try:
+        b1 = xt.train(P, dtrain, 1)
+    finally:
+        cuda_hist.level_histogram = kernel_fn
+    bins_all = torch.cat(mesh.all_gather(captured[0][0]))
+    levels = []
+    for bins, gh, pos, M, nb, mode in captured:
+        got = kernel_fn(bins, gh, pos, M, nb, mode)
+        want = cuda_hist.level_histogram_plain(bins, gh, pos, M, nb, mode)
+        red = mesh.sum(got)
+        all_gh = torch.cat(mesh.all_gather(gh))
+        all_pos = torch.cat(mesh.all_gather(pos))
+        want_all = cuda_hist.level_histogram_plain(bins_all, all_gh,
+                                                   all_pos, M, nb, mode)
+        levels.append([int(bins.shape[0]), M, mode,
+                       bool(torch.equal(got, want)),
+                       bool(torch.equal(red, want_all))])
+    res["levels"] = levels
+    # one refresh pass of b1's tree: each K2 call on this rank's
+    # block against its rows' f64 sums, and the sums over the ranks
+    # against all rows' f64 sums, each node within K2's own bound; a
+    # planted fault (16 rows of the fullest node dropped) must fail
+    # the same gate
+    k2_fn = cuda_node_stats.node_stats
+    calls = []
 
-        def capture2(gh, pos, n_node):
-            calls.append((gh.clone(), pos.clone(), n_node))
-            return k2_fn(gh, pos, n_node)
-        b1.set_param({"updater": "refresh"})
-        cuda_node_stats.node_stats = capture2
-        cuda_node_stats.reset_launches()
-        try:
-            b1.update(dtrain, 1)
-        finally:
-            cuda_node_stats.node_stats = k2_fn
-        res["k2_launches"] = cuda_node_stats.launches
-        k2 = []
-        for gh, pos, M in calls:
-            got = k2_fn(gh, pos, M)
-            exact = node_sums_f64(torch, gh, pos, M)
-            bound = k2_bound(torch, gh, pos, M)
-            all_gh = torch.cat(mesh.all_gather(gh), dim=1)
-            all_pos = torch.cat(mesh.all_gather(pos), dim=1)
-            red = mesh.sum(got)
-            exact_all = node_sums_f64(torch, all_gh, all_pos, M)
-            bound_all = k2_bound(torch, all_gh, all_pos, M, gh.shape[1],
-                                 mesh.world - 1)
-            count = torch.bincount(pos[(pos >= 0) & (pos < M)].long(),
-                                   minlength=M)
-            rows = (pos == int(count.argmax())).nonzero()[:16]
-            bad_pos = pos.clone()
-            bad_pos[rows[:, 0], rows[:, 1]] = -1
-            bad = k2_fn(gh, bad_pos, M)
-            k2.append([M, ratio(got, exact, bound),
-                       ratio(red, exact_all, bound_all),
-                       ratio(bad, exact, bound),
-                       float((got.double() - exact).abs().max()),
-                       float((red.double() - exact_all).abs().max())])
-        res["k2"] = k2
-        # gate (b): the device sketch's cuts on this rank
-        from xgboost_tpu_torch.parallel.sketch_device import sketch_cuts_mesh
-        cuts = sketch_cuts_mesh(mesh, dtrain.to_dense(), None, PARAMS[
-            "max_bin"])
-        res["sketch_sha"] = hashlib.sha256(
-            cuts.cut_values.tobytes() + cuts.n_cuts.tobytes()).hexdigest()
-        # a 6-class round through K3
-        Xm, ym = make_multiclass(DIST_MC_N)
-        cuda_hist_batched.reset_launches()
-        bm = xt.train({**MC_PARAMS, "dsplit": "row", "device_sketch": 0},
-                      xt.DMatrix(Xm, label=ym), 1)
-        res["k3_launches"] = cuda_hist_batched.launches
-        res["k3_sha"] = hashlib.sha256(bm.save_raw()).hexdigest()
+    def capture2(gh, pos, n_node):
+        calls.append((gh.clone(), pos.clone(), n_node))
+        return k2_fn(gh, pos, n_node)
+    b1.set_param({"updater": "refresh"})
+    cuda_node_stats.node_stats = capture2
+    cuda_node_stats.reset_launches()
+    try:
+        b1.update(dtrain, 1)
+    finally:
+        cuda_node_stats.node_stats = k2_fn
+    res["k2_launches"] = cuda_node_stats.launches
+    k2 = []
+    for gh, pos, M in calls:
+        got = k2_fn(gh, pos, M)
+        exact = node_sums_f64(torch, gh, pos, M)
+        bound = k2_bound(torch, gh, pos, M)
+        all_gh = torch.cat(mesh.all_gather(gh), dim=1)
+        all_pos = torch.cat(mesh.all_gather(pos), dim=1)
+        red = mesh.sum(got)
+        exact_all = node_sums_f64(torch, all_gh, all_pos, M)
+        bound_all = k2_bound(torch, all_gh, all_pos, M, gh.shape[1],
+                             mesh.world - 1)
+        count = torch.bincount(pos[(pos >= 0) & (pos < M)].long(),
+                               minlength=M)
+        rows = (pos == int(count.argmax())).nonzero()[:16]
+        bad_pos = pos.clone()
+        bad_pos[rows[:, 0], rows[:, 1]] = -1
+        bad = k2_fn(gh, bad_pos, M)
+        k2.append([M, ratio(got, exact, bound),
+                   ratio(red, exact_all, bound_all),
+                   ratio(bad, exact, bound),
+                   float((got.double() - exact).abs().max()),
+                   float((red.double() - exact_all).abs().max())])
+    res["k2"] = k2
+    # gate (b): the device sketch's cuts on this rank
+    from xgboost_tpu_torch.parallel.sketch_device import sketch_cuts_mesh
+    cuts = sketch_cuts_mesh(mesh, dtrain.to_dense(), None, PARAMS[
+        "max_bin"])
+    res["sketch_sha"] = hashlib.sha256(
+        cuts.cut_values.tobytes() + cuts.n_cuts.tobytes()).hexdigest()
+    # a 6-class round through K3
+    Xm, ym = make_multiclass(DIST_MC_N)
+    cuda_hist_batched.reset_launches()
+    bm = xt.train({**MC_PARAMS, "dsplit": "row", "device_sketch": 0},
+                  xt.DMatrix(Xm, label=ym), 1)
+    res["k3_launches"] = cuda_hist_batched.launches
+    res["k3_sha"] = hashlib.sha256(bm.save_raw()).hexdigest()
+    del bm
+    dist_col_checks(torch, xt, kernels, dtrain, res)
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(res, f)
     mesh.barrier()
@@ -1537,7 +1747,6 @@ def phase_dist(torch, xt, kernels, card, main_out):
     from xgboost_tpu_torch.binning import pack_cuts
     from xgboost_tpu_torch.parallel.mesh import DataMesh
     from xgboost_tpu_torch.parallel import sketch_device as tsd
-    t_phase = time.perf_counter()
     cli_root = os.path.join(HERE, ".smoke_out", "cli")
     train_buf = os.path.join(cli_root, "higgs-train.buffer")
     test_buf = os.path.join(cli_root, "higgs-test.buffer")
@@ -1553,10 +1762,10 @@ def phase_dist(torch, xt, kernels, card, main_out):
     want_line = f"[{ROUNDS - 1}]\ttest-auc:{main_out['auc']:.6f}"
     dirs = {}
 
-    def start(name, world, cmd):
+    def start(name, world, cmd, limit=DIST_LIMIT_S):
         d = dirs[name] = os.path.join(root, name)
         os.makedirs(d)
-        return dist_launch(world, cmd, d)
+        return dist_launch(world, cmd, d, limit)
 
     # (a) W = 2 and 4 with the host sketch on every rank, (b) the
     # default device sketch, (d) the split load of libsvm text against
@@ -1564,6 +1773,7 @@ def phase_dist(torch, xt, kernels, card, main_out):
     procs = {f"cli{w}": start(f"cli{w}", w, cli + ["device_sketch=0"])
              for w in DIST_WORLDS}
     procs.update({
+        "col2": start("col2", 2, cli + ["dsplit=col"]),
         "sketch": start("sketch", 2, cli),
         "split": start("split", 2, cli + [f"data={text}",
                                           "device_sketch=1"]),
@@ -1590,7 +1800,7 @@ def phase_dist(torch, xt, kernels, card, main_out):
     # (c) and (e) at W = 2: the checks worker, alone on the card
     procs = {"check": start("check", 2, [
         sys.executable, os.path.join(HERE, "chip_smoke.py"),
-        "--dist-worker", "", "check"])}
+        "--dist-worker", ""], DIST_CHECK_LIMIT_S)}
     outs.update(dist_wait(procs))
     # (b): the cuts of the CLI run against the device sketch on the CPU
     # over the same two blocks
@@ -1665,29 +1875,19 @@ def phase_dist(torch, xt, kernels, card, main_out):
           f"fault (16 rows of the fullest node dropped) reads at least "
           f"{k2_fault:.4g} of it and fails; 6-class round ({DIST_MC_N} x 28, K3 "
           f"{DEPTH} launches a rank) byte-equal to W=1", flush=True)
-    # (e): ms per round at W = 1 (this process: a world of one), 2 (the
-    # checks worker) and 4, collectives, each rank's launches
+    col = dist_col_gates(xt, kernels, card, main_out, outs, dirs, ranks,
+                         want_line)
+    # (e): ms per round at W = 1 (this process: a world of one) and 2
+    # (the checks worker), collectives, each rank's launches
     from xgboost_tpu_torch.obs import comm
     dtrain = xt.DMatrix(train_buf)
     b1 = xt.Booster(DIST_PARAMS, cache=[dtrain])
     b1.update(dtrain, 0)
-    torch.cuda.synchronize()
-    before = comm.totals()
-    reset_counts(kernels)
-    t0 = time.perf_counter()
-    b1.update_many(dtrain, 1, ROUNDS - 1)
-    torch.cuda.synchronize()
-    after = comm.totals()
-    timing = {1: [{"rank": 0, "ms_round": (time.perf_counter() - t0) * 1e3
-                   / (ROUNDS - 1), "counts": read_counts(kernels),
-                   "comm": {op: {k: (after[op][k] - before[op][k])
-                                 / (ROUNDS - 1) for k in after[op]}
-                            for op in after}}], 2: ranks}
+    ms, counts, per_round = timed_rounds(torch, comm, kernels, b1, dtrain,
+                                         ROUNDS)
+    timing = {1: [{"rank": 0, "ms_round": ms, "counts": counts,
+                   "comm": per_round}], 2: ranks}
     del dtrain, b1
-    p = start("time4", 4, [sys.executable, os.path.join(
-        HERE, "chip_smoke.py"), "--dist-worker", "", "time"])
-    dist_wait({"time4": p})
-    timing[4] = read_ranks(dirs["time4"], 4)
     want_k1 = (ROUNDS - 1) * DEPTH
     for world, rs in sorted(timing.items()):
         for r in rs:
@@ -1708,12 +1908,109 @@ def phase_dist(torch, xt, kernels, card, main_out):
               f"{c['allgather']['bytes'] / 2 ** 20:.3f} MiB, "
               f"{c['allgather']['seconds'] * 1e3:.3f} ms; each rank's "
               f"launches {[r['counts'] for r in rs]} | {card}", flush=True)
-    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     # the ranks' launches on [dist]'s counted paths: the timed rounds
     # (K1), the refresh pass (K2) and the 6-class round (K3) of W=2
-    return {"hist_level": sum(r["counts"]["hist_level"] for r in ranks),
+    return {"hist_level": sum(r["counts"]["hist_level"] for r in ranks)
+            + col["hist_level"],
             "hist_batched": sum(r["k3_launches"] for r in ranks),
-            "node_stats": sum(r["k2_launches"] for r in ranks),
+            "node_stats": sum(r["k2_launches"] for r in ranks)
+            + col["node_stats"],
+            "node_stats_err": max(k2_err, col["node_stats_err"])}
+
+
+def comm_text(c):
+    """A round's collectives, from ``obs/comm.py`` totals' deltas."""
+    return "; ".join(
+        f"{op} {c[op]['count']:.1f} calls, {c[op]['bytes'] / 2 ** 10:.1f} "
+        f"KiB, {c[op]['seconds'] * 1e3:.3f} ms" for op in sorted(c))
+
+
+def dist_col_gates(xt, kernels, card, main_out, outs, dirs, ranks,
+                   want_line):
+    """Gates g-i of [dist] on the launches' outputs and the checks
+    worker's ranks; the same runs at W = 1 in this process.  Returns the
+    K1 and K2 launches of the counted paths (the timed column-split
+    rounds, the exact trees, the rank rounds) and K2's largest error."""
+    # (g) the CLI by features, and the worker's timed rounds
+    lines = dist_eval_lines(outs["col2"][1])
+    b = xt.Booster(model_file=os.path.join(dirs["col2"], "final.model"))
+    if not same_trees(b.gbtree.get_state(), main_out["state"]):
+        fail("[dist] (g): the dsplit=col model differs from [main]'s (tree "
+             "arrays, cuts)")
+    if len(lines) != ROUNDS or lines[-1] != want_line:
+        fail(f"[dist] (g): {len(lines)} eval lines, last {lines[-1:]}: "
+             f"want {want_line!r}")
+    want_k1 = (ROUNDS - 1) * DEPTH
+    sha = state_sha(main_out["state"])
+    for r in ranks:
+        if len(r["col_levels"]) != DEPTH or not all(
+                lv[2] for lv in r["col_levels"]):
+            fail(f"[dist] (g) rank {r['rank']}: K1 on the block [features, "
+                 f"nodes, == plain] {r['col_levels']}")
+        if r["col_sha"] != sha:
+            fail(f"[dist] (g) rank {r['rank']}: the worker's dsplit=col "
+                 "model differs from [main]'s")
+        if r["col_counts"] != {"hist_level": want_k1, "hist_batched": 0,
+                               "node_stats": 0}:
+            fail(f"[dist] (g) rank {r['rank']}: counts {r['col_counts']}")
+    print(f"[dist] (g) W=2 dsplit=col: launch -n 2 python -m "
+          f"xgboost_tpu_torch dist.conf dsplit=col {outs['col2'][2]:.1f} s "
+          f"(beside (a), (b), (d)); model == [main]'s, bitwise (tree "
+          f"arrays, cuts); last eval line {lines[-1]!r} == [main]'s; "
+          f"worker: K1 on each rank's {ranks[0]['col_levels'][0][0]} "
+          f"features == plain at all {DEPTH} levels, int8 bitwise; "
+          f"{max(r['col_ms'] for r in ranks):.3f} ms per round (slowest "
+          f"rank, rounds 1-{ROUNDS - 1}), K1 {want_k1} launches a rank, a "
+          f"round: {comm_text(ranks[0]['col_comm'])} | {card}", flush=True)
+    # (h) exact column split against a world of one
+    X, y = main_out["X"], main_out["y"]
+    bx = xt.train(DIST_EXACT_PARAMS, xt.DMatrix(X[:DIST_EXACT_N],
+                                                label=y[:DIST_EXACT_N]),
+                  DIST_EXACT_ROUNDS)
+    k2_want = DIST_EXACT_ROUNDS * (DEPTH + 1)
+    for r in ranks:
+        if r["exact_sha"] != hashlib_sha(bx.save_raw()):
+            fail(f"[dist] (h) rank {r['rank']}: the exact dsplit=col model "
+                 "differs from W=1's")
+        if r["exact_counts"] != {"hist_level": 0, "hist_batched": 0,
+                                 "node_stats": k2_want} or len(
+                r["exact_k2"]) != k2_want:
+            fail(f"[dist] (h) rank {r['rank']}: counts {r['exact_counts']}, "
+                 f"{len(r['exact_k2'])} K2 calls")
+        if not all(c[1] <= 1 for c in r["exact_k2"]):
+            fail(f"[dist] (h) rank {r['rank']}: K2 [nodes, err / bound, "
+                 f"max |err|] {r['exact_k2']}")
+    k2_ratio = max(c[1] for r in ranks for c in r["exact_k2"])
+    k2_err = max(c[2] for r in ranks for c in r["exact_k2"])
+    print(f"[dist] (h) W=2 exact grow_colmaker dsplit=col on {DIST_EXACT_N} "
+          f"of [main]'s rows, {DIST_EXACT_ROUNDS} rounds: model == W=1's, "
+          f"byte for byte; {max(r['exact_s'] for r in ranks):.1f} s (rank "
+          f"build included); K2 {k2_want} launches a rank, each node within "
+          f"K2's bound of its f64 sums (at most {k2_ratio:.4g} of it, max "
+          f"|K2 - f64| {k2_err:.4g}); a round: "
+          f"{comm_text(ranks[0]['exact_comm'])} | {card}", flush=True)
+    # (i) rank:ndcg under row split against a world of one
+    br = xt.train(DIST_RANK_PARAMS, rank_dmatrix(xt, *make_rank(
+        DIST_RANK_N)), DIST_RANK_ROUNDS)
+    k1_rank = DIST_RANK_ROUNDS * DEPTH
+    for r in ranks:
+        if r["rank_sha"] != hashlib_sha(br.save_raw()):
+            fail(f"[dist] (i) rank {r['rank']}: the rank:ndcg dsplit=row "
+                 "model differs from W=1's")
+        if r["rank_counts"] != {"hist_level": k1_rank, "hist_batched": 0,
+                                "node_stats": 0}:
+            fail(f"[dist] (i) rank {r['rank']}: counts {r['rank_counts']}")
+    print(f"[dist] (i) W=2 rank:ndcg dsplit=row on {DIST_RANK_N} rows in "
+          f"{DIST_RANK_N // RANK_GSIZE} groups, {DIST_RANK_ROUNDS} rounds: "
+          f"model == W=1's, byte for byte; "
+          f"{max(r['rank_s'] for r in ranks):.1f} s; K1 {k1_rank} launches "
+          f"a rank; a round: {comm_text(ranks[0]['rank_comm'])} | {card}",
+          flush=True)
+    return {"hist_level": sum(r["col_counts"]["hist_level"]
+                              + r["rank_counts"]["hist_level"]
+                              for r in ranks),
+            "node_stats": sum(r["exact_counts"]["node_stats"]
+                              for r in ranks),
             "node_stats_err": k2_err}
 
 
@@ -2264,7 +2561,7 @@ def start_router(*params):
     subprocess: (process, base URL read from its banner, its stderr
     lines)."""
     import threading
-    proc = subprocess.Popen(
+    proc = start_child(
         [sys.executable, "-m", "xgboost_tpu_torch", "task=fleet_router",
          "fleet_port=0", f"fleet_lease_sec={FLEET_LEASE_S}",
          f"fleet_hc_sec={FLEET_HC_S}", *params],
@@ -3033,7 +3330,8 @@ def phase_lanes(torch, xt, kernels, device, card):
         aucs.append(auc(pred, arrays[i][3], np.ones(LANE_HOLD, np.float32)))
     print(f"[lanes] holdout AUC min {min(aucs):.6f} mean "
           f"{float(np.mean(aucs)):.6f} max {max(aucs):.6f} (floor "
-          f"{LANE_AUC_FLOOR}: the JAX package's lowest 0.920299 - 0.005)",
+          f"{LANE_AUC_FLOOR:.6f}: the JAX package's lowest "
+          f"{LANE_JAX_AUC_MIN} - 0.005)",
           flush=True)
     if not min(aucs) >= LANE_AUC_FLOOR:
         fail(f"tenant holdout AUC {min(aucs)} < {LANE_AUC_FLOOR}")
@@ -3278,8 +3576,9 @@ def time_lane_cycles(torch, xt, data, device, card):
     rounds, as 48 ``update_many`` calls (the host loop's boost path) or
     as one ``LaneGang`` bucket dispatch (rendezvous cost aside: the
     lanes are handed over at once).  Cycle 0 (cuts, binning, first
-    launches) is left out; cycles 1-3 alternate host loop and stacked
-    on one card.  Both end with the same model bytes per tenant."""
+    launches) is left out; the LANE_TIMED_CYCLES after it alternate host
+    loop and stacked on one card.  Both end with the same model bytes per
+    tenant."""
     from xgboost_tpu_torch.pipeline.lanes import LaneGang, _Arrival, _bucket_of
 
     def boosters():
@@ -3288,7 +3587,7 @@ def time_lane_cycles(torch, xt, data, device, card):
     host, stacked = boosters(), boosters()
     gang = LaneGang(expected=0)
     host_ts, stacked_ts = [], []
-    for c in range(4):
+    for c in range(LANE_TIMED_CYCLES + 1):
         it0 = c * LANE_ROUNDS
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5445,20 +5744,14 @@ def phases_linear_compat_extmem(torch, xt, kernels, card, main_out):
     """[linear], [compat] and [extmem] in turn: (the K1 and K2 launches
     of [extmem], their largest errors against the plain versions, the
     times of all three)."""
-    t_all = time.perf_counter()
-    t0 = time.perf_counter()
-    lin_ms = phase_linear(torch, xt, kernels, "cuda", card, main_out)
-    print(f"[linear] phase {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    phase_compat(torch, xt, "cuda", card, main_out)
-    print(f"[compat] phase {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    ext_launches, ext_errs, times = phase_extmem(torch, xt, kernels,
-                                                 "cuda", card, main_out)
-    print(f"[extmem] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase("linear"):
+        lin_ms = phase_linear(torch, xt, kernels, "cuda", card, main_out)
+    with phase("compat"):
+        phase_compat(torch, xt, "cuda", card, main_out)
+    with phase("extmem"):
+        ext_launches, ext_errs, times = phase_extmem(torch, xt, kernels,
+                                                     "cuda", card, main_out)
     times.update(lin_ms=lin_ms["higgs"], lin_mc_ms=lin_ms["multiclass"])
-    print(f"[linear+compat+extmem] {time.perf_counter() - t_all:.1f} s",
-          flush=True)
     return ext_launches, ext_errs, times
 
 
@@ -5480,8 +5773,10 @@ def kernel_record(name, source, replaces, launches, max_err, rows):
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if sys.argv[1:2] == ["--dist-worker"]:
-        dist_worker(sys.argv[2], sys.argv[3])
+        dist_worker(sys.argv[2])
         return
+    stop_after = sys.argv[2] if sys.argv[1:2] == ["--stop-after"] else None
+    start_deadline()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -5504,130 +5799,120 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda} | python "
           f"{sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    sources = ["hist_level", "hist_batched", "node_stats", "hist_lanes",
-               *dict.fromkeys(cuda_hist_onehot.SOURCES.values())]
-    for b in nvcc.build(sources):
-        print(f"[build] {b.name}: {b.seconds:.2f} s")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line \
-                    or "Performance" in line:
-                print(f"[build]   {line.strip()}")
-    print(f"[build] total {time.perf_counter() - t0:.2f} s")
+    def stop_here(name):
+        """True after the phase ``--stop-after`` names: the table, no
+        result."""
+        if stop_after != name:
+            return False
+        print_phases()
+        return True
 
-    t0 = time.perf_counter()
-    phase_kernels(torch, cuda_hist, dev)
-    print(f"[K1] checks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_k3(torch, cuda_hist_batched, cuda_hist, dev)
-    print(f"[K3] checks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_k2(torch, cuda_node_stats, dev)
-    print(f"[K2] checks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_k4(torch, cuda_hist_lanes, cuda_hist, dev)
-    print(f"[K4] checks {time.perf_counter() - t0:.1f} s")
-
-    launches, ms_round, captured, max_err, main_out = phase_main(
-        torch, xt, cuda_hist, kernels, "cuda", card)
-    rows = phase_times(torch, cuda_hist, captured, card)
+    with phase("build"):
+        sources = ["hist_level", "hist_batched", "node_stats", "hist_lanes",
+                   *dict.fromkeys(cuda_hist_onehot.SOURCES.values())]
+        for b in nvcc.build(sources):
+            print(f"[build] {b.name}: {b.seconds:.2f} s")
+            for line in b.log.splitlines():
+                if "registers" in line or "spill" in line \
+                        or "Performance" in line:
+                    print(f"[build]   {line.strip()}")
+    with phase("K1"):
+        phase_kernels(torch, cuda_hist, dev)
+    with phase("K3"):
+        phase_k3(torch, cuda_hist_batched, cuda_hist, dev)
+    with phase("K2"):
+        phase_k2(torch, cuda_node_stats, dev)
+    with phase("K4"):
+        phase_k4(torch, cuda_hist_lanes, cuda_hist, dev)
+    with phase("main"):
+        launches, ms_round, captured, max_err, main_out = phase_main(
+            torch, xt, cuda_hist, kernels, "cuda", card)
+    with phase("time"):
+        rows = phase_times(torch, cuda_hist, captured, card)
     del captured
-    t0 = time.perf_counter()
-    phase_cli(torch, xt, kernels, "cuda", card, main_out)
-    print(f"[cli] checks {time.perf_counter() - t0:.1f} s")
-    dist_launches = phase_dist(torch, xt, kernels, card, main_out)
-    t0 = time.perf_counter()
-    s_launches, s_ms, draw_ms, _ = phase_sample(torch, xt, cuda_hist,
-                                                kernels, "cuda", card,
-                                                main_out)
-    print(f"[sample] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    sub_k1, sub_k2, sub_ms, _ = phase_subtract(torch, xt, cuda_hist,
-                                               kernels, "cuda", card,
-                                               main_out)
-    print(f"[subtract] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    r_launches, rf_launches = phase_roots(torch, xt, cuda_hist, kernels,
-                                          "cuda", card, main_out)
-    print(f"[roots] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    p_launches, phases, _, _ = phase_profile(torch, xt, kernels, "cuda",
-                                             card, main_out)
-    print(f"[profile] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    upd_launches, upd_times = phase_updaters(torch, xt, kernels, "cuda",
-                                             card, main_out)
-    print(f"[updaters] phase {time.perf_counter() - t0:.1f} s")
+    with phase("cli"):
+        phase_cli(torch, xt, kernels, "cuda", card, main_out)
+    with phase("dist"):
+        dist_launches = phase_dist(torch, xt, kernels, card, main_out)
+    if stop_here("dist"):
+        return
+    with phase("sample"):
+        s_launches, s_ms, draw_ms, _ = phase_sample(
+            torch, xt, cuda_hist, kernels, "cuda", card, main_out)
+    with phase("subtract"):
+        sub_k1, sub_k2, sub_ms, _ = phase_subtract(
+            torch, xt, cuda_hist, kernels, "cuda", card, main_out)
+    with phase("roots"):
+        r_launches, rf_launches = phase_roots(torch, xt, cuda_hist, kernels,
+                                              "cuda", card, main_out)
+    with phase("profile"):
+        p_launches, phases, _, _ = phase_profile(torch, xt, kernels, "cuda",
+                                                 card, main_out)
+    with phase("updaters"):
+        upd_launches, upd_times = phase_updaters(torch, xt, kernels, "cuda",
+                                                 card, main_out)
     ext_launches, ext_errs, ext_times = phases_linear_compat_extmem(
         torch, xt, kernels, card, main_out)
     main_hold = main_out["X"][N_TRAIN:]
     fleet_train = (main_out["X"][:FLEET_CAND_N].copy(),
                    main_out["y"][:FLEET_CAND_N].copy())
     del main_out
-    mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
-        torch, xt, kernels, "cuda", card)
-    k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)
+    with phase("multiclass"):
+        mc_launches, mc_ms_round, mc_captured, mc_err, _ = phase_multiclass(
+            torch, xt, kernels, "cuda", card)
+        k3_rows = time_k3(torch, cuda_hist_batched, mc_captured, card)
     del mc_captured
-    engine_bytes = phase_serve(torch, xt, kernels, card, main_hold)
-    t0 = time.perf_counter()
-    phase_fleet(torch, xt, kernels, card, main_hold, fleet_train,
-                engine_bytes)
-    print(f"[fleet] checks {time.perf_counter() - t0:.1f} s")
+    with phase("serve"):
+        engine_bytes = phase_serve(torch, xt, kernels, card, main_hold)
+    with phase("fleet"):
+        phase_fleet(torch, xt, kernels, card, main_hold, fleet_train,
+                    engine_bytes)
     del main_hold, fleet_train
-    phase_otto(torch, xt, kernels, "cuda", card)
-    t0 = time.perf_counter()
-    f_launches, _ = phase_forest(torch, xt, kernels, "cuda", card)
-    print(f"[forest] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    smc_k3, smc_k4, smc_k2, smc_ms = phase_subtract_multiclass(
-        torch, xt, kernels, "cuda", card, mc_ms_round)
-    print(f"[subtract] multiclass phase {time.perf_counter() - t0:.1f} s")
-    d0_launches, d0_captured, d0_err = phase_depth0(torch, xt, kernels,
-                                                    "cuda")
-    k2_rows = time_k2(torch, cuda_node_stats, d0_captured, card)
-    t0 = time.perf_counter()
-    k4_launches, lane_data, lane_rows, lane_secs, _ = phase_lanes(
-        torch, xt, kernels, "cuda", card)
-    k4_captured = lanes_round_inputs(torch, xt, cuda_hist_lanes, lane_data,
-                                     "cuda")
-    k4_err = check_lanes_levels(torch, cuda_hist_lanes, cuda_hist,
-                                k4_captured, lane_rows)
-    k4_rows = time_k4(torch, cuda_hist_lanes, k4_captured, card)
-    del k4_captured
-    host_ms, stacked_ms = time_lane_cycles(torch, xt, lane_data, "cuda",
-                                           card)
-    print(f"[lanes] phase {time.perf_counter() - t0:.1f} s (pipeline runs "
-          f"{lane_secs[0]:.2f} s stacked, {lane_secs[1]:.2f} s host loop)")
-    t0 = time.perf_counter()
-    sl_launches = phase_lanes_sampled(torch, xt, kernels, "cuda", card)
-    print(f"[lanes-sampled] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rk_launches, rk_ms, rk_grad_ms, rk_err, rank_out = phase_rank(
-        torch, xt, cuda_hist, kernels, "cuda", card)
-    print(f"[rank] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rs_launches, rs_rows = phase_rank_sort(torch, xt, kernels, "cuda", card)
-    print(f"[rank-sort] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    api_launches = phase_api(torch, xt, kernels, "cuda", card, rank_out)
+    with phase("otto"):
+        phase_otto(torch, xt, kernels, "cuda", card)
+    with phase("forest"):
+        f_launches, _ = phase_forest(torch, xt, kernels, "cuda", card)
+    with phase("subtract-multiclass"):
+        smc_k3, smc_k4, smc_k2, smc_ms = phase_subtract_multiclass(
+            torch, xt, kernels, "cuda", card, mc_ms_round)
+    with phase("depth0"):
+        d0_launches, d0_captured, d0_err = phase_depth0(torch, xt, kernels,
+                                                        "cuda")
+        k2_rows = time_k2(torch, cuda_node_stats, d0_captured, card)
+    with phase("lanes"):
+        k4_launches, lane_data, lane_rows, lane_secs, _ = phase_lanes(
+            torch, xt, kernels, "cuda", card)
+        k4_captured = lanes_round_inputs(torch, xt, cuda_hist_lanes,
+                                         lane_data, "cuda")
+        k4_err = check_lanes_levels(torch, cuda_hist_lanes, cuda_hist,
+                                    k4_captured, lane_rows)
+        k4_rows = time_k4(torch, cuda_hist_lanes, k4_captured, card)
+        del k4_captured
+        host_ms, stacked_ms = time_lane_cycles(torch, xt, lane_data, "cuda",
+                                               card)
+        print(f"[lanes] pipeline runs {lane_secs[0]:.2f} s stacked, "
+              f"{lane_secs[1]:.2f} s host loop")
+    with phase("lanes-sampled"):
+        sl_launches = phase_lanes_sampled(torch, xt, kernels, "cuda", card)
+    with phase("rank"):
+        rk_launches, rk_ms, rk_grad_ms, rk_err, rank_out = phase_rank(
+            torch, xt, cuda_hist, kernels, "cuda", card)
+    with phase("rank-sort"):
+        rs_launches, rs_rows = phase_rank_sort(torch, xt, kernels, "cuda",
+                                               card)
+    with phase("api"):
+        api_launches = phase_api(torch, xt, kernels, "cuda", card, rank_out)
     del rank_out
-    print(f"[api] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist, nvcc,
-                                  dev)
-    print(f"[onehot] checks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    oh_launches, oh_rows = phase_onehot(torch, cuda_hist_onehot, cuda_hist,
-                                        kernels, card)
-    print(f"[onehot] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    oh_errs.update(phase_onehot_bf16_checks(torch, cuda_hist_onehot, nvcc,
-                                            dev))
-    print(f"[onehot-bf16] checks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    bf_launches, bf_rows = phase_onehot_bf16(torch, cuda_hist_onehot,
-                                             cuda_hist, kernels, card)
-    print(f"[onehot-bf16] phase {time.perf_counter() - t0:.1f} s")
+    with phase("onehot"):
+        oh_errs = phase_onehot_checks(torch, cuda_hist_onehot, cuda_hist,
+                                      nvcc, dev)
+        oh_launches, oh_rows = phase_onehot(torch, cuda_hist_onehot,
+                                            cuda_hist, kernels, card)
+    with phase("onehot-bf16"):
+        oh_errs.update(phase_onehot_bf16_checks(torch, cuda_hist_onehot,
+                                                nvcc, dev))
+        bf_launches, bf_rows = phase_onehot_bf16(torch, cuda_hist_onehot,
+                                                 cuda_hist, kernels, card)
 
     # launches: each path's own count, summed over the paths that run
     # the kernel ([main], [sample], [subtract], [roots], [profile],
@@ -5696,6 +5981,7 @@ def main():
           f"{ext_times['binning_s']:.2f} s; "
           f"kernel times are means over the levels of one round (K2: one "
           f"depth-0 round) | {card}")
+    print_phases()
     print(json.dumps({"kernels": records}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

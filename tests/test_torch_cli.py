@@ -602,13 +602,24 @@ def test_task_lanes_matches_run_tenant_lanes(tmp_path):
 
 # ------------------------------------------------ what is not ported
 @pytest.mark.parametrize("arg,item", [
-    ("task=stream", 15), ("mock=0,1,1", "13b"), ("keepalive=1", "13b"),
-    ("dsplit=col", "13b"), ("updater=distcol", "13b")])
+    ("task=stream", 15), ("mock=0,1,1", "13c"), ("keepalive=1", "13c")])
 def test_unported_names_raise_with_their_item(svm, tmp_path, arg, item):
     d = svm["dense"]
     conf = write_conf(tmp_path / "u.conf", **base_conf(d["train"], d["test"]))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         run_cli(port_main, [conf, "device=cpu", arg], tmp_path)
+
+
+@pytest.mark.parametrize("arg", ["dsplit=col", "updater=distcol"])
+def test_column_split_names_train(svm, tmp_path, arg):
+    """``dsplit=col`` and ``updater=distcol`` (item 13b, ported): a world
+    of one trains and writes its model."""
+    d = svm["dense"]
+    conf = write_conf(tmp_path / "c.conf", **base_conf(d["train"], d["test"]))
+    rc, _, _ = run_cli(port_main, [conf, "device=cpu", arg,
+                                   f"model_out={tmp_path / 'c.model'}"],
+                       tmp_path)
+    assert rc == 0 and os.path.exists(tmp_path / "c.model")
 
 
 def test_fleet_router_placer_and_metrics_port_run(svm, tmp_path):
@@ -669,7 +680,7 @@ def test_fleet_router_placer_and_metrics_port_run(svm, tmp_path):
 
 def test_multi_host_launch_raises_item_13(svm, tmp_path, monkeypatch):
     """``XGBTPU_COORD`` without ``XGBTPU_WORKER_ID`` / ``XGBTPU_NUM_WORKER``
-    asks for ranks from a scheduler's environment, which is item 13b
+    asks for ranks from a scheduler's environment, which is item 13c
     (the port's launcher exports both: ``tests/test_torch_launch.py``)."""
     monkeypatch.setenv("XGBTPU_COORD", "localhost:1234")
     monkeypatch.delenv("XGBTPU_WORKER_ID", raising=False)

@@ -68,6 +68,33 @@ def logistic_obj(preds, dmat):
         (preds * (1.0 - preds)).astype(np.float32)
 
 
+RANK_GROUPS = [50] * 10 + [1]      # 501 rows; a group of one row last
+
+
+def rank_data():
+    """Graded relevance 0-3 in 11 query groups; ndcg gets a base margin
+    so that no two predictions of a group tie (the port's sort path
+    orders tied rows by row id, the JAX package's sort otherwise:
+    ROADMAP.md section 3)."""
+    rng = np.random.RandomState(3)
+    X = rng.randn(N, F).astype(np.float32)
+    rel = np.clip(np.round(X[:, 0] + 0.5 * rng.randn(N)), 0, 3).astype(
+        np.float32)
+    return X, rel, np.random.RandomState(9).randn(N).astype(np.float32)
+
+
+def rank_dmatrix(pkg, objective):
+    X, rel, margin = rank_data()
+    d = pkg.DMatrix(X, label=rel, group=RANK_GROUPS)
+    if objective == "rank:ndcg":
+        d.set_base_margin(margin)
+    return d
+
+
+RANK = {"max_depth": 3, "eta": 0.4, "max_bin": 16, "hist_precision": "fixed",
+        "dsplit": "row", "silent": 1, "device_sketch": 0}
+
+
 def skewed_data():
     """2,048 rows sorted by the first feature, the label its sign: the
     first split sends one rank's block of 1,024 rows whole into one
@@ -109,6 +136,11 @@ def worker_scenarios(xt, world: int, full: bool):
     arrs["comm_families"] = np.asarray(
         [f"xgbtpu_comm_{op}_bytes_total" in comm.metrics().render()
          for op in comm.OPS])
+    for obj in ("rank:pairwise", "rank:ndcg"):
+        dr = rank_dmatrix(xt, obj)
+        bst, lines = _train(xt, {**RANK, "objective": obj}, dr, 3,
+                            [(dr, "train")])
+        arrs[obj], texts[obj] = _raw(bst), lines
     if not full:
         return arrs, texts
     d = xt.DMatrix(X, label=y)
@@ -453,3 +485,45 @@ def _state(raw: bytes):
     b = xt.Booster(device="cpu")
     b.load_raw(raw)
     return b.gbtree.get_state()
+
+
+@pytest.mark.parametrize("objective", ["rank:pairwise", "rank:ndcg"])
+def test_rank_under_row_split_matches_world_one_and_jax_mesh(worlds,
+                                                             objective):
+    """``rank:*`` under ``dsplit=row``: the gradient of every row's
+    gathered margin, each rank's block of it; model bytes and eval lines
+    at W = 2, 3, 4 byte-equal to W = 1 and to the JAX package's mesh of
+    W devices (its rounds one at a time: its fused round scan takes the
+    LambdaRank gradient of each shard's rows alone)."""
+    for world in (1, 2, 4):
+        set_mesh(data_parallel_mesh(world))
+        try:
+            d = rank_dmatrix(xj, objective)
+            bst = xj.Booster({**RANK, "objective": objective}, cache=[d])
+            lines = []
+            for i in range(3):
+                bst.update(d, i)
+                lines.append(bst.eval_set([(d, "train")], i))
+        finally:
+            set_mesh(None)
+        arrs, texts = worlds[world][0]
+        assert arrs[objective].tobytes() == bytes(bst.save_raw())
+        assert texts[objective] == lines
+    one = worlds[1][0]
+    for arrs, texts in worlds[3]:
+        assert arrs[objective].tobytes() == one[0][objective].tobytes()
+        assert texts[objective] == one[1][objective]
+
+
+def test_rank_on_a_split_load_raises(tmp_path):
+    """A split-loaded matrix has no rank's whole query groups: ``rank:*``
+    refuses it, as in the JAX package (``learner.py:590-594``)."""
+    from xgboost_tpu_torch.parallel.sharded import ShardedDMatrix
+    X, rel, _ = rank_data()
+    path = tmp_path / "r.svm"
+    path.write_text("".join(
+        f"{int(rel[i])} " + " ".join(f"{j}:{X[i, j]:.6f}" for j in range(F))
+        + "\n" for i in range(64)))
+    with pytest.raises(NotImplementedError, match="rank"):
+        xt.train({**RANK, "objective": "rank:pairwise"},
+                 ShardedDMatrix(str(path)), 1, device="cpu")

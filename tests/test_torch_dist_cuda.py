@@ -10,7 +10,9 @@ levels with one int8 scale over both ranks' rows (the int8 model at
 W = 2 byte-equal to W = 1, and the reduced level bitwise the plain
 histogram of all rows), paged growth and gblinear under the reduce, and
 a rank killed mid-round making the launcher return non-zero without a
-hang.
+hang.  Column split (``dsplit=col``): each rank uploads its block of
+the features, launches K1 on it at every level, and the trees at W = 1
+and 2 are the trees of the same int8 rounds without a split.
 """
 
 import os
@@ -107,6 +109,22 @@ def worker_main(out_dir: str, suite: str) -> None:
                     "dsplit": "row", "silent": 1},
                    xt.DMatrix(X, label=X[:, 0] - X[:, 3]), 3)
     arrs["gblinear"] = bst.gbtree.weight.cpu().numpy()
+    # column split: this rank's block of the features, K1 on it
+    dc = xt.DMatrix(X, label=y)
+    cuda_hist.reset_launches()
+    bst = xt.train({**base, "dsplit": "col",
+                    "objective": "binary:logistic"}, dc, 4)
+    arrs["col"] = _raw(bst)
+    arrs["col_k1_launches"] = np.asarray([cuda_hist.launches])
+    entry = bst._entry(dc)
+    arrs["col_block"] = np.asarray([entry.binned.shape[1],
+                                    entry.binned.is_cuda])
+    cuda_hist.reset_launches()
+    bst = xt.train({**base, "dsplit": "col", "updater": "grow_colmaker",
+                    "objective": "binary:logistic"}, xt.DMatrix(X, label=y),
+                   2)
+    arrs["col_exact"] = _raw(bst)
+    arrs["col_exact_k1"] = np.asarray([cuda_hist.launches])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrs)
     if dist.is_initialized():
         dist.barrier()
@@ -190,3 +208,52 @@ def test_killed_rank_ends_the_launch(tmp_path):
         env=dict(os.environ, PYTHONPATH=REPO), timeout=400).returncode
     assert rc not in (0, 124)
     assert time.perf_counter() - t0 < 200
+
+
+def _trees(raw):
+    """A model's tree arrays, a leaf's rejected candidate (``cut_index``,
+    ``threshold`` where ``feature < 0``) zeroed: what column split keeps
+    of it is rank 0's (``tests/test_torch_colsplit.py``)."""
+    import xgboost_tpu_torch as xt
+    b = xt.Booster(device="cpu")
+    b.load_raw(raw.tobytes())
+    st = b.gbtree.get_state()
+    leaf = st["tree_feature"] < 0
+    for k in ("tree_cut_index", "tree_threshold"):
+        st[k] = np.where(leaf, 0, st[k])
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_column_split_grows_the_unsplit_trees_on_the_card(cuda_worlds,
+                                                          world):
+    """``dsplit=col`` at W = 1 and 2: every rank's trees and cuts are
+    those of the same int8 rounds without a split, bitwise, with K1 a
+    level on each rank (4 rounds of depth 5)."""
+    want = _trees(cuda_worlds[1][0]["int8"])
+    for arrs in cuda_worlds[world]:
+        got = _trees(arrs["col"])
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert arrs["col_k1_launches"][0] == 4 * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_column_split_uploads_the_rank_block(cuda_worlds, world):
+    """Each rank's cached matrix on the card holds its F / W columns."""
+    for arrs in cuda_worlds[world]:
+        assert arrs["col_block"].tolist() == [F // world, 1]
+
+
+@pytest.mark.cuda
+def test_exact_column_split_equals_world_one_on_the_card(cuda_worlds):
+    """Exact ``grow_colmaker`` by features: each rank's model bytes those
+    of the world of one (every feature's sums independent of the
+    features beside it), no K1."""
+    for arrs in cuda_worlds[2]:
+        np.testing.assert_array_equal(arrs["col_exact"],
+                                      cuda_worlds[1][0]["col_exact"])
+        assert arrs["col_exact_k1"][0] == 0

@@ -187,7 +187,7 @@ def test_launcher_every_rank_zero_is_zero(tmp_path):
                                   "--watchdog-stall-sec=5",
                                   "--degrade-after=1"])
 def test_fault_tolerance_options_name_item_13b(flag):
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         launch.main(["-n", "2", flag, "true"])
 
 
@@ -198,7 +198,7 @@ def test_init_worker_reads_the_environment(monkeypatch):
     assert launch.init_worker("cpu") is False
     assert not mesh_available(1)          # no process group: no world
     monkeypatch.setenv(launch.COORD_ENV, "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         launch.init_worker("cpu")
 
 

@@ -139,14 +139,9 @@ def test_weights_and_bias_match_jax(trained):
     bj, bt = trained["jax"]["bst"], trained["port"]["bst"]
     for got, want in ((bt.gbtree.weight, bj.gbtree.weight),
                       (bt.gbtree.bias, bj.gbtree.bias)):
-        if trained["obj"] == "multi:softmax":
-            # each step is bitwise (test_one_group_step_is_bitwise), but
-            # a K > 1 margin X @ W is a library GEMM in the JAX package
-            # (F9): its last bits reach the next round's gradients
-            np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                       rtol=RTOL, atol=ATOL)
-        else:
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        # K > 1 included: the margin X @ W replays the JAX package's CPU
+        # product order (gblinear._xla_cpu_gemm, F9)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert bt.gbtree.version == bj.gbtree.version == ROUNDS
 
 
@@ -302,16 +297,17 @@ def test_engine_and_feature_importance_refuse_gblinear(trained):
 
 def test_dsplit_row_gblinear_names_item_13():
     """``dsplit=row`` gblinear trains (a world of one without a process
-    group: the weights of ``dsplit=auto``); ``dsplit=col`` raises naming
-    item 13b."""
+    group: the weights of ``dsplit=auto``); gblinear ignores ``dsplit=col``
+    (item 13b), as the JAX package does: the weights of ``dsplit=auto``."""
     X, y, _, _ = _data(4)
     d = xt.DMatrix(X[:640], label=y[:640])
     row = xt.train(_params("reg:linear", dsplit="row"), d, 2, device="cpu")
     auto = xt.train(_params("reg:linear"), d, 2, device="cpu")
     np.testing.assert_array_equal(row.gbtree.weight.numpy(),
                                   auto.gbtree.weight.numpy())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        xt.train(_params("reg:linear", dsplit="col"), d, 1, device="cpu")
+    col = xt.train(_params("reg:linear", dsplit="col"), d, 2, device="cpu")
+    np.testing.assert_array_equal(col.gbtree.weight.numpy(),
+                                  auto.gbtree.weight.numpy())
 
 
 def test_sklearn_gblinear_matches_jax():

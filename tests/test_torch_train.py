@@ -211,9 +211,9 @@ def test_default_device_needs_a_gpu():
 
 
 @pytest.mark.parametrize("params", [
-    {"booster": "gblinear", "dsplit": "col"},
-    {"objective": "rank:pairwise", "dsplit": "row"},
-    {"updater": "distcol"}])
+    {"dsplit": "col", "updater": "grow_skmaker"},
+    {"updater": "grow_colmaker", "num_roots": 2},
+    {"updater": "grow_colmaker,refresh"}])
 def test_unported_options_raise(params):
     X, y, _ = _data(2)
     with pytest.raises(NotImplementedError):

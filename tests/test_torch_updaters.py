@@ -672,14 +672,22 @@ def test_sync_is_a_no_op():
         np.testing.assert_array_equal(b.gbtree.get_state()[k], v, k)
     assert set(tup.PORTED_UPDATERS) == {
         "grow_histmaker", "grow_colmaker", "grow_skmaker", "prune",
-        "refresh", "sync"}
+        "refresh", "sync", "distcol"}
 
 
 def test_distcol_raises_naming_item_13():
-    X, _, y = _class_data(65, 64)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        xt.train({"updater": "distcol"}, xt.DMatrix(X, label=y), 1,
-                 device="cpu")
+    """``updater=distcol`` (item 13b's column-split grower, ported) is a
+    growth updater as in the JAX package: without ``dsplit=col`` the
+    histogram grower, the JAX package's trees bit for bit."""
+    X, _, y = _class_data(65, 300)
+    params = {"updater": "distcol", "max_depth": 3,
+              "hist_precision": "fixed", "silent": 1}
+    bt = xt.train(params, xt.DMatrix(X, label=y), 2, device="cpu")
+    bj = xj.train(params, xj.DMatrix(X, label=y), 2, verbose_eval=False)
+    assert bt.get_dump(with_stats=True) == bj.get_dump(with_stats=True)
+    bh = xt.train(dict(params, updater="grow_histmaker"),
+                  xt.DMatrix(X, label=y), 2, device="cpu")
+    assert bt.get_dump() == bh.get_dump()
 
 
 def test_predict_engine_refuses_an_exact_model():

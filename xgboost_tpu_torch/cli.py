@@ -146,8 +146,8 @@ task=lanes parameters (gang-batched multi-tenant training):
 
 # name -> (ROADMAP.md section 1 item, what it is)
 _UNPORTED_TASKS = {"stream": (15, "streaming continuous training")}
-_UNPORTED_PARAMS = {"mock": ("13b", "collective fault injection"),
-                    "keepalive": ("13b", "restart on a worker's failure")}
+_UNPORTED_PARAMS = {"mock": ("13c", "collective fault injection"),
+                    "keepalive": ("13c", "restart on a worker's failure")}
 
 
 class BoostLearnTask:

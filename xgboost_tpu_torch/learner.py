@@ -24,7 +24,17 @@ lines of a replicated matrix read the gathered margins, so they are
 byte-equal to a world of one; a split-loaded matrix
 (:class:`~xgboost_tpu_torch.parallel.sharded.ShardedDMatrix`) reduces
 metric partials instead.  Without a process group ``dsplit=row`` is a
-world of one and trains the model of ``dsplit=auto``.
+world of one and trains the model of ``dsplit=auto``.  Ranking
+objectives take their gradient over every row's margin, gathered, and
+each rank keeps its block of it.
+
+``dsplit=col`` trains across the same world by features
+(:mod:`xgboost_tpu_torch.parallel.colsplit`): every rank keeps all rows
+of each matrix and uploads its block of the features, padded to a
+multiple of the world; growth merges the ranks' best splits and routes
+rows by the owner's bits, and so does the margin of every cached matrix,
+so ``predict``, the eval lines and the model file are the same on every
+rank.  gblinear ignores ``dsplit=col``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -77,19 +87,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-_ITEM_13B = "ROADMAP.md section 1 item 13b"
-
-
 def _check_param(p: TrainParam) -> None:
-    if p.dsplit == "col":
-        raise NotImplementedError(
-            f"dsplit=col (column-split training) is {_ITEM_13B}")
-    if p.dsplit not in ("auto", "row"):
+    if p.dsplit not in ("auto", "row", "col"):
         raise ValueError(f"dsplit={p.dsplit!r}: expected auto, row or col")
-    if p.dsplit == "row" and p.objective.startswith("rank:"):
-        raise NotImplementedError(
-            f"ranking on row-sharded data (dsplit=row, {p.objective}) is "
-            f"{_ITEM_13B}")
 
 
 class _CacheEntry:
@@ -185,6 +185,9 @@ class Booster:
         # the same when it has more than one rank (None otherwise)
         self._mesh = None
         self._dist = None
+        # dsplit=col: this rank's block of the features (a ColSplit,
+        # resolved at _lazy_init; None otherwise)
+        self._col = None
         self._pending_cache = list(cache)
         if model_file is not None:
             self.load_model(model_file)
@@ -257,17 +260,27 @@ class Booster:
                                  self.device)
             if getattr(dtrain, "is_external", False):
                 self.gbtree.exact_raw = False
+        if (self.param.dsplit == "col" and not self._linear
+                and self._col is None):
+            # learner.py:326-336; entries made before hold every column
+            from xgboost_tpu_torch.parallel.colsplit import ColSplit
+            self._col = ColSplit(self._resolve_mesh(dtrain), self.num_feature)
+            self._cache.clear()
         for d in self._pending_cache:
             self._entry(d)
         self._pending_cache = []
 
     def _resolve_mesh(self, dtrain):
-        """This booster's world under ``dsplit=row``: the installed one
-        (``set_mesh``), else the initialised ``torch.distributed`` world,
-        else a world of one, on this booster's device."""
+        """This booster's world under ``dsplit=row`` or ``col``: the
+        installed one (``set_mesh``), else the initialised
+        ``torch.distributed`` world, else a world of one, on this
+        booster's device."""
+        from xgboost_tpu_torch.parallel import colsplit
         from xgboost_tpu_torch.parallel import mesh as pmesh
         from xgboost_tpu_torch.parallel.mesh import DataMesh
-        m = pmesh.data_parallel_mesh(self.device)
+        find = (colsplit.feature_parallel_mesh if self.param.dsplit == "col"
+                else pmesh.data_parallel_mesh)
+        m = find(self.device)
         if getattr(dtrain, "is_sharded", False) and (
                 dtrain.mesh.world, dtrain.mesh.rank) != (m.world, m.rank):
             raise ValueError("the ShardedDMatrix was loaded for another "
@@ -283,6 +296,11 @@ class Booster:
         if getattr(dtrain, "is_sharded", False):
             # per-rank split loading: no rank holds a full column, so
             # the device sketch over the ranks' blocks
+            if p.dsplit == "col":
+                raise NotImplementedError(
+                    "a ShardedDMatrix is row-block loaded; dsplit=col needs "
+                    "feature-shard loading (load replicated for column "
+                    "split)")
             if p.dsplit != "row":
                 raise NotImplementedError(
                     "a ShardedDMatrix is row-block loaded: train it with "
@@ -292,6 +310,11 @@ class Booster:
                     "updater=grow_colmaker needs cuts at every distinct "
                     "value, which no rank can propose from its block; "
                     "load replicated for exact-greedy training")
+            if p.objective.startswith("rank:"):
+                raise NotImplementedError(
+                    "ranking objectives need global group structure, which "
+                    "row-block split loading cannot provide; load "
+                    "replicated for rank:* training")
             from xgboost_tpu_torch.parallel.sketch_device import \
                 sketch_cuts_global
             vals, w = dtrain.device_raw(self.device)
@@ -345,17 +368,21 @@ class Booster:
                 **margin_kw)
         return cuts
 
-    def _raw_dense(self, dmat: DMatrix) -> Tuple[torch.Tensor, bool,
-                                                 np.ndarray]:
+    def _raw_dense(self, dmat: DMatrix, col=None
+                   ) -> Tuple[torch.Tensor, bool, np.ndarray]:
         """An exact-mode matrix (``learner.py:752-773``): raw values, NaN
-        = missing, cut or NaN-padded to the model's width.  Returns (the
-        device matrix, whether a value is missing, the host matrix)."""
+        = missing, cut or NaN-padded to the model's width; with ``col``
+        its block of the features, padded with all-NaN columns, which
+        leave ``has_missing`` as it is.  Returns (the device matrix,
+        whether a value is missing, the host matrix)."""
         X = dmat.to_dense(missing=np.nan)[:, :self.num_feature]
         has_missing = bool(np.isnan(X).any())
         if X.shape[1] < self.num_feature:
             X = np.pad(X, ((0, 0), (0, self.num_feature - X.shape[1])),
                        constant_values=np.nan)
             has_missing = True
+        if col is not None:
+            X = col.block(X, fill=np.nan)
         X = np.ascontiguousarray(X, np.float32)
         return torch.from_numpy(X).to(self.device), has_missing, X
 
@@ -407,7 +434,7 @@ class Booster:
                     dmat, self.gbtree.device_matrix(dmat),
                     self._base_margin_of(dmat, dmat.num_row))
             elif self.gbtree.exact_raw:
-                raw, has_missing, host = self._raw_dense(dmat)
+                raw, has_missing, host = self._raw_dense(dmat, self._col)
                 entry = self._cache[key] = _CacheEntry(
                     dmat, raw, self._base_margin_of(dmat, dmat.num_row))
                 entry.exact_has_missing = has_missing
@@ -415,9 +442,13 @@ class Booster:
             elif self._rank_pad_ok(dmat):
                 entry = self._cache[key] = self._make_rank_padded_entry(dmat)
             else:
-                binned = self._device_bins(bin_matrix(dmat, self.gbtree.cuts))
+                binned = bin_matrix(dmat, self.gbtree.cuts)
+                if self._col is not None:
+                    # this rank's block of the features, padded once
+                    binned = self._col.block(binned)
                 entry = self._cache[key] = _CacheEntry(
-                    dmat, binned, self._base_margin_of(dmat, dmat.num_row))
+                    dmat, self._device_bins(binned),
+                    self._base_margin_of(dmat, dmat.num_row))
             entry.root = self._root_of(dmat, self._entry_rows(entry))
         elif entry.info_version != dmat.info.version and (
                 entry.block is not None):
@@ -506,6 +537,11 @@ class Booster:
             raise NotImplementedError(
                 "gblinear reads dense feature columns; per-rank split "
                 "loading supports gbtree only")
+        if self.param.objective.startswith("rank:"):
+            raise NotImplementedError(
+                "ranking objectives need global group structure, which "
+                "row-block split loading cannot provide; load replicated "
+                "for rank:*")
         n_loc, m, K = dmat.local_num_row, dmat.block_rows, self._K
         b = bin_matrix(dmat._local, self.gbtree.cuts)
         host = np.zeros((m, self.num_feature), b.dtype)
@@ -551,6 +587,11 @@ class Booster:
                 "exact-mode (grow_colmaker) models route on raw values; "
                 "external-memory matrices are binned — load this matrix "
                 "in memory (DMatrix) for exact-mode predict/eval/train")
+        if self._col is not None:
+            raise NotImplementedError(
+                "external-memory matrices do not support dsplit=col (the "
+                "reference routes paged matrices to the histogram row-split "
+                "path too, learner-inl.hpp:263-267)")
         if dmat._binned_mm is None or dmat._binned_cuts is not self.gbtree.cuts:
             dmat.build_binned(self.gbtree.cuts)
         fits = dmat.fits_device_budget(self.device)
@@ -577,10 +618,13 @@ class Booster:
         lane count exact in the JAX package's bf16 partner dot), a
         padding blow-up of at most 1.4 (3.0 up to 200,000 rows), and
         labels that are integers in [0, 32).  ``XGBTPU_RANK_PAD=0``
-        turns it off."""
+        turns it off; row and column split take the sort path, as the
+        JAX package's meshes do."""
         info = dmat.info
         if (os.environ.get("XGBTPU_RANK_PAD", "1") == "0"
                 or not self._device_rank()
+                or self.param.dsplit == "row"
+                or self._col is not None
                 or self._K != 1
                 or info.group_ptr is None or len(info.group_ptr) < 2
                 or info.label is None
@@ -686,7 +730,8 @@ class Booster:
         while entry.applied < self.gbtree.num_trees:
             n = min(per_round, self.gbtree.num_trees - entry.applied)
             entry.margin = self.gbtree.predict_incremental(
-                entry.binned, entry.margin, entry.applied, n, entry.root)
+                entry.binned, entry.margin, entry.applied, n, entry.root,
+                router=self._router())
             entry.applied += n
 
     def _sync_margin_ext(self, entry: _CacheEntry) -> None:
@@ -703,6 +748,14 @@ class Booster:
                  for _, batch in entry.dmat.device_batches(self.device)]
         entry.margin = entry.margin + torch.cat(parts)
         entry.applied = self.gbtree.num_trees
+
+    def _router(self):
+        """The row router of the cached matrices' traversal: column
+        split's on their blocks of the features, else None."""
+        if self._col is None:
+            return None
+        return (self._col.raw_router if self.gbtree.exact_raw
+                else self._col.bin_router)
 
     # ------------------------------------------------------------ profiling
     @property
@@ -764,8 +817,17 @@ class Booster:
             if entry.labels_checked != info.version:
                 self.obj.validate_labels(info)
                 entry.labels_checked = info.version
-            gh = self.obj.get_gradient(entry.margin, info, iteration,
-                                       pad_prep=entry.rank_pad_prep)
+            if (entry.block is not None
+                    and self.param.objective.startswith("rank:")):
+                # the groups span the ranks' blocks: every row's margin,
+                # every row's gradient, this rank's block of it
+                from xgboost_tpu_torch.parallel.dp import shard_rows
+                gh = shard_rows(self._dist, self.obj.get_gradient(
+                    self._gather_rows(entry, entry.margin), entry.dmat.info,
+                    iteration))
+            else:
+                gh = self.obj.get_gradient(entry.margin, info, iteration,
+                                           pad_prep=entry.rank_pad_prep)
             if prof:
                 p.block(gh)
         with ph("grow") as p:
@@ -787,7 +849,7 @@ class Booster:
             entry.margin = None
             self._sync_margin(entry)
             return
-        from xgboost_tpu_torch.models.updaters import parse_updaters
+        from xgboost_tpu_torch.models.updaters import grows, parse_updaters
         ups = parse_updaters(self.param.updater)
         if entry.external:
             # paged growth (learner.py:1326-1336)
@@ -800,25 +862,26 @@ class Booster:
                 mesh=self._dist)
             entry.applied = self.gbtree.num_trees
             return
-        grows = any(u.startswith("grow") for u in ups)
-        if grows and self.gbtree.exact_raw and entry.exact_ranks is None:
+        grow = grows(ups)
+        if grow and self.gbtree.exact_raw and entry.exact_ranks is None:
             from xgboost_tpu_torch.models.colmaker import build_exact_ranks
             rk, uq = build_exact_ranks(entry.exact_host)
             entry.exact_ranks = (torch.from_numpy(rk).to(self.device),
                                  torch.from_numpy(uq).to(self.device))
             entry.exact_host = None
-        if grows:
+        if grow:
             entry.margin = entry.margin + self.gbtree.do_boost(
                 entry.binned, gh, row_valid=entry.row_valid,
                 key=self._round_key(iteration), root=entry.root,
                 exact_has_missing=entry.exact_has_missing,
-                exact_ranks=entry.exact_ranks, mesh=self._dist)
+                exact_ranks=entry.exact_ranks, mesh=self._dist,
+                col=self._col)
             entry.applied = self.gbtree.num_trees
         if "refresh" in ups:
             self.gbtree.do_refresh(entry.binned, gh,
                                    row_valid=entry.row_valid, root=entry.root,
-                                   mesh=self._dist)
-            if "prune" in ups and self.param.gamma > 0.0 and not grows:
+                                   mesh=self._dist, router=self._router())
+            if "prune" in ups and self.param.gamma > 0.0 and not grow:
                 self.gbtree.prune_all()
             for e in self._cache.values():
                 e.margin, e.applied = None, 0
@@ -904,6 +967,7 @@ class Booster:
             ("single_round", n_rounds <= 1),
             ("booster", self.param.booster != "gbtree"),
             ("external_train", entry is not None and entry.external),
+            ("col_split", self._col is not None),
             ("profiler", self.profiler is not None),
             ("prune", self.param.gamma > 0.0 and "prune" in ups),
             ("multi_root", max(1, self.param.num_roots) != 1),
@@ -1020,6 +1084,7 @@ class Booster:
             ("no_rounds", n_rounds < 1),
             ("external_train", entry.external),
             ("mesh", self._dist is not None),
+            ("col_split", self._col is not None),
             ("ensemble", self._K * npar > 1),
             ("rank", self._device_rank() and entry.rank_pad_prep is None),
             ("profiler", self.profiler is not None),
@@ -1119,16 +1184,19 @@ class Booster:
             binned = self._bins_for(data)
             base = self._base_margin_of(data, data.num_row)
             root = self._root_of(data, data.num_row)
+        # a cached matrix under column split: the rank's block of it
+        col = {"router": self._router()} if (
+            cached is not None and self._col is not None) else {}
         if pred_leaf:
-            leaves = self.gbtree.predict_leaf(binned, ntree_limit,
-                                              root).cpu().numpy()
+            leaves = self.gbtree.predict_leaf(binned, ntree_limit, root,
+                                              **col).cpu().numpy()
             return cached.user_rows(leaves) if cached is not None else leaves
         if cached is not None and ntree_limit == 0:
             self._sync_margin(cached)
             margin = cached.margin
         else:
             margin = self.gbtree.predict_margin(binned, base, ntree_limit,
-                                                root)
+                                                root, **col)
         out = self.obj.pred_transform(margin, output_margin=output_margin)
         out = out.cpu().numpy()
         if cached is not None:

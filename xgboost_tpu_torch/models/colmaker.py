@@ -119,10 +119,13 @@ def _centred(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     reduction order times the f32 reciprocal of N, and the centred value
     one fused multiply-add ``x - sum * (1 / N)`` (XLA recomputes the
     mean inside the subtraction's fusion, where the product is not
-    rounded)."""
+    rounded).  On a GPU one reduction a feature: torch's order over a row
+    depends on how many rows one call reduces, and a feature's sums must
+    not depend on the features beside it (column split gives each rank
+    some of them)."""
     N = x.shape[1]
     if x.device.type != "cpu":
-        mean = x.mean(dim=1, keepdim=True)
+        mean = torch.stack([row.mean() for row in x])[:, None]
         return mean, x - mean
     inv = np.float32(1.0 / N)
     s = bin_sum(x)[:, None]
@@ -140,22 +143,23 @@ def _mul_add(a: torch.Tensor, b: torch.Tensor,
     return a * b + c
 
 
-def _default_exact_router(feature: torch.Tensor, threshold: torch.Tensor,
-                          default_left: torch.Tensor, node: torch.Tensor,
-                          X: torch.Tensor) -> torch.Tensor:
+def _default_exact_router(f_row: torch.Tensor, thr_row: torch.Tensor,
+                          dl_row: torch.Tensor, X: torch.Tensor
+                          ) -> torch.Tensor:
     """Go-left per row by raw-value comparison (``colmaker.py:126-137``):
-    a missing value takes the node's default direction."""
-    f_row = torch.clamp_min(table_lookup(feature, node), 0).to(torch.int64)
+    a missing value takes the node's default direction.  ``f_row``,
+    ``thr_row`` and ``dl_row`` are the split at each row's node."""
+    f_row = torch.clamp_min(f_row, 0).to(torch.int64)
     x_row = X.gather(1, f_row[:, None])[:, 0]
-    return torch.where(torch.isnan(x_row), table_lookup(default_left, node),
-                       x_row < table_lookup(threshold, node))
+    return torch.where(torch.isnan(x_row), dl_row, x_row < thr_row)
 
 
 def grow_tree_exact(X: torch.Tensor, gh: torch.Tensor, cfg: GrowConfig,
                     row_valid: Optional[torch.Tensor] = None,
                     has_missing: bool = True,
                     rank_t: Optional[torch.Tensor] = None,
-                    uniq: Optional[torch.Tensor] = None, key=None
+                    uniq: Optional[torch.Tensor] = None, key=None, *,
+                    split_merge=None, router=None, feat_sampler=None
                     ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree by exact enumeration (``colmaker.py:142-235``).
 
@@ -167,7 +171,14 @@ def grow_tree_exact(X: torch.Tensor, gh: torch.Tensor, cfg: GrowConfig,
     ``key`` the tree's host key (2,) uint32, needed when the config
     samples (the three draws of :func:`~.tree.draw_masks`).  Node sums
     come from K2 at every level.  Returns (tree (n_nodes,), row_leaf (N,)
-    int32)."""
+    int32).
+
+    The seams of column split (``colmaker.py:159-169``,
+    :mod:`xgboost_tpu_torch.parallel.colsplit`): ``split_merge(best,
+    thr)`` takes the level's best splits of X's features to the best of
+    every rank's, with their thresholds; ``router(f_row, thr_row, dl_row,
+    X)`` sends rows left (default: by X's own raw values);
+    ``feat_sampler(keys, rate)`` draws X's feature masks."""
     N, F = X.shape
     D = cfg.max_depth
     dev = X.device
@@ -178,8 +189,11 @@ def grow_tree_exact(X: torch.Tensor, gh: torch.Tensor, cfg: GrowConfig,
         raise ValueError("a sampled grow config needs the tree's key")
     xt = X.T.contiguous()                                  # (F, N)
     miss_t = torch.isnan(xt)
+    if router is None:
+        router = _default_exact_router
     draws = draw_masks(None if key is None else
-                       np.asarray(key, np.uint32)[None], N, F, cfg, dev)
+                       np.asarray(key, np.uint32)[None], N, F, cfg, dev,
+                       feat_sampler)
     gh_used = gh.to(torch.float32)
     if draws.keep is not None:
         gh_used = gh_used * draws.keep[0][:, None].to(gh_used.dtype)
@@ -207,6 +221,8 @@ def grow_tree_exact(X: torch.Tensor, gh: torch.Tensor, cfg: GrowConfig,
             best, thr = _find_exact_splits(xt, miss_t, gh_used, pos, nst,
                                            n_node, fmask, cfg.split,
                                            has_missing, rank_t, uniq)
+            if split_merge is not None:
+                best, thr = split_merge(best, thr)
             can_try = nst[:, 1] >= 2.0 * cfg.split.min_child_weight
             make_leaf = ~(best.valid & can_try)
         tree = apply_level(tree, depth, nst, best, thr, make_leaf, cfg.split)
@@ -216,8 +232,9 @@ def grow_tree_exact(X: torch.Tensor, gh: torch.Tensor, cfg: GrowConfig,
         row_is_leaf = active & table_lookup(make_leaf, node)
         row_leaf = torch.where(row_is_leaf, base + pos, row_leaf)
         if best is not None:
-            go_left = _default_exact_router(best.feature, thr,
-                                            best.default_left, node, X)
+            go_left = router(table_lookup(best.feature, node),
+                             table_lookup(thr, node),
+                             table_lookup(best.default_left, node), X)
             new_pos = 2 * pos + (~go_left).to(torch.int32)
             pos = torch.where(active & ~row_is_leaf, new_pos, -1)
     return TreeArrays(*(x[0] for x in tree)), row_leaf
@@ -464,10 +481,12 @@ def _find_exact_splits(xt, miss_t, gh_used, pos, nst, n_node: int, fmask,
 # ---------------------------------------------------------------- traversal
 
 def traverse_raw(tree: TreeArrays, X: torch.Tensor,
-                 max_depth: int) -> torch.Tensor:
+                 max_depth: int, router=None) -> torch.Tensor:
     """Leaf node per row by raw-value comparison (``colmaker.py:507-
     524``): a missing value takes the default direction, and a value
-    compares as ``nan_to_num`` makes it, as in the JAX package."""
+    compares as ``nan_to_num`` makes it, as in the JAX package.
+    ``router(f_row, thr_row, dl_row, X)``: column split's, on a rank's
+    block of X's features."""
     N, F = X.shape
     node = torch.zeros(N, dtype=torch.int64, device=X.device)
     miss_x = torch.isnan(X)
@@ -475,11 +494,14 @@ def traverse_raw(tree: TreeArrays, X: torch.Tensor,
     for _ in range(max_depth):
         f = table_lookup(tree.feature, node)
         leaf = table_lookup(tree.is_leaf, node) | (f < 0)
-        fc = torch.clamp_min(f, 0).to(torch.int64)[:, None]
-        xv = xz.gather(1, fc)[:, 0]
-        xm = miss_x.gather(1, fc)[:, 0]
-        go_left = torch.where(xm, table_lookup(tree.default_left, node),
-                              xv < table_lookup(tree.threshold, node))
+        dl_row = table_lookup(tree.default_left, node)
+        thr_row = table_lookup(tree.threshold, node)
+        if router is not None:
+            go_left = router(torch.clamp_min(f, 0), thr_row, dl_row, X)
+        else:
+            fc = torch.clamp_min(f, 0).to(torch.int64)[:, None]
+            go_left = torch.where(miss_x.gather(1, fc)[:, 0], dl_row,
+                                  xz.gather(1, fc)[:, 0] < thr_row)
         nxt = torch.where(go_left, 2 * node + 1, 2 * node + 2)
         node = torch.where(leaf, node, nxt)
     return node.to(torch.int32)
@@ -487,7 +509,7 @@ def traverse_raw(tree: TreeArrays, X: torch.Tensor,
 
 def predict_margin_raw(stack: TreeArrays, tree_group: torch.Tensor,
                        X: torch.Tensor, base: torch.Tensor, max_depth: int,
-                       n_group: int) -> torch.Tensor:
+                       n_group: int, router=None) -> torch.Tensor:
     """(N, n_group) margins of raw rows (``colmaker.py:527-544``):
     ``base`` plus each tree's leaf value added to its group's column, in
     tree order."""
@@ -496,14 +518,14 @@ def predict_margin_raw(stack: TreeArrays, tree_group: torch.Tensor,
     groups = tree_group.tolist()
     for t in range(stack.feature.shape[0]):
         tree = TreeArrays(*(x[t] for x in stack))
-        leaf = traverse_raw(tree, X, max_depth)
+        leaf = traverse_raw(tree, X, max_depth, router)
         margin[:, groups[t]] += table_lookup(tree.leaf_value, leaf)
     return margin
 
 
 def predict_leaf_raw(stack: TreeArrays, X: torch.Tensor,
-                     max_depth: int) -> torch.Tensor:
+                     max_depth: int, router=None) -> torch.Tensor:
     """(N, T) leaf node per tree of raw rows."""
     return torch.stack([traverse_raw(TreeArrays(*(x[t] for x in stack)), X,
-                                     max_depth)
+                                     max_depth, router)
                         for t in range(stack.feature.shape[0])], dim=1)

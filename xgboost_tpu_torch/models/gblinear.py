@@ -35,7 +35,10 @@ LLVM contracts each multiply-add into one FMA:
   ``REPLAY_MAX_ROWS`` (32,768 rows at one group, 4,096 at several) the
   products are ``torch.matmul`` too;
 - a one-group prediction's ``X @ w`` is XLA's CPU matrix-vector product
-  (:func:`_xla_cpu_gemv`).
+  (:func:`_xla_cpu_gemv`), and a prediction of several groups the
+  order of its matrix product at four or more features
+  (:func:`_xla_cpu_gemm`), a single-threaded order: the JAX step's bits
+  are the same with ``--xla_cpu_multi_thread_eigen=false``.
 
 With a ``reduce`` (``dsplit=row``, :mod:`xgboost_tpu_torch.parallel`),
 the bias sums and each block's ``Gf`` / ``Hf`` are this rank's partial
@@ -283,12 +286,36 @@ def _linear_boost_step(XT: torch.Tensor, gh: torch.Tensor,
     return weight[:F], bias
 
 
+def _xla_cpu_gemm(XT: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``X @ W`` (N, K) for K > 1 from the (F, N) matrix, F >= 4, in the
+    order of the JAX package's CPU product: four FMA chains over the
+    features, feature k into chain ``k % 4`` up to the last whole four,
+    summed ``(c0 + c1) + (c2 + c3)``, then the rest's products, each
+    rounded, added left to right and added to that."""
+    F = XT.shape[0]
+    F4 = F // 4 * 4
+    acc = [torch.zeros((XT.shape[1], W.shape[1]), dtype=torch.float32)
+           for _ in range(4)]
+    for k in range(F4):
+        acc[k % 4] = fma_f32(XT[k][:, None], W[k][None, :], acc[k % 4])
+    out = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    if F4 < F:
+        rest = XT[F4][:, None] * W[F4][None, :]
+        for k in range(F4 + 1, F):
+            rest = rest + XT[k][:, None] * W[k][None, :]
+        out = out + rest
+    return out
+
+
 def _linear_predict(XT: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """``base + bias + X @ weight`` from the (F, N) matrix, (N, K)."""
     _check_f32_products(XT.device)
     if XT.device.type == "cpu" and weight.shape[1] == 1:
         return base + bias[None, :] + _xla_cpu_gemv(XT, weight[:, 0])[:, None]
+    if (XT.device.type == "cpu" and XT.shape[0] >= 4
+            and XT.shape[1] <= REPLAY_MAX_ROWS[1]):
+        return base + bias[None, :] + _xla_cpu_gemm(XT, weight)
     return base + bias[None, :] + XT.T @ weight
 
 

@@ -30,13 +30,18 @@ rank's :class:`~xgboost_tpu_torch.parallel.mesh.DataMesh` (``mesh=``)
 and grow on its block of rows through the ``hist_reduce`` seam
 (:mod:`xgboost_tpu_torch.parallel.dp`); ``grow_colmaker`` is then the
 histogram grower on the cuts of every distinct value
-(``compute_cuts_exact``), as in the JAX package.
+(``compute_cuts_exact``), as in the JAX package.  Under column split
+(``dsplit=col``) they take the rank's
+:class:`~xgboost_tpu_torch.parallel.colsplit.ColSplit` (``col=``) and
+grow one tree at a time on its block of the features, K1 (or the exact
+grower) on every row, as the JAX package does on its column mesh.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from functools import partial
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -51,7 +56,7 @@ from xgboost_tpu_torch.models.tree import (GrowConfig, TreeArrays,
                                            table_lookup, tree_capacity)
 from xgboost_tpu_torch.models.updaters import (parse_updaters, prune_stack,
                                                prune_tree, refresh_trees)
-from xgboost_tpu_torch.ops.split import SplitConfig
+from xgboost_tpu_torch.ops.split import FusedSplitConfig
 
 _NUMPY_DTYPES = {"feature": np.int32, "cut_index": np.int32,
                  "threshold": np.float32, "default_left": np.bool_,
@@ -68,7 +73,7 @@ def make_grow_config(p: TrainParam, n_bin: int) -> GrowConfig:
     not a parameter: a ``hist_subtraction=...`` parameter is ignored,
     with the JAX package's one-time warning under ``silent=0``."""
     parse_updaters(p.updater)
-    split = SplitConfig(
+    split = FusedSplitConfig(
         reg_lambda=p.reg_lambda, reg_alpha=p.reg_alpha,
         max_delta_step=p.max_delta_step, min_child_weight=p.min_child_weight,
         gamma=p.gamma, eta=p.eta, default_direction=p.default_direction)
@@ -181,6 +186,7 @@ class GBTree:
                                           torch.Tensor]] = None
         self._group_dev: Optional[Tuple[int, torch.Tensor]] = None
         self.pred_chunk = resolve_pred_chunk(param, device)
+        self._col_cuts = None    # (F_pad, padded cut values, cut counts)
 
     @property
     def num_trees(self) -> int:
@@ -210,6 +216,17 @@ class GBTree:
         return skmaker_split_finder(sketch_size(
             self.param.sketch_ratio, self.param.sketch_eps, self.cfg.n_bin))
 
+    def col_arrays(self, col) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cut values and counts padded to ``col``'s features, +inf
+        and 0 on padding (``gbtree.py:396-406``), made once."""
+        if self._col_cuts is None or self._col_cuts[0] != col.f_pad:
+            from xgboost_tpu_torch.parallel.colsplit import pad_features
+            cv = pad_features(self.cuts.cut_values, col.world, 0, np.inf)
+            nc = pad_features(self.cuts.n_cuts, col.world, 0)
+            self._col_cuts = (col.f_pad, torch.as_tensor(cv).to(self.device),
+                              torch.as_tensor(nc).to(self.device))
+        return self._col_cuts[1], self._col_cuts[2]
+
     def _do_prune(self) -> bool:
         return ("prune" in parse_updaters(self.param.updater)
                 and self.param.gamma > 0.0)
@@ -218,7 +235,7 @@ class GBTree:
                  row_valid: Optional[torch.Tensor] = None, key=None,
                  root: Optional[torch.Tensor] = None,
                  exact_has_missing: bool = True,
-                 exact_ranks=None, mesh=None) -> torch.Tensor:
+                 exact_ranks=None, mesh=None, col=None) -> torch.Tensor:
         """One boosting round: grow the round's T = K x num_parallel_tree
         trees on ``gh`` (N, K, 2) together, tree j sampling with
         ``fold_in(key, j)`` (``key`` the round's host key, needed when the
@@ -228,7 +245,8 @@ class GBTree:
         (``gbtree.py:681-757``).  An exact-mode ensemble grows on the raw
         values ``binned`` holds (:meth:`_do_boost_exact`).  ``mesh``: this
         rank's world under row split; ``binned`` and ``gh`` are its
-        block."""
+        block.  ``col``: this rank's ColSplit under column split;
+        ``binned`` is its block of the features (:meth:`_do_boost_col`)."""
         from xgboost_tpu_torch.parallel.dp import hist_reduce
         npar = max(1, self.param.num_parallel_tree)
         T, K = self.trees_per_round, self.n_group
@@ -236,9 +254,16 @@ class GBTree:
         # (T, N, 2) from views: no index tensor sent to the device
         gh_t = torch.stack([gh[:, g, :] for g in group])
         keys = None if key is None else tree_keys(key, T)
+        if col is not None and root is not None:
+            raise NotImplementedError(
+                "root_index needs num_roots > 1 (and dsplit != col): set "
+                "num_roots to the number of tree roots")
         if self.exact_raw:
             return self._do_boost_exact(binned, gh_t, group, row_valid, keys,
-                                        exact_has_missing, exact_ranks)
+                                        exact_has_missing, exact_ranks, col)
+        if col is not None:
+            return self._do_boost_col(binned, gh_t, group, row_valid, keys,
+                                      col)
         trees, row_leaf, ds = grow_trees(binned, gh_t, self.cut_values_dev,
                                          self.n_cuts_dev, self.cfg,
                                          row_valid, keys, root,
@@ -265,18 +290,67 @@ class GBTree:
             delta[:, group[j]] += ds[j]
         return delta
 
+    def _do_boost_col(self, binned: torch.Tensor, gh_t: torch.Tensor,
+                      group: List[int], row_valid, keys, col) -> torch.Tensor:
+        """A round under column split (``gbtree.py:557-620``): the round's
+        trees grow one at a time on this rank's block of the features
+        (:func:`~xgboost_tpu_torch.parallel.colsplit.grow_tree_colsplit`,
+        one K1 launch a level, no K3 batching), each pruned when ``gamma >
+        0``; each group's delta is its first tree's, then the others added
+        in tree order.  The skmaker finder merges no summaries and
+        raises."""
+        from xgboost_tpu_torch.parallel.colsplit import grow_tree_colsplit
+        if self.split_finder() is not None:
+            raise NotImplementedError(
+                "updater=grow_skmaker is not supported under dsplit=col "
+                "(the column-split grower reduces SplitEntry tuples, not "
+                "summaries)")
+        cv, nc = self.col_arrays(col)
+        trees, deltas = [], {}
+        for j, g in enumerate(group):
+            tree, row_leaf, d = grow_tree_colsplit(
+                col, binned, gh_t[j], cv, nc, self.cfg, row_valid,
+                None if keys is None else keys[j])
+            if self._do_prune():
+                tree, resolve = prune_tree(tree, self.param.gamma,
+                                           self.cfg.n_roots)
+                d = table_lookup(tree.leaf_value[torch.as_tensor(
+                    resolve, dtype=torch.int64, device=binned.device)],
+                    row_leaf)
+            if row_valid is not None:
+                d = d * row_valid.to(d.dtype)
+            trees.append(tree)
+            deltas[g] = d if g not in deltas else deltas[g] + d
+        return self._append_round(trees, group, deltas)
+
+    def _append_round(self, trees: List[TreeArrays], group: List[int],
+                      deltas: dict) -> torch.Tensor:
+        """Append a round grown tree by tree; its (N, K) delta."""
+        self._parts.append(TreeArrays(*(torch.stack(xs)
+                                        for xs in zip(*trees))))
+        self.tree_group.extend(group)
+        self._stack_cache = None
+        return torch.stack([deltas[k] for k in range(self.n_group)], dim=1)
+
     def _do_boost_exact(self, X: torch.Tensor, gh_t: torch.Tensor,
                         group: List[int], row_valid, keys,
-                        has_missing: bool, ranks) -> torch.Tensor:
+                        has_missing: bool, ranks, col=None) -> torch.Tensor:
         """An exact round (``gbtree.py:623-680``): the round's trees grow
         one after another on raw values X (their scans share nothing),
         each pruned when ``gamma > 0``; each group's delta is its trees'
-        leaf values summed in tree order."""
+        leaf values summed in tree order.  Under column split X is this
+        rank's block of the features
+        (:func:`~xgboost_tpu_torch.parallel.colsplit.grow_tree_exact_colsplit`)."""
         from xgboost_tpu_torch.models.colmaker import grow_tree_exact
         rk, uq = ranks if ranks is not None else (None, None)
+        grow = grow_tree_exact
+        if col is not None:
+            from xgboost_tpu_torch.parallel.colsplit import \
+                grow_tree_exact_colsplit
+            grow = partial(grow_tree_exact_colsplit, col)
         trees, deltas = [], {}
         for j, g in enumerate(group):
-            tree, row_leaf = grow_tree_exact(
+            tree, row_leaf = grow(
                 X, gh_t[j], self.cfg, row_valid, has_missing, rk, uq,
                 None if keys is None else keys[j])
             leaf_value = tree.leaf_value
@@ -289,11 +363,7 @@ class GBTree:
                 d = d * row_valid.to(d.dtype)
             trees.append(tree)
             deltas[g] = d if g not in deltas else deltas[g] + d
-        self._parts.append(TreeArrays(*(torch.stack(xs)
-                                        for xs in zip(*trees))))
-        self.tree_group.extend(group)
-        self._stack_cache = None
-        return torch.stack([deltas[k] for k in range(self.n_group)], dim=1)
+        return self._append_round(trees, group, deltas)
 
     def do_boost_paged(self, dmat, gh: torch.Tensor, key=None, mesh=None
                        ) -> torch.Tensor:
@@ -344,13 +414,16 @@ class GBTree:
 
     def do_refresh(self, binned: torch.Tensor, gh: torch.Tensor,
                    row_valid: Optional[torch.Tensor] = None,
-                   root: Optional[torch.Tensor] = None, mesh=None) -> None:
+                   root: Optional[torch.Tensor] = None, mesh=None,
+                   router=None) -> None:
         """The ``refresh`` updater (``gbtree.py:1009-1034``): every tree's
         node sums, leaf values and gains recomputed on ``binned`` with
         the gradients ``gh`` (N, K, 2) of its group, one snapshot for all
         trees, as in the JAX package; one K2 launch a level for all of
         them (:func:`~.updaters.refresh_trees`); under row split the node
-        sums of every rank's block are reduced (``mesh``)."""
+        sums of every rank's block are reduced (``mesh``); under column
+        split ``binned`` is the rank's block of the features and
+        ``router`` the ranks'."""
         from xgboost_tpu_torch.parallel.dp import hist_reduce
         if self.exact_raw:
             # the JAX package would read the raw values as bin ids here
@@ -364,7 +437,8 @@ class GBTree:
         gh_t = gh.index_select(1, idx).permute(1, 0, 2)
         self._parts = [refresh_trees(stack, binned, gh_t, self.cfg.split,
                                      self.cfg.max_depth, row_valid, root,
-                                     self.cfg.n_roots, hist_reduce(mesh))]
+                                     self.cfg.n_roots, hist_reduce(mesh),
+                                     router)]
         self._stack_cache = None
 
     def prune_all(self) -> None:
@@ -414,31 +488,36 @@ class GBTree:
 
     def predict_margin(self, binned: torch.Tensor, base: torch.Tensor,
                        ntree_limit: int = 0,
-                       root: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       root: Optional[torch.Tensor] = None,
+                       router=None) -> torch.Tensor:
+        """Margins of ``binned`` (raw values in exact mode); ``router``:
+        column split's, for a rank's block of the features."""
         stack, group = self._stack(ntree_limit)
         if self.exact_raw:
             from xgboost_tpu_torch.models.colmaker import predict_margin_raw
             return predict_margin_raw(stack, group, binned, base,
-                                      self.cfg.max_depth, self.n_group)
+                                      self.cfg.max_depth, self.n_group,
+                                      router)
         if self.pred_chunk > 1:
             group = self.group_on_device(len(group))
         return predict_margin_binned(stack, group, binned, base,
                                      self.cfg.max_depth, self.n_group,
                                      root, self.cfg.n_roots,
-                                     tree_chunk=self.pred_chunk)
+                                     tree_chunk=self.pred_chunk,
+                                     router=router)
 
     def predict_incremental(self, binned: torch.Tensor, margin: torch.Tensor,
                             first_tree: int, n_trees: int,
-                            root: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            root: Optional[torch.Tensor] = None,
+                            router=None) -> torch.Tensor:
         """``margin`` plus trees ``[first_tree, first_tree + n_trees)``,
         their contributions summed from 0 first (``gbtree.py:1103-1128``)."""
         return self.predict_contrib(binned, first_tree, n_trees,
-                                    root) + margin
+                                    root, router) + margin
 
     def predict_contrib(self, binned: torch.Tensor, first_tree: int,
-                        n_trees: int, root: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        n_trees: int, root: Optional[torch.Tensor] = None,
+                        router=None) -> torch.Tensor:
         """The (N, K) sum of trees ``[first_tree, first_tree + n_trees)``
         from 0."""
         stack, group = self._stack(first_tree + n_trees)
@@ -447,23 +526,27 @@ class GBTree:
         if self.exact_raw:
             from xgboost_tpu_torch.models.colmaker import predict_margin_raw
             return predict_margin_raw(part, group[first_tree:], binned, zero,
-                                      self.cfg.max_depth, self.n_group)
+                                      self.cfg.max_depth, self.n_group,
+                                      router)
         if self.pred_chunk > 1:
             group = self.group_on_device(len(group))
         return predict_margin_binned(part, group[first_tree:], binned, zero,
                                      self.cfg.max_depth, self.n_group,
                                      root, self.cfg.n_roots,
-                                     tree_chunk=self.pred_chunk)
+                                     tree_chunk=self.pred_chunk,
+                                     router=router)
 
     def predict_leaf(self, binned: torch.Tensor, ntree_limit: int = 0,
-                     root: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     root: Optional[torch.Tensor] = None,
+                     router=None) -> torch.Tensor:
         stack, _ = self._stack(ntree_limit)
         if self.exact_raw:
             from xgboost_tpu_torch.models.colmaker import predict_leaf_raw
-            return predict_leaf_raw(stack, binned, self.cfg.max_depth)
+            return predict_leaf_raw(stack, binned, self.cfg.max_depth,
+                                    router)
         return predict_leaf_binned(stack, binned, self.cfg.max_depth, root,
                                    self.cfg.n_roots,
-                                   tree_chunk=self.pred_chunk)
+                                   tree_chunk=self.pred_chunk, router=router)
 
     def get_state(self) -> dict:
         """The model-file arrays, numpy (``gbtree.py:1145-1152``): each

@@ -133,6 +133,18 @@ def bin_of_feature(binned: torch.Tensor, f_row: torch.Tensor) -> torch.Tensor:
     return binned.gather(1, cols).T.reshape(f_row.shape).to(torch.int32)
 
 
+def bin_router(f_row: torch.Tensor, j_row: torch.Tensor,
+               dl_row: torch.Tensor, binned: torch.Tensor) -> torch.Tensor:
+    """Go-left per row when every feature is local (``tree.py:162-176``):
+    bin 0 (missing) takes the default direction, else bins up to cut
+    ``j + 1`` go left.  ``f_row`` (>= 0), ``j_row`` and ``dl_row`` are the
+    split feature, cut and default direction at each row's node.  The
+    ``router`` seam of growth, traversal and refresh; column split
+    replaces it (:mod:`xgboost_tpu_torch.parallel.colsplit`)."""
+    b = bin_of_feature(binned, f_row)
+    return torch.where(b == 0, dl_row, b <= j_row + 1)
+
+
 # ---------------------------------------------------------------- sampling
 
 def sample_features(keys: np.ndarray, n_feature: int,
@@ -160,15 +172,22 @@ class _Draws(NamedTuple):
 
 
 def draw_masks(keys, n_rows: int, n_feature: int, cfg: GrowConfig,
-               device) -> _Draws:
+               device, feat_sampler=None) -> _Draws:
     """The draws of ``tree.py:305-320,400-405`` for T trees' keys (T, 2):
     each key splits into (rows, tree features, level features); rows are
     kept where ``uniform(key_rows, (N,)) < subsample``; the level at
     depth d keeps the tree's features that ``fold_in(key_flevel, d)``
     also keeps.  Keys and feature masks are host values; the row draw
-    runs on ``device`` and the feature masks go up in one copy."""
+    runs on ``device`` and the feature masks go up in one copy.
+    ``feat_sampler(keys, rate)`` gives the (..., n_feature) masks of
+    keys (..., 2) (default :func:`sample_features` over the
+    ``n_feature`` features; column split draws over every rank's
+    features and keeps its own)."""
     if not cfg.sampled:
         return _Draws(None, None)
+    if feat_sampler is None:
+        def feat_sampler(k, rate):
+            return sample_features(k, n_feature, rate)
     keys = np.asarray(keys, np.uint32).reshape(-1, 2)
     parts = prng.split(keys, 3)                   # (T, 3, 2)
     keep = None
@@ -181,12 +200,12 @@ def draw_masks(keys, n_rows: int, n_feature: int, cfg: GrowConfig,
         d0 = root_level(cfg.n_roots)
         depths = np.arange(d0, d0 + cfg.max_depth)[:, None]   # (D, 1)
         host = np.broadcast_to(
-            sample_features(parts[:, 1], n_feature, cfg.colsample_bytree),
+            feat_sampler(parts[:, 1], cfg.colsample_bytree),
             (cfg.max_depth, len(keys), n_feature))
         if cfg.colsample_bylevel < 1.0:
             # every level's key at once: fold_in(key_flevel, depth)
-            host = host & sample_features(
-                prng.fold_in(parts[None, :, 2], depths), n_feature,
+            host = host & feat_sampler(
+                prng.fold_in(parts[None, :, 2], depths),
                 cfg.colsample_bylevel)
         fmask = torch.from_numpy(np.ascontiguousarray(host)).to(
             device, non_blocking=True)
@@ -199,7 +218,8 @@ def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
               cut_values: torch.Tensor, n_cuts: torch.Tensor,
               cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
               key=None, root: Optional[torch.Tensor] = None,
-              split_finder=None, hist_reduce=None
+              split_finder=None, hist_reduce=None, *, router=None,
+              feat_sampler=None, level_totals=None
               ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow one tree level by level (``tree.py:260-465``):
     :func:`grow_trees` for T = 1, with the one-tree histogram K1.
@@ -215,7 +235,10 @@ def grow_tree(binned: torch.Tensor, gh: torch.Tensor,
     keys = None if key is None else np.asarray(key, np.uint32)[None]
     trees, row_leaf, row_val = grow_trees(binned, gh[None], cut_values,
                                           n_cuts, cfg, row_valid, keys,
-                                          root, split_finder, hist_reduce)
+                                          root, split_finder, hist_reduce,
+                                          router=router,
+                                          feat_sampler=feat_sampler,
+                                          level_totals=level_totals)
     return TreeArrays(*(x[0] for x in trees)), row_leaf[0], row_val[0]
 
 
@@ -223,7 +246,8 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
                cut_values: torch.Tensor, n_cuts: torch.Tensor,
                cfg: GrowConfig, row_valid: Optional[torch.Tensor] = None,
                keys=None, root: Optional[torch.Tensor] = None,
-               split_finder=None, hist_reduce=None
+               split_finder=None, hist_reduce=None, *, router=None,
+               feat_sampler=None, level_totals=None
                ) -> Tuple[TreeArrays, torch.Tensor, torch.Tensor]:
     """Grow T trees together on shared bins, each on its own gradients
     ``gh`` (T, N, 2) and its own host key ``keys[t]`` (T, 2) uint32 (the
@@ -263,11 +287,22 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
     every rank, and is applied to every level histogram and node-stat
     tensor before dequantisation; its ``max`` gives the int8 scales of
     all ranks' rows, and its ``world`` the row count they must hold.  Split decisions are
-    then taken on every rank alike, and each rank routes its own rows."""
+    then taken on every rank alike, and each rank routes its own rows.
+
+    Column split (``tree.py:259-299``, :mod:`~xgboost_tpu_torch.parallel.
+    colsplit`) fills the other seams: ``router(f_row, j_row, dl_row,
+    binned)`` sends rows left or right (default :func:`bin_router`),
+    ``feat_sampler(keys, rate)`` draws the feature masks
+    (:func:`draw_masks`), and ``level_totals(nst)`` gives the (T *
+    n_node, 2) node totals every rank takes for the level's histogram
+    totals (default: these).  The finder then reads ``cut_values`` and
+    ``n_cuts`` of every feature, and ``binned`` holds the rank's."""
     lanes = binned.dim() == 3
     red = hist_reduce
     if split_finder is None:
         split_finder = find_best_splits_native
+    if router is None:
+        router = bin_router
     T, N = gh.shape[:2]
     F = binned.shape[-1]
     D = cfg.max_depth
@@ -275,7 +310,7 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
     dev = binned.device
     if cfg.sampled and keys is None:
         raise ValueError("a sampled grow config needs one key per tree")
-    draws = draw_masks(keys, N, F, cfg, dev)
+    draws = draw_masks(keys, N, F, cfg, dev, feat_sampler)
     gh_used = gh
     if draws.keep is not None:
         gh_used = gh * draws.keep[..., None].to(gh.dtype)
@@ -337,6 +372,8 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             if cfg.hist_subtraction:
                 hist_prev = hist
             nst = stats_from_histogram_native(hist)     # (T * n_node, 2)
+            if level_totals is not None:
+                nst = level_totals(nst)
             fmask = None
             if draws.fmask is not None:
                 # each column's own tree's features: (F, T * n_node)
@@ -374,9 +411,8 @@ def grow_trees(binned: torch.Tensor, gh: torch.Tensor,
             row_is_leaf = active
         else:
             row_is_leaf = active & per_row(make_leaf)
-            b = bin_of_feature(binned, per_row(best.feature))
-            go_left = torch.where(b == 0, per_row(best.default_left),
-                                  b <= per_row(best.cut_index) + 1)
+            go_left = router(per_row(best.feature), per_row(best.cut_index),
+                             per_row(best.default_left), binned)
         row_leaf = torch.where(row_is_leaf, base + pos, row_leaf)
         row_val = torch.where(row_is_leaf, val_row, row_val)
         if best is not None:
@@ -517,11 +553,13 @@ def apply_level(tree: TreeArrays, depth: int, nst: torch.Tensor,
 
 def traverse_one(tree: TreeArrays, binned: torch.Tensor, max_depth: int,
                  root: Optional[torch.Tensor] = None,
-                 n_roots: int = 1) -> torch.Tensor:
+                 n_roots: int = 1, router=None) -> torch.Tensor:
     """Leaf node index per row for one tree on binned data, missing
     values following the default direction (``tree.py:532-597``); with
     ``n_roots > 1`` each row starts at its ``root`` slot (slot 0 without
-    ``root``)."""
+    ``root``).  ``router``: as in :func:`grow_trees` (column split's on
+    a rank's block of features)."""
+    router = bin_router if router is None else router
     N = binned.shape[0]
     dev = binned.device
     d0 = root_level(n_roots)
@@ -542,9 +580,8 @@ def traverse_one(tree: TreeArrays, binned: torch.Tensor, max_depth: int,
         leaf_node = torch.where(stop, base + pos, leaf_node)
         if d == d0 + max_depth:
             break
-        b = bin_of_feature(binned, torch.clamp_min(f_row, 0))
-        go_left = torch.where(b == 0, tree.default_left[sl][node],
-                              b <= tree.cut_index[sl][node] + 1)
+        go_left = router(torch.clamp_min(f_row, 0), tree.cut_index[sl][node],
+                         tree.default_left[sl][node], binned)
         new_pos = 2 * pos + (~go_left).to(torch.int32)
         pos = torch.where(active & ~stop, new_pos, -1)
     return leaf_node
@@ -556,12 +593,13 @@ def _tree(stack: TreeArrays, t: int) -> TreeArrays:
 
 def traverse_chunk(chunk: TreeArrays, binned: torch.Tensor, max_depth: int,
                    root: Optional[torch.Tensor] = None,
-                   n_roots: int = 1) -> torch.Tensor:
+                   n_roots: int = 1, router=None) -> torch.Tensor:
     """(C, N) leaf node indices of a (C, n_nodes) chunk of trees, all C
     traversing at once (the JAX package's ``_chunk_leaves``, its
     ``_traverse_one`` vmapped over trees): each level is one batch of
     gathers and compares on a (C, N) position tensor, and row ``r`` of
     tree ``c`` follows exactly :func:`traverse_one`'s path."""
+    router = bin_router if router is None else router
     C = chunk.feature.shape[0]
     N = binned.shape[0]
     dev = binned.device
@@ -587,9 +625,8 @@ def traverse_chunk(chunk: TreeArrays, binned: torch.Tensor, max_depth: int,
         leaf_node = torch.where(stop, base + pos, leaf_node)
         if d == d0 + max_depth:
             break
-        b = bin_of_feature(binned, torch.clamp_min(f_row, 0))
-        go_left = torch.where(b == 0, pick(chunk.default_left),
-                              b <= pick(chunk.cut_index) + 1)
+        go_left = router(torch.clamp_min(f_row, 0), pick(chunk.cut_index),
+                         pick(chunk.default_left), binned)
         new_pos = 2 * pos + (~go_left).to(torch.int32)
         pos = torch.where(active & ~stop, new_pos, -1)
     return leaf_node
@@ -642,7 +679,7 @@ def predict_margin_chunked(stack: TreeArrays, tree_group: torch.Tensor,
                            n_valid: int, binned: torch.Tensor,
                            base: torch.Tensor, max_depth: int, n_group: int,
                            root: Optional[torch.Tensor], n_roots: int,
-                           tree_chunk: int) -> torch.Tensor:
+                           tree_chunk: int, router=None) -> torch.Tensor:
     """The chunked traversal core (``tree.py:698-743``) on a stack
     already padded to a multiple of ``tree_chunk``: each chunk's leaves
     come from one :func:`traverse_chunk`, and the first ``n_valid``
@@ -669,7 +706,8 @@ def predict_margin_chunked(stack: TreeArrays, tree_group: torch.Tensor,
         sel = sel.to(binned.device)
     for s in range(0, min(T_pad, n_valid), C):
         chunk = TreeArrays(*(x[s:s + C] for x in stack))
-        leaves = traverse_chunk(chunk, binned, max_depth, root, n_roots)
+        leaves = traverse_chunk(chunk, binned, max_depth, root, n_roots,
+                                router)
         contribs = table_lookup(chunk.leaf_value, leaves)        # (C, N)
         for c in range(min(C, n_valid - s)):
             if sel is None:
@@ -685,7 +723,7 @@ def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
                           max_depth: int, n_group: int,
                           root: Optional[torch.Tensor] = None,
                           n_roots: int = 1,
-                          tree_chunk: int = 0) -> torch.Tensor:
+                          tree_chunk: int = 0, router=None) -> torch.Tensor:
     """(N, n_group) margins: ``base`` plus every tree's leaf values added
     to its group's column, in tree order (the JAX scan's order,
     ``tree.py:746-778``).  ``tree_chunk > 1`` pads the stack to the
@@ -700,7 +738,7 @@ def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
                                                        tree_chunk)
         return predict_margin_chunked(stack, tree_group, n_valid, binned,
                                       base, max_depth, n_group, root,
-                                      n_roots, C)
+                                      n_roots, C, router)
     N = binned.shape[0]
     margin = torch.broadcast_to(base, (N, n_group)).to(torch.float32)
     margin = margin.clone()
@@ -708,7 +746,7 @@ def predict_margin_binned(stack: TreeArrays, tree_group: torch.Tensor,
     for t in range(stack.feature.shape[0]):
         tree = _tree(stack, t)
         leaf = traverse_one(tree, binned, max_depth, root,
-                            n_roots).to(torch.int64)
+                            n_roots, router).to(torch.int64)
         margin[:, groups[t]] += table_lookup(tree.leaf_value, leaf)
     return margin
 
@@ -745,7 +783,7 @@ def predict_margin_fused(stack: TreeArrays, tree_group: torch.Tensor,
 def predict_leaf_binned(stack: TreeArrays, binned: torch.Tensor,
                         max_depth: int, root: Optional[torch.Tensor] = None,
                         n_roots: int = 1,
-                        tree_chunk: int = 0) -> torch.Tensor:
+                        tree_chunk: int = 0, router=None) -> torch.Tensor:
     """(N, T) leaf node index per tree, every group's trees in tree
     order (``tree.py:889-906``); ``tree_chunk > 1`` traverses chunks of
     trees at once, padded like the margins, and drops the padded
@@ -757,9 +795,10 @@ def predict_leaf_binned(stack: TreeArrays, binned: torch.Tensor,
         stack, _, _ = pad_predict_stack(stack, group, tree_chunk)
         leaves = torch.cat([traverse_chunk(
             TreeArrays(*(x[s:s + C] for x in stack)), binned, max_depth,
-            root, n_roots) for s in range(0, stack.feature.shape[0], C)])
+            root, n_roots, router)
+            for s in range(0, stack.feature.shape[0], C)])
         return leaves[:T].T
     leaves = [traverse_one(_tree(stack, t), binned, max_depth, root,
-                           n_roots)
+                           n_roots, router)
               for t in range(T)]
     return torch.stack(leaves, dim=1)

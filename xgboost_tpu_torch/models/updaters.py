@@ -9,10 +9,11 @@ the updater registry, the prune updater and the refresh updater).
 - ``refresh``: recomputes every tree's node sums, leaf values and gains
   on (new) data, keeping its structure (:func:`refresh_trees`);
 - ``sync``: broadcasts trees from rank 0 in the reference, a no-op here:
-  under row split every rank grows the same trees.
-
-``distcol`` (column-split growth) is ROADMAP.md section 1 item 13b and
-raises.
+  under row split every rank grows the same trees;
+- ``distcol``: the reference's column-split grower, a growth updater as
+  in the JAX package: the histogram grower, on each rank's block of the
+  features under ``dsplit=col``
+  (:mod:`xgboost_tpu_torch.parallel.colsplit`).
 """
 
 from __future__ import annotations
@@ -22,15 +23,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from xgboost_tpu_torch.models.tree import (TreeArrays, bin_of_feature,
-                                           root_level)
+from xgboost_tpu_torch.models.tree import TreeArrays, bin_router, root_level
 from xgboost_tpu_torch.ops.histogram import node_stats
 from xgboost_tpu_torch.ops.split import SplitConfig, calc_gain, calc_weight
 
 KNOWN_UPDATERS = ("grow_colmaker", "grow_histmaker", "grow_skmaker",
                   "prune", "refresh", "distcol", "sync")
-PORTED_UPDATERS = ("grow_histmaker", "grow_colmaker", "grow_skmaker",
-                   "prune", "refresh", "sync")
+PORTED_UPDATERS = KNOWN_UPDATERS
 
 
 def parse_updaters(updater: str) -> Tuple[str, ...]:
@@ -39,11 +38,13 @@ def parse_updaters(updater: str) -> Tuple[str, ...]:
         if u not in KNOWN_UPDATERS:
             raise ValueError(
                 f"unknown updater {u!r} (known: {KNOWN_UPDATERS})")
-        if u not in PORTED_UPDATERS:
-            raise NotImplementedError(
-                f"updater {u!r} is column-split distributed growth: "
-                "ROADMAP.md section 1 item 13b")
     return seq
+
+
+def grows(ups: Tuple[str, ...]) -> bool:
+    """Whether the updaters grow trees: a ``grow_*`` one or ``distcol``
+    (``learner.py:1336``)."""
+    return any(u.startswith("grow") or u == "distcol" for u in ups)
 
 
 def prune_tree(tree: TreeArrays, gamma: float, n_roots: int = 1
@@ -95,7 +96,8 @@ def refresh_trees(stack: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
                   cfg: SplitConfig, max_depth: int,
                   row_valid: Optional[torch.Tensor] = None,
                   root: Optional[torch.Tensor] = None,
-                  n_roots: int = 1, hist_reduce=None) -> TreeArrays:
+                  n_roots: int = 1, hist_reduce=None,
+                  router=None) -> TreeArrays:
     """Recompute T trees' node sums, leaf values and gains on (new) data
     (``updaters.py:103-169``, the reference's TreeRefresher): each row
     adds its gradients at every node on its root-to-leaf path, the leaf
@@ -111,11 +113,13 @@ def refresh_trees(stack: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
     parked at a leaf.  On the CPU the sums run in row order, the order
     of the JAX package's scatter, so they are its bits.  Under row split
     ``hist_reduce`` sums every node's sums over the ranks once, after
-    the last level (``dp.py:63-82``)."""
+    the last level (``dp.py:63-82``); under column split ``router`` is
+    the ranks' (:func:`~.tree.bin_router` by default)."""
     T, n_nodes = stack.feature.shape
     N = binned.shape[0]
     dev = binned.device
     d0 = root_level(n_roots)
+    router = bin_router if router is None else router
     gh_used = gh.to(torch.float32)
     if row_valid is not None:
         gh_used = gh_used * row_valid[None, :, None].to(torch.float32)
@@ -138,9 +142,8 @@ def refresh_trees(stack: TreeArrays, binned: torch.Tensor, gh: torch.Tensor,
             break
         f = stack.feature.gather(1, node)
         leaf = stack.is_leaf.gather(1, node) | (f < 0)
-        b = bin_of_feature(binned, torch.clamp_min(f, 0))
-        go_left = torch.where(b == 0, stack.default_left.gather(1, node),
-                              b <= stack.cut_index.gather(1, node) + 1)
+        go_left = router(torch.clamp_min(f, 0), stack.cut_index.gather(1, node),
+                         stack.default_left.gather(1, node), binned)
         node = torch.where(leaf, node, 2 * node + 2
                            - go_left.to(torch.int64))
         parked = parked | leaf

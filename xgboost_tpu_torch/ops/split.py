@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from xgboost_tpu_torch.objectives import fma_f32
+
 NEG = -1e30
 RT_EPS = 1e-6  # reference rt_eps accept threshold
 SCAN_BLOCK = 16
@@ -60,6 +62,14 @@ class SplitConfig(NamedTuple):
     default_direction: int = 0  # 0=learn, 1=left, 2=right
 
 
+class FusedSplitConfig(SplitConfig):
+    """The growers' SplitConfig (``gbtree.make_grow_config``): its gains
+    under ``max_delta_step`` are computed on the CPU as the JAX package's
+    jitted growers compute them (:func:`calc_gain`, F10), not as its
+    functions run op by op."""
+    __slots__ = ()
+
+
 def _threshold_l1(w, alpha):
     return torch.sign(w) * torch.clamp_min(torch.abs(w) - alpha, 0.0)
 
@@ -74,12 +84,23 @@ def calc_weight(G, H, cfg: SplitConfig):
 
 def calc_gain(G, H, cfg: SplitConfig):
     """Node objective reduction (reference CalcGain, param.h:109-126);
-    min_child_weight is enforced by the finder on both children."""
+    min_child_weight is enforced by the finder on both children.
+
+    Under ``max_delta_step`` with a :class:`FusedSplitConfig` the CPU
+    rounds ``G * w + t``, ``t = 0.5 * (H + lambda) * w * w``, once,
+    ``fma(G, w, t)``, as XLA's CPU backend contracts it in the JAX
+    package's jitted growers (F10); the alpha term is added after it.
+    Otherwise, and on a GPU, two roundings, as the JAX functions run op
+    by op."""
     if cfg.max_delta_step == 0.0:
         t = _threshold_l1(G, cfg.reg_alpha) if cfg.reg_alpha != 0.0 else G
         return t * t / (H + cfg.reg_lambda)
     w = calc_weight(G, H, cfg)
-    ret = G * w + 0.5 * (H + cfg.reg_lambda) * w * w
+    t = 0.5 * (H + cfg.reg_lambda) * w * w
+    if isinstance(cfg, FusedSplitConfig) and G.device.type == "cpu":
+        ret = fma_f32(G, w, t)
+    else:
+        ret = G * w + t
     if cfg.reg_alpha != 0.0:
         ret = ret + cfg.reg_alpha * torch.abs(w)
     return -2.0 * ret

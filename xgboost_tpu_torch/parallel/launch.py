@@ -22,7 +22,7 @@ rank ``XGBTPU_LOCAL_RANK`` (the rank by default).
 
 The launcher's fault tolerance (keepalive restarts, the stall watchdog,
 ``plan_degrade``, coordinator state and standby, grow-back) and the
-scheduler submitters are ROADMAP.md section 1 item 13b: those options
+scheduler submitters are ROADMAP.md section 1 item 13c: those options
 raise ``NotImplementedError`` naming it.
 """
 
@@ -44,7 +44,7 @@ RANK_ENV = "XGBTPU_WORKER_ID"
 LOCAL_RANK_ENV = "XGBTPU_LOCAL_RANK"
 LOCAL_WORKERS_ENV = "XGBTPU_LOCAL_WORKERS"
 
-_ITEM_13B = "ROADMAP.md section 1 item 13b"
+_ITEM_13C = "ROADMAP.md section 1 item 13c"
 
 
 def _local_rank() -> int:
@@ -88,7 +88,7 @@ def init_worker(device=None) -> bool:
         raise NotImplementedError(
             f"{COORD_ENV} is set without {RANK_ENV} / {NWORKER_ENV}: ranks "
             f"from a scheduler's environment (mpirun, srun, qsub) are "
-            f"{_ITEM_13B}")
+            f"{_ITEM_13C}")
     import torch.distributed as dist
     if dist.is_initialized():
         return True
@@ -177,11 +177,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="end the ranks after this long (0 = no limit)")
     for flag in ("--keepalive", "--standalone", "--standby"):
         ap.add_argument(flag, action="store_true",
-                        help=f"not ported ({_ITEM_13B})")
+                        help=f"not ported ({_ITEM_13C})")
     for flag in ("--watchdog-stall-sec", "--degrade-after",
                  "--gang-partition-sec"):
         ap.add_argument(flag, type=float, default=0.0,
-                        help=f"not ported ({_ITEM_13B})")
+                        help=f"not ported ({_ITEM_13C})")
     ap.add_argument("cmd", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if args.cmd and args.cmd[0] == "--":
@@ -194,7 +194,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if unported:
         raise NotImplementedError(
             f"--{unported[0].replace('_', '-')}: the launcher's fault "
-            f"tolerance is {_ITEM_13B}")
+            f"tolerance is {_ITEM_13C}")
     return launch_local(args.nworker, args.cmd,
                         timeout_sec=args.timeout_sec)
 

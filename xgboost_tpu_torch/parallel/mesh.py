@@ -93,6 +93,16 @@ class DataMesh:
             dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank (equal shapes)."""
+        if self.world == 1:
+            return t
+        import torch.distributed as dist
+        t = t.contiguous().clone()
+        with self._timed("broadcast", t.numel() * t.element_size()):
+            dist.broadcast(t, src, group=self.group)
+        return t
+
     def broadcast_bytes(self, raw: bytes, src: int = 0) -> bytes:
         """``raw`` of rank ``src`` on every rank (length first, then the
         bytes), through host tensors."""

@@ -165,7 +165,10 @@ def sort_partners(key, k: int, prep: RankPrep) -> torch.Tensor:
     n_other = torch.clamp_min(prep.g_size - prep.b_sz, 1)
     lab_pos = _partner_lanes(key, k, (prep.label.shape[0],), n_other,
                              prep.b_lo, prep.b_sz, prep.label.device)
-    return prep.lab_order[prep.g_start + lab_pos]
+    # a group of one label draws past its end: the JAX gather clamps the
+    # index there (the pair has no weight)
+    return prep.lab_order[torch.clamp_max(prep.g_start + lab_pos,
+                                          prep.label.shape[0] - 1)]
 
 
 def pred_order(pred: torch.Tensor, prep: RankPrep) -> torch.Tensor:

@@ -4,7 +4,7 @@ seams (``integrity.atomic_write`` / ``read_file``), the registry reload,
 the replica predict path (``slow_replica``) and the fleet lease client
 (``heartbeat_loss``, ``replica_kill``) fire; the gang kinds parse and arm
 here but have no seam until the launcher's fault tolerance is ported
-(ROADMAP.md section 1 item 13b; the row-split launcher of
+(ROADMAP.md section 1 item 13c; the row-split launcher of
 :mod:`xgboost_tpu_torch.parallel.launch` has none).
 
 The reference proves recovery by *injecting* failures at exact
