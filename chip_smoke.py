@@ -164,9 +164,32 @@ bytes of a world of one, K2 7 times a tree on each rank, each launch
 node by node within K2's bound of the f64 sums; (i) its ``rank:ndcg``
 with ``dsplit=row`` on 200,000 rows of ``make_rank`` in 2,000 groups, 5
 rounds, gives the model bytes of a world of one with K1 6 times a tree;
-each prints its seconds and collectives a round.  (a), (b), (d) and
-(g)'s CLI run at once; the worker runs alone.  Each launch has a limit
-of DIST_LIMIT_S (the worker DIST_CHECK_LIMIT_S).
+each prints its seconds and collectives a round; the launcher's fault
+tolerance (``parallel/launch.py``, ``mock.py``, ``gang.py``): (j) one
+``launch -n 2 --keepalive --watchdog-stall-sec FAULT_STALL_S
+--degrade-after 3 --max-restarts 4 --metrics-file ...`` of the CLI on
+FAULT_N of [main]'s rows (a buffer written here, [cli]'s holdout as
+``eval[test]``), [main]'s configuration, ``rounds_per_dispatch=2``,
+``checkpoint_dir`` set, ``mock=1,4,0,0;stall:1,9,0,1`` and
+``XGBTPU_FAULTS=host_loss@t2.r1.v14.``: rank 1 dies at round 4 of trial
+0, hangs at round 9 of trial 1 (the watchdog kills the gang) and loses
+its host at round 14 of trial 2 (the launcher degrades at once), trial
+3 finishes at W = 1 from the ring; each rank is this script's
+``--fault-rank`` entry, the CLI in its process with its standard error
+in a file of its own and its launch counts written at every round
+boundary.  It fails unless the launcher exits 0, the model's tree
+arrays and cuts equal bitwise, and the last eval line equals, those of
+the uninterrupted world of one trained in this process, rank 1's
+standard error holds one ``[mock] die``, one ``[mock] stall`` and one
+``HOST LOSS`` (rank 0's none), the launcher's metrics file reads one
+restart each for death, stall and host loss and a mesh size of 1, every
+rank of every attempt launches K1 6 times a round it trained and
+nothing else, and trial 3's first round's K1 equals the plain version
+(int8 bitwise); it prints each attempt's seconds, its rounds, a rank's
+start to its first heartbeat and the total beside the limit.  (a), (b),
+(d), (g) and (j) start at once; the worker starts when (a)-(g) end and
+runs beside (j)'s later attempts.  Each launch has a limit of
+DIST_LIMIT_S (the worker DIST_CHECK_LIMIT_S, (j) FAULT_LIMIT_S).
 
 The phases after ``[cli]`` drive sampled, subtracted and multi-root
 growth and the round profiler on the same data, each with its launch
@@ -558,13 +581,26 @@ def start_child(cmd, **kw):
     return proc
 
 
+def end_child(proc, grace=8.0):
+    """SIGTERM the process group of ``proc`` (a launcher then ends its
+    ranks, which run in sessions of their own), SIGKILL it after
+    ``grace`` seconds."""
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        if proc.poll() is not None:
+            return
+        try:
+            os.killpg(proc.pid, sig)
+        except OSError:
+            return
+        try:
+            proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            pass
+
+
 def kill_children():
     for proc in CHILDREN:
-        if proc.poll() is None:
-            try:
-                os.killpg(proc.pid, signal.SIGKILL)
-            except OSError:
-                pass
+        end_child(proc)
 
 
 atexit.register(kill_children)
@@ -1422,15 +1458,33 @@ DIST_RANK_N, DIST_RANK_ROUNDS = 200_000, 5
 DIST_RANK_PARAMS = {"objective": "rank:ndcg", "max_depth": DEPTH,
                     "eta": 0.1, "max_bin": 64, "dsplit": "row",
                     "device_sketch": 0}
+# (j): the launcher's fault tolerance, one launch of [main]'s
+# configuration on its first FAULT_N rows: rank 1 dies at round 4 of
+# trial 0, stalls at round 9 of trial 1 and loses its host at round 14
+# of trial 2; trial 3 runs at W = 1.  FAULT_RPD rounds a segment put a
+# ring member before each fault.  --degrade-after 3: the death and the
+# stall count towards it, the host loss degrades at once
+FAULT_N = 200_000
+FAULT_RPD = 2
+FAULT_MOCK = "1,4,0,0;stall:1,9,0,1"
+FAULT_HOST_LOSS = "host_loss@t2.r1.v14."
+FAULT_DEGRADE_AFTER = 3
+# the watchdog's window, about twice a rank's slowest start to its
+# first heartbeat beside the other launches (31-36 s), and the launch's
+# limit, about three times its seconds (155-167 s; H100 at 700 W,
+# PERF.md section 6)
+FAULT_STALL_S = 60
+FAULT_LIMIT_S = 450
 
 
-def dist_launch(n, cmd, cwd, limit=DIST_LIMIT_S):
-    """``python -m xgboost_tpu_torch.parallel.launch -n n cmd`` from
-    ``cwd``, started; the launcher ends its ranks past ``limit`` s."""
-    env = dict(os.environ, PYTHONPATH=HERE)
+def dist_launch(n, cmd, cwd, limit=DIST_LIMIT_S, flags=(), env=None):
+    """``python -m xgboost_tpu_torch.parallel.launch -n n flags cmd``
+    from ``cwd``, started; the launcher ends its ranks past ``limit``
+    s.  ``env``: more environment for the launcher and its ranks."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env or {}))
     proc = start_child(
         [sys.executable, "-m", "xgboost_tpu_torch.parallel.launch", "-n",
-         str(n), "--timeout-sec", str(limit), *cmd], cwd=cwd,
+         str(n), "--timeout-sec", str(limit), *flags, *cmd], cwd=cwd,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     proc.t0, proc.limit = time.perf_counter(), limit
     return proc
@@ -1446,7 +1500,7 @@ def dist_wait(procs):
         try:
             out, err = proc.communicate(timeout=proc.limit + DIST_GRACE_S)
         except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
+            end_child(proc)
             out, err = proc.communicate()
         done[name] = (out, err, time.perf_counter() - proc.t0)
     threads = [threading.Thread(target=wait, args=item)
@@ -1695,6 +1749,57 @@ def dist_worker(out_dir):
     mesh.barrier()
 
 
+def fault_rank(out_dir, args):
+    """A rank of (j): the CLI on ``args`` in this process, with this
+    rank's standard error in ``r<rank>.t<trial>.err`` and, at each round
+    boundary (before the gang hook, which may end the process), the time
+    and the kernels' launch counts as a line of ``r<rank>.t<trial>.rounds``;
+    ``end`` after a clean exit.  On a degraded attempt the first round's
+    K1 calls are held against the plain version (``.k1``)."""
+    start = time.time()
+    rank = os.environ.get("XGBTPU_WORKER_ID", "0")
+    tag = os.path.join(out_dir, f"r{rank}.t{os.environ.get('XGBTPU_NUM_TRIAL', '0')}")
+    fd = os.open(tag + ".err", os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 2)
+    sys.path.insert(0, HERE)
+    import torch
+    from xgboost_tpu_torch.cli import main as cli_main
+    from xgboost_tpu_torch.ops import (cuda_hist, cuda_hist_batched,
+                                       cuda_hist_lanes, cuda_node_stats)
+    from xgboost_tpu_torch.parallel import mock
+    kernels = {"hist_level": cuda_hist, "hist_batched": cuda_hist_batched,
+               "node_stats": cuda_node_stats, "hist_lanes": cuda_hist_lanes}
+    log = open(tag + ".rounds", "a", buffering=1)
+    log.write(json.dumps({"v": "start", "t": start}) + "\n")
+    begin, kernel_fn = mock.begin_round, cuda_hist.level_histogram
+    captured, rounds = [], []
+
+    def begin_round(version):
+        log.write(json.dumps({"v": version, "t": time.time(),
+                              "counts": read_counts(kernels)}) + "\n")
+        rounds.append(version)
+        begin(version)
+
+    def capture(bins, gh, pos, n_node, n_bin, mode):
+        out = kernel_fn(bins, gh, pos, n_node, n_bin, mode)
+        if len(rounds) == 1:
+            captured.append((bins, gh.clone(), pos.clone(), n_node, n_bin,
+                             mode, out.clone()))
+        return out
+    mock.begin_round = begin_round
+    if os.environ.get("XGBTPU_GANG_DEGRADED"):
+        cuda_hist.level_histogram = capture
+    rc = cli_main(list(args))
+    log.write(json.dumps({"v": "end", "t": time.time(),
+                          "counts": read_counts(kernels)}) + "\n")
+    if captured:
+        with open(tag + ".k1", "w") as f:
+            json.dump([[int(c[0].shape[0]), c[3], c[5], bool(torch.equal(
+                c[6], cuda_hist.level_histogram_plain(*c[:6])))]
+                for c in captured], f)
+    sys.exit(rc)
+
+
 def k2_bound(torch, gh, pos, n_node, block_rows=None, after=0):
     """K2's own error bound on each node and channel, gamma_L sum|x| over
     the node's rows (u = 2^-24, gamma_L = L u / (1 - L u)): in the
@@ -1765,13 +1870,31 @@ def phase_dist(torch, xt, kernels, card, main_out):
     def start(name, world, cmd, limit=DIST_LIMIT_S):
         d = dirs[name] = os.path.join(root, name)
         os.makedirs(d)
-        return dist_launch(world, cmd, d, limit)
+        if name != "fault":
+            return dist_launch(world, cmd, d, limit)
+        return dist_launch(world, cmd, d, limit, flags=[
+            "--keepalive", "--watchdog-stall-sec", str(FAULT_STALL_S),
+            "--degrade-after", str(FAULT_DEGRADE_AFTER), "--max-restarts",
+            "4", "--metrics-file", os.path.join(d, "launch.prom")],
+            env={"XGBTPU_FAULTS": FAULT_HOST_LOSS})
 
+    # (j) first: the fault world's launch, on FAULT_N of [main]'s rows
+    fault_buf = os.path.join(root, "fault-train.buffer")
+    os.makedirs(root)
+    X, y = main_out["X"], main_out["y"]
+    xt.DMatrix(X[:FAULT_N], label=y[:FAULT_N]).save_binary(fault_buf)
+    fault_args = [f"data={fault_buf}", "device_sketch=0",
+                  f"rounds_per_dispatch={FAULT_RPD}"]
+    fault_dir = os.path.join(root, "fault")
+    procs = {"fault": start("fault", 2, [
+        sys.executable, os.path.join(HERE, "chip_smoke.py"), "--fault-rank",
+        fault_dir, conf, *fault_args, "checkpoint_dir=ck",
+        f"mock={FAULT_MOCK}"], FAULT_LIMIT_S)}
     # (a) W = 2 and 4 with the host sketch on every rank, (b) the
     # default device sketch, (d) the split load of libsvm text against
     # its replicated load: started at once (their times are not (e)'s)
-    procs = {f"cli{w}": start(f"cli{w}", w, cli + ["device_sketch=0"])
-             for w in DIST_WORLDS}
+    procs.update({f"cli{w}": start(f"cli{w}", w, cli + ["device_sketch=0"])
+                  for w in DIST_WORLDS})
     procs.update({
         "col2": start("col2", 2, cli + ["dsplit=col"]),
         "sketch": start("sketch", 2, cli),
@@ -1780,6 +1903,14 @@ def phase_dist(torch, xt, kernels, card, main_out):
         "replicated": start("replicated", 2, cli + [
             f"data={text}", "device_sketch=1", "shard_load=0"]),
     })
+    # (j)'s uninterrupted world of one, in this process meanwhile
+    ref_err = run_cli([conf, *fault_args, "device=cuda",
+                       f"model_out={os.path.join(root, 'fault-ref.model')}"])[1]
+    fault_ref = (xt.Booster(model_file=os.path.join(
+        root, "fault-ref.model")).gbtree.get_state(),
+        dist_eval_lines(ref_err))
+    # (j) runs on beside the checks worker: waited for with it
+    fault_proc = procs.pop("fault")
     outs = dist_wait(procs)
     for world in DIST_WORLDS:
         name = f"cli{world}"
@@ -1800,8 +1931,10 @@ def phase_dist(torch, xt, kernels, card, main_out):
     # (c) and (e) at W = 2: the checks worker, alone on the card
     procs = {"check": start("check", 2, [
         sys.executable, os.path.join(HERE, "chip_smoke.py"),
-        "--dist-worker", ""], DIST_CHECK_LIMIT_S)}
+        "--dist-worker", ""], DIST_CHECK_LIMIT_S), "fault": fault_proc}
     outs.update(dist_wait(procs))
+    fault = dist_fault_gate(xt, card, outs["fault"], dirs["fault"],
+                            fault_dir, fault_ref)
     # (b): the cuts of the CLI run against the device sketch on the CPU
     # over the same two blocks
     X = main_out["X"][:N_TRAIN]
@@ -1911,11 +2044,125 @@ def phase_dist(torch, xt, kernels, card, main_out):
     # the ranks' launches on [dist]'s counted paths: the timed rounds
     # (K1), the refresh pass (K2) and the 6-class round (K3) of W=2
     return {"hist_level": sum(r["counts"]["hist_level"] for r in ranks)
-            + col["hist_level"],
+            + col["hist_level"] + fault,
             "hist_batched": sum(r["k3_launches"] for r in ranks),
             "node_stats": sum(r["k2_launches"] for r in ranks)
             + col["node_stats"],
             "node_stats_err": max(k2_err, col["node_stats_err"])}
+
+
+def read_prom(path):
+    """``{series: value}`` of a Prometheus text file (labels kept in the
+    series' name)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                name, _, value = line.rpartition(" ")
+                out[name] = float(value)
+    return out
+
+
+def dist_fault_gate(xt, card, out, launch_dir, fault_dir, ref):
+    """Gate (j) on the fault world's launch: three faults in three
+    attempts at W = 2, the fourth at W = 1, the model and last eval line
+    of the world of one ``ref`` (its tree arrays and cuts, its eval
+    lines), each rank's K1 6 times a round it trained and nothing else,
+    the degraded first round's K1 == plain.  Returns the K1 launches of
+    the rounds the ranks completed."""
+    import re
+    err_launch = out[1]
+    files = sorted(os.listdir(fault_dir))
+    trials = sorted({int(m.group(2)) for m in (
+        re.fullmatch(r"r(\d+)\.t(\d+)\.rounds", f) for f in files) if m})
+    ranks = {t: sorted(int(f[1:f.index(".")]) for f in files
+                       if f.endswith(f".t{t}.rounds")) for t in trials}
+    if trials != [0, 1, 2, 3] or [ranks[t] for t in trials] != [
+            [0, 1], [0, 1], [0, 1], [0]]:
+        fail(f"[dist] (j): attempts and their ranks {ranks}: want trials "
+             f"0-2 at W=2, trial 3 at W=1; launcher: {err_launch[-3000:]}")
+
+    def err_of(r, t):
+        with open(os.path.join(fault_dir, f"r{r}.t{t}.err")) as f:
+            return f.read()
+    r1 = "".join(err_of(1, t) for t in (0, 1, 2))
+    r0 = "".join(err_of(0, t) for t in trials)
+    marks = {k: sum(ln.startswith(k) for ln in r1.splitlines())
+             for k in ("[mock] die", "[mock] stall", "[gang] HOST LOSS")}
+    marks0 = sum(ln.startswith(("[mock]", "[gang]"))
+                 for ln in r0.splitlines())
+    if any(v != 1 for v in marks.values()) or marks0:
+        fail(f"[dist] (j): rank 1's fault lines {marks}, rank 0's {marks0}: "
+             "want one each on rank 1, none on rank 0")
+    prom = read_prom(os.path.join(launch_dir, "launch.prom"))
+    want = {f'xgbtpu_launch_restarts_total{{reason="{k}"}}': 1.0
+            for k in ("death", "stall", "host_loss")}
+    want.update({"xgbtpu_launch_mesh_size": 1.0,
+                 "xgbtpu_launch_degraded": 1.0,
+                 "xgbtpu_launch_worker_deaths_total": 2.0})
+    got = {k: prom.get(k) for k in want}
+    restarts = {k: v for k, v in prom.items()
+                if k.startswith("xgbtpu_launch_restarts_total")}
+    if got != want or len(restarts) != 3:
+        fail(f"[dist] (j): launcher metrics {got} {restarts}: want {want}")
+    b = xt.Booster(model_file=os.path.join(launch_dir, "final.model"))
+    if not same_trees(b.gbtree.get_state(), ref[0]):
+        fail("[dist] (j): the model differs from the uninterrupted world "
+             "of one's (tree arrays, cuts)")
+    lines = dist_eval_lines(err_of(0, 3))
+    if not lines or lines[-1] != ref[1][-1] or len(ref[1]) != ROUNDS:
+        fail(f"[dist] (j): last eval line {lines[-1:]}: want {ref[1][-1:]}")
+    want_c = {"hist_level": DEPTH, "hist_batched": 0, "node_stats": 0,
+              "hist_lanes": 0}
+    k1, spans, startup = 0, {}, {}
+    for t in trials:
+        for r in ranks[t]:
+            with open(os.path.join(fault_dir, f"r{r}.t{t}.rounds")) as f:
+                recs = [json.loads(ln) for ln in f]
+            head, recs = recs[0], recs[1:]
+            if not recs or any(recs[0]["counts"].values()):
+                fail(f"[dist] (j) r{r} t{t}: launches before round "
+                     f"{recs[:1]}")
+            for a, c in zip(recs, recs[1:]):
+                d = {k: c["counts"][k] - a["counts"][k] for k in want_c}
+                if d != want_c:
+                    fail(f"[dist] (j) r{r} t{t}: round {a['v']} launched "
+                         f"{d}: want {want_c}")
+                k1 += d["hist_level"]
+            done = [x["v"] for x in recs if x["v"] != "end"]
+            spans[(t, r)] = (done[0], done[-1] - (recs[-1]["v"] != "end"))
+            startup[t] = max(startup.get(t, 0.0), recs[0]["t"] - head["t"])
+            if t == trials[-1]:
+                # the last attempt: start, first round, last boundary, end
+                t3 = [round(x["t"] - head["t"], 1) for x in
+                      (recs[0], recs[-2], recs[-1])]
+    if spans[(3, 0)][1] != ROUNDS - 1:
+        fail(f"[dist] (j): trial 3 trained rounds {spans[(3, 0)]}")
+    with open(os.path.join(fault_dir, "r0.t3.k1")) as f:
+        k1_check = json.load(f)
+    if len(k1_check) != DEPTH or not all(c[3] for c in k1_check):
+        fail(f"[dist] (j): trial 3's first round, K1 [rows, nodes, mode, "
+             f"== plain] {k1_check}")
+    ran = [float(x) for x in re.findall(r"attempt ran ([0-9.]+)s",
+                                        err_launch)]
+    print(f"[dist] (j) launch -n 2 --keepalive --watchdog-stall-sec "
+          f"{FAULT_STALL_S} --degrade-after {FAULT_DEGRADE_AFTER} "
+          f"--max-restarts 4 of the CLI on {FAULT_N} of [main]'s rows, "
+          f"{ROUNDS} rounds, rounds_per_dispatch={FAULT_RPD}, mock="
+          f"{FAULT_MOCK}, XGBTPU_FAULTS={FAULT_HOST_LOSS}: exit 0 in "
+          f"{out[2]:.1f} s (limit {FAULT_LIMIT_S} s); attempts 0-2 ran "
+          f"{ran} s to their fault's detection; rounds trained (first, "
+          f"last) {dict((f't{t}r{r}', v) for (t, r), v in spans.items())}; "
+          f"start to first heartbeat {[round(startup[t], 1) for t in trials]}"
+          f" s; trial 3 from its start: round 0 / last round / end at {t3} "
+          f"s; rank 1: one [mock] die, one [mock] stall, one HOST LOSS; "
+          f"restarts death / stall / host_loss 1 / 1 / 1, mesh size 1; "
+          f"model == the uninterrupted world of one's, bitwise (tree "
+          f"arrays, cuts); last eval line {lines[-1]!r}; K1 {DEPTH} a round "
+          f"on every rank of every attempt and nothing else ({k1} in all), "
+          f"trial 3's first round K1 == plain, int8 bitwise | {card}",
+          flush=True)
+    return k1
 
 
 def comm_text(c):
@@ -5774,6 +6021,9 @@ def main():
     sys.stdout.reconfigure(line_buffering=True)
     if sys.argv[1:2] == ["--dist-worker"]:
         dist_worker(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--fault-rank"]:
+        fault_rank(sys.argv[2], sys.argv[3:])
         return
     stop_after = sys.argv[2] if sys.argv[1:2] == ["--stop-after"] else None
     start_deadline()

@@ -24,7 +24,18 @@ from xgboost_tpu_torch.data import DMatrix
 from xgboost_tpu_torch.external import ExtMemDMatrix
 from xgboost_tpu_torch.learner import (Booster, CVPack, aggcv, cv, mknfold,
                                        train)
-from xgboost_tpu_torch.sklearn import XGBClassifier, XGBModel, XGBRegressor
+
+_SKLEARN = ("XGBClassifier", "XGBModel", "XGBRegressor")
+
+
+def __getattr__(name):
+    # the estimators import scikit-learn (seconds), which a rank process
+    # of the launcher never needs: loaded at first use
+    if name in _SKLEARN:
+        from xgboost_tpu_torch import sklearn
+        return getattr(sklearn, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = ["Booster", "CVPack", "DMatrix", "ExtMemDMatrix", "TrainParam",
            "XGBClassifier", "XGBModel", "XGBRegressor", "aggcv", "cv",

@@ -56,9 +56,19 @@ split-loaded per rank (``shard_load=1``, the default; ``shard_load=0``
 loads it whole on every rank).  A fatal error ends the rank's process at
 once, so the launcher sees it die.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP.md
-section 1 item: ``stream`` (item 15), ``mock=`` and ``keepalive``
-(item 13b).
+Fault injection and recovery (``xgboost_tpu/cli.py:186-216, 376-406``):
+``mock=[kind:][rank,]version,seqno,ntrial[;...]`` arms the collective
+seam (:mod:`xgboost_tpu_torch.parallel.mock`): the rank-tagged form
+fires on that rank only, three fields on every rank, ``stall:`` hangs
+instead of dying; ``keepalive=1`` restarts training in process from
+the checkpoint ring on a simulated death when the run is not
+distributed.  Under a launcher the death ends the rank with the worker
+crash code and the launcher restarts the gang.  A clean exit touches the
+gang's ``done-<rank>`` marker, and a rank that has self-fenced writes no
+checkpoint (``parallel/gang.py``).
+
+Not ported, raising ``NotImplementedError`` with its ROADMAP.md section 1
+item: ``stream`` (item 15).
 """
 
 from __future__ import annotations
@@ -136,6 +146,10 @@ task=placer parameters (autonomous placement + elastic fleet):
 Faults: faults="kind[=arg][@path][*times];..." arms the I/O and serving
 fault registry (torn_write, bit_flip, enospc, slow_read, read_flip,
 reload, slow_replica; XGBTPU_FAULTS in the environment does the same).
+mock="[stall:][rank,]version,seqno,ntrial;..." kills (or hangs) a worker
+at a round's tree launch; keepalive=1 restarts it in process from the
+checkpoint ring (under python -m xgboost_tpu_torch.parallel.launch
+--keepalive the launcher restarts the gang).
 
 task=pipeline parameters:
 {pipeline_params}
@@ -146,8 +160,6 @@ task=lanes parameters (gang-batched multi-tenant training):
 
 # name -> (ROADMAP.md section 1 item, what it is)
 _UNPORTED_TASKS = {"stream": (15, "streaming continuous training")}
-_UNPORTED_PARAMS = {"mock": ("13c", "collective fault injection"),
-                    "keepalive": ("13c", "restart on a worker's failure")}
 
 
 class BoostLearnTask:
@@ -190,6 +202,10 @@ class BoostLearnTask:
         self.fleet_params = {k: v for k, (v, _) in FLEET_PARAMS.items()}
         self.placer_params = {k: v for k, (v, _) in PLACER_PARAMS.items()}
         self.faults_spec: Optional[str] = None
+        # mock= coordinates (rank, version, seqno, ntrial, kind); rank -1
+        # is every rank
+        self.mock_spec: List[Tuple[int, int, int, int, str]] = []
+        self.keepalive = 0  # restart on a simulated death, in process
 
     # ------------------------------------------------------------- params
     _OWN = {
@@ -203,10 +219,6 @@ class BoostLearnTask:
         if name == "device":
             self.device = val   # the task's, never the learner's
             return
-        if name in _UNPORTED_PARAMS:
-            item, what = _UNPORTED_PARAMS[name]
-            raise NotImplementedError(
-                f"{name}= ({what}) is ROADMAP.md section 1 item {item}")
         if name in self._OWN:
             setattr(self, name, self._OWN[name](val))
         elif name == "task":
@@ -232,6 +244,29 @@ class BoostLearnTask:
             self.name_pred = val
         elif name == "checkpoint_dir":
             self.checkpoint_dir = val
+        elif name == "mock":
+            # the reference AllreduceMock spec "rank,version,seqno,ntrial"
+            # (allreduce_mock.h:57-63); three fields apply to every rank,
+            # ";" separates coordinates, a "stall:" prefix hangs there
+            for part in val.split(";"):
+                kind = "die"
+                if ":" in part:
+                    k, _, part = part.partition(":")
+                    kind = k.strip()
+                    if kind not in ("die", "stall"):
+                        raise ValueError(
+                            f"mock={part!r}: unknown kind {kind!r} "
+                            "(die|stall)")
+                nums = [int(x) for x in part.split(",") if x.strip() != ""]
+                if len(nums) == 3:
+                    nums = [-1] + nums  # any rank
+                if len(nums) != 4:
+                    raise ValueError(
+                        f"mock={part!r}: expected "
+                        "[kind:][rank,]version,seqno,ntrial")
+                self.mock_spec.append(tuple(nums) + (kind,))
+        elif name == "keepalive":
+            self.keepalive = int(val)
         elif name == "faults":
             # the I/O and serving fault registry (reliability/faults.py)
             self.faults_spec = val
@@ -306,11 +341,12 @@ class BoostLearnTask:
                 if self.task != "train":
                     # pred / eval / dump are one rank's work (and
                     # concurrent writes of one output would race)
+                    _leave_world()
                     return 0
             # a fatal error ends this rank at once: the other ranks wait
             # in a collective, and the launcher must see it die
             try:
-                return self._dispatch()
+                rc = self._dispatch_marked()
             except SystemExit:
                 raise
             except BaseException:
@@ -319,7 +355,19 @@ class BoostLearnTask:
                 traceback.print_exc()
                 sys.stderr.flush()
                 os._exit(WORKER_CRASH_RC)
-        return self._dispatch()
+            _leave_world()
+            return rc
+        return self._dispatch_marked()
+
+    def _dispatch_marked(self) -> int:
+        """Dispatch, then touch the gang's ``done-<rank>`` marker on
+        success: a re-adopting coordinator cannot ``wait()`` a worker it
+        did not start (``xgboost_tpu/cli.py:339-348``)."""
+        rc = self._dispatch()
+        if rc == 0:
+            from xgboost_tpu_torch.parallel import gang
+            gang.mark_done()
+        return rc
 
     def _setup_obs(self) -> None:
         """``obs_log=`` (or ``XGBTPU_OBS_LOG``) opens the JSONL event
@@ -364,7 +412,35 @@ class BoostLearnTask:
         from xgboost_tpu_torch.learner import resolve_device
         self.device = resolve_device(self.device)
         self._setup_obs()
+        if self.task == "train" and self.mock_spec:
+            return self._train_injected()
         return tasks[self.task]()
+
+    def _train_injected(self) -> int:
+        """``task=train`` with ``mock=`` armed (``xgboost_tpu/cli.py:
+        379-406``): this rank's coordinates installed at the trial
+        ``XGBTPU_NUM_TRIAL``; with ``keepalive=1`` and no launcher, a
+        simulated death restarts training from the checkpoint ring at the
+        next trial (the ``rabit_demo.py:26-40`` keepalive loop, in
+        process).  Under a launcher the death propagates and ends the
+        rank, and the launcher restarts the gang."""
+        from xgboost_tpu_torch.parallel import mock
+        trial = int(os.environ.get("XGBTPU_NUM_TRIAL", "0"))
+        mine = [spec[1:] for spec in self.mock_spec
+                if spec[0] in (-1, self.rank)]
+        while True:
+            mock.set_fault_injection(mine, trial)
+            try:
+                return self.task_train()
+            except mock.WorkerFailure as e:
+                restart = self.keepalive and not self._distributed
+                print(f"{e}; " + ("restarting" if restart else "dead"),
+                      file=sys.stderr)
+                if not restart:
+                    raise
+                trial += 1
+            finally:
+                mock.clear_fault_injection()
 
     # ------------------------------------------------------------ helpers
     def _params_dict(self) -> Dict[str, str]:
@@ -453,6 +529,14 @@ class BoostLearnTask:
                     and (last_i + 1) % self.save_period == 0:
                 self._save(bst, last_i)
             if self.checkpoint_dir and self.rank == 0:
+                from xgboost_tpu_torch.parallel import gang
+                if gang.fenced():
+                    # a fenced worker never races its replacement on the
+                    # ring (xgboost_tpu/cli.py:528-540); the fence exits
+                    # at the round boundary, this is a second lock
+                    from xgboost_tpu_torch.obs import event
+                    event("ckpt.fenced_skip", version=last_i + 1)
+                    return
                 _save_checkpoint(self.checkpoint_dir, bst, last_i + 1)
 
         bst.update_many(data, start_round, self.num_round - start_round,
@@ -805,6 +889,17 @@ def _broadcast_checkpoint(bst, start_round: int, rank: int, params: dict):
         bst.load_raw(payload[8:])
         bst.set_param(params)
     return bst, rounds
+
+
+def _leave_world() -> None:
+    """Every rank leaves the process group together: a rank that exits
+    while a peer's gloo connections are still open can end that peer
+    with an abort."""
+    import torch.distributed as dist
+    from xgboost_tpu_torch.parallel.mesh import data_parallel_mesh, set_mesh
+    data_parallel_mesh().barrier()
+    set_mesh(None)
+    dist.destroy_process_group()
 
 
 def _looks_like_text(path: str) -> bool:

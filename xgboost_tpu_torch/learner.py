@@ -60,6 +60,7 @@ from xgboost_tpu_torch.data import DMatrix, write_npz
 from xgboost_tpu_torch.metrics import create_metric
 from xgboost_tpu_torch.models.gbtree import GBTree
 from xgboost_tpu_torch.objectives import create_objective
+from xgboost_tpu_torch.parallel import mock
 from xgboost_tpu_torch.reliability.integrity import (ModelIntegrityError,
                                                      add_footer, atomic_write,
                                                      read_file,
@@ -810,7 +811,7 @@ class Booster:
                 entry, self.obj.pred_transform(entry.margin)).cpu().numpy())
             grad, hess = fobj(pred[:, 0] if pred.shape[1] == 1 else pred,
                               entry.dmat)
-            self.boost(entry.dmat, grad, hess)
+            self._boost(entry.dmat, grad, hess)
             return
         with ph("gradient") as p:
             info = entry.info
@@ -911,12 +912,17 @@ class Booster:
         (and group), scattered to their slots on a padded rank entry,
         whose padding slots get zeros; under row split every row's,
         of which this rank takes its block.  The round's sampling key is
-        that of round ``num_boosted_rounds``."""
+        that of round ``num_boosted_rounds``, which is also the round of
+        the ``mock=`` coordinates."""
         if getattr(dtrain, "is_sharded", False):
             raise NotImplementedError(
                 "boost needs every row's gradients; load replicated "
                 "(DMatrix) for it")
         self._lazy_init(dtrain)
+        mock.begin_round(self.gbtree.num_boosted_rounds)
+        self._boost(dtrain, grad, hess)
+
+    def _boost(self, dtrain: DMatrix, grad, hess) -> None:
         entry = self._entry(dtrain)
         self._sync_margin(entry)
         K = self._K
@@ -1039,9 +1045,11 @@ class Booster:
             for i in range(first, first + seg):
                 if per_round and round_callback is not None:
                     round_callback(i)
-                if self._dist is not None:
-                    from xgboost_tpu_torch.obs import comm
-                    comm.begin_round(i)
+                # the round boundary before the gradient (learner.py:
+                # 1307-1311, gbtree.py:861): the version of the mock=
+                # coordinates, the heartbeat, the gang hook, the
+                # collective tallies' round; segments do not block it
+                mock.begin_round(i)
                 # a profiler blocks segments: it only ever times per round
                 self._profiled_round(entry, i, fobj)
                 if evals:

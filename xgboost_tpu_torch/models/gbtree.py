@@ -57,6 +57,7 @@ from xgboost_tpu_torch.models.tree import (GrowConfig, TreeArrays,
 from xgboost_tpu_torch.models.updaters import (parse_updaters, prune_stack,
                                                prune_tree, refresh_trees)
 from xgboost_tpu_torch.ops.split import FusedSplitConfig
+from xgboost_tpu_torch.parallel import mock
 
 _NUMPY_DTYPES = {"feature": np.int32, "cut_index": np.int32,
                  "threshold": np.float32, "default_left": np.bool_,
@@ -264,6 +265,10 @@ class GBTree:
         if col is not None:
             return self._do_boost_col(binned, gh_t, group, row_valid, keys,
                                       col)
+        # one mock= seqno a tree before the round's one launch, the
+        # coordinates of a tree at a time (gbtree.py:564, 701-702)
+        for _ in range(T):
+            mock.collective()
         trees, row_leaf, ds = grow_trees(binned, gh_t, self.cut_values_dev,
                                          self.n_cuts_dev, self.cfg,
                                          row_valid, keys, root,
@@ -308,6 +313,7 @@ class GBTree:
         cv, nc = self.col_arrays(col)
         trees, deltas = [], {}
         for j, g in enumerate(group):
+            mock.collective()
             tree, row_leaf, d = grow_tree_colsplit(
                 col, binned, gh_t[j], cv, nc, self.cfg, row_valid,
                 None if keys is None else keys[j])
@@ -350,6 +356,7 @@ class GBTree:
             grow = partial(grow_tree_exact_colsplit, col)
         trees, deltas = [], {}
         for j, g in enumerate(group):
+            mock.collective()
             tree, row_leaf = grow(
                 X, gh_t[j], self.cfg, row_valid, has_missing, rk, uq,
                 None if keys is None else keys[j])
@@ -391,6 +398,7 @@ class GBTree:
         trees = []
         for j in range(T):
             k = j // npar
+            mock.collective()
             tree, row_leaf = grow_tree_paged(
                 dmat, gh[:, k, :], self.cut_values_dev, self.n_cuts_dev,
                 self.cfg, key=None if keys is None else keys[j],

@@ -269,10 +269,12 @@ class TrainingMetrics(_Group):
 
 
 class ReliabilityMetrics(_Group):
-    """``xgbtpu_reliability_*`` and ``xgbtpu_deadline_*``: how often the
-    crash-safety machinery engaged (``obs/metrics.py:342-428``): the
-    checkpoint ring and model I/O, the serving stack's shed, dropped and
-    rejected requests, poisoned reloads, drains and injected faults."""
+    """``xgbtpu_reliability_*``, ``xgbtpu_deadline_*`` and
+    ``xgbtpu_launch_*``: how often the crash-safety machinery engaged
+    (``obs/metrics.py:342-428``): the checkpoint ring and model I/O, the
+    serving stack's shed, dropped and rejected requests, poisoned
+    reloads, drains, injected faults, and the gang launcher's deaths,
+    restarts, plan size, degraded state, fences and grow-backs."""
 
     def __init__(self, prefix: str = "xgbtpu_reliability"):
         p = prefix
@@ -307,11 +309,42 @@ class ReliabilityMetrics(_Group):
         self.swallowed = LabeledCounter(
             "xgbtpu_swallowed_errors_total", "site",
             "exceptions deliberately swallowed, by site")
+        # the gang launcher and its workers (parallel/launch.py,
+        # parallel/gang.py): deaths, restarts by reason, the plan's size
+        self.launch_worker_deaths = Counter(
+            "xgbtpu_launch_worker_deaths_total",
+            "worker processes observed dead nonzero by the gang "
+            "launcher")
+        self.launch_restarts = LabeledCounter(
+            "xgbtpu_launch_restarts_total", "reason",
+            "whole-gang restarts by the launcher, by reason "
+            "(death = nonzero worker exit, stall = watchdog kill, "
+            "fence = worker self-fenced, host_loss = permanent host "
+            "death, growback = re-expansion to full size)")
+        self.launch_mesh_size = Gauge(
+            "xgbtpu_launch_mesh_size",
+            "devices the launcher's current gang plan schedules "
+            "(workers x local devices); drops on degrade, restores on "
+            "grow-back")
+        self.launch_degraded = Gauge(
+            "xgbtpu_launch_degraded",
+            "1 while the gang runs below its full planned size")
+        self.launch_fences = Counter(
+            "xgbtpu_launch_fence_total",
+            "workers that self-fenced after the coordinator was "
+            "unreachable past gang_partition_sec")
+        self.launch_growbacks = Counter(
+            "xgbtpu_launch_growbacks_total",
+            "degraded gangs re-expanded to full size after a "
+            "replacement worker registered")
         self._all = (self.integrity_failures, self.ring_fallbacks,
                      self.quarantines, self.poisoned_reloads,
                      self.shed_requests, self.faults_injected,
                      self.drain_seconds, self.deadline_rejected,
-                     self.deadline_dropped, self.swallowed)
+                     self.deadline_dropped, self.launch_worker_deaths,
+                     self.launch_restarts, self.launch_mesh_size,
+                     self.launch_degraded, self.launch_fences,
+                     self.launch_growbacks, self.swallowed)
         registry().register("reliability", self.render)
 
 

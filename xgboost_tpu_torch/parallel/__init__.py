@@ -8,8 +8,17 @@ of the padded rows, the block the JAX package's mesh gives device r:
 - :mod:`.mesh`: :class:`~.mesh.DataMesh` (rank, world, device, process
   group, backend), ``set_mesh`` / ``get_mesh`` / ``data_parallel_mesh``;
 - :mod:`.launch`: ``init_worker`` (the ``XGBTPU_COORD`` /
-  ``XGBTPU_NUM_WORKER`` / ``XGBTPU_WORKER_ID`` rendezvous) and the local
-  launcher ``python -m xgboost_tpu_torch.parallel.launch -n N cmd ...``;
+  ``XGBTPU_NUM_WORKER`` / ``XGBTPU_WORKER_ID`` rendezvous, or a
+  scheduler's variables) and the gang launcher ``python -m
+  xgboost_tpu_torch.parallel.launch -n N cmd ...``: keepalive restarts,
+  the stall watchdog, degrade and grow-back, coordinator state and a
+  standby;
+- :mod:`.mock` and :mod:`.gang`: the workers' side, the ``mock=``
+  coordinates and heartbeats, partition fencing, host loss;
+- :mod:`.submit`: the mpirun, qsub and srun submitters;
+- :mod:`.commcost`: the histogram reduce's bytes and a round's
+  projected time;
+- :mod:`.colsplit`: column split (``dsplit=col``);
 - :mod:`.dp`: the ``hist_reduce`` seam of tree growth and refresh,
   ``grow_tree_dp``, ``shard_rows``, ``pad_rows``;
 - :mod:`.sketch_device`: the device sketch (local summaries, an
@@ -17,10 +26,6 @@ of the padded rows, the block the JAX package's mesh gives device r:
 - :mod:`.sharded`: :class:`~.sharded.ShardedDMatrix`, per-rank split
   loading of libsvm text.
 
-Column split, the launcher's fault tolerance (keepalive, watchdog,
-degrade, coordinator standby, grow-back), the scheduler submitters, the
-communication cost model and ranking on sharded rows are ROADMAP.md
-section 1 item 13b.
 """
 
 from xgboost_tpu_torch.parallel.mesh import (DataMesh, data_parallel_mesh,
